@@ -1,0 +1,307 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--profile]
+
+Phases, each printing its own lines; any failure exits non-zero before the
+result line:
+
+1. the card: its name, and its name and power limit from nvidia-smi;
+2. the build: every kernel of ``src/repro_torch/kernels/csrc`` compiled by
+   nvcc for sm_90a (one process per source, in parallel), with the build
+   seconds and the ``-Xptxas -v`` register/spill report;
+3. the kernels: each kernel against its plain PyTorch version on the card,
+   at n = 100,003 and at the trainer's largest bucket (155,582,464
+   elements, W = 4): codes bitwise, e' rtol 1e-6 (into a fresh buffer and
+   in place, as the trainer calls it), int8_acc rtol 1e-6 / atol 1e-5;
+   each timed with CUDA events beside its byte bound;
+4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
+   weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
+   global batch 8: 3 steps with error feedback (kernels qsgd_ef + int8_acc),
+   then 2 steps without (qsgd + int8_acc); finite losses, step ms, booked
+   wire KB per step, peak memory; every kernel's launch count must rise.
+   ``--profile`` adds one EF step under torch.profiler (device-busy share,
+   device time by kernel, host time by operation), not counted as launches.
+
+Then one JSON line per the kernel table, the nvidia-smi line, and the
+result line ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import numpy as np  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.core.types import CommConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticBatches  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.build import LIBRARY  # noqa: E402
+from repro_torch.optim.optimizers import momentum_sgd  # noqa: E402
+from repro_torch.optim.schedules import constant  # noqa: E402
+from repro_torch.train.steps import build_bundle  # noqa: E402
+from repro_torch.train.trainer import Trainer  # noqa: E402
+
+DEV = torch.device("cuda")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+LARGEST = 155_582_464  # embed/embedding, the largest bucket of qwen3-0.6b
+W = 4
+
+# per element: bytes moved (inputs read once, outputs written once) and f32
+# operations, from each kernel's arithmetic
+KERNELS = {
+    "qsgd": dict(source="src/repro_torch/kernels/csrc/qsgd.cu",
+                 replaces="src/repro/kernels/qsgd.py:42",
+                 bytes=lambda n, w: 9 * n, ops=lambda n, w: 9 * n),
+    "qsgd_ef": dict(source="src/repro_torch/kernels/csrc/qsgd_ef.cu",
+                    replaces="src/repro/kernels/qsgd_ef.py:45",
+                    bytes=lambda n, w: 17 * n, ops=lambda n, w: 15 * n),
+    "int8_acc": dict(source="src/repro_torch/kernels/csrc/int8_acc.cu",
+                     replaces="src/repro/kernels/wire_reduce.py:122",
+                     bytes=lambda n, w: (w + 4) * n + 4 * w, ops=lambda n, w: 3 * w * n),
+}
+
+
+def smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True, capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+
+
+def ms_per_call(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(name: str, n: int, w: int) -> tuple[float, str]:
+    t_bytes = KERNELS[name]["bytes"](n, w) / HBM_BYTES_PER_S * 1e3
+    t_ops = KERNELS[name]["ops"](n, w) / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> bool:
+    return bool(torch.all((got - want).abs() <= atol + rtol * want.abs()))
+
+
+def check_kernels(n: int, timed: bool) -> dict[str, dict]:
+    """Every kernel against its plain version at n elements (W rows for
+    int8_acc); returns per-kernel max_abs_err, ok and, if ``timed``, times.
+    qsgd_ef runs twice: into a fresh e' buffer and in place (e' over e, as
+    the trainer calls it)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(n)
+    x = torch.randn(n, generator=gen, device=DEV) * 0.1
+    e = torch.randn(n, generator=gen, device=DEV) * 0.05
+    u = torch.rand(n, generator=gen, device=DEV)
+    lv, dec = torch.tensor(16.0, device=DEV), torch.tensor(0.9, device=DEV)
+    out: dict[str, dict] = {}
+
+    inv = torch.reciprocal(torch.linalg.vector_norm(x))
+    codes = torch.empty(n, dtype=torch.int8, device=DEV)
+    run_q = lambda: ops.qsgd_codes_into(x, u, inv, 16.0, codes)  # noqa: E731
+    run_q()
+    plain = ref.qsgd_codes(x, u, inv, lv)
+    err = int((codes.int() - plain.int()).abs().max())
+    out["qsgd"] = {"max_abs_err": float(err), "ok": err == 0,
+                   "detail": f"codes differ at {int((codes != plain).sum())} elements"}
+    if timed:
+        out["qsgd"].update(ms=ms_per_call(run_q, 20),
+                           plain_ms=ms_per_call(lambda: ref.qsgd_codes(x, u, inv, lv), 5))
+    del plain
+
+    inv_a = torch.reciprocal(torch.linalg.vector_norm(e * 0.9 + x))
+    e_new = torch.empty_like(e)
+    run_ef = lambda: ops.qsgd_ef_into(x, e, u, inv_a, 16.0, 0.9, codes, e_new)  # noqa: E731
+    run_ef()
+    plain_c, plain_e = ref.qsgd_ef(x, e, u, inv_a, lv, dec)
+    codes_ok = torch.equal(codes, plain_c)
+    e_ok = _close(e_new, plain_e, rtol=1e-6, atol=0.0)
+    err = float((e_new - plain_e).abs().max())
+    e_in = e.clone()  # in place: the kernel reads e and writes e' over it
+    ops.qsgd_ef_into(x, e_in, u, inv_a, 16.0, 0.9, codes, e_in)
+    codes_ok &= torch.equal(codes, plain_c)
+    e_ok &= _close(e_in, plain_e, rtol=1e-6, atol=0.0)
+    err = max(err, float((e_in - plain_e).abs().max()))
+    out["qsgd_ef"] = {"max_abs_err": err, "ok": codes_ok and e_ok,
+                      "detail": f"codes bitwise {codes_ok}, e' (fresh and in place) "
+                                f"within rtol 1e-6 {e_ok}"}
+    if timed:
+        out["qsgd_ef"].update(ms=ms_per_call(run_ef, 20),
+                              plain_ms=ms_per_call(lambda: ref.qsgd_ef(x, e, u, inv_a, lv, dec), 5))
+    del plain_c, plain_e, e_new, e_in, x, e, u
+
+    ld = -(-n // 16) * 16  # the trainer's padded wire-stack rows
+    stack = torch.randint(-16, 17, (W, ld), generator=gen, device=DEV,
+                          dtype=torch.int32).to(torch.int8)[:, :n]
+    wts = torch.rand(W, generator=gen, device=DEV) * 0.01
+    got = ops.int8_weighted_sum(stack, wts)
+    plain = ref.int8_acc(stack, wts)
+    out["int8_acc"] = {"max_abs_err": float((got - plain).abs().max()),
+                       "ok": _close(got, plain, rtol=1e-6, atol=1e-5),
+                       "detail": "rtol 1e-6 / atol 1e-5"}
+    if timed:
+        out["int8_acc"].update(ms=ms_per_call(lambda: ops.int8_weighted_sum(stack, wts), 20),
+                               plain_ms=ms_per_call(lambda: ref.int8_acc(stack, wts), 5))
+    return out
+
+
+def require(results: dict[str, dict], n: int) -> None:
+    bad = {k: r["detail"] for k, r in results.items() if not r["ok"]}
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at n={n}: {bad}")
+
+
+QSGD16 = dict(compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
+              wire_format="compressed")
+
+
+def profile_one_step(tr: Trainer, state, t: int, step_ms: float) -> None:
+    """One more step under torch.profiler: summed device time of its
+    kernels (the device-busy time) against the unprofiled mean ``step_ms``
+    and the profiled wall, the kernel launches, the port's own kernels, the
+    kernels that take most of the device time, and the host operations that
+    take most of the host's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        tr.fit(state, 1, start_step=t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731  (ms)
+    busy = sum(dev(e) for e in kernels)
+    print(f"  profiled step {t}: device busy {busy:.1f} ms = {100 * busy / step_ms:.1f}% of "
+          f"the unprofiled mean step ({step_ms:.1f} ms), {100 * busy / wall_ms:.1f}% of the "
+          f"profiled wall ({wall_ms:.1f} ms); {sum(e.count for e in kernels)} kernel launches "
+          f"of {len(kernels)} names")
+    for e in kernels:
+        if any(f"{k}_kernel" in e.key for k in KERNELS):
+            print(f"    port kernel {e.key}: {dev(e):.3f} ms x{e.count}")
+    print("    device time by kernel (top 10):")
+    for e in sorted(kernels, key=dev, reverse=True)[:10]:
+        print(f"    {dev(e):9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    host = [e for e in events if e.device_type.name == "CPU"]
+    cpu = lambda e: e.self_cpu_time_total / 1e3  # noqa: E731  (ms)
+    print(f"    host self time by operation (top 8 of {sum(cpu(e) for e in host):.1f} ms, "
+          f"profiler on):")
+    for e in sorted(host, key=cpu, reverse=True)[:8]:
+        print(f"    {cpu(e):9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+
+
+def run_trainer(error_feedback: bool, steps: int, profile_step: bool = False) -> dict[str, int]:
+    cfg = get_config("qwen3-0.6b")
+    shape = InputShape("train_1k", 1024, 8, "train")
+    t0 = time.perf_counter()
+    bundle = build_bundle(cfg, CommConfig(error_feedback=error_feedback, **QSGD16),
+                          momentum_sgd(0.9), shape, n_workers=W, seed=0, device=DEV)
+    tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(0.01), log_every=1)
+    state = tr.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"trainer ef={error_feedback}: {len(bundle.bucket_plan.buckets)} buckets, "
+          f"{sum(b.size for b in bundle.bucket_plan.buckets)} params, build+init "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    step_ms = []
+    for t in range(steps):
+        t1 = time.perf_counter()
+        state = tr.fit(state, 1, start_step=t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        loss = tr.history[-1]["loss"]
+        print(f"  step {t}: loss {loss:.6f} ce {tr.history[-1]['ce']:.6f} "
+              f"step_ms {step_ms[-1]:.1f}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite loss at step {t}: {loss}")
+    launches = dict(ops.LAUNCHES)  # read before the profiled step, if any
+    if profile_step:
+        profile_one_step(tr, state, steps, float(np.mean(step_ms[1:])))
+    wire = bundle.wire["train"]
+    print(f"  mean step_ms (first step excluded) {np.mean(step_ms[1:]):.1f}; booked wire "
+          f"{wire.get('grad_agg', 0.0) / 1e3:.1f} KB/step grad_agg "
+          f"({bundle.wire['train_formats']}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+    del state, tr, bundle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="run one more EF step under torch.profiler after the timed "
+                         "steps (its launches are counted apart)")
+    profile = ap.parse_args().profile
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    card = smi()
+    print(f"card: {kind}; nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    records = LIBRARY.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(records)} kernels (parallel nvcc)")
+    for name, rec in records.items():
+        for line in rec.ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    require(check_kernels(100_003, timed=False), 100_003)
+    print("kernels at n=100003: codes bitwise, e' and int8_acc within tolerance")
+    big = check_kernels(LARGEST, timed=True)
+    require(big, LARGEST)
+    rows = []
+    for name, r in big.items():
+        b_ms, b_by = bound(name, LARGEST, W)
+        print(f"kernel {name} n={LARGEST}: {r['ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}), "
+              f"plain {r['plain_ms']:.4f} ms, max_abs_err {r['max_abs_err']}")
+        rows.append({"name": name, "route": "cuda", "source": KERNELS[name]["source"],
+                     "replaces": KERNELS[name]["replaces"], "launches": 0,
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "ok": r["ok"]})
+
+    launches = {k: 0 for k in KERNELS}
+    for ef, steps, path_kernels in ((True, 3, ("qsgd_ef", "int8_acc")),
+                                    (False, 2, ("qsgd", "int8_acc"))):
+        got = run_trainer(ef, steps, profile_step=ef and profile)
+        for k in path_kernels:
+            if got[k] <= 0:
+                raise AssertionError(f"path ef={ef}: kernel {k} was never launched: {got}")
+        for k, v in got.items():
+            launches[k] += v
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["ok"] = row["ok"] and row["launches"] > 0
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

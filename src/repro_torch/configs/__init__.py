@@ -1,0 +1,21 @@
+"""Architecture registry of the port (the dense GQA family so far)."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
+
+ARCHS = ("qwen3-0.6b",)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; ported so far: {ARCHS}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
+    return mod.get_config()
+
+
+def list_archs() -> tuple[str, ...]:
+    return ARCHS

@@ -1,0 +1,9 @@
+from repro_torch.core.compression.base import (  # noqa: F401
+    Compressed,
+    compress_p,
+    decompress_p,
+    get_compressor,
+    register,
+    runtime_knob_values,
+)
+from repro_torch.core.compression import kernels_backed  # noqa: F401  (registers)

@@ -1,0 +1,70 @@
+"""Compressors backed by the port's Hopper kernels (counterpart of
+``repro.core.compression.kernels_backed``; ``qsgd_kernel`` so far).
+
+``levels`` is a runtime value: it reaches the kernels as a scalar
+argument, so cells that differ only in levels share everything else.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.compression.base import Compressed, register
+from repro_torch.kernels import ops
+
+
+@register("qsgd_kernel")
+@dataclass
+class QSGDKernel:
+    levels: int = 16
+    unbiased: bool = True
+    reduce_mode: str = "none"
+    wire_reduce: str = "int8_acc"  # compressed-domain: int8 codes on the wire
+    RUNTIME_KNOBS = ("levels",)
+
+    def _check(self):
+        # the int8 wire format caps |code| at s — fail loudly, don't wrap
+        if self.levels > 127:
+            raise ValueError(f"qsgd_kernel levels={self.levels} exceeds the "
+                             "int8 wire format (max 127)")
+        return {"levels": self.levels}
+
+    def runtime_params(self) -> dict:
+        return self._check()
+
+    def _levels(self, p) -> float:
+        lv = (p or {}).get("levels", self.levels)
+        if lv > 127:
+            raise ValueError(f"qsgd_kernel levels={lv} exceeds the int8 wire format (max 127)")
+        return float(lv)
+
+    def compress_p(self, u, x, p, out=None) -> Compressed:
+        """``out``: optional {"code": int8 (n,)} buffer for the codes."""
+        codes, norm = ops.qsgd_quantize(x, u, self._levels(p),
+                                        out=(out or {}).get("code"))
+        return Compressed({"code": codes, "norm": norm}, x.numel())
+
+    def decompress_p(self, c, p) -> torch.Tensor:
+        return ops.qsgd_dequantize(c.payload["code"], c.payload["norm"], self._levels(p))
+
+    def compress(self, u, x, out=None) -> Compressed:
+        return self.compress_p(u, x, {}, out=out)
+
+    def decompress(self, c) -> torch.Tensor:
+        return self.decompress_p(c, {})
+
+    def compress_ef_p(self, u, g, e, p, decay, out=None):
+        """Fused EF+quantize returning the wire payload and the new residual:
+        one kernel pass yields the int8 codes and ``e' = a - C(a)`` for
+        ``a = e*decay + g``.  ``out`` may name {"code": ..., "e": ...}
+        buffers; ``"e": e`` overwrites the residual in place."""
+        out = out or {}
+        codes, norm, e_new = ops.qsgd_ef_fused(g, e, u, self._levels(p), decay,
+                                               codes_out=out.get("code"), e_out=out.get("e"))
+        return Compressed({"code": codes, "norm": norm}, g.numel()), e_new
+
+    def wire_bits(self, n) -> float:
+        return n * (math.log2(self.levels) + 1) + 32

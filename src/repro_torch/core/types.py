@@ -1,0 +1,122 @@
+"""Communication configuration (counterpart of ``repro.core.types``).
+
+:class:`CommConfig` keeps every field and default of the reference, so a
+cell description reads the same in both packages.  The port runs the BSP
+all-reduce trainer with sequential overlap; :func:`validate` raises on any
+field that asks for a part not ported yet (churn, integrity, gossip,
+pipelined overlap, local SGD, momentum correction, local clipping, the
+bf16 wire, the gather-and-decompress reduce, error feedback on the dense
+wire), and applies the reference's
+``bundle_spec`` checks on ``wire_format``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+
+@dataclass
+class CommConfig:
+    # --- compression ---------------------------------------------------------
+    compressor: str = "none"
+    compressor_kwargs: dict[str, Any] = field(default_factory=dict)
+    per_tensor_rules: list = field(default_factory=list)
+
+    # --- auxiliary technologies ----------------------------------------------
+    error_feedback: bool = False
+    ef_decay: float = 1.0
+    momentum_correction: float = 0.0
+    local_clip: float = 0.0
+    warmup_steps: int = 0
+
+    # --- synchronization -------------------------------------------------------
+    sync: str = "bsp"
+    local_steps: int = 1
+    post_local_switch: int = 0
+    pod_local: bool = False
+
+    # --- architecture / collectives ---------------------------------------------
+    aggregator: str = "allreduce"
+    collective: str = "xla"
+    gossip_graph: str = "ring"
+    gossip_compress: str = "none"
+    gossip_step_size: float = 0.5
+    gossip_mix_weight: float = 1.0 / 3.0
+
+    # --- scheduling --------------------------------------------------------------
+    bucket_mb: float = 0.0
+    agg_dtype: str = "float32"
+    overlap: str = "sequential"
+    overlap_staleness: int = 1
+    stale_scale: float = 1.0
+
+    # --- wire format ---------------------------------------------------------------
+    wire_format: str = "dense"
+
+    # --- churn / elastic workers -----------------------------------------------------
+    churn: bool = False
+    dropout_rate: float = 0.0
+    worker_dropout: tuple = ()
+    churn_start: int = 0
+    churn_end: int = -1
+    rejoin_policy: str = "reset"
+
+    # --- gradient integrity ------------------------------------------------------------
+    corruption_rate: float = 0.0
+    corruption_kind: str = "none"
+    quarantine_limit: int = 3
+
+    def with_updates(self, **kw) -> "CommConfig":
+        return dataclasses.replace(self, **kw)
+
+
+DENSE = CommConfig()
+
+#: fields whose non-default values select a part of the reference that the
+#: port does not run yet
+_NOT_PORTED = (
+    "momentum_correction", "local_clip", "warmup_steps", "sync", "local_steps",
+    "post_local_switch", "pod_local", "aggregator", "collective", "gossip_graph",
+    "gossip_compress", "gossip_step_size", "gossip_mix_weight", "agg_dtype",
+    "overlap", "churn", "dropout_rate", "worker_dropout", "churn_start",
+    "churn_end", "rejoin_policy", "corruption_rate", "corruption_kind",
+    "quarantine_limit",
+)
+
+
+def validate(comm: CommConfig):
+    """Check ``comm`` for the port and return its compressor (or None).
+
+    Raises ``NotImplementedError`` for fields set away from their defaults
+    that select an unported part, and ``ValueError`` where the reference's
+    ``bundle_spec`` does on ``wire_format``."""
+    from repro_torch.core.compression.base import get_compressor
+
+    for name in _NOT_PORTED:
+        if getattr(comm, name) != getattr(DENSE, name):
+            raise NotImplementedError(
+                f"CommConfig.{name}={getattr(comm, name)!r} is not ported yet "
+                "(the port runs the BSP all-reduce trainer, sequential overlap)")
+    comp = get_compressor(comm.compressor, **comm.compressor_kwargs)
+    if comm.wire_format not in ("dense", "compressed"):
+        raise ValueError(f"unknown wire_format {comm.wire_format!r}")
+    if comm.wire_format == "compressed":
+        if comp is not None and not getattr(comp, "wire_reduce", ""):
+            raise ValueError(
+                f"wire_format='compressed' is unsupported for compressor "
+                f"{comm.compressor!r}: no compressed-domain reduction")
+        if comm.agg_dtype == "bfloat16" and comp is not None:
+            raise ValueError(
+                "agg_dtype='bfloat16' only shapes the dense aggregation "
+                "path — meaningless combined with a compressed wire format")
+    if (comp is None) != (comm.wire_format == "dense"):
+        raise NotImplementedError(
+            "ported reductions: the dense f32 mean without a compressor, and the "
+            "compressed int8 wire with one")
+    if comm.error_feedback and not hasattr(comp, "compress_ef_p"):
+        raise NotImplementedError(
+            "error feedback is ported only fused into a compressor's kernel "
+            "(compress_ef_p), not on the dense wire")
+    return comp

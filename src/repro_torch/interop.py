@@ -1,0 +1,42 @@
+"""Parameter exchange with the reference package through numpy.
+
+The reference's parameters, flattened by path (``repro.utils.tree.
+flatten_with_paths``) and exported with ``np.asarray``, become the port's
+parameter tree; the inverse exports the port's tree the same way, so both
+packages can compute on the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import param_defs
+from repro_torch.utils.tree import flatten_with_paths, unflatten_like
+
+
+def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig,
+                      device: str | torch.device = "cuda") -> Any:
+    defs = flatten_with_paths(param_defs(cfg))
+    if set(flat) != set(defs):
+        raise ValueError(f"parameter paths differ: missing {sorted(set(defs) - set(flat))}, "
+                         f"unexpected {sorted(set(flat) - set(defs))}")
+    out = []
+    for path, d in defs.items():
+        # a private f32 copy: torch cannot take numpy's (ml_dtypes) bfloat16
+        # arrays, and the trainer updates parameters in place
+        a = np.array(flat[path], dtype=np.float32, order="C")
+        if a.shape != tuple(d.shape):
+            raise ValueError(f"{path}: shape {a.shape}, expected {tuple(d.shape)}")
+        out.append(torch.from_numpy(a).to(device=device, dtype=cfg.pdtype))
+    return unflatten_like(param_defs(cfg), out)
+
+
+def params_to_numpy(params: Any) -> dict[str, np.ndarray]:
+    """``{path: array}`` of a port parameter (or gradient) tree, as f32 for
+    floating leaves."""
+    return {path: t.detach().to("cpu", torch.float32 if t.is_floating_point() else t.dtype)
+            .numpy() for path, t in flatten_with_paths(params).items()}

@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  Builds
+happen at first use, never at import: one ``nvcc`` per source, all started
+together.  Libraries land in ``kernels/_build/`` (git-ignored) under a name
+that hashes the source and the flags, so an edited source rebuilds and an
+unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+# --fmad=false keeps every multiply and add separately rounded, as in the
+# plain PyTorch versions; no fast-math flag, so divisions stay IEEE.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _F, _LL, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_int
+
+#: C entry point and its argument types, per kernel source.  Every pointer
+#: and the stream are c_void_p: a bare int would be cut to 32 bits.
+SIGNATURES: dict[str, tuple[str, tuple]] = {
+    "qsgd": ("qsgd_launch", (_P, _P, _P, _F, _P, _LL, _P)),
+    "qsgd_ef": ("qsgd_ef_launch", (_P, _P, _P, _P, _F, _F, _P, _P, _LL, _P)),
+    "int8_acc": ("int8_acc_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
+}
+
+
+@dataclass
+class BuildRecord:
+    path: Path
+    seconds: float  # 0.0 when an earlier build was reused
+    ptxas: str  # the compiler's -Xptxas -v report (registers, spills)
+
+
+class KernelLibrary:
+    """Builds the kernel libraries on demand and hands out their C entry
+    points.  One instance per process is enough; ``LIBRARY`` is it."""
+
+    def __init__(self, build_dir: Path = BUILD_DIR):
+        self.build_dir = build_dir
+        self.records: dict[str, BuildRecord] = {}
+        self._fns: dict[str, ctypes._CFuncPtr] = {}
+        self._lock = threading.Lock()
+
+    def _target(self, name: str) -> Path:
+        digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+                              + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        return self.build_dir / f"lib{name}-{digest}.so"
+
+    def build(self, names=tuple(SIGNATURES)) -> dict[str, BuildRecord]:
+        """Compile every named source not built yet, all in parallel; raise
+        if any compile fails."""
+        with self._lock:
+            todo = [n for n in names if n not in self.records]
+            if not todo:
+                return self.records
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            self.build_dir.mkdir(parents=True, exist_ok=True)
+            procs = {}
+            t0 = time.perf_counter()
+            for name in todo:
+                target = self._target(name)
+                if target.exists():
+                    self.records[name] = BuildRecord(target, 0.0, "")
+                    continue
+                if not os.path.exists(nvcc):
+                    raise RuntimeError(f"nvcc not found; cannot build kernel {name!r}")
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True),
+                               tmp, target)
+            failed = []
+            for name, (proc, tmp, target) in procs.items():
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"--- {name} (exit {proc.returncode})\n{out}")
+                    continue
+                os.replace(tmp, target)
+                self.records[name] = BuildRecord(target, time.perf_counter() - t0, out)
+            if failed:
+                raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+            return self.records
+
+    def fn(self, name: str):
+        """The C launch function of kernel ``name``, built and typed."""
+        if name not in self._fns:
+            rec = self.build((name,))[name]
+            symbol, argtypes = SIGNATURES[name]
+            f = getattr(ctypes.CDLL(str(rec.path)), symbol)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+            self._fns[name] = f
+        return self._fns[name]
+
+
+LIBRARY = KernelLibrary()

@@ -1,0 +1,144 @@
+"""Flat-vector API over the port's kernels (counterpart of
+``repro.kernels.ops``: ``qsgd_quantize``, ``qsgd_dequantize``,
+``qsgd_ef_fused``, ``int8_weighted_sum``).
+
+The tensor norm is computed here, outside the kernel, as in the reference;
+``levels`` and ``decay`` are runtime scalars.  On a CUDA tensor each wrapper
+launches its hand-written kernel (``csrc/*.cu``) on the current stream,
+checks the returned ``cudaGetLastError()`` and counts the launch in
+``LAUNCHES``; there is no fallback.  Off the card (CPU tensors, or the
+shape-only ``meta`` device the trainer books its wire bytes on) it runs the
+kernel's plain version from ``ref.py``.  No padding to the TPU's
+(rows, 128) tiles: the kernels mask their own tails.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import LIBRARY
+
+f32 = torch.float32
+
+#: launches per kernel since the last ``reset_launches()``
+LAUNCHES: dict[str, int] = {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim f32 tensor on ``like``'s device, filled there: a host-to-card
+    copy (``torch.tensor(v, device=...)``) would wait for the card."""
+    return torch.full((), float(v), dtype=f32, device=like.device)
+
+
+def _check(t: torch.Tensor, dtype: torch.dtype, n: int, device: torch.device,
+           what: str) -> None:
+    """Every pointer handed to a kernel must be a contiguous tensor of the
+    right type and size on the launch's device."""
+    if t.dtype != dtype or t.numel() != n or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{what}: need a contiguous {dtype} tensor of {n} elements on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+                         f"contiguous={t.is_contiguous()}")
+
+
+def _launch(name: str, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    err = LIBRARY.fn(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def qsgd_codes_into(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor, levels: float,
+                    out: torch.Tensor) -> None:
+    """Kernel ``qsgd``: int8 codes of flat f32 ``x`` into ``out``."""
+    n = x.numel()
+    for t, dt, size, what in ((x, f32, n, "x"), (u, f32, n, "u"), (inv, f32, 1, "inv"),
+                              (out, torch.int8, n, "codes")):
+        _check(t, dt, size, x.device, what)
+    if x.is_cuda:
+        _launch("qsgd", x.data_ptr(), u.data_ptr(), inv.data_ptr(), float(levels),
+                out.data_ptr(), n)
+    else:
+        out.copy_(ref.qsgd_codes(x, u, inv, _scalar(levels, x)))
+
+
+def qsgd_ef_into(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, inv: torch.Tensor,
+                 levels: float, decay: float, codes: torch.Tensor, e_out: torch.Tensor) -> None:
+    """Kernel ``qsgd_ef``: codes and the new residual (``e_out`` may be ``e``)."""
+    n = g.numel()
+    for t, dt, size, what in ((g, f32, n, "g"), (e, f32, n, "e"), (u, f32, n, "u"),
+                              (inv, f32, 1, "inv"), (codes, torch.int8, n, "codes"),
+                              (e_out, f32, n, "e_out")):
+        _check(t, dt, size, g.device, what)
+    if g.is_cuda:
+        _launch("qsgd_ef", g.data_ptr(), e.data_ptr(), u.data_ptr(), inv.data_ptr(),
+                float(levels), float(decay), codes.data_ptr(), e_out.data_ptr(), n)
+    else:
+        c, en = ref.qsgd_ef(g, e, u, inv, _scalar(levels, g), _scalar(decay, g))
+        codes.copy_(c)
+        e_out.copy_(en)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(torch.linalg.vector_norm(v), 1e-30)
+
+
+def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, levels: float = 16, *,
+                  out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat x, uniform noise u -> (codes int8 (n,), norm (1,) f32).
+    ``out``: where to write the codes (e.g. a row of a gathered stack)."""
+    x = x.reshape(-1).to(f32)
+    norm = _norm(x)
+    codes = torch.empty(x.numel(), dtype=torch.int8, device=x.device) if out is None else out
+    qsgd_codes_into(x, u.reshape(-1).to(device=x.device, dtype=f32), torch.reciprocal(norm),
+                    levels, codes)
+    return codes, norm.reshape(1)
+
+
+def qsgd_dequantize(codes: torch.Tensor, norm: torch.Tensor, levels: float = 16) -> torch.Tensor:
+    """Inverse of qsgd_quantize / the codes half of qsgd_ef_fused."""
+    return codes.to(f32) / _scalar(levels, codes) * norm[0]
+
+
+def qsgd_ef_fused(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, levels: float = 16,
+                  decay: float = 1.0, *, codes_out: torch.Tensor | None = None,
+                  e_out: torch.Tensor | None = None):
+    """Fused EF+quantize: returns (codes (n,) int8, norm (1,), e_new (n,)).
+    ``codes_out``/``e_out`` name the output buffers; ``e_out=e`` updates the
+    residual in place."""
+    g = g.reshape(-1).to(f32)
+    e = e.reshape(-1).to(f32)
+    a_norm = _norm(e * _scalar(decay, e) + g)
+    codes = (torch.empty(g.numel(), dtype=torch.int8, device=g.device)
+             if codes_out is None else codes_out)
+    e_new = torch.empty_like(g) if e_out is None else e_out
+    qsgd_ef_into(g, e, u.reshape(-1).to(device=g.device, dtype=f32), torch.reciprocal(a_norm),
+                 levels, decay, codes, e_new)
+    return codes, a_norm.reshape(1), e_new
+
+
+def int8_weighted_sum(codes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Gathered int8 codes (W, n) + per-worker decode weights (W,) ->
+    ``sum_w weights[w] * codes[w]`` as (n,) f32.  Rows may be padded
+    (``codes.stride(0) >= n``); each row must be contiguous."""
+    n_w, n = codes.shape
+    if codes.dtype != torch.int8 or codes.stride(1) != 1 or codes.stride(0) < n:
+        raise ValueError(f"codes: need int8 (W, n) with contiguous rows, got "
+                         f"{codes.dtype} strides {codes.stride()}")
+    weights = weights.to(device=codes.device, dtype=f32).contiguous()
+    if weights.shape != (n_w,):
+        raise ValueError(f"weights: need shape ({n_w},), got {tuple(weights.shape)}")
+    if codes.is_cuda:
+        if n_w > 8192:
+            raise ValueError(f"int8_acc keeps the weights in shared memory: W={n_w} > 8192")
+        out = torch.empty(n, dtype=f32, device=codes.device)
+        _launch("int8_acc", codes.data_ptr(), codes.stride(0), weights.data_ptr(), n_w,
+                out.data_ptr(), n)
+        return out
+    return ref.int8_acc(codes, weights)

@@ -1,0 +1,123 @@
+"""Step builder: model, gradient exchange and optimizer for W data-parallel
+workers stacked on one device (counterpart of ``repro.train.steps``:
+``build_bundle`` and the BSP ``train_step``, sequential overlap).
+
+A step splits the global batch into W contiguous row blocks (the
+reference's batch sharding over ``data``).  For each worker in turn it runs
+forward and backward on the shared parameters and hands the gradient,
+bucket by bucket, to the send side of an :class:`AggregationRound` (EF
+fused with quantization into that worker's row of the int8 wire stack);
+only the codes and norms outlive the worker.  The receive side then reduces
+every bucket, and the optimizer updates the parameters in place.  Loss,
+``ce`` and ``aux`` are worker means.
+
+The wire bytes of one step are booked at build time by running the step
+once on the ``meta`` device, which computes shapes only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core import aggregate, comms
+from repro_torch.core.types import CommConfig, validate
+from repro_torch.models import transformer as T
+from repro_torch.optim.optimizers import Optimizer
+from repro_torch.utils.tree import leaves, tree_map
+
+f32 = torch.float32
+
+
+@dataclass
+class StepBundle:
+    cfg: ModelConfig
+    comm: CommConfig
+    shape: InputShape
+    n_workers: int
+    device: torch.device
+    bucket_plan: aggregate.BucketPlan
+    opt: Optimizer
+    noise: aggregate.Noise
+    #: per-step wire bytes by tag, booked from one shape-only step:
+    #: {"train": {tag: bytes}, "train_formats": {format: bytes}}
+    wire: dict[str, dict[str, float]] = field(default_factory=dict)
+
+    def init_state(self, params: Any) -> dict[str, Any]:
+        params = tree_map(lambda p: p.detach().to(self.device).requires_grad_(True), params)
+        return {
+            "params": params,
+            "opt": self.opt.init(params),
+            "comm": aggregate.init_comm_state(self.comm, self.bucket_plan,
+                                              self.n_workers, self.device),
+            "step": 0,
+        }
+
+    def train_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
+                   lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
+        return _train_step(self.cfg, self.comm, self.bucket_plan, self.opt,
+                           self.n_workers, self.noise, state, batch, lr)
+
+
+def _train_step(cfg, comm, plan, opt, n_workers, noise, state, batch, lr):
+    params = state["params"]
+    pleaves = leaves(params)
+    B = batch["tokens"].shape[0]
+    if B % n_workers:
+        raise ValueError(f"global batch {B} does not split over {n_workers} workers")
+    bl = B // n_workers
+    device = pleaves[0].device
+    rnd = aggregate.AggregationRound(comm, plan, state["comm"], n_workers, noise, device)
+    metrics: dict[str, list[torch.Tensor]] = {"loss": [], "ce": [], "aux": []}
+    for w in range(n_workers):
+        part = {k: v[w * bl:(w + 1) * bl] for k, v in batch.items()}
+        loss, m = T.forward_loss(cfg, params, part)
+        grads = torch.autograd.grad(loss, pleaves)
+        rnd.add(w, (aggregate.gather_bucket(b, grads) for b in plan.buckets))
+        del grads
+        for k, v in (("loss", loss), *m.items()):
+            metrics[k].append(v.detach())
+    agg, cstate = rnd.finish()
+    grads = aggregate._scatter_buckets(plan, agg, pleaves)
+    del agg
+    _, opt_state = opt.update(grads, state["opt"], pleaves, lr)
+    out = {k: comms.pmean(torch.stack(v)) for k, v in metrics.items()}
+    return ({"params": params, "opt": opt_state, "comm": cstate,
+             "step": state["step"] + 1}, out)
+
+
+def _book_wire(cfg, comm, plan, opt, shape, n_workers) -> dict[str, dict[str, float]]:
+    """Run one step on the meta device (no memory, no arithmetic) under a
+    comms capture.  Recomputation is off there: it changes no collective."""
+    meta = torch.device("meta")
+    mcfg = cfg.with_updates(remat="none")
+    params = tree_map(lambda d: torch.empty(d.shape, dtype=cfg.pdtype, device=meta)
+                      .requires_grad_(True), T.param_defs(cfg))
+    state = {"params": params, "opt": opt.init(params),
+             "comm": aggregate.init_comm_state(comm, plan, n_workers, meta), "step": 0}
+    batch = {k: torch.zeros((shape.global_batch, shape.seq_len), dtype=torch.int32,
+                            device=meta) for k in ("tokens", "labels")}
+    with comms.capture() as log:
+        _train_step(mcfg, comm, plan, opt, n_workers, aggregate.seeded_noise(0, meta),
+                    state, batch, 0.0)
+    return {"train": log.by_tag(), "train_formats": log.by_wire_format()}
+
+
+def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,
+                 n_workers: int = 1, seed: int = 0, device: str | torch.device = "cuda",
+                 noise: aggregate.Noise | None = None) -> StepBundle:
+    """Build the BSP step for one cell.  ``noise(step, worker, bucket, n)``
+    overrides the compressors' uniform draws (default: a generator seeded
+    from (seed, step, worker, bucket) on ``device``)."""
+    validate(comm)
+    device = torch.device(device)
+    plan = aggregate.make_bucket_plan(comm, T.param_defs(cfg))
+    return StepBundle(
+        cfg=cfg, comm=comm, shape=shape, n_workers=n_workers, device=device,
+        bucket_plan=plan, opt=opt,
+        noise=noise if noise is not None else aggregate.seeded_noise(seed, device),
+        wire=_book_wire(cfg, comm, plan, opt, shape, n_workers),
+    )

@@ -1,0 +1,201 @@
+"""The port's aggregation layer (repro_torch.core.aggregate, comms,
+compression) against the JAX package.
+
+* Bucket plans equal the reference's (names, segments, sizes) on the tiny
+  workload and at full qwen3-0.6b width (abstract shapes, nothing
+  allocated), per-tensor and 32 MB-bucketed.
+* A W=4 stacked round equals the composition of the reference's ops with
+  the same uniform draws: per worker ``ops.qsgd_ef_fused`` (EF on) or
+  ``ops.qsgd_quantize`` (EF off), then ``ops.int8_weighted_sum`` of the
+  stacked codes over W.  Aggregate rtol 1e-6 (atol 1e-6 of its largest
+  element: signed decodes cancel), EF residuals rtol 1e-5.
+* Booked wire bytes equal ``repro.core.comms.CollRecord(...).wire_bytes``
+  for the same payloads and n = W.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.core import aggregate as jagg
+from repro.core import comms as jcomms
+from repro.core.types import CommConfig as JCommConfig
+from repro.experiments.trainer_substrate import make_tiny_workload
+from repro.kernels import ops as jops
+from repro.models import transformer as JT
+from repro_torch.configs import get_config
+from repro_torch.core import aggregate, comms
+from repro_torch.core.compression import get_compressor
+from repro_torch.core.types import CommConfig, validate
+from repro_torch.models import transformer as T
+
+QSGD = dict(compressor="qsgd_kernel", compressor_kwargs={"levels": 16})
+
+
+def _plans(full: bool, bucket_mb: float):
+    if full:
+        jcfg, cfg = jget("qwen3-0.6b"), get_config("qwen3-0.6b")
+    else:
+        jcfg = make_tiny_workload()[0]
+        cfg = get_config("qwen3-0.6b").reduced().with_updates(
+            vocab=128, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256)
+    want = jagg.make_bucket_plan(JCommConfig(bucket_mb=bucket_mb, **QSGD),
+                                 JT.abstract_params(jcfg, 1)[0])
+    got = aggregate.make_bucket_plan(CommConfig(bucket_mb=bucket_mb, **QSGD), T.param_defs(cfg))
+    return want, got
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("bucket_mb", [0.0, 32.0])
+def test_bucket_plan_matches_reference(full, bucket_mb):
+    want, got = _plans(full, bucket_mb)
+    assert len(got.buckets) == len(want.buckets)
+    for b, w in zip(got.buckets, want.buckets):
+        assert (b.name, b.segments, b.size, b.compressor_name, b.compressor_kwargs) == (
+            w.name, w.segments, w.size, w.compressor_name, w.compressor_kwargs)
+    assert aggregate.plan_signature(got) == jagg.plan_signature(want)
+    assert got.knob_values() == want.knob_values()
+
+
+def test_full_width_plan_sizes():
+    _, got = _plans(True, 0.0)
+    sizes = [b.size for b in got.buckets]
+    assert len(sizes) == 13 and sum(sizes) == 596_049_920
+    assert max(sizes) == 155_582_464  # embed/embedding
+
+
+# ---------------------------------------------------------------------------
+# One stacked W=4 round against the reference's ops.
+# ---------------------------------------------------------------------------
+
+W = 4
+SHAPES = {"a": (1000,), "b": (37, 11), "c": (4096,)}
+
+
+def _round_inputs(seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((W, int(np.prod(s)))) * 0.1).astype(np.float32)
+            for _, s in sorted(SHAPES.items())]
+
+
+def _u(step, w, i, n):
+    rng = np.random.default_rng(1000 * step + 10 * w + i)
+    return rng.random(n, dtype=np.float32)
+
+
+def _noise(step, w, i, n):
+    return torch.from_numpy(_u(step, w, i, n))
+
+
+def _reference_round(bufs, ef, step, error_feedback, decay):
+    aggs, new_ef = [], []
+    for i, g in enumerate(bufs):
+        codes, norms, e_rows = [], [], []
+        for w in range(W):
+            u = jnp.asarray(_u(step, w, i, g.shape[1]))
+            if error_feedback:
+                c, nrm, e_new = jops.qsgd_ef_fused(jnp.asarray(g[w]), jnp.asarray(ef[i][w]), u,
+                                                   levels=16, decay=decay)
+                e_rows.append(np.asarray(e_new))
+            else:
+                c, nrm = jops.qsgd_quantize(jnp.asarray(g[w]), u, levels=16)
+            codes.append(c)
+            norms.append(nrm[0])
+        wts = jnp.stack(norms) / jnp.float32(16)
+        aggs.append(np.asarray(jops.int8_weighted_sum(jnp.stack(codes), wts) / W))
+        new_ef.append(np.stack(e_rows) if error_feedback else None)
+    return aggs, new_ef
+
+
+@pytest.mark.parametrize("error_feedback,decay", [(True, 1.0), (True, 0.9), (False, 1.0)])
+def test_stacked_round_matches_reference_ops(error_feedback, decay):
+    comm = CommConfig(wire_format="compressed", error_feedback=error_feedback,
+                      ef_decay=decay, **QSGD)
+    validate(comm)
+    plan = aggregate.make_bucket_plan(comm, {k: torch.empty(s) for k, s in SHAPES.items()})
+    state = aggregate.init_comm_state(comm, plan, W, "cpu")
+    ef = [np.zeros((W, b.size), np.float32) for b in plan.buckets]
+    for step in range(2):  # the second round starts from non-zero residuals
+        bufs = _round_inputs(step)
+        got, state = aggregate.aggregate_buckets(comm, plan, [torch.from_numpy(b) for b in bufs],
+                                                 state, _noise)
+        want, want_ef = _reference_round(bufs, ef, step, error_feedback, decay)
+        for g, w in zip(got, want):
+            # atol: rtol of the largest element — sums of signed decodes
+            # cancel, and the two sides sum W terms in different orders
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=1e-6 * np.abs(w).max())
+        if error_feedback:
+            for e, w in zip(state["ef"], want_ef):
+                np.testing.assert_allclose(e.numpy(), w, rtol=1e-5, atol=1e-7)
+            ef = want_ef
+    assert state["step"] == 2
+
+
+def test_dense_round_is_the_worker_mean():
+    comm = CommConfig()
+    plan = aggregate.make_bucket_plan(comm, {k: torch.empty(s) for k, s in SHAPES.items()})
+    bufs = _round_inputs(3)
+    got, _ = aggregate.aggregate_buckets(comm, plan, [torch.from_numpy(b) for b in bufs],
+                                         aggregate.init_comm_state(comm, plan, W, "cpu"), _noise)
+    for g, b in zip(got, bufs):
+        np.testing.assert_allclose(g.numpy(), b.mean(0), rtol=1e-6, atol=1e-8)
+
+
+def test_booked_wire_bytes_match_reference_formula():
+    comm = CommConfig(wire_format="compressed", error_feedback=True, **QSGD)
+    plan = aggregate.make_bucket_plan(comm, {k: torch.empty(s) for k, s in SHAPES.items()})
+    bufs = [torch.from_numpy(b) for b in _round_inputs(0)]
+    with comms.capture() as log:
+        aggregate.aggregate_buckets(comm, plan, bufs, aggregate.init_comm_state(comm, plan, W, "cpu"),
+                                    _noise)
+    want = []
+    for b in plan.buckets:  # int8 codes, then the f32 norm, per bucket
+        want.append(jcomms.CollRecord("all_gather", ("data",), b.size, 1.0, W, "grad_agg", "int8"))
+        want.append(jcomms.CollRecord("all_gather", ("data",), 4, 1.0, W, "grad_agg", "f32"))
+    assert [(r.kind, r.payload_bytes, r.n_workers, r.tag, r.wire_format) for r in log.records] == [
+        (r.kind, r.payload_bytes, r.n_workers, r.tag, r.wire_format) for r in want]
+    assert [r.wire_bytes for r in log.records] == [r.wire_bytes for r in want]
+    assert log.by_tag() == {"grad_agg": sum(r.wire_bytes for r in want)}
+
+    dense = CommConfig()
+    dplan = aggregate.make_bucket_plan(dense, {k: torch.empty(s) for k, s in SHAPES.items()})
+    with comms.capture() as log:
+        aggregate.aggregate_buckets(dense, dplan, bufs, aggregate.init_comm_state(dense, dplan, W, "cpu"),
+                                    _noise)
+    assert [r.wire_bytes for r in log.records] == [
+        jcomms.CollRecord("psum", ("data",), 4 * b.size, 1.0, W).wire_bytes for b in dplan.buckets]
+
+
+def test_seeded_noise_is_reproducible_per_round():
+    noise = aggregate.seeded_noise(7, "cpu")
+    a, b = noise(3, 1, 2, 1000), noise(3, 1, 2, 1000)
+    assert torch.equal(a, b) and a.dtype == torch.float32
+    assert 0.0 <= float(a.min()) and float(a.max()) < 1.0
+    assert not torch.equal(a, noise(3, 2, 2, 1000))
+    assert not torch.equal(a, aggregate.seeded_noise(8, "cpu")(3, 1, 2, 1000))
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(wire_format="packed"), ValueError),
+    (dict(wire_format="compressed", agg_dtype="bfloat16", **QSGD), NotImplementedError),
+    (dict(churn=True), NotImplementedError),
+    (dict(overlap="pipelined"), NotImplementedError),
+    (dict(aggregator="gossip"), NotImplementedError),
+    (dict(sync="local"), NotImplementedError),
+    (dict(momentum_correction=0.9, **QSGD, wire_format="compressed"), NotImplementedError),
+    (dict(**QSGD), NotImplementedError),  # gather+decompress reduce: not ported
+    (dict(wire_format="compressed"), NotImplementedError),  # bf16 wire: not ported
+    (dict(error_feedback=True), NotImplementedError),  # EF on the dense wire
+])
+def test_validate_rejects_unported_cells(kw, err):
+    with pytest.raises(err):
+        validate(CommConfig(**kw))
+
+
+def test_qsgd_kernel_levels_bound():
+    with pytest.raises(ValueError, match="int8"):
+        get_compressor("qsgd_kernel", levels=200).runtime_params()
+    assert get_compressor("qsgd_kernel", levels=16).wire_bits(1000) == 1000 * 5 + 32

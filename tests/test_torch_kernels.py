@@ -1,0 +1,245 @@
+"""The port's kernel layer (repro_torch.kernels) against the JAX package's
+Pallas kernels, run in interpret mode on the CPU, and — on a CUDA card —
+each hand-written kernel against its plain PyTorch version.
+
+Tolerances: codes are bitwise equal where both sides see the same scalars
+(the 2-D kernels); through the flat API the two norm reductions sum in
+different orders, so codes are compared only where the dither draw is more
+than 1e-5 away from its threshold.  The residual e' and int8_acc keep the
+reference's own tolerances (tests/test_kernels.py, test_wire_formats.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import qsgd as jqsgd
+from repro.kernels import qsgd_ef as jqsgd_ef
+from repro_torch.kernels import ops, ref
+
+SIZES = [100, 1000, 32768, 100_003]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run `python -m pytest -m gpu` on the H100")
+    return torch.device("cuda")
+
+
+def _data(n, seed, scale=0.1):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * scale).astype(np.float32)
+    x[:: 97] = 0.0  # sign(0) = 0 must survive
+    return x, rng.random(n, dtype=np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _s(v):
+    return torch.tensor(v, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# 2-D kernels: same inputs and scalars on both sides -> bitwise codes.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [256, 512])
+@pytest.mark.parametrize("levels", [4.0, 16.0, 127.0])
+def test_qsgd_plain_matches_pallas_2d(rows, levels):
+    x, u = _data(rows * 128, rows)
+    inv = np.float32(1.0) / np.float32(np.linalg.norm(x))
+    want = jqsgd.qsgd_2d(jnp.asarray(x.reshape(rows, 128)), jnp.asarray(u.reshape(rows, 128)),
+                         jnp.full((1, 1), inv), jnp.full((1, 1), levels, jnp.float32),
+                         interpret=True)
+    got = torch.empty(x.size, dtype=torch.int8)
+    ops.qsgd_codes_into(_t(x), _t(u), _s(inv), levels, got)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).reshape(-1))
+
+
+@pytest.mark.parametrize("decay", [1.0, 0.9])
+@pytest.mark.parametrize("levels", [4.0, 16.0])
+def test_qsgd_ef_plain_matches_pallas_2d(decay, levels):
+    rows = 256
+    g, u = _data(rows * 128, 7)
+    e, _ = _data(rows * 128, 8, scale=0.05)
+    inv = np.float32(1.0) / np.float32(np.linalg.norm(e * np.float32(decay) + g))
+    sh = (rows, 128)
+    want_c, want_e = jqsgd_ef.qsgd_ef_2d(
+        jnp.asarray(g.reshape(sh)), jnp.asarray(e.reshape(sh)), jnp.asarray(u.reshape(sh)),
+        jnp.full((1, 1), inv), jnp.full((1, 1), levels, jnp.float32),
+        jnp.full((1, 1), decay, jnp.float32), interpret=True)
+    codes = torch.empty(g.size, dtype=torch.int8)
+    e_new = torch.empty(g.size)
+    ops.qsgd_ef_into(_t(g), _t(e), _t(u), _s(inv), levels, decay, codes, e_new)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want_c).reshape(-1))
+    np.testing.assert_allclose(e_new.numpy(), np.asarray(want_e).reshape(-1),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_qsgd_ef_in_place_residual():
+    """e_out=e overwrites the residual with the same values as a fresh buffer."""
+    g, u = _data(1000, 3)
+    e, _ = _data(1000, 4, scale=0.05)
+    c1, n1, e1 = ops.qsgd_ef_fused(_t(g), _t(e), _t(u), 16, 0.9)
+    e_buf = _t(e.copy())
+    c2, n2, e2 = ops.qsgd_ef_fused(_t(g), e_buf, _t(u), 16, 0.9, e_out=e_buf)
+    assert e2.data_ptr() == e_buf.data_ptr()
+    np.testing.assert_array_equal(c1.numpy(), c2.numpy())
+    np.testing.assert_array_equal(e1.numpy(), e_buf.numpy())
+
+
+# ---------------------------------------------------------------------------
+# Flat API against repro.kernels.ops.
+# ---------------------------------------------------------------------------
+
+
+def _far_from_threshold(a, u, norm, levels):
+    y = np.abs(a.astype(np.float64)) / float(norm) * levels
+    return np.abs(y - np.floor(y) - u) > 1e-5
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("levels", [4, 16, 64])
+def test_qsgd_quantize_matches_reference(n, levels):
+    x, u = _data(n, n + levels)
+    want_c, want_n = jops.qsgd_quantize(jnp.asarray(x), jnp.asarray(u), levels=levels)
+    got_c, got_n = ops.qsgd_quantize(_t(x), _t(u), levels)
+    np.testing.assert_allclose(got_n.numpy(), np.asarray(want_n), rtol=1e-6)
+    keep = _far_from_threshold(x, u, np.asarray(want_n)[0], levels)
+    assert keep.mean() > 0.99
+    np.testing.assert_array_equal(got_c.numpy()[keep], np.asarray(want_c)[keep])
+    # decode (a plain tensor op on both sides)
+    np.testing.assert_allclose(
+        ops.qsgd_dequantize(got_c, got_n, levels).numpy()[keep],
+        np.asarray(jops.qsgd_dequantize(want_c, want_n, levels=levels))[keep], rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("decay", [1.0, 0.9])
+def test_qsgd_ef_fused_matches_reference(n, decay):
+    g, u = _data(n, n)
+    e, _ = _data(n, n + 1, scale=0.05)
+    want_c, want_n, want_e = jops.qsgd_ef_fused(jnp.asarray(g), jnp.asarray(e), jnp.asarray(u),
+                                                levels=16, decay=decay)
+    got_c, got_n, got_e = ops.qsgd_ef_fused(_t(g), _t(e), _t(u), 16, decay)
+    np.testing.assert_allclose(got_n.numpy(), np.asarray(want_n), rtol=1e-6)
+    a = e * np.float32(decay) + g
+    keep = _far_from_threshold(a, u, np.asarray(want_n)[0], 16)
+    assert keep.mean() > 0.99
+    np.testing.assert_array_equal(got_c.numpy()[keep], np.asarray(want_c)[keep])
+    np.testing.assert_allclose(got_e.numpy()[keep], np.asarray(want_e)[keep],
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("n_w", [3, 4])
+@pytest.mark.parametrize("n", [9000, 10_007])
+def test_int8_weighted_sum_matches_reference(n_w, n):
+    rng = np.random.default_rng(40 + n_w)
+    codes = rng.integers(-127, 128, (n_w, n)).astype(np.int8)
+    weights = np.linspace(0.01, 0.05, n_w).astype(np.float32)
+    weights[1] = 0.0  # a masked-out worker
+    want = jops.int8_weighted_sum(jnp.asarray(codes), jnp.asarray(weights))
+    got = ops.int8_weighted_sum(_t(codes), _t(weights))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-5)
+
+
+def test_int8_weighted_sum_padded_rows():
+    """A wire stack with padded rows (stride > n) reads only the n columns."""
+    rng = np.random.default_rng(5)
+    full = rng.integers(-127, 128, (3, 112)).astype(np.int8)
+    w = np.asarray([0.5, 0.25, 2.0], np.float32)
+    got = ops.int8_weighted_sum(_t(full)[:, :101], _t(w))
+    want = (full[:, :101].astype(np.float32) * w[:, None]).sum(0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_path():
+    ops.reset_launches()
+    x, u = _data(1000, 0)
+    ops.qsgd_quantize(_t(x), _t(u), 16)
+    ops.qsgd_ef_fused(_t(x), _t(x), _t(u), 16, 1.0)
+    ops.int8_weighted_sum(torch.zeros((2, 10), dtype=torch.int8), torch.ones(2))
+    assert ops.LAUNCHES == {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0}
+
+
+def test_wrapper_rejects_bad_inputs():
+    x = torch.zeros(10)
+    with pytest.raises(ValueError):
+        ops.qsgd_codes_into(x, torch.zeros(9), torch.ones(()), 16, torch.empty(10, dtype=torch.int8))
+    with pytest.raises(ValueError):
+        ops.int8_weighted_sum(torch.zeros((2, 10), dtype=torch.int8), torch.ones(3))
+
+
+@pytest.mark.parametrize("bad", ["u", "inv", "inv_size", "e_out"])
+def test_wrapper_rejects_tensors_off_the_launch_device(bad):
+    """Every pointer a kernel would read must lie on the launch's device
+    (``meta`` stands in for another device here); inv is one f32 element."""
+    n = 10
+    args = dict(g=torch.zeros(n), e=torch.zeros(n), u=torch.zeros(n), inv=torch.ones(()),
+                codes=torch.empty(n, dtype=torch.int8), e_out=torch.empty(n))
+    if bad == "inv_size":
+        args["inv"] = torch.ones(2)
+    else:
+        args[bad] = args[bad].to("meta")
+    with pytest.raises(ValueError, match="inv" if bad == "inv_size" else bad):
+        ops.qsgd_ef_into(args["g"], args["e"], args["u"], args["inv"], 16.0, 1.0,
+                         args["codes"], args["e_out"])
+    if bad in ("u", "inv", "inv_size"):
+        with pytest.raises(ValueError):
+            ops.qsgd_codes_into(args["g"], args["u"], args["inv"], 16.0, args["codes"])
+
+
+# ---------------------------------------------------------------------------
+# On the card: every kernel against its plain version.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (4096, 1), (37, 0)])
+def test_qsgd_kernel_matches_plain_on_card(cuda, n, offset):
+    x, u = _data(n + offset, n)
+    xt, ut = _t(x).to(cuda)[offset:], _t(u).to(cuda)[offset:]  # offset 1: scalar path
+    inv = torch.reciprocal(torch.linalg.vector_norm(xt))
+    before = ops.LAUNCHES["qsgd"]
+    got = torch.empty(n, dtype=torch.int8, device=cuda)
+    ops.qsgd_codes_into(xt, ut, inv, 16.0, got)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["qsgd"] == before + 1
+    want = ref.qsgd_codes(xt, ut, inv, torch.tensor(16.0, device=cuda))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (4096, 1)])
+def test_qsgd_ef_kernel_matches_plain_on_card(cuda, n, offset):
+    g, u = _data(n + offset, n)
+    e, _ = _data(n + offset, n + 1, scale=0.05)
+    gt, et, ut = (_t(a).to(cuda)[offset:] for a in (g, e, u))
+    inv = torch.reciprocal(torch.linalg.vector_norm(et * 0.9 + gt))
+    codes = torch.empty(n, dtype=torch.int8, device=cuda)
+    e_new = torch.empty(n, device=cuda)
+    ops.qsgd_ef_into(gt, et, ut, inv, 16.0, 0.9, codes, e_new)
+    torch.cuda.synchronize()
+    dev = dict(device=cuda)
+    want_c, want_e = ref.qsgd_ef(gt, et, ut, inv, torch.tensor(16.0, **dev),
+                                 torch.tensor(0.9, **dev))
+    assert torch.equal(codes, want_c)
+    torch.testing.assert_close(e_new, want_e, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_w,n,ld", [(4, 100_003, 100_016), (3, 1001, 1001)])
+def test_int8_acc_kernel_matches_plain_on_card(cuda, n_w, n, ld):
+    rng = np.random.default_rng(n)
+    codes = _t(rng.integers(-127, 128, (n_w, ld)).astype(np.int8)).to(cuda)[:, :n]
+    w = torch.linspace(0.01, 0.05, n_w, device=cuda)
+    got = ops.int8_weighted_sum(codes, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.int8_acc(codes, w), rtol=1e-6, atol=1e-5)
