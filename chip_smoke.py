@@ -13,14 +13,21 @@ result line:
    at n = 100,003 and at the trainer's largest bucket (155,582,464
    elements, W = 4): codes bitwise, e' rtol 1e-6 (into a fresh buffer and
    in place, as the trainer calls it), int8_acc rtol 1e-6 / atol 1e-5;
-   each timed with CUDA events beside its byte bound;
+   sign_pack bytes (pads included) and sign_unpack values bitwise on inputs
+   holding +-0.0 and NaN, sign_vote bitwise with 0/1 weights and rtol 1e-6
+   with general ones; each timed with CUDA events beside its byte bound;
 4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
    weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
-   global batch 8: 3 steps with error feedback (kernels qsgd_ef + int8_acc),
-   then 2 steps without (qsgd + int8_acc); finite losses, step ms, booked
-   wire KB per step, peak memory; every kernel's launch count must rise.
-   ``--profile`` adds one EF step under torch.profiler (device-busy share,
-   device time by kernel, host time by operation), not counted as launches.
+   global batch 8, five paths: QSGD (16 levels) on the int8 compressed wire
+   with error feedback (kernels qsgd_ef + int8_acc) and without (qsgd +
+   int8_acc); signsgd_packed on the 1-bit compressed wire with error
+   feedback (sign_pack + sign_vote); signsgd's majority vote on the 1-bit
+   compressed wire (sign_pack + sign_vote); signsgd_packed on the dense wire,
+   gather-and-decompress (sign_pack + sign_unpack).  Each path prints its
+   losses (finite), step ms, booked wire KB per step and peak memory, and
+   the launch counts of its kernels, which must rise.  ``--profile`` adds
+   one QSGD EF step under torch.profiler (device-busy share, device time by
+   kernel, host time by operation), not counted as launches.
 
 Then one JSON line per the kernel table, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
@@ -71,6 +78,28 @@ KERNELS = {
     "int8_acc": dict(source="src/repro_torch/kernels/csrc/int8_acc.cu",
                      replaces="src/repro/kernels/wire_reduce.py:122",
                      bytes=lambda n, w: (w + 4) * n + 4 * w, ops=lambda n, w: 3 * w * n),
+    # the 1-bit wire: padded payload bytes (ceil(n/8192)*1024) per bitmap
+    "sign_pack": dict(source="src/repro_torch/kernels/csrc/sign_pack.cu",
+                      replaces="src/repro/kernels/sign_pack.py:30",
+                      bytes=lambda n, w: 4 * n + ops.sign_packed_bytes(n),
+                      ops=lambda n, w: n),
+    "sign_unpack": dict(source="src/repro_torch/kernels/csrc/sign_unpack.cu",
+                        replaces="src/repro/kernels/sign_pack.py:50",
+                        bytes=lambda n, w: ops.sign_packed_bytes(n) + 4 * n,
+                        ops=lambda n, w: n),
+    "sign_vote": dict(source="src/repro_torch/kernels/csrc/sign_vote.cu",
+                      replaces="src/repro/kernels/wire_reduce.py:45",
+                      bytes=lambda n, w: w * ops.sign_packed_bytes(n) + 4 * n + 4 * w,
+                      ops=lambda n, w: w * n),
+}
+#: why a kernel's row has library_ms null
+NO_LIBRARY = {
+    "qsgd": "no PyTorch call quantizes with a dither",
+    "qsgd_ef": "no PyTorch call quantizes with a dither",
+    "int8_acc": "no single PyTorch call takes an int8 x f32 weighted row sum without a cast",
+    "sign_pack": "no single PyTorch call packs bits",
+    "sign_unpack": "no single PyTorch call unpacks bits",
+    "sign_vote": "no single PyTorch call unpacks and sums bits",
 }
 
 
@@ -164,6 +193,62 @@ def check_kernels(n: int, timed: bool) -> dict[str, dict]:
     return out
 
 
+def check_sign_kernels(n: int, timed: bool) -> dict[str, dict]:
+    """The three 1-bit kernels against their plain versions at n elements
+    (W rows for sign_vote): packed bytes (pads included) and unpacked values
+    bitwise on an input holding +0.0, -0.0 and NaN; votes bitwise with 0/1
+    weights (2-2 ties included: row 2 is row 0 inverted) and within rtol
+    1e-6 with general weights."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(n + 1)
+    x = torch.randn(n, generator=gen, device=DEV)
+    x[::7] = 0.0
+    x[3::11] = -0.0
+    x[5::1001] = float("nan")
+    nbytes = ops.sign_packed_bytes(n)
+    out: dict[str, dict] = {}
+
+    packed = ops.sign_pack(x)
+    plain = ref.sign_pack(x, nbytes)
+    diff = int((packed.int() - plain.int()).abs().max())
+    out["sign_pack"] = {"max_abs_err": float(diff), "ok": torch.equal(packed, plain),
+                        "detail": f"bytes differ at {int((packed != plain).sum())} of {nbytes}"}
+    if timed:
+        out["sign_pack"].update(ms=ms_per_call(lambda: ops.sign_pack(x, out=packed), 20),
+                                plain_ms=ms_per_call(lambda: ref.sign_pack(x, nbytes), 5))
+    del x
+
+    values = ops.sign_unpack(packed, n)
+    plain_v = ref.sign_unpack(plain, n)
+    out["sign_unpack"] = {"max_abs_err": float((values - plain_v).abs().max()),
+                          "ok": torch.equal(values, plain_v),
+                          "detail": f"values differ at {int((values != plain_v).sum())}"}
+    if timed:
+        out["sign_unpack"].update(ms=ms_per_call(lambda: ops.sign_unpack(packed, n), 20),
+                                  plain_ms=ms_per_call(lambda: ref.sign_unpack(plain, n), 5))
+    del values, plain_v, plain
+
+    stack = torch.randint(0, 256, (W, nbytes), generator=gen, device=DEV,
+                          dtype=torch.int32).to(torch.uint8)
+    stack[2] = stack[0] ^ 0xFF
+    ok, err = True, 0.0
+    for wts in ([1.0, 1.0, 1.0, 1.0], [1.0, 0.0, 1.0, 1.0]):
+        wts = torch.tensor(wts, device=DEV)
+        got, want = ops.sign_vote(stack, wts, n), ref.sign_vote(stack, wts, n)
+        ok &= torch.equal(got, want)
+        err = max(err, float((got - want).abs().max()))
+    general = torch.rand(W, generator=gen, device=DEV) * 2.0
+    got, want = ops.sign_vote(stack, general, n), ref.sign_vote(stack, general, n)
+    close = _close(got, want, rtol=1e-6, atol=0.0)
+    out["sign_vote"] = {"max_abs_err": max(err, float((got - want).abs().max())),
+                        "ok": ok and close,
+                        "detail": f"0/1 weights bitwise {ok}, general within rtol 1e-6 {close}"}
+    if timed:
+        out["sign_vote"].update(ms=ms_per_call(lambda: ops.sign_vote(stack, general, n), 20),
+                                plain_ms=ms_per_call(lambda: ref.sign_vote(stack, general, n), 5))
+    return out
+
+
 def require(results: dict[str, dict], n: int) -> None:
     bad = {k: r["detail"] for k, r in results.items() if not r["ok"]}
     if bad:
@@ -172,6 +257,20 @@ def require(results: dict[str, dict], n: int) -> None:
 
 QSGD16 = dict(compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
               wire_format="compressed")
+# signSGD moves every weight by about lr per step: a sign-sized rate
+SIGN_LR = 1e-4
+#: (label, CommConfig fields, steps, lr, kernels the path must launch)
+PATHS = (
+    ("qsgd ef", dict(error_feedback=True, **QSGD16), 3, 0.01, ("qsgd_ef", "int8_acc")),
+    ("qsgd", dict(**QSGD16), 2, 0.01, ("qsgd", "int8_acc")),
+    ("signsgd_packed cwire ef", dict(compressor="signsgd_packed", wire_format="compressed",
+                                     error_feedback=True), 2, SIGN_LR,
+     ("sign_pack", "sign_vote")),
+    ("signsgd cwire majority", dict(compressor="signsgd", wire_format="compressed"), 2,
+     SIGN_LR, ("sign_pack", "sign_vote")),
+    ("signsgd_packed dense", dict(compressor="signsgd_packed", wire_format="dense"), 2,
+     SIGN_LR, ("sign_pack", "sign_unpack")),
+)
 
 
 def profile_one_step(tr: Trainer, state, t: int, step_ms: float) -> None:
@@ -209,16 +308,17 @@ def profile_one_step(tr: Trainer, state, t: int, step_ms: float) -> None:
         print(f"    {cpu(e):9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
-def run_trainer(error_feedback: bool, steps: int, profile_step: bool = False) -> dict[str, int]:
+def run_trainer(label: str, comm_kw: dict, steps: int, lr: float,
+                profile_step: bool = False) -> dict[str, int]:
     cfg = get_config("qwen3-0.6b")
     shape = InputShape("train_1k", 1024, 8, "train")
     t0 = time.perf_counter()
-    bundle = build_bundle(cfg, CommConfig(error_feedback=error_feedback, **QSGD16),
-                          momentum_sgd(0.9), shape, n_workers=W, seed=0, device=DEV)
-    tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(0.01), log_every=1)
+    bundle = build_bundle(cfg, CommConfig(**comm_kw), momentum_sgd(0.9), shape, n_workers=W,
+                          seed=0, device=DEV)
+    tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(lr), log_every=1)
     state = tr.init(seed=0)
     torch.cuda.synchronize()
-    print(f"trainer ef={error_feedback}: {len(bundle.bucket_plan.buckets)} buckets, "
+    print(f"trainer {label} ({comm_kw}, lr {lr}): {len(bundle.bucket_plan.buckets)} buckets, "
           f"{sum(b.size for b in bundle.bucket_plan.buckets)} params, build+init "
           f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -253,6 +353,7 @@ def main() -> None:
                     help="run one more EF step under torch.profiler after the timed "
                          "steps (its launches are counted apart)")
     profile = ap.parse_args().profile
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         sys.exit(2)
@@ -270,9 +371,11 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    require(check_kernels(100_003, timed=False), 100_003)
-    print("kernels at n=100003: codes bitwise, e' and int8_acc within tolerance")
-    big = check_kernels(LARGEST, timed=True)
+    small = {**check_kernels(100_003, timed=False), **check_sign_kernels(100_003, timed=False)}
+    require(small, 100_003)
+    print("kernels at n=100003: codes, sign bytes, values and 0/1 votes bitwise; e', "
+          "int8_acc and general votes within tolerance")
+    big = {**check_kernels(LARGEST, timed=True), **check_sign_kernels(LARGEST, timed=True)}
     require(big, LARGEST)
     rows = []
     for name, r in big.items():
@@ -283,20 +386,21 @@ def main() -> None:
                      "replaces": KERNELS[name]["replaces"], "launches": 0,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                     "ok": r["ok"]})
+                     "library_note": NO_LIBRARY[name], "ok": r["ok"]})
 
     launches = {k: 0 for k in KERNELS}
-    for ef, steps, path_kernels in ((True, 3, ("qsgd_ef", "int8_acc")),
-                                    (False, 2, ("qsgd", "int8_acc"))):
-        got = run_trainer(ef, steps, profile_step=ef and profile)
+    for label, comm_kw, steps, lr, path_kernels in PATHS:
+        got = run_trainer(label, comm_kw, steps, lr,
+                          profile_step=profile and comm_kw is PATHS[0][1])
         for k in path_kernels:
             if got[k] <= 0:
-                raise AssertionError(f"path ef={ef}: kernel {k} was never launched: {got}")
+                raise AssertionError(f"path {label}: kernel {k} was never launched: {got}")
         for k, v in got.items():
             launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["ok"] = row["ok"] and row["launches"] > 0
+    print(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,31 +1,39 @@
 """Bucketed gradient aggregation over W stacked workers (counterpart of
 ``repro.core.aggregate``).
 
-    a = e*decay + g;  c = C(a);  e = a - C(a);  agg = mean_w decode(c_w)
+    u = m*u + g;  a = clip(u) + e*decay;  c = C(a);  e = a - C(a);
+    agg = Aggregate(c_1..W)
 
 On one card the W data-parallel workers are a leading tensor axis, so a
 round is split in two halves.  :meth:`AggregationRound.add` is one worker's
-send side: EF and compression of each bucket, the int8 codes written
-straight into that worker's row of the round's (W, n) wire stack.
-:meth:`AggregationRound.finish` is the receive side: the booked all-gather
-of the stack and one widening-accumulate kernel per bucket.  The trainer
-calls ``add`` right after each worker's backward, so W full f32 gradients
-never live at once; :func:`aggregate_buckets` runs both halves over
-already-stacked (W, n) gradients.
+send side: ``feedback.pre_compress`` and compression of each bucket, the
+wire payload written straight into that worker's row of the round's wire
+stack, and ``feedback.post_compress``.  :meth:`AggregationRound.finish` is
+the receive side: the booked collective and the reduction of each bucket.
+The trainer calls ``add`` right after each worker's backward, so W full f32
+gradients never live at once; :func:`aggregate_buckets` runs both halves
+over already-stacked (W, n) gradients.
 
-Three reductions are ported (churn and integrity arguments stay out):
+The reductions, per bucket (:func:`bucket_route`; churn and integrity
+arguments stay out):
 
-* dense mean (no compressor, dense wire): a booked f32 all-reduce;
-* ``wire_format="compressed"`` with an ``int8_acc`` compressor:
-  ``_compressed_reduce`` -> ``_int8_code_reduce`` (kernels ``qsgd`` then
-  ``int8_acc``);
-* the same with error feedback: the fused-EF gate (kernels ``qsgd_ef``
-  then ``int8_acc``), with each worker's residual updated in place.
+* ``dense``: no compressor, dense wire: a booked f32 all-reduce;
+* ``fused_ef``: the reference's fused-EF gate (compressed wire, EF on, no
+  momentum correction, no local clip, a compressor with ``compress_ef_p``):
+  kernels ``qsgd_ef`` then ``int8_acc``, each worker's residual updated in
+  place;
+* ``int8_acc``: ``_int8_code_reduce`` on the compressed wire (kernels
+  ``qsgd`` then ``int8_acc``);
+* ``sign``: the 1-bit compressed wire (``signsgd_packed``'s mean of votes,
+  ``signsgd``'s majority): kernels ``sign_pack`` then ``sign_vote``;
+* ``majority``: ``signsgd`` on the dense wire: a booked int8 psum of the
+  signs, ties to +1;
+* ``gather``: ``reduce_mode="none"`` on the dense wire: every payload leaf
+  all-gathered at its dtype width, then decoded and summed in worker order
+  (``signsgd_packed`` decodes with kernel ``sign_unpack``).
 
-The ported compressor fuses EF into its kernel (``compress_ef_p``), so the
-reference's general ``feedback.pre_compress``/``post_compress`` composition
-is not reached and not ported; :func:`repro_torch.core.types.validate`
-rejects error feedback without a compressor.
+The ``sum`` and ``powersgd`` reductions, sparse ``(values, indices)``
+payloads, the ternary and bf16 wires raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,10 +45,13 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from repro_torch.core import comms
+from repro_torch.core import comms, feedback
 from repro_torch.core.compression.base import (
+    Compressed,
     compress_p,
+    decompress_p,
     get_compressor,
+    needs_noise,
     runtime_knob_values,
     runtime_knobs,
 )
@@ -126,12 +137,16 @@ def make_bucket_plan(comm: CommConfig, grads_abstract: Any) -> BucketPlan:
 
 def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
                     device: str | torch.device) -> dict[str, Any]:
-    """Communication state of W workers: ``ef[i]`` is the (W, size) stack
-    of bucket i's EF residuals, one row per worker."""
+    """Communication state of W workers: ``ef[i]`` and ``u[i]`` are the
+    (W, size) stacks of bucket i's EF residuals and momentum buffers, one
+    row per worker (``ef[i]`` is None for a bucket without a compressor)."""
     state: dict[str, Any] = {"step": 0}
     if comm.error_feedback:
         state["ef"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
-                       for b in plan.buckets]
+                       if plan.compressor(b) is not None else None for b in plan.buckets]
+    if comm.momentum_correction:
+        state["u"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
+                      for b in plan.buckets]
     return state
 
 
@@ -174,82 +189,170 @@ def seeded_noise(seed: int, device: str | torch.device) -> Noise:
     return noise
 
 
-def _wire_stack(n_workers: int, n: int, device) -> torch.Tensor:
-    """(W, n) int8 wire stack whose rows start on 16-byte boundaries, so the
+def _wire_stack(n_workers: int, n: int, device, dtype=torch.int8) -> torch.Tensor:
+    """(W, n) wire stack whose rows start on 16-byte boundaries, so the
     kernels can use vector loads and stores on every row."""
     ld = -(-n // 16) * 16
-    return torch.empty((n_workers, ld), dtype=torch.int8, device=device)[:, :n]
+    return torch.empty((n_workers, ld), dtype=dtype, device=device)[:, :n]
+
+
+def bucket_route(comm: CommConfig, comp) -> str:
+    """Which reduction a bucket with compressor ``comp`` takes under
+    ``comm`` (the reference's dispatch in ``aggregate_buckets``,
+    ``_aggregate_one`` and ``_compressed_reduce``); raises
+    ``NotImplementedError`` for a reduction the port does not run."""
+    if comp is None:
+        if comm.wire_format == "compressed":
+            raise NotImplementedError("the bf16 wire (wire_format='compressed' without a "
+                                      "compressor, widening_psum) is not ported")
+        return "dense"
+    if comm.wire_format == "compressed":
+        wr = getattr(comp, "wire_reduce", "")
+        if (wr == "int8_acc" and comm.error_feedback and not comm.momentum_correction
+                and not comm.local_clip and hasattr(comp, "compress_ef_p")):
+            return "fused_ef"
+        if wr == "int8_acc":
+            return "int8_acc"
+        if wr in ("sign_acc", "sign_vote"):
+            return "sign"
+        raise NotImplementedError(f"the {wr!r} compressed-wire reduction of {comp.name!r} "
+                                  "is not ported")
+    mode = comp.reduce_mode
+    if mode == "majority":
+        return "majority"
+    if mode == "none":
+        return "gather"
+    raise NotImplementedError(f"the {mode!r} reduction of {comp.name!r} is not ported")
 
 
 class AggregationRound:
     """One BSP aggregation round over W stacked workers.
 
-    ``comm_state`` is updated in place (each worker's EF rows) and returned
-    by :meth:`finish` with ``step`` advanced.  ``noise`` supplies the uniform
-    draws of the stochastic compressors."""
+    ``comm_state`` is updated in place (each worker's EF and momentum rows)
+    and returned by :meth:`finish` with ``step`` advanced.  ``noise``
+    supplies the uniform draws of the stochastic compressors."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device):
         self.comm, self.plan, self.state = comm, plan, comm_state
         self.n_workers, self.noise, self.device = n_workers, noise, torch.device(device)
         self.comps = [plan.compressor(b) for b in plan.buckets]
+        self.routes = [bucket_route(comm, comp) for comp in self.comps]
         self.knobs = plan.knob_values()
-        for comp in self.comps:
-            if comp is not None and (comm.wire_format != "compressed"
-                                     or comp.wire_reduce != "int8_acc"):
-                raise NotImplementedError(
-                    f"only the int8_acc compressed wire is ported, not "
-                    f"{comp.name!r} on the {comm.wire_format!r} wire")
         nb = len(plan.buckets)
+        #: dense f32 sums (``dense``) or int8 vote sums (``majority``)
         self._sums: list[torch.Tensor | None] = [None] * nb
-        self._codes: list[torch.Tensor | None] = [None] * nb
+        #: (W, ...) wire stacks: int8 codes (``fused_ef``, ``int8_acc``) or
+        #: packed sign bytes (``sign``)
+        self._stacks: list[torch.Tensor | None] = [None] * nb
         self._norms: list[torch.Tensor | None] = [None] * nb
+        #: per-worker payloads of the ``gather`` route, in worker order
+        self._payloads: list[list[dict[str, torch.Tensor]]] = [[] for _ in range(nb)]
+
+    def _stack(self, i: int, n: int, dtype) -> torch.Tensor:
+        if self._stacks[i] is None:
+            self._stacks[i] = _wire_stack(self.n_workers, n, self.device, dtype)
+        return self._stacks[i]
+
+    def _set_norm(self, i: int, w: int, norm: torch.Tensor) -> None:
+        if self._norms[i] is None:
+            self._norms[i] = torch.empty(self.n_workers, dtype=f32, device=self.device)
+        self._norms[i][w] = norm[0]
+
+    def _accumulate(self, i: int, v: torch.Tensor) -> None:
+        if self._sums[i] is None:
+            self._sums[i] = v.clone()
+        else:
+            self._sums[i].add_(v)
 
     def add(self, w: int, bufs: Iterable[torch.Tensor]) -> None:
         """Send side of worker ``w``: ``bufs`` yields its flat f32 bucket
         vectors in plan order (a generator keeps one bucket alive at once)."""
-        comm, step = self.comm, self.state["step"]
-        ef = self.state.get("ef")
-        for i, (b, comp, g) in enumerate(zip(self.plan.buckets, self.comps, bufs)):
-            if comp is None:
-                if self._sums[i] is None:
-                    self._sums[i] = g.clone()
-                else:
-                    self._sums[i].add_(g)
+        comm, step, W = self.comm, self.state["step"], self.n_workers
+        for i, (b, comp, route, g) in enumerate(zip(self.plan.buckets, self.comps,
+                                                    self.routes, bufs)):
+            knobs = self.knobs[i]
+            u = (self.noise(step, w, i, b.size).to(self.device) if needs_noise(comp)
+                 else None)
+            if route == "fused_ef":
+                # one kernel pass yields the int8 wire codes and worker w's
+                # new residual, written in place
+                e = self.state["ef"][i][w]
+                c, _ = comp.compress_ef_p(u, g, e, knobs, comm.ef_decay,
+                                          out={"code": self._stack(i, b.size, torch.int8)[w],
+                                               "e": e})
+                self._set_norm(i, w, c.payload["norm"])
                 continue
-            if self._codes[i] is None:
-                self._codes[i] = _wire_stack(self.n_workers, b.size, self.device)
-                self._norms[i] = torch.empty(self.n_workers, dtype=f32, device=self.device)
-            u = self.noise(step, w, i, b.size).to(self.device)
-            out = {"code": self._codes[i][w]}
-            if ef is not None:
-                # the fused-EF gate: one kernel pass yields the int8 wire
-                # codes and worker w's new residual, written in place
-                out["e"] = ef[i][w]
-                c, _ = comp.compress_ef_p(u, g, ef[i][w], self.knobs[i], comm.ef_decay,
-                                          out=out)
-            else:
-                c = compress_p(comp, u, g, self.knobs[i], out=out)
-            self._norms[i][w] = c.payload["norm"][0]
+            a = feedback.pre_compress(comm, g, self.state, i, w, W)
+            a_hat = None
+            if route == "dense":
+                self._accumulate(i, a)
+            elif route == "sign":
+                # packed straight from a: the int8 sign payload is never formed
+                ops.sign_pack(a, out=self._stack(i, ops.sign_packed_bytes(b.size),
+                                                 torch.uint8)[w])
+                if comm.error_feedback:
+                    a_hat = torch.where(a >= 0, 1.0, -1.0)
+            elif route == "int8_acc":
+                c = compress_p(comp, u, a, knobs,
+                               out={"code": self._stack(i, b.size, torch.int8)[w]})
+                self._set_norm(i, w, c.payload["norm"])
+                if comm.error_feedback:
+                    a_hat = decompress_p(comp, c, knobs)
+            else:  # majority, gather
+                c = compress_p(comp, u, a, knobs)
+                if route == "majority":
+                    self._accumulate(i, c.payload["sign"])
+                else:
+                    self._payloads[i].append(c.payload)
+                if comm.error_feedback:
+                    a_hat = decompress_p(comp, c, knobs)
+            if a_hat is not None:
+                feedback.post_compress(comm, a, a_hat, self.state, i, w)
 
     def finish(self) -> tuple[list[torch.Tensor], dict[str, Any]]:
-        """Receive side: reduce every bucket to its worker mean."""
+        """Receive side: reduce every bucket to its worker mean (or vote)."""
         W = self.n_workers
         # scalars filled on the device: a host-to-card copy would wait for it
         denom = torch.full((), float(W), dtype=f32, device=self.device)
         out = []
         with comms.tag("grad_agg"):
-            for i, comp in enumerate(self.comps):
-                if comp is None:
+            for i, (b, comp, route) in enumerate(zip(self.plan.buckets, self.comps,
+                                                     self.routes)):
+                if route == "dense":
                     comms.book_psum(self._sums[i], W)
                     out.append(self._sums[i] / denom)
-                    continue
-                # _int8_code_reduce: codes at wire width, decode scale
-                # norm_w / levels folded into each worker's weight
-                cg = comms.all_gather_compressed({"code": self._codes[i]})["code"]
-                ng = comms.all_gather(self._norms[i].reshape(W, 1)).reshape(-1)
-                sg = torch.full((), self.knobs[i]["levels"], dtype=f32, device=self.device)
-                out.append(ops.int8_weighted_sum(cg, ng / sg) / denom)
+                elif route in ("fused_ef", "int8_acc"):
+                    # _int8_code_reduce: codes at wire width, decode scale
+                    # norm_w / levels folded into each worker's weight
+                    cg = comms.all_gather_compressed({"code": self._stacks[i]})["code"]
+                    ng = comms.all_gather(self._norms[i].reshape(W, 1)).reshape(-1)
+                    sg = torch.full((), self.knobs[i]["levels"], dtype=f32, device=self.device)
+                    out.append(ops.int8_weighted_sum(cg, ng / sg) / denom)
+                elif route == "sign":
+                    with comms.wire_format("packed1"):
+                        pg = comms.all_gather(self._stacks[i])
+                    votes = ops.sign_vote(pg, torch.ones(W, dtype=f32, device=self.device),
+                                          b.size)
+                    if comp.wire_reduce == "sign_vote":  # majority, ties to +1
+                        out.append(torch.where(votes >= 0, 1.0, -1.0))
+                    else:  # mean of +-1 votes
+                        out.append(votes / denom)
+                elif route == "majority":
+                    # int8 vote sum: exact for W <= 127, as the reference's psum
+                    comms.book_psum(self._sums[i], W)
+                    out.append(torch.where(self._sums[i] >= 0, 1.0, -1.0))
+                else:  # gather: decode each worker's payload, sum in worker order
+                    payloads = self._payloads[i]
+                    if "indices" in payloads[0]:
+                        raise NotImplementedError("the sparse (values, indices) scatter-add "
+                                                  "reduce is not ported")
+                    for v in payloads[0].values():
+                        comms.book_all_gather(v, W)
+                    acc = torch.zeros(b.size, dtype=f32, device=self.device)
+                    for pw in payloads:
+                        acc = acc + decompress_p(comp, Compressed(pw, b.size), self.knobs[i])
+                    out.append(acc / denom)
         self.state["step"] += 1
         return out, self.state
 

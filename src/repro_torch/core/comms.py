@@ -144,6 +144,11 @@ def book_psum(local: torch.Tensor, n_workers: int) -> None:
     _record("psum", local, n_workers)
 
 
+def book_all_gather(local: torch.Tensor, n_workers: int) -> None:
+    """Book an all-gather whose per-worker payloads the caller keeps itself."""
+    _record("all_gather", local, n_workers)
+
+
 def all_gather(stacked: torch.Tensor) -> torch.Tensor:
     """All-gather over the worker axis: the (W, ...) stack already is the
     gathered array; book one worker's slice."""

@@ -6,4 +6,4 @@ from repro_torch.core.compression.base import (  # noqa: F401
     register,
     runtime_knob_values,
 )
-from repro_torch.core.compression import kernels_backed  # noqa: F401  (registers)
+from repro_torch.core.compression import kernels_backed, quantization  # noqa: F401  (register)

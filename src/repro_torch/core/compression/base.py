@@ -7,6 +7,9 @@ The stochastic compressors take their uniform noise ``u`` as a tensor
 rather than a PRNG key: torch's generators cannot reproduce jax's threefry
 draws, and the caller decides where the noise comes from (a seeded
 ``torch.Generator`` on the card, or the reference's own draws in a test).
+A compressor that draws noise says so with ``NEEDS_NOISE = True``; the
+deterministic ones (the sign family) are handed ``u=None``, so no bucket-
+sized draw is made for them.
 """
 
 from __future__ import annotations
@@ -43,7 +46,11 @@ def runtime_knob_values(comp) -> dict[str, float]:
     return {k: float(getattr(comp, k)) for k in runtime_knobs(comp)}
 
 
-def compress_p(comp, u: torch.Tensor, x: torch.Tensor, p: dict | None,
+def needs_noise(comp) -> bool:
+    return bool(getattr(comp, "NEEDS_NOISE", False))
+
+
+def compress_p(comp, u: torch.Tensor | None, x: torch.Tensor, p: dict | None,
                out: dict | None = None) -> Compressed:
     """Compress with runtime knob values ``p`` (baked values when empty)."""
     fn = getattr(comp, "compress_p", None)

@@ -1,5 +1,6 @@
 """Compressors backed by the port's Hopper kernels (counterpart of
-``repro.core.compression.kernels_backed``; ``qsgd_kernel`` so far).
+``repro.core.compression.kernels_backed``; ``qsgd_kernel`` and
+``signsgd_packed`` so far).
 
 ``levels`` is a runtime value: it reaches the kernels as a scalar
 argument, so cells that differ only in levels share everything else.
@@ -24,6 +25,7 @@ class QSGDKernel:
     reduce_mode: str = "none"
     wire_reduce: str = "int8_acc"  # compressed-domain: int8 codes on the wire
     RUNTIME_KNOBS = ("levels",)
+    NEEDS_NOISE = True
 
     def _check(self):
         # the int8 wire format caps |code| at s — fail loudly, don't wrap
@@ -68,3 +70,25 @@ class QSGDKernel:
 
     def wire_bits(self, n) -> float:
         return n * (math.log2(self.levels) + 1) + 32
+
+
+@register("signsgd_packed")
+@dataclass
+class SignSGDPacked:
+    """SignSGD with true bit packing: 1 bit/element on the wire."""
+
+    unbiased: bool = False
+    reduce_mode: str = "none"
+    wire_reduce: str = "sign_acc"  # compressed-domain: mean of +-1 votes
+
+    def compress(self, u, x, out=None) -> Compressed:
+        """``u`` is unused (deterministic); ``out``: optional {"packed":
+        uint8 (sign_packed_bytes(n),)} buffer for the bitmap."""
+        return Compressed({"packed": ops.sign_pack(x, out=(out or {}).get("packed"))},
+                          x.numel())
+
+    def decompress(self, c) -> torch.Tensor:
+        return ops.sign_unpack(c.payload["packed"], c.n)
+
+    def wire_bits(self, n) -> float:
+        return n * 1.0

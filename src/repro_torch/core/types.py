@@ -2,12 +2,14 @@
 
 :class:`CommConfig` keeps every field and default of the reference, so a
 cell description reads the same in both packages.  The port runs the BSP
-all-reduce trainer with sequential overlap; :func:`validate` raises on any
-field that asks for a part not ported yet (churn, integrity, gossip,
-pipelined overlap, local SGD, momentum correction, local clipping, the
-bf16 wire, the gather-and-decompress reduce, error feedback on the dense
-wire), and applies the reference's
-``bundle_spec`` checks on ``wire_format``.
+all-reduce trainer with sequential overlap, with momentum correction,
+local clipping and error feedback (with decay) on any ported compressor,
+over the dense wire (f32 mean, int8 majority vote, gather-and-decompress)
+or the compressed wire (int8 codes, 1-bit signs).  :func:`validate` raises
+on any field that asks for a part not ported yet (churn, integrity, gossip,
+pipelined overlap, local SGD, warm-up, the bf16 wire, the ``sum`` and
+``powersgd`` reductions), and applies the reference's ``bundle_spec``
+checks on ``wire_format``.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ DENSE = CommConfig()
 #: fields whose non-default values select a part of the reference that the
 #: port does not run yet
 _NOT_PORTED = (
-    "momentum_correction", "local_clip", "warmup_steps", "sync", "local_steps",
+    "warmup_steps", "sync", "local_steps",
     "post_local_switch", "pod_local", "aggregator", "collective", "gossip_graph",
     "gossip_compress", "gossip_step_size", "gossip_mix_weight", "agg_dtype",
     "overlap", "churn", "dropout_rate", "worker_dropout", "churn_start",
@@ -111,12 +113,10 @@ def validate(comm: CommConfig):
             raise ValueError(
                 "agg_dtype='bfloat16' only shapes the dense aggregation "
                 "path — meaningless combined with a compressed wire format")
-    if (comp is None) != (comm.wire_format == "dense"):
-        raise NotImplementedError(
-            "ported reductions: the dense f32 mean without a compressor, and the "
-            "compressed int8 wire with one")
-    if comm.error_feedback and not hasattr(comp, "compress_ef_p"):
-        raise NotImplementedError(
-            "error feedback is ported only fused into a compressor's kernel "
-            "(compress_ef_p), not on the dense wire")
+    from repro_torch.core.aggregate import bucket_route
+
+    # NotImplementedError for an unported reduction, of any bucket's compressor
+    bucket_route(comm, comp)
+    for _, name, kwargs in comm.per_tensor_rules:
+        bucket_route(comm, get_compressor(name, **kwargs))
     return comp

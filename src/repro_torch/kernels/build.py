@@ -36,6 +36,9 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "qsgd": ("qsgd_launch", (_P, _P, _P, _F, _P, _LL, _P)),
     "qsgd_ef": ("qsgd_ef_launch", (_P, _P, _P, _P, _F, _F, _P, _P, _LL, _P)),
     "int8_acc": ("int8_acc_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
+    "sign_pack": ("sign_pack_launch", (_P, _LL, _P, _LL, _P)),
+    "sign_unpack": ("sign_unpack_launch", (_P, _P, _LL, _P)),
+    "sign_vote": ("sign_vote_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
 }
 
 

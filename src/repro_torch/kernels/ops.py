@@ -1,6 +1,7 @@
 """Flat-vector API over the port's kernels (counterpart of
 ``repro.kernels.ops``: ``qsgd_quantize``, ``qsgd_dequantize``,
-``qsgd_ef_fused``, ``int8_weighted_sum``).
+``qsgd_ef_fused``, ``int8_weighted_sum``, ``sign_pack``, ``sign_unpack``,
+``sign_vote``).
 
 The tensor norm is computed here, outside the kernel, as in the reference;
 ``levels`` and ``decay`` are runtime scalars.  On a CUDA tensor each wrapper
@@ -9,7 +10,9 @@ checks the returned ``cudaGetLastError()`` and counts the launch in
 ``LAUNCHES``; there is no fallback.  Off the card (CPU tensors, or the
 shape-only ``meta`` device the trainer books its wire bytes on) it runs the
 kernel's plain version from ``ref.py``.  No padding to the TPU's
-(rows, 128) tiles: the kernels mask their own tails.
+(rows, 128) tiles for the quantizer: the kernels mask their own tails.  The
+1-bit sign wire keeps the reference's padded payload, ``ceil(n/8192)*1024``
+bytes, byte for byte, so payloads interchange between the packages.
 """
 
 from __future__ import annotations
@@ -22,7 +25,12 @@ from repro_torch.kernels.build import LIBRARY
 f32 = torch.float32
 
 #: launches per kernel since the last ``reset_launches()``
-LAUNCHES: dict[str, int] = {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0}
+LAUNCHES: dict[str, int] = {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
+                            "sign_unpack": 0, "sign_vote": 0}
+
+#: elements per 1024-byte tile of the packed sign wire: the reference packs
+#: (8 rows, 8 bits, 128 lanes) blocks, and pads the last one with +1.0
+SIGN_TILE = 8 * 8 * 128
 
 
 def reset_launches() -> None:
@@ -142,3 +150,70 @@ def int8_weighted_sum(codes: torch.Tensor, weights: torch.Tensor) -> torch.Tenso
                 out.data_ptr(), n)
         return out
     return ref.int8_acc(codes, weights)
+
+
+def sign_packed_bytes(n: int) -> int:
+    """Bytes of the padded 1-bit payload of n elements (the reference's
+    ``ops.sign_pack`` length)."""
+    return -(-n // SIGN_TILE) * (SIGN_TILE // 8)
+
+
+def _sign_rows_ok(row_bytes: int, n: int) -> bool:
+    """A packed row covers n elements: whole 128-byte rows, enough of them."""
+    return row_bytes % 128 == 0 and row_bytes >= -(-n // 1024) * 128
+
+
+def sign_pack(x: torch.Tensor, *, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Flat f32 (n,) -> the padded uint8 bitmap, ``sign_packed_bytes(n)``
+    bytes, lane-interleaved: bit ``(e // 128) % 8`` of byte
+    ``(e // 1024) * 128 + e % 128`` is ``x[e] >= 0``; pad bits are 1.
+    ``out``: where to write the bytes (e.g. a row of the wire stack)."""
+    x = x.reshape(-1).to(f32)
+    n, nbytes = x.numel(), sign_packed_bytes(x.numel())
+    if out is None:
+        out = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    _check(out, torch.uint8, nbytes, x.device, "packed")
+    if x.is_cuda:
+        _launch("sign_pack", x.data_ptr(), n, out.data_ptr(), nbytes)
+    else:
+        out.copy_(ref.sign_pack(x, nbytes))
+    return out
+
+
+def sign_unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`sign_pack` (same layout): the first n elements as
+    +-1.0 f32."""
+    if packed.dtype != torch.uint8 or packed.dim() != 1 or not packed.is_contiguous() \
+            or not _sign_rows_ok(packed.numel(), n):
+        raise ValueError(f"packed: need a contiguous 1-D uint8 bitmap of whole 128-byte "
+                         f"rows covering {n} elements, got {packed.dtype} "
+                         f"{tuple(packed.shape)} contiguous={packed.is_contiguous()}")
+    if packed.is_cuda:
+        out = torch.empty(n, dtype=f32, device=packed.device)
+        _launch("sign_unpack", packed.data_ptr(), out.data_ptr(), n)
+        return out
+    return ref.sign_unpack(packed, n)
+
+
+def sign_vote(packed: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
+    """Gathered packed bitmaps (W, bytes) + per-worker vote weights (W,) ->
+    weighted vote sums ``sum_w weights[w] * (2*bit - 1)`` as (n,) f32, decoded
+    and accumulated in one pass.  Rows may be padded
+    (``packed.stride(0) >= bytes``); each row must be contiguous."""
+    n_w, row_bytes = packed.shape
+    if packed.dtype != torch.uint8 or packed.stride(1) != 1 or packed.stride(0) < row_bytes \
+            or not _sign_rows_ok(row_bytes, n):
+        raise ValueError(f"packed: need uint8 (W, bytes) with contiguous rows of whole "
+                         f"128-byte rows covering {n} elements, got {packed.dtype} "
+                         f"{tuple(packed.shape)} strides {packed.stride()}")
+    weights = weights.to(device=packed.device, dtype=f32).contiguous()
+    if weights.shape != (n_w,):
+        raise ValueError(f"weights: need shape ({n_w},), got {tuple(weights.shape)}")
+    if packed.is_cuda:
+        if n_w > 8192:
+            raise ValueError(f"sign_vote keeps the weights in shared memory: W={n_w} > 8192")
+        out = torch.empty(n, dtype=f32, device=packed.device)
+        _launch("sign_vote", packed.data_ptr(), packed.stride(0), weights.data_ptr(), n_w,
+                out.data_ptr(), n)
+        return out
+    return ref.sign_vote(packed, weights, n)

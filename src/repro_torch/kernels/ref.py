@@ -42,6 +42,36 @@ def qsgd_ef(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, inv: torch.Tensor
     return code.to(torch.int8), a - deq
 
 
+def _shifts(device) -> torch.Tensor:
+    """Bit k of a packed byte holds slot k: shifts 0..7 along the slot axis."""
+    return torch.arange(8, dtype=torch.uint8, device=device).view(1, 8, 1)
+
+
+def sign_pack(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Flat f32 (n,) -> (nbytes,) uint8 in the lane-interleaved layout: bit
+    k of byte ``(r, l)`` is ``x[r*1024 + k*128 + l] >= 0``, the tail padded
+    with +1.0 (pad bits 1)."""
+    pad = torch.ones(nbytes * 8 - x.numel(), dtype=f32, device=x.device)
+    bits = (torch.cat([x, pad]).view(-1, 8, 128) >= 0).to(torch.uint8)
+    return (bits << _shifts(x.device)).sum(1, dtype=torch.uint8).view(-1)
+
+
+def sign_unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`sign_pack`: the first n elements as +-1.0 f32."""
+    rows = -(-n // 1024)
+    bits = (packed[:rows * 128].view(-1, 1, 128) >> _shifts(packed.device)) & 1
+    return (bits.to(f32) * 2.0 - 1.0).view(-1)[:n]
+
+
+def sign_vote(packed: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
+    """Weighted vote ``sum_w weights[w] * (2*bit_w - 1)`` over a (W, bytes)
+    stack of packed rows, accumulated in f32 in worker order."""
+    acc = torch.zeros(n, dtype=f32, device=packed.device)
+    for w in range(packed.shape[0]):
+        acc = acc + weights[w] * sign_unpack(packed[w], n)
+    return acc
+
+
 def int8_acc(codes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Widening ``sum_w weights[w] * codes[w]`` over a (W, n) int8 stack,
     accumulated in f32 in worker order."""

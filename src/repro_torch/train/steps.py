@@ -5,11 +5,12 @@ workers stacked on one device (counterpart of ``repro.train.steps``:
 A step splits the global batch into W contiguous row blocks (the
 reference's batch sharding over ``data``).  For each worker in turn it runs
 forward and backward on the shared parameters and hands the gradient,
-bucket by bucket, to the send side of an :class:`AggregationRound` (EF
-fused with quantization into that worker's row of the int8 wire stack);
-only the codes and norms outlive the worker.  The receive side then reduces
-every bucket, and the optimizer updates the parameters in place.  Loss,
-``ce`` and ``aux`` are worker means.
+bucket by bucket, to the send side of an :class:`AggregationRound`
+(momentum, clipping and error feedback, then compression into that
+worker's row of the wire stack); only the wire payload and the worker's
+state rows outlive the worker.  The receive side then reduces every
+bucket, and the optimizer updates the parameters in place.  Loss, ``ce``
+and ``aux`` are worker means.
 
 The wire bytes of one step are booked at build time by running the step
 once on the ``meta`` device, which computes shapes only.

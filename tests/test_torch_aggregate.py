@@ -11,6 +11,13 @@ compression) against the JAX package.
   element: signed decodes cancel), EF residuals rtol 1e-5.
 * Booked wire bytes equal ``repro.core.comms.CollRecord(...).wire_bytes``
   for the same payloads and n = W.
+* A W=4 round of the port's ``aggregate_buckets`` equals the reference's
+  own ``aggregate_buckets`` run under ``jax.vmap(axis_name="data")`` (its
+  collectives reduce over the vmap axis, its Pallas kernels run in
+  interpret mode), over two rounds so the residuals are non-zero, for the
+  1-bit sign wires, the majority vote, the gather-and-decompress reduce and
+  the general ``pre_compress``/``post_compress`` path; the booked records
+  (kind, payload bytes, wire format) equal the reference's capture.
 """
 
 import jax
@@ -72,7 +79,7 @@ def test_full_width_plan_sizes():
 # ---------------------------------------------------------------------------
 
 W = 4
-SHAPES = {"a": (1000,), "b": (37, 11), "c": (4096,)}
+SHAPES = {"a": (1000,), "b": (37, 11), "c": (4096,), "d": (9000,)}
 
 
 def _round_inputs(seed):
@@ -185,17 +192,160 @@ def test_seeded_noise_is_reproducible_per_round():
     (dict(overlap="pipelined"), NotImplementedError),
     (dict(aggregator="gossip"), NotImplementedError),
     (dict(sync="local"), NotImplementedError),
-    (dict(momentum_correction=0.9, **QSGD, wire_format="compressed"), NotImplementedError),
-    (dict(**QSGD), NotImplementedError),  # gather+decompress reduce: not ported
+    (dict(warmup_steps=10, **QSGD, wire_format="compressed"), NotImplementedError),
+    (dict(compressor="terngrad_kernel", wire_format="compressed"), KeyError),  # unregistered
     (dict(wire_format="compressed"), NotImplementedError),  # bf16 wire: not ported
-    (dict(error_feedback=True), NotImplementedError),  # EF on the dense wire
+    (dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
+     NotImplementedError),
+    (dict(per_tensor_rules=[("embed", "terngrad_kernel", {})]), KeyError),
 ])
 def test_validate_rejects_unported_cells(kw, err):
     with pytest.raises(err):
         validate(CommConfig(**kw))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(momentum_correction=0.9, **QSGD, wire_format="compressed"),
+    dict(**QSGD),  # gather-and-decompress on the dense wire
+    dict(error_feedback=True),  # EF on the dense wire (a zero residual)
+    dict(compressor="signsgd_packed", wire_format="compressed", error_feedback=True,
+         ef_decay=0.9, local_clip=1.0),
+    dict(compressor="signsgd", wire_format="compressed"),
+    dict(compressor="signsgd"),  # int8 majority on the dense wire
+    dict(compressor="signsgd_packed", error_feedback=True),
+])
+def test_validate_accepts_ported_cells(kw):
+    validate(CommConfig(**kw))
+
+
+@pytest.mark.parametrize("mode", ["sum", "powersgd"])
+def test_unported_reductions_raise(mode):
+    comp = get_compressor("signsgd", reduce_mode=mode)
+    with pytest.raises(NotImplementedError, match=mode):
+        aggregate.bucket_route(CommConfig(compressor="signsgd"), comp)
+
+
 def test_qsgd_kernel_levels_bound():
     with pytest.raises(ValueError, match="int8"):
         get_compressor("qsgd_kernel", levels=200).runtime_params()
     assert get_compressor("qsgd_kernel", levels=16).wire_bits(1000) == 1000 * 5 + 32
+
+
+# ---------------------------------------------------------------------------
+# A W=4 round against the reference's own aggregate_buckets under jax.vmap.
+# ---------------------------------------------------------------------------
+
+PACKED = dict(compressor="signsgd_packed")
+SIGN = dict(compressor="signsgd")
+VMAP_CELLS = {
+    "packed-cwire-ef1": dict(wire_format="compressed", error_feedback=True, **PACKED),
+    "packed-cwire-ef0.9": dict(wire_format="compressed", error_feedback=True, ef_decay=0.9,
+                               **PACKED),
+    "packed-cwire": dict(wire_format="compressed", **PACKED),
+    "sign-cwire": dict(wire_format="compressed", **SIGN),
+    "packed-dense": dict(**PACKED),
+    "sign-dense": dict(**SIGN),
+    "qsgd-dense-ef": dict(error_feedback=True, **QSGD),
+    "packed-cwire-ef-mom-clip": dict(wire_format="compressed", error_feedback=True,
+                                     momentum_correction=0.9, local_clip=1.0, **PACKED),
+}
+
+
+def _vmap_inputs(step):
+    """Gradients with planted +-0.0, and 2-2 sign splits across the W=4
+    workers (majority ties) at every fifth element."""
+    out = []
+    for g in _round_inputs(100 + step):
+        g[2, ::5], g[3, ::5] = -g[0, ::5], -g[1, ::5]
+        g[:, ::97] = 0.0
+        g[1, ::89] = -0.0
+        out.append(g)
+    return out
+
+
+def _key_noise(step, w, i, n):
+    """The reference's draw for worker w, bucket i under key(step)."""
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.key(step), w), i)
+    return torch.from_numpy(np.array(jax.random.uniform(key, (n,))))
+
+
+def _records(log):
+    return [(r.kind, r.payload_bytes, r.n_workers, r.tag, r.wire_format) for r in log.records]
+
+
+@pytest.mark.parametrize("cell", list(VMAP_CELLS))
+def test_round_matches_reference_aggregate_under_vmap(cell):
+    kw = VMAP_CELLS[cell]
+    comm, jcomm = CommConfig(**kw), JCommConfig(**kw)
+    validate(comm)
+    shapes = {k: torch.empty(s) for k, s in SHAPES.items()}
+    plan = aggregate.make_bucket_plan(comm, shapes)
+    jplan = jagg.make_bucket_plan(jcomm, {k: jnp.zeros(s) for k, s in SHAPES.items()})
+    state = aggregate.init_comm_state(comm, plan, W, "cpu")
+    jstate = jax.tree.map(lambda x: jnp.broadcast_to(x, (W,) + x.shape),
+                          jagg.init_comm_state(jcomm, jplan))
+    run = jax.jit(jax.vmap(lambda b, st, key: jagg.aggregate_buckets(jcomm, jplan, b, st, key,
+                                                                     ("data",)),
+                           axis_name="data", in_axes=(0, 0, None)))
+    qsgd = kw["compressor"] == "qsgd_kernel"
+    for step in range(2):  # the second round starts from non-zero residuals
+        bufs = _vmap_inputs(step)
+        with comms.capture() as log:
+            got, state = aggregate.aggregate_buckets(
+                comm, plan, [torch.from_numpy(b) for b in bufs], state, _key_noise)
+        with jcomms.capture() as jlog:
+            want, jstate = run([jnp.asarray(b) for b in bufs], jstate, jax.random.key(step))
+        if step == 0:  # the reference books while tracing, on the first call
+            assert _records(log) == _records(jlog)
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            assert (w == w[0]).all()  # every worker holds the same aggregate
+            if qsgd:  # signed decodes cancel: atol of the largest element
+                np.testing.assert_allclose(g.numpy(), w[0], rtol=1e-6,
+                                           atol=1e-6 * np.abs(w).max())
+            else:  # sign outputs are exact
+                np.testing.assert_array_equal(g.numpy(), w[0])
+        for k in ("ef", "u"):
+            assert (k in state) == (k in jstate)
+            for e, je in zip(state.get(k, []), jstate.get(k, [])):
+                je = np.asarray(je)
+                # atol 1e-6 of the operands' scale: under jit XLA contracts
+                # e*decay + g (and m*u + g) into one FMA, so a may differ by
+                # an ulp, and e = a - C(a) cancels; a sign decode is +-1, so
+                # a is of order 1 + |e| there
+                scale = np.abs(je).max() + (1.0 if k == "ef" and not qsgd else 0.0)
+                np.testing.assert_allclose(e.numpy(), je, rtol=1e-6, atol=1e-6 * scale)
+    assert state["step"] == 2 == int(jstate["step"][0])
+
+
+def test_majority_vote_breaks_ties_to_plus_one():
+    """Two workers vote +1 and two vote -1 at every element: both majority
+    reductions (int8 psum on the dense wire, packed vote on the compressed
+    wire) resolve every tie to +1, as the reference does."""
+    g = np.ones((W, 9000), np.float32)
+    g[2:] = -1.0
+    for wire in ("dense", "compressed"):
+        comm = CommConfig(compressor="signsgd", wire_format=wire)
+        plan = aggregate.make_bucket_plan(comm, {"d": torch.empty(9000)})
+        got, _ = aggregate.aggregate_buckets(comm, plan, [torch.from_numpy(g)],
+                                             aggregate.init_comm_state(comm, plan, W, "cpu"),
+                                             _key_noise)
+        assert torch.equal(got[0], torch.ones(9000))
+
+
+def test_sign_wire_books_packed_payload():
+    """A 1000-element bucket on the compressed sign wire books one all-gather
+    of the padded 1024-byte tile as packed1; on the dense wire the same
+    payload books as int8; signsgd on the dense wire books an int8 psum."""
+    bufs = [torch.from_numpy(_vmap_inputs(0)[0])]
+    want = {("compressed", "signsgd_packed"): ("all_gather", 1024, "packed1"),
+            ("dense", "signsgd_packed"): ("all_gather", 1024, "int8"),
+            ("dense", "signsgd"): ("psum", 1000, "int8")}
+    for (wire, name), rec in want.items():
+        comm = CommConfig(compressor=name, wire_format=wire)
+        plan = aggregate.make_bucket_plan(comm, {"a": torch.empty(1000)})
+        with comms.capture() as log:
+            aggregate.aggregate_buckets(comm, plan, bufs,
+                                        aggregate.init_comm_state(comm, plan, W, "cpu"),
+                                        _key_noise)
+        assert [(r.kind, r.payload_bytes, r.wire_format) for r in log.records] == [rec]

@@ -7,6 +7,9 @@ Tolerances: codes are bitwise equal where both sides see the same scalars
 different orders, so codes are compared only where the dither draw is more
 than 1e-5 away from its threshold.  The residual e' and int8_acc keep the
 reference's own tolerances (tests/test_kernels.py, test_wire_formats.py).
+The 1-bit sign wire is exact: packed bytes (pads included), unpacked
+values and votes with 0/1 weights bitwise; votes with general weights
+within rtol 1e-6 (the two sides may add the W terms in other orders).
 """
 
 import jax
@@ -18,6 +21,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import qsgd as jqsgd
 from repro.kernels import qsgd_ef as jqsgd_ef
+from repro.kernels import sign_pack as jsign
+from repro.kernels import wire_reduce as jwire
 from repro_torch.kernels import ops, ref
 
 SIZES = [100, 1000, 32768, 100_003]
@@ -166,7 +171,11 @@ def test_cpu_tensors_take_the_plain_path():
     ops.qsgd_quantize(_t(x), _t(u), 16)
     ops.qsgd_ef_fused(_t(x), _t(x), _t(u), 16, 1.0)
     ops.int8_weighted_sum(torch.zeros((2, 10), dtype=torch.int8), torch.ones(2))
-    assert ops.LAUNCHES == {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0}
+    packed = ops.sign_pack(_t(x))
+    ops.sign_unpack(packed, 1000)
+    ops.sign_vote(torch.stack([packed, packed]), torch.ones(2), 1000)
+    assert ops.LAUNCHES == {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
+                            "sign_unpack": 0, "sign_vote": 0}
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -175,6 +184,20 @@ def test_wrapper_rejects_bad_inputs():
         ops.qsgd_codes_into(x, torch.zeros(9), torch.ones(()), 16, torch.empty(10, dtype=torch.int8))
     with pytest.raises(ValueError):
         ops.int8_weighted_sum(torch.zeros((2, 10), dtype=torch.int8), torch.ones(3))
+
+
+def test_sign_wrappers_reject_bad_inputs():
+    x = torch.zeros(2000)
+    with pytest.raises(ValueError, match="packed"):  # one byte short of the padded payload
+        ops.sign_pack(x, out=torch.empty(1023, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="on cpu"):  # output on another device
+        ops.sign_pack(x, out=torch.empty(1024, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="packed"):  # 128 bytes cover 1024 elements only
+        ops.sign_unpack(torch.zeros(128, dtype=torch.uint8), 1025)
+    with pytest.raises(ValueError, match="packed"):
+        ops.sign_vote(torch.zeros((2, 1024), dtype=torch.int8), torch.ones(2), 10)
+    with pytest.raises(ValueError, match="weights"):
+        ops.sign_vote(torch.zeros((2, 1024), dtype=torch.uint8), torch.ones(3), 10)
 
 
 @pytest.mark.parametrize("bad", ["u", "inv", "inv_size", "e_out"])
@@ -194,6 +217,101 @@ def test_wrapper_rejects_tensors_off_the_launch_device(bad):
     if bad in ("u", "inv", "inv_size"):
         with pytest.raises(ValueError):
             ops.qsgd_codes_into(args["g"], args["u"], args["inv"], 16.0, args["codes"])
+
+
+# ---------------------------------------------------------------------------
+# The 1-bit sign wire: plain versions against the Pallas kernels and the
+# reference's flat API.
+# ---------------------------------------------------------------------------
+
+
+def _signs(n, seed):
+    """Normal draws with +0.0, -0.0 and NaN planted (x >= 0: 1, 1, 0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    x[::7] = 0.0
+    x[3::11] = -0.0
+    x[5::101] = np.nan
+    return x
+
+
+def _votes_data(n, n_w, seed):
+    """W packed rows with 2-2 ties at W = 4: rows 2 and 3 negate rows 0 and 1."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n_w, n)).astype(np.float32)
+    x[2:4] = -x[0:2]
+    return x
+
+
+@pytest.mark.parametrize("rows", [8, 24])
+def test_sign_pack_plain_matches_pallas_3d(rows):
+    x = _signs(rows * 1024, rows)
+    want = jsign.sign_pack_3d(jnp.asarray(x.reshape(rows, 8, 128)), interpret=True)
+    got = ops.sign_pack(_t(x))  # rows * 1024 elements: no pad unless rows % 8
+    want = np.asarray(want).reshape(-1)
+    np.testing.assert_array_equal(got.numpy()[:want.size], want)
+
+
+@pytest.mark.parametrize("rows", [8, 24])
+def test_sign_unpack_plain_matches_pallas_3d(rows):
+    packed = np.random.default_rng(rows).integers(0, 256, rows * 128).astype(np.uint8)
+    want = jsign.sign_unpack_3d(jnp.asarray(packed.reshape(rows, 128)), interpret=True)
+    got = ops.sign_unpack(_t(packed), rows * 1024)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).reshape(-1))
+
+
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("n_w", [3, 4])
+def test_sign_vote_plain_matches_pallas_3d(n_w, general):
+    rows = 16
+    packed = np.random.default_rng(n_w).integers(0, 256, (n_w, rows * 128)).astype(np.uint8)
+    packed[2 % n_w] = packed[0] ^ 0xFF  # opposite votes: ties at W = 4
+    w = (np.linspace(0.3, 2.1, n_w) if general else np.asarray([1, 0, 1, 1][:n_w])
+         ).astype(np.float32)
+    want = jwire.sign_vote_3d(jnp.asarray(packed.reshape(n_w, rows, 128)),
+                              jnp.asarray(np.broadcast_to(w[:, None], (n_w, 128))),
+                              interpret=True)
+    got = ops.sign_vote(_t(packed), _t(w), rows * 1024).numpy()
+    want = np.asarray(want).reshape(-1)
+    if general:
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_sign_pack_and_unpack_match_reference(n):
+    x = _signs(n, n)
+    want = np.asarray(jops.sign_pack(jnp.asarray(x)))
+    got = ops.sign_pack(_t(x)).numpy()
+    assert got.size == want.size == ops.sign_packed_bytes(n)
+    np.testing.assert_array_equal(got, want)  # pad bytes included
+    np.testing.assert_array_equal(ops.sign_unpack(_t(got), n).numpy(),
+                                  np.asarray(jops.sign_unpack(jnp.asarray(want), n)))
+
+
+def test_sign_pack_writes_into_a_stack_row():
+    x = _signs(1000, 1)
+    stack = torch.zeros((3, 1024), dtype=torch.uint8)
+    out = ops.sign_pack(_t(x), out=stack[1])
+    assert out.data_ptr() == stack[1].data_ptr()
+    np.testing.assert_array_equal(stack[1].numpy(), np.asarray(jops.sign_pack(jnp.asarray(x))))
+    assert not stack[0].any() and not stack[2].any()
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("general", [False, True])
+def test_sign_vote_matches_reference(n, general):
+    x = _votes_data(n, 4, n)
+    packed = np.stack([np.asarray(jops.sign_pack(jnp.asarray(r))) for r in x])
+    w = np.asarray([0.25, 1.5, 0.75, 2.0] if general else [1, 1, 1, 1], np.float32)
+    want = np.asarray(jops.sign_vote(jnp.asarray(packed), jnp.asarray(w), n=n))
+    got = ops.sign_vote(_t(packed), _t(w), n).numpy()
+    if general:
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+        assert (want == 0).any()  # 2-2 ties are in the data
 
 
 # ---------------------------------------------------------------------------
@@ -243,3 +361,36 @@ def test_int8_acc_kernel_matches_plain_on_card(cuda, n_w, n, ld):
     got = ops.int8_weighted_sum(codes, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.int8_acc(codes, w), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (8192, 1), (37, 0)])
+def test_sign_pack_unpack_kernels_match_plain_on_card(cuda, n, offset):
+    x = _t(_signs(n + offset, n)).to(cuda)[offset:]  # offset 1: unaligned scalar path
+    before = dict(ops.LAUNCHES)
+    packed = ops.sign_pack(x)
+    values = ops.sign_unpack(packed, n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sign_pack"] == before["sign_pack"] + 1
+    assert ops.LAUNCHES["sign_unpack"] == before["sign_unpack"] + 1
+    want = ref.sign_pack(x, ops.sign_packed_bytes(n))
+    assert torch.equal(packed, want)  # pad bytes included
+    assert torch.equal(values, ref.sign_unpack(want, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ld", [(100_003, 13 * 1024), (37, 1024), (5000, 1028)])
+@pytest.mark.parametrize("general", [False, True])
+def test_sign_vote_kernel_matches_plain_on_card(cuda, n, ld, general):
+    rng = np.random.default_rng(n)
+    nbytes = ops.sign_packed_bytes(n)
+    stack = _t(rng.integers(0, 256, (4, ld)).astype(np.uint8)).to(cuda)[:, :nbytes]
+    stack[2] = stack[0] ^ 0xFF  # ties
+    w = torch.tensor([0.25, 1.5, 0.75, 2.0] if general else [1.0, 0.0, 1.0, 1.0], device=cuda)
+    got = ops.sign_vote(stack, w, n)
+    torch.cuda.synchronize()
+    want = ref.sign_vote(stack, w, n)
+    if general:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    else:
+        assert torch.equal(got, want)

@@ -1,6 +1,8 @@
-"""The port's slice end to end: the BSP trainer step with QSGD over the
-int8 compressed wire, with and without error feedback, against the JAX
-package's ``run_trainer_scenario`` on the tiny workload.
+"""The port's slices end to end: the BSP trainer step with QSGD over the
+int8 compressed wire, with and without error feedback, and with the 1-bit
+sign compressors (``signsgd_packed`` with and without error feedback,
+``signsgd``'s majority vote, on the compressed and the dense wire),
+against the JAX package's ``run_trainer_scenario`` on the tiny workload.
 
 Both sides start from the reference's ``init_params(cfg, key(0), 1)`` (what
 ``Trainer.init()`` draws), use ``momentum_sgd(0.0)`` and ``constant(lr)``,
@@ -93,6 +95,23 @@ def test_slice_loss_series_matches_reference(error_feedback):
     assert bundle.wire["train"]["grad_agg"] == 0.0 == ref.measured["wire_kb_per_step"]
 
 
+SIGN_CELLS = {
+    "packed-cwire-ef": dict(compressor="signsgd_packed", wire_format="compressed",
+                            error_feedback=True),
+    "packed-cwire": dict(compressor="signsgd_packed", wire_format="compressed"),
+    "sign-cwire": dict(compressor="signsgd", wire_format="compressed"),
+    "packed-dense": dict(compressor="signsgd_packed", wire_format="dense"),
+}
+
+
+@pytest.mark.parametrize("cell", list(SIGN_CELLS))
+def test_sign_slice_loss_series_matches_reference(cell):
+    kw = SIGN_CELLS[cell]
+    ref = run_trainer_scenario(Scenario(**kw, **BASE), data_par=1)
+    _, losses = _port_run(CommConfig(**kw, bucket_mb=4.0))
+    np.testing.assert_allclose(losses, ref.series["loss_full"], rtol=1e-4)
+
+
 def test_slice_books_int8_wire_per_worker():
     """At W=2 each step books the int8 codes and one f32 norm per bucket:
     all-gather p(n-1) with n = 2."""
@@ -102,6 +121,19 @@ def test_slice_books_int8_wire_per_worker():
     sizes = [b.size for b in bundle.bucket_plan.buckets]
     assert bundle.wire["train"]["grad_agg"] == sum(sizes) + 4 * len(sizes)
     assert bundle.wire["train_formats"]["int8"] == sum(sizes)
+    assert np.isfinite(losses).all()
+
+
+def test_slice_books_packed1_wire_per_worker():
+    """At W=2 the compressed sign wire books one all-gather of each bucket's
+    padded bitmap (ceil(n/8192)*1024 bytes) as packed1, and nothing else
+    for the gradients (the f32 bytes are the loss metrics' mean)."""
+    comm = CommConfig(compressor="signsgd_packed", error_feedback=True,
+                      wire_format="compressed")
+    bundle, losses = _port_run(comm, n_workers=2, steps=1)
+    packed = sum(ops.sign_packed_bytes(b.size) for b in bundle.bucket_plan.buckets)
+    assert bundle.wire["train"]["grad_agg"] == packed
+    assert bundle.wire["train_formats"]["packed1"] == packed
     assert np.isfinite(losses).all()
 
 
@@ -135,3 +167,22 @@ def test_slice_on_card_launches_every_kernel(cuda):
             assert ops.LAUNCHES[k] == 3, (k, ops.LAUNCHES)
         _, on_cpu = _port_run(comm, noise=_jax_noise(0))
         np.testing.assert_allclose(on_card, on_cpu, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell,kernels", [
+    ("packed-cwire-ef", ("sign_pack", "sign_vote")),
+    ("sign-cwire", ("sign_pack", "sign_vote")),
+    ("packed-dense", ("sign_pack", "sign_unpack")),
+])
+def test_sign_slice_on_card_launches_every_kernel(cuda, cell, kernels):
+    """The sign paths on the card at W=2 (so the wire carries two rows),
+    through the hand-written kernels; the losses stay close to the CPU plain
+    path's (other sum orders in the model, so rtol 1e-3)."""
+    comm = CommConfig(**SIGN_CELLS[cell], bucket_mb=4.0)
+    ops.reset_launches()
+    _, on_card = _port_run(comm, device=cuda, n_workers=2)
+    for k in kernels:
+        assert ops.LAUNCHES[k] > 0, (k, ops.LAUNCHES)
+    _, on_cpu = _port_run(comm, n_workers=2)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-3)
