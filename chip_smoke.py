@@ -15,17 +15,25 @@ result line:
    in place, as the trainer calls it), int8_acc rtol 1e-6 / atol 1e-5;
    sign_pack bytes (pads included) and sign_unpack values bitwise on inputs
    holding +-0.0 and NaN, sign_vote bitwise with 0/1 weights and rtol 1e-6
-   with general ones; each timed with CUDA events beside its byte bound;
+   with general ones; terngrad codes bitwise on an input holding +-0.0 and
+   noise equal to p, tern_pack bytes (pads included) bitwise on int8 codes
+   with values outside {-1, 0, 1}, tern_acc on random bytes (crumb 2
+   included) bitwise with 0/1 weights and rtol 1e-6 with general ones; each
+   timed with CUDA events beside its byte bound;
 4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
    weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
-   global batch 8, five paths: QSGD (16 levels) on the int8 compressed wire
+   global batch 8, eight paths: QSGD (16 levels) on the int8 compressed wire
    with error feedback (kernels qsgd_ef + int8_acc) and without (qsgd +
    int8_acc); signsgd_packed on the 1-bit compressed wire with error
    feedback (sign_pack + sign_vote); signsgd's majority vote on the 1-bit
    compressed wire (sign_pack + sign_vote); signsgd_packed on the dense wire,
-   gather-and-decompress (sign_pack + sign_unpack).  Each path prints its
+   gather-and-decompress (sign_pack + sign_unpack); terngrad_kernel on the
+   2-bit compressed wire with error feedback (terngrad + tern_pack +
+   tern_acc); terngrad (clip 2.5 sigma, plain codes as in the reference) on
+   the 2-bit compressed wire (tern_pack + tern_acc); terngrad_kernel on the
+   dense wire, gather-and-decompress (terngrad).  Each path prints its
    losses (finite), step ms, booked wire KB per step and peak memory, and
-   the launch counts of its kernels, which must rise.  ``--profile`` adds
+   the launch counts of its kernels: exactly its own kernels must launch.  ``--profile`` adds
    one QSGD EF step under torch.profiler (device-busy share, device time by
    kernel, host time by operation), not counted as launches.
 
@@ -91,6 +99,18 @@ KERNELS = {
                       replaces="src/repro/kernels/wire_reduce.py:45",
                       bytes=lambda n, w: w * ops.sign_packed_bytes(n) + 4 * n + 4 * w,
                       ops=lambda n, w: w * n),
+    # the 2-bit wire: padded payload bytes (ceil(n/4096)*1024) per row
+    "terngrad": dict(source="src/repro_torch/kernels/csrc/terngrad.cu",
+                     replaces="src/repro/kernels/terngrad.py:25",
+                     bytes=lambda n, w: 9 * n, ops=lambda n, w: 3 * n),
+    "tern_pack": dict(source="src/repro_torch/kernels/csrc/tern_pack.cu",
+                      replaces="src/repro/kernels/wire_reduce.py:72",
+                      bytes=lambda n, w: n + ops.tern_packed_bytes(n),
+                      ops=lambda n, w: 2 * n),
+    "tern_acc": dict(source="src/repro_torch/kernels/csrc/tern_acc.cu",
+                     replaces="src/repro/kernels/wire_reduce.py:97",
+                     bytes=lambda n, w: w * ops.tern_packed_bytes(n) + 4 * n + 4 * w,
+                     ops=lambda n, w: 2 * w * n),
 }
 #: why a kernel's row has library_ms null
 NO_LIBRARY = {
@@ -100,6 +120,9 @@ NO_LIBRARY = {
     "sign_pack": "no single PyTorch call packs bits",
     "sign_unpack": "no single PyTorch call unpacks bits",
     "sign_vote": "no single PyTorch call unpacks and sums bits",
+    "terngrad": "no PyTorch call quantizes with a dither",
+    "tern_pack": "no single PyTorch call packs 2-bit crumbs",
+    "tern_acc": "no single PyTorch call unpacks and sums 2-bit crumbs",
 }
 
 
@@ -249,6 +272,68 @@ def check_sign_kernels(n: int, timed: bool) -> dict[str, dict]:
     return out
 
 
+def check_tern_kernels(n: int, timed: bool) -> dict[str, dict]:
+    """The three 2-bit kernels against their plain versions at n elements
+    (W rows for tern_acc): codes bitwise on an input holding +0.0 and -0.0
+    and noise equal to p = |x| * inv at every 13th element (u < p is
+    strict); packed bytes (pads included) bitwise on int8 codes holding
+    values outside {-1, 0, 1}; accumulated sums over random bytes (every
+    crumb value, 2 included) bitwise with 0/1 weights and within rtol 1e-6
+    with general weights."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(n + 2)
+    x = torch.randn(n, generator=gen, device=DEV) * 0.1
+    x[::97] = 0.0
+    x[3::89] = -0.0
+    u = torch.rand(n, generator=gen, device=DEV)
+    inv = torch.reciprocal(torch.clamp_min(torch.max(torch.abs(x)), 1e-30))
+    u[5::13] = torch.abs(x[5::13]) * inv
+    out: dict[str, dict] = {}
+
+    codes = torch.empty(n, dtype=torch.int8, device=DEV)
+    run_t = lambda: ops.terngrad_codes_into(x, u, inv, codes)  # noqa: E731
+    run_t()
+    plain = ref.terngrad_codes(x, u, inv)
+    err = int((codes.int() - plain.int()).abs().max())
+    out["terngrad"] = {"max_abs_err": float(err), "ok": err == 0,
+                       "detail": f"codes differ at {int((codes != plain).sum())} elements"}
+    if timed:
+        out["terngrad"].update(ms=ms_per_call(run_t, 20),
+                               plain_ms=ms_per_call(lambda: ref.terngrad_codes(x, u, inv), 5))
+    del x, u, plain, codes
+
+    t = torch.randint(-3, 4, (n,), generator=gen, device=DEV, dtype=torch.int32).to(torch.int8)
+    nbytes = ops.tern_packed_bytes(n)
+    packed = ops.tern_pack(t)
+    plain = ref.tern_pack(t, nbytes)
+    diff = int((packed.int() - plain.int()).abs().max())
+    out["tern_pack"] = {"max_abs_err": float(diff), "ok": torch.equal(packed, plain),
+                        "detail": f"bytes differ at {int((packed != plain).sum())} of {nbytes}"}
+    if timed:
+        out["tern_pack"].update(ms=ms_per_call(lambda: ops.tern_pack(t, out=packed), 20),
+                                plain_ms=ms_per_call(lambda: ref.tern_pack(t, nbytes), 5))
+    del t, packed, plain
+
+    stack = torch.randint(0, 256, (W, nbytes), generator=gen, device=DEV,
+                          dtype=torch.int32).to(torch.uint8)
+    ok, err = True, 0.0
+    for wts in ([1.0, 1.0, 1.0, 1.0], [1.0, 0.0, 1.0, 1.0]):
+        wts = torch.tensor(wts, device=DEV)
+        got, want = ops.tern_acc(stack, wts, n), ref.tern_acc(stack, wts, n)
+        ok &= torch.equal(got, want)
+        err = max(err, float((got - want).abs().max()))
+    general = torch.rand(W, generator=gen, device=DEV) * 0.01
+    got, want = ops.tern_acc(stack, general, n), ref.tern_acc(stack, general, n)
+    close = _close(got, want, rtol=1e-6, atol=0.0)
+    out["tern_acc"] = {"max_abs_err": max(err, float((got - want).abs().max())),
+                       "ok": ok and close,
+                       "detail": f"0/1 weights bitwise {ok}, general within rtol 1e-6 {close}"}
+    if timed:
+        out["tern_acc"].update(ms=ms_per_call(lambda: ops.tern_acc(stack, general, n), 20),
+                               plain_ms=ms_per_call(lambda: ref.tern_acc(stack, general, n), 5))
+    return out
+
+
 def require(results: dict[str, dict], n: int) -> None:
     bad = {k: r["detail"] for k, r in results.items() if not r["ok"]}
     if bad:
@@ -259,7 +344,8 @@ QSGD16 = dict(compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
               wire_format="compressed")
 # signSGD moves every weight by about lr per step: a sign-sized rate
 SIGN_LR = 1e-4
-#: (label, CommConfig fields, steps, lr, kernels the path must launch)
+#: (label, CommConfig fields, steps, lr, kernels the path must launch; every
+#: other kernel must not launch on it)
 PATHS = (
     ("qsgd ef", dict(error_feedback=True, **QSGD16), 3, 0.01, ("qsgd_ef", "int8_acc")),
     ("qsgd", dict(**QSGD16), 2, 0.01, ("qsgd", "int8_acc")),
@@ -270,6 +356,15 @@ PATHS = (
      SIGN_LR, ("sign_pack", "sign_vote")),
     ("signsgd_packed dense", dict(compressor="signsgd_packed", wire_format="dense"), 2,
      SIGN_LR, ("sign_pack", "sign_unpack")),
+    ("terngrad_kernel cwire ef", dict(compressor="terngrad_kernel", wire_format="compressed",
+                                      error_feedback=True), 2, 0.01,
+     ("terngrad", "tern_pack", "tern_acc")),
+    # the twin computes its codes in plain PyTorch, as the reference does in jnp
+    ("terngrad cwire clip", dict(compressor="terngrad", compressor_kwargs={"clip_sigma": 2.5},
+                                 wire_format="compressed"), 2, 0.01,
+     ("tern_pack", "tern_acc")),
+    ("terngrad_kernel dense", dict(compressor="terngrad_kernel", wire_format="dense"), 2, 0.01,
+     ("terngrad",)),
 )
 
 
@@ -371,11 +466,12 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    small = {**check_kernels(100_003, timed=False), **check_sign_kernels(100_003, timed=False)}
+    checks = (check_kernels, check_sign_kernels, check_tern_kernels)
+    small = {k: v for check in checks for k, v in check(100_003, timed=False).items()}
     require(small, 100_003)
-    print("kernels at n=100003: codes, sign bytes, values and 0/1 votes bitwise; e', "
-          "int8_acc and general votes within tolerance")
-    big = {**check_kernels(LARGEST, timed=True), **check_sign_kernels(LARGEST, timed=True)}
+    print("kernels at n=100003: codes, packed bytes, values and 0/1-weight sums bitwise; "
+          "e', int8_acc and general-weight sums within tolerance")
+    big = {k: v for check in checks for k, v in check(LARGEST, timed=True).items()}
     require(big, LARGEST)
     rows = []
     for name, r in big.items():
@@ -392,9 +488,9 @@ def main() -> None:
     for label, comm_kw, steps, lr, path_kernels in PATHS:
         got = run_trainer(label, comm_kw, steps, lr,
                           profile_step=profile and comm_kw is PATHS[0][1])
-        for k in path_kernels:
-            if got[k] <= 0:
-                raise AssertionError(f"path {label}: kernel {k} was never launched: {got}")
+        for k, v in got.items():
+            if (v > 0) != (k in path_kernels):
+                raise AssertionError(f"path {label}: must launch exactly {path_kernels}: {got}")
         for k, v in got.items():
             launches[k] += v
     for row in rows:

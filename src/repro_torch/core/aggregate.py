@@ -26,6 +26,10 @@ arguments stay out):
   ``qsgd`` then ``int8_acc``);
 * ``sign``: the 1-bit compressed wire (``signsgd_packed``'s mean of votes,
   ``signsgd``'s majority): kernels ``sign_pack`` then ``sign_vote``;
+* ``tern``: the 2-bit compressed wire (``terngrad_kernel``, ``terngrad``):
+  ternary codes (kernel ``terngrad`` for ``terngrad_kernel``; plain for
+  ``terngrad``, as in the reference), kernels ``tern_pack`` then
+  ``tern_acc`` with each worker's scale as its weight;
 * ``majority``: ``signsgd`` on the dense wire: a booked int8 psum of the
   signs, ties to +1;
 * ``gather``: ``reduce_mode="none"`` on the dense wire: every payload leaf
@@ -33,7 +37,7 @@ arguments stay out):
   (``signsgd_packed`` decodes with kernel ``sign_unpack``).
 
 The ``sum`` and ``powersgd`` reductions, sparse ``(values, indices)``
-payloads, the ternary and bf16 wires raise ``NotImplementedError``.
+payloads and the bf16 wire raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -215,6 +219,8 @@ def bucket_route(comm: CommConfig, comp) -> str:
             return "int8_acc"
         if wr in ("sign_acc", "sign_vote"):
             return "sign"
+        if wr == "tern_acc":
+            return "tern"
         raise NotImplementedError(f"the {wr!r} compressed-wire reduction of {comp.name!r} "
                                   "is not ported")
     mode = comp.reduce_mode
@@ -242,10 +248,11 @@ class AggregationRound:
         nb = len(plan.buckets)
         #: dense f32 sums (``dense``) or int8 vote sums (``majority``)
         self._sums: list[torch.Tensor | None] = [None] * nb
-        #: (W, ...) wire stacks: int8 codes (``fused_ef``, ``int8_acc``) or
-        #: packed sign bytes (``sign``)
+        #: (W, ...) wire stacks: int8 codes (``fused_ef``, ``int8_acc``),
+        #: packed sign bytes (``sign``) or packed ternary bytes (``tern``)
         self._stacks: list[torch.Tensor | None] = [None] * nb
-        self._norms: list[torch.Tensor | None] = [None] * nb
+        #: (W,) per-worker f32 scalars: QSGD norms or ternary scales
+        self._scales: list[torch.Tensor | None] = [None] * nb
         #: per-worker payloads of the ``gather`` route, in worker order
         self._payloads: list[list[dict[str, torch.Tensor]]] = [[] for _ in range(nb)]
 
@@ -254,10 +261,10 @@ class AggregationRound:
             self._stacks[i] = _wire_stack(self.n_workers, n, self.device, dtype)
         return self._stacks[i]
 
-    def _set_norm(self, i: int, w: int, norm: torch.Tensor) -> None:
-        if self._norms[i] is None:
-            self._norms[i] = torch.empty(self.n_workers, dtype=f32, device=self.device)
-        self._norms[i][w] = norm[0]
+    def _set_scale(self, i: int, w: int, scale: torch.Tensor) -> None:
+        if self._scales[i] is None:
+            self._scales[i] = torch.empty(self.n_workers, dtype=f32, device=self.device)
+        self._scales[i][w] = scale[0]
 
     def _accumulate(self, i: int, v: torch.Tensor) -> None:
         if self._sums[i] is None:
@@ -281,7 +288,7 @@ class AggregationRound:
                 c, _ = comp.compress_ef_p(u, g, e, knobs, comm.ef_decay,
                                           out={"code": self._stack(i, b.size, torch.int8)[w],
                                                "e": e})
-                self._set_norm(i, w, c.payload["norm"])
+                self._set_scale(i, w, c.payload["norm"])
                 continue
             a = feedback.pre_compress(comm, g, self.state, i, w, W)
             a_hat = None
@@ -296,7 +303,14 @@ class AggregationRound:
             elif route == "int8_acc":
                 c = compress_p(comp, u, a, knobs,
                                out={"code": self._stack(i, b.size, torch.int8)[w]})
-                self._set_norm(i, w, c.payload["norm"])
+                self._set_scale(i, w, c.payload["norm"])
+                if comm.error_feedback:
+                    a_hat = decompress_p(comp, c, knobs)
+            elif route == "tern":
+                c = compress_p(comp, u, a, knobs)
+                ops.tern_pack(c.payload["tern"], out=self._stack(
+                    i, ops.tern_packed_bytes(b.size), torch.uint8)[w])
+                self._set_scale(i, w, c.payload["scale"])
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
             else:  # majority, gather
@@ -326,7 +340,7 @@ class AggregationRound:
                     # _int8_code_reduce: codes at wire width, decode scale
                     # norm_w / levels folded into each worker's weight
                     cg = comms.all_gather_compressed({"code": self._stacks[i]})["code"]
-                    ng = comms.all_gather(self._norms[i].reshape(W, 1)).reshape(-1)
+                    ng = comms.all_gather(self._scales[i].reshape(W, 1)).reshape(-1)
                     sg = torch.full((), self.knobs[i]["levels"], dtype=f32, device=self.device)
                     out.append(ops.int8_weighted_sum(cg, ng / sg) / denom)
                 elif route == "sign":
@@ -338,6 +352,13 @@ class AggregationRound:
                         out.append(torch.where(votes >= 0, 1.0, -1.0))
                     else:  # mean of +-1 votes
                         out.append(votes / denom)
+                elif route == "tern":
+                    # the packed 2-bit rows, then the f32 scales, each worker's
+                    # scale its weight in one decode-and-accumulate pass
+                    with comms.wire_format("packed2"):
+                        pg = comms.all_gather(self._stacks[i])
+                    sg = comms.all_gather(self._scales[i].reshape(W, 1)).reshape(-1)
+                    out.append(ops.tern_acc(pg, sg, b.size) / denom)
                 elif route == "majority":
                     # int8 vote sum: exact for W <= 127, as the reference's psum
                     comms.book_psum(self._sums[i], W)

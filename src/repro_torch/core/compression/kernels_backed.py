@@ -1,6 +1,6 @@
 """Compressors backed by the port's Hopper kernels (counterpart of
-``repro.core.compression.kernels_backed``; ``qsgd_kernel`` and
-``signsgd_packed`` so far).
+``repro.core.compression.kernels_backed``: ``qsgd_kernel``,
+``terngrad_kernel`` and ``signsgd_packed``).
 
 ``levels`` is a runtime value: it reaches the kernels as a scalar
 argument, so cells that differ only in levels share everything else.
@@ -70,6 +70,29 @@ class QSGDKernel:
 
     def wire_bits(self, n) -> float:
         return n * (math.log2(self.levels) + 1) + 32
+
+
+@register("terngrad_kernel")
+@dataclass
+class TernGradKernel:
+    """TernGrad (Wen et al.) through kernel ``terngrad``: ternary codes
+    ``sign(x) * [u < |x| / max|x|]`` and the scale ``max|x|``."""
+
+    unbiased: bool = True
+    reduce_mode: str = "none"
+    wire_reduce: str = "tern_acc"  # compressed-domain: 2-bit packed wire
+    NEEDS_NOISE = True
+
+    def compress(self, u, x, out=None) -> Compressed:
+        """``out``: optional {"tern": int8 (n,)} buffer for the codes."""
+        tern, smax = ops.terngrad_quantize(x, u, out=(out or {}).get("tern"))
+        return Compressed({"tern": tern, "scale": smax}, x.numel())
+
+    def decompress(self, c) -> torch.Tensor:
+        return c.payload["tern"].to(torch.float32) * c.payload["scale"][0]
+
+    def wire_bits(self, n) -> float:
+        return n * 2.0 + 32
 
 
 @register("signsgd_packed")

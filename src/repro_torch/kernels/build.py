@@ -39,6 +39,9 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "sign_pack": ("sign_pack_launch", (_P, _LL, _P, _LL, _P)),
     "sign_unpack": ("sign_unpack_launch", (_P, _P, _LL, _P)),
     "sign_vote": ("sign_vote_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
+    "terngrad": ("terngrad_launch", (_P, _P, _P, _P, _LL, _P)),
+    "tern_pack": ("tern_pack_launch", (_P, _LL, _P, _LL, _P)),
+    "tern_acc": ("tern_acc_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
 }
 
 

@@ -1,18 +1,20 @@
 """Flat-vector API over the port's kernels (counterpart of
 ``repro.kernels.ops``: ``qsgd_quantize``, ``qsgd_dequantize``,
 ``qsgd_ef_fused``, ``int8_weighted_sum``, ``sign_pack``, ``sign_unpack``,
-``sign_vote``).
+``sign_vote``, ``terngrad_quantize``, ``tern_pack``, ``tern_acc``).
 
-The tensor norm is computed here, outside the kernel, as in the reference;
+The tensor norm and max are computed here, outside the kernels, as in the
+reference;
 ``levels`` and ``decay`` are runtime scalars.  On a CUDA tensor each wrapper
 launches its hand-written kernel (``csrc/*.cu``) on the current stream,
 checks the returned ``cudaGetLastError()`` and counts the launch in
 ``LAUNCHES``; there is no fallback.  Off the card (CPU tensors, or the
 shape-only ``meta`` device the trainer books its wire bytes on) it runs the
 kernel's plain version from ``ref.py``.  No padding to the TPU's
-(rows, 128) tiles for the quantizer: the kernels mask their own tails.  The
-1-bit sign wire keeps the reference's padded payload, ``ceil(n/8192)*1024``
-bytes, byte for byte, so payloads interchange between the packages.
+(rows, 128) tiles for the quantizers: the kernels mask their own tails.
+The packed wires keep the reference's padded payloads byte for byte, so
+payloads interchange between the packages: ``ceil(n/8192)*1024`` bytes for
+the 1-bit sign wire, ``ceil(n/4096)*1024`` for the 2-bit ternary wire.
 """
 
 from __future__ import annotations
@@ -26,11 +28,15 @@ f32 = torch.float32
 
 #: launches per kernel since the last ``reset_launches()``
 LAUNCHES: dict[str, int] = {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
-                            "sign_unpack": 0, "sign_vote": 0}
+                            "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
+                            "tern_pack": 0, "tern_acc": 0}
 
 #: elements per 1024-byte tile of the packed sign wire: the reference packs
 #: (8 rows, 8 bits, 128 lanes) blocks, and pads the last one with +1.0
 SIGN_TILE = 8 * 8 * 128
+#: elements per 1024-byte tile of the packed ternary wire: (8 rows, 4 2-bit
+#: slots, 128 lanes), the last one padded with 0
+TERN_TILE = 8 * 4 * 128
 
 
 def reset_launches() -> None:
@@ -158,9 +164,30 @@ def sign_packed_bytes(n: int) -> int:
     return -(-n // SIGN_TILE) * (SIGN_TILE // 8)
 
 
-def _sign_rows_ok(row_bytes: int, n: int) -> bool:
-    """A packed row covers n elements: whole 128-byte rows, enough of them."""
-    return row_bytes % 128 == 0 and row_bytes >= -(-n // 1024) * 128
+def _rows_ok(row_bytes: int, n: int, per_row: int) -> bool:
+    """A packed row covers n elements: whole 128-byte rows of ``per_row``
+    elements each (1024 for sign bits, 512 for 2-bit crumbs), enough of them."""
+    return row_bytes % 128 == 0 and row_bytes >= -(-n // per_row) * 128
+
+
+def _gathered(packed: torch.Tensor, weights: torch.Tensor, n: int, per_row: int,
+              kernel: str) -> torch.Tensor:
+    """Check a gathered (W, bytes) stack of packed rows and its (W,) weights
+    for ``kernel``; returns the weights as contiguous f32 on the stack's
+    device.  Rows may be padded (``stride(0) >= bytes``); each row must be
+    contiguous."""
+    n_w, row_bytes = packed.shape
+    if packed.dtype != torch.uint8 or packed.stride(1) != 1 or packed.stride(0) < row_bytes \
+            or not _rows_ok(row_bytes, n, per_row):
+        raise ValueError(f"packed: need uint8 (W, bytes) with contiguous rows of whole "
+                         f"128-byte rows covering {n} elements, got {packed.dtype} "
+                         f"{tuple(packed.shape)} strides {packed.stride()}")
+    weights = weights.to(device=packed.device, dtype=f32).contiguous()
+    if weights.shape != (n_w,):
+        raise ValueError(f"weights: need shape ({n_w},), got {tuple(weights.shape)}")
+    if packed.is_cuda and n_w > 8192:
+        raise ValueError(f"{kernel} keeps the weights in shared memory: W={n_w} > 8192")
+    return weights
 
 
 def sign_pack(x: torch.Tensor, *, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -184,7 +211,7 @@ def sign_unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`sign_pack` (same layout): the first n elements as
     +-1.0 f32."""
     if packed.dtype != torch.uint8 or packed.dim() != 1 or not packed.is_contiguous() \
-            or not _sign_rows_ok(packed.numel(), n):
+            or not _rows_ok(packed.numel(), n, 1024):
         raise ValueError(f"packed: need a contiguous 1-D uint8 bitmap of whole 128-byte "
                          f"rows covering {n} elements, got {packed.dtype} "
                          f"{tuple(packed.shape)} contiguous={packed.is_contiguous()}")
@@ -200,20 +227,75 @@ def sign_vote(packed: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tens
     weighted vote sums ``sum_w weights[w] * (2*bit - 1)`` as (n,) f32, decoded
     and accumulated in one pass.  Rows may be padded
     (``packed.stride(0) >= bytes``); each row must be contiguous."""
-    n_w, row_bytes = packed.shape
-    if packed.dtype != torch.uint8 or packed.stride(1) != 1 or packed.stride(0) < row_bytes \
-            or not _sign_rows_ok(row_bytes, n):
-        raise ValueError(f"packed: need uint8 (W, bytes) with contiguous rows of whole "
-                         f"128-byte rows covering {n} elements, got {packed.dtype} "
-                         f"{tuple(packed.shape)} strides {packed.stride()}")
-    weights = weights.to(device=packed.device, dtype=f32).contiguous()
-    if weights.shape != (n_w,):
-        raise ValueError(f"weights: need shape ({n_w},), got {tuple(weights.shape)}")
+    weights = _gathered(packed, weights, n, 1024, "sign_vote")
     if packed.is_cuda:
-        if n_w > 8192:
-            raise ValueError(f"sign_vote keeps the weights in shared memory: W={n_w} > 8192")
         out = torch.empty(n, dtype=f32, device=packed.device)
-        _launch("sign_vote", packed.data_ptr(), packed.stride(0), weights.data_ptr(), n_w,
-                out.data_ptr(), n)
+        _launch("sign_vote", packed.data_ptr(), packed.stride(0), weights.data_ptr(),
+                packed.shape[0], out.data_ptr(), n)
         return out
     return ref.sign_vote(packed, weights, n)
+
+
+def terngrad_codes_into(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor,
+                        out: torch.Tensor) -> None:
+    """Kernel ``terngrad``: int8 ternary codes of flat f32 ``x`` into ``out``."""
+    n = x.numel()
+    for t, dt, size, what in ((x, f32, n, "x"), (u, f32, n, "u"), (inv, f32, 1, "inv"),
+                              (out, torch.int8, n, "tern")):
+        _check(t, dt, size, x.device, what)
+    if x.is_cuda:
+        _launch("terngrad", x.data_ptr(), u.data_ptr(), inv.data_ptr(), out.data_ptr(), n)
+    else:
+        out.copy_(ref.terngrad_codes(x, u, inv))
+
+
+def terngrad_quantize(x: torch.Tensor, u: torch.Tensor, *,
+                      out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat x, uniform noise u -> (tern int8 (n,) in {-1, 0, 1}, smax (1,)
+    f32) with ``smax = max(max|x|, 1e-30)``.  ``out``: where to write the
+    codes."""
+    x = x.reshape(-1).to(f32)
+    smax = torch.clamp_min(torch.max(torch.abs(x)), 1e-30)
+    tern = torch.empty(x.numel(), dtype=torch.int8, device=x.device) if out is None else out
+    terngrad_codes_into(x, u.reshape(-1).to(device=x.device, dtype=f32), torch.reciprocal(smax),
+                        tern)
+    return tern, smax.reshape(1)
+
+
+def tern_packed_bytes(n: int) -> int:
+    """Bytes of the padded 2-bit payload of n elements (the reference's
+    ``ops.tern_pack`` length)."""
+    return -(-n // TERN_TILE) * (TERN_TILE // 4)
+
+
+def tern_pack(tern: torch.Tensor, *, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Flat int8 (n,) -> the padded uint8 payload, ``tern_packed_bytes(n)``
+    bytes, lane-interleaved: bits ``2*((e // 128) % 4)`` and up of byte
+    ``(e // 512) * 128 + e % 128`` hold ``[t != 0] | [t < 0] << 1`` of
+    element e; pad crumbs are 0.  ``out``: where to write the bytes (e.g. a
+    row of the wire stack)."""
+    tern = tern.reshape(-1)
+    n, nbytes = tern.numel(), tern_packed_bytes(tern.numel())
+    _check(tern, torch.int8, n, tern.device, "tern")
+    if out is None:
+        out = torch.empty(nbytes, dtype=torch.uint8, device=tern.device)
+    _check(out, torch.uint8, nbytes, tern.device, "packed")
+    if tern.is_cuda:
+        _launch("tern_pack", tern.data_ptr(), n, out.data_ptr(), nbytes)
+    else:
+        out.copy_(ref.tern_pack(tern, nbytes))
+    return out
+
+
+def tern_acc(packed: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
+    """Gathered 2-bit payloads (W, bytes) + per-worker weights (W,) (the
+    ternary scales) -> ``sum_w weights[w] * decode(packed[w])`` as (n,) f32,
+    decoded and accumulated in one pass.  Rows may be padded
+    (``packed.stride(0) >= bytes``); each row must be contiguous."""
+    weights = _gathered(packed, weights, n, 512, "tern_acc")
+    if packed.is_cuda:
+        out = torch.empty(n, dtype=f32, device=packed.device)
+        _launch("tern_acc", packed.data_ptr(), packed.stride(0), weights.data_ptr(),
+                packed.shape[0], out.data_ptr(), n)
+        return out
+    return ref.tern_acc(packed, weights, n)

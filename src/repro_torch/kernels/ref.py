@@ -42,7 +42,7 @@ def qsgd_ef(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, inv: torch.Tensor
     return code.to(torch.int8), a - deq
 
 
-def _shifts(device) -> torch.Tensor:
+def _bit_shifts(device) -> torch.Tensor:
     """Bit k of a packed byte holds slot k: shifts 0..7 along the slot axis."""
     return torch.arange(8, dtype=torch.uint8, device=device).view(1, 8, 1)
 
@@ -53,13 +53,13 @@ def sign_pack(x: torch.Tensor, nbytes: int) -> torch.Tensor:
     with +1.0 (pad bits 1)."""
     pad = torch.ones(nbytes * 8 - x.numel(), dtype=f32, device=x.device)
     bits = (torch.cat([x, pad]).view(-1, 8, 128) >= 0).to(torch.uint8)
-    return (bits << _shifts(x.device)).sum(1, dtype=torch.uint8).view(-1)
+    return (bits << _bit_shifts(x.device)).sum(1, dtype=torch.uint8).view(-1)
 
 
 def sign_unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`sign_pack`: the first n elements as +-1.0 f32."""
     rows = -(-n // 1024)
-    bits = (packed[:rows * 128].view(-1, 1, 128) >> _shifts(packed.device)) & 1
+    bits = (packed[:rows * 128].view(-1, 1, 128) >> _bit_shifts(packed.device)) & 1
     return (bits.to(f32) * 2.0 - 1.0).view(-1)[:n]
 
 
@@ -69,6 +69,46 @@ def sign_vote(packed: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tens
     acc = torch.zeros(n, dtype=f32, device=packed.device)
     for w in range(packed.shape[0]):
         acc = acc + weights[w] * sign_unpack(packed[w], n)
+    return acc
+
+
+def terngrad_codes(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """TernGrad codes ``sign(x) * [u < |x| * inv]`` as int8, with ``inv =
+    1 / max|x|`` (a multiply by the reciprocal, as the kernel does)."""
+    b = (u < torch.abs(x) * inv).to(f32)
+    return (torch.sign(x) * b).to(torch.int8)
+
+
+def _crumb_shifts(device) -> torch.Tensor:
+    """Slot k of a packed byte sits at bits 2k..2k+1: shifts 0, 2, 4, 6."""
+    return (2 * torch.arange(4, dtype=torch.uint8, device=device)).view(1, 4, 1)
+
+
+def tern_pack(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Flat int8 (n,) -> (nbytes,) uint8 of 2-bit crumbs in the
+    lane-interleaved layout: crumb k of byte ``(r, l)`` codes
+    ``t[r*512 + k*128 + l]`` as ``[t != 0] | [t < 0] << 1`` (0 zero, 1 for
+    +1, 3 for -1); the tail pads with 0."""
+    pad = torch.zeros(nbytes * 4 - t.numel(), dtype=torch.int8, device=t.device)
+    t3 = torch.cat([t, pad]).view(-1, 4, 128)
+    code = (t3 != 0).to(torch.uint8) | ((t3 < 0).to(torch.uint8) << 1)
+    return (code << _crumb_shifts(t.device)).sum(1, dtype=torch.uint8).view(-1)
+
+
+def tern_unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`tern_pack`: the first n elements as f32
+    ``[crumb = 1] - [crumb = 3]`` (crumb 2 decodes to 0)."""
+    rows = -(-n // 512)
+    crumbs = (packed[:rows * 128].view(-1, 1, 128) >> _crumb_shifts(packed.device)) & 3
+    return ((crumbs == 1).to(f32) - (crumbs == 3).to(f32)).view(-1)[:n]
+
+
+def tern_acc(packed: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
+    """Weighted sum ``sum_w weights[w] * decode(packed[w])`` over a (W, bytes)
+    stack of 2-bit rows, accumulated in f32 in worker order."""
+    acc = torch.zeros(n, dtype=f32, device=packed.device)
+    for w in range(packed.shape[0]):
+        acc = acc + weights[w] * tern_unpack(packed[w], n)
     return acc
 
 

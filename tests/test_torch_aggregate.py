@@ -15,9 +15,10 @@ compression) against the JAX package.
   own ``aggregate_buckets`` run under ``jax.vmap(axis_name="data")`` (its
   collectives reduce over the vmap axis, its Pallas kernels run in
   interpret mode), over two rounds so the residuals are non-zero, for the
-  1-bit sign wires, the majority vote, the gather-and-decompress reduce and
-  the general ``pre_compress``/``post_compress`` path; the booked records
-  (kind, payload bytes, wire format) equal the reference's capture.
+  1-bit sign wires, the 2-bit ternary wire, the majority vote, the
+  gather-and-decompress reduce and the general
+  ``pre_compress``/``post_compress`` path; the booked records (kind, payload
+  bytes, wire format) equal the reference's capture.
 """
 
 import jax
@@ -29,6 +30,7 @@ import torch
 from repro.configs import get_config as jget
 from repro.core import aggregate as jagg
 from repro.core import comms as jcomms
+from repro.core.compression import get_compressor as jget_compressor
 from repro.core.types import CommConfig as JCommConfig
 from repro.experiments.trainer_substrate import make_tiny_workload
 from repro.kernels import ops as jops
@@ -193,11 +195,11 @@ def test_seeded_noise_is_reproducible_per_round():
     (dict(aggregator="gossip"), NotImplementedError),
     (dict(sync="local"), NotImplementedError),
     (dict(warmup_steps=10, **QSGD, wire_format="compressed"), NotImplementedError),
-    (dict(compressor="terngrad_kernel", wire_format="compressed"), KeyError),  # unregistered
+    (dict(compressor="topk", wire_format="compressed"), KeyError),  # unregistered
     (dict(wire_format="compressed"), NotImplementedError),  # bf16 wire: not ported
     (dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
      NotImplementedError),
-    (dict(per_tensor_rules=[("embed", "terngrad_kernel", {})]), KeyError),
+    (dict(per_tensor_rules=[("embed", "topk", {})]), KeyError),
 ])
 def test_validate_rejects_unported_cells(kw, err):
     with pytest.raises(err):
@@ -213,6 +215,10 @@ def test_validate_rejects_unported_cells(kw, err):
     dict(compressor="signsgd", wire_format="compressed"),
     dict(compressor="signsgd"),  # int8 majority on the dense wire
     dict(compressor="signsgd_packed", error_feedback=True),
+    dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True),
+    dict(compressor="terngrad", compressor_kwargs={"clip_sigma": 2.5},
+         wire_format="compressed"),
+    dict(compressor="terngrad_kernel"),  # gather-and-decompress on the dense wire
 ])
 def test_validate_accepts_ported_cells(kw):
     validate(CommConfig(**kw))
@@ -237,6 +243,7 @@ def test_qsgd_kernel_levels_bound():
 
 PACKED = dict(compressor="signsgd_packed")
 SIGN = dict(compressor="signsgd")
+TERN = dict(compressor="terngrad_kernel")
 VMAP_CELLS = {
     "packed-cwire-ef1": dict(wire_format="compressed", error_feedback=True, **PACKED),
     "packed-cwire-ef0.9": dict(wire_format="compressed", error_feedback=True, ef_decay=0.9,
@@ -248,7 +255,19 @@ VMAP_CELLS = {
     "qsgd-dense-ef": dict(error_feedback=True, **QSGD),
     "packed-cwire-ef-mom-clip": dict(wire_format="compressed", error_feedback=True,
                                      momentum_correction=0.9, local_clip=1.0, **PACKED),
+    # the ternary cells keep ef_decay 1.0 and no momentum correction: under
+    # jit XLA contracts e*decay + g into one FMA, and an ulp of a moves
+    # max|a|, which can flip a stochastic code at a dither boundary (decay
+    # 1.0 makes e*decay + g exact either way)
+    "tern-cwire-ef": dict(wire_format="compressed", error_feedback=True, **TERN),
+    "tern-cwire": dict(wire_format="compressed", **TERN),
+    "terngrad-cwire-clip": dict(wire_format="compressed", compressor="terngrad",
+                                compressor_kwargs={"clip_sigma": 2.5}),
+    "tern-dense": dict(**TERN),
 }
+#: cells whose aggregate sums scaled decodes, which cancel and are summed in
+#: other orders (the rest are exact sign outputs)
+DECODED = ("qsgd_kernel", "terngrad_kernel", "terngrad")
 
 
 def _vmap_inputs(step):
@@ -287,7 +306,7 @@ def test_round_matches_reference_aggregate_under_vmap(cell):
     run = jax.jit(jax.vmap(lambda b, st, key: jagg.aggregate_buckets(jcomm, jplan, b, st, key,
                                                                      ("data",)),
                            axis_name="data", in_axes=(0, 0, None)))
-    qsgd = kw["compressor"] == "qsgd_kernel"
+    decoded = kw["compressor"] in DECODED
     for step in range(2):  # the second round starts from non-zero residuals
         bufs = _vmap_inputs(step)
         with comms.capture() as log:
@@ -300,7 +319,7 @@ def test_round_matches_reference_aggregate_under_vmap(cell):
         for g, w in zip(got, want):
             w = np.asarray(w)
             assert (w == w[0]).all()  # every worker holds the same aggregate
-            if qsgd:  # signed decodes cancel: atol of the largest element
+            if decoded:  # signed decodes cancel: atol of the largest element
                 np.testing.assert_allclose(g.numpy(), w[0], rtol=1e-6,
                                            atol=1e-6 * np.abs(w).max())
             else:  # sign outputs are exact
@@ -312,8 +331,7 @@ def test_round_matches_reference_aggregate_under_vmap(cell):
                 # atol 1e-6 of the operands' scale: under jit XLA contracts
                 # e*decay + g (and m*u + g) into one FMA, so a may differ by
                 # an ulp, and e = a - C(a) cancels; a sign decode is +-1, so
-                # a is of order 1 + |e| there
-                scale = np.abs(je).max() + (1.0 if k == "ef" and not qsgd else 0.0)
+                scale = np.abs(je).max() + (1.0 if k == "ef" and not decoded else 0.0)
                 np.testing.assert_allclose(e.numpy(), je, rtol=1e-6, atol=1e-6 * scale)
     assert state["step"] == 2 == int(jstate["step"][0])
 
@@ -349,3 +367,69 @@ def test_sign_wire_books_packed_payload():
                                         aggregate.init_comm_state(comm, plan, W, "cpu"),
                                         _key_noise)
         assert [(r.kind, r.payload_bytes, r.wire_format) for r in log.records] == [rec]
+
+
+def test_tern_wire_books_packed_payload():
+    """A 1000-element bucket on the compressed ternary wire books one
+    all-gather of the padded 1024-byte tile as packed2, then the f32 scale,
+    as the reference's ``_compressed_reduce`` does; on the dense wire the
+    payload leaves book as int8 codes and the f32 scale."""
+    bufs = [torch.from_numpy(_vmap_inputs(0)[0])]
+    want = {("compressed", "terngrad_kernel"): [("all_gather", 1024, "packed2"),
+                                                ("all_gather", 4, "f32")],
+            ("compressed", "terngrad"): [("all_gather", 1024, "packed2"),
+                                         ("all_gather", 4, "f32")],
+            ("dense", "terngrad_kernel"): [("all_gather", 1000, "int8"),
+                                           ("all_gather", 4, "f32")]}
+    for (wire, name), recs in want.items():
+        comm = CommConfig(compressor=name, wire_format=wire)
+        plan = aggregate.make_bucket_plan(comm, {"a": torch.empty(1000)})
+        with comms.capture() as log:
+            aggregate.aggregate_buckets(comm, plan, bufs,
+                                        aggregate.init_comm_state(comm, plan, W, "cpu"),
+                                        _key_noise)
+        assert [(r.kind, r.payload_bytes, r.wire_format) for r in log.records] == recs
+
+
+@pytest.mark.parametrize("name", ["terngrad_kernel", "terngrad"])
+def test_tern_route_and_wire_bits(name):
+    comp = get_compressor(name)
+    assert aggregate.bucket_route(CommConfig(compressor=name, wire_format="compressed"),
+                                  comp) == "tern"
+    assert aggregate.bucket_route(CommConfig(compressor=name), comp) == "gather"
+    assert comp.wire_bits(1000) == 1000 * 2 + 32
+
+
+@pytest.mark.parametrize("n", [1000, 100_003])
+@pytest.mark.parametrize("name,clip", [("terngrad_kernel", None), ("terngrad", 0.0),
+                                       ("terngrad", 2.5)])
+def test_tern_compressors_match_reference(name, clip, n):
+    """Both ternary compressors against the reference's on its own draw:
+    codes and scale bitwise without clipping (max|x| is exact in any order;
+    the kernel multiplies by 1/smax, the twin divides by s, each as its
+    reference does).  With clip_sigma 2.5 the population std sums in
+    another order than XLA's, so the scale is held to rtol 1e-6 and the
+    codes where the draw is more than 1e-5 from p = |clip(x)| / s."""
+    x = (np.random.default_rng(n).standard_normal(n) * 0.1).astype(np.float32)
+    x[::97] = 0.0
+    key = jax.random.key(n)
+    u = torch.from_numpy(np.array(jax.random.uniform(key, (n,))))
+    comp, jcomp = get_compressor(name), jget_compressor(name)
+    if clip is None:
+        got, want = comp.compress(u, torch.from_numpy(x)), jcomp.compress(key, jnp.asarray(x))
+    else:
+        got = comp.compress_p(u, torch.from_numpy(x), {"clip_sigma": clip})
+        want = jcomp.compress_p(key, jnp.asarray(x), {"clip_sigma": clip})
+    tern, scale = got.payload["tern"].numpy(), got.payload["scale"].numpy()
+    want_t, want_s = np.asarray(want.payload["tern"]), np.asarray(want.payload["scale"])
+    assert tern.dtype == want_t.dtype == np.int8 and scale.shape == want_s.shape == (1,)
+    if not clip:
+        np.testing.assert_array_equal(scale, want_s)
+        np.testing.assert_array_equal(tern, want_t)
+        return
+    np.testing.assert_allclose(scale, want_s, rtol=1e-6)
+    bound = clip * np.std(x.astype(np.float64))
+    p = np.abs(np.clip(x.astype(np.float64), -bound, bound)) / float(want_s[0])
+    keep = np.abs(u.numpy() - p) > 1e-5
+    assert keep.mean() > 0.99 and (np.abs(x) > bound).any()  # the clip bites
+    np.testing.assert_array_equal(tern[keep], want_t[keep])

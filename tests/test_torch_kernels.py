@@ -9,7 +9,11 @@ than 1e-5 away from its threshold.  The residual e' and int8_acc keep the
 reference's own tolerances (tests/test_kernels.py, test_wire_formats.py).
 The 1-bit sign wire is exact: packed bytes (pads included), unpacked
 values and votes with 0/1 weights bitwise; votes with general weights
-within rtol 1e-6 (the two sides may add the W terms in other orders).
+within rtol 1e-6 (the two sides may add the W terms in other orders).  The
+2-bit ternary wire likewise: codes and smax bitwise through the flat API too
+(``max|x|`` does not depend on the reduction order), packed bytes (pads
+included) bitwise, accumulated sums bitwise with 0/1 weights and within
+rtol 1e-6 with general ones.
 """
 
 import jax
@@ -22,6 +26,7 @@ from repro.kernels import ops as jops
 from repro.kernels import qsgd as jqsgd
 from repro.kernels import qsgd_ef as jqsgd_ef
 from repro.kernels import sign_pack as jsign
+from repro.kernels import terngrad as jtern
 from repro.kernels import wire_reduce as jwire
 from repro_torch.kernels import ops, ref
 
@@ -174,8 +179,12 @@ def test_cpu_tensors_take_the_plain_path():
     packed = ops.sign_pack(_t(x))
     ops.sign_unpack(packed, 1000)
     ops.sign_vote(torch.stack([packed, packed]), torch.ones(2), 1000)
+    tern, _ = ops.terngrad_quantize(_t(x), _t(u))
+    tpacked = ops.tern_pack(tern)
+    ops.tern_acc(torch.stack([tpacked, tpacked]), torch.ones(2), 1000)
     assert ops.LAUNCHES == {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
-                            "sign_unpack": 0, "sign_vote": 0}
+                            "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
+                            "tern_pack": 0, "tern_acc": 0}
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -315,6 +324,133 @@ def test_sign_vote_matches_reference(n, general):
 
 
 # ---------------------------------------------------------------------------
+# The 2-bit ternary wire: plain versions against the Pallas kernels and the
+# reference's flat API.
+# ---------------------------------------------------------------------------
+
+
+def _tern_data(n, seed):
+    """Normal draws with +0.0 and -0.0 planted, and noise u equal to the
+    kernel's p = |x| * inv at every 13th element (u < p is strict: code 0)."""
+    x, u = _data(n, seed)
+    x[3::89] = -0.0
+    inv = np.float32(1.0) / np.float32(max(np.abs(x).max(), np.float32(1e-30)))
+    u[5::13] = np.abs(x[5::13]) * inv
+    return x, u, inv
+
+
+def _terns(shape, seed):
+    """int8 codes in {-1, 0, 1}, with values outside it (-128..127) at every
+    seventh element: they pack by the reference's predicates."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(-1, 2, shape).astype(np.int8)
+    flat = t.reshape(-1)
+    flat[::7] = rng.integers(-128, 128, flat[::7].size)
+    return t
+
+
+@pytest.mark.parametrize("rows", [256, 512])
+def test_terngrad_plain_matches_pallas_2d(rows):
+    x, u, inv = _tern_data(rows * 128, rows)
+    want = jtern.terngrad_2d(jnp.asarray(x.reshape(rows, 128)), jnp.asarray(u.reshape(rows, 128)),
+                             jnp.full((1, 1), inv), interpret=True)
+    got = torch.empty(x.size, dtype=torch.int8)
+    ops.terngrad_codes_into(_t(x), _t(u), _s(inv), got)
+    want = np.asarray(want).reshape(-1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[5::13] == 0).all() and set(np.unique(want)) == {-1, 0, 1}
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_terngrad_quantize_matches_reference(n):
+    """Codes and smax bitwise: max|x| is exact in any order, and both sides
+    multiply by the same reciprocal."""
+    x, u, _ = _tern_data(n, n + 3)
+    want_t, want_s = jops.terngrad_quantize(jnp.asarray(x), jnp.asarray(u))
+    got_t, got_s = ops.terngrad_quantize(_t(x), _t(u))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+
+
+@pytest.mark.parametrize("rows", [8, 24])
+def test_tern_pack_plain_matches_pallas_3d(rows):
+    t = _terns((rows, 4, 128), rows)
+    want = jwire.tern_pack_3d(jnp.asarray(t), interpret=True)
+    got = ops.tern_pack(_t(t.reshape(-1)))  # rows * 512 elements: no pad unless rows % 8
+    want = np.asarray(want).reshape(-1)
+    np.testing.assert_array_equal(got.numpy()[:want.size], want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_tern_pack_matches_reference(n):
+    t = _terns(n, n)
+    want = np.asarray(jops.tern_pack(jnp.asarray(t)))
+    got = ops.tern_pack(_t(t)).numpy()
+    assert got.size == want.size == ops.tern_packed_bytes(n)
+    np.testing.assert_array_equal(got, want)  # pad bytes included
+
+
+def test_tern_pack_writes_into_a_stack_row():
+    t = _terns(1000, 1)
+    stack = torch.zeros((3, 1024), dtype=torch.uint8)
+    out = ops.tern_pack(_t(t), out=stack[1])
+    assert out.data_ptr() == stack[1].data_ptr()
+    np.testing.assert_array_equal(stack[1].numpy(), np.asarray(jops.tern_pack(jnp.asarray(t))))
+    assert not stack[0].any() and not stack[2].any()
+
+
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("n_w", [3, 4])
+def test_tern_acc_plain_matches_pallas_3d(n_w, general):
+    """Random bytes, so every crumb value occurs (crumb 2 decodes to 0)."""
+    rows = 16
+    packed = np.random.default_rng(n_w + 10).integers(0, 256, (n_w, rows * 128)).astype(np.uint8)
+    w = (np.linspace(0.3, 2.1, n_w) if general else np.asarray([1, 0, 1, 1][:n_w])
+         ).astype(np.float32)
+    want = jwire.tern_acc_3d(jnp.asarray(packed.reshape(n_w, rows, 128)),
+                             jnp.asarray(np.broadcast_to(w[:, None], (n_w, 128))),
+                             interpret=True)
+    got = ops.tern_acc(_t(packed), _t(w), rows * 512).numpy()
+    want = np.asarray(want).reshape(-1)
+    if general:
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n_w", [3, 4])
+def test_tern_acc_matches_reference(n, n_w):
+    """Each worker's payload packed by the reference, one worker weighted 0;
+    rtol 1e-6 with atol 1e-6 of the largest element (signed decodes cancel,
+    and XLA sums the W terms in its own order)."""
+    rng = np.random.default_rng(n + n_w)
+    packed = np.stack([np.asarray(jops.tern_pack(jnp.asarray(rng.integers(-1, 2, n)
+                                                             .astype(np.int8))))
+                       for _ in range(n_w)])
+    w = np.linspace(0.01, 0.05, n_w).astype(np.float32)
+    w[1] = 0.0
+    want = np.asarray(jops.tern_acc(jnp.asarray(packed), jnp.asarray(w), n=n))
+    got = ops.tern_acc(_t(packed), _t(w), n).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+def test_tern_wrappers_reject_bad_inputs():
+    t = torch.zeros(5000, dtype=torch.int8)
+    with pytest.raises(ValueError, match="packed"):  # one byte short of the padded payload
+        ops.tern_pack(t, out=torch.empty(2047, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="tern"):  # codes must be int8
+        ops.tern_pack(torch.zeros(5000))
+    with pytest.raises(ValueError, match="packed"):  # 128 bytes cover 512 elements only
+        ops.tern_acc(torch.zeros((2, 128), dtype=torch.uint8), torch.ones(2), 513)
+    with pytest.raises(ValueError, match="weights"):
+        ops.tern_acc(torch.zeros((2, 1024), dtype=torch.uint8), torch.ones(3), 10)
+    with pytest.raises(ValueError, match="inv"):
+        ops.terngrad_codes_into(torch.zeros(10), torch.zeros(10), torch.ones(2),
+                                torch.empty(10, dtype=torch.int8))
+
+
+# ---------------------------------------------------------------------------
 # On the card: every kernel against its plain version.
 # ---------------------------------------------------------------------------
 
@@ -390,6 +526,51 @@ def test_sign_vote_kernel_matches_plain_on_card(cuda, n, ld, general):
     got = ops.sign_vote(stack, w, n)
     torch.cuda.synchronize()
     want = ref.sign_vote(stack, w, n)
+    if general:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (4096, 1), (37, 0)])
+def test_terngrad_kernel_matches_plain_on_card(cuda, n, offset):
+    x, u, _ = _tern_data(n + offset, n)
+    xt, ut = _t(x).to(cuda)[offset:], _t(u).to(cuda)[offset:]  # offset 1: scalar path
+    inv = torch.reciprocal(torch.clamp_min(torch.max(torch.abs(xt)), 1e-30))
+    before = ops.LAUNCHES["terngrad"]
+    got = torch.empty(n, dtype=torch.int8, device=cuda)
+    ops.terngrad_codes_into(xt, ut, inv, got)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["terngrad"] == before + 1
+    assert torch.equal(got, ref.terngrad_codes(xt, ut, inv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (4096, 1), (37, 0)])
+def test_tern_pack_kernel_matches_plain_on_card(cuda, n, offset):
+    t = _t(_terns(n + offset, n)).to(cuda)[offset:]  # offset 1: unaligned scalar path
+    before = ops.LAUNCHES["tern_pack"]
+    packed = ops.tern_pack(t)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["tern_pack"] == before + 1
+    assert torch.equal(packed, ref.tern_pack(t, ops.tern_packed_bytes(n)))  # pads included
+
+
+@pytest.mark.gpu
+# ld 2050: rows off 4-byte boundaries, the scalar read path
+@pytest.mark.parametrize("n,ld", [(100_003, 25 * 1024), (37, 1024), (5000, 2050)])
+@pytest.mark.parametrize("general", [False, True])
+def test_tern_acc_kernel_matches_plain_on_card(cuda, n, ld, general):
+    rng = np.random.default_rng(n)
+    nbytes = ops.tern_packed_bytes(n)
+    stack = _t(rng.integers(0, 256, (4, ld)).astype(np.uint8)).to(cuda)[:, :nbytes]
+    w = torch.tensor([0.25, 1.5, 0.75, 2.0] if general else [1.0, 0.0, 1.0, 1.0], device=cuda)
+    before = ops.LAUNCHES["tern_acc"]
+    got = ops.tern_acc(stack, w, n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["tern_acc"] == before + 1
+    want = ref.tern_acc(stack, w, n)
     if general:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
     else:

@@ -1,7 +1,9 @@
 """The port's slices end to end: the BSP trainer step with QSGD over the
-int8 compressed wire, with and without error feedback, and with the 1-bit
+int8 compressed wire, with and without error feedback, with the 1-bit
 sign compressors (``signsgd_packed`` with and without error feedback,
-``signsgd``'s majority vote, on the compressed and the dense wire),
+``signsgd``'s majority vote, on the compressed and the dense wire), and
+with ``terngrad_kernel`` (with and without error feedback) and the
+``terngrad`` twin (clipped at 2.5 sigma) on the 2-bit compressed wire,
 against the JAX package's ``run_trainer_scenario`` on the tiny workload.
 
 Both sides start from the reference's ``init_params(cfg, key(0), 1)`` (what
@@ -112,6 +114,24 @@ def test_sign_slice_loss_series_matches_reference(cell):
     np.testing.assert_allclose(losses, ref.series["loss_full"], rtol=1e-4)
 
 
+TERN_LOSS_CELLS = {
+    "kernel-ef": dict(compressor="terngrad_kernel", error_feedback=True),
+    "kernel": dict(compressor="terngrad_kernel"),
+    # the plain twin with clipping: its population std sums in another order
+    # than XLA's, which moves codes only within an ulp of a dither boundary
+    "twin-clip": dict(compressor="terngrad", compressor_kwargs={"clip_sigma": 2.5}),
+}
+
+
+@pytest.mark.parametrize("cell", list(TERN_LOSS_CELLS))
+def test_tern_slice_loss_series_matches_reference(cell):
+    kw = dict(TERN_LOSS_CELLS[cell], wire_format="compressed")
+    skw = dict(kw, compressor_kwargs=tuple(sorted(kw.get("compressor_kwargs", {}).items())))
+    ref = run_trainer_scenario(Scenario(**skw, **BASE), data_par=1)
+    _, losses = _port_run(CommConfig(**kw, bucket_mb=4.0), noise=_jax_noise(0))
+    np.testing.assert_allclose(losses, ref.series["loss_full"], rtol=1e-4)
+
+
 def test_slice_books_int8_wire_per_worker():
     """At W=2 each step books the int8 codes and one f32 norm per bucket:
     all-gather p(n-1) with n = 2."""
@@ -134,6 +154,20 @@ def test_slice_books_packed1_wire_per_worker():
     packed = sum(ops.sign_packed_bytes(b.size) for b in bundle.bucket_plan.buckets)
     assert bundle.wire["train"]["grad_agg"] == packed
     assert bundle.wire["train_formats"]["packed1"] == packed
+    assert np.isfinite(losses).all()
+
+
+def test_slice_books_packed2_wire_per_worker():
+    """At W=2 the compressed ternary wire books one all-gather of each
+    bucket's padded 2-bit payload (ceil(n/4096)*1024 bytes) as packed2 and
+    one f32 scale per bucket."""
+    comm = CommConfig(compressor="terngrad_kernel", error_feedback=True,
+                      wire_format="compressed")
+    bundle, losses = _port_run(comm, n_workers=2, steps=1)
+    sizes = [b.size for b in bundle.bucket_plan.buckets]
+    packed = sum(ops.tern_packed_bytes(n) for n in sizes)
+    assert bundle.wire["train"]["grad_agg"] == packed + 4 * len(sizes)
+    assert bundle.wire["train_formats"]["packed2"] == packed
     assert np.isfinite(losses).all()
 
 
@@ -185,4 +219,35 @@ def test_sign_slice_on_card_launches_every_kernel(cuda, cell, kernels):
     for k in kernels:
         assert ops.LAUNCHES[k] > 0, (k, ops.LAUNCHES)
     _, on_cpu = _port_run(comm, n_workers=2)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-3)
+
+
+TERN_CELLS = {
+    "tern-cwire-ef": dict(compressor="terngrad_kernel", wire_format="compressed",
+                          error_feedback=True),
+    "terngrad-cwire-clip": dict(compressor="terngrad", compressor_kwargs={"clip_sigma": 2.5},
+                                wire_format="compressed"),
+    "tern-dense": dict(compressor="terngrad_kernel", wire_format="dense"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell,kernels,absent", [
+    ("tern-cwire-ef", ("terngrad", "tern_pack", "tern_acc"), ()),
+    ("terngrad-cwire-clip", ("tern_pack", "tern_acc"), ("terngrad",)),  # a plain twin
+    ("tern-dense", ("terngrad",), ("tern_pack", "tern_acc")),
+])
+def test_tern_slice_on_card_launches_every_kernel(cuda, cell, kernels, absent):
+    """The ternary paths on the card at W=2, through the hand-written
+    kernels, with the reference's noise on both sides; the losses stay close
+    to the CPU plain path's (other sum orders in the model, so rtol 1e-3)."""
+    comm = CommConfig(**TERN_CELLS[cell], bucket_mb=4.0)
+    ops.reset_launches()
+    _, on_card = _port_run(comm, device=cuda, noise=lambda *a: _jax_noise(0)(*a).to(cuda),
+                           n_workers=2)
+    for k in kernels:
+        assert ops.LAUNCHES[k] > 0, (k, ops.LAUNCHES)
+    for k in absent:
+        assert ops.LAUNCHES[k] == 0, (k, ops.LAUNCHES)
+    _, on_cpu = _port_run(comm, noise=_jax_noise(0), n_workers=2)
     np.testing.assert_allclose(on_card, on_cpu, rtol=1e-3)
