@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile [LABEL ...]]
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line:
@@ -18,11 +18,13 @@ result line:
    with general ones; terngrad codes bitwise on an input holding +-0.0 and
    noise equal to p, tern_pack bytes (pads included) bitwise on int8 codes
    with values outside {-1, 0, 1}, tern_acc on random bytes (crumb 2
-   included) bitwise with 0/1 weights and rtol 1e-6 with general ones; each
-   timed with CUDA events beside its byte bound;
+   included) bitwise with 0/1 weights and rtol 1e-6 with general ones;
+   threshold's masked values (int32 views) and per-block kept counts
+   bitwise at tau 0.0, 0.05 and 10.0 on an input holding +-0.0, NaN and
+   +-inf; each timed with CUDA events beside its byte bound;
 4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
    weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
-   global batch 8, eight paths: QSGD (16 levels) on the int8 compressed wire
+   global batch 8, twelve paths: QSGD (16 levels) on the int8 compressed wire
    with error feedback (kernels qsgd_ef + int8_acc) and without (qsgd +
    int8_acc); signsgd_packed on the 1-bit compressed wire with error
    feedback (sign_pack + sign_vote); signsgd's majority vote on the 1-bit
@@ -31,11 +33,20 @@ result line:
    2-bit compressed wire with error feedback (terngrad + tern_pack +
    tern_acc); terngrad (clip 2.5 sigma, plain codes as in the reference) on
    the 2-bit compressed wire (tern_pack + tern_acc); terngrad_kernel on the
-   dense wire, gather-and-decompress (terngrad).  Each path prints its
-   losses (finite), step ms, booked wire KB per step and peak memory, and
-   the launch counts of its kernels: exactly its own kernels must launch.  ``--profile`` adds
-   one QSGD EF step under torch.profiler (device-busy share, device time by
-   kernel, host time by operation), not counted as launches.
+   dense wire, gather-and-decompress (terngrad); and four sparsifier paths:
+   (g) topk (ratio 0.01) with error feedback and (h) gtopk (ratio 0.01)
+   with momentum correction 0.9 and error feedback, both on the dense
+   wire's sparse gather and scatter-add (no port kernel: the selection is a
+   stable sort, as lax.top_k orders ties); (i) threshold (tau 1e-3) with
+   error feedback and (j) adaptive_threshold (proportion 0.01), both on
+   the sum reduction through kernel threshold, each printing its kept share
+   per step.  Each path prints its losses (finite), step ms, booked wire KB
+   per step and peak memory, and the launch counts of its kernels: exactly
+   its own kernels must launch, each as many times as the path's buckets,
+   workers and steps call it.  ``--profile`` adds
+   one more step of the QSGD EF path, or of each path named by its label,
+   under torch.profiler (device-busy share, device time by kernel, host
+   time by operation), not counted as launches.
 
 Then one JSON line per the kernel table, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
@@ -111,6 +122,11 @@ KERNELS = {
                      replaces="src/repro/kernels/wire_reduce.py:97",
                      bytes=lambda n, w: w * ops.tern_packed_bytes(n) + 4 * n + 4 * w,
                      ops=lambda n, w: 2 * w * n),
+    # x read, the masked values written, one int32 count per 32,768 elements
+    "threshold": dict(source="src/repro_torch/kernels/csrc/threshold.cu",
+                      replaces="src/repro/kernels/threshold_sparsify.py:27",
+                      bytes=lambda n, w: 8 * n + 4 * -(-n // ops.THRESH_BLOCK),
+                      ops=lambda n, w: 2 * n),
 }
 #: why a kernel's row has library_ms null
 NO_LIBRARY = {
@@ -123,6 +139,7 @@ NO_LIBRARY = {
     "terngrad": "no PyTorch call quantizes with a dither",
     "tern_pack": "no single PyTorch call packs 2-bit crumbs",
     "tern_acc": "no single PyTorch call unpacks and sums 2-bit crumbs",
+    "threshold": "no single PyTorch call both masks by |x| >= tau and counts",
 }
 
 
@@ -334,6 +351,40 @@ def check_tern_kernels(n: int, timed: bool) -> dict[str, dict]:
     return out
 
 
+def check_threshold_kernel(n: int, timed: bool) -> dict[str, dict]:
+    """Kernel threshold against its plain version at n elements, tau 0.0,
+    0.05 and 10.0 (a one-element tensor on the card, as the compressors
+    pass it): masked values bitwise (int32 views: a kept -0.0 stays -0.0,
+    NaN is never kept, +-inf is kept) and per-block kept counts exactly."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(n + 3)
+    x = torch.randn(n, generator=gen, device=DEV) * 0.1
+    x[::97] = 0.0
+    x[3::89] = -0.0
+    x[5::1001] = float("nan")
+    x[7::1003] = float("inf")
+    x[11::1009] = float("-inf")
+    ok, err, detail = True, 0.0, []
+    for tau in (0.0, 0.05, 10.0):
+        t = torch.full((1,), tau, device=DEV)
+        got, counts = ops.threshold_blocks(x, t)
+        want, want_counts = ref.threshold(x, t.reshape(()), ops.THRESH_BLOCK)
+        diff = got.view(torch.int32) != want.view(torch.int32)
+        same = not bool(diff.any()) and torch.equal(counts, want_counts)
+        ok &= same
+        if diff.any():
+            err = max(err, float((got[diff] - want[diff]).abs().max()))
+        detail.append(f"tau {tau}: values differ at {int(diff.sum())}, counts equal "
+                      f"{torch.equal(counts, want_counts)}")
+    out = {"threshold": {"max_abs_err": err, "ok": ok, "detail": "; ".join(detail)}}
+    if timed:
+        t = torch.full((1,), 0.05, device=DEV)
+        out["threshold"].update(
+            ms=ms_per_call(lambda: ops.threshold_blocks(x, t), 20),
+            plain_ms=ms_per_call(lambda: ref.threshold(x, t.reshape(()), ops.THRESH_BLOCK), 5))
+    return out
+
+
 def require(results: dict[str, dict], n: int) -> None:
     bad = {k: r["detail"] for k, r in results.items() if not r["ok"]}
     if bad:
@@ -344,27 +395,42 @@ QSGD16 = dict(compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
               wire_format="compressed")
 # signSGD moves every weight by about lr per step: a sign-sized rate
 SIGN_LR = 1e-4
-#: (label, CommConfig fields, steps, lr, kernels the path must launch; every
-#: other kernel must not launch on it)
+#: launches per step of a kernel called once per worker and bucket (13
+#: buckets, W workers), and of one called once per bucket
+SEND, RECV = 13 * W, 13
+#: (label, CommConfig fields, steps, lr, {kernel: launches per step}); every
+#: other kernel must not launch on the path
 PATHS = (
-    ("qsgd ef", dict(error_feedback=True, **QSGD16), 3, 0.01, ("qsgd_ef", "int8_acc")),
-    ("qsgd", dict(**QSGD16), 2, 0.01, ("qsgd", "int8_acc")),
+    ("qsgd ef", dict(error_feedback=True, **QSGD16), 3, 0.01,
+     {"qsgd_ef": SEND, "int8_acc": RECV}),
+    ("qsgd", dict(**QSGD16), 2, 0.01, {"qsgd": SEND, "int8_acc": RECV}),
     ("signsgd_packed cwire ef", dict(compressor="signsgd_packed", wire_format="compressed",
                                      error_feedback=True), 2, SIGN_LR,
-     ("sign_pack", "sign_vote")),
+     {"sign_pack": SEND, "sign_vote": RECV}),
     ("signsgd cwire majority", dict(compressor="signsgd", wire_format="compressed"), 2,
-     SIGN_LR, ("sign_pack", "sign_vote")),
+     SIGN_LR, {"sign_pack": SEND, "sign_vote": RECV}),
     ("signsgd_packed dense", dict(compressor="signsgd_packed", wire_format="dense"), 2,
-     SIGN_LR, ("sign_pack", "sign_unpack")),
+     SIGN_LR, {"sign_pack": SEND, "sign_unpack": SEND}),
     ("terngrad_kernel cwire ef", dict(compressor="terngrad_kernel", wire_format="compressed",
                                       error_feedback=True), 2, 0.01,
-     ("terngrad", "tern_pack", "tern_acc")),
+     {"terngrad": SEND, "tern_pack": SEND, "tern_acc": RECV}),
     # the twin computes its codes in plain PyTorch, as the reference does in jnp
     ("terngrad cwire clip", dict(compressor="terngrad", compressor_kwargs={"clip_sigma": 2.5},
                                  wire_format="compressed"), 2, 0.01,
-     ("tern_pack", "tern_acc")),
+     {"tern_pack": SEND, "tern_acc": RECV}),
     ("terngrad_kernel dense", dict(compressor="terngrad_kernel", wire_format="dense"), 2, 0.01,
-     ("terngrad",)),
+     {"terngrad": SEND}),
+    # the top-k family selects by a stable sort (lax.top_k's tie order): no
+    # port kernel; DGC's recipe is momentum correction with local accumulation
+    ("topk ef", dict(compressor="topk", compressor_kwargs={"ratio": 0.01},
+                     error_feedback=True), 2, 0.01, {}),
+    ("gtopk momentum ef", dict(compressor="gtopk", compressor_kwargs={"ratio": 0.01},
+                               momentum_correction=0.9, error_feedback=True), 2, 0.01, {}),
+    ("threshold ef", dict(compressor="threshold", compressor_kwargs={"tau": 1e-3},
+                          error_feedback=True), 2, 0.01, {"threshold": SEND}),
+    ("adaptive_threshold", dict(compressor="adaptive_threshold",
+                                compressor_kwargs={"proportion": 0.01}), 2, 0.01,
+     {"threshold": SEND}),
 )
 
 
@@ -425,8 +491,10 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         loss = tr.history[-1]["loss"]
+        kept = (f" kept {tr.history[-1]['kept']:.6f} of the elements"
+                if "kept" in tr.history[-1] else "")
         print(f"  step {t}: loss {loss:.6f} ce {tr.history[-1]['ce']:.6f} "
-              f"step_ms {step_ms[-1]:.1f}")
+              f"step_ms {step_ms[-1]:.1f}{kept}")
         if not math.isfinite(loss):
             raise AssertionError(f"non-finite loss at step {t}: {loss}")
     launches = dict(ops.LAUNCHES)  # read before the profiled step, if any
@@ -444,10 +512,16 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="run one more EF step under torch.profiler after the timed "
+    ap.add_argument("--profile", nargs="*", metavar="LABEL",
+                    help="run one more step of the QSGD EF path (or of the paths with "
+                         "these labels) under torch.profiler after the timed "
                          "steps (its launches are counted apart)")
     profile = ap.parse_args().profile
+    if profile is not None:
+        profile = set(profile or [PATHS[0][0]])
+        unknown = profile - {p[0] for p in PATHS}
+        if unknown:
+            ap.error(f"--profile: no path labelled {sorted(unknown)}")
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -466,11 +540,11 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    checks = (check_kernels, check_sign_kernels, check_tern_kernels)
+    checks = (check_kernels, check_sign_kernels, check_tern_kernels, check_threshold_kernel)
     small = {k: v for check in checks for k, v in check(100_003, timed=False).items()}
     require(small, 100_003)
-    print("kernels at n=100003: codes, packed bytes, values and 0/1-weight sums bitwise; "
-          "e', int8_acc and general-weight sums within tolerance")
+    print("kernels at n=100003: codes, packed bytes, values, masked values, kept counts and "
+          "0/1-weight sums bitwise; e', int8_acc and general-weight sums within tolerance")
     big = {k: v for check in checks for k, v in check(LARGEST, timed=True).items()}
     require(big, LARGEST)
     rows = []
@@ -487,10 +561,10 @@ def main() -> None:
     launches = {k: 0 for k in KERNELS}
     for label, comm_kw, steps, lr, path_kernels in PATHS:
         got = run_trainer(label, comm_kw, steps, lr,
-                          profile_step=profile and comm_kw is PATHS[0][1])
-        for k, v in got.items():
-            if (v > 0) != (k in path_kernels):
-                raise AssertionError(f"path {label}: must launch exactly {path_kernels}: {got}")
+                          profile_step=profile is not None and label in profile)
+        want = {k: path_kernels.get(k, 0) * steps for k in got}
+        if got != want:
+            raise AssertionError(f"path {label}: must launch exactly {want}: {got}")
         for k, v in got.items():
             launches[k] += v
     for row in rows:

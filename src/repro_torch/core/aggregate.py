@@ -33,11 +33,17 @@ arguments stay out):
 * ``majority``: ``signsgd`` on the dense wire: a booked int8 psum of the
   signs, ties to +1;
 * ``gather``: ``reduce_mode="none"`` on the dense wire: every payload leaf
-  all-gathered at its dtype width, then decoded and summed in worker order
-  (``signsgd_packed`` decodes with kernel ``sign_unpack``).
+  all-gathered at its dtype width in payload order, then decoded and summed
+  in worker order (``signsgd_packed`` decodes with kernel ``sign_unpack``);
+  a sparse ``(values, indices)`` payload (the top-k family) is instead
+  scatter-added into an f32 zero vector, one worker row at a time;
+* ``sum``: ``reduce_mode="sum"`` (the threshold family, ``wangni``,
+  ``variance_sparse``): each worker's masked dense payload accumulated, a
+  psum of its f32 ``dense`` leaf alone booked (kernel ``threshold`` masks
+  for ``threshold`` and ``adaptive_threshold``).
 
-The ``sum`` and ``powersgd`` reductions, sparse ``(values, indices)``
-payloads and the bf16 wire raise ``NotImplementedError``.
+gTop-k's ``re_sparsify`` then keeps the k largest magnitudes of the mean.
+The ``powersgd`` reduction and the bf16 wire raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from repro_torch.core.compression.base import (
     runtime_knob_values,
     runtime_knobs,
 )
+from repro_torch.core.compression.sparsification import k_of, top_k
 from repro_torch.core.types import CommConfig
 from repro_torch.kernels import ops
 from repro_torch.utils.tree import flatten_with_paths
@@ -228,6 +235,8 @@ def bucket_route(comm: CommConfig, comp) -> str:
         return "majority"
     if mode == "none":
         return "gather"
+    if mode == "sum":
+        return "sum"
     raise NotImplementedError(f"the {mode!r} reduction of {comp.name!r} is not ported")
 
 
@@ -246,7 +255,7 @@ class AggregationRound:
         self.routes = [bucket_route(comm, comp) for comp in self.comps]
         self.knobs = plan.knob_values()
         nb = len(plan.buckets)
-        #: dense f32 sums (``dense``) or int8 vote sums (``majority``)
+        #: dense f32 sums (``dense``, ``sum``) or int8 vote sums (``majority``)
         self._sums: list[torch.Tensor | None] = [None] * nb
         #: (W, ...) wire stacks: int8 codes (``fused_ef``, ``int8_acc``),
         #: packed sign bytes (``sign``) or packed ternary bytes (``tern``)
@@ -255,6 +264,11 @@ class AggregationRound:
         self._scales: list[torch.Tensor | None] = [None] * nb
         #: per-worker payloads of the ``gather`` route, in worker order
         self._payloads: list[list[dict[str, torch.Tensor]]] = [[] for _ in range(nb)]
+        #: kept elements of this round's masked payloads (their ``nnz``
+        #: leaves summed over workers and buckets; None without any), and
+        #: the elements they were kept from
+        self.nnz: torch.Tensor | None = None
+        self.nnz_of = 0
 
     def _stack(self, i: int, n: int, dtype) -> torch.Tensor:
         if self._stacks[i] is None:
@@ -313,10 +327,16 @@ class AggregationRound:
                 self._set_scale(i, w, c.payload["scale"])
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
-            else:  # majority, gather
+            else:  # majority, sum, gather
                 c = compress_p(comp, u, a, knobs)
                 if route == "majority":
                     self._accumulate(i, c.payload["sign"])
+                elif route == "sum":
+                    self._accumulate(i, c.payload["dense"])
+                    if "nnz" in c.payload:
+                        nnz = c.payload["nnz"][0]
+                        self.nnz = nnz.clone() if self.nnz is None else self.nnz + nnz
+                        self.nnz_of += b.size
                 else:
                     self._payloads[i].append(c.payload)
                 if comm.error_feedback:
@@ -333,47 +353,51 @@ class AggregationRound:
         with comms.tag("grad_agg"):
             for i, (b, comp, route) in enumerate(zip(self.plan.buckets, self.comps,
                                                      self.routes)):
-                if route == "dense":
+                if route in ("dense", "sum"):  # sum: the dense leaf alone
                     comms.book_psum(self._sums[i], W)
-                    out.append(self._sums[i] / denom)
+                    agg = self._sums[i] / denom
                 elif route in ("fused_ef", "int8_acc"):
                     # _int8_code_reduce: codes at wire width, decode scale
                     # norm_w / levels folded into each worker's weight
                     cg = comms.all_gather_compressed({"code": self._stacks[i]})["code"]
                     ng = comms.all_gather(self._scales[i].reshape(W, 1)).reshape(-1)
                     sg = torch.full((), self.knobs[i]["levels"], dtype=f32, device=self.device)
-                    out.append(ops.int8_weighted_sum(cg, ng / sg) / denom)
+                    agg = ops.int8_weighted_sum(cg, ng / sg) / denom
                 elif route == "sign":
                     with comms.wire_format("packed1"):
                         pg = comms.all_gather(self._stacks[i])
                     votes = ops.sign_vote(pg, torch.ones(W, dtype=f32, device=self.device),
                                           b.size)
                     if comp.wire_reduce == "sign_vote":  # majority, ties to +1
-                        out.append(torch.where(votes >= 0, 1.0, -1.0))
+                        agg = torch.where(votes >= 0, 1.0, -1.0)
                     else:  # mean of +-1 votes
-                        out.append(votes / denom)
+                        agg = votes / denom
                 elif route == "tern":
                     # the packed 2-bit rows, then the f32 scales, each worker's
                     # scale its weight in one decode-and-accumulate pass
                     with comms.wire_format("packed2"):
                         pg = comms.all_gather(self._stacks[i])
                     sg = comms.all_gather(self._scales[i].reshape(W, 1)).reshape(-1)
-                    out.append(ops.tern_acc(pg, sg, b.size) / denom)
+                    agg = ops.tern_acc(pg, sg, b.size) / denom
                 elif route == "majority":
                     # int8 vote sum: exact for W <= 127, as the reference's psum
                     comms.book_psum(self._sums[i], W)
-                    out.append(torch.where(self._sums[i] >= 0, 1.0, -1.0))
-                else:  # gather: decode each worker's payload, sum in worker order
+                    agg = torch.where(self._sums[i] >= 0, 1.0, -1.0)
+                else:  # gather: every leaf booked in payload order, then decoded
                     payloads = self._payloads[i]
-                    if "indices" in payloads[0]:
-                        raise NotImplementedError("the sparse (values, indices) scatter-add "
-                                                  "reduce is not ported")
                     for v in payloads[0].values():
                         comms.book_all_gather(v, W)
                     acc = torch.zeros(b.size, dtype=f32, device=self.device)
-                    for pw in payloads:
-                        acc = acc + decompress_p(comp, Compressed(pw, b.size), self.knobs[i])
-                    out.append(acc / denom)
+                    for pw in payloads:  # worker order
+                        if "indices" in pw:  # distinct within a row: no colliding adds
+                            acc.index_add_(0, pw["indices"], pw["values"])
+                        else:
+                            acc = acc + decompress_p(comp, Compressed(pw, b.size), self.knobs[i])
+                    agg = acc / denom
+                if getattr(comp, "re_sparsify", False):  # gTop-k: the k largest of the mean
+                    idx = top_k(torch.abs(agg), k_of(b.size, comp.ratio, comp.k))
+                    agg = torch.zeros_like(agg).index_put_((idx,), agg[idx])
+                out.append(agg)
         self.state["step"] += 1
         return out, self.state
 

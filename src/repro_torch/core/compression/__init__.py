@@ -6,4 +6,8 @@ from repro_torch.core.compression.base import (  # noqa: F401
     register,
     runtime_knob_values,
 )
-from repro_torch.core.compression import kernels_backed, quantization  # noqa: F401  (register)
+from repro_torch.core.compression import (  # noqa: F401  (register)
+    kernels_backed,
+    quantization,
+    sparsification,
+)

@@ -1,12 +1,13 @@
 """Auxiliary technologies on one worker's flat bucket vector (counterpart of
-``repro.core.feedback``: ``local_clip``, ``pre_compress``,
-``post_compress``): momentum correction, local gradient clipping and error
-feedback with decay, in DGC's order.
+``repro.core.feedback``: ``local_clip``, ``warmup_ratio``,
+``pre_compress``, ``post_compress``): momentum correction, local gradient
+clipping and error feedback with decay, in DGC's order, and DGC's
+sparsity warm-up ramp.
 
 The port keeps the W stacked workers' state as (W, size) stacks per bucket
 (``state["u"][i]``, ``state["ef"][i]``), so the functions take the worker
 index ``w`` and update that worker's row in place.  Churn's freeze masks
-and the warm-up ratio are not ported.  ``state["ef"][i]`` is None for a
+are not ported.  ``state["ef"][i]`` is None for a
 bucket without a compressor: its residual would stay zero for ever (the
 reference never updates it), and adding a zero changes nothing.
 """
@@ -35,6 +36,18 @@ def local_clip(g: torch.Tensor, thr: float, n_workers: int) -> torch.Tensor:
         return g
     norm = torch.clamp_min(torch.linalg.vector_norm(g), 1e-30)
     return g * torch.clamp_max(_scalar(thr * n_workers ** -0.5, g) / norm, 1.0)
+
+
+def warmup_ratio(base_ratio: float, step, warmup_steps: int) -> torch.Tensor:
+    """DGC warm-up: the kept ratio ramps exponentially from 25% to
+    ``base_ratio`` over ``warmup_steps``; a 0-dim f32 tensor on the device
+    of ``step`` (an int or a tensor)."""
+    step = torch.as_tensor(step)
+    if not warmup_steps:
+        return _scalar(base_ratio, step)
+    t = torch.clamp_max(step.to(f32) / _scalar(warmup_steps, step), 1.0)
+    return torch.exp(torch.log(_scalar(0.25, step)) * (1 - t)
+                     + torch.log(_scalar(base_ratio, step)) * t)
 
 
 def pre_compress(comm: CommConfig, g: torch.Tensor, state: dict[str, Any], idx: int, w: int,

@@ -4,12 +4,13 @@
 cell description reads the same in both packages.  The port runs the BSP
 all-reduce trainer with sequential overlap, with momentum correction,
 local clipping and error feedback (with decay) on any ported compressor,
-over the dense wire (f32 mean, int8 majority vote, gather-and-decompress)
-or the compressed wire (int8 codes, 1-bit signs, 2-bit ternary codes).
-:func:`validate` raises on any field that asks for a part not ported yet
-(churn, integrity, gossip, pipelined overlap, local SGD, warm-up, the bf16
-wire, the ``sum`` and ``powersgd`` reductions), and applies the
-reference's ``bundle_spec`` checks on ``wire_format``.
+over the dense wire (f32 mean, int8 majority vote, gather-and-decompress,
+the sparse scatter-add and the sum of masked payloads) or the compressed
+wire (int8 codes, 1-bit signs, 2-bit ternary codes).  :func:`validate`
+raises on any field that asks for a part not ported yet (churn, integrity,
+gossip, pipelined overlap, local SGD, warm-up, the bf16 wire, the
+``powersgd`` reduction), and applies the reference's ``bundle_spec`` checks
+on ``wire_format``.
 """
 
 from __future__ import annotations

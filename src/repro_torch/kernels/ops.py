@@ -1,7 +1,8 @@
 """Flat-vector API over the port's kernels (counterpart of
 ``repro.kernels.ops``: ``qsgd_quantize``, ``qsgd_dequantize``,
 ``qsgd_ef_fused``, ``int8_weighted_sum``, ``sign_pack``, ``sign_unpack``,
-``sign_vote``, ``terngrad_quantize``, ``tern_pack``, ``tern_acc``).
+``sign_vote``, ``terngrad_quantize``, ``tern_pack``, ``tern_acc``,
+``threshold_sparsify``).
 
 The tensor norm and max are computed here, outside the kernels, as in the
 reference;
@@ -11,7 +12,8 @@ checks the returned ``cudaGetLastError()`` and counts the launch in
 ``LAUNCHES``; there is no fallback.  Off the card (CPU tensors, or the
 shape-only ``meta`` device the trainer books its wire bytes on) it runs the
 kernel's plain version from ``ref.py``.  No padding to the TPU's
-(rows, 128) tiles for the quantizers: the kernels mask their own tails.
+(rows, 128) tiles for the quantizers and the threshold: the kernels mask
+their own tails.
 The packed wires keep the reference's padded payloads byte for byte, so
 payloads interchange between the packages: ``ceil(n/8192)*1024`` bytes for
 the 1-bit sign wire, ``ceil(n/4096)*1024`` for the 2-bit ternary wire.
@@ -29,7 +31,7 @@ f32 = torch.float32
 #: launches per kernel since the last ``reset_launches()``
 LAUNCHES: dict[str, int] = {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
                             "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
-                            "tern_pack": 0, "tern_acc": 0}
+                            "tern_pack": 0, "tern_acc": 0, "threshold": 0}
 
 #: elements per 1024-byte tile of the packed sign wire: the reference packs
 #: (8 rows, 8 bits, 128 lanes) blocks, and pads the last one with +1.0
@@ -37,6 +39,9 @@ SIGN_TILE = 8 * 8 * 128
 #: elements per 1024-byte tile of the packed ternary wire: (8 rows, 4 2-bit
 #: slots, 128 lanes), the last one padded with 0
 TERN_TILE = 8 * 4 * 128
+#: elements per kept-count block of the threshold kernel: the reference's
+#: (256, 128) tile
+THRESH_BLOCK = 256 * 128
 
 
 def reset_launches() -> None:
@@ -299,3 +304,33 @@ def tern_acc(packed: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tenso
                 packed.shape[0], out.data_ptr(), n)
         return out
     return ref.tern_acc(packed, weights, n)
+
+
+def threshold_blocks(x: torch.Tensor, tau: torch.Tensor | float
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``threshold``: flat f32 ``x`` -> (``where(|x| >= tau, x, +0.0)``
+    (n,), the int32 kept count of each ``THRESH_BLOCK``-element block
+    (ceil(n / THRESH_BLOCK),)).  ``tau`` is a one-element f32 tensor on x's
+    device (the kernel reads it there) or a number.  The tail block counts
+    only real elements: the reference's padded tile also counts its zero
+    pads when tau <= 0."""
+    x = x.reshape(-1).to(f32)
+    n = x.numel()
+    tau = _scalar(tau, x) if not isinstance(tau, torch.Tensor) else tau.reshape(-1)
+    for t, dt, size, what in ((x, f32, n, "x"), (tau, f32, 1, "tau")):
+        _check(t, dt, size, x.device, what)
+    if not x.is_cuda:
+        return ref.threshold(x, tau.reshape(()), THRESH_BLOCK)
+    out = torch.empty(n, dtype=f32, device=x.device)
+    counts = torch.empty(-(-n // THRESH_BLOCK), dtype=torch.int32, device=x.device)
+    _launch("threshold", x.data_ptr(), tau.data_ptr(), out.data_ptr(), counts.data_ptr(), n)
+    return out, counts
+
+
+def threshold_sparsify(x: torch.Tensor, tau: torch.Tensor | float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat x -> (masked (n,), nnz int32 scalar), with the reference's
+    ``nnz = sum(|masked| > 0)``: unlike the kept count, a kept +-0.0 (tau
+    <= 0) is not counted."""
+    masked, _ = threshold_blocks(x, tau)
+    return masked, torch.sum(torch.abs(masked) > 0, dtype=torch.int32)

@@ -119,3 +119,14 @@ def int8_acc(codes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     for w in range(codes.shape[0]):
         acc = acc + weights[w] * codes[w].to(f32)
     return acc
+
+
+def threshold(x: torch.Tensor, tau: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threshold sparsification: ``where(|x| >= tau, x, +0.0)`` and the int32
+    kept count of each ``block``-element block (the tail block counts only
+    real elements)."""
+    keep = torch.abs(x) >= tau
+    nblk = -(-x.numel() // block)
+    pad = torch.zeros(nblk * block - x.numel(), dtype=torch.int32, device=x.device)
+    counts = torch.cat([keep.to(torch.int32), pad]).view(nblk, block).sum(1, dtype=torch.int32)
+    return torch.where(keep, x, 0.0), counts

@@ -10,7 +10,9 @@ bucket by bucket, to the send side of an :class:`AggregationRound`
 worker's row of the wire stack); only the wire payload and the worker's
 state rows outlive the worker.  The receive side then reduces every
 bucket, and the optimizer updates the parameters in place.  Loss, ``ce``
-and ``aux`` are worker means.
+and ``aux`` are worker means; ``kept`` is the share of elements that the
+masked sparsifiers (the threshold family, ``wangni``, ``variance_sparse``)
+kept this step, over all workers and their buckets.
 
 The wire bytes of one step are booked at build time by running the step
 once on the ``meta`` device, which computes shapes only.
@@ -86,6 +88,8 @@ def _train_step(cfg, comm, plan, opt, n_workers, noise, state, batch, lr):
     del agg
     _, opt_state = opt.update(grads, state["opt"], pleaves, lr)
     out = {k: comms.pmean(torch.stack(v)) for k, v in metrics.items()}
+    if rnd.nnz is not None:  # the masked sparsifiers' kept share (no collective booked)
+        out["kept"] = rnd.nnz / rnd.nnz_of
     return ({"params": params, "opt": opt_state, "comm": cstate,
              "step": state["step"] + 1}, out)
 

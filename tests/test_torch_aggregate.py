@@ -16,9 +16,11 @@ compression) against the JAX package.
   collectives reduce over the vmap axis, its Pallas kernels run in
   interpret mode), over two rounds so the residuals are non-zero, for the
   1-bit sign wires, the 2-bit ternary wire, the majority vote, the
-  gather-and-decompress reduce and the general
+  gather-and-decompress reduce, the sparsifiers' sparse scatter-add (with
+  gTop-k's re-sparsify) and masked sum, and the general
   ``pre_compress``/``post_compress`` path; the booked records (kind, payload
-  bytes, wire format) equal the reference's capture.
+  bytes, wire format) equal the reference's capture.  The sparsifier cells
+  round their inputs to bf16, so magnitudes tie as in the trainer.
 """
 
 import jax
@@ -195,11 +197,14 @@ def test_seeded_noise_is_reproducible_per_round():
     (dict(aggregator="gossip"), NotImplementedError),
     (dict(sync="local"), NotImplementedError),
     (dict(warmup_steps=10, **QSGD, wire_format="compressed"), NotImplementedError),
-    (dict(compressor="topk", wire_format="compressed"), KeyError),  # unregistered
+    (dict(compressor="powersgd", wire_format="compressed"), KeyError),  # unregistered
     (dict(wire_format="compressed"), NotImplementedError),  # bf16 wire: not ported
     (dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
      NotImplementedError),
-    (dict(per_tensor_rules=[("embed", "topk", {})]), KeyError),
+    (dict(per_tensor_rules=[("embed", "powersgd", {})]), KeyError),
+    # no compressed-domain reduction for a sparsifier, as in the reference
+    (dict(compressor="topk", wire_format="compressed"), ValueError),
+    (dict(compressor="threshold", wire_format="compressed"), ValueError),
 ])
 def test_validate_rejects_unported_cells(kw, err):
     with pytest.raises(err):
@@ -219,6 +224,16 @@ def test_validate_rejects_unported_cells(kw, err):
     dict(compressor="terngrad", compressor_kwargs={"clip_sigma": 2.5},
          wire_format="compressed"),
     dict(compressor="terngrad_kernel"),  # gather-and-decompress on the dense wire
+    dict(compressor="topk", error_feedback=True),  # sparse gather and scatter-add
+    dict(compressor="gtopk", momentum_correction=0.9, error_feedback=True),
+    dict(compressor="randomk", compressor_kwargs={"ratio": 0.05}),
+    dict(compressor="sbc"),
+    dict(compressor="stc"),
+    dict(compressor="threshold", error_feedback=True),  # the sum reduction
+    dict(compressor="adaptive_threshold", compressor_kwargs={"proportion": 0.05}),
+    dict(compressor="wangni"),
+    dict(compressor="variance_sparse", local_clip=1.0),
+    dict(**QSGD, per_tensor_rules=[("embed", "topk", {})]),
 ])
 def test_validate_accepts_ported_cells(kw):
     validate(CommConfig(**kw))
@@ -226,7 +241,12 @@ def test_validate_accepts_ported_cells(kw):
 
 @pytest.mark.parametrize("mode", ["sum", "powersgd"])
 def test_unported_reductions_raise(mode):
+    """``powersgd`` is still unported and raises; ``sum`` is ported and
+    routes to the sum reduction."""
     comp = get_compressor("signsgd", reduce_mode=mode)
+    if mode == "sum":
+        assert aggregate.bucket_route(CommConfig(compressor="signsgd"), comp) == "sum"
+        return
     with pytest.raises(NotImplementedError, match=mode):
         aggregate.bucket_route(CommConfig(compressor="signsgd"), comp)
 
@@ -264,20 +284,40 @@ VMAP_CELLS = {
     "terngrad-cwire-clip": dict(wire_format="compressed", compressor="terngrad",
                                 compressor_kwargs={"clip_sigma": 2.5}),
     "tern-dense": dict(**TERN),
+    # the sparsifiers, on inputs rounded to bf16 (magnitudes tie, as in the
+    # trainer's widened bf16 gradients): the sparse gather and scatter-add
+    "topk-ef": dict(compressor="topk", error_feedback=True),
+    "gtopk-mom": dict(compressor="gtopk", compressor_kwargs={"ratio": 0.05},
+                      momentum_correction=0.9),
+    "randomk": dict(compressor="randomk", compressor_kwargs={"ratio": 0.05}),
+    "sbc": dict(compressor="sbc", compressor_kwargs={"ratio": 0.05}),
+    "stc": dict(compressor="stc", compressor_kwargs={"ratio": 0.05}),
+    # ... and the sum of masked dense payloads
+    "threshold-ef": dict(compressor="threshold", compressor_kwargs={"tau": 0.1},
+                         error_feedback=True),
+    "adaptive-threshold": dict(compressor="adaptive_threshold",
+                               compressor_kwargs={"proportion": 0.05}),
+    "wangni": dict(compressor="wangni", compressor_kwargs={"ratio": 0.05}),
+    "variance-sparse": dict(compressor="variance_sparse"),
 }
-#: cells whose aggregate sums scaled decodes, which cancel and are summed in
-#: other orders (the rest are exact sign outputs)
-DECODED = ("qsgd_kernel", "terngrad_kernel", "terngrad")
+SPARSE = ("topk", "gtopk", "randomk", "sbc", "stc", "threshold", "adaptive_threshold",
+          "wangni", "variance_sparse")
+#: cells whose aggregate sums scaled decodes or sparse payloads, which
+#: cancel and are summed in other orders (the rest are exact sign outputs)
+DECODED = ("qsgd_kernel", "terngrad_kernel", "terngrad") + SPARSE
 
 
-def _vmap_inputs(step):
+def _vmap_inputs(step, bf16=False):
     """Gradients with planted +-0.0, and 2-2 sign splits across the W=4
-    workers (majority ties) at every fifth element."""
+    workers (majority ties) at every fifth element; ``bf16`` rounds them to
+    bf16 and back."""
     out = []
     for g in _round_inputs(100 + step):
         g[2, ::5], g[3, ::5] = -g[0, ::5], -g[1, ::5]
         g[:, ::97] = 0.0
         g[1, ::89] = -0.0
+        if bf16:
+            g = torch.from_numpy(g).to(torch.bfloat16).to(torch.float32).numpy()
         out.append(g)
     return out
 
@@ -308,7 +348,7 @@ def test_round_matches_reference_aggregate_under_vmap(cell):
                            axis_name="data", in_axes=(0, 0, None)))
     decoded = kw["compressor"] in DECODED
     for step in range(2):  # the second round starts from non-zero residuals
-        bufs = _vmap_inputs(step)
+        bufs = _vmap_inputs(step, bf16=kw["compressor"] in SPARSE)
         with comms.capture() as log:
             got, state = aggregate.aggregate_buckets(
                 comm, plan, [torch.from_numpy(b) for b in bufs], state, _key_noise)
@@ -433,3 +473,40 @@ def test_tern_compressors_match_reference(name, clip, n):
     keep = np.abs(u.numpy() - p) > 1e-5
     assert keep.mean() > 0.99 and (np.abs(x) > bound).any()  # the clip bites
     np.testing.assert_array_equal(tern[keep], want_t[keep])
+
+
+def test_sparsifier_routes_book_their_payloads():
+    """A 1000-element bucket: ``topk`` (k = 10) books its f32 values, then its
+    int32 indices, as all-gathers in payload order; ``threshold`` books one
+    psum of its f32 dense leaf (its ``nnz`` is not sent), as the reference's
+    ``_aggregate_one`` does."""
+    bufs = [torch.from_numpy(_vmap_inputs(0)[0])]
+    want = {"topk": [("all_gather", 40, "f32"), ("all_gather", 40, "int32")],
+            "threshold": [("psum", 4000, "f32")]}
+    for name, recs in want.items():
+        comm = CommConfig(compressor=name)
+        plan = aggregate.make_bucket_plan(comm, {"a": torch.empty(1000)})
+        with comms.capture() as log:
+            aggregate.aggregate_buckets(comm, plan, bufs,
+                                        aggregate.init_comm_state(comm, plan, W, "cpu"),
+                                        _key_noise)
+        assert [(r.kind, r.payload_bytes, r.wire_format) for r in log.records] == recs
+
+
+def test_gtopk_resparsifies_the_mean():
+    """gTop-k's aggregate is the top-k workers' mean cut to its own k largest
+    magnitudes (ties to the lower index); every worker sends k = 50 of 1000,
+    so the mean has up to 200 non-zeros before the cut."""
+    bufs = [torch.from_numpy(_vmap_inputs(0, bf16=True)[0])]
+    aggs = {}
+    for name in ("topk", "gtopk"):
+        comm = CommConfig(compressor=name, compressor_kwargs={"ratio": 0.05})
+        plan = aggregate.make_bucket_plan(comm, {"a": torch.empty(1000)})
+        aggs[name], _ = aggregate.aggregate_buckets(
+            comm, plan, bufs, aggregate.init_comm_state(comm, plan, W, "cpu"), _key_noise)
+    mean, cut = aggs["topk"][0], aggs["gtopk"][0]
+    assert int((mean != 0).sum()) > 50
+    idx = np.asarray(jax.lax.top_k(jnp.asarray(mean.abs().numpy()), 50)[1])
+    want = np.zeros(1000, np.float32)
+    want[idx] = mean.numpy()[idx]
+    np.testing.assert_array_equal(cut.numpy(), want)

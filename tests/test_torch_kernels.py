@@ -13,7 +13,9 @@ within rtol 1e-6 (the two sides may add the W terms in other orders).  The
 2-bit ternary wire likewise: codes and smax bitwise through the flat API too
 (``max|x|`` does not depend on the reduction order), packed bytes (pads
 included) bitwise, accumulated sums bitwise with 0/1 weights and within
-rtol 1e-6 with general ones.
+rtol 1e-6 with general ones.  The threshold kernel is exact: masked values
+bitwise (int32 views) and kept counts equal, on inputs holding +-0.0, NaN
+and +-inf.
 """
 
 import jax
@@ -27,7 +29,9 @@ from repro.kernels import qsgd as jqsgd
 from repro.kernels import qsgd_ef as jqsgd_ef
 from repro.kernels import sign_pack as jsign
 from repro.kernels import terngrad as jtern
+from repro.kernels import threshold_sparsify as jthr
 from repro.kernels import wire_reduce as jwire
+from repro_torch.core.compression.sparsification import top_k
 from repro_torch.kernels import ops, ref
 
 SIZES = [100, 1000, 32768, 100_003]
@@ -182,9 +186,10 @@ def test_cpu_tensors_take_the_plain_path():
     tern, _ = ops.terngrad_quantize(_t(x), _t(u))
     tpacked = ops.tern_pack(tern)
     ops.tern_acc(torch.stack([tpacked, tpacked]), torch.ones(2), 1000)
+    ops.threshold_sparsify(_t(x), 0.05)
     assert ops.LAUNCHES == {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
                             "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
-                            "tern_pack": 0, "tern_acc": 0}
+                            "tern_pack": 0, "tern_acc": 0, "threshold": 0}
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -451,6 +456,83 @@ def test_tern_wrappers_reject_bad_inputs():
 
 
 # ---------------------------------------------------------------------------
+# Threshold sparsification: the plain version against the Pallas kernel and
+# the reference's flat API.
+# ---------------------------------------------------------------------------
+
+
+def _thresh_data(n, seed):
+    """0.1 * N(0, 1) with +0.0, -0.0, NaN, +inf and -inf planted."""
+    x = (np.random.default_rng(seed).standard_normal(n) * 0.1).astype(np.float32)
+    x[::97] = 0.0
+    x[3::89] = -0.0
+    x[5::1001], x[7::1003], x[11::1009] = np.nan, np.inf, -np.inf
+    return x
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("rows", [256, 768])
+@pytest.mark.parametrize("tau", [0.0, 0.05, 10.0])
+def test_threshold_plain_matches_pallas_2d(rows, tau):
+    """Whole (256, 128) tiles: no pads, so the block counts agree at every tau."""
+    x = _thresh_data(rows * 128, rows)
+    want, want_counts = jthr.threshold_2d(jnp.asarray(x.reshape(rows, 128)),
+                                          jnp.full((1, 1), tau, jnp.float32), interpret=True)
+    got, counts = ops.threshold_blocks(_t(x), _s(tau))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want).reshape(-1))
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts).reshape(-1))
+
+
+@pytest.mark.parametrize("n", [1000, 100_003])
+@pytest.mark.parametrize("tau", [0.0, 0.05, 10.0])
+def test_threshold_sparsify_matches_reference(n, tau):
+    """The flat API against ``repro.kernels.ops.threshold_sparsify``: masked
+    values bitwise, nnz (``sum(|masked| > 0)``) equal.  Block counts: the
+    reference pads its last tile with zeros, which it counts when tau <= 0,
+    so they are compared with ``threshold_2d``'s at tau > 0 and with the
+    counts of the unpadded input otherwise."""
+    x = _thresh_data(n, n)
+    want, want_nnz = jops.threshold_sparsify(jnp.asarray(x), tau)
+    got, nnz = ops.threshold_sparsify(_t(x), tau)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    assert nnz.dtype == torch.int32 and int(nnz) == int(want_nnz)
+    _, counts = ops.threshold_blocks(_t(x), tau)
+    tile = ops.THRESH_BLOCK
+    assert counts.shape == (-(-n // tile),)
+    if tau > 0:
+        x2 = np.pad(x, (0, (-n) % tile)).reshape(-1, 128)
+        _, want_counts = jthr.threshold_2d(jnp.asarray(x2), jnp.full((1, 1), tau, jnp.float32),
+                                           interpret=True)
+        want_counts = np.asarray(want_counts).reshape(-1)
+    else:
+        keep = np.pad(np.abs(x) >= tau, (0, (-n) % tile))
+        want_counts = keep.reshape(-1, tile).sum(1)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+
+
+def test_threshold_reads_a_one_element_tau():
+    x = _t(_thresh_data(5000, 1))
+    got, counts = ops.threshold_blocks(x, torch.full((1,), 0.05))
+    want, want_counts = ref.threshold(x, _s(0.05), ops.THRESH_BLOCK)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(counts, want_counts)
+
+
+def test_threshold_wrapper_rejects_bad_inputs():
+    x = torch.zeros(100)
+    with pytest.raises(ValueError, match="tau"):  # one element
+        ops.threshold_blocks(x, torch.ones(2))
+    with pytest.raises(ValueError, match="tau"):  # on the launch's device
+        ops.threshold_blocks(x, torch.ones((), device="meta"))
+    with pytest.raises(ValueError, match="tau"):
+        ops.threshold_blocks(x, torch.ones(1, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
 # On the card: every kernel against its plain version.
 # ---------------------------------------------------------------------------
 
@@ -575,3 +657,27 @@ def test_tern_acc_kernel_matches_plain_on_card(cuda, n, ld, general):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(100_003, 0), (4096, 1), (37, 0), (2 * 32768, 0)])
+@pytest.mark.parametrize("tau", [0.0, 0.05, 10.0])
+def test_threshold_kernel_matches_plain_on_card(cuda, n, offset, tau):
+    xt = _t(_thresh_data(n + offset, n)).to(cuda)[offset:]  # offset 1: scalar path
+    t = torch.full((1,), tau, device=cuda)
+    before = ops.LAUNCHES["threshold"]
+    got, counts = ops.threshold_blocks(xt, t)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["threshold"] == before + 1
+    want, want_counts = ref.threshold(xt, t.reshape(()), ops.THRESH_BLOCK)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,levels", [(100_003, 16), (3_000_000, 1000)])
+def test_top_k_on_card_matches_cpu_on_ties(cuda, n, levels):
+    """The stable descending sort keeps lax.top_k's tie order on the card too."""
+    score = _t(np.random.default_rng(n).integers(0, levels, n).astype(np.float32) / levels)
+    for k in (1, n // 100, n // 2):
+        assert torch.equal(top_k(score.to(cuda), k).cpu(), top_k(score, k))

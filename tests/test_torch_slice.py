@@ -1,10 +1,12 @@
 """The port's slices end to end: the BSP trainer step with QSGD over the
 int8 compressed wire, with and without error feedback, with the 1-bit
 sign compressors (``signsgd_packed`` with and without error feedback,
-``signsgd``'s majority vote, on the compressed and the dense wire), and
-with ``terngrad_kernel`` (with and without error feedback) and the
-``terngrad`` twin (clipped at 2.5 sigma) on the 2-bit compressed wire,
-against the JAX package's ``run_trainer_scenario`` on the tiny workload.
+``signsgd``'s majority vote, on the compressed and the dense wire), with
+``terngrad_kernel`` (with and without error feedback) and the ``terngrad``
+twin (clipped at 2.5 sigma) on the 2-bit compressed wire, and with the
+deterministic sparsifiers ``topk`` (sparse gather and scatter-add) and
+``threshold`` (masked sum), each with error feedback, against the JAX
+package's ``run_trainer_scenario`` on the tiny workload.
 
 Both sides start from the reference's ``init_params(cfg, key(0), 1)`` (what
 ``Trainer.init()`` draws), use ``momentum_sgd(0.0)`` and ``constant(lr)``,
@@ -132,6 +134,46 @@ def test_tern_slice_loss_series_matches_reference(cell):
     np.testing.assert_allclose(losses, ref.series["loss_full"], rtol=1e-4)
 
 
+SPARSE_LOSS_CELLS = {
+    "topk-ef": dict(compressor="topk", compressor_kwargs={"ratio": 0.05}, error_feedback=True),
+    "threshold-ef": dict(compressor="threshold", compressor_kwargs={"tau": 1e-3},
+                         error_feedback=True),
+}
+
+
+@pytest.mark.parametrize("cell", list(SPARSE_LOSS_CELLS))
+def test_sparse_slice_loss_series_matches_reference(cell):
+    kw = SPARSE_LOSS_CELLS[cell]
+    skw = dict(kw, compressor_kwargs=tuple(sorted(kw["compressor_kwargs"].items())))
+    ref = run_trainer_scenario(Scenario(**skw, **BASE), data_par=1)
+    bundle, losses = _port_run(CommConfig(**kw, bucket_mb=4.0))
+    np.testing.assert_allclose(losses, ref.series["loss_full"], rtol=1e-4)
+    assert losses[-1] < losses[0]
+
+
+def test_sparse_slice_reports_the_kept_share():
+    """At W=2 the threshold path books one f32 psum of each bucket's dense
+    payload, and the step reports the share of elements it kept; top-k
+    books its values and indices and reports none."""
+    comm = CommConfig(compressor="threshold", compressor_kwargs={"tau": 1e-3},
+                      error_feedback=True)
+    bundle, losses = _port_run(comm, n_workers=2, steps=1)
+    sizes = [b.size for b in bundle.bucket_plan.buckets]
+    assert bundle.wire["train_formats"]["f32"] >= 4 * sum(sizes)
+    cfg = get_config("qwen3-0.6b").reduced().with_updates(
+        vocab=128, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256)
+    shape = InputShape("train", 64, 16, "train")
+    tr = Trainer(build_bundle(cfg, comm, momentum_sgd(0.0), shape, n_workers=2, device="cpu"),
+                 _Data(shape), constant(0.05), log_every=1)
+    tr.fit(tr.init(seed=0), 2)
+    assert all(0.0 < h["kept"] < 1.0 for h in tr.history)
+    topk = CommConfig(compressor="topk", compressor_kwargs={"ratio": 0.05})
+    bundle, losses = _port_run(topk, n_workers=2, steps=1)
+    k = sum(max(1, int(n * 0.05)) for n in sizes)
+    assert bundle.wire["train_formats"]["int32"] == 4 * k
+    assert np.isfinite(losses).all()
+
+
 def test_slice_books_int8_wire_per_worker():
     """At W=2 each step books the int8 codes and one f32 norm per bucket:
     all-gather p(n-1) with n = 2."""
@@ -250,4 +292,20 @@ def test_tern_slice_on_card_launches_every_kernel(cuda, cell, kernels, absent):
     for k in absent:
         assert ops.LAUNCHES[k] == 0, (k, ops.LAUNCHES)
     _, on_cpu = _port_run(comm, noise=_jax_noise(0), n_workers=2)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", list(SPARSE_LOSS_CELLS))
+def test_sparse_slice_on_card(cuda, cell):
+    """The sparsifier paths on the card at W=2: threshold through its kernel,
+    once per worker, bucket and step; top-k through no port kernel (a stable
+    sort).  The losses stay close to the CPU plain path's (other sum orders
+    in the model, so rtol 1e-3)."""
+    comm = CommConfig(**SPARSE_LOSS_CELLS[cell], bucket_mb=4.0)
+    ops.reset_launches()
+    bundle, on_card = _port_run(comm, device=cuda, n_workers=2)
+    calls = len(bundle.bucket_plan.buckets) * 2 * 3 if cell == "threshold-ef" else 0
+    assert ops.LAUNCHES == {k: (calls if k == "threshold" else 0) for k in ops.LAUNCHES}
+    _, on_cpu = _port_run(comm, n_workers=2)
     np.testing.assert_allclose(on_card, on_cpu, rtol=1e-3)
