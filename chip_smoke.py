@@ -21,7 +21,13 @@ result line:
    included) bitwise with 0/1 weights and rtol 1e-6 with general ones;
    threshold's masked values (int32 views) and per-block kept counts
    bitwise at tau 0.0, 0.05 and 10.0 on an input holding +-0.0, NaN and
-   +-inf; each timed with CUDA events beside its byte bound;
+   +-inf; each timed with CUDA events beside its byte bound; and wkv6 (the
+   RWKV6 recurrence) at (B, S, H, hd) = (1, 32, 1, 16), (2, 100, 2, 32),
+   (1, 1, 32, 80), in f32 and bf16, and at the server's shapes, decode
+   (8, 1, 32, 80) and prefill (8, 1024, 32, 80), with bf16 r, k, v and u,
+   a nonzero s0 and w in (0.4, 0.9): sT bitwise, y within rtol 3e-4 /
+   atol 3e-5 (the reference's kernel test), timed at the decode shape and
+   at the prefill shape, the latter beside its operations bound;
 4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
    weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
    global batch 8, twelve paths: QSGD (16 levels) on the int8 compressed wire
@@ -46,7 +52,21 @@ result line:
    workers and steps call it.  ``--profile`` adds
    one more step of the QSGD EF path, or of each path named by its label,
    under torch.profiler (device-busy share, device time by kernel, host
-   time by operation), not counted as launches.
+   time by operation), not counted as launches;
+5. the whole RWKV6 path, kernel against plain: rwkv6-3b at full width in
+   f32, 4 layers, random weights from seed 0, batch 2, a 256-token prompt
+   and 8 decode tokens, once with ``use_kernel=True`` and once through the
+   plain ``wkv_scan`` fed the same tokens: the last hidden state and every
+   cache leaf (each layer's wkv state, shifts) after the prefill and after
+   the decode within rtol 1e-4 and an atol of 1e-5 times the leaf's largest
+   magnitude; prints whether the plain path's own greedy tokens agree;
+6. the server: rwkv6-3b at full published width and depth (bf16), random
+   weights from seed 0, ``SyntheticBatches`` prompts, batch 8, prompt 1024,
+   32 greedy decode tokens, through ``launch.serve.run`` (``build_serve``):
+   prefill ms (host clock ending in a synchronize), decode ms per token,
+   tok/s, peak memory and the first sequence's tokens; exactly kernel wkv6
+   must launch, 32 + 32 * 32 = 1,056 times.  ``--profile serve`` adds one
+   more decode step under torch.profiler.
 
 Then one JSON line per the kernel table, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
@@ -74,6 +94,9 @@ from repro_torch.core.types import CommConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticBatches  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import LIBRARY  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.utils.tree import flatten_with_paths as flat  # noqa: E402
 from repro_torch.optim.optimizers import momentum_sgd  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
 from repro_torch.train.steps import build_bundle  # noqa: E402
@@ -127,6 +150,9 @@ KERNELS = {
                       replaces="src/repro/kernels/threshold_sparsify.py:27",
                       bytes=lambda n, w: 8 * n + 4 * -(-n // ops.THRESH_BLOCK),
                       ops=lambda n, w: 2 * n),
+    # timed at the prefill shape, not at n elements: see wkv6_bound
+    "wkv6": dict(source="src/repro_torch/kernels/csrc/wkv6.cu",
+                 replaces="src/repro/kernels/wkv6.py:73"),
 }
 #: why a kernel's row has library_ms null
 NO_LIBRARY = {
@@ -140,7 +166,12 @@ NO_LIBRARY = {
     "tern_pack": "no single PyTorch call packs 2-bit crumbs",
     "tern_acc": "no single PyTorch call unpacks and sums 2-bit crumbs",
     "threshold": "no single PyTorch call both masks by |x| >= tau and counts",
+    "wkv6": "no single PyTorch call runs a linear recurrence with a data-dependent decay",
 }
+#: RWKV6 serving: batch, prompt, decode tokens (the server phase), and the
+#: prefill shape (B, S, H, hd) of kernel wkv6 there
+SERVE_B, SERVE_PROMPT, SERVE_DECODE = 8, 1024, 32
+WKV6_PREFILL = (SERVE_B, SERVE_PROMPT, 32, 80)
 
 
 def smi() -> str:
@@ -161,10 +192,25 @@ def ms_per_call(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name: str, n: int, w: int) -> tuple[float, str]:
-    t_bytes = KERNELS[name]["bytes"](n, w) / HBM_BYTES_PER_S * 1e3
-    t_ops = KERNELS[name]["ops"](n, w) / F32_OPS_PER_S * 1e3
+def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(name: str, n: int, w: int) -> tuple[float, str]:
+    return _bound(KERNELS[name]["bytes"](n, w), KERNELS[name]["ops"](n, w))
+
+
+def wkv6_bound(B: int, S: int, H: int, hd: int, in_bytes: int) -> tuple[float, str]:
+    """r, k, v (and u) read at ``in_bytes`` per element, w read and y written
+    as f32, s0 read and sT written as f32.  The least f32 operations per head
+    and step: y = r^T S + (sum_i r_i u_i k_i) v is 2 hd^2 (r^T S) + 3 hd (the
+    sum) + 2 hd (times v, plus), and S <- w*S + k v^T is 3 hd^2; so 5 hd^2 +
+    5 hd.  (The kernel spends 7 hd^2: it forms u*kv for every (i, j).)"""
+    n = B * S * H * hd
+    n_bytes = n * (3 * in_bytes + 4 + 4) + B * H * hd * hd * 8 + H * hd * in_bytes
+    return _bound(n_bytes, B * S * H * (5 * hd * hd + 5 * hd))
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> bool:
@@ -385,6 +431,44 @@ def check_threshold_kernel(n: int, timed: bool) -> dict[str, dict]:
     return out
 
 
+def _wkv6_inputs(B: int, S: int, H: int, hd: int, dtype: torch.dtype, seed: int):
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=DEV).mul_(0.5).to(dtype)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, S, H, hd), generator=gen, device=DEV)) * 0.5 + 0.4
+    u = (torch.randn((H, hd), generator=gen, device=DEV) * 0.1).to(dtype)
+    s0 = torch.randn((B, H, hd, hd), generator=gen, device=DEV) * 0.1
+    return r, k, v, w, u, s0
+
+
+def check_wkv6() -> dict[str, dict]:
+    """Kernel wkv6 against its plain version: sT bitwise, y within rtol 3e-4
+    / atol 3e-5, at three small shapes (f32 and bf16), at the server's
+    decode shape (B, 1, 32, 80) and at its prefill shape (both bf16 r, k, v,
+    u, nonzero s0); the decode shape is timed in the detail, the prefill
+    shape for the row."""
+    cases = [(shape, dt) for shape in ((1, 32, 1, 16), (2, 100, 2, 32), (1, 1, 32, 80))
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [((SERVE_B, 1) + WKV6_PREFILL[2:], torch.bfloat16), (WKV6_PREFILL, torch.bfloat16)]
+    ok, err, detail = True, 0.0, []
+    for i, (shape, dt) in enumerate(cases):
+        args = _wkv6_inputs(*shape, dt, seed=100 + i)
+        y, sT = ops.wkv6(*args)
+        want_y, want_s = ref.wkv6(*args)
+        s_same = torch.equal(sT, want_s)
+        y_ok = _close(y, want_y, rtol=3e-4, atol=3e-5)
+        ok &= s_same and y_ok
+        err = max(err, float((y - want_y).abs().max()), float((sT - want_s).abs().max()))
+        detail.append(f"{shape} {str(dt)[6:]}: sT bitwise {s_same}, y within tolerance {y_ok}")
+        if shape[1] == 1 and shape[0] == SERVE_B:
+            detail.append(f"{shape} {ms_per_call(lambda: ops.wkv6(*args), 20):.4f} ms per call")
+    out = {"max_abs_err": err, "ok": ok, "detail": "; ".join(detail)}
+    out.update(ms=ms_per_call(lambda: ops.wkv6(*args), 20),
+               plain_ms=ms_per_call(lambda: ref.wkv6(*args), 2))
+    return {"wkv6": out}
+
+
 def require(results: dict[str, dict], n: int) -> None:
     bad = {k: r["detail"] for k, r in results.items() if not r["ok"]}
     if bad:
@@ -434,8 +518,8 @@ PATHS = (
 )
 
 
-def profile_one_step(tr: Trainer, state, t: int, step_ms: float) -> None:
-    """One more step under torch.profiler: summed device time of its
+def profile_one_step(run, what: str, step_ms: float) -> None:
+    """``run()`` once more under torch.profiler: summed device time of its
     kernels (the device-busy time) against the unprofiled mean ``step_ms``
     and the profiled wall, the kernel launches, the port's own kernels, the
     kernels that take most of the device time, and the host operations that
@@ -444,15 +528,15 @@ def profile_one_step(tr: Trainer, state, t: int, step_ms: float) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        tr.fit(state, 1, start_step=t)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731  (ms)
     busy = sum(dev(e) for e in kernels)
-    print(f"  profiled step {t}: device busy {busy:.1f} ms = {100 * busy / step_ms:.1f}% of "
-          f"the unprofiled mean step ({step_ms:.1f} ms), {100 * busy / wall_ms:.1f}% of the "
+    print(f"  profiled {what}: device busy {busy:.1f} ms = {100 * busy / step_ms:.1f}% of "
+          f"the unprofiled mean ({step_ms:.1f} ms), {100 * busy / wall_ms:.1f}% of the "
           f"profiled wall ({wall_ms:.1f} ms); {sum(e.count for e in kernels)} kernel launches "
           f"of {len(kernels)} names")
     for e in kernels:
@@ -499,7 +583,8 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float,
             raise AssertionError(f"non-finite loss at step {t}: {loss}")
     launches = dict(ops.LAUNCHES)  # read before the profiled step, if any
     if profile_step:
-        profile_one_step(tr, state, steps, float(np.mean(step_ms[1:])))
+        profile_one_step(lambda: tr.fit(state, 1, start_step=steps), f"step {steps}",
+                         float(np.mean(step_ms[1:])))
     wire = bundle.wire["train"]
     print(f"  mean step_ms (first step excluded) {np.mean(step_ms[1:]):.1f}; booked wire "
           f"{wire.get('grad_agg', 0.0) / 1e3:.1f} KB/step grad_agg "
@@ -510,16 +595,97 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float,
     return launches
 
 
+def _leaves_close(got: dict, want: dict, what: str) -> list[str]:
+    """Names of the leaves outside rtol 1e-4 / atol 1e-5 x the leaf's largest
+    magnitude; prints the largest max-abs error over the leaves."""
+    bad, worst = [], (0.0, "", 0.0)
+    for path, w in want.items():
+        g, w = got[path].to(torch.float32), w.to(torch.float32)
+        err, top = float((g - w).abs().max()), float(w.abs().max())
+        worst = max(worst, (err, path, top))
+        if not _close(g, w, rtol=1e-4, atol=1e-5 * max(1.0, top)):
+            bad.append(f"{what} {path}")
+    print(f"  {what}: {len(want)} leaves, largest max abs err {worst[0]:.3e} ({worst[1]}, "
+          f"whose largest magnitude is {worst[2]:.3e}), {len(bad)} outside tolerance")
+    return bad
+
+
+def check_rwkv_path() -> None:
+    """rwkv6-3b at full width, f32, 4 layers: prefill and 8 decode steps
+    through kernel wkv6 against the plain wkv_scan fed the same tokens."""
+    cfg = get_config("rwkv6-3b").with_updates(n_layers=4, param_dtype="float32",
+                                              compute_dtype="float32")
+    B, S, steps = 2, 256, 8
+    params = T.init_params(cfg, 0, DEV)
+    toks = torch.from_numpy(SyntheticBatches(cfg, InputShape("p", S, B, "prefill"), seed=0)
+                            .batch(0)["tokens"]).to(DEV)
+    with torch.inference_mode():
+        last_k, cache_k = T.prefill(cfg, params, {"tokens": toks}, use_kernel=True)
+        last_p, cache_p = T.prefill(cfg, params, {"tokens": toks}, use_kernel=False)
+        bad = _leaves_close({"last": last_k}, {"last": last_p}, "prefill")
+        bad += _leaves_close(flat(cache_k), flat(cache_p), "prefill cache")
+        tok = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
+        agree = True
+        for _ in range(steps):
+            nxt, cache_k = T.decode_step(cfg, params, cache_k, tok, use_kernel=True)
+            own, cache_p = T.decode_step(cfg, params, cache_p, tok, use_kernel=False)
+            agree &= torch.equal(nxt, own)
+            tok = nxt
+        bad += _leaves_close(flat(cache_k), flat(cache_p), "decoded cache")
+    print(f"rwkv path kernel vs plain ({cfg.name} {cfg.compute_dtype}, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, batch {B}, prompt {S}, {steps} decode tokens): greedy "
+          f"tokens agree {agree}; last kernel tokens {tok[:, 0].tolist()}")
+    if bad:
+        raise AssertionError(f"rwkv path: kernel and plain disagree at {bad}")
+    del params, cache_k, cache_p
+    torch.cuda.empty_cache()
+
+
+def run_server(profile_step: bool) -> int:
+    """The server phase; returns the launches of kernel wkv6."""
+    cfg = get_config("rwkv6-3b")
+    torch.cuda.empty_cache()
+    print(f"server {cfg.name} ({cfg.compute_dtype}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}): batch "
+          f"{SERVE_B}, prompt {SERVE_PROMPT}, {SERVE_DECODE} decode tokens")
+    ops.reset_launches()
+    res = serve.run(cfg, prompt_len=SERVE_PROMPT, batch=SERVE_B, decode=SERVE_DECODE,
+                    device=DEV, seed=0)
+    launches = dict(ops.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["wkv6"] = cfg.n_layers * (1 + SERVE_DECODE)
+    tokens = res["tokens"]
+    print(f"  prefill {res['prefill_ms']:.1f} ms; decode {res['decode_ms'] / SERVE_DECODE:.2f} "
+          f"ms per token ({res['tok_per_s']:.1f} tok/s over {SERVE_B} sequences); peak memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB (weights included); launches {launches}")
+    if launches != want:
+        raise AssertionError(f"server: must launch exactly {want}: {launches}")
+    if tokens.shape != (SERVE_B, SERVE_DECODE) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab or not bool(torch.isfinite(res["last"]).all()):
+        raise AssertionError(f"server: bad output, tokens {tokens.shape} in "
+                             f"[{tokens.min()}, {tokens.max()}], last finite "
+                             f"{bool(torch.isfinite(res['last']).all())}")
+    if profile_step:
+        step, params, cache = res["bundle"].serve_step, res["params"], res["cache"]
+        tok = torch.from_numpy(tokens[:, -1:]).to(DEV)
+        profile_one_step(lambda: step(params, cache, tok), "decode step",
+                         res["decode_ms"] / SERVE_DECODE)
+    del res
+    torch.cuda.empty_cache()
+    return launches["wkv6"]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="*", metavar="LABEL",
                     help="run one more step of the QSGD EF path (or of the paths with "
-                         "these labels) under torch.profiler after the timed "
-                         "steps (its launches are counted apart)")
+                         "these labels; 'serve' for a decode step of the server) under "
+                         "torch.profiler after the timed steps (its launches are counted "
+                         "apart)")
     profile = ap.parse_args().profile
     if profile is not None:
         profile = set(profile or [PATHS[0][0]])
-        unknown = profile - {p[0] for p in PATHS}
+        unknown = profile - {p[0] for p in PATHS} - {"serve"}
         if unknown:
             ap.error(f"--profile: no path labelled {sorted(unknown)}")
     t_start = time.perf_counter()
@@ -547,10 +713,18 @@ def main() -> None:
           "0/1-weight sums bitwise; e', int8_acc and general-weight sums within tolerance")
     big = {k: v for check in checks for k, v in check(LARGEST, timed=True).items()}
     require(big, LARGEST)
+    wkv = check_wkv6()
+    require(wkv, 0)
+    print(f"kernel wkv6: {wkv['wkv6']['detail']}")
     rows = []
-    for name, r in big.items():
-        b_ms, b_by = bound(name, LARGEST, W)
-        print(f"kernel {name} n={LARGEST}: {r['ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}), "
+    for name, r in {**big, **wkv}.items():
+        if name == "wkv6":
+            b_ms, b_by = wkv6_bound(*WKV6_PREFILL, in_bytes=2)
+            at = f"(B, S, H, hd)={WKV6_PREFILL} bf16"
+        else:
+            b_ms, b_by = bound(name, LARGEST, W)
+            at = f"n={LARGEST}"
+        print(f"kernel {name} {at}: {r['ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}), "
               f"plain {r['plain_ms']:.4f} ms, max_abs_err {r['max_abs_err']}")
         rows.append({"name": name, "route": "cuda", "source": KERNELS[name]["source"],
                      "replaces": KERNELS[name]["replaces"], "launches": 0,
@@ -567,6 +741,8 @@ def main() -> None:
             raise AssertionError(f"path {label}: must launch exactly {want}: {got}")
         for k, v in got.items():
             launches[k] += v
+    check_rwkv_path()
+    launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["ok"] = row["ok"] and row["launches"] > 0

@@ -1,4 +1,4 @@
-"""Architecture registry of the port (the dense GQA family so far)."""
+"""Architecture registry of the port (the dense GQA family and RWKV6 so far)."""
 
 from __future__ import annotations
 
@@ -6,7 +6,7 @@ import importlib
 
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
-ARCHS = ("qwen3-0.6b",)
+ARCHS = ("qwen3-0.6b", "rwkv6-3b")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -3,7 +3,9 @@
 The reference's parameters, flattened by path (``repro.utils.tree.
 flatten_with_paths``) and exported with ``np.asarray``, become the port's
 parameter tree; the inverse exports the port's tree the same way, so both
-packages can compute on the same weights.
+packages can compute on the same weights.  ``cache_from_numpy`` does the
+same for a serving cache (the reference's ``prefill`` output), so a decode
+can start from the reference's own cache.
 """
 
 from __future__ import annotations
@@ -33,6 +35,24 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig,
             raise ValueError(f"{path}: shape {a.shape}, expected {tuple(d.shape)}")
         out.append(torch.from_numpy(a).to(device=device, dtype=cfg.pdtype))
     return unflatten_like(param_defs(cfg), out)
+
+
+def cache_from_numpy(flat: dict[str, np.ndarray], like: Any) -> Any:
+    """A cache tree with ``like``'s structure, paths, dtypes and device (e.g.
+    the port's own ``prefill`` cache for the same config and batch), filled
+    from ``{path: array}``."""
+    want = flatten_with_paths(like)
+    if set(flat) != set(want):
+        raise ValueError(f"cache paths differ: missing {sorted(set(want) - set(flat))}, "
+                         f"unexpected {sorted(set(flat) - set(want))}")
+    out = []
+    for path, t in want.items():
+        a = np.asarray(flat[path])
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"{path}: shape {a.shape}, expected {tuple(t.shape)}")
+        a = np.array(a, dtype=np.float32 if t.is_floating_point() else a.dtype, order="C")
+        out.append(torch.from_numpy(a).to(device=t.device, dtype=t.dtype))
+    return unflatten_like(like, out)
 
 
 def params_to_numpy(params: Any) -> dict[str, np.ndarray]:

@@ -43,6 +43,7 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "tern_pack": ("tern_pack_launch", (_P, _LL, _P, _LL, _P)),
     "tern_acc": ("tern_acc_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
     "threshold": ("threshold_launch", (_P, _P, _P, _P, _LL, _P)),
+    "wkv6": ("wkv6_launch", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 

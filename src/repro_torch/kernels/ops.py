@@ -2,7 +2,7 @@
 ``repro.kernels.ops``: ``qsgd_quantize``, ``qsgd_dequantize``,
 ``qsgd_ef_fused``, ``int8_weighted_sum``, ``sign_pack``, ``sign_unpack``,
 ``sign_vote``, ``terngrad_quantize``, ``tern_pack``, ``tern_acc``,
-``threshold_sparsify``).
+``threshold_sparsify``, ``wkv6``).
 
 The tensor norm and max are computed here, outside the kernels, as in the
 reference;
@@ -31,7 +31,7 @@ f32 = torch.float32
 #: launches per kernel since the last ``reset_launches()``
 LAUNCHES: dict[str, int] = {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
                             "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
-                            "tern_pack": 0, "tern_acc": 0, "threshold": 0}
+                            "tern_pack": 0, "tern_acc": 0, "threshold": 0, "wkv6": 0}
 
 #: elements per 1024-byte tile of the packed sign wire: the reference packs
 #: (8 rows, 8 bits, 128 lanes) blocks, and pads the last one with +1.0
@@ -334,3 +334,48 @@ def threshold_sparsify(x: torch.Tensor, tau: torch.Tensor | float
     <= 0) is not counted."""
     masked, _ = threshold_blocks(x, tau)
     return masked, torch.sum(torch.abs(masked) > 0, dtype=torch.int32)
+
+
+#: head widths the wkv6 kernel is instantiated for (the state column is
+#: unrolled into registers at compile time)
+WKV6_HEAD_DIMS = (16, 32, 64, 80)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernel copies 16-byte units);
+    an offset view is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+         s0: torch.Tensor, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``wkv6``: the RWKV6 recurrence over (B, S, H, hd) r, k, v (bf16
+    or f32, one type) and w (the decay), u (H, hd) and s0 (B, H, hd, hd),
+    the last three taken as f32 (widening a bf16 u is exact) -> (y (B, S,
+    H, hd) f32, sT (B, H, hd, hd) f32), read in the model's layout (no
+    relayout copies).  ``chunk`` is the reference's TPU
+    tile and is accepted for its signature: the kernel has no tile to pad S
+    to, so it changes nothing."""
+    del chunk
+    B, S, H, hd = r.shape
+    if r.dtype not in (f32, torch.bfloat16) or k.dtype != r.dtype or v.dtype != r.dtype \
+            or u.dtype not in (f32, torch.bfloat16) or S < 1:
+        raise ValueError(f"wkv6: need r, k, v of one type (f32 or bf16), u f32 or bf16 and "
+                         f"S >= 1, got {r.dtype} {k.dtype} {v.dtype}, u {u.dtype}, S={S}")
+    for t, shape, what in ((k, r.shape, "k"), (v, r.shape, "v"), (w, r.shape, "w"),
+                           (u, (H, hd), "u"), (s0, (B, H, hd, hd), "s0")):
+        if tuple(t.shape) != tuple(shape) or t.device != r.device:
+            raise ValueError(f"wkv6: {what} must be {tuple(shape)} on {r.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not r.is_cuda:
+        return ref.wkv6(r, k, v, w, u, s0)
+    if hd not in WKV6_HEAD_DIMS:
+        raise ValueError(f"wkv6: head width {hd} not in the kernel's {WKV6_HEAD_DIMS}")
+    r, k, v = (_aligned(t) for t in (r, k, v))
+    w, u, s0 = (_aligned(t.to(f32)) for t in (w, u, s0))
+    y = torch.empty((B, S, H, hd), dtype=f32, device=r.device)
+    sT = torch.empty((B, H, hd, hd), dtype=f32, device=r.device)
+    _launch("wkv6", r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, S, H, hd, int(r.dtype == torch.bfloat16))
+    return y, sT

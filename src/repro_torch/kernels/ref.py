@@ -130,3 +130,21 @@ def threshold(x: torch.Tensor, tau: torch.Tensor, block: int) -> tuple[torch.Ten
     pad = torch.zeros(nblk * block - x.numel(), dtype=torch.int32, device=x.device)
     counts = torch.cat([keep.to(torch.int32), pad]).view(nblk, block).sum(1, dtype=torch.int32)
     return torch.where(keep, x, 0.0), counts
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+         s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential WKV6 (the reference's ``ref.wkv6_ref`` and
+    ``rwkv.wkv_scan``), a loop over time: r, k, v, w (B, S, H, hd), u (H, hd),
+    s0 (B, H, hd, hd), all widened to f32 -> (y (B, S, H, hd), sT (B, H, hd,
+    hd)), with ``y_t = r_t (S + u kv)`` and ``S <- w_t S + kv``, each product
+    and sum of S rounded on its own."""
+    r, k, v, w = (t.to(f32) for t in (r, k, v, w))
+    u = u.to(f32)[..., :, None]
+    state = s0.to(f32)
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], state + u * kv))
+        state = w[:, t, :, :, None] * state + kv
+    return torch.stack(ys, dim=1), state

@@ -1,0 +1,93 @@
+"""Serving launcher: prefill a batch of prompts, then decode N tokens greedily
+from a zero token, as the reference's ``repro.launch.serve`` does.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+        --prompt-len 1024 --batch 8 --decode 32 [--reduced] [--device cpu] [--seed 0]
+
+Weights are random from ``--seed``; prompts are ``SyntheticBatches`` (kind
+"prefill").  The reference's ``--data``, ``--model``, ``--fake-devices`` and
+``--seq-par`` describe a mesh and have no meaning on one card, so they are
+left out; ``--restore`` waits for the checkpoint module.  Prints the prefill
+ms, the decode ms and tok/s, and the first sequence's tokens.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.data.pipeline import SyntheticBatches
+from repro_torch.models.transformer import init_params
+from repro_torch.train.steps import build_serve
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
+        device: str | torch.device = "cuda", seed: int = 0) -> dict:
+    """Build, prefill and decode; print the launcher's lines and return
+    ``{"prefill_ms", "decode_ms", "tok_per_s", "tokens" (B, decode) int32
+    numpy, "last" (B, d) tensor, "cache", "params", "bundle", "peak_bytes"
+    (device memory high-water mark, weights included, None off the
+    card)}``.  Times are host clock ending in a synchronize of the device."""
+    device = torch.device(device)
+    sb = build_serve(cfg, InputShape("serve", prompt_len + decode, batch, "decode"), device)
+    params = init_params(cfg, seed, device)
+    if device.type == "cuda":  # the peak of serving, the weights included
+        torch.cuda.reset_peak_memory_stats(device)
+    prompts = SyntheticBatches(cfg, InputShape("p", prompt_len, batch, "prefill"),
+                               seed=seed).batch(0)
+    _sync(device)
+    t0 = time.perf_counter()
+    last, cache = sb.prefill_step(params, prompts)
+    _sync(device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    print(f"prefill {prompt_len}x{batch}: {prefill_ms:.1f} ms")
+
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(decode):
+        tok, cache = sb.serve_step(params, cache, tok)
+        out.append(tok)
+    _sync(device)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    tok_per_s = decode * batch / (decode_ms / 1e3)
+    gen = torch.cat(out, dim=1).cpu().numpy() if out else np.zeros((batch, 0), np.int32)
+    print(f"decoded {decode} tokens/seq in {decode_ms:.1f} ms ({tok_per_s:.1f} tok/s total)")
+    print("sample:", gen[0].tolist())
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms, "tok_per_s": tok_per_s,
+            "tokens": gen, "last": last, "cache": cache, "params": params, "bundle": sb,
+            "peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+            else None}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--arch", required=True)
+    p.add_argument("--reduced", action="store_true")
+    p.add_argument("--prompt-len", type=int, default=64)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--decode", type=int, default=32)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    run(cfg, prompt_len=args.prompt_len, batch=args.batch, decode=args.decode,
+        device=args.device, seed=args.seed)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -165,3 +165,10 @@ def logits_and_loss(p: dict[str, torch.Tensor], h: torch.Tensor, labels: torch.T
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def logits_local(p: dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+    """Decode-time logits (B, S, V) in f32 against the embedding (the whole
+    vocabulary: one card holds it all).  The reference's softcap is refused
+    by ``check_ported``."""
+    return torch.einsum("bsd,vd->bsv", h.to(f32), p["embedding"].to(f32))

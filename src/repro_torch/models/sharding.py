@@ -36,18 +36,25 @@ class ShapePlan:
     hd: int
     Dff: int
     V: int  # padded vocab
+    rwkv_heads: int  # padded rwkv heads
+    rwkv_hd: int
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for model options the port does not run yet: it runs the dense
-    GQA family with standard RoPE, no qkv bias and no logits softcap (what
-    qwen3-0.6b sets).  Sliding windows are checked per sequence length in
-    ``layers.attention``."""
-    if cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.kv_lora:
+    """Raise for model options the port does not run yet: the dense GQA
+    family with standard RoPE (what qwen3-0.6b sets) and the attention-free
+    RWKV6 family (``family="ssm"``, no attention, no RoPE), both without qkv
+    bias, logits softcap or MoE.  Sliding windows are checked per sequence
+    length in ``layers.attention``."""
+    if cfg.family == "ssm":
+        wanted = (("attn_kind", "none"), ("rope_type", "none"))
+    elif cfg.family == "dense" and cfg.attn_kind == "gqa" and not cfg.kv_lora:
+        wanted = (("rope_type", "rope"),)
+    else:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported")
-    for field, default in (("rope_type", "rope"), ("qkv_bias", False),
-                           ("logits_softcap", 0.0)):
+            f"{cfg.name}: only the dense GQA and RWKV6 families are ported")
+    for field, default in (*wanted, ("qkv_bias", False), ("logits_softcap", 0.0),
+                           ("moe", False)):
         if getattr(cfg, field) != default:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported yet")
@@ -61,6 +68,9 @@ def make_plan(cfg: ModelConfig, msize: int = 1) -> ShapePlan:
     else:
         KV = cfg.n_kv_heads
         kv_sharded = KV % msize == 0 and cfg.n_heads % msize == 0
+    if cfg.family == "ssm" and cfg.d_model % (cfg.rwkv_head_dim * msize):
+        raise ValueError(f"{cfg.name}: d_model {cfg.d_model} does not split into heads "
+                         f"of {cfg.rwkv_head_dim} over {msize}")
     return ShapePlan(
         msize=msize,
         d=cfg.d_model,
@@ -70,6 +80,8 @@ def make_plan(cfg: ModelConfig, msize: int = 1) -> ShapePlan:
         hd=cfg.resolved_head_dim,
         Dff=pad_to(cfg.d_ff, msize),
         V=pad_to(cfg.vocab, 128 * msize),
+        rwkv_heads=pad_to(cfg.d_model // cfg.rwkv_head_dim, msize),
+        rwkv_hd=cfg.rwkv_head_dim,
     )
 
 

@@ -1,6 +1,7 @@
-"""Model assembly for the dense GQA family (counterpart of
+"""Model assembly for the dense GQA and RWKV6 families (counterpart of
 ``repro.models.transformer``: ``build_defs``, ``init_params``,
-``forward_loss``).
+``forward_loss`` for the dense family; ``prefill`` and ``decode_step`` for
+RWKV6).
 
 With ``scan_layers=True`` the layer group is stacked over a leading
 ``n_layers`` axis (one leaf per weight, as the reference's ``lax.scan``
@@ -8,6 +9,13 @@ carries them); with ``scan_layers=False`` ``blocks`` is a list of groups.
 Either way the parameter tree, its paths and so the bucket plan match the
 reference's.  ``remat != "none"`` recomputes each block in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+
+Serving keeps the reference's cache tree: ``{"prefix": [], "pos": int32,
+"blocks": ...}`` with ``blocks`` stacked over layers (``scan_layers``) or a
+list of groups, each block ``{"tm": {"shift" (B, d), "wkv" (B, H, hd, hd)
+f32}, "cm_last" (B, d)}``.  Training RWKV6 (a gradient through the
+recurrence) and serving the dense family (its ring KV cache and decode
+attention) are later slices; both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,23 +27,26 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as RW
 from repro_torch.models.sharding import ShapePlan, make_plan, materialize, stack_defs
+from repro_torch.utils.tree import leaves, unflatten_like
 
 f32 = torch.float32
 
 
 def _block_defs(cfg: ModelConfig, plan: ShapePlan) -> dict:
-    return {
-        "ln1": L.rmsnorm_def(plan.d),
-        "ln2": L.rmsnorm_def(plan.d),
-        "attn": L.attn_defs(cfg, plan),
-        "mlp": L.mlp_defs(plan.d, plan.Dff),
-    }
+    defs = {"ln1": L.rmsnorm_def(plan.d), "ln2": L.rmsnorm_def(plan.d)}
+    if cfg.family == "ssm":  # rwkv6: time-mix + channel-mix
+        defs.update(RW.rwkv_defs(cfg, plan))
+    else:
+        defs.update(attn=L.attn_defs(cfg, plan), mlp=L.mlp_defs(plan.d, plan.Dff))
+    return defs
 
 
 def build_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, Any]:
     if cfg.moe or cfg.is_encoder_decoder or cfg.modality != "text" or cfg.first_dense_layers:
-        raise NotImplementedError(f"{cfg.name}: only the dense text family is ported")
+        raise NotImplementedError(f"{cfg.name}: only the dense and RWKV6 text families "
+                                  "are ported")
     pat = cfg.attn_pattern
     repeats = cfg.pattern_repeats
     defs: dict[str, Any] = {"embed": L.embed_defs(plan), "ln_f": L.rmsnorm_def(plan.d),
@@ -95,6 +106,9 @@ def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
 def forward_loss(cfg: ModelConfig, params: dict[str, Any],
                  batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training forward: returns (loss, {"ce", "aux"})."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} family is a later "
+                                  "slice (RWKV6 needs a gradient through the wkv6 recurrence)")
     x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
     B, S, _ = x.shape
     positions = make_positions(B, S, x.device)
@@ -114,3 +128,93 @@ def forward_loss(cfg: ModelConfig, params: dict[str, Any],
     aux = torch.zeros((), dtype=f32, device=x.device)  # dense family: no router loss
     loss = ce + cfg.router_aux_coef * aux
     return loss, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving (RWKV6): prefill and one decode step.
+# ---------------------------------------------------------------------------
+
+
+def check_serving(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a family the port serves (RWKV6, without the
+    sequence-parallel prefill, which the reference runs for the dense family
+    only)."""
+    if cfg.family != "ssm" or cfg.seq_par:
+        raise NotImplementedError(
+            f"{cfg.name}: serving the {cfg.family} family (its ring KV cache, decode "
+            "attention and seq_par prefill) is a later slice; the port serves RWKV6 "
+            "without seq_par")
+
+
+def _stack_groups(cfg: ModelConfig, groups: list[Any]) -> Any:
+    """Per-repeat cache groups in the reference's layout: stacked over a
+    leading layer axis with ``scan_layers`` (as ``lax.scan`` stacks them),
+    else the list itself."""
+    if not cfg.scan_layers:
+        return groups
+    per_group = [leaves(g) for g in groups]
+    return unflatten_like(groups[0], [torch.stack(ls) for ls in zip(*per_group)])
+
+
+def _rwkv_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict | None,
+                use_kernel: bool) -> tuple[torch.Tensor, dict[str, Any]]:
+    """One RWKV6 block: the reference's ``_run_block`` ssm branch with
+    ``collect_cache`` (``c`` None: a prompt from zero state) and its
+    ``_rwkv_decode_block`` (``c`` the block's cache: the shift and the
+    channel mix's last token come from the stored state)."""
+    h, tm_state = RW.rwkv_block(cfg, p, L.rmsnorm(p["ln1"], x), None if c is None else c["tm"],
+                                use_kernel=use_kernel)
+    x = x + h
+    h, cm_last = RW.rwkv_channel_mix(cfg, p, L.rmsnorm(p["ln2"], x),
+                                     None if c is None else c["cm_last"])
+    return x + h, {"tm": tm_state, "cm_last": cm_last}
+
+
+def prefill(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor], *,
+            use_kernel: bool = False) -> tuple[torch.Tensor, dict[str, Any]]:
+    """Runs the prompt, returns (last hidden (B, d) after ``ln_f``, cache).
+    The reference's ``max_seq`` (a KV-cache capacity) has no meaning for the
+    recurrent state, and its ``seq_par`` prefill is a dense-family path."""
+    check_serving(cfg)
+    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+    S = x.shape[1]
+    pat = cfg.attn_pattern
+    groups = []
+    for pgroup in _layer_groups(cfg, params["blocks"]):
+        cs = {}
+        for i in range(len(pat)):
+            x, cs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, None, use_kernel)
+        groups.append(cs)
+    cache = {"prefix": [], "pos": torch.full((), S, dtype=torch.int32, device=x.device),
+             "blocks": _stack_groups(cfg, groups)}
+    x = L.rmsnorm(params["ln_f"], x)
+    return x[:, -1], cache
+
+
+def decode_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],
+                tokens: torch.Tensor, *, use_kernel: bool = False
+                ) -> tuple[torch.Tensor, dict[str, Any]]:
+    """One decode step from ``tokens`` (B, 1). Returns (next token (B, 1)
+    int32, new cache); the input cache is left as it was."""
+    check_serving(cfg)
+    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    pat = cfg.attn_pattern
+    groups = []
+    for pgroup, cgroup in zip(_layer_groups(cfg, params["blocks"]),
+                              _layer_groups(cfg, cache["blocks"])):
+        ncs = {}
+        for i in range(len(pat)):
+            x, ncs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], use_kernel)
+        groups.append(ncs)
+    x = L.rmsnorm(params["ln_f"], x)
+    next_tok = _distributed_argmax(L.logits_local(params["embed"], x))
+    return next_tok, {"prefix": [], "pos": cache["pos"] + 1,
+                      "blocks": _stack_groups(cfg, groups)}
+
+
+def _distributed_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy token of (B, 1, V) logits as (B, 1) int32.  The reference packs
+    (value, shard index) to take a global argmax over vocab shards; on one
+    device that is a plain argmax, which keeps the first maximum as
+    ``jnp.argmax`` does."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)

@@ -16,12 +16,16 @@ kept this step, over all workers and their buckets.
 
 The wire bytes of one step are booked at build time by running the step
 once on the ``meta`` device, which computes shapes only.
+
+``build_serve`` is the serving counterpart (``ServeBundle``: prefill a batch
+of prompts, then one greedy token per call), for the RWKV6 family; one card
+is one device, so there is no mesh.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -126,3 +130,43 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
         noise=noise if noise is not None else aggregate.seeded_noise(seed, device),
         wire=_book_wire(cfg, comm, plan, opt, shape, n_workers),
     )
+
+
+@dataclass
+class ServeBundle:
+    cfg: ModelConfig
+    shape: InputShape  # global_batch is the batch every call must carry
+    device: torch.device
+    #: (params, {"tokens": (B, S)}) -> (last hidden (B, d), cache)
+    prefill_step: Callable
+    #: (params, cache, tokens (B, 1)) -> (next tokens (B, 1) int32, new cache)
+    serve_step: Callable
+
+
+def build_serve(cfg: ModelConfig, shape: InputShape,
+                device: str | torch.device = "cuda") -> ServeBundle:
+    """Prefill and decode steps for ``cfg`` (RWKV6 only: the dense family's
+    serving is a later slice and raises ``NotImplementedError``).  Both steps
+    run under ``torch.inference_mode()``, take their tokens as numpy arrays
+    or tensors (moved to ``device``), and run the recurrence through kernel
+    ``wkv6`` (its plain version on the CPU)."""
+    T.check_serving(cfg)
+    device = torch.device(device)
+
+    def _tokens(tok) -> torch.Tensor:
+        tok = torch.as_tensor(tok).to(device)
+        if tok.shape[0] != shape.global_batch:
+            raise ValueError(f"batch {tok.shape[0]} != the bundle's {shape.global_batch}")
+        return tok
+
+    def prefill_step(params, batch):
+        with torch.inference_mode():
+            return T.prefill(cfg, params, {"tokens": _tokens(batch["tokens"])},
+                             use_kernel=True)
+
+    def serve_step(params, cache, tok):
+        with torch.inference_mode():
+            return T.decode_step(cfg, params, cache, _tokens(tok), use_kernel=True)
+
+    return ServeBundle(cfg=cfg, shape=shape, device=device, prefill_step=prefill_step,
+                       serve_step=serve_step)

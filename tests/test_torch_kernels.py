@@ -187,9 +187,11 @@ def test_cpu_tensors_take_the_plain_path():
     tpacked = ops.tern_pack(tern)
     ops.tern_acc(torch.stack([tpacked, tpacked]), torch.ones(2), 1000)
     ops.threshold_sparsify(_t(x), 0.05)
+    r = _t(x[:64]).view(1, 2, 2, 16)
+    ops.wkv6(r, r, r, torch.full_like(r, 0.5), torch.zeros(2, 16), torch.zeros(1, 2, 16, 16))
     assert ops.LAUNCHES == {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
                             "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
-                            "tern_pack": 0, "tern_acc": 0, "threshold": 0}
+                            "tern_pack": 0, "tern_acc": 0, "threshold": 0, "wkv6": 0}
 
 
 def test_wrapper_rejects_bad_inputs():
