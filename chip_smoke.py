@@ -23,11 +23,16 @@ result line:
    bitwise at tau 0.0, 0.05 and 10.0 on an input holding +-0.0, NaN and
    +-inf; each timed with CUDA events beside its byte bound; and wkv6 (the
    RWKV6 recurrence) at (B, S, H, hd) = (1, 32, 1, 16), (2, 100, 2, 32),
-   (1, 1, 32, 80), in f32 and bf16, and at the server's shapes, decode
-   (8, 1, 32, 80) and prefill (8, 1024, 32, 80), with bf16 r, k, v and u,
-   a nonzero s0 and w in (0.4, 0.9): sT bitwise, y within rtol 3e-4 /
-   atol 3e-5 (the reference's kernel test), timed at the decode shape and
-   at the prefill shape, the latter beside its operations bound;
+   (1, 1, 32, 80), in f32 and bf16, at (2, 130, 4, 80) with w holding 0.0,
+   1.0 and 1e-3, at a ragged (1, 1000, 32, 80) and at the server's shapes,
+   decode (8, 1, 32, 80) and prefill (8, 1024, 32, 80), with bf16 r, k, v
+   and u, a nonzero s0 and w in (0.4, 0.9): y within rtol 3e-4 / atol 3e-5
+   (the reference's kernel test), sT bitwise on the recurrent design (S <
+   32: decode) and within rtol 1e-4 / atol 1e-5 x max|sT| on the chunked
+   tensor-core design (prefill), timed at the decode shape and at the
+   prefill shape (the recurrent design beside the chunked one, in turns),
+   the latter beside its bound, with the chunked design's registers,
+   shared memory and resident CTAs per SM;
 4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
    weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
    global batch 8, twelve paths: QSGD (16 levels) on the int8 compressed wire
@@ -105,6 +110,7 @@ from repro_torch.train.trainer import Trainer  # noqa: E402
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 LARGEST = 155_582_464  # embed/embedding, the largest bucket of qwen3-0.6b
 W = 4
 
@@ -192,9 +198,10 @@ def ms_per_call(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def _bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S
+           ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -202,15 +209,18 @@ def bound(name: str, n: int, w: int) -> tuple[float, str]:
     return _bound(KERNELS[name]["bytes"](n, w), KERNELS[name]["ops"](n, w))
 
 
-def wkv6_bound(B: int, S: int, H: int, hd: int, in_bytes: int) -> tuple[float, str]:
+def wkv6_bound(B: int, S: int, H: int, hd: int, in_bytes: int,
+               ops_per_s: float = TF32_OPS_PER_S) -> tuple[float, str]:
     """r, k, v (and u) read at ``in_bytes`` per element, w read and y written
-    as f32, s0 read and sT written as f32.  The least f32 operations per head
+    as f32, s0 read and sT written as f32.  The least operations per head
     and step: y = r^T S + (sum_i r_i u_i k_i) v is 2 hd^2 (r^T S) + 3 hd (the
     sum) + 2 hd (times v, plus), and S <- w*S + k v^T is 3 hd^2; so 5 hd^2 +
-    5 hd.  (The kernel spends 7 hd^2: it forms u*kv for every (i, j).)"""
+    5 hd, divided by ``ops_per_s``: the 495 TFLOP/s of TF32 on the tensor
+    cores, where the chunked design runs its products (the recurrent design
+    runs on the CUDA cores: 67 TFLOP/s)."""
     n = B * S * H * hd
     n_bytes = n * (3 * in_bytes + 4 + 4) + B * H * hd * hd * 8 + H * hd * in_bytes
-    return _bound(n_bytes, B * S * H * (5 * hd * hd + 5 * hd))
+    return _bound(n_bytes, B * S * H * (5 * hd * hd + 5 * hd), ops_per_s)
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> bool:
@@ -431,41 +441,73 @@ def check_threshold_kernel(n: int, timed: bool) -> dict[str, dict]:
     return out
 
 
-def _wkv6_inputs(B: int, S: int, H: int, hd: int, dtype: torch.dtype, seed: int):
+def _wkv6_inputs(B: int, S: int, H: int, hd: int, dtype: torch.dtype, seed: int,
+                 edge: bool = False):
+    """``edge`` plants w = 0.0, 1.0 and 1e-3 and a run of 40 steps without
+    decay in the first 8 channels (as tests/test_torch_wkv6_chunked.py)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
     r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=DEV).mul_(0.5).to(dtype)
                for _ in range(3))
     w = torch.sigmoid(torch.randn((B, S, H, hd), generator=gen, device=DEV)) * 0.5 + 0.4
+    if edge:
+        w[:, ::7, :, ::3] = 0.0
+        w[:, 1::5, :, 1::3] = 1.0
+        w[:, 2::3, :, 2::3] = 1e-3
+        w[:, 20:60, :, :8] = 1.0
     u = (torch.randn((H, hd), generator=gen, device=DEV) * 0.1).to(dtype)
     s0 = torch.randn((B, H, hd, hd), generator=gen, device=DEV) * 0.1
     return r, k, v, w, u, s0
 
 
 def check_wkv6() -> dict[str, dict]:
-    """Kernel wkv6 against its plain version: sT bitwise, y within rtol 3e-4
-    / atol 3e-5, at three small shapes (f32 and bf16), at the server's
-    decode shape (B, 1, 32, 80) and at its prefill shape (both bf16 r, k, v,
-    u, nonzero s0); the decode shape is timed in the detail, the prefill
-    shape for the row."""
-    cases = [(shape, dt) for shape in ((1, 32, 1, 16), (2, 100, 2, 32), (1, 1, 32, 80))
+    """Kernel wkv6 against its plain version: y within rtol 3e-4 / atol 3e-5;
+    sT bitwise on the recurrent design (S < ops.WKV6_CHUNK) and within rtol
+    1e-4 / atol 1e-5 x max|sT| on the chunked one; at three small shapes (f32
+    and bf16), the decay edge cases (2, 130, 4, 80) bf16 (also against the
+    chunked twin ref.wkv6_chunked), a ragged S = 1000 at the server's head
+    count, the server's decode shape (B, 1, 32, 80) and its prefill shape
+    (bf16 r, k, v, u, nonzero s0).  The decode shape is timed in the
+    detail; at the prefill shape the recurrent design is timed beside the
+    chunked one, in turns, and the chunked one's time is the row's."""
+    H, hd = WKV6_PREFILL[2:]
+    cases = [((shape, dt), False) for shape in ((1, 32, 1, 16), (2, 100, 2, 32), (1, 1, 32, 80))
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [((SERVE_B, 1) + WKV6_PREFILL[2:], torch.bfloat16), (WKV6_PREFILL, torch.bfloat16)]
+    cases += [(((2, 130, 4, 80), torch.bfloat16), True), (((1, 1000, H, hd), torch.bfloat16), False),
+              (((SERVE_B, 1, H, hd), torch.bfloat16), False), ((WKV6_PREFILL, torch.bfloat16), False)]
     ok, err, detail = True, 0.0, []
-    for i, (shape, dt) in enumerate(cases):
-        args = _wkv6_inputs(*shape, dt, seed=100 + i)
+    for i, ((shape, dt), edge) in enumerate(cases):
+        args = _wkv6_inputs(*shape, dt, seed=100 + i, edge=edge)
         y, sT = ops.wkv6(*args)
         want_y, want_s = ref.wkv6(*args)
-        s_same = torch.equal(sT, want_s)
+        chunked = shape[1] >= ops.WKV6_CHUNK
+        if chunked:
+            s_ok = _close(sT, want_s, rtol=1e-4, atol=1e-5 * float(want_s.abs().max()))
+        else:
+            s_ok = torch.equal(sT, want_s)
         y_ok = _close(y, want_y, rtol=3e-4, atol=3e-5)
-        ok &= s_same and y_ok
+        ok &= s_ok and y_ok
         err = max(err, float((y - want_y).abs().max()), float((sT - want_s).abs().max()))
-        detail.append(f"{shape} {str(dt)[6:]}: sT bitwise {s_same}, y within tolerance {y_ok}")
+        detail.append(f"{shape} {str(dt)[6:]}{' w edges' if edge else ''} "
+                      f"{'chunked' if chunked else 'recurrent'}: sT "
+                      f"{'within tolerance' if chunked else 'bitwise'} {s_ok} (max abs err "
+                      f"{float((sT - want_s).abs().max()):.2e} of {float(want_s.abs().max()):.2e}), "
+                      f"y within tolerance {y_ok} (max abs err "
+                      f"{float((y - want_y).abs().max()):.2e})")
+        if edge:
+            ty, ts = ref.wkv6_chunked(*args)
+            detail.append(f"  against the chunked twin: y max abs err "
+                          f"{float((y - ty).abs().max()):.2e}, sT {float((sT - ts).abs().max()):.2e}")
         if shape[1] == 1 and shape[0] == SERVE_B:
-            detail.append(f"{shape} {ms_per_call(lambda: ops.wkv6(*args), 20):.4f} ms per call")
+            b_ms, b_by = wkv6_bound(*shape, in_bytes=2)
+            detail.append(f"{shape} {ms_per_call(lambda: ops.wkv6(*args), 20):.4f} ms per call "
+                          f"(bound {b_ms:.4f} ms by {b_by}, nearly all of it the state)")
     out = {"max_abs_err": err, "ok": ok, "detail": "; ".join(detail)}
-    out.update(ms=ms_per_call(lambda: ops.wkv6(*args), 20),
-               plain_ms=ms_per_call(lambda: ref.wkv6(*args), 2))
+    recurrent = lambda: ops._wkv6_launch(*args, chunked=False)  # noqa: E731
+    chunked = lambda: ops._wkv6_launch(*args, chunked=True)  # noqa: E731
+    turns = [ms_per_call(f, 20) for f in (recurrent, chunked, chunked, recurrent)]
+    out.update(ms=min(turns[1:3]), plain_ms=ms_per_call(lambda: ref.wkv6(*args), 2),
+               recurrent_ms=min(turns[0], turns[3]), turns=turns)
     return {"wkv6": out}
 
 
@@ -716,6 +758,17 @@ def main() -> None:
     wkv = check_wkv6()
     require(wkv, 0)
     print(f"kernel wkv6: {wkv['wkv6']['detail']}")
+    w6 = wkv["wkv6"]
+    print(f"kernel wkv6 at the prefill shape {WKV6_PREFILL} bf16, in turns (recurrent, chunked, "
+          f"chunked, recurrent): {', '.join(f'{t:.4f}' for t in w6['turns'])} ms; recurrent "
+          f"{w6['recurrent_ms']:.4f} ms against its CUDA-core bound "
+          f"{wkv6_bound(*WKV6_PREFILL, in_bytes=2, ops_per_s=F32_OPS_PER_S)[0]:.4f} ms")
+    for bf16 in (True, False):
+        res = ops.wkv6_chunked_info(WKV6_PREFILL[3], bf16)
+        print(f"kernel wkv6 chunked design, hd {WKV6_PREFILL[3]} {'bf16' if bf16 else 'f32'} "
+              f"r, k, v: {res['registers']} registers per thread, {res['dynamic_smem']} + "
+              f"{res['static_smem']} bytes of shared memory per CTA (dynamic + static), "
+              f"{res['ctas_per_sm']} CTAs resident per SM")
     rows = []
     for name, r in {**big, **wkv}.items():
         if name == "wkv6":

@@ -217,8 +217,8 @@ def bucket_route(comm: CommConfig, comp) -> str:
             raise NotImplementedError("the bf16 wire (wire_format='compressed' without a "
                                       "compressor, widening_psum) is not ported")
         return "dense"
-    if comm.wire_format == "compressed":
-        wr = getattr(comp, "wire_reduce", "")
+    wr = getattr(comp, "wire_reduce", "") if comm.wire_format == "compressed" else ""
+    if wr:  # a compressor without a wire_reduce takes its reduce_mode below
         if (wr == "int8_acc" and comm.error_feedback and not comm.momentum_correction
                 and not comm.local_clip and hasattr(comp, "compress_ef_p")):
             return "fused_ef"

@@ -43,7 +43,7 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "tern_pack": ("tern_pack_launch", (_P, _LL, _P, _LL, _P)),
     "tern_acc": ("tern_acc_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
     "threshold": ("threshold_launch", (_P, _P, _P, _P, _LL, _P)),
-    "wkv6": ("wkv6_launch", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "wkv6": ("wkv6_launch", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 
@@ -61,7 +61,7 @@ class KernelLibrary:
     def __init__(self, build_dir: Path = BUILD_DIR):
         self.build_dir = build_dir
         self.records: dict[str, BuildRecord] = {}
-        self._fns: dict[str, ctypes._CFuncPtr] = {}
+        self._fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
         self._lock = threading.Lock()
 
     def _target(self, name: str) -> Path:
@@ -106,14 +106,18 @@ class KernelLibrary:
 
     def fn(self, name: str):
         """The C launch function of kernel ``name``, built and typed."""
-        if name not in self._fns:
+        return self.symbol(name, *SIGNATURES[name])
+
+    def symbol(self, name: str, symbol: str, argtypes: tuple):
+        """The C function ``symbol`` (returning int) of kernel ``name``'s
+        library, built and typed."""
+        if (name, symbol) not in self._fns:
             rec = self.build((name,))[name]
-            symbol, argtypes = SIGNATURES[name]
             f = getattr(ctypes.CDLL(str(rec.path)), symbol)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
-            self._fns[name] = f
-        return self._fns[name]
+            self._fns[(name, symbol)] = f
+        return self._fns[(name, symbol)]
 
 
 LIBRARY = KernelLibrary()

@@ -21,6 +21,8 @@ the 1-bit sign wire, ``ceil(n/4096)*1024`` for the 2-bit ternary wire.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import ref
@@ -336,9 +338,12 @@ def threshold_sparsify(x: torch.Tensor, tau: torch.Tensor | float
     return masked, torch.sum(torch.abs(masked) > 0, dtype=torch.int32)
 
 
-#: head widths the wkv6 kernel is instantiated for (the state column is
-#: unrolled into registers at compile time)
+#: head widths the wkv6 kernel is instantiated for (the recurrent design
+#: unrolls a state column into registers, the chunked one tiles hd by 16)
 WKV6_HEAD_DIMS = (16, 32, 64, 80)
+#: steps per chunk of wkv6's chunked design: a call with at least this many
+#: steps (prefill) takes it, a shorter one (decode) the recurrent design
+WKV6_CHUNK = 32
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -354,9 +359,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: 
     or f32, one type) and w (the decay), u (H, hd) and s0 (B, H, hd, hd),
     the last three taken as f32 (widening a bf16 u is exact) -> (y (B, S,
     H, hd) f32, sT (B, H, hd, hd) f32), read in the model's layout (no
-    relayout copies).  ``chunk`` is the reference's TPU
-    tile and is accepted for its signature: the kernel has no tile to pad S
-    to, so it changes nothing."""
+    relayout copies).  On the card, S >= ``WKV6_CHUNK`` takes the chunked
+    tensor-core design (sT within f32 rounding of the plain scan) and a
+    shorter S the recurrent one (sT bitwise); one launch either way.
+    ``chunk`` is the reference's TPU tile and is accepted for its
+    signature: it changes nothing."""
     del chunk
     B, S, H, hd = r.shape
     if r.dtype not in (f32, torch.bfloat16) or k.dtype != r.dtype or v.dtype != r.dtype \
@@ -370,6 +377,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: 
                              f"{tuple(t.shape)} on {t.device}")
     if not r.is_cuda:
         return ref.wkv6(r, k, v, w, u, s0)
+    return _wkv6_launch(r, k, v, w, u, s0, chunked=S >= WKV6_CHUNK)
+
+
+def _wkv6_launch(r, k, v, w, u, s0, *, chunked: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of kernel ``wkv6`` on checked CUDA tensors, through the
+    chunked design or the recurrent one (``chip_smoke.py`` times both)."""
+    B, S, H, hd = r.shape
     if hd not in WKV6_HEAD_DIMS:
         raise ValueError(f"wkv6: head width {hd} not in the kernel's {WKV6_HEAD_DIMS}")
     r, k, v = (_aligned(t) for t in (r, k, v))
@@ -377,5 +391,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: 
     y = torch.empty((B, S, H, hd), dtype=f32, device=r.device)
     sT = torch.empty((B, H, hd, hd), dtype=f32, device=r.device)
     _launch("wkv6", r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, S, H, hd, int(r.dtype == torch.bfloat16))
+            s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, S, H, hd,
+            int(r.dtype == torch.bfloat16), int(chunked))
     return y, sT
+
+
+def wkv6_chunked_info(hd: int, bf16: bool) -> dict[str, int]:
+    """Registers per thread, dynamic and static shared bytes per CTA and
+    resident CTAs per SM of wkv6's chunked design, from the CUDA runtime."""
+    out = (ctypes.c_int * 4)()
+    err = LIBRARY.symbol("wkv6", "wkv6_chunked_info", (ctypes.c_int, ctypes.c_int,
+                                                       ctypes.c_void_p))(hd, int(bf16), out)
+    if err != 0:
+        raise RuntimeError(f"wkv6_chunked_info failed: cudaError {err}")
+    return dict(zip(("registers", "dynamic_smem", "static_smem", "ctas_per_sm"), out))

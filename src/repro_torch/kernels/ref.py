@@ -148,3 +148,82 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: 
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], state + u * kv))
         state = w[:, t, :, :, None] * state + kv
     return torch.stack(ys, dim=1), state
+
+
+#: floor of the log2 decay: a w that underflowed to 0 (or any w below
+#: 2**-100) decays by 2**-100 per step, so no -inf - -inf reaches an exp2
+WKV6_LOG2_FLOOR = -100.0
+
+
+def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                 u: torch.Tensor, s0: torch.Tensor, *, chunk: int = 32, sub: int = 16
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked WKV6 of kernel ``wkv6``'s prefill path, in plain PyTorch:
+    the same function as :func:`wkv6` (same arguments and results), in the
+    kernel's arithmetic.  Used by the tests and ``chip_smoke.py``; the kernel
+    cannot run on a CPU.
+
+    Per channel ``a = max(log2 w, WKV6_LOG2_FLOOR)``, summed within each
+    sub-chunk of ``sub`` steps: ``c`` inclusive, ``cp`` exclusive, ``T`` the
+    sub-chunk's total.  Per chunk of ``chunk`` steps (a multiple of ``sub``;
+    the ragged tail is zero-padded with ``a = 0``), for sub-chunk q:
+
+    * state term ``(r * 2**cp) @ (2**B_q * S)`` with ``B_q`` the totals of
+      the sub-chunks before q in the chunk, S the chunk's starting state;
+    * off-diagonal blocks p < q, factored through the last step of p:
+      ``(r_q * 2**(cp_q + T_{p+1} + ... + T_{q-1})) @ (k_p * 2**(T_p - c_p))^T
+      @ v_p``;
+    * the diagonal block elementwise, by running products of the decay
+      floored at ``2**WKV6_LOG2_FLOOR``: ``A[t, s] = sum_i r_t k_s
+      prod_{s < tau < t} max(w_tau, 2**-100)`` for s < t and ``A[t, t] =
+      sum_i r_t u k_t``, then ``A @ v_q``;
+    * the state carried sub-chunk by sub-chunk: ``S <- 2**T_q * S + (k_q *
+      2**(T_q - c_q))^T @ v_q``.
+
+    Every exponent is <= 0, so nothing overflows whatever the decay."""
+    if chunk % sub:
+        raise ValueError(f"wkv6_chunked: chunk {chunk} must be a multiple of sub {sub}")
+    B, S, H, hd = r.shape
+    r, k, v = (t.to(f32).permute(0, 2, 1, 3) for t in (r, k, v))
+    w = w.to(f32).permute(0, 2, 1, 3)
+    a = torch.clamp_min(torch.log2(w), WKV6_LOG2_FLOOR)
+    w = torch.clamp_min(w, 2.0 ** WKV6_LOG2_FLOOR)
+    u = u.to(f32)
+    pad = (-S) % chunk
+    if pad:
+        r, k, v, a = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (r, k, v, a))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    state = s0.to(f32).clone()
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        subs = []
+        for q0 in range(c0, c0 + chunk, sub):
+            rq, kq, vq, aq, wq = (t[:, :, q0:q0 + sub] for t in (r, k, v, a, w))
+            c = torch.cumsum(aq, dim=2)
+            cp = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], 2)
+            T = c[:, :, -1]
+            subs.append(dict(r=rq * torch.exp2(cp), k=kq * torch.exp2(T[:, :, None] - c), v=vq,
+                             T=T, rr=rq, kk=kq, w=wq))
+        start = state
+        Bq = torch.zeros_like(subs[0]["T"])
+        for q, sq in enumerate(subs):
+            y = sq["r"] @ (torch.exp2(Bq)[..., None] * start)
+            for p in range(q):
+                mid = torch.zeros_like(Bq)
+                for m in range(p + 1, q):
+                    mid = mid + subs[m]["T"]
+                y = y + ((sq["r"] * torch.exp2(mid)[:, :, None]) @ subs[p]["k"].transpose(-1, -2)
+                         ) @ subs[p]["v"]
+            A = torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", sq["rr"], u, sq["kk"]))
+            run = torch.ones_like(sq["kk"])  # run[s] = prod_{s < tau < t} w_tau, for s < t
+            for t in range(1, sub):
+                run[:, :, :t] *= sq["w"][:, :, t - 1:t]
+                run[:, :, t - 1] = 1.0
+                A[:, :, t, :t] = torch.einsum("bhi,bhsi,bhsi->bhs", sq["rr"][:, :, t],
+                                              sq["kk"][:, :, :t], run[:, :, :t])
+            ys.append(y + A @ sq["v"])
+            Bq = Bq + sq["T"]
+        for sq in subs:
+            state = torch.exp2(sq["T"])[..., None] * state + sq["k"].transpose(-1, -2) @ sq["v"]
+    y = torch.cat(ys, dim=2)[:, :, :S].permute(0, 2, 1, 3).contiguous()
+    return y, state

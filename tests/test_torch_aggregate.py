@@ -202,6 +202,9 @@ def test_seeded_noise_is_reproducible_per_round():
     (dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
      NotImplementedError),
     (dict(per_tensor_rules=[("embed", "powersgd", {})]), KeyError),
+    # a "none" rule on the compressed wire needs the bf16 widening psum
+    (dict(wire_format="compressed", per_tensor_rules=[("embed", "none", {})], **QSGD),
+     NotImplementedError),
     # no compressed-domain reduction for a sparsifier, as in the reference
     (dict(compressor="topk", wire_format="compressed"), ValueError),
     (dict(compressor="threshold", wire_format="compressed"), ValueError),
@@ -234,6 +237,11 @@ def test_validate_rejects_unported_cells(kw, err):
     dict(compressor="wangni"),
     dict(compressor="variance_sparse", local_clip=1.0),
     dict(**QSGD, per_tensor_rules=[("embed", "topk", {})]),
+    # a rule whose compressor has no wire_reduce falls through to its
+    # reduce_mode on the compressed wire, as the reference's _aggregate_one
+    dict(**QSGD, wire_format="compressed", per_tensor_rules=[("embed", "topk", {})]),
+    dict(**QSGD, wire_format="compressed", error_feedback=True,
+         per_tensor_rules=[("embed", "threshold", {})]),
 ])
 def test_validate_accepts_ported_cells(kw):
     validate(CommConfig(**kw))
@@ -299,7 +307,15 @@ VMAP_CELLS = {
                                compressor_kwargs={"proportion": 0.05}),
     "wangni": dict(compressor="wangni", compressor_kwargs={"ratio": 0.05}),
     "variance-sparse": dict(compressor="variance_sparse"),
+    # a mixed plan on the compressed wire: QSGD's fused EF int8 route on
+    # a, b, c and top-k's sparse gather on the embed bucket (MIXED_SHAPES)
+    "qsgd-cwire-ef-topk-rule": dict(wire_format="compressed", error_feedback=True,
+                                    per_tensor_rules=[("embed", "topk", {})], **QSGD),
 }
+#: a, b, c and an ``embed`` bucket of d's size: the same sizes in the same
+#: sorted order as SHAPES, so the cells share their inputs
+MIXED_SHAPES = {"a": (1000,), "b": (37, 11), "c": (4096,), "embed": (9000,)}
+CELL_SHAPES = {"qsgd-cwire-ef-topk-rule": MIXED_SHAPES}
 SPARSE = ("topk", "gtopk", "randomk", "sbc", "stc", "threshold", "adaptive_threshold",
           "wangni", "variance_sparse")
 #: cells whose aggregate sums scaled decodes or sparse payloads, which
@@ -337,16 +353,17 @@ def test_round_matches_reference_aggregate_under_vmap(cell):
     kw = VMAP_CELLS[cell]
     comm, jcomm = CommConfig(**kw), JCommConfig(**kw)
     validate(comm)
-    shapes = {k: torch.empty(s) for k, s in SHAPES.items()}
+    cell_shapes = CELL_SHAPES.get(cell, SHAPES)
+    shapes = {k: torch.empty(s) for k, s in cell_shapes.items()}
     plan = aggregate.make_bucket_plan(comm, shapes)
-    jplan = jagg.make_bucket_plan(jcomm, {k: jnp.zeros(s) for k, s in SHAPES.items()})
+    jplan = jagg.make_bucket_plan(jcomm, {k: jnp.zeros(s) for k, s in cell_shapes.items()})
     state = aggregate.init_comm_state(comm, plan, W, "cpu")
     jstate = jax.tree.map(lambda x: jnp.broadcast_to(x, (W,) + x.shape),
                           jagg.init_comm_state(jcomm, jplan))
     run = jax.jit(jax.vmap(lambda b, st, key: jagg.aggregate_buckets(jcomm, jplan, b, st, key,
                                                                      ("data",)),
                            axis_name="data", in_axes=(0, 0, None)))
-    decoded = kw["compressor"] in DECODED
+    decoded = kw["compressor"] in DECODED or bool(kw.get("per_tensor_rules"))
     for step in range(2):  # the second round starts from non-zero residuals
         bufs = _vmap_inputs(step, bf16=kw["compressor"] in SPARSE)
         with comms.capture() as log:
@@ -491,6 +508,31 @@ def test_sparsifier_routes_book_their_payloads():
                                         aggregate.init_comm_state(comm, plan, W, "cpu"),
                                         _key_noise)
         assert [(r.kind, r.payload_bytes, r.wire_format) for r in log.records] == recs
+
+
+def test_mixed_compressed_plan_books_each_route():
+    """QSGD on the compressed wire with a top-k rule on ``embed``: the QSGD
+    buckets book their int8 codes and f32 norm, the top-k bucket (k = 90
+    of 9000) its f32 values and int32 indices, each at the reference's
+    ``CollRecord`` wire bytes for n = W."""
+    comm = CommConfig(wire_format="compressed", error_feedback=True,
+                      per_tensor_rules=[("embed", "topk", {})], **QSGD)
+    plan = aggregate.make_bucket_plan(comm, {k: torch.empty(s) for k, s in MIXED_SHAPES.items()})
+    assert [aggregate.bucket_route(comm, plan.compressor(b)) for b in plan.buckets] == [
+        "fused_ef", "fused_ef", "fused_ef", "gather"]
+    bufs = [torch.from_numpy(b) for b in _round_inputs(0)]
+    with comms.capture() as log:
+        aggregate.aggregate_buckets(comm, plan, bufs, aggregate.init_comm_state(comm, plan, W, "cpu"),
+                                    _noise)
+    want = []
+    for b in plan.buckets[:3]:
+        want += [jcomms.CollRecord("all_gather", ("data",), b.size, 1.0, W, "grad_agg", "int8"),
+                 jcomms.CollRecord("all_gather", ("data",), 4, 1.0, W, "grad_agg", "f32")]
+    want += [jcomms.CollRecord("all_gather", ("data",), 360, 1.0, W, "grad_agg", "f32"),
+             jcomms.CollRecord("all_gather", ("data",), 360, 1.0, W, "grad_agg", "int32")]
+    assert _records(log) == [(r.kind, r.payload_bytes, r.n_workers, r.tag, r.wire_format)
+                             for r in want]
+    assert [r.wire_bytes for r in log.records] == [r.wire_bytes for r in want]
 
 
 def test_gtopk_resparsifies_the_mean():

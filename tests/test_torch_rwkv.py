@@ -363,8 +363,11 @@ def test_unported_rwkv_options_are_refused(upd):
                                       (2, 37, 3, 64), (2, 70, 4, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_kernel_matches_plain_on_card(cuda, B, S, H, hd, dtype):
-    """sT bitwise (each step of S rounds as the plain version's w*S + kv);
-    y within rtol 3e-4 / atol 3e-5 (a dot product summed in another order)."""
+    """y within rtol 3e-4 / atol 3e-5 (sums in another order).  Below
+    ``ops.WKV6_CHUNK`` steps the recurrent design rounds each step of S as
+    the plain version's w*S + kv: sT bitwise; from it on the chunked design
+    reorders the sums and rounds exp2/log2: sT within rtol 1e-4 / atol 1e-5
+    x max|sT|."""
     r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda) for a in _wkv_inputs(B, S, H, hd, 9))
     r, k, v, u = (t.to(dtype) for t in (r, k, v, u))
     ops.reset_launches()
@@ -372,7 +375,10 @@ def test_wkv6_kernel_matches_plain_on_card(cuda, B, S, H, hd, dtype):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["wkv6"] == 1
     want_y, want_s = ref.wkv6(r, k, v, w, u, s0)
-    assert torch.equal(sT, want_s)
+    if S < ops.WKV6_CHUNK:
+        assert torch.equal(sT, want_s)
+    else:
+        torch.testing.assert_close(sT, want_s, rtol=1e-4, atol=1e-5 * float(want_s.abs().max()))
     torch.testing.assert_close(y, want_y, rtol=3e-4, atol=3e-5)
 
 
