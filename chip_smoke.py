@@ -51,10 +51,25 @@ result line:
    stable sort, as lax.top_k orders ties); (i) threshold (tau 1e-3) with
    error feedback and (j) adaptive_threshold (proportion 0.01), both on
    the sum reduction through kernel threshold, each printing its kept share
-   per step.  Each path prints its losses (finite), step ms, booked wire KB
-   per step and peak memory, and the launch counts of its kernels: exactly
-   its own kernels must launch, each as many times as the path's buckets,
-   workers and steps call it.  ``--profile`` adds
+   per step; then twelve more, two steps each: (k) the plain qsgd twin (16
+   levels) on the int8 compressed wire with error feedback (its codes in
+   plain PyTorch, s gathered after the norm, kernel int8_acc); (l) onebit
+   with error feedback, (m) natural, (n) natural_dithering (8 levels), (o)
+   size_adaptive (threshold 65,536: 8 buckets as q8 codes, 5 as f16) and
+   (p) adaptive_qsgd (var_target 1.0), all gathered and decoded on the
+   dense wire; (q) powersgd (rank 4) with error feedback, two f32 factor
+   psums per bucket; (r) atomo_svd as per-tensor rules on the five norm
+   leaves (the rest a dense f32 all-reduce); (s) the bf16 compressed wire
+   (widening psum); (t) a bf16 all-reduce by the ring schedule; (u) the
+   recursive halving-doubling schedule with adamw (lr 1e-4) and a global
+   clip_norm of 1.0; (v) ZeRO-1 over momentum SGD with qsgd_kernel on the
+   compressed wire with error feedback (qsgd_ef + int8_acc, the parameters
+   regathered under tag zero1_gather); (l)-(u) launch no port kernel.
+   (q) must book its two factor psums per bucket and (v) its
+   zero1_gather, each to the byte.  Each path prints its losses (finite),
+   step ms, booked wire KB per step by tag and by format and peak memory, and the launch counts of its kernels:
+   exactly its own kernels must launch, each as many times as the path's
+   buckets, workers and steps call it.  ``--profile`` adds
    one more step of the QSGD EF path, or of each path named by its label,
    under torch.profiler (device-busy share, device time by kernel, host
    time by operation), not counted as launches;
@@ -95,6 +110,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.core.compression.powersgd import shape2d  # noqa: E402
 from repro_torch.core.types import CommConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticBatches  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -102,7 +118,7 @@ from repro_torch.kernels.build import LIBRARY  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.utils.tree import flatten_with_paths as flat  # noqa: E402
-from repro_torch.optim.optimizers import momentum_sgd  # noqa: E402
+from repro_torch.optim.optimizers import adamw, momentum_sgd, zero1  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
 from repro_torch.train.steps import build_bundle  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
@@ -524,8 +540,12 @@ SIGN_LR = 1e-4
 #: launches per step of a kernel called once per worker and bucket (13
 #: buckets, W workers), and of one called once per bucket
 SEND, RECV = 13 * W, 13
-#: (label, CommConfig fields, steps, lr, {kernel: launches per step}); every
-#: other kernel must not launch on the path
+#: the optimizer of each path: momentum SGD unless a path names another
+OPTIMIZERS = {"momentum": lambda: momentum_sgd(0.9), "adamw": adamw,
+              "zero1": lambda: zero1(momentum_sgd(0.9), W)}
+#: (label, CommConfig fields, steps, lr, {kernel: launches per step}[, build
+#: options: "opt" (a key of OPTIMIZERS), "clip_norm"]); every other kernel
+#: must not launch on the path
 PATHS = (
     ("qsgd ef", dict(error_feedback=True, **QSGD16), 3, 0.01,
      {"qsgd_ef": SEND, "int8_acc": RECV}),
@@ -557,7 +577,46 @@ PATHS = (
     ("adaptive_threshold", dict(compressor="adaptive_threshold",
                                 compressor_kwargs={"proportion": 0.01}), 2, 0.01,
      {"threshold": SEND}),
+    # (k)-(v): the rest of the BSP step's knobs; only (k) and (v) reach a
+    # port kernel, the others are plain PyTorch as the reference is jnp
+    ("qsgd twin cwire ef", dict(compressor="qsgd", compressor_kwargs={"levels": 16},
+                                wire_format="compressed", error_feedback=True), 2, 0.01,
+     {"int8_acc": RECV}),
+    ("onebit ef", dict(compressor="onebit", error_feedback=True), 2, 0.01, {}),
+    ("natural", dict(compressor="natural"), 2, 0.01, {}),
+    ("natural_dithering", dict(compressor="natural_dithering", compressor_kwargs={"levels": 8}),
+     2, 0.01, {}),
+    ("size_adaptive", dict(compressor="size_adaptive", compressor_kwargs={"threshold": 65536}),
+     2, 0.01, {}),
+    ("adaptive_qsgd", dict(compressor="adaptive_qsgd", compressor_kwargs={"var_target": 1.0}),
+     2, 0.01, {}),
+    ("powersgd ef", dict(compressor="powersgd", compressor_kwargs={"rank": 4},
+                         error_feedback=True), 2, 0.01, {}),
+    # ATOMO's SVDs on the small leaves only (the largest is 128 x 224)
+    ("atomo rules", dict(per_tensor_rules=[("norm", "atomo_svd", {}), ("ln", "atomo_svd", {})]),
+     2, 0.01, {}),
+    ("bf16 wire", dict(wire_format="compressed"), 2, 0.01, {}),
+    ("bf16 ring", dict(agg_dtype="bfloat16", collective="ring"), 2, 0.01, {}),
+    ("rhd adamw clip", dict(collective="rhd"), 2, 1e-4, {},
+     {"opt": "adamw", "clip_norm": 1.0}),
+    ("zero1 qsgd ef", dict(error_feedback=True, **QSGD16), 2, 0.01,
+     {"qsgd_ef": SEND, "int8_acc": RECV}, {"opt": "zero1"}),
 )
+
+
+def _psgd_wire(bundle) -> float:
+    """Two f32 psums per bucket, of P (a x rank) and Q (b x rank): (a + b)
+    rank 4 bytes, at 2(W-1)/W on the wire."""
+    return sum(sum(shape2d(b.size)) * 4 * 4 for b in bundle.bucket_plan.buckets) * 2 * (W - 1) / W
+
+
+#: booked wire bytes per step that a path must show: {label: (tag, bytes of the bundle)}
+WIRE_CHECKS = {
+    "powersgd ef": ("grad_agg", _psgd_wire),
+    # one bf16 all-gather per leaf of each worker's padded 1/W slice
+    "zero1 qsgd ef": ("zero1_gather", lambda bundle: sum(
+        -(-b.size // W) * 2 * (W - 1) for b in bundle.bucket_plan.buckets)),
+}
 
 
 def profile_one_step(run, what: str, step_ms: float) -> None:
@@ -595,17 +654,26 @@ def profile_one_step(run, what: str, step_ms: float) -> None:
         print(f"    {cpu(e):9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
-def run_trainer(label: str, comm_kw: dict, steps: int, lr: float,
+def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | None = None,
                 profile_step: bool = False) -> dict[str, int]:
     cfg = get_config("qwen3-0.6b")
     shape = InputShape("train_1k", 1024, 8, "train")
+    build = build or {}
     t0 = time.perf_counter()
-    bundle = build_bundle(cfg, CommConfig(**comm_kw), momentum_sgd(0.9), shape, n_workers=W,
-                          seed=0, device=DEV)
+    bundle = build_bundle(cfg, CommConfig(**comm_kw), OPTIMIZERS[build.get("opt", "momentum")](),
+                          shape, n_workers=W, seed=0, device=DEV,
+                          clip_norm=build.get("clip_norm", 0.0))
+    if label in WIRE_CHECKS:
+        tag, want = WIRE_CHECKS[label][0], WIRE_CHECKS[label][1](bundle)
+        got = bundle.wire["train"].get(tag, 0.0)
+        if not math.isclose(got, want, rel_tol=1e-12):
+            raise AssertionError(f"path {label}: booked {got} bytes under {tag}, want {want}")
     tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(lr), log_every=1)
     state = tr.init(seed=0)
     torch.cuda.synchronize()
-    print(f"trainer {label} ({comm_kw}, lr {lr}): {len(bundle.bucket_plan.buckets)} buckets, "
+    print(f"trainer {label} ({comm_kw}, {bundle.opt.name}, lr {lr}"
+          f"{', clip_norm %s' % bundle.clip_norm if bundle.clip_norm else ''}): "
+          f"{len(bundle.bucket_plan.buckets)} buckets, "
           f"{sum(b.size for b in bundle.bucket_plan.buckets)} params, build+init "
           f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -627,10 +695,10 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float,
     if profile_step:
         profile_one_step(lambda: tr.fit(state, 1, start_step=steps), f"step {steps}",
                          float(np.mean(step_ms[1:])))
-    wire = bundle.wire["train"]
+    wire = {k: round(v / 1e3, 3) for k, v in bundle.wire["train"].items()}
+    formats = {k: round(v / 1e3, 3) for k, v in bundle.wire["train_formats"].items()}
     print(f"  mean step_ms (first step excluded) {np.mean(step_ms[1:]):.1f}; booked wire "
-          f"{wire.get('grad_agg', 0.0) / 1e3:.1f} KB/step grad_agg "
-          f"({bundle.wire['train_formats']}); peak memory "
+          f"KB/step by tag {wire}, by format {formats}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
     del state, tr, bundle
     torch.cuda.empty_cache()
@@ -786,8 +854,8 @@ def main() -> None:
                      "library_note": NO_LIBRARY[name], "ok": r["ok"]})
 
     launches = {k: 0 for k in KERNELS}
-    for label, comm_kw, steps, lr, path_kernels in PATHS:
-        got = run_trainer(label, comm_kw, steps, lr,
+    for label, comm_kw, steps, lr, path_kernels, *build in PATHS:
+        got = run_trainer(label, comm_kw, steps, lr, *build,
                           profile_step=profile is not None and label in profile)
         want = {k: path_kernels.get(k, 0) * steps for k in got}
         if got != want:

@@ -17,13 +17,25 @@ over already-stacked (W, n) gradients.
 The reductions, per bucket (:func:`bucket_route`; churn and integrity
 arguments stay out):
 
-* ``dense``: no compressor, dense wire: a booked f32 all-reduce;
+* ``dense``: no compressor, dense wire: an all-reduce of ``a`` in
+  ``agg_dtype`` (f32, or bf16 rounded after every addition as the
+  reference's bf16 psum is) by schedule ``collective``: one booked psum
+  (``xla``) or the ring / recursive halving-doubling schedules of
+  :mod:`repro_torch.core.collectives`, each hop booked as a ``ppermute``;
+* ``widen``: no compressor (or a ``"none"`` rule) on the compressed wire:
+  the bf16 wire, ``comms.widening_psum`` (a booked bf16 all-gather, then
+  an f32 sum in worker order);
+* ``powersgd``: the two factor psums of PowerSGD with an orthonormalize
+  between them, ``Q`` carried in ``comm_state["psgd_q"]``; error feedback
+  is taken against the global approximation, in :meth:`finish`;
 * ``fused_ef``: the reference's fused-EF gate (compressed wire, EF on, no
   momentum correction, no local clip, a compressor with ``compress_ef_p``):
   kernels ``qsgd_ef`` then ``int8_acc``, each worker's residual updated in
   place;
-* ``int8_acc``: ``_int8_code_reduce`` on the compressed wire (kernels
-  ``qsgd`` then ``int8_acc``);
+* ``int8_acc``: ``_int8_code_reduce`` on the compressed wire (kernel
+  ``qsgd`` for ``qsgd_kernel``, plain codes for the ``qsgd`` twin, then
+  kernel ``int8_acc``); each row weighs ``norm_w / s_w``, ``s_w`` gathered
+  when the payload carries it and the ``levels`` knob otherwise;
 * ``sign``: the 1-bit compressed wire (``signsgd_packed``'s mean of votes,
   ``signsgd``'s majority): kernels ``sign_pack`` then ``sign_vote``;
 * ``tern``: the 2-bit compressed wire (``terngrad_kernel``, ``terngrad``):
@@ -43,7 +55,6 @@ arguments stay out):
   for ``threshold`` and ``adaptive_threshold``).
 
 gTop-k's ``re_sparsify`` then keeps the k largest magnitudes of the mean.
-The ``powersgd`` reduction and the bf16 wire raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,15 +66,22 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from repro_torch.core import comms, feedback
+from repro_torch.core import collectives, comms, feedback
 from repro_torch.core.compression.base import (
     Compressed,
     compress_p,
     decompress_p,
     get_compressor,
     needs_noise,
+    noise_len,
     runtime_knob_values,
     runtime_knobs,
+)
+from repro_torch.core.compression.powersgd import (
+    matmul_rows,
+    matmul_rows_t,
+    orthonormalize,
+    shape2d,
 )
 from repro_torch.core.compression.sparsification import k_of, top_k
 from repro_torch.core.types import CommConfig
@@ -150,7 +168,12 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
                     device: str | torch.device) -> dict[str, Any]:
     """Communication state of W workers: ``ef[i]`` and ``u[i]`` are the
     (W, size) stacks of bucket i's EF residuals and momentum buffers, one
-    row per worker (``ef[i]`` is None for a bucket without a compressor)."""
+    row per worker (``ef[i]`` is None for a bucket without a compressor).
+    A plan with a ``powersgd`` bucket adds ``psgd_q[i]``, that bucket's
+    flat (b * rank,) f32 factor Q, shared by every worker: a standard
+    normal draw from a torch generator seeded with 1000 + i (the reference
+    draws it from ``jax.random.key(1000 + i)``), and an empty tensor for
+    the other buckets."""
     state: dict[str, Any] = {"step": 0}
     if comm.error_feedback:
         state["ef"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
@@ -158,6 +181,11 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     if comm.momentum_correction:
         state["u"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
                       for b in plan.buckets]
+    if any(b.compressor_name == "powersgd" for b in plan.buckets):
+        state["psgd_q"] = [
+            plan.compressor(b).init_q(b.size, 1000 + i, device).reshape(-1)
+            if b.compressor_name == "powersgd" else torch.zeros(0, dtype=f32, device=device)
+            for i, b in enumerate(plan.buckets)]
     return state
 
 
@@ -213,10 +241,9 @@ def bucket_route(comm: CommConfig, comp) -> str:
     ``_aggregate_one`` and ``_compressed_reduce``); raises
     ``NotImplementedError`` for a reduction the port does not run."""
     if comp is None:
-        if comm.wire_format == "compressed":
-            raise NotImplementedError("the bf16 wire (wire_format='compressed' without a "
-                                      "compressor, widening_psum) is not ported")
-        return "dense"
+        return "widen" if comm.wire_format == "compressed" else "dense"
+    if getattr(comp, "reduce_mode", "") == "powersgd":
+        return "powersgd"
     wr = getattr(comp, "wire_reduce", "") if comm.wire_format == "compressed" else ""
     if wr:  # a compressor without a wire_reduce takes its reduce_mode below
         if (wr == "int8_acc" and comm.error_feedback and not comm.momentum_correction
@@ -243,9 +270,9 @@ def bucket_route(comm: CommConfig, comp) -> str:
 class AggregationRound:
     """One BSP aggregation round over W stacked workers.
 
-    ``comm_state`` is updated in place (each worker's EF and momentum rows)
-    and returned by :meth:`finish` with ``step`` advanced.  ``noise``
-    supplies the uniform draws of the stochastic compressors."""
+    ``comm_state`` is updated in place (each worker's EF and momentum rows,
+    PowerSGD's Q) and returned by :meth:`finish` with ``step`` advanced.
+    ``noise`` supplies the uniform draws of the stochastic compressors."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device):
@@ -254,14 +281,23 @@ class AggregationRound:
         self.comps = [plan.compressor(b) for b in plan.buckets]
         self.routes = [bucket_route(comm, comp) for comp in self.comps]
         self.knobs = plan.knob_values()
+        if comm.collective == "rhd" and n_workers & (n_workers - 1):
+            raise ValueError(f"collective='rhd' requires power-of-two workers, got {n_workers}")
+        #: the dense route's wire dtype
+        self.dense_dtype = torch.bfloat16 if comm.agg_dtype == "bfloat16" else f32
         nb = len(plan.buckets)
-        #: dense f32 sums (``dense``, ``sum``) or int8 vote sums (``majority``)
+        #: running sums over workers: dense ones (``dense`` under ``xla``,
+        #: ``sum``), int8 vote sums (``majority``), or PowerSGD's sum of
+        #: M_w @ Q (``powersgd``)
         self._sums: list[torch.Tensor | None] = [None] * nb
-        #: (W, ...) wire stacks: int8 codes (``fused_ef``, ``int8_acc``),
-        #: packed sign bytes (``sign``) or packed ternary bytes (``tern``)
+        #: (W, ...) stacks: int8 codes (``fused_ef``, ``int8_acc``), packed
+        #: sign bytes (``sign``), packed ternary bytes (``tern``), bf16
+        #: vectors (``widen``), zero-padded vectors (``dense`` under ``ring``
+        #: or ``rhd``) or PowerSGD's inputs a_w without EF (``powersgd``)
         self._stacks: list[torch.Tensor | None] = [None] * nb
-        #: (W,) per-worker f32 scalars: QSGD norms or ternary scales
-        self._scales: list[torch.Tensor | None] = [None] * nb
+        #: per-worker f32 scalars by payload leaf, each a (W,) vector: QSGD's
+        #: norms (and ``s``), ternary scales
+        self._scalars: list[dict[str, torch.Tensor]] = [{} for _ in range(nb)]
         #: per-worker payloads of the ``gather`` route, in worker order
         self._payloads: list[list[dict[str, torch.Tensor]]] = [[] for _ in range(nb)]
         #: kept elements of this round's masked payloads (their ``nnz``
@@ -275,10 +311,17 @@ class AggregationRound:
             self._stacks[i] = _wire_stack(self.n_workers, n, self.device, dtype)
         return self._stacks[i]
 
-    def _set_scale(self, i: int, w: int, scale: torch.Tensor) -> None:
-        if self._scales[i] is None:
-            self._scales[i] = torch.empty(self.n_workers, dtype=f32, device=self.device)
-        self._scales[i][w] = scale[0]
+    def _set_scalars(self, i: int, w: int, payload: dict[str, torch.Tensor],
+                     keys: tuple[str, ...]) -> None:
+        for k in keys:
+            if k in payload:
+                if k not in self._scalars[i]:
+                    self._scalars[i][k] = torch.empty(self.n_workers, dtype=f32,
+                                                      device=self.device)
+                self._scalars[i][k][w] = payload[k][0]
+
+    def _gather_scalars(self, i: int, k: str) -> torch.Tensor:
+        return comms.all_gather(self._scalars[i][k].reshape(self.n_workers, 1)).reshape(-1)
 
     def _accumulate(self, i: int, v: torch.Tensor) -> None:
         if self._sums[i] is None:
@@ -293,8 +336,8 @@ class AggregationRound:
         for i, (b, comp, route, g) in enumerate(zip(self.plan.buckets, self.comps,
                                                     self.routes, bufs)):
             knobs = self.knobs[i]
-            u = (self.noise(step, w, i, b.size).to(self.device) if needs_noise(comp)
-                 else None)
+            u = (self.noise(step, w, i, noise_len(comp, b.size)).to(self.device)
+                 if needs_noise(comp) else None)
             if route == "fused_ef":
                 # one kernel pass yields the int8 wire codes and worker w's
                 # new residual, written in place
@@ -302,12 +345,30 @@ class AggregationRound:
                 c, _ = comp.compress_ef_p(u, g, e, knobs, comm.ef_decay,
                                           out={"code": self._stack(i, b.size, torch.int8)[w],
                                                "e": e})
-                self._set_scale(i, w, c.payload["norm"])
+                self._set_scalars(i, w, c.payload, ("norm",))
                 continue
             a = feedback.pre_compress(comm, g, self.state, i, w, W)
             a_hat = None
             if route == "dense":
-                self._accumulate(i, a)
+                if comm.collective == "xla":  # a bf16 sum rounds after every addition
+                    self._accumulate(i, a.to(self.dense_dtype))
+                else:
+                    if self._stacks[i] is None:
+                        self._stacks[i] = torch.zeros(
+                            (W, collectives.padded_len(b.size, W)), dtype=self.dense_dtype,
+                            device=self.device)
+                    self._stacks[i][w, :b.size].copy_(a)
+            elif route == "widen":
+                self._stack(i, b.size, torch.bfloat16)[w].copy_(a)
+            elif route == "powersgd":
+                # a_w waits for finish (the second factor needs P): in worker
+                # w's EF row when EF is on (finish turns it into a_w - agg)
+                keep = (self.state["ef"][i] if comm.error_feedback
+                        else self._stack(i, b.size, f32))
+                keep[w].copy_(a)
+                bb = shape2d(b.size)[1]
+                self._accumulate(i, matmul_rows(a, self.state["psgd_q"][i].reshape(bb, comp.rank),
+                                                bb))
             elif route == "sign":
                 # packed straight from a: the int8 sign payload is never formed
                 ops.sign_pack(a, out=self._stack(i, ops.sign_packed_bytes(b.size),
@@ -317,14 +378,14 @@ class AggregationRound:
             elif route == "int8_acc":
                 c = compress_p(comp, u, a, knobs,
                                out={"code": self._stack(i, b.size, torch.int8)[w]})
-                self._set_scale(i, w, c.payload["norm"])
+                self._set_scalars(i, w, c.payload, ("norm", "s"))
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
             elif route == "tern":
                 c = compress_p(comp, u, a, knobs)
                 ops.tern_pack(c.payload["tern"], out=self._stack(
                     i, ops.tern_packed_bytes(b.size), torch.uint8)[w])
-                self._set_scale(i, w, c.payload["scale"])
+                self._set_scalars(i, w, c.payload, ("scale",))
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
             else:  # majority, sum, gather
@@ -344,6 +405,27 @@ class AggregationRound:
             if a_hat is not None:
                 feedback.post_compress(comm, a, a_hat, self.state, i, w)
 
+    def _powersgd(self, i: int, b: Bucket, comp, denom: torch.Tensor) -> torch.Tensor:
+        """PowerSGD's receive side (the reference's ``_powersgd_aggregate``):
+        P = orthonormalize(psum(M_w @ Q) / W), Q' = psum(M_w^T @ P) / W,
+        agg = P @ Q'^T; Q' is the next round's Q, and with EF each worker's
+        residual becomes a_w - agg."""
+        W, bb = self.n_workers, shape2d(b.size)[1]
+        comms.book_psum(self._sums[i], W)
+        P = orthonormalize(self._sums[i] / denom)
+        rows = self.state["ef"][i] if self.comm.error_feedback else self._stacks[i]
+        qsum = None
+        for w in range(W):  # worker order
+            t = matmul_rows_t(rows[w], P, bb)
+            qsum = t if qsum is None else qsum.add_(t)
+        comms.book_psum(qsum, W)
+        qn = qsum / denom
+        agg = (P @ qn.T).reshape(-1)[:b.size]
+        self.state["psgd_q"][i] = qn.reshape(-1)
+        if self.comm.error_feedback:  # against the global approximation
+            rows.sub_(agg)
+        return agg
+
     def finish(self) -> tuple[list[torch.Tensor], dict[str, Any]]:
         """Receive side: reduce every bucket to its worker mean (or vote)."""
         W = self.n_workers
@@ -353,15 +435,24 @@ class AggregationRound:
         with comms.tag("grad_agg"):
             for i, (b, comp, route) in enumerate(zip(self.plan.buckets, self.comps,
                                                      self.routes)):
-                if route in ("dense", "sum"):  # sum: the dense leaf alone
+                if route == "dense" and self.comm.collective != "xla":
+                    agg = collectives.allreduce(self._stacks[i], b.size,
+                                                self.comm.collective).to(f32) / denom
+                elif route in ("dense", "sum"):  # sum: the dense leaf alone
                     comms.book_psum(self._sums[i], W)
-                    agg = self._sums[i] / denom
+                    agg = self._sums[i].to(f32) / denom
+                elif route == "widen":
+                    agg = comms.widening_psum(self._stacks[i]) / denom
+                elif route == "powersgd":
+                    agg = self._powersgd(i, b, comp, denom)
                 elif route in ("fused_ef", "int8_acc"):
-                    # _int8_code_reduce: codes at wire width, decode scale
-                    # norm_w / levels folded into each worker's weight
+                    # _int8_code_reduce: codes at wire width, then the norms
+                    # and (when the payload carries it) s, each row weighing
+                    # norm_w / s_w in one decode-and-accumulate pass
                     cg = comms.all_gather_compressed({"code": self._stacks[i]})["code"]
-                    ng = comms.all_gather(self._scales[i].reshape(W, 1)).reshape(-1)
-                    sg = torch.full((), self.knobs[i]["levels"], dtype=f32, device=self.device)
+                    ng = self._gather_scalars(i, "norm")
+                    sg = (self._gather_scalars(i, "s") if "s" in self._scalars[i] else
+                          torch.full((), self.knobs[i]["levels"], dtype=f32, device=self.device))
                     agg = ops.int8_weighted_sum(cg, ng / sg) / denom
                 elif route == "sign":
                     with comms.wire_format("packed1"):
@@ -377,8 +468,7 @@ class AggregationRound:
                     # scale its weight in one decode-and-accumulate pass
                     with comms.wire_format("packed2"):
                         pg = comms.all_gather(self._stacks[i])
-                    sg = comms.all_gather(self._scales[i].reshape(W, 1)).reshape(-1)
-                    agg = ops.tern_acc(pg, sg, b.size) / denom
+                    agg = ops.tern_acc(pg, self._gather_scalars(i, "scale"), b.size) / denom
                 elif route == "majority":
                     # int8 vote sum: exact for W <= 127, as the reference's psum
                     comms.book_psum(self._sums[i], W)

@@ -21,7 +21,7 @@ _STATE = threading.local()
 
 @dataclass
 class CollRecord:
-    kind: str  # psum | all_gather
+    kind: str  # psum | all_gather | ppermute
     axes: tuple[str, ...]
     payload_bytes: int  # local operand bytes per call (one worker)
     mult: float
@@ -149,6 +149,12 @@ def book_all_gather(local: torch.Tensor, n_workers: int) -> None:
     _record("all_gather", local, n_workers)
 
 
+def book_ppermute(local: torch.Tensor, n_workers: int) -> None:
+    """Book one neighbour exchange of ``local`` (one worker's hop payload)
+    by every worker of a W-way schedule (``repro_torch.core.collectives``)."""
+    _record("ppermute", local, n_workers)
+
+
 def all_gather(stacked: torch.Tensor) -> torch.Tensor:
     """All-gather over the worker axis: the (W, ...) stack already is the
     gathered array; book one worker's slice."""
@@ -160,3 +166,15 @@ def all_gather_compressed(payload: dict[str, torch.Tensor]) -> dict[str, torch.T
     """All-gather a stacked wire payload leaf by leaf, each booked at its
     own dtype width (an int8 code array books n bytes, not 4n)."""
     return {k: all_gather(v) for k, v in payload.items()}
+
+
+def widening_psum(stacked: torch.Tensor) -> torch.Tensor:
+    """All-reduce with a narrow wire dtype and f32 accumulation: the (W, ...)
+    narrow stack is all-gathered (booked at its own width), then widened and
+    summed in worker order, so partial sums are never rounded to the wire
+    dtype.  p(n-1) on the wire against a psum's 2p(n-1)/n."""
+    all_gather(stacked)
+    acc = torch.zeros(stacked.shape[1:], dtype=torch.float32, device=stacked.device)
+    for row in stacked:  # worker order; each row widened exactly
+        acc.add_(row)
+    return acc

@@ -8,6 +8,8 @@ from repro_torch.core.compression.base import (  # noqa: F401
 )
 from repro_torch.core.compression import (  # noqa: F401  (register)
     kernels_backed,
+    policy,
+    powersgd,
     quantization,
     sparsification,
 )

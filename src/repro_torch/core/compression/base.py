@@ -9,7 +9,9 @@ draws, and the caller decides where the noise comes from (a seeded
 ``torch.Generator`` on the card, or the reference's own draws in a test).
 A compressor that draws noise says so with ``NEEDS_NOISE = True``; the
 deterministic ones (the sign family) are handed ``u=None``, so no bucket-
-sized draw is made for them.
+sized draw is made for them.  A compressor whose draw is not shaped like
+its input (``atomo_svd`` draws one value per singular value) says how many
+it needs with ``noise_len(n)``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,13 @@ def runtime_knob_values(comp) -> dict[str, float]:
 
 def needs_noise(comp) -> bool:
     return bool(getattr(comp, "NEEDS_NOISE", False))
+
+
+def noise_len(comp, n: int) -> int:
+    """Uniform draws ``comp`` takes to compress ``n`` elements (n unless
+    the compressor says otherwise)."""
+    fn = getattr(comp, "noise_len", None)
+    return n if fn is None else fn(n)
 
 
 def compress_p(comp, u: torch.Tensor | None, x: torch.Tensor, p: dict | None,

@@ -1,13 +1,19 @@
 """Quantization compressors (counterpart of
-``repro.core.compression.quantization``; ``terngrad`` and ``signsgd`` so
-far, the other twins come with their slices).
+``repro.core.compression.quantization``): 1-bit SGD, TernGrad, QSGD,
+SignSGD, Natural Compression and Natural Dithering.
 
 The reference computes these in jnp, not in Pallas, so their faithful port
-is plain PyTorch: no kernel of its own.
+is plain PyTorch: no kernel of its own.  ``qsgd`` shares the int8
+compressed wire of ``qsgd_kernel`` (kernel ``int8_acc`` reduces it); its
+runtime payload carries the level count ``s`` beside the norm, as the
+reference's does.  Scalars that divide are 0-dim tensors on the input's
+device: on the card PyTorch divides by a host scalar as a multiply by its
+reciprocal.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -15,6 +21,54 @@ import torch
 from repro_torch.core.compression.base import Compressed, register
 
 f32 = torch.float32
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), float(v), dtype=f32, device=like.device)
+
+
+def _sign8(x: torch.Tensor) -> torch.Tensor:
+    """``where(x >= 0, 1, -1)`` as int8."""
+    return (x >= 0).to(torch.int8) * 2 - 1
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(torch.linalg.vector_norm(x), 1e-30)
+
+
+def _check_levels(name: str, levels) -> dict:
+    # the int8 wire format caps |code| at s: fail loudly, don't wrap
+    if levels > 127:
+        raise ValueError(f"{name} levels={levels} exceeds the int8 wire format (max 127)")
+    return {"levels": levels}
+
+
+@register("onebit")
+@dataclass
+class OneBitSGD:
+    """Seide et al.: one bit per element and the means of the non-negative
+    and of the negative elements; biased, meant for error feedback."""
+
+    unbiased: bool = False
+    reduce_mode: str = "none"
+
+    def compress(self, u, x, out=None) -> Compressed:
+        """``u`` is unused (deterministic)."""
+        pos = x >= 0
+        npos = torch.clamp_min(pos.sum(), 1)
+        nneg = torch.clamp_min((~pos).sum(), 1)
+        zero = _scalar(0.0, x)
+        mu_pos = torch.where(pos, x, zero).sum() / npos
+        mu_neg = torch.where(pos, zero, x).sum() / nneg
+        return Compressed({"bits": pos.to(torch.int8), "mu": torch.stack([mu_neg, mu_pos])},
+                          x.numel())
+
+    def decompress(self, c) -> torch.Tensor:
+        mu = c.payload["mu"]
+        return torch.where(c.payload["bits"] > 0, mu[1], mu[0])
+
+    def wire_bits(self, n) -> float:
+        return n * 1.0 + 64
 
 
 @register("terngrad")
@@ -57,6 +111,60 @@ class TernGrad:
         return n * 2.0 + 32  # log2(3) rounded up to 2 bits
 
 
+@register("qsgd")
+@dataclass
+class QSGD:
+    """Alistarh et al.: stochastic dithering of |x| / ||x||_2 to s levels,
+    int8 codes.  The plain twin of ``qsgd_kernel``: the same wire, and
+    ``compress_p`` adds ``s`` to the payload so a receiver needs no side
+    channel."""
+
+    levels: int = 16  # s
+    unbiased: bool = True
+    reduce_mode: str = "none"
+    wire_reduce = "int8_acc"  # compressed-domain: int8 codes on the wire
+    RUNTIME_KNOBS = ("levels",)
+    NEEDS_NOISE = True
+
+    def batch_params(self, dim: int) -> dict:
+        return _check_levels("qsgd", self.levels)
+
+    def runtime_params(self) -> dict:
+        return _check_levels("qsgd", self.levels)
+
+    def _codes(self, u, x, s, out) -> tuple[torch.Tensor, torch.Tensor]:
+        norm = _norm(x)
+        y = torch.abs(x) / norm * s
+        lv = torch.floor(y)
+        lv = lv + (u < y - lv)
+        code = (torch.sign(x) * lv).to(torch.int8)  # |l| <= s <= 127
+        dst = (out or {}).get("code")
+        return (code if dst is None else dst.copy_(code)), norm
+
+    def compress_p(self, u, x, p, out=None) -> Compressed:
+        """``out``: optional {"code": int8 (n,)} buffer for the codes."""
+        s = _scalar((p or {}).get("levels", self.levels), x)
+        code, norm = self._codes(u, x, s, out)
+        return Compressed({"code": code, "norm": norm.reshape(1), "s": s.reshape(1)},
+                          x.numel())
+
+    def decompress_p(self, c, p) -> torch.Tensor:
+        code = c.payload["code"]
+        s = (c.payload["s"][0] if "s" in c.payload
+             else _scalar((p or {}).get("levels", self.levels), code))
+        return code.to(f32) / s * c.payload["norm"][0]
+
+    def compress(self, u, x, out=None) -> Compressed:
+        code, norm = self._codes(u, x, _scalar(self.levels, x), out)
+        return Compressed({"code": code, "norm": norm.reshape(1)}, x.numel())
+
+    def decompress(self, c) -> torch.Tensor:
+        return self.decompress_p(c, {})
+
+    def wire_bits(self, n) -> float:
+        return n * (math.log2(self.levels) + 1) + 32
+
+
 @register("signsgd")
 @dataclass
 class SignSGD:
@@ -71,7 +179,7 @@ class SignSGD:
     def compress(self, u, x, out=None) -> Compressed:
         """``u`` is unused (deterministic); ``out``: optional {"sign": int8
         (n,)} buffer."""
-        sign = (x >= 0).to(torch.int8) * 2 - 1  # where(x >= 0, 1, -1), in int8
+        sign = _sign8(x)
         dst = (out or {}).get("sign")
         if dst is not None:
             sign = dst.copy_(sign)
@@ -82,3 +190,90 @@ class SignSGD:
 
     def wire_bits(self, n) -> float:
         return n * 1.0
+
+
+@register("natural")
+@dataclass
+class NaturalCompression:
+    """Horvath et al.: unbiased stochastic rounding of |x| to a power of
+    two; the payload is an int8 exponent (-127: zero) and an int8 sign."""
+
+    unbiased: bool = True
+    reduce_mode: str = "none"
+    NEEDS_NOISE = True
+
+    def compress(self, u, x, out=None) -> Compressed:
+        ax = torch.abs(x)
+        e = torch.floor(torch.log2(torch.clamp_min(ax, 1e-38)))
+        lo = torch.exp2(e)
+        p_up = (ax - lo) / lo  # P(round up to 2^(e+1)) = (|x| - 2^e) / 2^e
+        e = torch.where(u < p_up, e + 1, e)
+        e = torch.where(ax < 1e-37, _scalar(-127.0, x), e)
+        code = torch.clamp(e, -127, 127).to(torch.int8)
+        return Compressed({"exp": code, "sign": _sign8(x)}, x.numel())
+
+    def decompress(self, c) -> torch.Tensor:
+        e = c.payload["exp"].to(f32)
+        mag = torch.where(e <= -127, _scalar(0.0, e), torch.exp2(e))
+        return c.payload["sign"].to(f32) * mag
+
+    def wire_bits(self, n) -> float:
+        return n * 9.0
+
+
+@register("natural_dithering")
+@dataclass
+class NaturalDithering:
+    """Horvath et al. section 5: QSGD with power-of-two levels: |x| / ||x||
+    rounds unbiasedly between neighbouring powers of two down to
+    2^-(L-1), and below that between 0 and 2^-(L-1).  The payload is the
+    int8 exponent (-L: zero), the int8 sign and the norm; ``compress_p``
+    adds ``L``, so ``levels`` is a runtime knob."""
+
+    levels: int = 8  # L, the number of geometric levels
+    unbiased: bool = True
+    reduce_mode: str = "none"
+    RUNTIME_KNOBS = ("levels",)
+    NEEDS_NOISE = True
+
+    @staticmethod
+    def _codes(u, x, L, ymin, zero_code, norm):
+        y = torch.abs(x) / norm
+        e = torch.ceil(torch.log2(torch.maximum(y, ymin)))
+        e = torch.clamp_max(torch.clamp_min(e, -(L - 1)), 0.0)
+        hi = torch.exp2(e)
+        lo = hi / 2
+        small = y < ymin
+        p_hi = torch.where(small, y / ymin, (y - lo) / torch.clamp_min(hi - lo, 1e-30))
+        code = torch.where(u < p_hi, e, torch.where(small, zero_code, e - 1))
+        return torch.clamp_max(torch.clamp_min(code, zero_code), 0.0).to(torch.int8)
+
+    def compress_p(self, u, x, p, out=None) -> Compressed:
+        L = _scalar((p or {}).get("levels", self.levels), x)
+        norm = _norm(x)
+        code = self._codes(u, x, L, torch.exp2(-(L - 1)), -L, norm)
+        return Compressed({"exp": code, "sign": _sign8(x), "norm": norm.reshape(1),
+                           "L": L.reshape(1)}, x.numel())
+
+    def compress(self, u, x, out=None) -> Compressed:
+        L, norm = self.levels, _norm(x)
+        code = self._codes(u, x, _scalar(L, x), _scalar(2.0 ** -(L - 1), x), _scalar(-L, x),
+                           norm)
+        return Compressed({"exp": code, "sign": _sign8(x), "norm": norm.reshape(1)},
+                          x.numel())
+
+    @staticmethod
+    def _decode(c, L) -> torch.Tensor:
+        e = c.payload["exp"].to(f32)
+        mag = torch.where(e <= -L, _scalar(0.0, e), torch.exp2(e))
+        return c.payload["sign"].to(f32) * mag * c.payload["norm"][0]
+
+    def decompress_p(self, c, p) -> torch.Tensor:
+        return self._decode(c, c.payload["L"][0] if "L" in c.payload
+                            else (p or {}).get("levels", self.levels))
+
+    def decompress(self, c) -> torch.Tensor:
+        return self._decode(c, self.levels)
+
+    def wire_bits(self, n) -> float:
+        return n * (math.log2(self.levels) + 1) + 32

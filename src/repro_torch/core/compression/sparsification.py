@@ -1,8 +1,8 @@
 """Sparsification compressors (counterpart of
 ``repro.core.compression.sparsification``): Top-k, gTop-k, Random-k,
 Wangni's unbiased dropping, Strom's fixed threshold, Dryden's adaptive
-threshold, SBC, STC and variance-based sparsification.  ATOMO waits for the
-low-rank slice: its noise has the shape of the spectrum, not of the bucket.
+threshold, SBC, STC, variance-based sparsification and Spectral-ATOMO
+(whose noise has the shape of the spectrum, not of the bucket).
 
 Top-k-style methods carry ``(values, int32 indices)`` payloads of static k
 and reduce by gather and scatter-add; the threshold family carries a dense
@@ -275,3 +275,46 @@ class VarianceSparsifier(_Masked):
 
     def wire_bits(self, n) -> float:
         return float("nan")
+
+
+def _shape2d_exact(n: int) -> tuple[int, int]:
+    """The squarest exact factorization r x (n / r), r <= sqrt(n)."""
+    r = int(n ** 0.5)
+    while n % r:
+        r -= 1
+    return r, n // r
+
+
+@register("atomo_svd")
+@dataclass
+class AtomoSVD:
+    """Wang et al., Spectral-ATOMO: unbiased stochastic sparsification in the
+    SVD's atomic basis of x reshaped to its squarest exact factorization;
+    the payload keeps the 2 * rank_budget largest kept atoms.  The SVD makes
+    it a small-tensor compressor, as in the reference.  Its noise is one
+    draw per singular value (``noise_len``)."""
+
+    rank_budget: int = 4
+    unbiased: bool = True
+    reduce_mode: str = "none"
+    NEEDS_NOISE = True
+
+    def noise_len(self, n: int) -> int:
+        return min(_shape2d_exact(n))
+
+    def compress(self, u, x, out=None) -> Compressed:
+        n = x.numel()
+        U, s, Vt = torch.linalg.svd(x.reshape(_shape2d_exact(n)), full_matrices=False)
+        # ATOMO probabilities: p_i = min(1, s_i * budget / sum(s))
+        p = torch.clamp_max(s * self.rank_budget / torch.clamp_min(torch.sum(s), 1e-30), 1.0)
+        s_hat = torch.where(u < p, s / torch.clamp_min(p, 1e-30), _scalar(0.0, s))
+        r = min(self.rank_budget * 2, s.shape[0])
+        order = torch.sort(-s_hat, stable=True).indices[:r]  # jnp.argsort is stable
+        return Compressed({"u": U[:, order] * s_hat[order][None, :], "vt": Vt[order, :]}, n)
+
+    def decompress(self, c) -> torch.Tensor:
+        return (c.payload["u"] @ c.payload["vt"]).reshape(-1)
+
+    def wire_bits(self, n) -> float:
+        a, b = _shape2d_exact(n)
+        return self.rank_budget * 2 * (a + b) * 32.0

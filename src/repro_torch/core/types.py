@@ -3,14 +3,15 @@
 :class:`CommConfig` keeps every field and default of the reference, so a
 cell description reads the same in both packages.  The port runs the BSP
 all-reduce trainer with sequential overlap, with momentum correction,
-local clipping and error feedback (with decay) on any ported compressor,
-over the dense wire (f32 mean, int8 majority vote, gather-and-decompress,
-the sparse scatter-add and the sum of masked payloads) or the compressed
-wire (int8 codes, 1-bit signs, 2-bit ternary codes).  :func:`validate`
-raises on any field that asks for a part not ported yet (churn, integrity,
-gossip, pipelined overlap, local SGD, warm-up, the bf16 wire, the
-``powersgd`` reduction), and applies the reference's ``bundle_spec`` checks
-on ``wire_format``.
+local clipping and error feedback (with decay) on every registered
+compressor, over the dense wire (an f32 or bf16 all-reduce by the ``xla``,
+``ring`` or ``rhd`` schedule, int8 majority vote, gather-and-decompress,
+the sparse scatter-add, the sum of masked payloads, PowerSGD's factor
+psums) or the compressed wire (int8 codes, 1-bit signs, 2-bit ternary
+codes, the bf16 widening psum).  :func:`validate` raises on any field that
+asks for a part not ported yet (churn, integrity, gossip, pipelined
+overlap, local SGD, warm-up), and applies the reference's ``bundle_spec``
+checks on ``wire_format`` and ``agg_dtype``.
 """
 
 from __future__ import annotations
@@ -80,12 +81,10 @@ DENSE = CommConfig()
 #: fields whose non-default values select a part of the reference that the
 #: port does not run yet
 _NOT_PORTED = (
-    "warmup_steps", "sync", "local_steps",
-    "post_local_switch", "pod_local", "aggregator", "collective", "gossip_graph",
-    "gossip_compress", "gossip_step_size", "gossip_mix_weight", "agg_dtype",
-    "overlap", "churn", "dropout_rate", "worker_dropout", "churn_start",
-    "churn_end", "rejoin_policy", "corruption_rate", "corruption_kind",
-    "quarantine_limit",
+    "warmup_steps", "sync", "local_steps", "post_local_switch", "pod_local", "aggregator",
+    "gossip_graph", "gossip_compress", "gossip_step_size", "gossip_mix_weight", "overlap",
+    "churn", "dropout_rate", "worker_dropout", "churn_start", "churn_end", "rejoin_policy",
+    "corruption_rate", "corruption_kind", "quarantine_limit",
 )
 
 
@@ -94,7 +93,8 @@ def validate(comm: CommConfig):
 
     Raises ``NotImplementedError`` for fields set away from their defaults
     that select an unported part, and ``ValueError`` where the reference's
-    ``bundle_spec`` does on ``wire_format``."""
+    ``bundle_spec`` does on ``wire_format`` and ``agg_dtype``, and for a
+    ``collective`` that is none of the reference's schedules."""
     from repro_torch.core.compression.base import get_compressor
 
     for name in _NOT_PORTED:
@@ -102,6 +102,9 @@ def validate(comm: CommConfig):
             raise NotImplementedError(
                 f"CommConfig.{name}={getattr(comm, name)!r} is not ported yet "
                 "(the port runs the BSP all-reduce trainer, sequential overlap)")
+    if comm.collective not in ("xla", "ring", "rhd"):
+        raise ValueError(f"unknown collective {comm.collective!r} (expected 'xla', 'ring' "
+                         "or 'rhd')")
     comp = get_compressor(comm.compressor, **comm.compressor_kwargs)
     if comm.wire_format not in ("dense", "compressed"):
         raise ValueError(f"unknown wire_format {comm.wire_format!r}")

@@ -1,9 +1,10 @@
 """Optimizers on parameter trees (counterpart of ``repro.optim.optimizers``:
-``sgd`` and ``momentum_sgd``).
+``sgd``, ``momentum_sgd``, ``adamw``, ``zero1`` and ``global_clip``).
 
 State is f32 whatever the parameter dtype.  ``update`` works in place: the
-momentum buffer and the parameters are overwritten, which keeps one copy of
-each at full width; the arithmetic is the reference's, step by step in f32.
+moment buffers and the parameters are overwritten, which keeps one copy of
+each at full width; the arithmetic is the reference's, step by step in f32
+(no fused multiply-add: ``add_`` with ``alpha`` would contract).
 """
 
 from __future__ import annotations
@@ -13,9 +14,14 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import comms
 from repro_torch.utils.tree import leaves
 
 f32 = torch.float32
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), float(v), dtype=f32, device=like.device)
 
 
 @dataclass(frozen=True)
@@ -25,6 +31,8 @@ class Optimizer:
     #: leaf lists in tree order
     update: Callable[[list, Any, list, float], tuple[list, Any]]
     name: str = "opt"
+    #: workers the state is sharded over (``zero1``); 0: not sharded
+    n_shards: int = 0
 
 
 def sgd() -> Optimizer:
@@ -53,3 +61,79 @@ def momentum_sgd(m: float = 0.9, nesterov: bool = False) -> Optimizer:
         return params, state
 
     return Optimizer(init, update, f"momentum{m}")
+
+
+def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.0) -> Optimizer:
+    """Adam with decoupled weight decay; f32 moments and an int32 step count
+    ``t``, the bias corrections ``1 - b**t`` taken in f32."""
+
+    def init(params):
+        ps = leaves(params)
+        dev = ps[0].device if ps else "cpu"
+        return {"m": [torch.zeros(p.shape, dtype=f32, device=p.device) for p in ps],
+                "v": [torch.zeros(p.shape, dtype=f32, device=p.device) for p in ps],
+                "t": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(grads, state, params, lr):
+        with torch.no_grad():
+            t = state["t"] + 1
+            tf = t.to(f32)
+            bc1 = 1 - torch.pow(_scalar(b1, tf), tf)
+            bc2 = 1 - torch.pow(_scalar(b2, tf), tf)
+            for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+                g = g.to(f32)
+                m.mul_(b1).add_(g * (1 - b1))
+                v.mul_(b2).add_(torch.square(g) * (1 - b2))
+                step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                if wd:
+                    step = step + wd * p.to(f32)
+                p.copy_(p.to(f32) - lr * step)
+        return params, {"m": state["m"], "v": state["v"], "t": t}
+
+    return Optimizer(init, update, "adamw")
+
+
+def zero1(opt: Optimizer, n_workers: int) -> Optimizer:
+    """ZeRO-1: optimizer state sharded over the W data-parallel workers.
+
+    Every leaf is flattened and zero-padded to a multiple of W; worker w
+    keeps row w of the (W, n / W) view of each state leaf and updates row w
+    of the parameters with ``opt``'s arithmetic, and the new parameters are
+    regathered with one all-gather per leaf, booked under tag
+    ``zero1_gather`` (one worker's row at the parameters' dtype).  On one
+    card the W rows are one stacked tensor, so the shards update together.
+    """
+
+    def _rows(leaf):
+        flat = leaf.reshape(-1)
+        pad = (-flat.numel()) % n_workers
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        return flat.reshape(n_workers, -1)
+
+    def init(params):
+        return {"inner": opt.init([_rows(p) for p in leaves(params)])}
+
+    def update(grads, state, params, lr):
+        with torch.no_grad():
+            p_sl = [_rows(p) for p in params]
+            _, inner = opt.update([_rows(g) for g in grads], state["inner"], p_sl, lr)
+            with comms.tag("zero1_gather"):
+                for p, new in zip(params, p_sl):
+                    comms.all_gather(new)
+                    if new.data_ptr() != p.data_ptr():  # padded: a copy of p
+                        p.copy_(new.reshape(-1)[:p.numel()].reshape(p.shape))
+        return params, {"inner": inner}
+
+    return Optimizer(init, update, f"zero1_{opt.name}", n_workers)
+
+
+def global_clip(grads: list, max_norm: float) -> list:
+    """Global-norm gradient clipping: every leaf times
+    min(1, max_norm / ||grads||), the norm over all leaves in f32 (leaf
+    sums added in leaf order); 0 leaves the gradients alone."""
+    if not max_norm:
+        return grads
+    g2 = sum(torch.sum(torch.square(g.to(f32))) for g in grads)
+    scale = torch.clamp_max(_scalar(max_norm, g2) / torch.clamp_min(torch.sqrt(g2), 1e-30), 1.0)
+    return [(g.to(f32) * scale).to(g.dtype) for g in grads]

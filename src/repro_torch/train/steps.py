@@ -9,7 +9,8 @@ bucket by bucket, to the send side of an :class:`AggregationRound`
 (momentum, clipping and error feedback, then compression into that
 worker's row of the wire stack); only the wire payload and the worker's
 state rows outlive the worker.  The receive side then reduces every
-bucket, and the optimizer updates the parameters in place.  Loss, ``ce``
+bucket, ``clip_norm`` (if set) clips the aggregate to that global norm, and
+the optimizer updates the parameters in place.  Loss, ``ce``
 and ``aux`` are worker means; ``kept`` is the share of elements that the
 masked sparsifiers (the threshold family, ``wangni``, ``variance_sparse``)
 kept this step, over all workers and their buckets.
@@ -33,7 +34,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import aggregate, comms
 from repro_torch.core.types import CommConfig, validate
 from repro_torch.models import transformer as T
-from repro_torch.optim.optimizers import Optimizer
+from repro_torch.optim.optimizers import Optimizer, global_clip
 from repro_torch.utils.tree import leaves, tree_map
 
 f32 = torch.float32
@@ -49,6 +50,8 @@ class StepBundle:
     bucket_plan: aggregate.BucketPlan
     opt: Optimizer
     noise: aggregate.Noise
+    #: global-norm clip of the aggregated gradient (0: off)
+    clip_norm: float = 0.0
     #: per-step wire bytes by tag, booked from one shape-only step:
     #: {"train": {tag: bytes}, "train_formats": {format: bytes}}
     wire: dict[str, dict[str, float]] = field(default_factory=dict)
@@ -66,10 +69,10 @@ class StepBundle:
     def train_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
                    lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
         return _train_step(self.cfg, self.comm, self.bucket_plan, self.opt,
-                           self.n_workers, self.noise, state, batch, lr)
+                           self.n_workers, self.noise, state, batch, lr, self.clip_norm)
 
 
-def _train_step(cfg, comm, plan, opt, n_workers, noise, state, batch, lr):
+def _train_step(cfg, comm, plan, opt, n_workers, noise, state, batch, lr, clip_norm):
     params = state["params"]
     pleaves = leaves(params)
     B = batch["tokens"].shape[0]
@@ -88,7 +91,7 @@ def _train_step(cfg, comm, plan, opt, n_workers, noise, state, batch, lr):
         for k, v in (("loss", loss), *m.items()):
             metrics[k].append(v.detach())
     agg, cstate = rnd.finish()
-    grads = aggregate._scatter_buckets(plan, agg, pleaves)
+    grads = global_clip(aggregate._scatter_buckets(plan, agg, pleaves), clip_norm)
     del agg
     _, opt_state = opt.update(grads, state["opt"], pleaves, lr)
     out = {k: comms.pmean(torch.stack(v)) for k, v in metrics.items()}
@@ -98,7 +101,8 @@ def _train_step(cfg, comm, plan, opt, n_workers, noise, state, batch, lr):
              "step": state["step"] + 1}, out)
 
 
-def _book_wire(cfg, comm, plan, opt, shape, n_workers) -> dict[str, dict[str, float]]:
+def _book_wire(cfg, comm, plan, opt, shape, n_workers, clip_norm
+               ) -> dict[str, dict[str, float]]:
     """Run one step on the meta device (no memory, no arithmetic) under a
     comms capture.  Recomputation is off there: it changes no collective."""
     meta = torch.device("meta")
@@ -111,24 +115,30 @@ def _book_wire(cfg, comm, plan, opt, shape, n_workers) -> dict[str, dict[str, fl
                             device=meta) for k in ("tokens", "labels")}
     with comms.capture() as log:
         _train_step(mcfg, comm, plan, opt, n_workers, aggregate.seeded_noise(0, meta),
-                    state, batch, 0.0)
+                    state, batch, 0.0, clip_norm)
     return {"train": log.by_tag(), "train_formats": log.by_wire_format()}
 
 
 def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,
                  n_workers: int = 1, seed: int = 0, device: str | torch.device = "cuda",
-                 noise: aggregate.Noise | None = None) -> StepBundle:
+                 noise: aggregate.Noise | None = None, clip_norm: float = 0.0) -> StepBundle:
     """Build the BSP step for one cell.  ``noise(step, worker, bucket, n)``
     overrides the compressors' uniform draws (default: a generator seeded
-    from (seed, step, worker, bucket) on ``device``)."""
+    from (seed, step, worker, bucket) on ``device``); ``clip_norm > 0``
+    clips the aggregated gradient to that global norm before the update,
+    as the reference's step does."""
     validate(comm)
+    if opt.n_shards and opt.n_shards != n_workers:
+        raise ValueError(f"{opt.name} shards its state over {opt.n_shards} workers, "
+                         f"the bundle has {n_workers}")
     device = torch.device(device)
     plan = aggregate.make_bucket_plan(comm, T.param_defs(cfg))
     return StepBundle(
         cfg=cfg, comm=comm, shape=shape, n_workers=n_workers, device=device,
         bucket_plan=plan, opt=opt,
         noise=noise if noise is not None else aggregate.seeded_noise(seed, device),
-        wire=_book_wire(cfg, comm, plan, opt, shape, n_workers),
+        clip_norm=clip_norm,
+        wire=_book_wire(cfg, comm, plan, opt, shape, n_workers, clip_norm),
     )
 
 

@@ -17,10 +17,17 @@ compression) against the JAX package.
   interpret mode), over two rounds so the residuals are non-zero, for the
   1-bit sign wires, the 2-bit ternary wire, the majority vote, the
   gather-and-decompress reduce, the sparsifiers' sparse scatter-add (with
-  gTop-k's re-sparsify) and masked sum, and the general
-  ``pre_compress``/``post_compress`` path; the booked records (kind, payload
-  bytes, wire format) equal the reference's capture.  The sparsifier cells
-  round their inputs to bf16, so magnitudes tie as in the trainer.
+  gTop-k's re-sparsify) and masked sum, the general
+  ``pre_compress``/``post_compress`` path, the plain ``qsgd`` on the int8
+  wire (its ``s`` gathered), the other quantizers, the policies and ATOMO
+  by gather-and-decompress, PowerSGD's factor psums (Q from the
+  reference's draw, compared up to column sign), the bf16 wire, a bf16
+  all-reduce and the ring and rhd schedules (bitwise); the booked records
+  (kind, payload bytes, wire format) equal the reference's capture.  The
+  sparsifier cells round their inputs to bf16, so magnitudes tie as in the
+  trainer.
+* The ring and rhd schedules alone at W = 3 and 8 against the reference's
+  ``collectives.allreduce`` under ``jax.vmap``: bitwise, hops booked alike.
 """
 
 import jax
@@ -34,6 +41,7 @@ from repro.core import aggregate as jagg
 from repro.core import comms as jcomms
 from repro.core.compression import get_compressor as jget_compressor
 from repro.core.types import CommConfig as JCommConfig
+from repro.core.types import CommKnobs as JCommKnobs
 from repro.experiments.trainer_substrate import make_tiny_workload
 from repro.kernels import ops as jops
 from repro.models import transformer as JT
@@ -191,23 +199,25 @@ def test_seeded_noise_is_reproducible_per_round():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(wire_format="packed"), ValueError),
-    (dict(wire_format="compressed", agg_dtype="bfloat16", **QSGD), NotImplementedError),
+    # the reference's bundle_spec: a bf16 agg_dtype means nothing on a
+    # compressed wire that carries a compressor's payload
+    (dict(wire_format="compressed", agg_dtype="bfloat16", **QSGD), ValueError),
     (dict(churn=True), NotImplementedError),
     (dict(overlap="pipelined"), NotImplementedError),
     (dict(aggregator="gossip"), NotImplementedError),
     (dict(sync="local"), NotImplementedError),
     (dict(warmup_steps=10, **QSGD, wire_format="compressed"), NotImplementedError),
-    (dict(compressor="powersgd", wire_format="compressed"), KeyError),  # unregistered
-    (dict(wire_format="compressed"), NotImplementedError),  # bf16 wire: not ported
+    (dict(sync="post_local", post_local_switch=10), NotImplementedError),
+    (dict(pod_local=True), NotImplementedError),
     (dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
      NotImplementedError),
-    (dict(per_tensor_rules=[("embed", "powersgd", {})]), KeyError),
-    # a "none" rule on the compressed wire needs the bf16 widening psum
-    (dict(wire_format="compressed", per_tensor_rules=[("embed", "none", {})], **QSGD),
-     NotImplementedError),
-    # no compressed-domain reduction for a sparsifier, as in the reference
+    (dict(churn=True, rejoin_policy="pull_avg"), NotImplementedError),
+    (dict(collective="tree"), ValueError),  # none of the reference's schedules
+    # no compressed-domain reduction for a sparsifier (or for PowerSGD), as
+    # in the reference
     (dict(compressor="topk", wire_format="compressed"), ValueError),
     (dict(compressor="threshold", wire_format="compressed"), ValueError),
+    (dict(compressor="powersgd", wire_format="compressed"), ValueError),
 ])
 def test_validate_rejects_unported_cells(kw, err):
     with pytest.raises(err):
@@ -242,6 +252,16 @@ def test_validate_rejects_unported_cells(kw, err):
     dict(**QSGD, wire_format="compressed", per_tensor_rules=[("embed", "topk", {})]),
     dict(**QSGD, wire_format="compressed", error_feedback=True,
          per_tensor_rules=[("embed", "threshold", {})]),
+    # PowerSGD's factor psums, globally or as a rule
+    dict(compressor="powersgd", error_feedback=True),
+    dict(per_tensor_rules=[("embed", "powersgd", {})]),
+    # the bf16 wire: no compressor, or a "none" rule, on the compressed wire
+    dict(wire_format="compressed"),
+    dict(wire_format="compressed", per_tensor_rules=[("embed", "none", {})], **QSGD),
+    # a bf16 dense all-reduce and the hand-written schedules
+    dict(agg_dtype="bfloat16"),
+    dict(agg_dtype="bfloat16", collective="ring"),
+    dict(collective="rhd"),
 ])
 def test_validate_accepts_ported_cells(kw):
     validate(CommConfig(**kw))
@@ -249,14 +269,17 @@ def test_validate_accepts_ported_cells(kw):
 
 @pytest.mark.parametrize("mode", ["sum", "powersgd"])
 def test_unported_reductions_raise(mode):
-    """``powersgd`` is still unported and raises; ``sum`` is ported and
-    routes to the sum reduction."""
+    """Both reduce modes are ported now: ``sum`` routes to the sum reduction
+    and ``powersgd`` to PowerSGD's factor psums (whatever the wire: the
+    reference dispatches on the reduce mode first); an unknown mode still
+    raises."""
     comp = get_compressor("signsgd", reduce_mode=mode)
-    if mode == "sum":
-        assert aggregate.bucket_route(CommConfig(compressor="signsgd"), comp) == "sum"
-        return
-    with pytest.raises(NotImplementedError, match=mode):
-        aggregate.bucket_route(CommConfig(compressor="signsgd"), comp)
+    for wire in ("dense", "compressed"):
+        route = aggregate.bucket_route(CommConfig(compressor="signsgd", wire_format=wire), comp)
+        assert route == ("sign" if (mode, wire) == ("sum", "compressed") else mode)
+    with pytest.raises(NotImplementedError, match="bogus"):
+        aggregate.bucket_route(CommConfig(compressor="signsgd"),
+                               get_compressor("signsgd", reduce_mode="bogus"))
 
 
 def test_qsgd_kernel_levels_bound():
@@ -311,16 +334,59 @@ VMAP_CELLS = {
     # a, b, c and top-k's sparse gather on the embed bucket (MIXED_SHAPES)
     "qsgd-cwire-ef-topk-rule": dict(wire_format="compressed", error_feedback=True,
                                     per_tensor_rules=[("embed", "topk", {})], **QSGD),
+    # the quantization twins and the policies: the plain qsgd on the int8
+    # compressed wire (its payload's s gathered after the norm), the rest
+    # gathered and decoded on the dense wire
+    "qsgd-cwire-ef": dict(compressor="qsgd", compressor_kwargs={"levels": 16},
+                          wire_format="compressed", error_feedback=True),
+    "qsgd-cwire": dict(compressor="qsgd", compressor_kwargs={"levels": 16},
+                       wire_format="compressed"),
+    "onebit-ef": dict(compressor="onebit", error_feedback=True),
+    "natural": dict(compressor="natural"),
+    "natural-dithering": dict(compressor="natural_dithering", compressor_kwargs={"levels": 8}),
+    # threshold 4096 straddles the buckets: a and b go as f16, c and d as q8
+    "size-adaptive": dict(compressor="size_adaptive", compressor_kwargs={"threshold": 4096}),
+    "adaptive-qsgd": dict(compressor="adaptive_qsgd", compressor_kwargs={"var_target": 1.0}),
+    # PowerSGD's two factor psums, Q taken from the reference's draw
+    "powersgd-ef": dict(compressor="powersgd", compressor_kwargs={"rank": 2},
+                        error_feedback=True),
+    "powersgd": dict(compressor="powersgd", compressor_kwargs={"rank": 2}),
+    "atomo": dict(compressor="atomo_svd"),
+    # no compressor: the bf16 wire (widening psum), a "none" rule on the
+    # compressed wire, a bf16 all-reduce, and the ring and rhd schedules
+    # (their sizes 1000, 407, 4096 and 9000 pad 407 to a multiple of W)
+    "bf16-wire": dict(wire_format="compressed"),
+    "qsgd-cwire-ef-none-rule": dict(wire_format="compressed", error_feedback=True,
+                                    per_tensor_rules=[("embed", "none", {})], **QSGD),
+    "agg-bf16": dict(agg_dtype="bfloat16"),
+    "ring": dict(collective="ring"),
+    "rhd": dict(collective="rhd"),
+    "agg-bf16-ring": dict(agg_dtype="bfloat16", collective="ring"),
+    "agg-bf16-rhd": dict(agg_dtype="bfloat16", collective="rhd"),
 }
 #: a, b, c and an ``embed`` bucket of d's size: the same sizes in the same
 #: sorted order as SHAPES, so the cells share their inputs
 MIXED_SHAPES = {"a": (1000,), "b": (37, 11), "c": (4096,), "embed": (9000,)}
-CELL_SHAPES = {"qsgd-cwire-ef-topk-rule": MIXED_SHAPES}
+CELL_SHAPES = {"qsgd-cwire-ef-topk-rule": MIXED_SHAPES,
+               "qsgd-cwire-ef-none-rule": MIXED_SHAPES}
 SPARSE = ("topk", "gtopk", "randomk", "sbc", "stc", "threshold", "adaptive_threshold",
           "wangni", "variance_sparse")
 #: cells whose aggregate sums scaled decodes or sparse payloads, which
-#: cancel and are summed in other orders (the rest are exact sign outputs)
-DECODED = ("qsgd_kernel", "terngrad_kernel", "terngrad") + SPARSE
+#: cancel and are summed in other orders (the rest are exact sign outputs,
+#: or sums of the same f32 or bf16 values in the reference's order)
+DECODED = ("qsgd_kernel", "terngrad_kernel", "terngrad", "qsgd", "onebit", "natural",
+           "natural_dithering", "size_adaptive", "adaptive_qsgd", "powersgd",
+           "atomo_svd") + SPARSE
+#: cells run with the reference's traced knob tree, as its trainer runs
+#: them: ``compress_p`` then adds qsgd's ``s`` and natural dithering's ``L``
+#: to the payload (without knobs the reference takes the baked ``compress``)
+KNOBBED = ("qsgd-cwire-ef", "qsgd-cwire", "natural-dithering", "adaptive-qsgd")
+#: decoded-sum tolerance (rtol, and atol as a share of the largest element)
+#: where it is not 1e-6: PowerSGD goes through another matmul order and a
+#: QR; ATOMO's singular vectors are determined only to about eps ||M|| / gap
+#: (the bulk of a random spectrum is closely spaced), measured up to 2.5e-4
+#: of the largest element on the 90 x 100 bucket
+DECODED_TOL = {"powersgd": 1e-5, "powersgd-ef": 1e-5, "atomo": 1e-3}
 
 
 def _vmap_inputs(step, bf16=False):
@@ -360,31 +426,49 @@ def test_round_matches_reference_aggregate_under_vmap(cell):
     state = aggregate.init_comm_state(comm, plan, W, "cpu")
     jstate = jax.tree.map(lambda x: jnp.broadcast_to(x, (W,) + x.shape),
                           jagg.init_comm_state(jcomm, jplan))
-    run = jax.jit(jax.vmap(lambda b, st, key: jagg.aggregate_buckets(jcomm, jplan, b, st, key,
-                                                                     ("data",)),
-                           axis_name="data", in_axes=(0, 0, None)))
-    decoded = kw["compressor"] in DECODED or bool(kw.get("per_tensor_rules"))
+    if "psgd_q" in state:  # the reference's key(1000 + i) draw
+        assert [q.shape for q in state["psgd_q"]] == [q[0].shape for q in jstate["psgd_q"]]
+        state["psgd_q"] = [torch.from_numpy(np.array(q[0])) for q in jstate["psgd_q"]]
+    knobs = (JCommKnobs.from_comm(jcomm, jplan.knob_values()).as_tree() if cell in KNOBBED
+             else None)
+    run = jax.jit(jax.vmap(lambda b, st, key, kn: jagg.aggregate_buckets(
+        jcomm, jplan, b, st, key, ("data",), knobs=kn),
+        axis_name="data", in_axes=(0, 0, None, None)))
+    name = kw.get("compressor", "none")
+    decoded = name in DECODED or bool(kw.get("per_tensor_rules"))
+    tol = DECODED_TOL.get(cell, 1e-6)
     for step in range(2):  # the second round starts from non-zero residuals
-        bufs = _vmap_inputs(step, bf16=kw["compressor"] in SPARSE)
+        bufs = _vmap_inputs(step, bf16=name in SPARSE)
         with comms.capture() as log:
             got, state = aggregate.aggregate_buckets(
                 comm, plan, [torch.from_numpy(b) for b in bufs], state, _key_noise)
         with jcomms.capture() as jlog:
-            want, jstate = run([jnp.asarray(b) for b in bufs], jstate, jax.random.key(step))
+            want, jstate = run([jnp.asarray(b) for b in bufs], jstate, jax.random.key(step),
+                               knobs)
         if step == 0:  # the reference books while tracing, on the first call
             assert _records(log) == _records(jlog)
         for g, w in zip(got, want):
             w = np.asarray(w)
             assert (w == w[0]).all()  # every worker holds the same aggregate
             if decoded:  # signed decodes cancel: atol of the largest element
-                np.testing.assert_allclose(g.numpy(), w[0], rtol=1e-6,
-                                           atol=1e-6 * np.abs(w).max())
-            else:  # sign outputs are exact
+                np.testing.assert_allclose(g.numpy(), w[0], rtol=tol,
+                                           atol=tol * np.abs(w).max())
+            else:  # sign outputs, and sums in the reference's order, are exact
                 np.testing.assert_array_equal(g.numpy(), w[0])
+        for q, jq in zip(state.get("psgd_q", []), jstate.get("psgd_q", [])):
+            # Q' is defined up to the sign of each column (P's, from the QR)
+            jq = np.asarray(jq)
+            assert (jq == jq[0]).all()
+            q, jq = q.numpy().reshape(-1, 2), jq[0].reshape(-1, 2)
+            q = q * np.sign(np.sum(q * jq, axis=0))
+            np.testing.assert_allclose(q, jq, rtol=1e-5, atol=1e-5 * np.abs(jq).max())
         for k in ("ef", "u"):
             assert (k in state) == (k in jstate)
             for e, je in zip(state.get(k, []), jstate.get(k, [])):
                 je = np.asarray(je)
+                if e is None:  # no compressor: the reference's residual stays zero
+                    assert not je.any()
+                    continue
                 # atol 1e-6 of the operands' scale: under jit XLA contracts
                 # e*decay + g (and m*u + g) into one FMA, so a may differ by
                 # an ulp, and e = a - C(a) cancels; a sign decode is +-1, so
@@ -552,3 +636,38 @@ def test_gtopk_resparsifies_the_mean():
     want = np.zeros(1000, np.float32)
     want[idx] = mean.numpy()[idx]
     np.testing.assert_array_equal(cut.numpy(), want)
+
+
+@pytest.mark.parametrize("impl", ["ring", "rhd"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_workers", [3, 8])
+def test_collectives_match_reference_under_vmap(impl, dtype, n_workers):
+    """The ring and recursive halving-doubling schedules on a (W, n) stack
+    against the reference's ``collectives.allreduce`` under ``jax.vmap``,
+    at W = 3 and 8 and n = 1003 (padded to a multiple of W): bitwise, each
+    hop associated as the reference's, bf16 rounded after every hop; every
+    hop booked as the reference's ppermute.  rhd refuses W = 3, as the
+    reference does."""
+    from repro.core import collectives as jcollectives
+    from repro_torch.core import collectives
+
+    rng = np.random.default_rng(n_workers)
+    x = (rng.standard_normal((n_workers, 1003))
+         * np.logspace(-3, 1, n_workers)[:, None]).astype(np.float32)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    stack = torch.zeros((n_workers, collectives.padded_len(1003, n_workers)), dtype=tdt)
+    stack[:, :1003] = torch.from_numpy(x)
+    if impl == "rhd" and n_workers == 3:
+        with pytest.raises(ValueError, match="power-of-two"):
+            collectives.allreduce(stack, 1003, impl)
+        return
+    run = jax.vmap(lambda a: jcollectives.allreduce(a, ("data",), impl=impl), axis_name="data")
+    with comms.capture() as log:
+        got = collectives.allreduce(stack, 1003, impl)
+    with jcomms.capture() as jlog:
+        want = np.asarray(run(jnp.asarray(x).astype(dtype)).astype(jnp.float32))
+    assert (want == want[0]).all()
+    np.testing.assert_array_equal(got.float().numpy(), want[0])
+    assert _records(log) == _records(jlog)
+    psum = jcomms.CollRecord("psum", ("data",), 1003 * stack.element_size(), 1.0, n_workers)
+    assert log.total_bytes() == pytest.approx(psum.wire_bytes, rel=3 * n_workers / 1003)
