@@ -66,21 +66,37 @@ result line:
    compressed wire with error feedback (qsgd_ef + int8_acc, the parameters
    regathered under tag zero1_gather); (l)-(u) launch no port kernel.
    (q) must book its two factor psums per bucket and (v) its
-   zero1_gather, each to the byte.  Each path prints its losses (finite),
-   step ms, booked wire KB per step by tag and by format and peak memory, and the launch counts of its kernels:
-   exactly its own kernels must launch, each as many times as the path's
-   buckets, workers and steps call it.  ``--profile`` adds
+   zero1_gather, each to the byte.  Then the other synchronisation
+   schemes, on per-worker (W, *shape) parameters and optimizer state:
+   (w) local SGD (H 2, dense, 4 steps: two sync steps booked under
+   local_sgd_sync, no kernel), then one eval_step; (x) post-local SGD
+   (switch 2, H 2, qsgd_kernel on the int8 compressed wire with error
+   feedback, 4 steps: steps 0, 1 and 3 aggregate through qsgd_ef +
+   int8_acc); (y) D-PSGD on the ring (2 steps, no kernel); CHOCO-SGD with
+   (z) signsgd_packed (sign_pack + sign_unpack, lr 1e-4) and (aa)
+   qsgd_kernel (qsgd), 2 steps each, booked under gossip_mix; (ab) the qsgd
+   EF path with 2 microbatches (2 steps).  Each path prints its losses
+   (finite), step ms, booked wire KB by tag and by format (per step; for
+   (w)-(aa) per call of each program, and per step over the run) and peak
+   memory, and the launch counts of its kernels: exactly its own kernels
+   must launch, each as many times as the path's buckets, workers and
+   kernel-running steps call it.  ``--profile`` adds
    one more step of the QSGD EF path, or of each path named by its label,
    under torch.profiler (device-busy share, device time by kernel, host
    time by operation), not counted as launches;
-5. the whole RWKV6 path, kernel against plain: rwkv6-3b at full width in
+5. the checkpoint: path (w) at full width cut to 2 layers (the state at
+   28 layers is 13.3 GiB on disk), saved after step 1 by ``Trainer.save``
+   into a temporary directory and restored by ``Trainer.restore``: every
+   leaf bitwise; then one more step from the live and from the restored
+   state, under deterministic algorithms, bitwise alike (loss and leaves);
+6. the whole RWKV6 path, kernel against plain: rwkv6-3b at full width in
    f32, 4 layers, random weights from seed 0, batch 2, a 256-token prompt
    and 8 decode tokens, once with ``use_kernel=True`` and once through the
    plain ``wkv_scan`` fed the same tokens: the last hidden state and every
    cache leaf (each layer's wkv state, shifts) after the prefill and after
    the decode within rtol 1e-4 and an atol of 1e-5 times the leaf's largest
    magnitude; prints whether the plain path's own greedy tokens agree;
-6. the server: rwkv6-3b at full published width and depth (bf16), random
+7. the server: rwkv6-3b at full published width and depth (bf16), random
    weights from seed 0, ``SyntheticBatches`` prompts, batch 8, prompt 1024,
    32 greedy decode tokens, through ``launch.serve.run`` (``build_serve``):
    prefill ms (host clock ending in a synchronize), decode ms per token,
@@ -99,6 +115,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -110,6 +127,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.core import sync  # noqa: E402
 from repro_torch.core.compression.powersgd import shape2d  # noqa: E402
 from repro_torch.core.types import CommConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticBatches  # noqa: E402
@@ -121,7 +139,7 @@ from repro_torch.utils.tree import flatten_with_paths as flat  # noqa: E402
 from repro_torch.optim.optimizers import adamw, momentum_sgd, zero1  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
 from repro_torch.train.steps import build_bundle  # noqa: E402
-from repro_torch.train.trainer import Trainer  # noqa: E402
+from repro_torch.train.trainer import Trainer, wire_per_step  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -601,7 +619,31 @@ PATHS = (
      {"opt": "adamw", "clip_norm": 1.0}),
     ("zero1 qsgd ef", dict(error_feedback=True, **QSGD16), 2, 0.01,
      {"qsgd_ef": SEND, "int8_acc": RECV}, {"opt": "zero1"}),
+    # (w)-(ab): the other synchronisation schemes, on per-worker parameters.
+    # Launches are per step that runs the path's kernels: every gossip
+    # step, and every step that aggregates gradients (post-local SGD with
+    # switch 2 and H 2 aggregates on steps 0, 1 and 3 of 4)
+    ("local sgd", dict(sync="local", local_steps=2), 4, 0.01, {}, {"eval": True}),
+    ("post-local qsgd ef", dict(sync="post_local", post_local_switch=2, local_steps=2,
+                                error_feedback=True, **QSGD16), 4, 0.01,
+     {"qsgd_ef": SEND, "int8_acc": RECV}),
+    ("dpsgd", dict(aggregator="gossip"), 2, 0.01, {}),
+    # CHOCO: each worker compresses and decodes its own payload once per
+    # bucket; the neighbours' terms are the decoded rows, rolled
+    ("choco signsgd_packed", dict(aggregator="gossip", gossip_compress="choco",
+                                  compressor="signsgd_packed"), 2, SIGN_LR,
+     {"sign_pack": SEND, "sign_unpack": SEND}),
+    ("choco qsgd", dict(aggregator="gossip", gossip_compress="choco",
+                        compressor="qsgd_kernel", compressor_kwargs={"levels": 16}), 2, 0.01,
+     {"qsgd": SEND}),
+    ("microbatch qsgd ef", dict(error_feedback=True, **QSGD16), 2, 0.01,
+     {"qsgd_ef": SEND, "int8_acc": RECV}, {"microbatch": 2}),
 )
+#: the wire tag each new path must book, and the program that books it
+SCHEME_TAGS = {"local sgd": ("sync", "local_sgd_sync"),
+               "post-local qsgd ef": ("sync", "local_sgd_sync"),
+               "dpsgd": ("gossip", "gossip_mix"), "choco signsgd_packed": ("gossip", "gossip_mix"),
+               "choco qsgd": ("gossip", "gossip_mix")}
 
 
 def _psgd_wire(bundle) -> float:
@@ -617,6 +659,14 @@ WIRE_CHECKS = {
     "zero1 qsgd ef": ("zero1_gather", lambda bundle: sum(
         -(-b.size // W) * 2 * (W - 1) for b in bundle.bucket_plan.buckets)),
 }
+
+
+def kernel_steps(comm: CommConfig, steps: int) -> int:
+    """Steps of a run that call the path's kernels: every gossip step, and
+    every step whose program aggregates gradients."""
+    if comm.aggregator == "gossip":
+        return steps
+    return sum(sync.grads_need_aggregation(comm, t) for t in range(steps))
 
 
 def profile_one_step(run, what: str, step_ms: float) -> None:
@@ -656,13 +706,21 @@ def profile_one_step(run, what: str, step_ms: float) -> None:
 
 def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | None = None,
                 profile_step: bool = False) -> dict[str, int]:
+    """One trainer path; ``build`` may set "opt" (a key of OPTIMIZERS),
+    "clip_norm", "microbatch" and "eval" (one eval_step after the steps).
+    Returns the launches of the run's steps."""
     cfg = get_config("qwen3-0.6b")
     shape = InputShape("train_1k", 1024, 8, "train")
     build = build or {}
     t0 = time.perf_counter()
     bundle = build_bundle(cfg, CommConfig(**comm_kw), OPTIMIZERS[build.get("opt", "momentum")](),
                           shape, n_workers=W, seed=0, device=DEV,
-                          clip_norm=build.get("clip_norm", 0.0))
+                          clip_norm=build.get("clip_norm", 0.0),
+                          microbatch=build.get("microbatch", 1))
+    if label in SCHEME_TAGS:
+        program, tag = SCHEME_TAGS[label]
+        if not bundle.wire[program].get(tag):
+            raise AssertionError(f"path {label}: booked nothing under {tag} in {program}")
     if label in WIRE_CHECKS:
         tag, want = WIRE_CHECKS[label][0], WIRE_CHECKS[label][1](bundle)
         got = bundle.wire["train"].get(tag, 0.0)
@@ -672,7 +730,8 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
     state = tr.init(seed=0)
     torch.cuda.synchronize()
     print(f"trainer {label} ({comm_kw}, {bundle.opt.name}, lr {lr}"
-          f"{', clip_norm %s' % bundle.clip_norm if bundle.clip_norm else ''}): "
+          f"{', clip_norm %s' % bundle.clip_norm if bundle.clip_norm else ''}"
+          f"{', microbatch %d' % bundle.microbatch if bundle.microbatch > 1 else ''}): "
           f"{len(bundle.bucket_plan.buckets)} buckets, "
           f"{sum(b.size for b in bundle.bucket_plan.buckets)} params, build+init "
           f"{time.perf_counter() - t0:.2f} s")
@@ -691,15 +750,32 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
               f"step_ms {step_ms[-1]:.1f}{kept}")
         if not math.isfinite(loss):
             raise AssertionError(f"non-finite loss at step {t}: {loss}")
-    launches = dict(ops.LAUNCHES)  # read before the profiled step, if any
+    launches = dict(ops.LAUNCHES)  # read before the eval and profiled steps, if any
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if build.get("eval"):
+        t1 = time.perf_counter()
+        ev = float(bundle.eval_step(state, tr._put(tr.data.batch(steps))))
+        print(f"  eval_step on batch {steps}: loss {ev:.6f} in "
+              f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+        if not math.isfinite(ev):
+            raise AssertionError(f"path {label}: non-finite eval loss {ev}")
     if profile_step:
         profile_one_step(lambda: tr.fit(state, 1, start_step=steps), f"step {steps}",
                          float(np.mean(step_ms[1:])))
-    wire = {k: round(v / 1e3, 3) for k, v in bundle.wire["train"].items()}
-    formats = {k: round(v / 1e3, 3) for k, v in bundle.wire["train_formats"].items()}
+    programs = [k for k in bundle.wire if not k.endswith("_formats")]
+    if programs == ["train"]:  # the BSP paths: as printed before
+        wire = {k: round(v / 1e3, 3) for k, v in bundle.wire["train"].items()}
+        formats = {k: round(v / 1e3, 3) for k, v in bundle.wire["train_formats"].items()}
+        booked = f"KB/step by tag {wire}, by format {formats}"
+    else:
+        per_call = {p: {k: round(v / 1e3, 3) for k, v in bundle.wire[p].items()}
+                    for p in programs}
+        formats = {p: {k: round(v / 1e3, 3) for k, v in bundle.wire[p + "_formats"].items()}
+                   for p in programs}
+        booked = (f"KB per call by program and tag {per_call}, by format {formats}; "
+                  f"{wire_per_step(bundle, steps) / 1e3:.3f} KB/step over the run")
     print(f"  mean step_ms (first step excluded) {np.mean(step_ms[1:]):.1f}; booked wire "
-          f"KB/step by tag {wire}, by format {formats}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+          f"{booked}; peak memory {peak:.2f} GiB; launches {launches}")
     del state, tr, bundle
     torch.cuda.empty_cache()
     return launches
@@ -718,6 +794,66 @@ def _leaves_close(got: dict, want: dict, what: str) -> list[str]:
     print(f"  {what}: {len(want)} leaves, largest max abs err {worst[0]:.3e} ({worst[1]}, "
           f"whose largest magnitude is {worst[2]:.3e}), {len(bad)} outside tolerance")
     return bad
+
+
+#: the checkpoint phase cuts qwen3-0.6b to 2 layers at full width: the
+#: whole local-SGD state at 28 layers (bf16 params and f32 momentum, W rows
+#: each) is 13.3 GiB on disk, 4.2 GiB at 2
+CKPT_LAYERS = 2
+
+
+def _tensor_leaves(tree) -> dict:
+    return {k: v for k, v in flat(tree).items() if isinstance(v, torch.Tensor)}
+
+
+def check_checkpoint() -> None:
+    """Path (w)'s local SGD (H 2) at full width and 2 layers: save after
+    step 1 (a sync step) through ``Trainer.save``, restore through
+    ``Trainer.restore``; every leaf must come back bitwise.  Then one more
+    step from the live state and one from the restored one, under
+    deterministic algorithms (the embedding's backward accumulates with
+    atomics otherwise), must agree bitwise: loss and every leaf."""
+    cfg = get_config("qwen3-0.6b").with_updates(n_layers=CKPT_LAYERS)
+    shape = InputShape("train_1k", 1024, 8, "train")
+    bundle = build_bundle(cfg, CommConfig(sync="local", local_steps=2), momentum_sgd(0.9),
+                          shape, n_workers=W, seed=0, device=DEV)
+    tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(0.01), log_every=1)
+    state = tr.fit(tr.init(seed=0), 2)
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save(f"{d}/step2", state, 2)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(d, "step2").iterdir())
+        t0 = time.perf_counter()
+        back, step = tr.restore(f"{d}/step2")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    live, got = _tensor_leaves(state), _tensor_leaves(back)
+    bad = [k for k in live if not torch.equal(live[k], got[k])]
+    if step != 2 or back["step"] != 2 or live.keys() != got.keys() or bad:
+        raise AssertionError(f"checkpoint: restored step {step}, leaves differ at {bad}")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        n = len(tr.history)
+        state = tr.fit(state, 1, start_step=2)
+        back = tr.fit(back, 1, start_step=2)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    live, got = _tensor_leaves(state), _tensor_leaves(back)
+    after = [k for k in live if not torch.equal(live[k], got[k])]
+    losses = (tr.history[n]["loss"], tr.history[n + 1]["loss"])
+    print(f"checkpoint ({cfg.name}, {CKPT_LAYERS} layers at full width, local SGD H 2, W {W}): "
+          f"{len(live)} leaves, {size / 2**30:.2f} GiB on disk; save {save_s:.1f} s, restore "
+          f"{restore_s:.1f} s; restored leaves bitwise; the next step's loss {losses[0]:.6f} "
+          f"live, {losses[1]:.6f} restored; leaves differing after it: {len(after)}")
+    if losses[0] != losses[1] or after:
+        raise AssertionError(f"checkpoint: the step after the restore differs: losses {losses}, "
+                             f"leaves {after}")
+    del state, back, tr, bundle, live, got
+    torch.cuda.empty_cache()
 
 
 def check_rwkv_path() -> None:
@@ -857,11 +993,13 @@ def main() -> None:
     for label, comm_kw, steps, lr, path_kernels, *build in PATHS:
         got = run_trainer(label, comm_kw, steps, lr, *build,
                           profile_step=profile is not None and label in profile)
-        want = {k: path_kernels.get(k, 0) * steps for k in got}
+        n_kernel = kernel_steps(CommConfig(**comm_kw), steps)
+        want = {k: path_kernels.get(k, 0) * n_kernel for k in got}
         if got != want:
             raise AssertionError(f"path {label}: must launch exactly {want}: {got}")
         for k, v in got.items():
             launches[k] += v
+    check_checkpoint()
     check_rwkv_path()
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
     for row in rows:

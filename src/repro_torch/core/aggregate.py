@@ -90,8 +90,9 @@ from repro_torch.utils.tree import flatten_with_paths
 
 f32 = torch.float32
 
-#: noise(step, worker, bucket, n) -> (n,) f32 uniform draws in [0, 1)
-Noise = Callable[[int, int, int, int], torch.Tensor]
+#: noise(step, worker, bucket, n) -> (n,) f32 uniform draws in [0, 1);
+#: worker is None for a draw every worker shares (CHOCO-SGD's round)
+Noise = Callable[[int, int | None, int, int], torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -173,7 +174,10 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     flat (b * rank,) f32 factor Q, shared by every worker: a standard
     normal draw from a torch generator seeded with 1000 + i (the reference
     draws it from ``jax.random.key(1000 + i)``), and an empty tensor for
-    the other buckets."""
+    the other buckets.  CHOCO-SGD gossip adds ``choco_xhat[i]`` and
+    ``choco_nbr[i]``, (W, size) f32 zero stacks (the EF and momentum stacks
+    are allocated as the reference allocates them, though a gossip step
+    reads neither)."""
     state: dict[str, Any] = {"step": 0}
     if comm.error_feedback:
         state["ef"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
@@ -186,6 +190,10 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
             plan.compressor(b).init_q(b.size, 1000 + i, device).reshape(-1)
             if b.compressor_name == "powersgd" else torch.zeros(0, dtype=f32, device=device)
             for i, b in enumerate(plan.buckets)]
+    if comm.aggregator == "gossip" and comm.gossip_compress == "choco":
+        for k in ("choco_xhat", "choco_nbr"):
+            state[k] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
+                        for b in plan.buckets]
     return state
 
 
@@ -272,11 +280,15 @@ class AggregationRound:
 
     ``comm_state`` is updated in place (each worker's EF and momentum rows,
     PowerSGD's Q) and returned by :meth:`finish` with ``step`` advanced.
-    ``noise`` supplies the uniform draws of the stochastic compressors."""
+    ``noise`` supplies the uniform draws of the stochastic compressors, for
+    step ``step`` (default: the comm state's; the trainer passes its own
+    step, which keeps counting through the inner steps of local SGD)."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
-                 n_workers: int, noise: Noise, device: str | torch.device):
+                 n_workers: int, noise: Noise, device: str | torch.device,
+                 step: int | None = None):
         self.comm, self.plan, self.state = comm, plan, comm_state
+        self.step = comm_state["step"] if step is None else step
         self.n_workers, self.noise, self.device = n_workers, noise, torch.device(device)
         self.comps = [plan.compressor(b) for b in plan.buckets]
         self.routes = [bucket_route(comm, comp) for comp in self.comps]
@@ -332,7 +344,7 @@ class AggregationRound:
     def add(self, w: int, bufs: Iterable[torch.Tensor]) -> None:
         """Send side of worker ``w``: ``bufs`` yields its flat f32 bucket
         vectors in plan order (a generator keeps one bucket alive at once)."""
-        comm, step, W = self.comm, self.state["step"], self.n_workers
+        comm, step, W = self.comm, self.step, self.n_workers
         for i, (b, comp, route, g) in enumerate(zip(self.plan.buckets, self.comps,
                                                     self.routes, bufs)):
             knobs = self.knobs[i]

@@ -155,6 +155,15 @@ def book_ppermute(local: torch.Tensor, n_workers: int) -> None:
     _record("ppermute", local, n_workers)
 
 
+def ppermute(stacked: torch.Tensor, shift: int) -> torch.Tensor:
+    """Ring exchange over the worker axis: worker i receives worker
+    (i - shift) mod W's row (shift 1 is the reference's "right" permutation
+    j -> j + 1, shift -1 its "left" one); books one ``ppermute`` of one
+    worker's row."""
+    _record("ppermute", stacked[0], stacked.shape[0])
+    return torch.roll(stacked, shift, 0)
+
+
 def all_gather(stacked: torch.Tensor) -> torch.Tensor:
     """All-gather over the worker axis: the (W, ...) stack already is the
     gathered array; book one worker's slice."""

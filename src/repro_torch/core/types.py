@@ -1,17 +1,21 @@
 """Communication configuration (counterpart of ``repro.core.types``).
 
 :class:`CommConfig` keeps every field and default of the reference, so a
-cell description reads the same in both packages.  The port runs the BSP
-all-reduce trainer with sequential overlap, with momentum correction,
+cell description reads the same in both packages.  The port runs the
+trainer with sequential overlap under BSP, local SGD and post-local SGD
+(``sync``), over the all-reduce or ring gossip (``aggregator``: D-PSGD, or
+CHOCO-SGD with ``gossip_compress="choco"``), with momentum correction,
 local clipping and error feedback (with decay) on every registered
 compressor, over the dense wire (an f32 or bf16 all-reduce by the ``xla``,
 ``ring`` or ``rhd`` schedule, int8 majority vote, gather-and-decompress,
 the sparse scatter-add, the sum of masked payloads, PowerSGD's factor
 psums) or the compressed wire (int8 codes, 1-bit signs, 2-bit ternary
-codes, the bf16 widening psum).  :func:`validate` raises on any field that
-asks for a part not ported yet (churn, integrity, gossip, pipelined
-overlap, local SGD, warm-up), and applies the reference's ``bundle_spec``
-checks on ``wire_format`` and ``agg_dtype``.
+codes, the bf16 widening psum).  ``warmup_steps`` and ``gossip_graph`` are
+accepted and, as in the reference's runtime, read by nothing (the gossip
+ring is always the ring).  :func:`validate` raises on any field that asks
+for a part not ported yet (``pod_local``, pipelined overlap, churn and
+rejoin, integrity), and applies the reference's ``bundle_spec`` checks on
+``wire_format`` and ``agg_dtype``.
 """
 
 from __future__ import annotations
@@ -81,10 +85,8 @@ DENSE = CommConfig()
 #: fields whose non-default values select a part of the reference that the
 #: port does not run yet
 _NOT_PORTED = (
-    "warmup_steps", "sync", "local_steps", "post_local_switch", "pod_local", "aggregator",
-    "gossip_graph", "gossip_compress", "gossip_step_size", "gossip_mix_weight", "overlap",
-    "churn", "dropout_rate", "worker_dropout", "churn_start", "churn_end", "rejoin_policy",
-    "corruption_rate", "corruption_kind", "quarantine_limit",
+    "pod_local", "overlap", "churn", "dropout_rate", "worker_dropout", "churn_start",
+    "churn_end", "rejoin_policy", "corruption_rate", "corruption_kind", "quarantine_limit",
 )
 
 
@@ -93,22 +95,32 @@ def validate(comm: CommConfig):
 
     Raises ``NotImplementedError`` for fields set away from their defaults
     that select an unported part, and ``ValueError`` where the reference's
-    ``bundle_spec`` does on ``wire_format`` and ``agg_dtype``, and for a
-    ``collective`` that is none of the reference's schedules."""
+    ``bundle_spec`` does on ``wire_format`` and ``agg_dtype`` (a gossip
+    cell's wire is dense whatever it says, as there), and for a ``sync``,
+    ``aggregator``, ``gossip_compress`` or ``collective`` that is none of
+    the reference's."""
     from repro_torch.core.compression.base import get_compressor
 
     for name in _NOT_PORTED:
         if getattr(comm, name) != getattr(DENSE, name):
             raise NotImplementedError(
                 f"CommConfig.{name}={getattr(comm, name)!r} is not ported yet "
-                "(the port runs the BSP all-reduce trainer, sequential overlap)")
+                "(the port runs bsp / local / post_local sync over the all-reduce or "
+                "gossip, sequential overlap, without churn or integrity)")
+    for name, allowed in (("sync", ("bsp", "local", "post_local")),
+                          ("aggregator", ("allreduce", "gossip")),
+                          ("gossip_compress", ("none", "dcd", "choco"))):
+        if getattr(comm, name) not in allowed:
+            raise ValueError(f"unknown {name} {getattr(comm, name)!r} (expected one of "
+                             f"{allowed})")
     if comm.collective not in ("xla", "ring", "rhd"):
         raise ValueError(f"unknown collective {comm.collective!r} (expected 'xla', 'ring' "
                          "or 'rhd')")
     comp = get_compressor(comm.compressor, **comm.compressor_kwargs)
     if comm.wire_format not in ("dense", "compressed"):
         raise ValueError(f"unknown wire_format {comm.wire_format!r}")
-    if comm.wire_format == "compressed":
+    gossip = comm.aggregator == "gossip"
+    if comm.wire_format == "compressed" and not gossip:
         if comp is not None and not getattr(comp, "wire_reduce", ""):
             raise ValueError(
                 f"wire_format='compressed' is unsupported for compressor "
@@ -117,6 +129,8 @@ def validate(comm: CommConfig):
             raise ValueError(
                 "agg_dtype='bfloat16' only shapes the dense aggregation "
                 "path — meaningless combined with a compressed wire format")
+    if gossip:  # gossip mixes parameters: no gradient reduction runs
+        return comp
     from repro_torch.core.aggregate import bucket_route
 
     # NotImplementedError for an unported reduction, of any bucket's compressor

@@ -2,13 +2,16 @@
 from a zero token, as the reference's ``repro.launch.serve`` does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
-        --prompt-len 1024 --batch 8 --decode 32 [--reduced] [--device cpu] [--seed 0]
+        --prompt-len 1024 --batch 8 --decode 32 [--reduced] [--device cpu] [--seed 0] \\
+        [--restore ckpts/step100]
 
-Weights are random from ``--seed``; prompts are ``SyntheticBatches`` (kind
-"prefill").  The reference's ``--data``, ``--model``, ``--fake-devices`` and
-``--seq-par`` describe a mesh and have no meaning on one card, so they are
-left out; ``--restore`` waits for the checkpoint module.  Prints the prefill
-ms, the decode ms and tok/s, and the first sequence's tokens.
+Weights are random from ``--seed``, or the ``params`` of the checkpoint
+that ``--restore`` names (``repro_torch.checkpoint``, the reference's
+format: its other keys are left alone); prompts are ``SyntheticBatches``
+(kind "prefill").  The reference's ``--data``, ``--model``,
+``--fake-devices`` and ``--seq-par`` describe a mesh and have no meaning on
+one card, so they are left out.  Prints the prefill ms, the decode ms and
+tok/s, and the first sequence's tokens.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore as restore_ckpt
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.data.pipeline import SyntheticBatches
@@ -33,7 +37,7 @@ def _sync(device: torch.device) -> None:
 
 
 def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
-        device: str | torch.device = "cuda", seed: int = 0) -> dict:
+        device: str | torch.device = "cuda", seed: int = 0, restore: str = "") -> dict:
     """Build, prefill and decode; print the launcher's lines and return
     ``{"prefill_ms", "decode_ms", "tok_per_s", "tokens" (B, decode) int32
     numpy, "last" (B, d) tensor, "cache", "params", "bundle", "peak_bytes"
@@ -42,6 +46,9 @@ def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
     device = torch.device(device)
     sb = build_serve(cfg, InputShape("serve", prompt_len + decode, batch, "decode"), device)
     params = init_params(cfg, seed, device)
+    if restore:
+        params = restore_ckpt(restore, {"params": params}, partial=True)[0]["params"]
+        print(f"restored params from {restore}")
     if device.type == "cuda":  # the peak of serving, the weights included
         torch.cuda.reset_peak_memory_stats(device)
     prompts = SyntheticBatches(cfg, InputShape("p", prompt_len, batch, "prefill"),
@@ -80,12 +87,13 @@ def main(argv=None) -> int:
     p.add_argument("--decode", type=int, default=32)
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--restore", default="")
     args = p.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     run(cfg, prompt_len=args.prompt_len, batch=args.batch, decode=args.decode,
-        device=args.device, seed=args.seed)
+        device=args.device, seed=args.seed, restore=args.restore)
     return 0
 
 

@@ -50,6 +50,7 @@ from repro_torch.core import aggregate, comms
 from repro_torch.core.compression import get_compressor
 from repro_torch.core.types import CommConfig, validate
 from repro_torch.models import transformer as T
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 QSGD = dict(compressor="qsgd_kernel", compressor_kwargs={"levels": 16})
 
@@ -204,10 +205,13 @@ def test_seeded_noise_is_reproducible_per_round():
     (dict(wire_format="compressed", agg_dtype="bfloat16", **QSGD), ValueError),
     (dict(churn=True), NotImplementedError),
     (dict(overlap="pipelined"), NotImplementedError),
-    (dict(aggregator="gossip"), NotImplementedError),
-    (dict(sync="local"), NotImplementedError),
-    (dict(warmup_steps=10, **QSGD, wire_format="compressed"), NotImplementedError),
-    (dict(sync="post_local", post_local_switch=10), NotImplementedError),
+    # gossip, local and post-local SGD and warmup_steps are ported now
+    # (tests/test_torch_sync.py): these cells keep only their unported part
+    (dict(aggregator="gossip", churn=True), NotImplementedError),
+    (dict(sync="local", dropout_rate=0.1), NotImplementedError),
+    (dict(warmup_steps=10, **QSGD, wire_format="compressed", worker_dropout=(0.1, 0.0)),
+     NotImplementedError),
+    (dict(sync="post_local", post_local_switch=10, pod_local=True), NotImplementedError),
     (dict(pod_local=True), NotImplementedError),
     (dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
      NotImplementedError),

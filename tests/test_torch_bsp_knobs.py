@@ -36,6 +36,7 @@ from repro_torch.optim import optimizers as opt
 from repro_torch.optim.schedules import constant
 from repro_torch.train.steps import build_bundle
 from repro_torch.train.trainer import Trainer
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 #: (CommConfig fields, optimizer name, lr, clip_norm)
 CELLS = {

@@ -34,6 +34,7 @@ from repro_torch.core.compression import get_compressor
 from repro_torch.core.compression.base import Compressed, list_compressors, noise_len
 from repro_torch.core.compression.powersgd import shape2d
 from repro_torch.core.types import CommConfig, validate
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 SIZES = [1000, 100_003]
 

@@ -33,6 +33,7 @@ from repro.kernels import threshold_sparsify as jthr
 from repro.kernels import wire_reduce as jwire
 from repro_torch.core.compression.sparsification import top_k
 from repro_torch.kernels import ops, ref
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 SIZES = [100, 1000, 32768, 100_003]
 

@@ -34,6 +34,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.utils.tree import flatten_with_paths
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 
 def _tiny_cfg(**upd):

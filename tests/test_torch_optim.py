@@ -24,6 +24,7 @@ from repro.core import comms as jcomms
 from repro.optim import optimizers as jopt
 from repro_torch.core import comms
 from repro_torch.optim import optimizers as opt
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 W = 4
 SHAPES = [(7, 5), (1000,), (3, 4, 9)]  # 35 and 1000 elements pad to multiples of W

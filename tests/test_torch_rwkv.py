@@ -47,6 +47,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.sharding import check_ported
 from repro_torch.train.steps import build_serve
 from repro_torch.utils.tree import flatten_with_paths
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5

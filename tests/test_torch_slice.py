@@ -38,6 +38,7 @@ from repro_torch.optim.optimizers import momentum_sgd
 from repro_torch.optim.schedules import constant
 from repro_torch.train.steps import build_bundle
 from repro_torch.train.trainer import Trainer
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BASE = dict(sync="bsp", n_workers=2, steps=3, lr=0.05, bucket_bytes=4e6)

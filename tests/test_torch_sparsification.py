@@ -28,6 +28,7 @@ from repro_torch.core.compression import get_compressor
 from repro_torch.core.compression.base import list_compressors
 from repro_torch.core.compression.sparsification import quantile, top_k
 from repro_torch.core.feedback import warmup_ratio
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 SIZES = [1000, 100_003]
 SPARSIFIERS = ("topk", "gtopk", "randomk", "wangni", "threshold", "adaptive_threshold", "sbc",

@@ -26,6 +26,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, probe, ref
+from test_torch_sync import _one_thread  # noqa: F401  (torch on one thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 Y_TOL = dict(rtol=3e-4, atol=3e-5)
