@@ -75,20 +75,40 @@ result line:
    int8_acc); (y) D-PSGD on the ring (2 steps, no kernel); CHOCO-SGD with
    (z) signsgd_packed (sign_pack + sign_unpack, lr 1e-4) and (aa)
    qsgd_kernel (qsgd), 2 steps each, booked under gossip_mix; (ab) the qsgd
-   EF path with 2 microbatches (2 steps).  Each path prints its losses
-   (finite), step ms, booked wire KB by tag and by format (per step; for
-   (w)-(aa) per call of each program, and per step over the run) and peak
-   memory, and the launch counts of its kernels: exactly its own kernels
-   must launch, each as many times as the path's buckets, workers and
-   kernel-running steps call it.  ``--profile`` adds
+   EF path with 2 microbatches (2 steps).  Then the two-level layout and
+   the pipelined step: (ac) pod-local SGD over 2 pods x 2 workers (H 2,
+   qsgd_kernel EF on the int8 wire, 4 steps: each pod aggregates over its
+   own 2 workers, qsgd_ef per worker and int8_acc once per pod and bucket,
+   and the pods average every 2nd step; the pods' rows must be equal after
+   each sync step and differ before it); (ad) the qsgd EF path pipelined at
+   staleness 1 and (ae) the dense path pipelined at staleness 0, 2
+   microbatches and 2 steps each (each round on a second CUDA stream while
+   the next microbatch runs); (af) ZeRO-1 under local SGD (H 2, dense, 4
+   steps: the rows must be equal after every step).  Each of (ac)-(af)
+   must book its wire to the byte, by tag and by the axes it reduces over;
+   (ad)'s and (ab)'s step ms are printed side by side.  Each path prints
+   its losses (finite), step ms, booked wire KB by tag and by format (per
+   step; for (w)-(af) per call of each program, and per step over the run;
+   for (ac)-(af) by axes too) and peak memory, and the launch counts of its
+   kernels: exactly its own kernels must launch, each as many times as the
+   path's buckets, workers (or pods), rounds and kernel-running steps call
+   it.  ``--profile`` adds
    one more step of the QSGD EF path, or of each path named by its label,
    under torch.profiler (device-busy share, device time by kernel, host
    time by operation), not counted as launches;
-5. the checkpoint: path (w) at full width cut to 2 layers (the state at
-   28 layers is 13.3 GiB on disk), saved after step 1 by ``Trainer.save``
+5. the checkpoint and the pipelined identity: path (w) at full width cut
+   to 2 layers (the state at 28 layers is 13.3 GiB on disk), saved after
+   step 1 by ``Trainer.save``
    into a temporary directory and restored by ``Trainer.restore``: every
    leaf bitwise; then one more step from the live and from the restored
    state, under deterministic algorithms, bitwise alike (loss and leaves);
+   and the pipelined step against the sequential one: the dense path at
+   full width cut to 2 layers, in f32 (a bf16 sequential step rounds each
+   worker's microbatch mean to bf16 before the sum, the pipelined one
+   does not), 2 microbatches, 2 steps from one state, staleness 0 against
+   sequential: losses and every parameter within rtol 1e-5 / atol 1e-7
+   (the reference's own test of this identity), with the side stream
+   running for real;
 6. the whole RWKV6 path, kernel against plain: rwkv6-3b at full width in
    f32, 4 layers, random weights from seed 0, batch 2, a 256-token prompt
    and 8 decode tokens, once with ``use_kernel=True`` and once through the
@@ -558,6 +578,8 @@ SIGN_LR = 1e-4
 #: launches per step of a kernel called once per worker and bucket (13
 #: buckets, W workers), and of one called once per bucket
 SEND, RECV = 13 * W, 13
+#: pods of path (ac)'s two-level layout (W = PODS x 2)
+PODS = 2
 #: the optimizer of each path: momentum SGD unless a path names another
 OPTIMIZERS = {"momentum": lambda: momentum_sgd(0.9), "adamw": adamw,
               "zero1": lambda: zero1(momentum_sgd(0.9), W)}
@@ -638,9 +660,23 @@ PATHS = (
      {"qsgd": SEND}),
     ("microbatch qsgd ef", dict(error_feedback=True, **QSGD16), 2, 0.01,
      {"qsgd_ef": SEND, "int8_acc": RECV}, {"microbatch": 2}),
+    # (ac)-(af): the two-level layout, the pipelined step and ZeRO-1 over
+    # diverging rows.  (ac): each pod's round sends per worker and reduces
+    # per bucket, so int8_acc runs once per pod and bucket; (ad): M = 2
+    # rounds per step
+    ("pod-local qsgd ef", dict(pod_local=True, local_steps=2, error_feedback=True, **QSGD16),
+     4, 0.01, {"qsgd_ef": SEND, "int8_acc": RECV * PODS}, {"pods": PODS, "rows": "pods"}),
+    ("pipelined s1 qsgd ef", dict(overlap="pipelined", error_feedback=True, **QSGD16), 2, 0.01,
+     {"qsgd_ef": 2 * SEND, "int8_acc": 2 * RECV}, {"microbatch": 2}),
+    ("pipelined s0 dense", dict(overlap="pipelined", overlap_staleness=0), 2, 0.01, {},
+     {"microbatch": 2}),
+    ("zero1 local sgd", dict(sync="local", local_steps=2), 4, 0.01, {},
+     {"opt": "zero1", "rows": "equal"}),
 )
 #: the wire tag each new path must book, and the program that books it
 SCHEME_TAGS = {"local sgd": ("sync", "local_sgd_sync"),
+               "pod-local qsgd ef": ("sync", "local_sgd_sync"),
+               "zero1 local sgd": ("sync", "local_sgd_sync"),
                "post-local qsgd ef": ("sync", "local_sgd_sync"),
                "dpsgd": ("gossip", "gossip_mix"), "choco signsgd_packed": ("gossip", "gossip_mix"),
                "choco qsgd": ("gossip", "gossip_mix")}
@@ -659,6 +695,66 @@ WIRE_CHECKS = {
     "zero1 qsgd ef": ("zero1_gather", lambda bundle: sum(
         -(-b.size // W) * 2 * (W - 1) for b in bundle.bucket_plan.buckets)),
 }
+
+
+def _qsgd_round(bundle, n: int) -> float:
+    """One int8 round over n workers: the codes and the f32 norm of each
+    bucket all-gathered, p(n-1) each."""
+    return sum((b.size + 4) * (n - 1) for b in bundle.bucket_plan.buckets)
+
+
+def _dense_round(bundle, n: int) -> float:
+    """One f32 all-reduce of every bucket over n workers, 2p(n-1)/n."""
+    return sum(4 * b.size * 2 * (n - 1) / n for b in bundle.bucket_plan.buckets)
+
+
+def _zero1_gather(bundle) -> float:
+    """One all-gather of each worker's padded 1/W slice per leaf, at the
+    parameters' width."""
+    width = torch.empty((), dtype=bundle.cfg.pdtype).element_size()
+    return sum(-(-b.size // W) * width * (W - 1) for b in bundle.bucket_plan.buckets)
+
+
+#: booked bytes per call of (ac)-(af), by (program, tag): {axes: bytes of the bundle}
+AXES_CHECKS = {
+    "pod-local qsgd ef": {
+        ("train", "grad_agg"): lambda b: {("data",): _qsgd_round(b, W // PODS)},
+        ("sync", "local_sgd_sync"): lambda b: {("pod",): _dense_round(b, PODS)}},
+    "pipelined s1 qsgd ef": {("train", "grad_agg"): lambda b: {("data",): 2 * _qsgd_round(b, W)}},
+    "pipelined s0 dense": {("train", "grad_agg"): lambda b: {("data",): 2 * _dense_round(b, W)}},
+    "zero1 local sgd": {
+        ("train", "zero1_gather"): lambda b: {("data",): _zero1_gather(b)},
+        ("inner", "zero1_gather"): lambda b: {("data",): _zero1_gather(b)},
+        ("sync", "local_sgd_sync"): lambda b: {("data",): _dense_round(b, W)}},
+}
+#: mean step ms (first step excluded) of each path, for the side-by-side lines
+STEP_MS: dict[str, float] = {}
+
+
+def check_axes(label: str, bundle) -> None:
+    """Path ``label``'s booked bytes by program, tag and axes, to the byte;
+    for (ac) also the n of every tagged record (2 in a pod, 2 pods)."""
+    for (prog, tag), want in AXES_CHECKS[label].items():
+        got, want = bundle.logs[prog].by_axes(tag), want(bundle)
+        if got.keys() != want.keys() or any(not math.isclose(got[k], want[k], rel_tol=1e-12)
+                                            for k in want):
+            raise AssertionError(f"path {label}: {prog} books {got} under {tag}, want {want}")
+    if label == "pod-local qsgd ef":
+        ns = {(r.tag, r.axes, r.n_workers) for p in ("train", "sync")
+              for r in bundle.logs[p].records if r.tag}
+        if ns != {("grad_agg", ("data",), W // PODS), ("local_sgd_sync", ("pod",), PODS)}:
+            raise AssertionError(f"path {label}: records by tag, axes and n: {ns}")
+
+
+def check_rows(label: str, how: str, comm: CommConfig, state, t: int) -> str:
+    """(ac): the pods' rows equal after a sync step and apart before it;
+    (af): every row equal after every step."""
+    p = state["params"]["embed"]["embedding"]
+    equal = all(torch.equal(p[0], p[r]) for r in range(1, p.shape[0]))
+    want = sync.params_need_sync(comm, t) if how == "pods" else True
+    if equal != want:
+        raise AssertionError(f"path {label}: rows equal {equal} after step {t}, want {want}")
+    return f"; {p.shape[0]} rows equal {equal}"
 
 
 def kernel_steps(comm: CommConfig, steps: int) -> int:
@@ -707,8 +803,9 @@ def profile_one_step(run, what: str, step_ms: float) -> None:
 def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | None = None,
                 profile_step: bool = False) -> dict[str, int]:
     """One trainer path; ``build`` may set "opt" (a key of OPTIMIZERS),
-    "clip_norm", "microbatch" and "eval" (one eval_step after the steps).
-    Returns the launches of the run's steps."""
+    "clip_norm", "microbatch", "pods", "rows" (a check of the parameter
+    rows after each step: "pods" or "equal") and "eval" (one eval_step
+    after the steps).  Returns the launches of the run's steps."""
     cfg = get_config("qwen3-0.6b")
     shape = InputShape("train_1k", 1024, 8, "train")
     build = build or {}
@@ -716,7 +813,7 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
     bundle = build_bundle(cfg, CommConfig(**comm_kw), OPTIMIZERS[build.get("opt", "momentum")](),
                           shape, n_workers=W, seed=0, device=DEV,
                           clip_norm=build.get("clip_norm", 0.0),
-                          microbatch=build.get("microbatch", 1))
+                          microbatch=build.get("microbatch", 1), pods=build.get("pods", 1))
     if label in SCHEME_TAGS:
         program, tag = SCHEME_TAGS[label]
         if not bundle.wire[program].get(tag):
@@ -726,12 +823,15 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
         got = bundle.wire["train"].get(tag, 0.0)
         if not math.isclose(got, want, rel_tol=1e-12):
             raise AssertionError(f"path {label}: booked {got} bytes under {tag}, want {want}")
+    if label in AXES_CHECKS:
+        check_axes(label, bundle)
     tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(lr), log_every=1)
     state = tr.init(seed=0)
     torch.cuda.synchronize()
     print(f"trainer {label} ({comm_kw}, {bundle.opt.name}, lr {lr}"
           f"{', clip_norm %s' % bundle.clip_norm if bundle.clip_norm else ''}"
-          f"{', microbatch %d' % bundle.microbatch if bundle.microbatch > 1 else ''}): "
+          f"{', microbatch %d' % bundle.microbatch if bundle.microbatch > 1 else ''}"
+          f"{', %d pods x %d' % (bundle.pods, W // bundle.pods) if bundle.pods > 1 else ''}): "
           f"{len(bundle.bucket_plan.buckets)} buckets, "
           f"{sum(b.size for b in bundle.bucket_plan.buckets)} params, build+init "
           f"{time.perf_counter() - t0:.2f} s")
@@ -746,6 +846,8 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
         loss = tr.history[-1]["loss"]
         kept = (f" kept {tr.history[-1]['kept']:.6f} of the elements"
                 if "kept" in tr.history[-1] else "")
+        if build.get("rows"):
+            kept += check_rows(label, build["rows"], bundle.comm, state, t)
         print(f"  step {t}: loss {loss:.6f} ce {tr.history[-1]['ce']:.6f} "
               f"step_ms {step_ms[-1]:.1f}{kept}")
         if not math.isfinite(loss):
@@ -762,6 +864,7 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
     if profile_step:
         profile_one_step(lambda: tr.fit(state, 1, start_step=steps), f"step {steps}",
                          float(np.mean(step_ms[1:])))
+    STEP_MS[label] = float(np.mean(step_ms[1:]))
     programs = [k for k in bundle.wire if not k.endswith("_formats")]
     if programs == ["train"]:  # the BSP paths: as printed before
         wire = {k: round(v / 1e3, 3) for k, v in bundle.wire["train"].items()}
@@ -774,6 +877,10 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
                    for p in programs}
         booked = (f"KB per call by program and tag {per_call}, by format {formats}; "
                   f"{wire_per_step(bundle, steps) / 1e3:.3f} KB/step over the run")
+    if label in AXES_CHECKS:
+        axes = {p: {",".join(a): round(v / 1e3, 3) for a, v in bundle.logs[p].by_axes().items()}
+                for p in programs}
+        booked += f"; KB per call by program and axes {axes}"
     print(f"  mean step_ms (first step excluded) {np.mean(step_ms[1:]):.1f}; booked wire "
           f"{booked}; peak memory {peak:.2f} GiB; launches {launches}")
     del state, tr, bundle
@@ -853,6 +960,44 @@ def check_checkpoint() -> None:
         raise AssertionError(f"checkpoint: the step after the restore differs: losses {losses}, "
                              f"leaves {after}")
     del state, back, tr, bundle, live, got
+    torch.cuda.empty_cache()
+
+
+def check_pipelined_staleness0() -> None:
+    """The staleness-0 pipelined step against the sequential one, dense, 2
+    microbatches, at full width cut to CKPT_LAYERS layers in f32: 2 steps of
+    each from one state (one set of initial weights), losses and every
+    parameter within rtol 1e-5 / atol 1e-7.  The pipelined rounds run on
+    the side stream, so a missing wait or a buffer reused too early shows
+    here."""
+    cfg = get_config("qwen3-0.6b").with_updates(n_layers=CKPT_LAYERS, param_dtype="float32",
+                                                compute_dtype="float32")
+    shape = InputShape("train_1k", 1024, 8, "train")
+    out = {}
+    for name, kw in (("sequential", {}), ("pipelined", dict(overlap="pipelined",
+                                                           overlap_staleness=0))):
+        bundle = build_bundle(cfg, CommConfig(**kw), momentum_sgd(0.9), shape, n_workers=W,
+                              seed=0, device=DEV, microbatch=2)
+        tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(0.01), log_every=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tr.fit(tr.init(seed=0), 2)
+        torch.cuda.synchronize()
+        out[name] = ([h["loss"] for h in tr.history],
+                     {k: v.detach() for k, v in _tensor_leaves(state["params"]).items()},
+                     (time.perf_counter() - t0) * 1e3 / 2)
+        del bundle, tr, state
+    (ls, ps, ms_s), (lp, pp, ms_p) = out["sequential"], out["pipelined"]
+    bad = [k for k in ps if not _close(pp[k], ps[k], rtol=1e-5, atol=1e-7)]
+    worst = max(float((pp[k] - ps[k]).abs().max()) for k in ps)
+    print(f"pipelined staleness 0 vs sequential ({cfg.name} f32, {CKPT_LAYERS} layers at full "
+          f"width, dense, W {W}, 2 microbatches, 2 steps): losses {lp} / {ls}; {len(ps)} "
+          f"parameter leaves, largest max abs err {worst:.3e}, {len(bad)} outside rtol 1e-5 / "
+          f"atol 1e-7; ms per step {ms_p:.1f} / {ms_s:.1f} (first step included)")
+    if bad or not np.allclose(lp, ls, rtol=1e-5, atol=1e-7):
+        raise AssertionError(f"pipelined staleness 0 differs from sequential: losses {lp} vs "
+                             f"{ls}, leaves {bad}")
+    del out, ps, pp
     torch.cuda.empty_cache()
 
 
@@ -999,7 +1144,11 @@ def main() -> None:
             raise AssertionError(f"path {label}: must launch exactly {want}: {got}")
         for k, v in got.items():
             launches[k] += v
+    print(f"step ms, pipelined staleness 1 (ad) against sequential (ab), qsgd EF, 2 "
+          f"microbatches: {STEP_MS['pipelined s1 qsgd ef']:.1f} / "
+          f"{STEP_MS['microbatch qsgd ef']:.1f}")
     check_checkpoint()
+    check_pipelined_staleness0()
     check_rwkv_path()
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
     for row in rows:

@@ -12,7 +12,8 @@ stack, and ``feedback.post_compress``.  :meth:`AggregationRound.finish` is
 the receive side: the booked collective and the reduction of each bucket.
 The trainer calls ``add`` right after each worker's backward, so W full f32
 gradients never live at once; :func:`aggregate_buckets` runs both halves
-over already-stacked (W, n) gradients.
+over already-stacked (W, n) gradients.  :class:`GroupedRound` runs one
+round per pod of a two-level layout, each over that pod's D workers.
 
 The reductions, per bucket (:func:`bucket_route`; churn and integrity
 arguments stay out):
@@ -90,9 +91,11 @@ from repro_torch.utils.tree import flatten_with_paths
 
 f32 = torch.float32
 
-#: noise(step, worker, bucket, n) -> (n,) f32 uniform draws in [0, 1);
-#: worker is None for a draw every worker shares (CHOCO-SGD's round)
-Noise = Callable[[int, int | None, int, int], torch.Tensor]
+#: noise(step, worker, bucket, n[, round]) -> (n,) f32 uniform draws in
+#: [0, 1); worker is None for a draw every worker shares (CHOCO-SGD's
+#: round); ``round`` is passed only by the pipelined step's rounds (the
+#: reference folds the round index into the step's key before the worker)
+Noise = Callable[..., torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -177,7 +180,10 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     the other buckets.  CHOCO-SGD gossip adds ``choco_xhat[i]`` and
     ``choco_nbr[i]``, (W, size) f32 zero stacks (the EF and momentum stacks
     are allocated as the reference allocates them, though a gossip step
-    reads neither)."""
+    reads neither).  Pipelined overlap with staleness 1 adds
+    ``overlap_pending[i]``, the (W, size) f32 bucket gradients of each
+    worker's last microbatch, which the next step aggregates first (zeros
+    before the first step; allocated for a gossip cell too, as there)."""
     state: dict[str, Any] = {"step": 0}
     if comm.error_feedback:
         state["ef"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
@@ -190,6 +196,9 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
             plan.compressor(b).init_q(b.size, 1000 + i, device).reshape(-1)
             if b.compressor_name == "powersgd" else torch.zeros(0, dtype=f32, device=device)
             for i, b in enumerate(plan.buckets)]
+    if comm.overlap == "pipelined" and comm.overlap_staleness == 1:
+        state["overlap_pending"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
+                                    for b in plan.buckets]
     if comm.aggregator == "gossip" and comm.gossip_compress == "choco":
         for k in ("choco_xhat", "choco_nbr"):
             state[k] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
@@ -221,14 +230,17 @@ def _scatter_buckets(plan: BucketPlan, bucket_vals: list[torch.Tensor],
 def seeded_noise(seed: int, device: str | torch.device) -> Noise:
     """Default noise: uniform draws from a ``torch.Generator`` on ``device``
     seeded from (seed, step, worker, bucket), so any round of any worker can
-    be redrawn alone.  On the shape-only ``meta`` device it allocates only."""
+    be redrawn alone (a pipelined round's index joins the step's).  On the
+    shape-only ``meta`` device it allocates only."""
     device = torch.device(device)
     gen = None if device.type == "meta" else torch.Generator(device=device)
 
-    def noise(step: int, worker: int, bucket: int, n: int) -> torch.Tensor:
+    def noise(step: int, worker: int, bucket: int, n: int, rnd: int | None = None
+              ) -> torch.Tensor:
         if gen is None:
             return torch.empty(n, dtype=f32, device=device)
-        digest = hashlib.blake2b(f"{seed}/{step}/{worker}/{bucket}".encode(),
+        at = step if rnd is None else f"{step}.{rnd}"
+        digest = hashlib.blake2b(f"{seed}/{at}/{worker}/{bucket}".encode(),
                                  digest_size=8).digest()
         gen.manual_seed(int.from_bytes(digest, "little") >> 1)
         return torch.rand(n, generator=gen, dtype=f32, device=device)
@@ -282,13 +294,15 @@ class AggregationRound:
     PowerSGD's Q) and returned by :meth:`finish` with ``step`` advanced.
     ``noise`` supplies the uniform draws of the stochastic compressors, for
     step ``step`` (default: the comm state's; the trainer passes its own
-    step, which keeps counting through the inner steps of local SGD)."""
+    step, which keeps counting through the inner steps of local SGD) and,
+    in a pipelined step, round ``rnd``."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device,
-                 step: int | None = None):
+                 step: int | None = None, rnd: int | None = None):
         self.comm, self.plan, self.state = comm, plan, comm_state
         self.step = comm_state["step"] if step is None else step
+        self.rnd = rnd
         self.n_workers, self.noise, self.device = n_workers, noise, torch.device(device)
         self.comps = [plan.compressor(b) for b in plan.buckets]
         self.routes = [bucket_route(comm, comp) for comp in self.comps]
@@ -318,6 +332,11 @@ class AggregationRound:
         self.nnz: torch.Tensor | None = None
         self.nnz_of = 0
 
+    def _noise(self, w: int, i: int, n: int) -> torch.Tensor:
+        if self.rnd is None:  # the sequential step's chain: (step, worker, bucket)
+            return self.noise(self.step, w, i, n).to(self.device)
+        return self.noise(self.step, w, i, n, self.rnd).to(self.device)
+
     def _stack(self, i: int, n: int, dtype) -> torch.Tensor:
         if self._stacks[i] is None:
             self._stacks[i] = _wire_stack(self.n_workers, n, self.device, dtype)
@@ -344,12 +363,11 @@ class AggregationRound:
     def add(self, w: int, bufs: Iterable[torch.Tensor]) -> None:
         """Send side of worker ``w``: ``bufs`` yields its flat f32 bucket
         vectors in plan order (a generator keeps one bucket alive at once)."""
-        comm, step, W = self.comm, self.step, self.n_workers
+        comm, W = self.comm, self.n_workers
         for i, (b, comp, route, g) in enumerate(zip(self.plan.buckets, self.comps,
                                                     self.routes, bufs)):
             knobs = self.knobs[i]
-            u = (self.noise(step, w, i, noise_len(comp, b.size)).to(self.device)
-                 if needs_noise(comp) else None)
+            u = (self._noise(w, i, noise_len(comp, b.size)) if needs_noise(comp) else None)
             if route == "fused_ef":
                 # one kernel pass yields the int8 wire codes and worker w's
                 # new residual, written in place
@@ -500,6 +518,70 @@ class AggregationRound:
                     idx = top_k(torch.abs(agg), k_of(b.size, comp.ratio, comp.k))
                     agg = torch.zeros_like(agg).index_put_((idx,), agg[idx])
                 out.append(agg)
+        self.state["step"] += 1
+        return out, self.state
+
+
+def _rows_view(comm_state: dict[str, Any], lo: int, hi: int) -> dict[str, Any]:
+    """``comm_state`` with every per-worker stack cut to rows lo:hi (views:
+    in-place updates reach the whole stacks)."""
+    view = dict(comm_state)
+    for k in ("ef", "u"):
+        if k in view:
+            view[k] = [None if e is None else e[lo:hi] for e in view[k]]
+    return view
+
+
+class GroupedRound:
+    """One aggregation round over W workers in ``groups`` groups of D =
+    W / groups consecutive workers: pod-local SGD's in-pod aggregation,
+    where each pod reduces over its own D workers (the reference's psum over
+    ``data`` alone) and gets its own aggregate.  Worker w is member w % D of
+    group w // D, and its member index keys its noise: the reference folds
+    the index over the aggregation axes only into the key, so worker d of
+    every pod draws the same dither.  Every pod books the same collectives
+    over ``("data",)``; pod 0's are booked, once, as each worker's view
+    sees them.  PowerSGD's Q, one per pod there, is not ported for groups
+    > 1.  With one group this is an :class:`AggregationRound` over the
+    comm state itself.
+
+    :meth:`finish` returns the per-group lists of per-bucket aggregates and
+    the comm state (``step`` advanced once)."""
+
+    def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
+                 n_workers: int, noise: Noise, device: str | torch.device,
+                 step: int | None = None, rnd: int | None = None, groups: int = 1):
+        if n_workers % groups:
+            raise ValueError(f"{n_workers} workers do not split into {groups} pods")
+        if groups > 1 and "psgd_q" in comm_state:
+            raise NotImplementedError("powersgd under pod-local SGD over several pods is not "
+                                      "ported (each pod carries its own Q there)")
+        self.state, self.D = comm_state, n_workers // groups
+        self.rounds = [AggregationRound(
+            comm, plan, comm_state if groups == 1 else _rows_view(comm_state, g * self.D,
+                                                                   (g + 1) * self.D),
+            self.D, noise, device, step=step, rnd=rnd) for g in range(groups)]
+
+    def add(self, w: int, bufs: Iterable[torch.Tensor]) -> None:
+        self.rounds[w // self.D].add(w % self.D, bufs)
+
+    @property
+    def nnz(self) -> torch.Tensor | None:
+        got = [r.nnz for r in self.rounds if r.nnz is not None]
+        return sum(got[1:], got[0]) if got else None
+
+    @property
+    def nnz_of(self) -> int:
+        return sum(r.nnz_of for r in self.rounds)
+
+    def finish(self) -> tuple[list[list[torch.Tensor]], dict[str, Any]]:
+        if len(self.rounds) == 1:
+            agg, state = self.rounds[0].finish()
+            return [agg], state
+        out = []
+        for g, r in enumerate(self.rounds):
+            with comms.muted(g > 0):
+                out.append(r.finish()[0])
         self.state["step"] += 1
         return out, self.state
 

@@ -10,7 +10,12 @@ its hops would: the same additions in the same association, in the stack's
 dtype (a bf16 schedule rounds after every hop, as the reference's does),
 and books every hop as a ``ppermute`` of one worker's hop payload.  The
 stack is zero-padded to a multiple of W, as the reference pads each
-worker's vector; ``rhd`` works on it in place.
+worker's vector; ``rhd`` works on it in place.  A schedule runs over the
+rows it is given, the workers of one axis: the D workers of one pod's
+aggregation round, or the P pod rows of pod-local SGD's parameter
+average, which stand for the hops every data index runs over the pods
+(their rows are equal inside a pod); the records take their axes from
+``comms.over``.
 """
 
 from __future__ import annotations

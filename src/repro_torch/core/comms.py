@@ -3,9 +3,14 @@
 
 On one card the W data-parallel workers are a leading tensor axis, so a
 collective is a stack or a sum over that axis.  Each call still books what
-a real W-way collective would move: the local payload of one worker, its
-wire format and n = W, priced by the reference's ``wire_bytes`` formulas.
-Records are kept only inside ``capture()``.
+a real n-way collective would move: the local payload of one worker, its
+wire format, the mesh axes it reduces over (``over``: ``("data",)`` by
+default; ``("pod",)`` or ``("pod", "data")`` on a two-level layout) and n,
+their extent, priced by the reference's ``wire_bytes`` formulas, times the
+enclosing ``loop`` multiplicity.  Records are kept only inside
+``capture()``, and not inside ``muted()``: a program that runs the same
+collectives again (the pipelined step's later rounds, every pod's round
+but the first) books them once, as the reference traces them once.
 """
 
 from __future__ import annotations
@@ -71,6 +76,15 @@ class CommLog:
             out[r.wire_format] = out.get(r.wire_format, 0.0) + b * r.mult
         return out
 
+    def by_axes(self, tag: str | None = None) -> dict[tuple[str, ...], float]:
+        """Wire bytes per reduced axes tuple, of the records tagged ``tag``
+        (every record if None)."""
+        out: dict[tuple[str, ...], float] = {}
+        for r in self.records:
+            if tag is None or (r.tag or "untagged") == tag:
+                out[r.axes] = out.get(r.axes, 0.0) + r.wire_bytes * r.mult
+        return out
+
 
 def _log() -> CommLog | None:
     return getattr(_STATE, "log", None)
@@ -101,6 +115,27 @@ def tag(name: str):
     return _setting("tag", name)
 
 
+def over(axes: tuple[str, ...]):
+    """Label the collectives issued inside as reducing over mesh ``axes``."""
+    return _setting("axes", tuple(axes))
+
+
+@contextlib.contextmanager
+def loop(n: int):
+    """Multiply the records issued inside by ``n`` (nested loops multiply)."""
+    prev = getattr(_STATE, "mult", 1.0)
+    _STATE.mult = prev * n
+    try:
+        yield
+    finally:
+        _STATE.mult = prev
+
+
+def muted(on: bool = True):
+    """Book nothing inside (when ``on``)."""
+    return _setting("muted", bool(on))
+
+
 def wire_format(name: str):
     """Override the recorded on-wire encoding for collectives issued inside."""
     return _setting("wire_fmt", name)
@@ -120,10 +155,11 @@ def _bytes(x: torch.Tensor) -> int:
 
 def _record(kind: str, local: torch.Tensor, n: int) -> None:
     log = _log()
-    if log is None:
+    if log is None or getattr(_STATE, "muted", False):
         return
     fmt = getattr(_STATE, "wire_fmt", "") or _DTYPE_FMT.get(local.dtype, str(local.dtype))
-    log.records.append(CollRecord(kind, WORKER_AXES, _bytes(local), 1.0, n,
+    log.records.append(CollRecord(kind, getattr(_STATE, "axes", "") or WORKER_AXES,
+                                  _bytes(local), getattr(_STATE, "mult", 1.0), n,
                                   getattr(_STATE, "tag", ""), fmt))
 
 

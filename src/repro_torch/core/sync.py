@@ -7,6 +7,10 @@ averages the *parameters*; post-local SGD runs BSP up to
 ``post_local_switch``, then local SGD, and keeps aggregating gradients on
 its sync steps.  Under these schemes each worker's parameters are row w of
 a (W, *shape) stack, so the average is an all-reduce over the stack.
+Pod-local SGD (``pod_local``, which overrides ``sync``) aggregates
+gradients inside each pod on every step and averages the parameters across
+pods every H steps; its stack holds one row per pod, so that average is an
+all-reduce over the pod rows, booked over the ``pod`` axis.
 """
 
 from __future__ import annotations
@@ -48,12 +52,15 @@ def _is_sync_step(step: int, H: int) -> bool:
 
 
 def average_params(params: list[torch.Tensor], impl: str = "xla", alive=None, donor=None,
-                   payload=None) -> list[torch.Tensor]:
-    """Model averaging for local SGD, in place: every (W, *shape) leaf of
-    ``params`` becomes its worker mean on every row.  Each leaf is summed
-    in f32 by schedule ``impl`` (one booked psum for ``xla``; the ring and
-    rhd hops of :mod:`repro_torch.core.collectives`), divided by W and cast
-    back to the leaf's dtype, booked under tag ``local_sgd_sync``.
+                   payload=None, copies: int = 1) -> list[torch.Tensor]:
+    """Model averaging for local SGD, in place: every (R, *shape) leaf of
+    ``params`` becomes the mean of its rows on every row.  Each leaf is
+    summed in f32 by schedule ``impl`` (one booked psum for ``xla``; the
+    ring and rhd hops of :mod:`repro_torch.core.collectives`) over n = R *
+    ``copies`` workers (each row held by ``copies`` consecutive workers, as
+    pod-local SGD's one row stands for all W workers of a single pod),
+    divided by n and cast back to the leaf's dtype, booked under tag
+    ``local_sgd_sync`` (over the axes of the enclosing ``comms.over``).
 
     ``alive``, ``donor`` and ``payload`` (churn and integrity) are not
     ported and raise ``NotImplementedError``."""
@@ -61,8 +68,10 @@ def average_params(params: list[torch.Tensor], impl: str = "xla", alive=None, do
         raise NotImplementedError("average_params under churn or integrity is not ported")
     with comms.tag("local_sgd_sync"), torch.no_grad():
         for p in params:
-            W, n = p.shape[0], p[0].numel()
-            x = p.reshape(W, n).to(f32)
+            W, n = p.shape[0] * copies, p[0].numel()
+            x = p.reshape(p.shape[0], n).to(f32)
+            if copies > 1:
+                x = x.repeat_interleave(copies, 0)
             if impl == "xla":
                 total = comms.psum(x)
             else:

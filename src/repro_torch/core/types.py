@@ -2,9 +2,12 @@
 
 :class:`CommConfig` keeps every field and default of the reference, so a
 cell description reads the same in both packages.  The port runs the
-trainer with sequential overlap under BSP, local SGD and post-local SGD
-(``sync``), over the all-reduce or ring gossip (``aggregator``: D-PSGD, or
-CHOCO-SGD with ``gossip_compress="choco"``), with momentum correction,
+trainer under BSP, local SGD and post-local SGD (``sync``) and pod-local
+SGD (``pod_local``: BSP inside each pod, parameter averaging across pods),
+with sequential or microbatch-pipelined overlap (``overlap``, staleness 0
+or 1, ``stale_scale``), over the all-reduce or ring gossip
+(``aggregator``: D-PSGD, or CHOCO-SGD with ``gossip_compress="choco"``),
+with momentum correction,
 local clipping and error feedback (with decay) on every registered
 compressor, over the dense wire (an f32 or bf16 all-reduce by the ``xla``,
 ``ring`` or ``rhd`` schedule, int8 majority vote, gather-and-decompress,
@@ -13,8 +16,8 @@ psums) or the compressed wire (int8 codes, 1-bit signs, 2-bit ternary
 codes, the bf16 widening psum).  ``warmup_steps`` and ``gossip_graph`` are
 accepted and, as in the reference's runtime, read by nothing (the gossip
 ring is always the ring).  :func:`validate` raises on any field that asks
-for a part not ported yet (``pod_local``, pipelined overlap, churn and
-rejoin, integrity), and applies the reference's ``bundle_spec`` checks on
+for a part not ported yet (churn and rejoin, integrity), and applies the
+reference's ``bundle_spec`` checks on ``overlap``, ``overlap_staleness``,
 ``wire_format`` and ``agg_dtype``.
 """
 
@@ -85,8 +88,8 @@ DENSE = CommConfig()
 #: fields whose non-default values select a part of the reference that the
 #: port does not run yet
 _NOT_PORTED = (
-    "pod_local", "overlap", "churn", "dropout_rate", "worker_dropout", "churn_start",
-    "churn_end", "rejoin_policy", "corruption_rate", "corruption_kind", "quarantine_limit",
+    "churn", "dropout_rate", "worker_dropout", "churn_start", "churn_end", "rejoin_policy",
+    "corruption_rate", "corruption_kind", "quarantine_limit",
 )
 
 
@@ -95,8 +98,10 @@ def validate(comm: CommConfig):
 
     Raises ``NotImplementedError`` for fields set away from their defaults
     that select an unported part, and ``ValueError`` where the reference's
-    ``bundle_spec`` does on ``wire_format`` and ``agg_dtype`` (a gossip
-    cell's wire is dense whatever it says, as there), and for a ``sync``,
+    ``bundle_spec`` does on ``overlap``, ``overlap_staleness`` (pipelined
+    overlap needs per-step aggregation: BSP, unless the cell gossips, which
+    reads neither), ``wire_format`` and ``agg_dtype`` (a gossip cell's wire
+    is dense whatever it says, as there), and for a ``sync``,
     ``aggregator``, ``gossip_compress`` or ``collective`` that is none of
     the reference's."""
     from repro_torch.core.compression.base import get_compressor
@@ -105,14 +110,23 @@ def validate(comm: CommConfig):
         if getattr(comm, name) != getattr(DENSE, name):
             raise NotImplementedError(
                 f"CommConfig.{name}={getattr(comm, name)!r} is not ported yet "
-                "(the port runs bsp / local / post_local sync over the all-reduce or "
-                "gossip, sequential overlap, without churn or integrity)")
+                "(the port runs bsp / local / post_local / pod-local sync over the "
+                "all-reduce or gossip, without churn or integrity)")
     for name, allowed in (("sync", ("bsp", "local", "post_local")),
                           ("aggregator", ("allreduce", "gossip")),
                           ("gossip_compress", ("none", "dcd", "choco"))):
         if getattr(comm, name) not in allowed:
             raise ValueError(f"unknown {name} {getattr(comm, name)!r} (expected one of "
                              f"{allowed})")
+    if comm.overlap not in ("sequential", "pipelined"):
+        raise ValueError(f"unknown overlap mode {comm.overlap!r}")
+    if comm.overlap_staleness not in (0, 1):
+        raise ValueError(f"overlap_staleness must be 0 or 1, got {comm.overlap_staleness!r}")
+    if comm.overlap == "pipelined" and comm.aggregator != "gossip" and comm.sync != "bsp":
+        # the double buffer is refilled only by the aggregating step: under
+        # local / post-local SGD its contribution would be H steps old
+        raise ValueError("pipelined overlap needs per-step aggregation (sync must be bsp, "
+                         f"got {comm.sync!r})")
     if comm.collective not in ("xla", "ring", "rhd"):
         raise ValueError(f"unknown collective {comm.collective!r} (expected 'xla', 'ring' "
                          "or 'rhd')")

@@ -3,19 +3,22 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen3-0.6b --reduced --steps 200 \\
         --comm topk_ef --opt momentum --lr 0.1 --workers 4 \\
+        [--pod 2] [--pod-local] [--overlap pipelined --overlap-staleness 0] \\
         [--microbatch 4] [--zero1] [--local-steps 8] [--device cpu] \\
         [--ckpt-dir ckpts --ckpt-every 100] [--restore ckpts/step100]
 
-The W workers are stacked on one device (``--workers`` takes the place of
-the reference's ``--data``; ``--model``, ``--fake-devices`` and
-``--cache-dir`` describe a jax mesh and its compile cache and have no
-port).  Comm presets are :data:`COMM_PRESETS`, the reference's dry-run
-table; ``--local-steps``, ``--bucket-mb``, ``--pod-local`` and ``--overlap``
-tweak the preset.  ``--pod``, ``--pod-local``, ``--overlap pipelined`` and
-the ``pod_local_sgd`` preset raise ``NotImplementedError``: the two-level
-worker layout and pipelined overlap are not ported.  The data is the
-bigram stream for a vocabulary of at most 4,096 tokens and uniform
-synthetic tokens above (the bigram table is vocab x vocab).
+The workers are stacked on one device (``--workers`` takes the place of
+the reference's ``--data``: D workers per pod; ``--pod P`` lays out P pods
+of them, W = P * D; ``--model``, ``--fake-devices`` and ``--cache-dir``
+describe a jax mesh and its compile cache and have no port).  Comm presets
+are :data:`COMM_PRESETS`, the reference's dry-run table (``pod_local_sgd``:
+BSP inside each pod, local SGD across pods every 8 steps);
+``--local-steps``, ``--bucket-mb``, ``--pod-local`` and ``--overlap`` (with
+``--overlap-staleness``; ``--microbatch`` sets the pipeline's depth) tweak
+the preset.  ``--zero1`` shards the optimizer state over all W workers,
+under every scheme.  The data is the bigram stream for a vocabulary of at
+most 4,096 tokens and uniform synthetic tokens above (the bigram table is
+vocab x vocab).
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ def main(argv=None) -> int:
     p.add_argument("--opt", default="momentum", choices=("sgd", "momentum", "adamw"))
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--warmup", type=int, default=20)
-    p.add_argument("--workers", type=int, default=1, help="data-parallel workers W")
-    p.add_argument("--pod", type=int, default=0)
+    p.add_argument("--workers", type=int, default=1, help="data-parallel workers per pod")
+    p.add_argument("--pod", type=int, default=0, help="pods P (W = P x --workers)")
     p.add_argument("--microbatch", type=int, default=1)
     p.add_argument("--zero1", action="store_true")
     p.add_argument("--pod-local", action="store_true")
@@ -80,8 +83,8 @@ def main(argv=None) -> int:
     from repro_torch.train.steps import build_bundle
     from repro_torch.train.trainer import Trainer
 
-    if args.pod:
-        raise NotImplementedError("--pod: a two-level (pod, data) worker layout is not ported")
+    pods = max(args.pod, 1)
+    n_workers = pods * args.workers
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -102,10 +105,12 @@ def main(argv=None) -> int:
     shape = InputShape("train", args.seq_len, args.global_batch, "train")
     opt = {"sgd": sgd, "momentum": momentum_sgd, "adamw": adamw}[args.opt]()
     if args.zero1:
-        opt = zero1(opt, args.workers)
-    bundle = build_bundle(cfg, comm, opt, shape, n_workers=args.workers, seed=args.seed,
+        opt = zero1(opt, n_workers)
+    bundle = build_bundle(cfg, comm, opt, shape, n_workers=n_workers, seed=args.seed,
                           device=args.device, clip_norm=args.clip_norm,
-                          microbatch=args.microbatch)
+                          microbatch=args.microbatch, pods=pods)
+    print(f"{n_workers} workers ({pods} pods x {args.workers}), {args.comm}: "
+          f"{len(bundle.bucket_plan.buckets)} buckets, {bundle.opt.name}")
     if cfg.vocab <= BIGRAM_MAX_VOCAB:
         src = BigramSource(cfg.vocab, seed=args.seed)
 

@@ -33,6 +33,10 @@ class Optimizer:
     name: str = "opt"
     #: workers the state is sharded over (``zero1``); 0: not sharded
     n_shards: int = 0
+    #: ``zero1``'s update of diverging (R, *shape) parameter rows:
+    #: (grads_of, state, params, lr, row_of) -> state, ``grads_of(r)`` row
+    #: r's gradient leaves and ``row_of(w)`` the row worker w holds
+    update_rows: Callable | None = None
 
 
 def sgd() -> Optimizer:
@@ -102,6 +106,14 @@ def zero1(opt: Optimizer, n_workers: int) -> Optimizer:
     regathered with one all-gather per leaf, booked under tag
     ``zero1_gather`` (one worker's row at the parameters' dtype).  On one
     card the W rows are one stacked tensor, so the shards update together.
+
+    Under the schemes whose workers' parameters diverge (one (R, *shape) row
+    per worker, or per pod under pod-local SGD), ``update_rows`` runs the
+    reference's arithmetic there: worker w updates slice w of its *own* row
+    with slice w of that row's gradient, and the all-gather over every
+    worker hands each worker the same concatenation of the W slices, which
+    every row then holds.  So the rows are equal after every ZeRO-1 step, as
+    in the reference.
     """
 
     def _rows(leaf):
@@ -125,7 +137,36 @@ def zero1(opt: Optimizer, n_workers: int) -> Optimizer:
                         p.copy_(new.reshape(-1)[:p.numel()].reshape(p.shape))
         return params, {"inner": inner}
 
-    return Optimizer(init, update, f"zero1_{opt.name}", n_workers)
+    def _slice_into(dst, leaf, w):
+        """Slice w of ``leaf``'s zero-padded (W, k) view into ``dst``."""
+        part = leaf.reshape(-1)[w * dst.numel():(w + 1) * dst.numel()]
+        dst[:part.numel()] = part
+        dst[part.numel():] = 0
+
+    def update_rows(grads_of, state, params, lr, row_of):
+        p_sl = [torch.empty((n_workers, -(-p[0].numel() // n_workers)), dtype=p.dtype,
+                            device=p.device) for p in params]
+        g_sl, cached = [], {}
+        for w in range(n_workers):
+            r = row_of(w)
+            if r not in cached:
+                cached = {r: grads_of(r)}  # rows come in order: keep one
+            with torch.no_grad():
+                for j, (p, g) in enumerate(zip(params, cached[r])):
+                    if w == 0:
+                        g_sl.append(torch.empty_like(p_sl[j], dtype=g.dtype))
+                    _slice_into(p_sl[j][w], p[r], w)
+                    _slice_into(g_sl[j][w], g, w)
+        del cached
+        with torch.no_grad():
+            _, inner = opt.update(g_sl, state["inner"], p_sl, lr)
+            with comms.tag("zero1_gather"):
+                for p, new in zip(params, p_sl):
+                    comms.all_gather(new)
+                    p.copy_(new.reshape(-1)[:p[0].numel()].reshape(p.shape[1:]))
+        return {"inner": inner}
+
+    return Optimizer(init, update, f"zero1_{opt.name}", n_workers, update_rows)
 
 
 def global_clip(grads: list, max_norm: float) -> list:

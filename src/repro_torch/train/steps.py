@@ -2,31 +2,47 @@
 for W data-parallel workers stacked on one device (counterpart of
 ``repro.train.steps``: ``build_bundle`` with its ``train_step``,
 ``inner_step``, ``sync_step``, ``gossip_step`` and ``eval_step``,
-sequential overlap).
+sequential or microbatch-pipelined overlap).
 
 A step splits the global batch into W contiguous row blocks (the
-reference's batch sharding over ``data``) and runs the workers in turn.
+reference's batch sharding over ``data``, or over ``(pod, data)``: with
+``pods=P`` the W = P * D workers are the reference's mesh order, worker
+w = p * D + d) and runs the workers in turn.
 
 * **Parameters.**  Under BSP every worker applies the same aggregate, so
   the W workers share one parameter tree.  Under local SGD, post-local SGD
   and gossip their parameters diverge: each leaf, and each optimizer-state
   leaf, carries a leading worker axis (W, *shape), as each shard of the
-  reference holds its own copy.  Worker w runs forward and backward on a
-  detached view of row w that requires grad (no (W, ...) gradient is ever
-  formed), and the optimizer updates row w in place.
+  reference holds its own copy.  Under pod-local SGD they stay equal inside
+  a pod and diverge across pods: one row per pod, (P, *shape).  Worker w
+  runs forward and backward on a detached view of its row that requires
+  grad (no (W, ...) gradient is ever formed), and the optimizer updates
+  each row in place (``zero1``: each worker its slice of its own row, then
+  every row the regathered slices).
 * **Microbatching** (``microbatch`` M > 1, the reference's
   ``_sequential_grads``): each worker's rows are split into M chunks whose
   raw gradients are accumulated in f32, then (acc / M) is cast back to the
   parameter dtype; loss and metrics are the chunks' means.  The gossip step
   takes the gradient of the worker's whole rows, as the reference's does.
-* **train_step** (BSP, and post-local SGD's aggregating steps): each
-  worker's gradient goes, bucket by bucket, to the send side of an
-  :class:`AggregationRound` (momentum, clipping and error feedback, then
-  compression into that worker's row of the wire stack); the receive side
-  reduces every bucket, ``clip_norm`` (if set) clips the aggregate to that
-  global norm, and the optimizer applies it (to every worker's row when
-  the parameters are stacked).  ``kept`` is the share of elements that the
-  masked sparsifiers kept this step, over all workers and their buckets.
+* **train_step** (BSP, pod-local SGD, and post-local SGD's aggregating
+  steps): each worker's gradient goes, bucket by bucket, to the send side
+  of an aggregation round (momentum, clipping and error feedback, then
+  compression into that worker's row of the wire stack; one round per pod
+  under pod-local SGD, over its D workers); the receive side reduces every
+  bucket, ``clip_norm`` (if set) clips the aggregate to that global norm,
+  and the optimizer applies it (to every worker's row when the parameters
+  are stacked, to each pod's row its pod's aggregate).  ``kept`` is the
+  share of elements that the masked sparsifiers kept this step, over all
+  workers and their buckets.
+* **Pipelined overlap** (``overlap="pipelined"``, the reference's
+  ``_pipelined_grads``): each worker's rows split into M microbatches, and
+  round k aggregates the f32 bucket gradients of the previous microbatch
+  while microbatch k's forward and backward run; on the card the round runs
+  on a second CUDA stream, ordered by events.  Staleness 0 primes with
+  microbatch 0, runs M - 1 rounds and flushes the last; staleness 1 carries
+  each worker's last microbatch in ``comm["overlap_pending"]`` to the next
+  step, whose first round aggregates it scaled by ``stale_scale``.  The
+  step applies sum_k agg_k / M.
 * **inner_step** (local SGD): each worker's gradient, clipped to
   ``clip_norm`` on its own, goes to its own optimizer; nothing is sent.
 * **sync_step**: ``sync.average_params`` over the stack.
@@ -50,6 +66,7 @@ is one device, so there is no mesh.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable
@@ -67,12 +84,18 @@ from repro_torch.utils.tree import leaves, tree_map, unflatten_like
 f32 = torch.float32
 
 #: the per-worker (W, size) comm-state stacks, one per bucket
-_COMM_STACKS = ("ef", "u", "choco_xhat", "choco_nbr")
+_COMM_STACKS = ("ef", "u", "choco_xhat", "choco_nbr", "overlap_pending")
 
 
-def stacked_params(comm: CommConfig) -> bool:
-    """Do the workers' parameters diverge (one (W, *shape) row each)?"""
-    return comm.sync in ("local", "post_local") or comm.aggregator == "gossip"
+def param_rows(comm: CommConfig, n_workers: int, pods: int) -> int:
+    """Rows of diverging parameters: one per pod under pod-local SGD, one
+    per worker under local and post-local SGD and gossip; 0 for the one
+    tree every worker shares (BSP)."""
+    if comm.pod_local:
+        return pods
+    if comm.sync in ("local", "post_local") or comm.aggregator == "gossip":
+        return n_workers
+    return 0
 
 
 @dataclass
@@ -88,26 +111,58 @@ class StepBundle:
     #: global-norm clip of the aggregated gradient, and of each worker's own
     #: gradient on an inner step (0: off)
     clip_norm: float = 0.0
-    #: gradient-accumulation chunks per worker and step
+    #: gradient-accumulation chunks per worker and step (the pipelined
+    #: step's microbatches)
     microbatch: int = 1
+    #: pods P of the two-level (pod, data) layout (1: no pod axis)
+    pods: int = 1
     #: per-call wire bytes of each program, booked from one shape-only run:
     #: {name: {tag: bytes}, name + "_formats": {format: bytes}} for the
-    #: programs of the scheme ("train", "inner", "sync", "gossip")
+    #: programs of the scheme ("train", "inner", "sync", "gossip"); a
+    #: pipelined train call books its M rounds
     wire: dict[str, dict[str, float]] = field(default_factory=dict)
+    #: the booked records of each program's shape-only run (axes included)
+    logs: dict[str, comms.CommLog] = field(default_factory=dict)
+    #: the pipelined step's side stream on the card (made at first use)
+    _side: Any = field(default=None, repr=False, compare=False)
+
+    @property
+    def rows(self) -> int:
+        return param_rows(self.comm, self.n_workers, self.pods)
 
     @property
     def stacked(self) -> bool:
-        return stacked_params(self.comm)
+        return self.rows > 0
+
+    def row_of(self, w: int) -> int:
+        """The parameter row worker w differentiates and updates."""
+        return w // (self.n_workers // self.rows)
+
+    @property
+    def groups(self) -> int:
+        """Aggregation groups: the pods under pod-local SGD, else one."""
+        return self.pods if self.comm.pod_local else 1
+
+    @property
+    def data_axes(self) -> tuple[str, ...]:
+        return ("pod", "data") if self.pods > 1 else ("data",)
+
+    @property
+    def agg_axes(self) -> tuple[str, ...]:
+        """The axes a gradient aggregation reduces over (the pod's own
+        ``data`` axis under pod-local SGD)."""
+        return ("data",) if self.comm.pod_local else self.data_axes
 
     # ---- state ----------------------------------------------------------------
 
     def _place(self, params: Any, stack: bool) -> Any:
-        """Parameters on the device: ``stack`` repeats one tree into W rows;
-        a shared tree requires grad (its leaves are differentiated directly)."""
+        """Parameters on the device: ``stack`` repeats one tree into its
+        rows; a shared tree requires grad (its leaves are differentiated
+        directly)."""
         def place(p):
             p = p.detach().to(self.device)
             if stack:
-                return torch.stack([p] * self.n_workers)
+                return torch.stack([p] * self.rows)
             return p if self.stacked else p.requires_grad_(True)
 
         return tree_map(place, params)
@@ -116,9 +171,10 @@ class StepBundle:
         """The step state from one parameter tree (every worker starts from
         it)."""
         params = self._place(params, stack=self.stacked)
+        sharded = self.stacked and self.opt.n_shards  # zero1's slices of one row
         return {
             "params": params,
-            "opt": self.opt.init(params),
+            "opt": self.opt.init(tree_map(lambda p: p[0], params) if sharded else params),
             "comm": aggregate.init_comm_state(self.comm, self.bucket_plan,
                                               self.n_workers, self.device),
             "step": 0,
@@ -143,7 +199,8 @@ class StepBundle:
         the W shards concatenated (a bucket without a compressor, whose EF
         row the port leaves out, is the reference's zeros); PowerSGD's Q,
         shared here, is repeated once per worker, as each reference shard
-        holds it.  Views where it can."""
+        holds it.  Diverging parameters keep their rows (W, or P under
+        pod-local SGD).  Views where it can."""
         W, defs = self.n_workers, T.param_defs(self.cfg)
         n_leaves = len(leaves(defs))
 
@@ -217,9 +274,10 @@ class StepBundle:
     def _worker_params(self, params: Any, w: int, grad: bool = True) -> Any:
         if not self.stacked:
             return params
+        r = self.row_of(w)
         if not grad:
-            return tree_map(lambda p: p[w], params)
-        return tree_map(lambda p: p[w].detach().requires_grad_(True), params)
+            return tree_map(lambda p: p[r], params)
+        return tree_map(lambda p: p[r].detach().requires_grad_(True), params)
 
     def _grads(self, params: Any, part: dict[str, torch.Tensor], microbatch: int
                ) -> tuple[list[torch.Tensor], dict[str, torch.Tensor]]:
@@ -248,46 +306,171 @@ class StepBundle:
     def _update(self, opt_state: Any, params: Any, grads_of: Callable[[int], list],
                 lr: float) -> Any:
         """The optimizer on the shared tree (``grads_of(0)``), or on each
-        worker's row in place (``grads_of(w)``, called in worker order); a
-        0-dim state leaf (adamw's ``t``) advances once, as each row's update
-        returns the same value."""
+        row in place (``grads_of(r)``, called in row order; ``zero1`` reads
+        each worker's slice of its own row); a 0-dim state leaf (adamw's
+        ``t``) advances once, as each row's update returns the same value.
+        ``zero1``'s all-gather is booked over every data axis."""
         pleaves = leaves(params)
         if not self.stacked:
-            return self.opt.update(grads_of(0), opt_state, pleaves, lr)[1]
+            with comms.over(self.data_axes):
+                return self.opt.update(grads_of(0), opt_state, pleaves, lr)[1]
+        if self.opt.update_rows is not None:
+            with comms.over(self.data_axes):
+                return self.opt.update_rows(grads_of, opt_state, pleaves, lr, self.row_of)
         new = opt_state
-        for w in range(self.n_workers):
-            rows = tree_map(lambda x: x[w] if isinstance(x, torch.Tensor) and x.ndim else x,
+        for r in range(self.rows):
+            rows = tree_map(lambda x: x[r] if isinstance(x, torch.Tensor) and x.ndim else x,
                             opt_state)
-            new = self.opt.update(grads_of(w), rows, [p[w] for p in pleaves], lr)[1]
+            new = self.opt.update(grads_of(r), rows, [p[r] for p in pleaves], lr)[1]
         return unflatten_like(opt_state, [o if o.ndim else n for o, n in
                                           zip(leaves(opt_state), leaves(new))])
 
-    @staticmethod
-    def _metrics(ms: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
-        return {k: comms.pmean(torch.stack([m[k] for m in ms])) for k in ("loss", "ce", "aux")}
+    def _metrics(self, ms: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+        with comms.over(self.data_axes):
+            return {k: comms.pmean(torch.stack([m[k] for m in ms]))
+                    for k in ("loss", "ce", "aux")}
+
+    def _round(self, state: dict[str, Any], rnd: int | None = None) -> aggregate.GroupedRound:
+        return aggregate.GroupedRound(self.comm, self.bucket_plan, state["comm"],
+                                      self.n_workers, self.noise, self.device,
+                                      step=state["step"], rnd=rnd, groups=self.groups)
+
+    def _sequential_grads(self, state: dict[str, Any], parts: list[dict[str, torch.Tensor]]
+                          ) -> tuple[list[list[torch.Tensor]], list[dict], Any]:
+        """Every worker's (microbatch-accumulated) gradient through one
+        round: returns the per-group bucket aggregates, the per-worker
+        metrics and the round."""
+        rnd, ms = self._round(state), []
+        for w, part in enumerate(parts):
+            grads, m = self._grads(self._worker_params(state["params"], w), part,
+                                   self.microbatch)
+            rnd.add(w, (aggregate.gather_bucket(b, grads) for b in self.bucket_plan.buckets))
+            del grads
+            ms.append(m)
+        return rnd.finish()[0], ms, rnd
+
+    def _side_stream(self):
+        if self.device.type != "cuda":
+            return None  # the CPU (and the meta device) run the rounds in program order
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
+    def _pipelined_grads(self, state: dict[str, Any], parts: list[dict[str, torch.Tensor]]
+                         ) -> tuple[list[list[torch.Tensor]], list[dict], Any]:
+        """The reference's ``_pipelined_grads``: round k aggregates the f32
+        bucket gradients of the microbatch before k (``pending``, (W, size)
+        per bucket) while microbatch k's forward and backward run; returns
+        the per-group sum_k scale_k agg_k / M, the per-worker metrics (means
+        over the microbatches) and the kept-element counts.
+
+        On the card each round runs on the side stream after the main
+        stream's work so far (the microbatch that filled ``pending``);
+        worker w's rows of ``pending`` are refilled only after the event
+        recorded when the round's send side has read them, and the main
+        stream waits for the last round before it reads the sums.  The
+        buffers the side stream touches (``pending``, the sums, the comm
+        state) are held until then; the round's own temporaries live in the
+        side stream's pool, which every round enters after the main stream.
+        Each round keys its noise with its index; the M rounds are booked
+        once under ``comms.loop``, as the reference books its scan."""
+        comm, plan, M, W = self.comm, self.bucket_plan, self.microbatch, self.n_workers
+        params, dev = state["params"], self.device
+        rows = parts[0]["tokens"].shape[0]
+        if rows % M:
+            raise ValueError(f"local batch {rows} does not split into {M} microbatches")
+        mb, side = rows // M, self._side_stream()
+        acc = [[torch.zeros(b.size, dtype=f32, device=dev) for b in plan.buckets]
+               for _ in range(self.groups)]
+        ms: list[list[dict[str, torch.Tensor]]] = [[] for _ in range(W)]
+        kept = {"nnz": None, "of": 0}
+
+        def fill(j: int, freed: list | None) -> None:
+            """Microbatch j of every worker into ``pending``, worker w's
+            rows once ``freed[w]`` has passed."""
+            for w, part in enumerate(parts):
+                pw = self._worker_params(params, w)
+                loss, m = T.forward_loss(self.cfg, pw, {k: v[j * mb:(j + 1) * mb]
+                                                        for k, v in part.items()})
+                grads = torch.autograd.grad(loss, leaves(pw))
+                if freed is not None and freed[w] is not None:
+                    torch.cuda.current_stream(dev).wait_event(freed[w])
+                with torch.no_grad():
+                    for i, b in enumerate(plan.buckets):  # f32 widening, as gather_bucket
+                        off = 0
+                        for li, n in b.segments:
+                            pending[i][w, off:off + n].copy_(grads[li].reshape(-1))
+                            off += n
+                del grads
+                ms[w].append({"loss": loss.detach(), **{k: v.detach() for k, v in m.items()}})
+
+        def run_round(k: int, scale: float):
+            """Round k over ``pending``, its aggregates (times ``scale``)
+            added into ``acc``; returns the per-worker events and the last."""
+            if side is not None:
+                side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+                rnd, freed = self._round(state, rnd=k), []
+                for w in range(W):
+                    rnd.add(w, [p[w] for p in pending])
+                    freed.append(side.record_event() if side is not None else None)
+                aggs = rnd.finish()[0]
+                s = torch.full((), scale, dtype=f32, device=dev)
+                for acc_g, agg_g in zip(acc, aggs):
+                    for a, x in zip(acc_g, agg_g):
+                        a.add_(x * s)
+                del aggs
+                if rnd.nnz is not None:
+                    kept["nnz"] = rnd.nnz if kept["nnz"] is None else kept["nnz"] + rnd.nnz
+                    kept["of"] += rnd.nnz_of
+                return freed, (side.record_event() if side is not None else None)
+
+        if comm.overlap_staleness == 1:
+            pending = state["comm"]["overlap_pending"]
+            with comms.loop(M):
+                for k in range(M):
+                    with comms.muted(k > 0):
+                        freed, done = run_round(k, comm.stale_scale if k == 0 else 1.0)
+                    fill(k, freed)
+        else:
+            pending = [torch.empty((W, b.size), dtype=f32, device=dev) for b in plan.buckets]
+            fill(0, None)
+            with comms.loop(M - 1):
+                for k in range(M - 1):
+                    with comms.muted(k > 0):
+                        freed, done = run_round(k, 1.0)
+                    fill(k + 1, freed)
+            freed, done = run_round(M - 1, 1.0)  # the flush
+        if done is not None:
+            torch.cuda.current_stream(dev).wait_event(done)
+        del pending
+        metrics = [{k: torch.mean(torch.stack([d[k] for d in mw])) for k in mw[0]} for mw in ms]
+        return [[a / M for a in acc_g] for acc_g in acc], metrics, kept
 
     # ---- the programs -------------------------------------------------------------
 
     def train_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
                    lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
-        params, plan = state["params"], self.bucket_plan
-        rnd = aggregate.AggregationRound(self.comm, plan, state["comm"], self.n_workers,
-                                         self.noise, self.device, step=state["step"])
-        ms = []
-        for w, part in enumerate(self._split(batch)):
-            grads, m = self._grads(self._worker_params(params, w), part, self.microbatch)
-            rnd.add(w, (aggregate.gather_bucket(b, grads) for b in plan.buckets))
-            del grads
-            ms.append(m)
-        agg, cstate = rnd.finish()
+        params, plan, parts = state["params"], self.bucket_plan, self._split(batch)
+        with comms.over(self.agg_axes):
+            if self.comm.overlap == "pipelined":
+                aggs, ms, kept = self._pipelined_grads(state, parts)
+                nnz, nnz_of = kept["nnz"], kept["of"]
+            else:
+                aggs, ms, rnd = self._sequential_grads(state, parts)
+                nnz, nnz_of = rnd.nnz, rnd.nnz_of
         like = [p[0] for p in leaves(params)] if self.stacked else leaves(params)
-        grads = global_clip(aggregate._scatter_buckets(plan, agg, like), self.clip_norm)
-        del agg
-        opt_state = self._update(state["opt"], params, lambda w: grads, lr)
+        # one aggregate per pod under pod-local SGD (row r is pod r), else one
+        grads = [global_clip(aggregate._scatter_buckets(plan, a, like), self.clip_norm)
+                 for a in aggs]
+        del aggs
+        own = self.comm.pod_local
+        opt_state = self._update(state["opt"], params, lambda r: grads[r if own else 0], lr)
         out = self._metrics(ms)
-        if rnd.nnz is not None:  # the masked sparsifiers' kept share (no collective booked)
-            out["kept"] = rnd.nnz / rnd.nnz_of
-        return ({"params": params, "opt": opt_state, "comm": cstate,
+        if nnz is not None:  # the masked sparsifiers' kept share (no collective booked)
+            out["kept"] = nnz / nnz_of
+        # each round advanced the comm state's step (M per pipelined step, as there)
+        return ({"params": params, "opt": opt_state, "comm": state["comm"],
                  "step": state["step"] + 1}, out)
 
     def inner_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
@@ -305,7 +488,13 @@ class StepBundle:
                  "step": state["step"] + 1}, self._metrics(ms))
 
     def sync_step(self, state: dict[str, Any]) -> dict[str, Any]:
-        sync.average_params(leaves(state["params"]), impl=self.comm.collective)
+        """The parameter average: over the pods under pod-local SGD (one row
+        each; all W workers when there is one pod), over the workers'
+        rows otherwise."""
+        across_pods = self.comm.pod_local and self.pods > 1
+        with comms.over(("pod",) if across_pods else self.data_axes):
+            sync.average_params(leaves(state["params"]), impl=self.comm.collective,
+                                copies=1 if across_pods else self.n_workers // self.rows)
         return state
 
     def gossip_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
@@ -325,7 +514,7 @@ class StepBundle:
         knobs = self.bucket_plan.knob_values()
         pl = leaves(params)
         # bucket by bucket: one (W, n) f32 stack at a time (the largest is 2.5 GB)
-        with comms.tag("gossip_mix"), torch.no_grad():
+        with comms.tag("gossip_mix"), comms.over(self.data_axes), torch.no_grad():
             for i, b in enumerate(self.bucket_plan.buckets):
                 parts_i = [pl[j].reshape(W, -1).to(f32) for j, _ in b.segments]
                 x = parts_i[0] if len(parts_i) == 1 else torch.cat(parts_i, 1)
@@ -354,12 +543,12 @@ class StepBundle:
         return comms.pmean(torch.stack(losses))
 
 
-def _book_wire(bundle: StepBundle) -> dict[str, dict[str, float]]:
+def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:
     """Run each program of the scheme once on the meta device (no memory,
     no arithmetic) under a comms capture: "train" (not for gossip, which
-    never calls it), "inner" and "sync" under local and post-local SGD,
-    "gossip" under gossip.  Recomputation is off there: it changes no
-    collective."""
+    never calls it), "inner" under local and post-local SGD, "sync" under
+    those and pod-local SGD, "gossip" under gossip.  Recomputation is off
+    there: it changes no collective.  Returns each program's records."""
     meta = torch.device("meta")
     mb = dataclasses.replace(bundle, cfg=bundle.cfg.with_updates(remat="none"), device=meta,
                              noise=aggregate.seeded_noise(0, meta))
@@ -373,37 +562,37 @@ def _book_wire(bundle: StepBundle) -> dict[str, dict[str, float]]:
         programs["train"] = lambda st: mb.train_step(st, batch, 0.0)
         if comm.sync in ("local", "post_local"):
             programs["inner"] = lambda st: mb.inner_step(st, batch, 0.0)
+        if comm.sync in ("local", "post_local") or comm.pod_local:
             programs["sync"] = mb.sync_step
-    wire = {}
+    logs = {}
     for name, run in programs.items():
         state = mb._meta_state()
-        with comms.capture() as log:
+        with comms.capture() as logs[name]:
             run(state)
-        wire[name], wire[name + "_formats"] = log.by_tag(), log.by_wire_format()
-    return wire
+    return logs
 
 
 def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,
                  n_workers: int = 1, seed: int = 0, device: str | torch.device = "cuda",
                  noise: aggregate.Noise | None = None, clip_norm: float = 0.0,
-                 microbatch: int = 1) -> StepBundle:
+                 microbatch: int = 1, pods: int = 1) -> StepBundle:
     """Build the steps of one cell.  ``noise(step, worker, bucket, n)``
     overrides the compressors' uniform draws (default: a generator seeded
     from (seed, step, worker, bucket) on ``device``; worker None for
-    CHOCO-SGD's draw, which every worker shares); ``clip_norm > 0`` clips
-    the aggregated gradient (each worker's own on an inner step) to that
-    global norm before the update, as the reference's step does;
-    ``microbatch`` splits each worker's rows into that many accumulated
-    chunks."""
+    CHOCO-SGD's draw, which every worker shares; a pipelined round passes
+    its index as a fifth argument); ``clip_norm > 0`` clips the aggregated
+    gradient (each worker's own on an inner step) to that global norm
+    before the update, as the reference's step does; ``microbatch`` splits
+    each worker's rows into that many accumulated chunks (the pipelined
+    step's microbatches); ``pods`` P lays the W workers out as (pod, data),
+    W = P * D (0 and 1: no pod axis)."""
     validate(comm)
+    pods = max(pods, 1)
+    if n_workers % pods:
+        raise ValueError(f"{n_workers} workers do not split into {pods} pods")
     if opt.n_shards and opt.n_shards != n_workers:
         raise ValueError(f"{opt.name} shards its state over {opt.n_shards} workers, "
                          f"the bundle has {n_workers}")
-    if opt.n_shards and stacked_params(comm):
-        raise NotImplementedError(
-            f"{opt.name} under sync={comm.sync!r}, aggregator={comm.aggregator!r} is not "
-            "ported: the reference regathers each worker's own slices into every "
-            "worker's parameters there")
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
     device = torch.device(device)
@@ -411,9 +600,11 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
         cfg=cfg, comm=comm, shape=shape, n_workers=n_workers, device=device,
         bucket_plan=aggregate.make_bucket_plan(comm, T.param_defs(cfg)), opt=opt,
         noise=noise if noise is not None else aggregate.seeded_noise(seed, device),
-        clip_norm=clip_norm, microbatch=microbatch,
+        clip_norm=clip_norm, microbatch=microbatch, pods=pods,
     )
-    bundle.wire = _book_wire(bundle)
+    bundle.logs = _book_wire(bundle)
+    for name, log in bundle.logs.items():
+        bundle.wire[name], bundle.wire[name + "_formats"] = log.by_tag(), log.by_wire_format()
     return bundle
 
 

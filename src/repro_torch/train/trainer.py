@@ -1,5 +1,6 @@
 """Training loop (counterpart of ``repro.train.trainer``): drives the step
-bundle by the CommConfig's sync scheme, feeds the data pipeline, logs
+bundle by the CommConfig's sync scheme (under pod-local SGD the train step
+every step and the sync step every H-th), feeds the data pipeline, logs
 metrics and writes checkpoints."""
 
 from __future__ import annotations
@@ -20,9 +21,11 @@ from repro_torch.train.steps import StepBundle
 
 def wire_per_step(bundle: StepBundle, steps: int) -> float:
     """Booked wire bytes per step of a ``steps``-step run from step 0, each
-    step's programs by the sync rules: ``grad_agg`` of a train step,
-    ``local_sgd_sync`` of a sync step, ``gossip_mix`` of a gossip step (the
-    reference's ``trainer_wire_per_step``, counted step by step)."""
+    step's programs by the sync rules: ``grad_agg`` of a train step (every
+    step under pod-local SGD; a pipelined one books its M rounds),
+    ``local_sgd_sync`` of a sync step (every H-th), ``gossip_mix`` of a
+    gossip step (the reference's ``trainer_wire_per_step``, counted step by
+    step)."""
     comm, total = bundle.comm, 0.0
     for t in range(steps):
         if comm.aggregator == "gossip":

@@ -204,15 +204,18 @@ def test_seeded_noise_is_reproducible_per_round():
     # compressed wire that carries a compressor's payload
     (dict(wire_format="compressed", agg_dtype="bfloat16", **QSGD), ValueError),
     (dict(churn=True), NotImplementedError),
-    (dict(overlap="pipelined"), NotImplementedError),
-    # gossip, local and post-local SGD and warmup_steps are ported now
-    # (tests/test_torch_sync.py): these cells keep only their unported part
+    (dict(overlap="pipelined", churn=True), NotImplementedError),
+    # gossip, local, post-local and pod-local SGD, pipelined overlap and
+    # warmup_steps are ported now (tests/test_torch_sync.py,
+    # test_torch_pod_local.py, test_torch_overlap.py): these cells keep only
+    # their unported part
     (dict(aggregator="gossip", churn=True), NotImplementedError),
     (dict(sync="local", dropout_rate=0.1), NotImplementedError),
     (dict(warmup_steps=10, **QSGD, wire_format="compressed", worker_dropout=(0.1, 0.0)),
      NotImplementedError),
-    (dict(sync="post_local", post_local_switch=10, pod_local=True), NotImplementedError),
-    (dict(pod_local=True), NotImplementedError),
+    (dict(sync="post_local", post_local_switch=10, pod_local=True, churn=True),
+     NotImplementedError),
+    (dict(pod_local=True, corruption_rate=0.1), NotImplementedError),
     (dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
      NotImplementedError),
     (dict(churn=True, rejoin_policy="pull_avg"), NotImplementedError),
@@ -266,6 +269,11 @@ def test_validate_rejects_unported_cells(kw, err):
     dict(agg_dtype="bfloat16"),
     dict(agg_dtype="bfloat16", collective="ring"),
     dict(collective="rhd"),
+    # pod-local SGD and pipelined overlap (staleness 0 and 1)
+    dict(pod_local=True, **QSGD, wire_format="compressed", error_feedback=True),
+    dict(sync="post_local", post_local_switch=10, pod_local=True),
+    dict(overlap="pipelined", **QSGD, wire_format="compressed", error_feedback=True),
+    dict(overlap="pipelined", overlap_staleness=0, stale_scale=0.5),
 ])
 def test_validate_accepts_ported_cells(kw):
     validate(CommConfig(**kw))

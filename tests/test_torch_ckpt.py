@@ -247,9 +247,16 @@ def test_train_launcher_checkpoints_and_resumes(tmp_path, capsys, deterministic)
 
 @pytest.mark.parametrize("extra", [["--pod", "2"], ["--pod-local"], ["--overlap", "pipelined"],
                                    ["--comm", "pod_local_sgd"]], ids=" ".join)
-def test_train_launcher_refuses_unported_layouts(extra):
-    with pytest.raises(NotImplementedError):
-        launch_train.main(TRAIN_ARGS[:5] + ["--steps", "1"] + extra)
+def test_train_launcher_runs_pod_and_pipelined_layouts(extra, capsys):
+    """The two-level layout, pod-local SGD (the flag and the preset) and
+    pipelined overlap run; pipelined overlap under local SGD is the
+    reference's ValueError."""
+    args = TRAIN_ARGS[:5] + ["--steps", "1", "--seq-len", "16", "--global-batch", "4"] + extra
+    assert launch_train.main(args) == 0
+    assert "step     0 loss" in capsys.readouterr().out
+    if extra == ["--overlap", "pipelined"]:
+        with pytest.raises(ValueError, match="sync must be bsp"):
+            launch_train.main(args + ["--comm", "local_sgd"])
 
 
 def test_serve_launcher_restores_checkpoint_params(tmp_path, capsys):

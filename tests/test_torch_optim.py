@@ -10,6 +10,9 @@
   with W = 4 (worker w's state slice is row w of the port's stacked state);
   the booked ``zero1_gather`` all-gathers equal the reference's capture and
   its formula, one worker's padded slice per leaf at the parameters' dtype.
+  Over diverged rows (local SGD's one per worker, pod-local SGD's one per
+  pod) every worker's slice of its own row, regathered into every row, as
+  the reference's ``zero1`` regathers them.
 * ``global_clip``: the clipped leaves within rtol 1e-6 (f32) and one bf16
   ulp (bf16); the norm sums leaf by leaf in another order.
 """
@@ -136,3 +139,63 @@ def test_global_clip_matches_reference(max_norm):
     for g, w, src in zip(got, want, grads):
         assert g.dtype == src.dtype
         _close(g, w)
+
+
+def _stacked(seed, rows, scale=1.0):
+    """``rows`` diverged copies of every leaf: (rows, *shape) arrays."""
+    return [np.stack([a + 0.01 * r for r in range(rows)]).astype(np.float32) * scale
+            for a in _leaves(seed)]
+
+
+def _as(x, d, lib):
+    if lib == "torch":
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            torch.bfloat16 if d == "bfloat16" else torch.float32)
+    return jnp.asarray(x, jnp.bfloat16 if d == "bfloat16" else jnp.float32)
+
+
+@pytest.mark.parametrize("layout", ["local", "pod_local"])
+@pytest.mark.parametrize("inner", ["momentum", "adamw"])
+def test_zero1_over_diverged_rows_matches_reference(layout, inner):
+    """ZeRO-1 where the workers' parameters diverge: under local SGD (one
+    row per worker, each its own gradient) and under pod-local SGD (P 2 x
+    D 2: one row per pod, each pod its own aggregate).  The reference's
+    ``zero1`` under ``jax.vmap`` over the W workers: worker w updates slice
+    w of its own row, and the all-gather hands every worker the
+    concatenated slices, so every row is equal after the step; the port's
+    ``update_rows`` computes the same rows and books the same all-gathers
+    (by kind, bytes, n and tag; over ``("pod", "data")`` under pods).  jax's
+    vmap cannot all-gather over two axes, so the reference's (pod, data)
+    workers run as one axis in the mesh's pod-major order, which is its
+    shard index p * D + d."""
+    make = {"momentum": lambda m: m.momentum_sgd(0.9), "adamw": lambda m: m.adamw()}[inner]
+    D = 2 if layout == "pod_local" else 1
+    rows = W // D
+    axes = ("pod", "data") if layout == "pod_local" else ("data",)
+    o, jo = opt.zero1(make(opt), W), jopt.zero1(make(jopt), ("data",))
+    p0 = _stacked(0, rows)
+    params = [_as(x, d, "torch") for x, d in zip(p0, DTYPES)]
+    state = o.init([p[0] for p in params])
+    held = lambda arrs: [np.repeat(a, D, 0) for a in arrs]  # noqa: E731  (worker w: row w // D)
+    jparams = [_as(x, d, "jax") for x, d in zip(held(p0), DTYPES)]
+    run = jax.vmap(lambda g, st, p: jo.update(g, st, p, 1e-2), axis_name="data")
+    jstate = jax.vmap(lambda _: jo.init([p[0] for p in jparams]), axis_name="data")(
+        jnp.arange(W))
+    for step in range(2):
+        g = _stacked(30 + step, rows, 0.1)
+        grads = [_as(x, d, "torch") for x, d in zip(g, DTYPES)]
+        with comms.capture() as log, comms.over(axes):
+            state = o.update_rows(lambda r: [x[r] for x in grads], state, params, 1e-2,
+                                  lambda w: w // D)
+        with jcomms.capture() as jlog:
+            jparams, jstate = run([_as(x, d, "jax") for x, d in zip(held(g), DTYPES)],
+                                  jstate, jparams)
+        assert [(r.kind, r.payload_bytes, r.n_workers, r.tag) for r in log.records] == \
+            [(r.kind, r.payload_bytes, r.n_workers, r.tag) for r in jlog.records]
+        assert {r.axes for r in log.records} == {axes}
+        for p, jp in zip(params, jparams):
+            jp = np.asarray(jnp.asarray(jp, jnp.float32))
+            assert (jp == jp[0]).all()  # every worker holds the same parameters
+            for r in range(rows):
+                assert torch.equal(p[r], p[0])
+            _close(p[0], jp[0])

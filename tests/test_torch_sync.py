@@ -22,8 +22,9 @@ trainer's ``inner_step`` and ``sync_step``), microbatched accumulation and
   ``eval_step``; local SGD with ``adamw`` and ``clip_norm`` (each worker's
   own gradient clipped on an inner step) against the reference's bundle;
   ``warmup_steps`` accepted and read by nothing, in both packages.
-* ``validate`` admits the sync and gossip fields and still refuses
-  ``pod_local``, pipelined overlap, churn, rejoin and integrity.
+* ``validate`` admits the sync, gossip, pod-local and pipelined fields,
+  raises the reference's ``bundle_spec`` errors on the overlap fields and
+  still refuses churn, rejoin and integrity.
 """
 
 import json
@@ -134,10 +135,13 @@ class _Data:
         return self.src.batch(step, self.shape.global_batch, self.shape.seq_len)
 
 
-def _noise(step, worker, bucket, n):
-    """The reference's draws: key(0) folded with the step, the worker (none
-    for a draw every worker shares) and the bucket."""
+def _noise(step, worker, bucket, n, rnd=None):
+    """The reference's draws: key(0) folded with the step, the pipelined
+    round (if any), the worker (none for a draw every worker shares) and the
+    bucket."""
     key = jax.random.fold_in(jax.random.key(0), step)
+    if rnd is not None:
+        key = jax.random.fold_in(key, rnd)
     if worker is not None:
         key = jax.random.fold_in(key, worker)
     key = jax.random.fold_in(key, bucket)
@@ -157,7 +161,7 @@ def _reference_params(cfg, device):
 
 
 def port_run(comm, *, n_workers=W, steps=4, lr=0.05, microbatch=1, optimizer=None,
-             clip_norm=0.0, device="cpu", noise=_noise, cfg_updates=None):
+             clip_norm=0.0, device="cpu", noise=_noise, cfg_updates=None, pods=1):
     """``steps`` of ``Trainer.fit`` on the tiny workload from the reference's
     initial parameters (cast to ``cfg_updates``' parameter dtype, if it
     sets one); returns (bundle, trainer, state, losses)."""
@@ -165,7 +169,7 @@ def port_run(comm, *, n_workers=W, steps=4, lr=0.05, microbatch=1, optimizer=Non
     cfg = cfg.with_updates(**(cfg_updates or {}))
     bundle = build_bundle(cfg, comm, optimizer or opt.momentum_sgd(0.0), shape,
                           n_workers=n_workers, seed=0, device=device, noise=noise,
-                          clip_norm=clip_norm, microbatch=microbatch)
+                          clip_norm=clip_norm, microbatch=microbatch, pods=pods)
     tr = Trainer(bundle, _Data(shape), constant(lr), log_every=1)
     state = tr.fit(bundle.init_state(_reference_params(cfg, device)), steps)
     return bundle, tr, state, np.asarray([h["loss"] for h in tr.history])
@@ -334,8 +338,9 @@ ADMITTED = [dict(sync="local", local_steps=4), dict(sync="post_local", post_loca
                  gossip_step_size=0.3, gossip_mix_weight=0.25),
             dict(warmup_steps=10), dict(aggregator="gossip", gossip_graph="exp"),
             # a gossip cell's wire is dense whatever it says, as in the reference
-            dict(aggregator="gossip", compressor="topk", wire_format="compressed")]
-REFUSED = [dict(pod_local=True), dict(overlap="pipelined"), dict(churn=True),
+            dict(aggregator="gossip", compressor="topk", wire_format="compressed"),
+            dict(pod_local=True), dict(overlap="pipelined")]
+REFUSED = [dict(churn=True),
            dict(dropout_rate=0.1), dict(worker_dropout=(0.1, 0.0)),
            dict(rejoin_policy="pull_avg"), dict(corruption_rate=0.1, corruption_kind="nan"),
            dict(quarantine_limit=5)]
@@ -359,11 +364,15 @@ def test_validate_rejects_unknown_schemes(kw):
         validate(CommConfig(**kw))
 
 
-def test_zero1_under_local_sgd_is_refused():
-    cfg, shape = _tiny()
-    with pytest.raises(NotImplementedError, match="zero1"):
-        build_bundle(cfg, CommConfig(sync="local", local_steps=2),
-                     opt.zero1(opt.momentum_sgd(0.9), 2), shape, n_workers=2, device="cpu")
+@pytest.mark.parametrize("kw,match", [
+    (dict(overlap="bogus"), "unknown overlap mode"),
+    (dict(overlap_staleness=2), "must be 0 or 1"),
+    (dict(overlap="pipelined", sync="local", local_steps=2), "sync must be bsp"),
+    (dict(overlap="pipelined", sync="post_local", post_local_switch=2), "sync must be bsp"),
+], ids=str)
+def test_validate_raises_the_overlap_errors_of_bundle_spec(kw, match):
+    with pytest.raises(ValueError, match=match):
+        validate(CommConfig(**kw))
 
 
 # ---------------------------------------------------------------------------
