@@ -124,13 +124,43 @@ result line:
    must launch, 32 + 32 * 32 = 1,056 times.  ``--profile serve`` adds one
    more decode step under torch.profiler.
 
-Then one JSON line per the kernel table, the nvidia-smi line, and the
-result line ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
+8. the convergence engine (``core/simulate.py``) and its sweep CLI, on the
+   card: (E1) ``sweep_matrix_45(problem_seeds=(0, 1))``, the repo's
+   documented sweep (BENCH_sweep.json's configuration): 90 cells in 5 shape
+   classes, qsgd with EF, levels 4/8/16, lr 0.02/0.05/0.08, 8 workers, 60
+   steps, 3 replicas: 2,160 rows of dim 64; exactly 5 class programs built,
+   no port kernel launched, sweep wall, cells/s and peak memory printed,
+   then a second (warm) sweep; (E2) the same cells with ``qsgd_kernel``:
+   kernel ``qsgd_ef``'s row launch exactly once per class and step, 300,
+   and the same engine with the kernel's plain version on the card under
+   the same draws within rtol 1e-6; against E1 the bits within rtol 1e-6
+   and the loss series counted within the reference's sweep tolerance
+   (rtol 2e-4, atol 1e-6; see PERF.md on dither flips); (E3) BSP, 8 workers,
+   300 steps, 3 replicas, one cell each of ``qsgd_kernel`` without EF
+   (``qsgd`` rows), ``terngrad_kernel`` (``terngrad`` rows) and
+   ``signsgd_packed`` (``sign_pack`` and ``sign_unpack`` over per-row-padded
+   stacks): exactly 300 launches of each, and each series within rtol 1e-6
+   of the same engine with the plain versions under the same draws; (E4)
+   ``measure_engine_speedup`` on ``REFERENCE_SPEEDUP_CELL``, the batched
+   engine against the per-step loop reference (same draws), the series
+   compared at rtol 2e-4 / atol 1e-5; (E5) ``python -m
+   repro_torch.experiments.run --substrate training`` and ``--substrate
+   timeline`` on the default grid (16 workers, 120 steps), in-process, each
+   table printed.  Before it the three row kernels are held against their
+   plain versions at (rows, n) = (432, 64) (a class of E2: 18 cells x 3
+   replicas x 8 workers; timed), (2160, 64), (1, 100003) and (100003, 1),
+   with per-row levels: codes bitwise, e' within rtol 1e-6.
+
+Then one JSON line per the kernel table (the three row kernels as
+``*_rows`` entries with their bound at E2's class shape, launches from the
+engine phase), the nvidia-smi line, and the result line ``{"ok": true,
+"device": {...}}``.  There is no CPU fallback.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -147,10 +177,13 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.core import simulate  # noqa: E402
 from repro_torch.core import sync  # noqa: E402
 from repro_torch.core.compression.powersgd import shape2d  # noqa: E402
 from repro_torch.core.types import CommConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticBatches  # noqa: E402
+from repro_torch.experiments import run as sweep_cli  # noqa: E402
+from repro_torch.experiments import runner  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import LIBRARY  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -228,6 +261,22 @@ NO_LIBRARY = {
     "threshold": "no single PyTorch call both masks by |x| >= tau and counts",
     "wkv6": "no single PyTorch call runs a linear recurrence with a data-dependent decay",
 }
+#: the convergence engine's row launches (a (rows, n) stack, per-row inv and
+#: levels): bytes per element as the flat kernels, plus 4 B per row for each
+#: per-row scalar; timed and bounded at E2's class shape
+ROW_KERNELS = {
+    "qsgd_rows": dict(kernel="qsgd", bytes=lambda b, n: 9 * b * n + 8 * b,
+                      ops=lambda b, n: 9 * b * n),
+    "qsgd_ef_rows": dict(kernel="qsgd_ef", bytes=lambda b, n: 17 * b * n + 8 * b,
+                         ops=lambda b, n: 15 * b * n),
+    "terngrad_rows": dict(kernel="terngrad", bytes=lambda b, n: 9 * b * n + 4 * b,
+                          ops=lambda b, n: 3 * b * n),
+}
+#: E1/E2: 90 cells in 5 classes of 18, 3 replicas, 8 workers, dim 64
+ENGINE_ROWS, ENGINE_DIM = 18 * 3 * 8, 64
+#: E3: steps of the one-cell BSP runs
+E3_STEPS = 300
+
 #: RWKV6 serving: batch, prompt, decode tokens (the server phase), and the
 #: prefill shape (B, S, H, hd) of kernel wkv6 there
 SERVE_B, SERVE_PROMPT, SERVE_DECODE = 8, 1024, 32
@@ -1001,6 +1050,240 @@ def check_pipelined_staleness0() -> None:
     torch.cuda.empty_cache()
 
 
+def check_row_kernels(rows: int, n: int, timed: bool) -> dict[str, dict]:
+    """The three row launches against their plain versions on a (rows, n)
+    stack with per-row levels (4, 8, 16 and 127 in turn) and per-row inv:
+    codes bitwise, e' (fresh and in place) within rtol 1e-6."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(rows * 7 + n)
+    x = torch.randn((rows, n), generator=gen, device=DEV) * 0.1
+    x.view(-1)[::7] = 0.0
+    e = torch.randn((rows, n), generator=gen, device=DEV) * 0.05
+    u = torch.rand((rows, n), generator=gen, device=DEV)
+    lv = torch.tensor([4.0, 8.0, 16.0, 127.0], device=DEV).repeat(rows // 4 + 1)[:rows].contiguous()
+    out: dict[str, dict] = {}
+
+    inv = torch.reciprocal(torch.clamp_min(torch.linalg.vector_norm(x, dim=-1), 1e-30))
+    codes = torch.empty((rows, n), dtype=torch.int8, device=DEV)
+    run_q = lambda: ops.qsgd_codes_rows_into(x, u, inv, lv, codes)  # noqa: E731
+    run_q()
+    plain = ref.qsgd_codes_rows(x, u, inv, lv)
+    err = int((codes.int() - plain.int()).abs().max())
+    out["qsgd_rows"] = {"max_abs_err": float(err), "ok": err == 0,
+                        "detail": f"codes differ at {int((codes != plain).sum())}"}
+    if timed:
+        out["qsgd_rows"].update(ms=ms_per_call(run_q, 50), plain_ms=ms_per_call(
+            lambda: ref.qsgd_codes_rows(x, u, inv, lv), 20))
+
+    a = e + x
+    inv_a = torch.reciprocal(torch.clamp_min(torch.linalg.vector_norm(a, dim=-1), 1e-30))
+    e_new = torch.empty_like(e)
+    run_ef = lambda: ops.qsgd_ef_rows_into(x, e, u, inv_a, lv, 1.0, codes, e_new)  # noqa: E731
+    run_ef()
+    plain_c, plain_e = ref.qsgd_ef_rows(x, e, u, inv_a, lv, torch.tensor(1.0, device=DEV))
+    codes_ok = torch.equal(codes, plain_c)
+    e_ok = _close(e_new, plain_e, rtol=1e-6, atol=0.0)
+    e_in = e.clone()
+    ops.qsgd_ef_rows_into(x, e_in, u, inv_a, lv, 1.0, codes, e_in)
+    codes_ok &= torch.equal(codes, plain_c)
+    e_ok &= _close(e_in, plain_e, rtol=1e-6, atol=0.0)
+    out["qsgd_ef_rows"] = {"max_abs_err": max(float((e_new - plain_e).abs().max()),
+                                              float((e_in - plain_e).abs().max())),
+                           "ok": codes_ok and e_ok,
+                           "detail": f"codes bitwise {codes_ok}, e' (fresh and in place) "
+                                     f"within rtol 1e-6 {e_ok}"}
+    if timed:
+        out["qsgd_ef_rows"].update(ms=ms_per_call(run_ef, 50), plain_ms=ms_per_call(
+            lambda: ref.qsgd_ef_rows(x, e, u, inv_a, lv, torch.tensor(1.0, device=DEV)), 20))
+
+    inv_t = torch.reciprocal(torch.clamp_min(torch.amax(torch.abs(x), dim=-1), 1e-30))
+    u.view(-1)[5::13] = (torch.abs(x) * inv_t[:, None]).view(-1)[5::13]  # u == p: strict compare
+    run_t = lambda: ops.terngrad_codes_rows_into(x, u, inv_t, codes)  # noqa: E731
+    run_t()
+    plain = ref.terngrad_codes_rows(x, u, inv_t)
+    err = int((codes.int() - plain.int()).abs().max())
+    out["terngrad_rows"] = {"max_abs_err": float(err), "ok": err == 0,
+                            "detail": f"codes differ at {int((codes != plain).sum())}"}
+    if timed:
+        out["terngrad_rows"].update(ms=ms_per_call(run_t, 50), plain_ms=ms_per_call(
+            lambda: ref.terngrad_codes_rows(x, u, inv_t), 20))
+    return out
+
+
+@contextlib.contextmanager
+def plain_rows():
+    """Route the engine's row launches (and the flat sign pack / unpack that
+    its per-row-padded stacks go through) to their plain versions on the
+    card, for a comparison under the same draws; nothing is counted."""
+    saved = {k: getattr(ops, k) for k in ("qsgd_codes_rows_into", "qsgd_ef_rows_into",
+                                          "terngrad_codes_rows_into", "sign_pack",
+                                          "sign_unpack")}
+
+    def qsgd_plain(x, u, inv, levels, out):
+        out.copy_(ref.qsgd_codes_rows(x, u, inv, levels))
+
+    def qsgd_ef_plain(g, e, u, inv, levels, decay, codes, e_out):
+        c, en = ref.qsgd_ef_rows(g, e, u, inv, levels, torch.full((), decay, device=g.device))
+        codes.copy_(c)
+        e_out.copy_(en)
+
+    def tern_plain(x, u, inv, out):
+        out.copy_(ref.terngrad_codes_rows(x, u, inv))
+
+    ops.qsgd_codes_rows_into, ops.qsgd_ef_rows_into = qsgd_plain, qsgd_ef_plain
+    ops.terngrad_codes_rows_into = tern_plain
+    ops.sign_pack = lambda x, out=None: ref.sign_pack(x, ops.sign_packed_bytes(x.numel()))
+    ops.sign_unpack = ref.sign_unpack
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(ops, k, v)
+
+
+def _series_dev(a: list, b: list, rtol: float, atol: float) -> tuple[float, int]:
+    """The largest |a - b| / (atol + rtol |b|) over the loss and consensus
+    series of two result lists, and the number of cells above 1."""
+    worst, over = 0.0, 0
+    for x, y in zip(a, b):
+        cell = 0.0
+        for k in ("loss", "consensus"):
+            d = np.abs(x.series[k] - y.series[k])
+            bound = atol + rtol * np.abs(y.series[k])
+            cell = max(cell, float(np.max(np.divide(d, bound, out=np.where(d > 0, np.inf, 0.0),
+                                                    where=bound > 0))))
+        worst, over = max(worst, cell), over + (cell > 1)
+    return worst, over
+
+
+def _bits_dev(a: list, b: list) -> float:
+    return max(float(np.max(np.abs(x.series["bits"] - y.series["bits"])
+                            / np.maximum(np.abs(y.series["bits"]), 1.0))) for x, y in zip(a, b))
+
+
+def _check_finite(label: str, results: list) -> None:
+    for r in results:
+        if not all(np.isfinite(r.series[k]).all() for k in ("loss", "consensus", "bits")):
+            raise AssertionError(f"engine {label}: non-finite series in {r.tag}")
+        if not np.all(r.series["bits"][:, -1] > 0):
+            raise AssertionError(f"engine {label}: no wire bits booked in {r.tag}")
+
+
+def _sweep(label: str, scenarios: list, replicas: int, want: dict[str, int]) -> tuple:
+    """One sweep through the runner on the card: (results, wall s, the
+    sweep's peak MiB above what was allocated before it, class programs
+    built); launches must equal ``want`` exactly."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    built = simulate.engine_cache_stats().compiles
+    t0 = time.perf_counter()
+    res = runner.run_scenarios(scenarios, "training", replicas=replicas, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"engine {label}: must launch exactly {full}: {got}")
+    _check_finite(label, res)
+    return (res, wall, (torch.cuda.max_memory_allocated() - base) / 2**20,
+            simulate.engine_cache_stats().compiles - built)
+
+
+def run_engine(card: str) -> dict[str, int]:
+    """Phase 8, E1-E5; returns the engine's launches by kernel."""
+    launches = {k: 0 for k in KERNELS}
+    sweep = runner.sweep_matrix_45(problem_seeds=(0, 1))
+    classes = {runner.training_shape_key(s) for s in sweep}
+    if len(sweep) != 90 or len(classes) != 5:
+        raise AssertionError(f"engine: the sweep has {len(sweep)} cells in {len(classes)} classes")
+    steps = sweep[0].steps
+    simulate.engine_cache_clear()
+    e1, wall, peak, built = _sweep("E1", sweep, 3, {})
+    if built != 5:
+        raise AssertionError(f"engine E1: built {built} class programs, want 5")
+    _, warm, _, rebuilt = _sweep("E1 warm", sweep, 3, {})
+    print(f"engine E1 ({card}): 90 cells x 3 replicas x 8 workers (2,160 rows of dim 64), "
+          f"{steps} steps, qsgd EF: sweep wall {wall:.3f} s cold ({90 / wall:.1f} cells/s), "
+          f"{warm:.3f} s warm ({90 / warm:.1f} cells/s, {warm / (5 * steps) * 1e3:.3f} ms per "
+          f"class step); {built} class programs built, {rebuilt} on the warm sweep; peak "
+          f"memory {peak:.1f} MiB; final loss {min(r.measured['final_loss'] for r in e1):.4f}-"
+          f"{max(r.measured['final_loss'] for r in e1):.4f}")
+
+    kern = [s.replace(compressor="qsgd_kernel") for s in sweep]
+    e2, wall2, peak2, built2 = _sweep("E2", kern, 3, {"qsgd_ef": 5 * steps})
+    launches["qsgd_ef"] += 5 * steps
+    with plain_rows():
+        e2p, _, _, _ = _sweep("E2 plain", kern, 3, {})
+    dev_p, over_p = _series_dev(e2, e2p, rtol=1e-6, atol=0.0)
+    bits_p = _bits_dev(e2, e2p)
+    bitwise = all(np.array_equal(a.series[k], b.series[k]) for a, b in zip(e2, e2p)
+                  for k in ("loss", "consensus", "bits"))
+    dev_1, over_1 = _series_dev(e2, e1, rtol=2e-4, atol=1e-6)
+    bits_1 = _bits_dev(e2, e1)
+    print(f"engine E2 qsgd_kernel ({card}): sweep wall {wall2:.3f} s ({90 / wall2:.1f} cells/s), "
+          f"{built2} class programs, peak {peak2:.1f} MiB, qsgd_ef row launches "
+          f"{5 * steps}; against the plain versions on the card: series bitwise {bitwise}, "
+          f"largest |d| / (rtol 1e-6 |plain|) {dev_p:.3g}, bits {bits_p:.3g}; against E1's "
+          f"plain qsgd: bits {bits_1:.3g}, {90 - over_1} of 90 cells within rtol 2e-4 / atol "
+          f"1e-6 (largest ratio {dev_1:.3g})")
+    if built2 != 5 or over_p or bits_p > 1e-6 or bits_1 > 1e-6:
+        raise AssertionError(f"engine E2: built {built2}, {over_p} cells off the plain "
+                             f"versions, bits off by {bits_p} / {bits_1}")
+
+    for comp, kernels in (("qsgd_kernel", ("qsgd",)), ("terngrad_kernel", ("terngrad",)),
+                          ("signsgd_packed", ("sign_pack", "sign_unpack"))):
+        cell = runner.REFERENCE_SPEEDUP_CELL.replace(
+            compressor=comp, error_feedback=False, steps=E3_STEPS,
+            compressor_kwargs={"levels": 16} if comp == "qsgd_kernel" else ())
+        want = {k: E3_STEPS for k in kernels}
+        got, wall3, _, _ = _sweep(f"E3 {comp}", [cell], 3, want)
+        with plain_rows():
+            plain, _, _, _ = _sweep(f"E3 {comp} plain", [cell], 3, {})
+        dev3, over3 = _series_dev(got, plain, rtol=1e-6, atol=0.0)
+        bitwise = all(np.array_equal(got[0].series[k], plain[0].series[k])
+                      for k in ("loss", "consensus", "bits"))
+        print(f"engine E3 {comp} ({card}): BSP, 8 workers, {E3_STEPS} steps, 3 replicas: "
+              f"{wall3 * 1e3 / E3_STEPS:.3f} ms per step, launches {want}; against the plain "
+              f"versions: series bitwise {bitwise}, largest ratio {dev3:.3g}; final loss "
+              f"{got[0].measured['final_loss']:.6f}")
+        if over3 or _bits_dev(got, plain) > 1e-6:
+            raise AssertionError(f"engine E3 {comp}: off its plain versions ({dev3})")
+        for k in kernels:
+            launches[k] += E3_STEPS
+
+    ops.reset_launches()
+    sp = runner.measure_engine_speedup(device=DEV)
+    print(f"engine E4 ({card}): {sp['cell']}, {sp['replicas']} replicas, {sp['steps']} steps: "
+          f"engine {sp['engine_s_cold']:.3f} s cold / {sp['engine_s_warm']:.3f} s warm, loop "
+          f"reference {sp['reference_s']:.3f} s: speedup {sp['speedup_cold']:.2f} cold / "
+          f"{sp['speedup_warm']:.2f} warm; series |d| / (1e-5 + 2e-4 |loop|) loss "
+          f"{sp['max_rel_dev_loss']:.3g}, consensus {sp['max_rel_dev_consensus']:.3g}; bits "
+          f"{sp['max_rel_dev_bits']:.3g}")
+    if max(sp["max_rel_dev_loss"], sp["max_rel_dev_consensus"]) > 1 \
+            or sp["max_rel_dev_bits"] > 1e-6:
+        raise AssertionError(f"engine E4: engine and loop reference disagree: {sp}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for substrate in ("training", "timeline"):
+            path = str(Path(tmp) / f"{substrate}.json")
+            t0 = time.perf_counter()
+            rc = sweep_cli.main(["--substrate", substrate, "--emit-json", path, "--no-speedup"])
+            torch.cuda.synchronize()
+            rec = json.loads(Path(path).read_text())
+            vals = [v for c in rec["cells"] for v in c["measured"].values()]
+            print(f"engine E5 ({card}): --substrate {substrate}: rc {rc}, {rec['n_cells']} cells "
+                  f"in {time.perf_counter() - t0:.3f} s"
+                  + (f", {rec['engine']['compiles']} class programs for "
+                     f"{rec['engine']['n_shape_classes']} classes" if "engine" in rec else ""))
+            if rc != 0 or not rec["n_cells"] or not all(math.isfinite(v) for v in vals) \
+                    or ("engine" in rec
+                        and rec["engine"]["compiles"] > rec["engine"]["n_shape_classes"]):
+                raise AssertionError(f"engine E5 {substrate}: rc {rc}, record {rec}")
+    return launches
+
+
 def check_rwkv_path() -> None:
     """rwkv6-3b at full width, f32, 4 layers: prefill and 8 decode steps
     through kernel wkv6 against the plain wkv_scan fed the same tokens."""
@@ -1149,10 +1432,34 @@ def main() -> None:
           f"{STEP_MS['microbatch qsgd ef']:.1f}")
     check_checkpoint()
     check_pipelined_staleness0()
+    row_checks = {}
+    for b, n in ((ENGINE_ROWS, ENGINE_DIM), (2160, ENGINE_DIM), (1, 100_003), (100_003, 1)):
+        res = check_row_kernels(b, n, timed=(b, n) == (ENGINE_ROWS, ENGINE_DIM))
+        require(res, b * n)
+        row_checks = row_checks or res
+    print("row kernels at (rows, n) = (432, 64), (2160, 64), (1, 100003), (100003, 1) with per-row "
+          "levels: codes bitwise, e' within rtol 1e-6")
+    engine_launches = run_engine(card)
     check_rwkv_path()
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
+    for name, r in row_checks.items():
+        b_ms, b_by = _bound(ROW_KERNELS[name]["bytes"](ENGINE_ROWS, ENGINE_DIM),
+                            ROW_KERNELS[name]["ops"](ENGINE_ROWS, ENGINE_DIM))
+        kernel = ROW_KERNELS[name]["kernel"]
+        print(f"kernel {name} (rows, n)=({ENGINE_ROWS}, {ENGINE_DIM}): {r['ms']:.4f} ms (bound "
+              f"{b_ms:.6f} ms by {b_by}), plain {r['plain_ms']:.4f} ms, max_abs_err "
+              f"{r['max_abs_err']}; engine launches {engine_launches[kernel]}")
+        rows.append({"name": name, "route": "cuda", "source": KERNELS[kernel]["source"],
+                     "replaces": KERNELS[kernel]["replaces"],
+                     "launches": engine_launches[kernel], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "library_note": NO_LIBRARY[kernel], "ok": r["ok"]})
+    print(f"engine phase launches of the flat sign kernels (E3): sign_pack "
+          f"{engine_launches['sign_pack']}, sign_unpack {engine_launches['sign_unpack']}")
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        if row["name"] in KERNELS:
+            row["launches"] = launches[row["name"]]
         row["ok"] = row["ok"] and row["launches"] > 0
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -4,6 +4,14 @@
 
 ``levels`` is a runtime value: it reaches the kernels as a scalar
 argument, so cells that differ only in levels share everything else.
+
+The convergence engine calls them on a (rows, dim) stack, one row per
+(cell, replica, worker): ``qsgd_kernel``'s ``roundtrip_p`` and fused
+``roundtrip_ef_p`` launch the row-batched ``qsgd`` and ``qsgd_ef`` kernels
+with per-row levels, ``terngrad_kernel``'s ``compress_decompress`` the
+row-batched ``terngrad``, and ``signsgd_packed``'s ``sign_pack`` and
+``sign_unpack`` over per-row-padded stacks: one launch per kernel per call,
+however many rows.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.compression.base import Compressed, register
+from repro_torch.core.compression.quantization import knob
 from repro_torch.kernels import ops
 
 
@@ -24,6 +33,7 @@ class QSGDKernel:
     unbiased: bool = True
     reduce_mode: str = "none"
     wire_reduce: str = "int8_acc"  # compressed-domain: int8 codes on the wire
+    BATCH_KNOBS = ("levels",)
     RUNTIME_KNOBS = ("levels",)
     NEEDS_NOISE = True
 
@@ -36,6 +46,27 @@ class QSGDKernel:
 
     def runtime_params(self) -> dict:
         return self._check()
+
+    def batch_params(self, dim: int) -> dict:
+        return self._check()
+
+    @staticmethod
+    def _row_bits(n: int, lv: torch.Tensor) -> torch.Tensor:
+        return n * (torch.log2(lv[:, 0]) + 1.0) + 32.0
+
+    def roundtrip_p(self, u, x, p):
+        """Row stack through kernel ``qsgd`` (one launch), levels per row."""
+        lv = knob(p, "levels", self.levels, x)
+        codes, norm = ops.qsgd_quantize_rows(x, u, lv[:, 0])
+        return ops.qsgd_dequantize_rows(codes, norm, lv[:, 0]), self._row_bits(x.shape[1], lv)
+
+    def roundtrip_ef_p(self, u, g, e, p):
+        """Fused EF + quantize of a row stack through kernel ``qsgd_ef`` (one
+        launch instead of three dense passes), levels per row."""
+        lv = knob(p, "levels", self.levels, g)
+        codes, norm, e_new = ops.qsgd_ef_fused_rows(g, e, u, lv[:, 0])
+        return (ops.qsgd_dequantize_rows(codes, norm, lv[:, 0]), e_new,
+                self._row_bits(g.shape[1], lv))
 
     def _levels(self, p) -> float:
         lv = (p or {}).get("levels", self.levels)
@@ -91,6 +122,11 @@ class TernGradKernel:
     def decompress(self, c) -> torch.Tensor:
         return c.payload["tern"].to(torch.float32) * c.payload["scale"][0]
 
+    def compress_decompress(self, u, x) -> torch.Tensor:
+        """Row stack through kernel ``terngrad`` (one launch)."""
+        tern, smax = ops.terngrad_quantize_rows(x, u)
+        return tern.to(torch.float32) * smax[:, None]
+
     def wire_bits(self, n) -> float:
         return n * 2.0 + 32
 
@@ -112,6 +148,10 @@ class SignSGDPacked:
 
     def decompress(self, c) -> torch.Tensor:
         return ops.sign_unpack(c.payload["packed"], c.n)
+
+    def compress_decompress(self, u, x) -> torch.Tensor:
+        """Row stack through kernels ``sign_pack`` and ``sign_unpack``."""
+        return ops.sign_unpack_rows(ops.sign_pack_rows(x), x.shape[1])
 
     def wire_bits(self, n) -> float:
         return n * 1.0

@@ -11,7 +11,10 @@ point per tensor or per round.
   dispersion, ``s = clip(||x||_1 / (||x||_2 * var_target), 1, 127)``, on
   max-scaled norms, and sends ``s`` in the payload beside the norm.
 
-Plain PyTorch, as the reference's is jnp.
+Plain PyTorch, as the reference's is jnp.  For the convergence engine
+both take per-row knobs on a (rows, dim) stack (``roundtrip_p``): the
+routing threshold and the variance target are values there, so
+``size_adaptive`` computes both reconstructions and selects per row.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.compression.base import Compressed, register
+from repro_torch.core.compression.quantization import knob
 
 f32 = torch.float32
 
@@ -45,6 +49,16 @@ class SizeAdaptive:
     unbiased: bool = False  # the f16 branch rounds deterministically
     reduce_mode: str = "none"
     NEEDS_NOISE = True
+    BATCH_KNOBS = ("threshold",)
+
+    def roundtrip_p(self, u, x, p):
+        n = x.shape[1]
+        big = n >= knob(p, "threshold", self.threshold, x)
+        scale = torch.clamp_min(torch.amax(torch.abs(x), dim=-1, keepdim=True), 1e-30)
+        q8 = _dither(u, x / scale * 127.0) / 127.0 * scale
+        half = torch.clamp(x, -65504.0, 65504.0).to(torch.float16).to(f32)
+        bits = torch.where(big, n * 8.0 + 32, n * 16.0)[:, 0]
+        return torch.where(big, q8, half), bits
 
     def compress(self, u, x, out=None) -> Compressed:
         if x.numel() >= self.threshold:
@@ -74,8 +88,22 @@ class AdaptiveQSGD:
     var_target: float = 1.0  # target relative quantization variance
     unbiased: bool = True
     reduce_mode: str = "none"
+    BATCH_KNOBS = ("var_target",)
     RUNTIME_KNOBS = ("var_target",)
     NEEDS_NOISE = True
+
+    def roundtrip_p(self, u, x, p):
+        vt = knob(p, "var_target", self.var_target, x)
+        amax = torch.clamp_min(torch.amax(torch.abs(x), dim=-1, keepdim=True), 1e-30)
+        xs = x / amax
+        n2 = torch.linalg.vector_norm(xs, dim=-1, keepdim=True)
+        norm = torch.clamp_min(n2 * amax, 1e-30)
+        s = torch.clamp(torch.abs(xs).sum(-1, keepdim=True) / torch.clamp_min(n2, 1e-30) / vt,
+                        1.0, 127.0)
+        lv = _dither(u, torch.abs(x) / norm * s)
+        # int8 code + norm + s: the wire format does not depend on s
+        bits = torch.full((x.shape[0],), x.shape[1] * 8.0 + 64, dtype=f32, device=x.device)
+        return torch.sign(x) * lv / s * norm, bits
 
     def _check(self) -> dict:
         if self.var_target <= 0:

@@ -16,16 +16,27 @@ The local ``compress``/``decompress`` pair here is the reference's
 fidelity roundtrip.  Its initial ``Q`` comes from ``jax.random.key(7)`` in
 the reference, which torch cannot draw, so it is an argument: ``q0``, or
 a seeded torch draw when it is left out.
+
+The convergence engine's ``roundtrip_p`` runs that local roundtrip on a
+(rows, dim) stack with a per-row rank: the factors are as wide as the
+class's largest rank (``merge_representative``, ``structural_envelope``)
+and the columns at or past a row's rank are zeroed after every
+projection.  Householder QR's leading columns depend only on the input's
+leading columns, so a masked wide program equals the narrow one; for that
+the initial Q (:meth:`PowerSGD.init_q_cols`) draws each column from its own
+seed, so a wide draw's first columns are the narrow draw.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
 import torch
 
 from repro_torch.core.compression.base import Compressed, register
+from repro_torch.core.compression.quantization import knob
 
 f32 = torch.float32
 
@@ -69,6 +80,46 @@ class PowerSGD:
     rank: int = 4
     unbiased: bool = False
     reduce_mode: str = "powersgd"
+    BATCH_KNOBS = ("rank",)
+
+    def init_q_cols(self, n: int, seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
+        """A (b, rank) standard-normal initial Q whose column c is drawn from
+        a torch generator seeded ``seed * 1009 + c``: a draw of width R
+        agrees with one of width r < R on its first r columns."""
+        _, b = shape2d(n)
+        device = torch.device(device)
+        cols = []
+        for c in range(self.rank):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed * 1009 + c)
+            cols.append(torch.randn(b, generator=gen, dtype=f32, device=device))
+        return torch.stack(cols, dim=1)
+
+    def structural_envelope(self) -> tuple:
+        return ("rank", self.rank)
+
+    def merge_representative(self, comps: list) -> "PowerSGD":
+        """The widest instance of the shape class: its (b, max rank) factors
+        serve every cell; narrower ranks zero the trailing columns."""
+        return dataclasses.replace(self, rank=max(c.rank for c in comps))
+
+    def roundtrip_p(self, u, x, p):
+        """Two local power iterations per row, rank per row (``u`` unused)."""
+        r = knob(p, "rank", self.rank, x)
+        rows, n = x.shape
+        a, b = shape2d(n)
+        colmask = (torch.arange(self.rank, device=x.device) < r)[:, None, :]  # (rows, 1, R)
+        key = (n, str(x.device))
+        q0 = self.__dict__.setdefault("_q0", {})
+        if key not in q0:
+            q0[key] = self.init_q_cols(n, 7, x.device)
+        M = torch.nn.functional.pad(x, (0, a * b - n)).reshape(rows, a, b)
+        Q = q0[key] * colmask
+        for _ in range(2):
+            P = orthonormalize(M @ Q) * colmask
+            Q = (M.transpose(1, 2) @ P) * colmask
+        out = (P @ Q.transpose(1, 2)).reshape(rows, a * b)[:, :n]
+        return out, (a + b) * r[:, 0] * 32.0
 
     def init_q(self, n: int, seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
         """A (b, rank) standard-normal initial Q from a torch generator

@@ -9,6 +9,12 @@ runtime payload carries the level count ``s`` beside the norm, as the
 reference's does.  Scalars that divide are 0-dim tensors on the input's
 device: on the card PyTorch divides by a host scalar as a multiply by its
 reciprocal.
+
+Each class also has its convergence-engine roundtrip on a (rows, dim)
+stack, as the reference has one per worker under ``jax.vmap``:
+``roundtrip_p(u, x, p)`` with per-row knob values where the reference
+defines it (qsgd, terngrad, natural_dithering), else a row-stack
+``compress_decompress(u, x)``; norms, maxima and sums run along dim=-1.
 """
 
 from __future__ import annotations
@@ -34,6 +40,26 @@ def _sign8(x: torch.Tensor) -> torch.Tensor:
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(torch.linalg.vector_norm(x), 1e-30)
+
+
+def knob(p: dict, name: str, default, x: torch.Tensor) -> torch.Tensor:
+    """Knob ``name`` of each row of the stack ``x`` as a (rows, 1) f32
+    column: ``p[name]`` ((rows,)) when given, else ``default`` everywhere."""
+    v = p.get(name)
+    if v is None:
+        return torch.full((x.shape[0], 1), float(default), dtype=f32, device=x.device)
+    return v.to(device=x.device, dtype=f32).reshape(-1, 1)
+
+
+def row_norm(x: torch.Tensor) -> torch.Tensor:
+    """max(||row||_2, 1e-30) of each row, as a (rows, 1) column."""
+    return torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-30)
+
+
+def dither(u: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Unbiased stochastic rounding: ``floor(y) + [u < y - floor(y)]``."""
+    lv = torch.floor(y)
+    return lv + (u < y - lv)
 
 
 def _check_levels(name: str, levels) -> dict:
@@ -67,6 +93,15 @@ class OneBitSGD:
         mu = c.payload["mu"]
         return torch.where(c.payload["bits"] > 0, mu[1], mu[0])
 
+    def compress_decompress(self, u, x) -> torch.Tensor:
+        """Row stack: each row's two means, taken along the row."""
+        pos = x >= 0
+        npos = torch.clamp_min(pos.sum(-1, keepdim=True), 1)
+        nneg = torch.clamp_min((~pos).sum(-1, keepdim=True), 1)
+        mu_pos = torch.where(pos, x, 0.0).sum(-1, keepdim=True) / npos
+        mu_neg = torch.where(pos, 0.0, x).sum(-1, keepdim=True) / nneg
+        return torch.where(pos, mu_pos, mu_neg)
+
     def wire_bits(self, n) -> float:
         return n * 1.0 + 64
 
@@ -81,10 +116,20 @@ class TernGrad:
     reduce_mode: str = "none"
     clip_sigma: float = 0.0
     wire_reduce = "tern_acc"  # compressed-domain: 2-bit packed wire
+    BATCH_KNOBS = ("clip_sigma",)
     #: clip_sigma only rescales values, so the (tern, scale) payload keeps
     #: its shape whatever its value
     RUNTIME_KNOBS = ("clip_sigma",)
     NEEDS_NOISE = True
+
+    def roundtrip_p(self, u, x, p):
+        cs = knob(p, "clip_sigma", self.clip_sigma, x)
+        bound = cs * torch.std(x, dim=-1, correction=0, keepdim=True)
+        x = torch.where(cs > 0, torch.minimum(torch.maximum(x, -bound), bound), x)
+        s = torch.clamp_min(torch.amax(torch.abs(x), dim=-1, keepdim=True), 1e-30)
+        b = (u < torch.abs(x) / s).to(f32)
+        bits = torch.full((x.shape[0],), x.shape[1] * 2.0 + 32, dtype=f32, device=x.device)
+        return torch.sign(x) * b * s, bits
 
     def compress_p(self, u, x, p, out=None) -> Compressed:
         """``out``: optional {"tern": int8 (n,)} buffer for the codes."""
@@ -123,11 +168,20 @@ class QSGD:
     unbiased: bool = True
     reduce_mode: str = "none"
     wire_reduce = "int8_acc"  # compressed-domain: int8 codes on the wire
+    BATCH_KNOBS = ("levels",)
     RUNTIME_KNOBS = ("levels",)
     NEEDS_NOISE = True
 
     def batch_params(self, dim: int) -> dict:
         return _check_levels("qsgd", self.levels)
+
+    def roundtrip_p(self, u, x, p):
+        """Equal to decompress(compress(...)) while |l| <= 127 (int8)."""
+        s = knob(p, "levels", self.levels, x)
+        norm = row_norm(x)
+        lv = dither(u, torch.abs(x) / norm * s)
+        bits = x.shape[1] * (torch.log2(s[:, 0]) + 1) + 32
+        return torch.sign(x) * lv / s * norm, bits
 
     def runtime_params(self) -> dict:
         return _check_levels("qsgd", self.levels)
@@ -188,6 +242,9 @@ class SignSGD:
     def decompress(self, c) -> torch.Tensor:
         return c.payload["sign"].to(f32)
 
+    def compress_decompress(self, u, x) -> torch.Tensor:
+        return (x >= 0).to(f32) * 2.0 - 1.0
+
     def wire_bits(self, n) -> float:
         return n * 1.0
 
@@ -217,6 +274,10 @@ class NaturalCompression:
         mag = torch.where(e <= -127, _scalar(0.0, e), torch.exp2(e))
         return c.payload["sign"].to(f32) * mag
 
+    def compress_decompress(self, u, x) -> torch.Tensor:
+        """Row stack (elementwise: the flat pair serves any shape)."""
+        return self.decompress(self.compress(u, x))
+
     def wire_bits(self, n) -> float:
         return n * 9.0
 
@@ -233,8 +294,26 @@ class NaturalDithering:
     levels: int = 8  # L, the number of geometric levels
     unbiased: bool = True
     reduce_mode: str = "none"
+    BATCH_KNOBS = ("levels",)
     RUNTIME_KNOBS = ("levels",)
     NEEDS_NOISE = True
+
+    def roundtrip_p(self, u, x, p):
+        L = knob(p, "levels", self.levels, x)
+        norm = row_norm(x)
+        y = torch.abs(x) / norm
+        ymin = torch.exp2(-(L - 1))
+        e = torch.ceil(torch.log2(torch.maximum(y, ymin)))
+        e = torch.clamp_max(torch.maximum(e, -(L - 1)), 0.0)
+        hi = torch.exp2(e)
+        lo = hi / 2
+        small = y < ymin
+        p_hi = torch.where(small, y / ymin, (y - lo) / torch.clamp_min(hi - lo, 1e-30))
+        code = torch.where(u < p_hi, e, torch.where(small, -L, e - 1))
+        code = torch.clamp_max(torch.maximum(code, -L), 0.0)
+        mag = torch.where(code <= -L, 0.0, torch.exp2(code))
+        bits = x.shape[1] * (torch.log2(L[:, 0]) + 1) + 32
+        return torch.sign(x) * mag * norm, bits
 
     @staticmethod
     def _codes(u, x, L, ymin, zero_code, norm):

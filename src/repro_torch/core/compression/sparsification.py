@@ -15,6 +15,13 @@ interchangeable: :func:`top_k` returns ``lax.top_k``'s index set in its
 order (descending score, ties to the lower index), which ``torch.topk`` does
 not promise; :func:`quantile` is ``jnp.quantile``'s linear method with its
 f32 position (``torch.quantile`` refuses more than 2**24 elements).
+
+The convergence engine's ``roundtrip_p`` takes a (rows, dim) stack with
+per-row knobs, as the reference's does per worker under ``jax.vmap``: the
+selection knobs (k, ratio, tau, proportion, z, rank budget) are values, so
+k-selection is a rank mask (:func:`topk_mask`: a stable sort's ranks
+against each row's k), and the threshold family is plain ``where``, as in
+the reference (no kernel on this path).
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.compression.base import Compressed, register
+from repro_torch.core.compression.base import Compressed, measured_wire_bits, register
+from repro_torch.core.compression.quantization import knob
 from repro_torch.kernels import ops
 
 f32 = torch.float32
@@ -70,6 +78,43 @@ def quantile(a: torch.Tensor, q: float) -> torch.Tensor:
     return torch.where(torch.isnan(a).any(), float("nan"), r)
 
 
+def topk_mask(score: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Mask of each row's ``k`` largest scores ((rows, dim) scores, (rows, 1)
+    k): a stable descending sort breaks ties by index, as ``lax.top_k`` and
+    the reference's argsort mask do."""
+    order = torch.argsort(-score, dim=-1, stable=True)
+    rank = torch.empty_like(order)
+    rank.scatter_(-1, order, torch.arange(score.shape[-1], device=score.device)
+                  .expand_as(order).contiguous())
+    return rank < k
+
+
+def quantile_rows(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The linear-method quantile ``q`` ((rows, 1) f32) of each row of a
+    (rows, dim) stack, as a (rows, 1) column: the position ``q * (dim - 1)``
+    in f32, clamped to [0, dim - 1], interpolates the sorted row."""
+    d = a.shape[-1]
+    pos = torch.clamp(q * (d - 1.0), 0.0, d - 1.0)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    w_hi = pos - lo
+    s = torch.sort(a, dim=-1).values
+    low = torch.gather(s, -1, lo.long()) * (1.0 - w_hi)
+    return torch.gather(s, -1, torch.clamp_max(hi, d - 1.0).long()) * w_hi + low
+
+
+class _TopKRows:
+    """``roundtrip_p`` of the plain top-k family: keep each row's k largest
+    magnitudes."""
+
+    BATCH_KNOBS = ("ratio", "k")
+
+    def batch_params(self, dim: int) -> dict:
+        return {"k": k_of(dim, self.ratio, self.k)}
+
+    def _k(self, p, x) -> torch.Tensor:
+        return knob(p, "k", k_of(x.shape[1], self.ratio, self.k), x)
+
+
 class _Sparse:
     """``(values, indices)`` payloads, decoded as ``zeros(n).at[indices].set(values)``."""
 
@@ -93,13 +138,17 @@ def _masked(dense: torch.Tensor, kept: torch.Tensor) -> Compressed:
 
 @register("topk")
 @dataclass
-class TopK(_Sparse):
+class TopK(_TopKRows, _Sparse):
     """Deterministic top-k by magnitude."""
 
     ratio: float = 0.01
     k: int = 0
     unbiased: bool = False
     reduce_mode: str = "none"
+
+    def roundtrip_p(self, u, x, p):
+        k = self._k(p, x)
+        return torch.where(topk_mask(torch.abs(x), k), x, 0.0), (k * 64.0)[:, 0]
 
     def compress(self, u, x, out=None) -> Compressed:
         idx = top_k(torch.abs(x), k_of(x.numel(), self.ratio, self.k))
@@ -120,7 +169,7 @@ class GTopK(TopK):
 
 @register("randomk")
 @dataclass
-class RandomK(_Sparse):
+class RandomK(_TopKRows, _Sparse):
     """Random-k: the top k of the uniform draws ``u``, a uniform k-subset;
     with ``scale=True`` the values are scaled by n/k (unbiased)."""
 
@@ -133,6 +182,11 @@ class RandomK(_Sparse):
     @property
     def unbiased(self) -> bool:
         return self.scale
+
+    def roundtrip_p(self, u, x, p):
+        k = self._k(p, x)
+        vals = x * (x.shape[1] / k) if self.scale else x
+        return torch.where(topk_mask(u, k), vals, 0.0), (k * 64.0)[:, 0]
 
     def compress(self, u, x, out=None) -> Compressed:
         n = x.numel()
@@ -157,6 +211,14 @@ class WangniSparsifier(_Masked):
     unbiased: bool = True
     reduce_mode: str = "sum"
     NEEDS_NOISE = True
+    BATCH_KNOBS = ("ratio",)
+
+    def roundtrip_p(self, u, x, p):
+        k = torch.clamp_min(x.shape[1] * knob(p, "ratio", self.ratio, x), 1.0)
+        denom = torch.clamp_min(torch.sum(torch.abs(x), dim=-1, keepdim=True), 1e-30)
+        prob = torch.clamp_max(k * torch.abs(x) / denom, 1.0)
+        vals = torch.where(u < prob, x / torch.clamp_min(prob, 1e-30), 0.0)
+        return vals, (k * 64.0)[:, 0]  # the expected budget, as wire_bits
 
     def compress(self, u, x, out=None) -> Compressed:
         k = max(1.0, x.numel() * self.ratio)
@@ -180,6 +242,12 @@ class FixedThreshold(_Masked):
     tau: float = 1e-3
     unbiased: bool = False
     reduce_mode: str = "sum"
+    BATCH_KNOBS = ("tau",)
+
+    def roundtrip_p(self, u, x, p):
+        """The reference's engine path is a plain where, not the kernel."""
+        out = torch.where(torch.abs(x) >= knob(p, "tau", self.tau, x), x, 0.0)
+        return out, measured_wire_bits(out)
 
     def compress(self, u, x, out=None) -> Compressed:
         dense, counts = ops.threshold_blocks(x, self.tau)
@@ -198,6 +266,13 @@ class AdaptiveThreshold(_Masked):
     proportion: float = 0.01
     unbiased: bool = False
     reduce_mode: str = "sum"
+    BATCH_KNOBS = ("proportion",)
+
+    def roundtrip_p(self, u, x, p):
+        pi = knob(p, "proportion", self.proportion, x)
+        ax = torch.abs(x)
+        out = torch.where(ax >= quantile_rows(ax, 1.0 - pi), x, 0.0)
+        return out, (torch.clamp_min(x.shape[1] * pi, 1.0) * 64.0)[:, 0]
 
     def compress(self, u, x, out=None) -> Compressed:
         tau = quantile(torch.abs(x), 1.0 - self.proportion)
@@ -210,7 +285,7 @@ class AdaptiveThreshold(_Masked):
 
 @register("sbc")
 @dataclass
-class SparseBinaryCompression(_Sparse):
+class SparseBinaryCompression(_TopKRows, _Sparse):
     """Sattler et al.: top-k, then only the sign set with the larger mean
     magnitude, every kept value replaced by that mean."""
 
@@ -218,6 +293,20 @@ class SparseBinaryCompression(_Sparse):
     k: int = 0
     unbiased: bool = False
     reduce_mode: str = "none"
+
+    def roundtrip_p(self, u, x, p):
+        k = self._k(p, x)
+        kmask = topk_mask(torch.abs(x), k)
+        pos = kmask & (x > 0)
+        neg = kmask & ~(x > 0)
+        npos = torch.clamp_min(pos.sum(-1, keepdim=True), 1)
+        nneg = torch.clamp_min(neg.sum(-1, keepdim=True), 1)
+        mu_pos = torch.where(pos, x, 0.0).sum(-1, keepdim=True) / npos
+        mu_neg = -torch.where(neg, x, 0.0).sum(-1, keepdim=True) / nneg
+        take_pos = mu_pos >= mu_neg
+        mu = torch.where(take_pos, mu_pos, -mu_neg)
+        out = torch.where(kmask & ((x > 0) == take_pos), mu, 0.0)
+        return out, (k * 33.0 + 32)[:, 0]
 
     def compress(self, u, x, out=None) -> Compressed:
         idx = top_k(torch.abs(x), k_of(x.numel(), self.ratio, self.k))
@@ -238,7 +327,7 @@ class SparseBinaryCompression(_Sparse):
 
 @register("stc")
 @dataclass
-class SparseTernaryCompression(_Sparse):
+class SparseTernaryCompression(_TopKRows, _Sparse):
     """Sattler et al.: top-k, then ternarized to sign times the mean kept
     magnitude."""
 
@@ -246,6 +335,12 @@ class SparseTernaryCompression(_Sparse):
     k: int = 0
     unbiased: bool = False
     reduce_mode: str = "none"
+
+    def roundtrip_p(self, u, x, p):
+        k = self._k(p, x)
+        kmask = topk_mask(torch.abs(x), k)
+        mu = torch.where(kmask, torch.abs(x), 0.0).sum(-1, keepdim=True) / k
+        return torch.where(kmask, torch.sign(x) * mu, 0.0), (k * 34.0 + 32)[:, 0]
 
     def compress(self, u, x, out=None) -> Compressed:
         idx = top_k(torch.abs(x), k_of(x.numel(), self.ratio, self.k))
@@ -267,6 +362,12 @@ class VarianceSparsifier(_Masked):
     z: float = 1.0
     unbiased: bool = False
     reduce_mode: str = "sum"
+    BATCH_KNOBS = ("z",)
+
+    def roundtrip_p(self, u, x, p):
+        sigma = torch.std(x, dim=-1, correction=0, keepdim=True) + 1e-30
+        out = torch.where(torch.abs(x) > knob(p, "z", self.z, x) * sigma, x, 0.0)
+        return out, measured_wire_bits(out)
 
     def compress(self, u, x, out=None) -> Compressed:
         sigma = torch.std(x, correction=0) + 1e-30  # jnp.std: the population std
@@ -298,6 +399,21 @@ class AtomoSVD:
     unbiased: bool = True
     reduce_mode: str = "none"
     NEEDS_NOISE = True
+    BATCH_KNOBS = ("rank_budget",)
+
+    def roundtrip_p(self, u, x, p):
+        """Row stack: one batched SVD; the payload truncation keeps each
+        row's 2 * budget largest kept atoms."""
+        budget = knob(p, "rank_budget", self.rank_budget, x)
+        rows, n = x.shape
+        a, b = _shape2d_exact(n)
+        U, s, Vt = torch.linalg.svd(x.reshape(rows, a, b), full_matrices=False)
+        prob = torch.clamp_max(s * budget / torch.clamp_min(s.sum(-1, keepdim=True), 1e-30),
+                               1.0)
+        s_hat = torch.where(u < prob, s / torch.clamp_min(prob, 1e-30), 0.0)
+        s_hat = torch.where(topk_mask(s_hat, 2 * budget), s_hat, 0.0)
+        out = ((U * s_hat[:, None, :]) @ Vt).reshape(rows, n)
+        return out, (2 * budget * (a + b) * 32.0)[:, 0]
 
     def noise_len(self, n: int) -> int:
         return min(_shape2d_exact(n))

@@ -40,6 +40,18 @@ def ring_mixing_matrix(n: int, w: float = 1.0 / 3.0) -> np.ndarray:
     return W
 
 
+def ring_mixing_matrix_traced(n: int, w) -> torch.Tensor:
+    """:func:`ring_mixing_matrix` with the weight as a tensor, in f32: ``w``
+    of shape (C,) (one weight per cell of a sweep) gives a (C, n, n)
+    stack, a 0-dim ``w`` one (n, n) matrix.  The convergence engine's gossip
+    mixing."""
+    w = torch.as_tensor(w, dtype=f32)
+    eye = torch.eye(n, dtype=f32, device=w.device)
+    ring = torch.roll(eye, 1, 0) + torch.roll(eye, -1, 0)
+    w = w[..., None, None]
+    return eye * (1 - 2 * w) + w * ring
+
+
 def exp_mixing_matrix(n: int) -> np.ndarray:
     """One-peer exponential graph (powers of two), averaged over rounds."""
     rounds = max(1, int(math.log2(n)))

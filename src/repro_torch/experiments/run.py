@@ -1,0 +1,211 @@
+"""Scenario-matrix sweep CLI (the port's counterpart of
+``python -m repro.experiments.run``).
+
+    PYTHONPATH=src python -m repro_torch.experiments.run \
+        --substrate timeline \
+        --grid "sync=bsp,local,asp arch=ps,allreduce,gossip compressor=none,qsgd:levels=16" \
+        --workers 16 --steps 120 --replicas 1
+
+``--grid`` is a space-separated list of ``field=v1,v2,...`` axes (any
+Scenario field).  Compressor values may carry kwargs after colons:
+``topk:ratio=0.05``.  Invalid taxonomy cells (e.g. all-reduce x ASP) are
+dropped and reported on stderr.  The default grid sweeps the paper's sync x
+architecture x compression matrix and prints a Table II-style comparison of
+measured against cost-model-predicted time and bytes.
+
+``--substrate training`` runs the convergence engine on ``--device``
+(default ``cuda``), one batch per shape class, however many cells vary the
+values (lr, staleness, H, compressor knobs, problem seed); ``--emit-json``
+records the class programs built next to the cells/s, and the batched
+engine against the loop reference on the fixed speedup cell
+(``--no-speedup`` skips it).  The reference's ``roofline`` and ``trainer``
+substrates, ``--cache-dir`` and ``--calibration`` are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+from repro_torch.experiments.scenario import Scenario, expand, grid
+
+DEFAULT_GRID = "sync=bsp,local,asp arch=ps,allreduce,gossip compressor=none,qsgd:levels=16"
+
+_FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(Scenario)}
+
+
+def _num(v: str):
+    try:
+        return int(v)
+    except ValueError:
+        try:
+            return float(v)
+        except ValueError:
+            return v
+
+
+def _coerce(field: str, raw: str):
+    t = _FIELD_TYPES.get(field, "str")
+    if field == "compressor":
+        if raw in ("none", ""):
+            return None, ()
+        name, _, rest = raw.partition(":")
+        kwargs = []
+        for part in rest.split(":") if rest else []:
+            k, _, v = part.partition("=")
+            kwargs.append((k, _num(v)))
+        return name, tuple(kwargs)
+    if raw in ("true", "True"):
+        return True
+    if raw in ("false", "False"):
+        return False
+    if "int" in str(t):
+        return int(raw)
+    if "float" in str(t):
+        return float(raw)
+    return raw
+
+
+def parse_grid(spec: str, **base) -> list[Scenario]:
+    """``"sync=bsp,local arch=ps"`` -> the raw scenario cross-product."""
+    axes: dict[str, list] = {}
+    comp_pairs: list[tuple] | None = None
+    for part in spec.split():
+        field, _, vals = part.partition("=")
+        if not vals:
+            raise ValueError(f"malformed grid axis {part!r} (want field=v1,v2)")
+        if field == "compressor":
+            comp_pairs = [_coerce("compressor", v) for v in vals.split(",")]
+        else:
+            axes[field] = [_coerce(field, v) for v in vals.split(",")]
+    scenarios = grid(**{**{k: [v] for k, v in base.items()}, **axes})
+    if comp_pairs is not None:
+        # each (name, kwargs) pair is one axis value: one compressor may
+        # appear twice with different kwargs
+        scenarios = [s.replace(compressor=name, compressor_kwargs=kw)
+                     for s in scenarios for name, kw in comp_pairs]
+    return scenarios
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.experiments.run",
+        description="sweep the survey's taxonomy matrix and emit a comparison table",
+    )
+    p.add_argument("--grid", default=DEFAULT_GRID, help=f"axis spec (default: {DEFAULT_GRID!r})")
+    p.add_argument("--substrate", default="timeline",
+                   choices=("timeline", "training", "schedule", "roofline", "trainer"))
+    p.add_argument("--workers", type=int, default=16)
+    p.add_argument("--steps", type=int, default=120)
+    p.add_argument("--replicas", type=int, default=1,
+                   help="seeds per scenario (every class batches them)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--straggler", type=float, default=1.0,
+                   help="multiplicative slowdown of worker 0 (timeline)")
+    p.add_argument("--msg-mb", type=float, default=100.0, help="dense gradient size (MB)")
+    p.add_argument("--alpha", type=float, default=1e-3, help="link latency (s)")
+    p.add_argument("--beta", type=float, default=1e-9, help="link s/byte")
+    p.add_argument("--format", default="table", choices=("table", "csv"))
+    p.add_argument("--out", default="", help="write the table here as well as stdout")
+    p.add_argument("--emit-json", default="", metavar="PATH",
+                   help="write a JSON record: per-cell measured metrics, cost-model "
+                        "predictions, relative error, sweep wall clock, and (training) "
+                        "the batched engine against the loop reference")
+    p.add_argument("--no-speedup", action="store_true",
+                   help="skip the engine-against-loop measurement in --emit-json")
+    p.add_argument("--device", default="cuda",
+                   help="the training engine's device (default cuda; cpu to run without a card)")
+    args = p.parse_args(argv)
+
+    base = dict(n_workers=args.workers, steps=args.steps, seed=args.seed, lr=args.lr,
+                straggler_slowdown=args.straggler, msg_bytes=args.msg_mb * 1e6,
+                alpha=args.alpha, beta=args.beta)
+    raw = parse_grid(args.grid, **base)
+    scenarios = expand(raw, substrate=args.substrate)
+    dropped = [s for s in raw if s not in scenarios]
+    for s in dropped:
+        print(f"# dropped invalid cell {s.tag()}: {'; '.join(s.violations(args.substrate))}",
+              file=sys.stderr)
+    if not scenarios:
+        print("no valid scenarios in the grid", file=sys.stderr)
+        return 1
+    print(f"# sweeping {len(scenarios)} scenarios on the {args.substrate} substrate "
+          f"({len(dropped)} invalid cells dropped)", file=sys.stderr)
+
+    from repro_torch.core.simulate import engine_cache_stats
+    from repro_torch.experiments.runner import (
+        NOT_PORTED,
+        measure_engine_speedup,
+        run_scenarios,
+        training_shape_key,
+    )
+    from repro_torch.experiments.tables import format_csv, format_table
+
+    if args.substrate in NOT_PORTED:
+        print(f"--substrate {args.substrate}: {NOT_PORTED[args.substrate]}", file=sys.stderr)
+        return 2
+    st0 = dataclasses.replace(engine_cache_stats())
+    t0 = time.perf_counter()
+    results = run_scenarios(scenarios, args.substrate, replicas=args.replicas,
+                            device=args.device)
+    sweep_s = time.perf_counter() - t0
+    title = (f"{args.substrate} sweep: {len(results)} cells, "
+             f"n={args.workers}, steps={args.steps}")
+    text = format_table(results, title=title) if args.format == "table" else format_csv(results)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    if args.emit_json:
+        record = emit_json_record(results, sweep_s)
+        if args.substrate == "training":
+            st1 = engine_cache_stats()
+            record["engine"] = {
+                "n_shape_classes": len({training_shape_key(s) for s in scenarios}),
+                "compiles": st1.compiles - st0.compiles,
+                "cache_hits": st1.hits - st0.hits,
+                "cells_per_s": len(results) / sweep_s,
+                "device": args.device,
+            }
+            if not args.no_speedup:
+                record["engine_speedup"] = measure_engine_speedup(device=args.device)
+        with open(args.emit_json, "w") as f:
+            json.dump(record, f, indent=2)
+        print(f"# wrote {args.emit_json}", file=sys.stderr)
+    return 0
+
+
+def emit_json_record(results, sweep_s: float) -> dict:
+    """Measured against predicted per cell (and the relative error on the
+    keys they share) and the sweep wall clock."""
+    cells = []
+    for r in results:
+        rel_err = {
+            k: abs(r.measured[k] - r.predicted[k]) / max(abs(r.predicted[k]), 1e-30)
+            for k in r.measured
+            if k in r.predicted
+            and isinstance(r.measured[k], (int, float))
+            and isinstance(r.predicted[k], (int, float))
+        }
+        cells.append({
+            "tag": r.tag,
+            "replicas": r.replicas,
+            "measured": dict(r.measured),
+            "predicted": dict(r.predicted),
+            "rel_err": rel_err,
+        })
+    return {
+        "substrate": results[0].substrate if results else "",
+        "n_cells": len(results),
+        "sweep_wall_clock_s": sweep_s,
+        "calibrated": False,
+        "cells": cells,
+    }
+
+
+if __name__ == "__main__":
+    sys.exit(main())

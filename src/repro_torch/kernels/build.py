@@ -45,6 +45,13 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "threshold": ("threshold_launch", (_P, _P, _P, _P, _LL, _P)),
     "wkv6": ("wkv6_launch", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
 }
+#: the row-batched entry points (a (rows, n) stack with per-row scalars in
+#: device memory), beside the flat ones in the same sources
+ROW_SIGNATURES: dict[str, tuple[str, tuple]] = {
+    "qsgd": ("qsgd_rows_launch", (_P, _P, _P, _P, _P, _LL, _LL, _P)),
+    "qsgd_ef": ("qsgd_ef_rows_launch", (_P, _P, _P, _P, _P, _F, _P, _P, _LL, _LL, _P)),
+    "terngrad": ("terngrad_rows_launch", (_P, _P, _P, _P, _LL, _LL, _P)),
+}
 
 
 @dataclass

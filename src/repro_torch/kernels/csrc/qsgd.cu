@@ -48,6 +48,38 @@ __global__ void qsgd_kernel(const float* __restrict__ x, const float* __restrict
   }
 }
 
+// The row-batched form (the counterpart of qsgd_2d under jax.vmap, whose
+// batching rule adds a grid axis): a contiguous (rows, n) stack, each row
+// with its own inv and levels read from device memory.  The B*n elements
+// are flattened and element i belongs to row i / n; when n % 4 == 0 a
+// thread's 4 elements share a row and move as a float4 / char4, otherwise
+// each element finds its own row.  The element arithmetic is qsgd_one's.
+__global__ void qsgd_rows_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                                 const float* __restrict__ inv, const float* __restrict__ levels,
+                                 signed char* __restrict__ out, long long total, long long n,
+                                 int vec) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long i = q * 4;
+  if (i >= total) return;
+  if (vec && i + 4 <= total) {
+    const long long row = i / n;
+    const float r_inv = __ldg(inv + row), r_lv = __ldg(levels + row);
+    const float4 xv = reinterpret_cast<const float4*>(x)[q];
+    const float4 uv = reinterpret_cast<const float4*>(u)[q];
+    char4 c;
+    c.x = qsgd_one(xv.x, uv.x, r_inv, r_lv);
+    c.y = qsgd_one(xv.y, uv.y, r_inv, r_lv);
+    c.z = qsgd_one(xv.z, uv.z, r_inv, r_lv);
+    c.w = qsgd_one(xv.w, uv.w, r_inv, r_lv);
+    reinterpret_cast<char4*>(out)[q] = c;
+  } else {
+    for (long long k = i; k < total && k < i + 4; ++k) {
+      const long long row = k / n;
+      out[k] = qsgd_one(x[k], u[k], __ldg(inv + row), __ldg(levels + row));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int qsgd_launch(const float* x, const float* u, const float* inv, float levels,
@@ -60,5 +92,20 @@ extern "C" int qsgd_launch(const float* x, const float* u, const float* inv, flo
   const long long quads = (n + 3) / 4;
   const unsigned int blocks = static_cast<unsigned int>((quads + threads - 1) / threads);
   qsgd_kernel<<<blocks, threads, 0, stream>>>(x, u, inv, levels, out, n, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qsgd_rows_launch(const float* x, const float* u, const float* inv,
+                                const float* levels, signed char* out, long long rows,
+                                long long n, cudaStream_t stream) {
+  const long long total = rows * n;
+  if (total <= 0) return 0;
+  const int vec = (n % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(u) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(out) % 4 == 0);
+  const int threads = 256;
+  const long long quads = (total + 3) / 4;
+  const unsigned int blocks = static_cast<unsigned int>((quads + threads - 1) / threads);
+  qsgd_rows_kernel<<<blocks, threads, 0, stream>>>(x, u, inv, levels, out, total, n, vec);
   return static_cast<int>(cudaGetLastError());
 }

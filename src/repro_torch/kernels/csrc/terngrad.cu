@@ -46,6 +46,33 @@ __global__ void terngrad_kernel(const float* __restrict__ x, const float* __rest
   }
 }
 
+// The row-batched form (terngrad_2d under jax.vmap): a contiguous (rows, n)
+// stack, each row with its own inv_smax read from device memory.  Element i
+// belongs to row i / n; when n % 4 == 0 a thread's 4 elements share a row
+// and move as a float4 / char4.  The element arithmetic is tern_one's.
+__global__ void terngrad_rows_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                                     const float* __restrict__ inv,
+                                     signed char* __restrict__ out, long long total, long long n,
+                                     int vec) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long i = q * 4;
+  if (i >= total) return;
+  if (vec && i + 4 <= total) {
+    const float r_inv = __ldg(inv + i / n);
+    const float4 xv = reinterpret_cast<const float4*>(x)[q];
+    const float4 uv = reinterpret_cast<const float4*>(u)[q];
+    char4 c;
+    c.x = tern_one(xv.x, uv.x, r_inv);
+    c.y = tern_one(xv.y, uv.y, r_inv);
+    c.z = tern_one(xv.z, uv.z, r_inv);
+    c.w = tern_one(xv.w, uv.w, r_inv);
+    reinterpret_cast<char4*>(out)[q] = c;
+  } else {
+    for (long long k = i; k < total && k < i + 4; ++k)
+      out[k] = tern_one(x[k], u[k], __ldg(inv + k / n));
+  }
+}
+
 }  // namespace
 
 extern "C" int terngrad_launch(const float* x, const float* u, const float* inv,
@@ -58,5 +85,20 @@ extern "C" int terngrad_launch(const float* x, const float* u, const float* inv,
   const long long quads = (n + 3) / 4;
   const unsigned int blocks = static_cast<unsigned int>((quads + threads - 1) / threads);
   terngrad_kernel<<<blocks, threads, 0, stream>>>(x, u, inv, out, n, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int terngrad_rows_launch(const float* x, const float* u, const float* inv,
+                                    signed char* out, long long rows, long long n,
+                                    cudaStream_t stream) {
+  const long long total = rows * n;
+  if (total <= 0) return 0;
+  const int vec = (n % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(u) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(out) % 4 == 0);
+  const int threads = 256;
+  const long long quads = (total + 3) / 4;
+  const unsigned int blocks = static_cast<unsigned int>((quads + threads - 1) / threads);
+  terngrad_rows_kernel<<<blocks, threads, 0, stream>>>(x, u, inv, out, total, n, vec);
   return static_cast<int>(cudaGetLastError());
 }

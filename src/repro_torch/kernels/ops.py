@@ -2,7 +2,9 @@
 ``repro.kernels.ops``: ``qsgd_quantize``, ``qsgd_dequantize``,
 ``qsgd_ef_fused``, ``int8_weighted_sum``, ``sign_pack``, ``sign_unpack``,
 ``sign_vote``, ``terngrad_quantize``, ``tern_pack``, ``tern_acc``,
-``threshold_sparsify``, ``wkv6``).
+``threshold_sparsify``, ``wkv6``), with the row-batched forms of the
+quantizers that the convergence engine calls on a (rows, n) stack
+(``*_rows``: the reference's ops under ``jax.vmap``, one launch per call).
 
 The tensor norm and max are computed here, outside the kernels, as in the
 reference;
@@ -26,7 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import LIBRARY
+from repro_torch.kernels.build import LIBRARY, ROW_SIGNATURES
 
 f32 = torch.float32
 
@@ -73,6 +75,34 @@ def _launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def _launch_rows(name: str, *args) -> None:
+    """One launch of kernel ``name``'s row-batched entry point, counted under
+    the kernel's name."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = LIBRARY.symbol(name, *ROW_SIGNATURES[name])(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"kernel {name} (rows) failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _check_stack(t: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device,
+                 what: str) -> None:
+    """A row stack handed to a kernel: contiguous, of the right type and shape,
+    on the launch's device."""
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() \
+            or t.device != device:
+        raise ValueError(f"{what}: need a contiguous {dtype} tensor of shape {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+                         f"contiguous={t.is_contiguous()}")
+
+
+def _per_row(v, rows: int, like: torch.Tensor) -> torch.Tensor:
+    """A (rows,) f32 tensor on ``like``'s device from a number or a tensor."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((rows,), float(v), dtype=f32, device=like.device)
+    return v.to(device=like.device, dtype=f32).reshape(-1).expand(rows).contiguous()
 
 
 def qsgd_codes_into(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor, levels: float,
@@ -142,6 +172,81 @@ def qsgd_ef_fused(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, levels: flo
     qsgd_ef_into(g, e, u.reshape(-1).to(device=g.device, dtype=f32), torch.reciprocal(a_norm),
                  levels, decay, codes, e_new)
     return codes, a_norm.reshape(1), e_new
+
+
+def qsgd_codes_rows_into(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor,
+                         levels: torch.Tensor, out: torch.Tensor) -> None:
+    """Kernel ``qsgd`` on a (rows, n) stack: int8 codes into ``out``, each row
+    with its own ``inv`` and ``levels`` ((rows,) f32)."""
+    rows, n = x.shape
+    for t, dt, shape, what in ((x, f32, (rows, n), "x"), (u, f32, (rows, n), "u"),
+                               (inv, f32, (rows,), "inv"), (levels, f32, (rows,), "levels"),
+                               (out, torch.int8, (rows, n), "codes")):
+        _check_stack(t, dt, shape, x.device, what)
+    if x.is_cuda:
+        _launch_rows("qsgd", x.data_ptr(), u.data_ptr(), inv.data_ptr(), levels.data_ptr(),
+                     out.data_ptr(), rows, n)
+    else:
+        out.copy_(ref.qsgd_codes_rows(x, u, inv, levels))
+
+
+def qsgd_quantize_rows(x: torch.Tensor, u: torch.Tensor, levels
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, n) x and noise u, per-row ``levels`` ((rows,) tensor or a
+    number) -> (codes int8 (rows, n), norm (rows,) f32): each row quantized
+    as :func:`qsgd_quantize` quantizes a flat vector, in one launch."""
+    x = x.to(f32).contiguous()
+    rows = x.shape[0]
+    norm = torch.clamp_min(torch.linalg.vector_norm(x, dim=-1), 1e-30)
+    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    qsgd_codes_rows_into(x, u.to(device=x.device, dtype=f32).contiguous(),
+                         torch.reciprocal(norm), _per_row(levels, rows, x), codes)
+    return codes, norm
+
+
+def qsgd_dequantize_rows(codes: torch.Tensor, norm: torch.Tensor, levels) -> torch.Tensor:
+    """Inverse of :func:`qsgd_quantize_rows` / the codes half of
+    :func:`qsgd_ef_fused_rows`: ``codes / levels * norm`` per row."""
+    lv = _per_row(levels, codes.shape[0], codes)
+    return codes.to(f32) / lv[:, None] * norm[:, None]
+
+
+def qsgd_ef_rows_into(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, inv: torch.Tensor,
+                      levels: torch.Tensor, decay: float, codes: torch.Tensor,
+                      e_out: torch.Tensor) -> None:
+    """Kernel ``qsgd_ef`` on a (rows, n) stack: codes and the new residual
+    (``e_out`` may be ``e``), each row with its own ``inv`` and ``levels``."""
+    rows, n = g.shape
+    for t, dt, shape, what in ((g, f32, (rows, n), "g"), (e, f32, (rows, n), "e"),
+                               (u, f32, (rows, n), "u"), (inv, f32, (rows,), "inv"),
+                               (levels, f32, (rows,), "levels"),
+                               (codes, torch.int8, (rows, n), "codes"),
+                               (e_out, f32, (rows, n), "e_out")):
+        _check_stack(t, dt, shape, g.device, what)
+    if g.is_cuda:
+        _launch_rows("qsgd_ef", g.data_ptr(), e.data_ptr(), u.data_ptr(), inv.data_ptr(),
+                     levels.data_ptr(), float(decay), codes.data_ptr(), e_out.data_ptr(),
+                     rows, n)
+    else:
+        c, en = ref.qsgd_ef_rows(g, e, u, inv, levels, _scalar(decay, g))
+        codes.copy_(c)
+        e_out.copy_(en)
+
+
+def qsgd_ef_fused_rows(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, levels,
+                       decay: float = 1.0):
+    """Fused EF+quantize of a (rows, n) stack, per-row ``levels``: returns
+    (codes (rows, n) int8, norm (rows,), e_new (rows, n)), each row as
+    :func:`qsgd_ef_fused` treats a flat vector, in one launch."""
+    g = g.to(f32).contiguous()
+    e = e.to(f32).contiguous()
+    rows = g.shape[0]
+    a_norm = torch.clamp_min(torch.linalg.vector_norm(e * _scalar(decay, e) + g, dim=-1), 1e-30)
+    codes = torch.empty(g.shape, dtype=torch.int8, device=g.device)
+    e_new = torch.empty_like(g)
+    qsgd_ef_rows_into(g, e, u.to(device=g.device, dtype=f32).contiguous(),
+                      torch.reciprocal(a_norm), _per_row(levels, rows, g), decay, codes, e_new)
+    return codes, a_norm, e_new
 
 
 def int8_weighted_sum(codes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -267,6 +372,63 @@ def terngrad_quantize(x: torch.Tensor, u: torch.Tensor, *,
     terngrad_codes_into(x, u.reshape(-1).to(device=x.device, dtype=f32), torch.reciprocal(smax),
                         tern)
     return tern, smax.reshape(1)
+
+
+def terngrad_codes_rows_into(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor,
+                             out: torch.Tensor) -> None:
+    """Kernel ``terngrad`` on a (rows, n) stack: ternary codes into ``out``,
+    each row with its own ``inv`` ((rows,) f32)."""
+    rows, n = x.shape
+    for t, dt, shape, what in ((x, f32, (rows, n), "x"), (u, f32, (rows, n), "u"),
+                               (inv, f32, (rows,), "inv"), (out, torch.int8, (rows, n), "tern")):
+        _check_stack(t, dt, shape, x.device, what)
+    if x.is_cuda:
+        _launch_rows("terngrad", x.data_ptr(), u.data_ptr(), inv.data_ptr(), out.data_ptr(),
+                     rows, n)
+    else:
+        out.copy_(ref.terngrad_codes_rows(x, u, inv))
+
+
+def terngrad_quantize_rows(x: torch.Tensor, u: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, n) x and noise u -> (tern int8 (rows, n), smax (rows,) f32):
+    each row as :func:`terngrad_quantize` treats a flat vector, in one
+    launch."""
+    x = x.to(f32).contiguous()
+    smax = torch.clamp_min(torch.amax(torch.abs(x), dim=-1), 1e-30)
+    tern = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    terngrad_codes_rows_into(x, u.to(device=x.device, dtype=f32).contiguous(),
+                             torch.reciprocal(smax), tern)
+    return tern, smax
+
+
+def sign_pack_rows(x: torch.Tensor) -> torch.Tensor:
+    """(rows, n) f32 -> (rows, ``sign_packed_bytes(n)``) uint8: each row's
+    padded bitmap, as :func:`sign_pack` packs a flat vector, in one launch.
+    Each row is padded with +1.0 to whole 1024-element byte-rows and the
+    stack packed flat (row r's byte-rows follow row r-1's); the byte-rows a
+    row's tile holds beyond its data are pad bits, 0xFF."""
+    x = x.to(f32)
+    rows, n = x.shape
+    m = -(-n // 1024)  # byte-rows of 128 bytes holding a row's elements
+    xp = torch.ones((rows, m * 1024), dtype=f32, device=x.device)
+    xp[:, :n] = x
+    packed = sign_pack(xp.view(-1))[:rows * m * 128].view(rows, m * 128)
+    out = torch.full((rows, sign_packed_bytes(n)), 0xFF, dtype=torch.uint8, device=x.device)
+    out[:, :m * 128] = packed
+    return out
+
+
+def sign_unpack_rows(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`sign_pack_rows`: (rows, bytes) -> (rows, n) +-1.0
+    f32, in one launch over the byte-rows that hold the elements."""
+    rows = packed.shape[0]
+    m = -(-n // 1024)
+    if packed.dim() != 2 or packed.dtype != torch.uint8 or packed.shape[1] < m * 128:
+        raise ValueError(f"packed: need a uint8 (rows, bytes) stack covering {n} elements per "
+                         f"row, got {packed.dtype} {tuple(packed.shape)}")
+    head = packed[:, :m * 128].contiguous().view(-1)
+    return sign_unpack(head, rows * m * 1024).view(rows, m * 1024)[:, :n]
 
 
 def tern_packed_bytes(n: int) -> int:

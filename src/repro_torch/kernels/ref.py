@@ -42,6 +42,20 @@ def qsgd_ef(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, inv: torch.Tensor
     return code.to(torch.int8), a - deq
 
 
+def qsgd_codes_rows(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor,
+                    levels: torch.Tensor) -> torch.Tensor:
+    """:func:`qsgd_codes` of a (rows, n) stack, with ``inv`` and ``levels``
+    (rows,) broadcast along each row."""
+    return qsgd_codes(x, u, inv[:, None], levels[:, None])
+
+
+def qsgd_ef_rows(g: torch.Tensor, e: torch.Tensor, u: torch.Tensor, inv: torch.Tensor,
+                 levels: torch.Tensor, decay: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`qsgd_ef` of a (rows, n) stack, with ``inv`` and ``levels``
+    (rows,) broadcast along each row and one ``decay``."""
+    return qsgd_ef(g, e, u, inv[:, None], levels[:, None], decay)
+
+
 def _bit_shifts(device) -> torch.Tensor:
     """Bit k of a packed byte holds slot k: shifts 0..7 along the slot axis."""
     return torch.arange(8, dtype=torch.uint8, device=device).view(1, 8, 1)
@@ -77,6 +91,12 @@ def terngrad_codes(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor) -> torch
     1 / max|x|`` (a multiply by the reciprocal, as the kernel does)."""
     b = (u < torch.abs(x) * inv).to(f32)
     return (torch.sign(x) * b).to(torch.int8)
+
+
+def terngrad_codes_rows(x: torch.Tensor, u: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """:func:`terngrad_codes` of a (rows, n) stack, with ``inv`` (rows,)
+    broadcast along each row."""
+    return terngrad_codes(x, u, inv[:, None])
 
 
 def _crumb_shifts(device) -> torch.Tensor:
