@@ -32,7 +32,9 @@ result line:
    tensor-core design (prefill), timed at the decode shape and at the
    prefill shape (the recurrent design beside the chunked one, in turns),
    the latter beside its bound, with the chunked design's registers,
-   shared memory and resident CTAs per SM;
+   shared memory and resident CTAs per SM; the decode shape's call also as
+   the kernel's own device time from torch.profiler, beside the host-bound
+   call time;
 4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
    weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
    global batch 8, twelve paths: QSGD (16 levels) on the int8 compressed wire
@@ -92,7 +94,23 @@ result line:
    for (ac)-(af) by axes too) and peak memory, and the launch counts of its
    kernels: exactly its own kernels must launch, each as many times as the
    path's buckets, workers (or pods), rounds and kernel-running steps call
-   it.  ``--profile`` adds
+   it.  Then the churn and integrity paths, 4 steps each, the churn
+   window over steps 1-3: (ag) the qsgd EF path under 30% dropout,
+   ``reset``; (ah) the same at ``churn=True`` and dropout 0 beside its
+   churn-free twin, both under deterministic algorithms: losses and
+   parameters within rtol 1e-6 (bitwise printed); (ai) terngrad_kernel EF
+   on the 2-bit wire under 60% bitflip corruption, ``quarantine_limit`` 2:
+   it must quarantine rounds, and its tallies must agree with a recount
+   from its printed per-worker flags; (aj) local SGD H 2 with qsgd_kernel
+   EF under 30% dropout, ``pull_avg`` (the donors' average; local SGD
+   aggregates no gradient, so no kernel runs, as in its twin); (ak)
+   signsgd_packed EF on the 1-bit wire under 30% dropout; (al) the
+   staleness-1 pipelined qsgd EF path (M 2) under 30% dropout; (am)
+   pod-local SGD (2 pods x 2, H 2, qsgd EF) under 30% dropout.  Each prints
+   its live mask and n_eff per step, its quarantine and escalation
+   tallies, its booked wire by tag, format and axes, peak memory and step
+   ms, and must launch exactly its churn-free twin's kernels.
+   ``--profile`` adds
    one more step of the QSGD EF path, or of each path named by its label,
    under torch.profiler (device-busy share, device time by kernel, host
    time by operation), not counted as launches;
@@ -149,7 +167,20 @@ result line:
    table printed.  Before it the three row kernels are held against their
    plain versions at (rows, n) = (432, 64) (a class of E2: 18 cells x 3
    replicas x 8 workers; timed), (2160, 64), (1, 100003) and (100003, 1),
-   with per-row levels: codes bitwise, e' within rtol 1e-6.
+   with per-row levels: codes bitwise, e' within rtol 1e-6.  Then the
+   engine's churn legs, BENCH_churn.json's engine configurations at their
+   sizes: (C1) {qsgd 4, qsgd 16, adaptive_qsgd var_target 0.5} x dropout
+   {0, 0.1, 0.3}, BSP, EF, 8 workers, 250 steps, 3 replicas: 2 class
+   programs, every trajectory finite and converging, adaptive below a
+   static policy at 30%; (C1k) its static policies through qsgd_kernel:
+   qsgd_ef rows once per class step; (C2) local SGD H 5 under 30% dropout
+   in [50, 150), 200 steps, ``reset`` against ``pull_avg``: one class
+   program each, the pull's download booked; (C3) corruption {none,
+   bitflip, nan} x {qsgd 16, adaptive_qsgd}, BSP, EF, rate 0.1, 200 steps:
+   6 class programs, tallies booked, each within 2x of its clean twin's
+   final loss; and a dropout-0 churn cell against its churn-free twin
+   within rtol 1e-5 / atol 1e-6 (bitwise printed).  Each prints its wall,
+   cells/s, class programs, launches and peak MiB.
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -177,6 +208,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.core import aggregate  # noqa: E402
 from repro_torch.core import simulate  # noqa: E402
 from repro_torch.core import sync  # noqa: E402
 from repro_torch.core.compression.powersgd import shape2d  # noqa: E402
@@ -184,6 +216,7 @@ from repro_torch.core.types import CommConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticBatches  # noqa: E402
 from repro_torch.experiments import run as sweep_cli  # noqa: E402
 from repro_torch.experiments import runner  # noqa: E402
+from repro_torch.experiments.scenario import Scenario  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import LIBRARY  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -563,6 +596,25 @@ def _wkv6_inputs(B: int, S: int, H: int, hd: int, dtype: torch.dtype, seed: int,
     return r, k, v, w, u, s0
 
 
+def wkv6_device_ms(fn, iters: int) -> float:
+    """The wkv6 kernel's own device time per launch over ``iters`` calls of
+    ``fn``, from torch.profiler (CUDA events around the calls time the
+    host-bound enqueue instead)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and "wkv6" in e.key]
+    count = sum(e.count for e in ev)
+    if not count:
+        raise AssertionError("wkv6: the profiler saw no device time of the kernel")
+    return sum(e.self_device_time_total for e in ev) / 1e3 / count
+
+
 def check_wkv6() -> dict[str, dict]:
     """Kernel wkv6 against its plain version: y within rtol 3e-4 / atol 3e-5;
     sT bitwise on the recurrent design (S < ops.WKV6_CHUNK) and within rtol
@@ -603,9 +655,13 @@ def check_wkv6() -> dict[str, dict]:
                           f"{float((y - ty).abs().max()):.2e}, sT {float((sT - ts).abs().max()):.2e}")
         if shape[1] == 1 and shape[0] == SERVE_B:
             b_ms, b_by = wkv6_bound(*shape, in_bytes=2)
-            detail.append(f"{shape} {ms_per_call(lambda: ops.wkv6(*args), 20):.4f} ms per call "
-                          f"(bound {b_ms:.4f} ms by {b_by}, nearly all of it the state)")
-    out = {"max_abs_err": err, "ok": ok, "detail": "; ".join(detail)}
+            call_ms = ms_per_call(lambda: ops.wkv6(*args), 20)
+            dev_ms = wkv6_device_ms(lambda: ops.wkv6(*args), 20)
+            decode = dict(decode_ms=call_ms, decode_device_ms=dev_ms)
+            detail.append(f"{shape} {call_ms:.4f} ms per call (host-bound), "
+                          f"{dev_ms:.4f} ms of device time per launch (profiler) (bound "
+                          f"{b_ms:.4f} ms by {b_by}, nearly all of it the state)")
+    out = {"max_abs_err": err, "ok": ok, "detail": "; ".join(detail), **decode}
     recurrent = lambda: ops._wkv6_launch(*args, chunked=False)  # noqa: E731
     chunked = lambda: ops._wkv6_launch(*args, chunked=True)  # noqa: E731
     turns = [ms_per_call(f, 20) for f in (recurrent, chunked, chunked, recurrent)]
@@ -722,6 +778,39 @@ PATHS = (
     ("zero1 local sgd", dict(sync="local", local_steps=2), 4, 0.01, {},
      {"opt": "zero1", "rows": "equal"}),
 )
+#: (ag)-(am), the churn and integrity paths: 4 steps, the churn window over
+#: steps 1-3; each launches its churn-free twin's kernels.  build "churn"
+#: prints the live masks and tallies per step; "keep" keeps the losses and
+#: parameters for (ah)'s comparison, run under deterministic algorithms
+WINDOW = dict(churn_start=1, churn_end=4)
+DROP30 = dict(dropout_rate=0.3, **WINDOW)
+QSGD_EF = dict(error_feedback=True, **QSGD16)
+CHURN_PATHS = (
+    ("(ag) qsgd ef dropout", dict(**QSGD_EF, **DROP30), 4, 0.01,
+     {"qsgd_ef": SEND, "int8_acc": RECV}, {"churn": True}),
+    ("(ah) twin qsgd ef", dict(**QSGD_EF), 4, 0.01,
+     {"qsgd_ef": SEND, "int8_acc": RECV}, {"keep": True}),
+    ("(ah) qsgd ef churn0", dict(**QSGD_EF, churn=True), 4, 0.01,
+     {"qsgd_ef": SEND, "int8_acc": RECV}, {"churn": True, "keep": True}),
+    ("(ai) terngrad ef bitflip", dict(compressor="terngrad_kernel", wire_format="compressed",
+                                      error_feedback=True, corruption_rate=0.6,
+                                      corruption_kind="bitflip", quarantine_limit=2), 4, 0.01,
+     {"terngrad": SEND, "tern_pack": SEND, "tern_acc": RECV}, {"churn": True}),
+    # local SGD aggregates no gradient: its compressor never runs, as in its twin
+    ("(aj) local pull_avg", dict(sync="local", local_steps=2, rejoin_policy="pull_avg",
+                                 **QSGD_EF, **DROP30), 4, 0.01, {}, {"churn": True}),
+    ("(ak) signsgd_packed ef dropout", dict(compressor="signsgd_packed",
+                                            wire_format="compressed", error_feedback=True,
+                                            **DROP30), 4, SIGN_LR,
+     {"sign_pack": SEND, "sign_vote": RECV}, {"churn": True}),
+    ("(al) pipelined s1 dropout", dict(overlap="pipelined", **QSGD_EF, **DROP30), 4, 0.01,
+     {"qsgd_ef": 2 * SEND, "int8_acc": 2 * RECV}, {"microbatch": 2, "churn": True}),
+    ("(am) pod-local dropout", dict(pod_local=True, local_steps=2, **QSGD_EF, **DROP30), 4, 0.01,
+     {"qsgd_ef": SEND, "int8_acc": RECV * PODS}, {"pods": PODS, "churn": True}),
+)
+#: (ah)'s twin and churn run: (losses, parameter leaves)
+KEPT: dict[str, tuple] = {}
+
 #: the wire tag each new path must book, and the program that books it
 SCHEME_TAGS = {"local sgd": ("sync", "local_sgd_sync"),
                "pod-local qsgd ef": ("sync", "local_sgd_sync"),
@@ -849,20 +938,83 @@ def profile_one_step(run, what: str, step_ms: float) -> None:
         print(f"    {cpu(e):9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+class ChurnRecorder:
+    """The default churn draws, each (step, worker, round)'s pair kept."""
+
+    def __init__(self):
+        self.draws, self.seen = aggregate.seeded_churn_draws(0, DEV), {}
+
+    def __call__(self, step, worker, rnd=None):
+        self.seen[(step, worker, rnd)] = got = self.draws(step, worker, rnd)
+        return got
+
+
+def churn_line(comm: CommConfig, state, prev: dict, rec: ChurnRecorder, t: int) -> str:
+    """One step's churn state: the live mask and n_eff (the live count),
+    the pods' sync bits, and in the integrity program each worker's
+    corruption flag (its recorded draw below the rate, alive, in the window)
+    and its rounds quarantined this step (the tally's increment)."""
+    c = state["comm"]
+    alive = c["alive_prev"].tolist()
+    out = f"; live mask {[int(a) for a in alive]} n_eff {max(sum(alive), 1.0):g}"
+    if "pod_alive_prev" in c:
+        out += f" pod bits {[int(a) for a in c['pod_alive_prev'].tolist()]}"
+    if "quarantine_total" in c:
+        window = aggregate.in_window(comm, t)
+        flags = [int(window and alive[w] > 0 and float(rec.seen[(t, w, None)][1])
+                     < comm.corruption_rate) for w in range(W)]
+        q = [int(a - b) for a, b in zip(c["quarantine_total"].tolist(), prev.get("q", [0] * W))]
+        prev["q"] = c["quarantine_total"].tolist()
+        prev.setdefault("flags", []).append(flags)
+        prev.setdefault("quarantined", []).append(q)
+        out += (f"; corruption flags {flags} quarantined {q} qcount "
+                f"{[int(x) for x in c['qcount'].tolist()]} escalations "
+                f"{[int(x) for x in c['escalation_total'].tolist()]}")
+    return out
+
+
+def recount_quarantine(label: str, comm: CommConfig, state, prev: dict) -> None:
+    """The integrity path's tallies against a recount from its printed
+    per-worker flags: a quarantined round was flagged, the counter rule
+    (cleared by a valid round, escalating at the limit) gives the
+    escalations, and the path quarantined at least one round."""
+    q_rounds = np.asarray(prev["quarantined"])
+    flags = np.asarray(prev["flags"])
+    count, esc = np.zeros(W), np.zeros(W)
+    for qt in q_rounds:
+        count = np.where(qt > 0, count + 1, 0)
+        hit = count >= comm.quarantine_limit
+        esc += hit
+        count[hit] = 0
+    c = state["comm"]
+    got_q, got_e = c["quarantine_total"].tolist(), c["escalation_total"].tolist()
+    print(f"  tallies: quarantined rounds {got_q}, escalations {got_e}; recount from the "
+          f"printed flags: quarantined {q_rounds.sum(0).tolist()}, escalations {esc.tolist()}, "
+          f"flagged {flags.sum(0).tolist()}")
+    if (q_rounds > flags).any() or q_rounds.sum() == 0 or esc.tolist() != got_e \
+            or q_rounds.sum(0).tolist() != got_q:
+        raise AssertionError(f"path {label}: tallies {got_q} / {got_e} disagree with the "
+                             f"recount or nothing was quarantined")
+
+
 def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | None = None,
                 profile_step: bool = False) -> dict[str, int]:
     """One trainer path; ``build`` may set "opt" (a key of OPTIMIZERS),
     "clip_norm", "microbatch", "pods", "rows" (a check of the parameter
-    rows after each step: "pods" or "equal") and "eval" (one eval_step
-    after the steps).  Returns the launches of the run's steps."""
+    rows after each step: "pods" or "equal"), "eval" (one eval_step
+    after the steps), "churn" (print the churn state after each step) and
+    "keep" (keep the losses and parameters in KEPT; deterministic
+    algorithms on).  Returns the launches of the run's steps."""
     cfg = get_config("qwen3-0.6b")
     shape = InputShape("train_1k", 1024, 8, "train")
     build = build or {}
     t0 = time.perf_counter()
+    rec = ChurnRecorder()
     bundle = build_bundle(cfg, CommConfig(**comm_kw), OPTIMIZERS[build.get("opt", "momentum")](),
                           shape, n_workers=W, seed=0, device=DEV,
                           clip_norm=build.get("clip_norm", 0.0),
-                          microbatch=build.get("microbatch", 1), pods=build.get("pods", 1))
+                          microbatch=build.get("microbatch", 1), pods=build.get("pods", 1),
+                          churn_draws=rec)
     if label in SCHEME_TAGS:
         program, tag = SCHEME_TAGS[label]
         if not bundle.wire[program].get(tag):
@@ -885,8 +1037,11 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
           f"{sum(b.size for b in bundle.bucket_plan.buckets)} params, build+init "
           f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
+    det = torch.are_deterministic_algorithms_enabled()
+    if build.get("keep"):
+        torch.use_deterministic_algorithms(True, warn_only=True)
     ops.reset_launches()
-    step_ms = []
+    step_ms, churn_prev = [], {}
     for t in range(steps):
         t1 = time.perf_counter()
         state = tr.fit(state, 1, start_step=t)
@@ -897,12 +1052,20 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
                 if "kept" in tr.history[-1] else "")
         if build.get("rows"):
             kept += check_rows(label, build["rows"], bundle.comm, state, t)
+        if build.get("churn"):
+            kept += churn_line(bundle.comm, state, churn_prev, rec, t)
         print(f"  step {t}: loss {loss:.6f} ce {tr.history[-1]['ce']:.6f} "
               f"step_ms {step_ms[-1]:.1f}{kept}")
         if not math.isfinite(loss):
             raise AssertionError(f"non-finite loss at step {t}: {loss}")
     launches = dict(ops.LAUNCHES)  # read before the eval and profiled steps, if any
     peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.use_deterministic_algorithms(det)
+    if "flags" in churn_prev:
+        recount_quarantine(label, bundle.comm, state, churn_prev)
+    if build.get("keep"):
+        KEPT[label] = ([h["loss"] for h in tr.history],
+                       {k: v.detach().clone() for k, v in _tensor_leaves(state["params"]).items()})
     if build.get("eval"):
         t1 = time.perf_counter()
         ev = float(bundle.eval_step(state, tr._put(tr.data.batch(steps))))
@@ -926,7 +1089,7 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
                    for p in programs}
         booked = (f"KB per call by program and tag {per_call}, by format {formats}; "
                   f"{wire_per_step(bundle, steps) / 1e3:.3f} KB/step over the run")
-    if label in AXES_CHECKS:
+    if label in AXES_CHECKS or build.get("churn"):
         axes = {p: {",".join(a): round(v / 1e3, 3) for a, v in bundle.logs[p].by_axes().items()}
                 for p in programs}
         booked += f"; KB per call by program and axes {axes}"
@@ -1284,6 +1447,129 @@ def run_engine(card: str) -> dict[str, int]:
     return launches
 
 
+def check_churn_twin() -> None:
+    """(ah): the dropout-0 churn path against its churn-free twin, both
+    under deterministic algorithms from one seed: losses and every
+    parameter within rtol 1e-6."""
+    (lt, pt), (lc, pc) = KEPT.pop("(ah) twin qsgd ef"), KEPT.pop("(ah) qsgd ef churn0")
+    bad = [k for k in pt if not _close(pc[k].float(), pt[k].float(), rtol=1e-6, atol=0.0)]
+    bitwise = lt == lc and all(torch.equal(pc[k], pt[k]) for k in pt)
+    print(f"(ah) churn=True at dropout 0 against the churn-free twin: losses {lc} / {lt}; "
+          f"{len(pt)} parameter leaves, {len(bad)} outside rtol 1e-6; bitwise {bitwise}")
+    if bad or not np.allclose(lc, lt, rtol=1e-6, atol=0.0):
+        raise AssertionError(f"(ah): the churn path left its twin: losses {lc} / {lt}, {bad}")
+
+
+#: BSP churn cells of BENCH_churn.json's engine leg (benchmarks/churn_bench.py
+#: churn_matrix): 3 policies x 3 dropout rates, 8 workers, 250 steps
+CHURN_POLICIES = (("qsgd", {"levels": 4}), ("qsgd", {"levels": 16}),
+                  ("adaptive_qsgd", {"var_target": 0.5}))
+CHURN_RATES = (0.0, 0.1, 0.3)
+
+
+def _bench_cell(**kw) -> Scenario:
+    base = dict(sync="bsp", n_workers=8, steps=250, lr=0.05, error_feedback=True, churn=True,
+                seed=0)
+    return Scenario(**{**base, **kw})
+
+
+def _leg_line(label: str, card: str, cells: list, wall: float, built: int, peak: float,
+              launches: dict) -> str:
+    return (f"engine {label} ({card}): {len(cells)} cells x 3 replicas x "
+            f"{cells[0].n_workers} workers, {cells[0].steps} steps: wall {wall:.3f} s "
+            f"({len(cells) / wall:.1f} cells/s), {built} class programs, launches {launches}, "
+            f"peak {peak:.1f} MiB")
+
+
+def _converges(label: str, results: list) -> dict:
+    """Each cell's replica-mean loss series: finite and ending below its
+    start; returns them by tag."""
+    out = {}
+    for r in results:
+        loss = r.series["loss"].mean(axis=0)
+        if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+            raise AssertionError(f"engine {label}: {r.tag} does not converge: {loss[[0, -1]]}")
+        out[r.tag] = loss
+    return out
+
+
+def run_churn_engine(card: str) -> int:
+    """The churn legs C1, C1k, C2, C3 and the dropout-0 twin; returns the
+    qsgd_ef row launches (C1k)."""
+    c1 = [_bench_cell(compressor=c, compressor_kwargs=kw, dropout_rate=r)
+          for c, kw in CHURN_POLICIES for r in CHURN_RATES]
+    simulate.engine_cache_clear()
+    res, wall, peak, built = _sweep("C1", c1, 3, {})
+    print(_leg_line("C1 churn", card, c1, wall, built, peak, {}))
+    loss = _converges("C1", res)
+    final = {(c.compressor, dict(c.compressor_kwargs).get("levels"), c.dropout_rate):
+             float(loss[r.tag][-1]) for c, r in zip(c1, res)}
+    adaptive = final[("adaptive_qsgd", None, 0.3)]
+    statics = [final[("qsgd", lv, 0.3)] for lv in (4, 16)]
+    print(f"  final losses at 30% dropout: adaptive_qsgd {adaptive:.6f}, static qsgd 4 / 16 "
+          f"{statics[0]:.6f} / {statics[1]:.6f}; by cell {final}")
+    if built != 2 or not adaptive < max(statics):
+        raise AssertionError(f"engine C1: {built} class programs (want 2); adaptive {adaptive} "
+                             f"against statics {statics}")
+
+    c1k = [c.replace(compressor="qsgd_kernel") for c in c1 if c.compressor == "qsgd"]
+    steps = c1k[0].steps
+    res_k, wall, peak, built = _sweep("C1k", c1k, 3, {"qsgd_ef": steps})
+    print(_leg_line("C1k qsgd_kernel", card, c1k, wall, built, peak, {"qsgd_ef": steps}))
+    _converges("C1k", res_k)
+    if built != 1:
+        raise AssertionError(f"engine C1k: {built} class programs, want 1")
+
+    twin = [c.replace(churn=False) for c in c1 if c.dropout_rate == 0.0]
+    res_t, _, _, _ = _sweep("C1 churn-free twins", twin, 3, {})
+    churn0 = [r for c, r in zip(c1, res) if c.dropout_rate == 0.0]
+    dev, over = _series_dev(churn0, res_t, rtol=1e-5, atol=1e-6)
+    bitwise = all(np.array_equal(a.series[k], b.series[k]) for a, b in zip(churn0, res_t)
+                  for k in ("loss", "consensus", "bits"))
+    print(f"engine dropout-0 churn cells against their churn-free twins ({card}): "
+          f"{len(twin)} cells, largest |d| / (1e-6 + 1e-5 |twin|) {dev:.3g}, bitwise {bitwise}")
+    if over or _bits_dev(churn0, res_t) > 1e-6:
+        raise AssertionError(f"engine: a dropout-0 churn cell left its twin ({dev})")
+
+    window = dict(sync="local", local_steps=5, steps=200, compressor="qsgd",
+                  compressor_kwargs={"levels": 16}, dropout_rate=0.3, churn_start=50,
+                  churn_end=150)
+    c2 = [_bench_cell(**window, rejoin_policy=p) for p in ("reset", "pull_avg")]
+    simulate.engine_cache_clear()
+    res2, wall, peak, built = _sweep("C2", c2, 3, {})
+    print(_leg_line("C2 rejoin", card, c2, wall, built, peak, {}))
+    _converges("C2", res2)
+    gb = {c.rejoin_policy: r.measured["gbits"] for c, r in zip(c2, res2)}
+    print(f"  Gbits reset {gb['reset']:.6f}, pull_avg {gb['pull_avg']:.6f} (the pull's "
+          f"download); final loss {[round(r.measured['final_loss'], 6) for r in res2]}")
+    if built != 2 or not gb["pull_avg"] > gb["reset"]:
+        raise AssertionError(f"engine C2: {built} class programs (want 2), Gbits {gb}")
+
+    c3 = [_bench_cell(steps=200, compressor=c, compressor_kwargs=kw, dropout_rate=0.0,
+                      corruption_rate=0.1 if kind != "none" else 0.0, corruption_kind=kind)
+          for c, kw in (("qsgd", {"levels": 16}), ("adaptive_qsgd", {"var_target": 0.5}))
+          for kind in ("none", "bitflip", "nan")]
+    simulate.engine_cache_clear()
+    res3, wall, peak, built = _sweep("C3", c3, 3, {})
+    print(_leg_line("C3 integrity", card, c3, wall, built, peak, {}))
+    _converges("C3", res3)
+    clean = {c.compressor: r.measured["final_loss"] for c, r in zip(c3, res3)
+             if c.corruption_kind == "none"}
+    for c, r in zip(c3, res3):
+        m = r.measured
+        if c.corruption_kind == "none":
+            continue
+        print(f"  {r.tag}: final loss {m['final_loss']:.6f} (clean twin "
+              f"{clean[c.compressor]:.6f}), quarantined rounds {m['quarantine_rounds']:g}, "
+              f"quarantined Gbits {m['quarantined_gbits']:.6g}, escalations {m['escalations']:g}")
+        if not (m["quarantine_rounds"] > 0 and m["quarantined_gbits"] > 0
+                and m["final_loss"] <= 2.0 * clean[c.compressor]):
+            raise AssertionError(f"engine C3: {r.tag}: {m}")
+    if built != 6:
+        raise AssertionError(f"engine C3: {built} class programs, want 6")
+    return steps
+
+
 def check_rwkv_path() -> None:
     """rwkv6-3b at full width, f32, 4 layers: prefill and 8 decode steps
     through kernel wkv6 against the plain wkv_scan fed the same tokens."""
@@ -1359,7 +1645,7 @@ def main() -> None:
     profile = ap.parse_args().profile
     if profile is not None:
         profile = set(profile or [PATHS[0][0]])
-        unknown = profile - {p[0] for p in PATHS} - {"serve"}
+        unknown = profile - {p[0] for p in PATHS + CHURN_PATHS} - {"serve"}
         if unknown:
             ap.error(f"--profile: no path labelled {sorted(unknown)}")
     t_start = time.perf_counter()
@@ -1391,6 +1677,9 @@ def main() -> None:
     require(wkv, 0)
     print(f"kernel wkv6: {wkv['wkv6']['detail']}")
     w6 = wkv["wkv6"]
+    print(f"kernel wkv6 at the decode shape ({SERVE_B}, 1, 32, 80) bf16: {w6['decode_ms']:.4f} ms "
+          f"per call on the host clock, {w6['decode_device_ms']:.4f} ms of the kernel's own "
+          f"device time per launch (torch.profiler)")
     print(f"kernel wkv6 at the prefill shape {WKV6_PREFILL} bf16, in turns (recurrent, chunked, "
           f"chunked, recurrent): {', '.join(f'{t:.4f}' for t in w6['turns'])} ms; recurrent "
           f"{w6['recurrent_ms']:.4f} ms against its CUDA-core bound "
@@ -1430,6 +1719,16 @@ def main() -> None:
     print(f"step ms, pipelined staleness 1 (ad) against sequential (ab), qsgd EF, 2 "
           f"microbatches: {STEP_MS['pipelined s1 qsgd ef']:.1f} / "
           f"{STEP_MS['microbatch qsgd ef']:.1f}")
+    for label, comm_kw, steps, lr, path_kernels, *build in CHURN_PATHS:
+        got = run_trainer(label, comm_kw, steps, lr, *build,
+                          profile_step=profile is not None and label in profile)
+        want = {k: path_kernels.get(k, 0) * kernel_steps(CommConfig(**comm_kw), steps)
+                for k in got}
+        if got != want:
+            raise AssertionError(f"path {label}: must launch exactly its twin's {want}: {got}")
+        for k, v in got.items():
+            launches[k] += v
+    check_churn_twin()
     check_checkpoint()
     check_pipelined_staleness0()
     row_checks = {}
@@ -1440,6 +1739,7 @@ def main() -> None:
     print("row kernels at (rows, n) = (432, 64), (2160, 64), (1, 100003), (100003, 1) with per-row "
           "levels: codes bitwise, e' within rtol 1e-6")
     engine_launches = run_engine(card)
+    engine_launches["qsgd_ef"] += run_churn_engine(card)
     check_rwkv_path()
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
     for name, r in row_checks.items():

@@ -15,8 +15,7 @@ gradients never live at once; :func:`aggregate_buckets` runs both halves
 over already-stacked (W, n) gradients.  :class:`GroupedRound` runs one
 round per pod of a two-level layout, each over that pod's D workers.
 
-The reductions, per bucket (:func:`bucket_route`; churn and integrity
-arguments stay out):
+The reductions, per bucket (:func:`bucket_route`):
 
 * ``dense``: no compressor, dense wire: an all-reduce of ``a`` in
   ``agg_dtype`` (f32, or bf16 rounded after every addition as the
@@ -56,6 +55,24 @@ arguments stay out):
   for ``threshold`` and ``adaptive_threshold``).
 
 gTop-k's ``re_sparsify`` then keeps the k largest magnitudes of the mean.
+
+Churn and integrity (:class:`Liveness`, the reference's masked program):
+a round carries each worker's participation bit ``alive`` and, in the
+integrity program, its corruption flag.  Every worker still compresses
+every bucket; the mask selects afterwards.  A rejoiner's EF and momentum
+rows reset before the round; a masked or quarantined worker's rows freeze.
+A flagged worker's wire payload is corrupted in its own domain after
+compression (its EF works against the clean one), each row is validated
+with the redundancy its format has (:mod:`repro_torch.core.integrity`), and
+an invalid row is selected out of the reduction for the round.  Alive times
+validity enters the reductions only through the weights the wire kernels
+already take (``int8_acc``, ``sign_vote``, ``tern_acc``), or as a select on
+the psum and gather routes; the mean divides by the live (and valid) count
+``n_eff`` (a booked scalar psum, or the gathered bits), so a churn round
+launches exactly the kernels of its churn-free twin.  After the buckets,
+``quarantine_limit`` consecutive quarantined rounds escalate: the worker's
+EF and momentum rows reset, and ``qcount``, ``quarantine_total`` and
+``escalation_total`` keep the tallies (one entry per worker).
 """
 
 from __future__ import annotations
@@ -67,7 +84,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from repro_torch.core import collectives, comms, feedback
+from repro_torch.core import collectives, comms, feedback, integrity
 from repro_torch.core.compression.base import (
     Compressed,
     compress_p,
@@ -85,7 +102,7 @@ from repro_torch.core.compression.powersgd import (
     shape2d,
 )
 from repro_torch.core.compression.sparsification import k_of, top_k
-from repro_torch.core.types import CommConfig
+from repro_torch.core.types import CommConfig, churn_enabled, effective_corruption_kind
 from repro_torch.kernels import ops
 from repro_torch.utils.tree import flatten_with_paths
 
@@ -96,6 +113,13 @@ f32 = torch.float32
 #: round); ``round`` is passed only by the pipelined step's rounds (the
 #: reference folds the round index into the step's key before the worker)
 Noise = Callable[..., torch.Tensor]
+
+#: churn_draws(step, worker[, round]) -> (u_mask, u_corrupt), two 0-dim f32
+#: uniform draws in [0, 1) on the device: the worker's participation draw
+#: and its corruption draw (the reference's 0x6368 and CORRUPT_FOLD folds of
+#: the worker's key); worker is the index over every data axis (pod-local
+#: SGD included), ``round`` a pipelined round's index
+ChurnDraws = Callable[..., tuple]
 
 
 @dataclass(frozen=True)
@@ -169,7 +193,7 @@ def make_bucket_plan(comm: CommConfig, grads_abstract: Any) -> BucketPlan:
 
 
 def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
-                    device: str | torch.device) -> dict[str, Any]:
+                    device: str | torch.device, pods: int = 1) -> dict[str, Any]:
     """Communication state of W workers: ``ef[i]`` and ``u[i]`` are the
     (W, size) stacks of bucket i's EF residuals and momentum buffers, one
     row per worker (``ef[i]`` is None for a bucket without a compressor).
@@ -183,8 +207,22 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     reads neither).  Pipelined overlap with staleness 1 adds
     ``overlap_pending[i]``, the (W, size) f32 bucket gradients of each
     worker's last microbatch, which the next step aggregates first (zeros
-    before the first step; allocated for a gossip cell too, as there)."""
+    before the first step; allocated for a gossip cell too, as there).
+
+    Churn adds ``alive_prev`` (W,) f32 ones, each worker's bit of the
+    previous round (and ``pod_alive_prev`` under pod-local SGD, each
+    worker's copy of its pod's bit of the previous sync); the integrity
+    program adds ``qcount``, ``quarantine_total`` and ``escalation_total``,
+    (W,) f32 zeros.  Under pod-local SGD over ``pods`` > 1 pods each pod
+    carries its own PowerSGD Q: ``psgd_q[i]`` is then (pods, b * rank)."""
     state: dict[str, Any] = {"step": 0}
+    if churn_enabled(comm):
+        state["alive_prev"] = torch.ones(n_workers, dtype=f32, device=device)
+        if comm.pod_local:
+            state["pod_alive_prev"] = torch.ones(n_workers, dtype=f32, device=device)
+    if effective_corruption_kind(comm) != "none":
+        for k in ("qcount", "quarantine_total", "escalation_total"):
+            state[k] = torch.zeros(n_workers, dtype=f32, device=device)
     if comm.error_feedback:
         state["ef"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
                        if plan.compressor(b) is not None else None for b in plan.buckets]
@@ -192,10 +230,12 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
         state["u"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
                       for b in plan.buckets]
     if any(b.compressor_name == "powersgd" for b in plan.buckets):
-        state["psgd_q"] = [
-            plan.compressor(b).init_q(b.size, 1000 + i, device).reshape(-1)
-            if b.compressor_name == "powersgd" else torch.zeros(0, dtype=f32, device=device)
-            for i, b in enumerate(plan.buckets)]
+        groups = pods if comm.pod_local and pods > 1 else 0
+        state["psgd_q"] = []
+        for i, b in enumerate(plan.buckets):
+            q = (plan.compressor(b).init_q(b.size, 1000 + i, device).reshape(-1)
+                 if b.compressor_name == "powersgd" else torch.zeros(0, dtype=f32, device=device))
+            state["psgd_q"].append(torch.stack([q] * groups) if groups else q)
     if comm.overlap == "pipelined" and comm.overlap_staleness == 1:
         state["overlap_pending"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
                                     for b in plan.buckets]
@@ -248,6 +288,136 @@ def seeded_noise(seed: int, device: str | torch.device) -> Noise:
     return noise
 
 
+def seeded_churn_draws(seed: int, device: str | torch.device) -> ChurnDraws:
+    """Default churn draws: two uniforms from a ``torch.Generator`` on
+    ``device`` seeded from (seed, step, worker, round), so any worker's draw
+    can be redrawn alone; shape-only on ``meta``."""
+    device = torch.device(device)
+    gen = None if device.type == "meta" else torch.Generator(device=device)
+
+    def draws(step: int, worker: int, rnd: int | None = None):
+        if gen is None:
+            u = torch.empty(2, dtype=f32, device=device)
+        else:
+            at = step if rnd is None else f"{step}.{rnd}"
+            digest = hashlib.blake2b(f"churn/{seed}/{at}/{worker}".encode(),
+                                     digest_size=8).digest()
+            gen.manual_seed(int.from_bytes(digest, "little") >> 1)
+            u = torch.rand(2, generator=gen, dtype=f32, device=device)
+        return u[0], u[1]
+
+    return draws
+
+
+@dataclass
+class Liveness:
+    """One round's churn draws over its workers: ``alive`` and
+    ``rejoined`` (W,) 0/1 f32, and in the integrity program the corruption
+    ``flag`` (W,) of the payloads and their ``kind``.  :meth:`rows` cuts
+    the workers of one pod."""
+
+    alive: torch.Tensor
+    rejoined: torch.Tensor | None = None  # None: nobody rejoins this round
+    flag: torch.Tensor | None = None
+    kind: str = "none"
+
+    def rows(self, lo: int, hi: int) -> "Liveness":
+        cut = (lambda t: None if t is None else t[lo:hi])
+        return Liveness(self.alive[lo:hi], cut(self.rejoined), cut(self.flag), self.kind)
+
+
+def in_window(comm: CommConfig, step: int) -> bool:
+    """Is ``step`` inside the churn window [churn_start, churn_end)?"""
+    return comm.churn_start <= step and (comm.churn_end < 0 or step < comm.churn_end)
+
+
+def draw_uniforms(churn_draws: ChurnDraws, step: int, workers: range, rnd: int | None,
+                  device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (W,) mask and corruption uniforms of ``workers``."""
+    got = [churn_draws(step, w, rnd) for w in workers]
+    return (torch.stack([g[0] for g in got]).to(device=device, dtype=f32),
+            torch.stack([g[1] for g in got]).to(device=device, dtype=f32))
+
+
+def churn_mask(comm: CommConfig, u_mask: torch.Tensor, window: bool,
+               workers: range) -> torch.Tensor:
+    """Each worker's participation bit: 0 inside the window where its draw
+    falls below its dropout rate (``worker_dropout[w]``, else
+    ``dropout_rate``)."""
+    if not window:
+        return torch.ones_like(u_mask)
+    dev = u_mask.device  # filled there: a host-to-card copy would wait for the card
+    if comm.worker_dropout:
+        drop = torch.stack([torch.full((), float(comm.worker_dropout[w]), dtype=f32,
+                                       device=dev) for w in workers])
+    else:
+        drop = torch.full((len(workers),), float(comm.dropout_rate), dtype=f32, device=dev)
+    return torch.where(u_mask < drop, 0.0, 1.0)
+
+
+def corruption_flags(comm: CommConfig, u_corrupt: torch.Tensor, alive: torch.Tensor,
+                     window: bool) -> torch.Tensor:
+    """Each worker's corruption flag: a live in-window worker's draw below
+    ``corruption_rate``."""
+    gate = (alive > 0) & window
+    return integrity.corruption_flag(u_corrupt, comm.corruption_rate, gate)
+
+
+def draw_mask(comm: CommConfig, comm_state: dict[str, Any], churn_draws: ChurnDraws,
+              step: int, window_step: int, n_workers: int, device, rnd: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, bool, torch.Tensor]:
+    """Each worker's participation bit from its draw at (step, worker,
+    rnd), the window read at ``window_step``; ``rejoined`` against
+    ``alive_prev``, which becomes this round's bits.  Returns (alive,
+    rejoined, in_window, the corruption uniforms of the same draws)."""
+    workers = range(n_workers)
+    u_mask, u_corr = draw_uniforms(churn_draws, step, workers, rnd, device)
+    window = in_window(comm, window_step)
+    alive = churn_mask(comm, u_mask, window, workers)
+    prev = comm_state["alive_prev"]
+    rejoined = alive * (1.0 - prev)
+    prev.copy_(alive)
+    return alive, rejoined, window, u_corr
+
+
+def draw_liveness(comm: CommConfig, comm_state: dict[str, Any], churn_draws: ChurnDraws,
+                  step: int, n_workers: int, device, rnd: int | None = None) -> Liveness:
+    """The reference's per-round draw (``aggregate_buckets``):
+    :func:`draw_mask` with the window read at the comm state's step, and
+    the corruption flags in the integrity program."""
+    alive, rejoined, window, u_corr = draw_mask(comm, comm_state, churn_draws, step,
+                                                comm_state["step"], n_workers, device, rnd)
+    kind = effective_corruption_kind(comm)
+    flag = corruption_flags(comm, u_corr, alive, window) if kind != "none" else None
+    return Liveness(alive, rejoined, flag, kind)
+
+
+def reset_rows(comm_state: dict[str, Any], rows: torch.Tensor) -> None:
+    """Zero the EF and momentum rows of the workers where ``rows`` (W,) is
+    set: the rejoin protocol's reset leg."""
+    mask = rows[:, None] > 0
+    for k in ("ef", "u"):
+        for e in comm_state.get(k, ()):
+            if e is not None:
+                e.masked_fill_(mask, 0.0)
+
+
+def quarantine_update(comm: CommConfig, comm_state: dict[str, Any], alive: torch.Tensor,
+                      valid: torch.Tensor) -> None:
+    """Bounded quarantine after a round (``valid`` (W,): each worker's
+    payloads all valid): a live worker's consecutive count rises on an
+    invalid round and clears on a valid one; at ``quarantine_limit`` it
+    escalates into the rejoin reset (EF and momentum rows zeroed, count
+    cleared).  The tallies count quarantined rounds and escalations."""
+    q = comm_state["qcount"]
+    q_new = torch.where(alive > 0, torch.where(valid > 0, 0.0, q + 1.0), q)
+    esc = torch.where(q_new >= float(comm.quarantine_limit), 1.0, 0.0)
+    reset_rows(comm_state, esc)
+    q.copy_(torch.where(esc > 0, 0.0, q_new))
+    comm_state["quarantine_total"].add_(1.0 - valid)
+    comm_state["escalation_total"].add_(esc)
+
+
 def _wire_stack(n_workers: int, n: int, device, dtype=torch.int8) -> torch.Tensor:
     """(W, n) wire stack whose rows start on 16-byte boundaries, so the
     kernels can use vector loads and stores on every row."""
@@ -295,11 +465,14 @@ class AggregationRound:
     ``noise`` supplies the uniform draws of the stochastic compressors, for
     step ``step`` (default: the comm state's; the trainer passes its own
     step, which keeps counting through the inner steps of local SGD) and,
-    in a pipelined step, round ``rnd``."""
+    in a pipelined step, round ``rnd``.  ``live`` (churn) holds the round's
+    draws; the caller made them (:func:`draw_liveness`, or one mask for a
+    whole pipelined step) and reset the rejoiners' rows."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device,
-                 step: int | None = None, rnd: int | None = None):
+                 step: int | None = None, rnd: int | None = None,
+                 live: Liveness | None = None):
         self.comm, self.plan, self.state = comm, plan, comm_state
         self.step = comm_state["step"] if step is None else step
         self.rnd = rnd
@@ -319,7 +492,8 @@ class AggregationRound:
         #: (W, ...) stacks: int8 codes (``fused_ef``, ``int8_acc``), packed
         #: sign bytes (``sign``), packed ternary bytes (``tern``), bf16
         #: vectors (``widen``), zero-padded vectors (``dense`` under ``ring``
-        #: or ``rhd``) or PowerSGD's inputs a_w without EF (``powersgd``)
+        #: or ``rhd``) or PowerSGD's inputs a_w without EF or under churn
+        #: (``powersgd``)
         self._stacks: list[torch.Tensor | None] = [None] * nb
         #: per-worker f32 scalars by payload leaf, each a (W,) vector: QSGD's
         #: norms (and ``s``), ternary scales
@@ -331,6 +505,11 @@ class AggregationRound:
         #: the elements they were kept from
         self.nnz: torch.Tensor | None = None
         self.nnz_of = 0
+        self.live = live
+        self.kind = live.kind if live is not None and live.flag is not None else "none"
+        #: integrity: each worker's payload validity per bucket, (W,) 0/1
+        self._valid = ([torch.ones(n_workers, dtype=f32, device=self.device) for _ in range(nb)]
+                       if self.kind != "none" else None)
 
     def _noise(self, w: int, i: int, n: int) -> torch.Tensor:
         if self.rnd is None:  # the sequential step's chain: (step, worker, bucket)
@@ -360,121 +539,247 @@ class AggregationRound:
         else:
             self._sums[i].add_(v)
 
+    # ---- churn and integrity, send side ----------------------------------------
+
+    def _gate(self, i: int, w: int) -> torch.Tensor | None:
+        """Worker w's EF and momentum gate for bucket i: alive, times its
+        payload's validity in the integrity program (None without churn)."""
+        if self.live is None:
+            return None
+        if self._valid is None:
+            return self.live.alive[w]
+        return self.live.alive[w] * self._valid[i][w]
+
+    def _corrupt_int8(self, i: int, w: int, code: torch.Tensor,
+                      payload: dict[str, torch.Tensor], knobs: dict) -> dict[str, torch.Tensor]:
+        """Worker w's int8 payload in the integrity program: its wire codes
+        (``code``, its row of the stack) corrupted in place and its scalars
+        corrupted where its flag is set; its validity recorded (scalars
+        finite and in range, codes within the level bound).  Returns the
+        corrupted scalars."""
+        flag = self.live.flag[w]
+        code.copy_(integrity.corrupt_codes(self.kind, code, flag))
+        out = {k: integrity.corrupt_dense(self.kind, v, flag)
+               for k, v in payload.items() if k != "code"}
+        s = out["s"].reshape(()) if "s" in out else knobs["levels"]
+        self._valid[i][w] = (integrity.scale_valid(out["norm"].reshape(()), s)
+                             * integrity.code_valid(code, s))
+        return out
+
+    def _masked_dense(self, i: int, w: int, a: torch.Tensor) -> torch.Tensor:
+        """Worker w's dense contribution under churn: its payload corrupted
+        where flagged and validated (integrity), selected out when invalid,
+        times its alive bit."""
+        alive = self.live.alive[w]
+        if self._valid is None:
+            return a * alive
+        a_w = integrity.corrupt_dense(self.kind, a, self.live.flag[w])
+        valid = integrity.dense_valid(a_w)
+        self._valid[i][w] = valid
+        return torch.where(valid > 0, a_w, 0.0) * alive
+
     def add(self, w: int, bufs: Iterable[torch.Tensor]) -> None:
         """Send side of worker ``w``: ``bufs`` yields its flat f32 bucket
         vectors in plan order (a generator keeps one bucket alive at once)."""
-        comm, W = self.comm, self.n_workers
+        comm, W, live = self.comm, self.n_workers, self.live
+        alive = live.alive[w] if live is not None else None
         for i, (b, comp, route, g) in enumerate(zip(self.plan.buckets, self.comps,
                                                     self.routes, bufs)):
             knobs = self.knobs[i]
             u = (self._noise(w, i, noise_len(comp, b.size)) if needs_noise(comp) else None)
             if route == "fused_ef":
                 # one kernel pass yields the int8 wire codes and worker w's
-                # new residual, written in place
+                # new residual, written in place (under churn beside it, then
+                # kept where the worker sent a valid payload)
                 e = self.state["ef"][i][w]
+                code = self._stack(i, b.size, torch.int8)[w]
+                e_new = e if live is None else torch.empty_like(e)
                 c, _ = comp.compress_ef_p(u, g, e, knobs, comm.ef_decay,
-                                          out={"code": self._stack(i, b.size, torch.int8)[w],
-                                               "e": e})
-                self._set_scalars(i, w, c.payload, ("norm",))
+                                          out={"code": code, "e": e_new})
+                payload = c.payload
+                if self._valid is not None:
+                    payload = self._corrupt_int8(i, w, code, payload, knobs)
+                if live is not None:
+                    torch.where(self._gate(i, w) > 0, e_new, e, out=e)
+                self._set_scalars(i, w, payload, ("norm",))
                 continue
-            a = feedback.pre_compress(comm, g, self.state, i, w, W)
+            u_prev = (self.state["u"][i][w].clone()
+                      if self._valid is not None and comm.momentum_correction else None)
+            a = feedback.pre_compress(comm, g, self.state, i, w, W, alive=alive)
             a_hat = None
             if route == "dense":
+                a_m = a if live is None else self._masked_dense(i, w, a)
                 if comm.collective == "xla":  # a bf16 sum rounds after every addition
-                    self._accumulate(i, a.to(self.dense_dtype))
+                    self._accumulate(i, a_m.to(self.dense_dtype))
                 else:
                     if self._stacks[i] is None:
                         self._stacks[i] = torch.zeros(
                             (W, collectives.padded_len(b.size, W)), dtype=self.dense_dtype,
                             device=self.device)
-                    self._stacks[i][w, :b.size].copy_(a)
+                    self._stacks[i][w, :b.size].copy_(a_m)
             elif route == "widen":
-                self._stack(i, b.size, torch.bfloat16)[w].copy_(a)
+                a_m = a if live is None else self._masked_dense(i, w, a)
+                self._stack(i, b.size, torch.bfloat16)[w].copy_(a_m)
             elif route == "powersgd":
                 # a_w waits for finish (the second factor needs P): in worker
-                # w's EF row when EF is on (finish turns it into a_w - agg)
-                keep = (self.state["ef"][i] if comm.error_feedback
+                # w's EF row when EF is on and no worker can be masked (finish
+                # turns it into a_w - agg), else in a stack of its own
+                keep = (self.state["ef"][i] if comm.error_feedback and live is None
                         else self._stack(i, b.size, f32))
                 keep[w].copy_(a)
                 bb = shape2d(b.size)[1]
-                self._accumulate(i, matmul_rows(a, self.state["psgd_q"][i].reshape(bb, comp.rank),
-                                                bb))
+                q = self.state["psgd_q"][i].reshape(bb, comp.rank)
+                self._accumulate(i, matmul_rows(a if live is None else a * alive, q, bb))
             elif route == "sign":
                 # packed straight from a: the int8 sign payload is never formed
-                ops.sign_pack(a, out=self._stack(i, ops.sign_packed_bytes(b.size),
-                                                 torch.uint8)[w])
+                row = self._stack(i, ops.sign_packed_bytes(b.size), torch.uint8)[w]
+                ops.sign_pack(a, out=row)
+                if self._valid is not None:  # undetectable: every bit pattern is a vote
+                    row.copy_(integrity.corrupt_codes(self.kind, row, live.flag[w]))
                 if comm.error_feedback:
                     a_hat = torch.where(a >= 0, 1.0, -1.0)
             elif route == "int8_acc":
-                c = compress_p(comp, u, a, knobs,
-                               out={"code": self._stack(i, b.size, torch.int8)[w]})
-                self._set_scalars(i, w, c.payload, ("norm", "s"))
+                code = self._stack(i, b.size, torch.int8)[w]
+                c = compress_p(comp, u, a, knobs, out={"code": code})
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
+                payload = c.payload
+                if self._valid is not None:
+                    payload = self._corrupt_int8(i, w, code, payload, knobs)
+                self._set_scalars(i, w, payload, ("norm", "s"))
             elif route == "tern":
                 c = compress_p(comp, u, a, knobs)
-                ops.tern_pack(c.payload["tern"], out=self._stack(
-                    i, ops.tern_packed_bytes(b.size), torch.uint8)[w])
-                self._set_scalars(i, w, c.payload, ("scale",))
+                row = self._stack(i, ops.tern_packed_bytes(b.size), torch.uint8)[w]
+                ops.tern_pack(c.payload["tern"], out=row)
+                scale = c.payload["scale"]
+                if self._valid is not None:
+                    flag = live.flag[w]
+                    row.copy_(integrity.corrupt_codes(self.kind, row, flag))
+                    scale = integrity.corrupt_dense(self.kind, scale, flag)
+                    self._valid[i][w] = (integrity.packed2_valid(row)
+                                         * integrity.scale_valid(scale.reshape(())))
+                self._set_scalars(i, w, {"scale": scale}, ("scale",))
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
             else:  # majority, sum, gather
                 c = compress_p(comp, u, a, knobs)
                 if route == "majority":
-                    self._accumulate(i, c.payload["sign"])
+                    sign = c.payload["sign"]
+                    if live is not None:
+                        if self._valid is not None:
+                            sign = integrity.corrupt_codes(self.kind, sign, live.flag[w])
+                            self._valid[i][w] = integrity.code_valid(sign, 1.0)
+                        sign = sign * self._gate(i, w).to(sign.dtype)
+                    self._accumulate(i, sign)
                 elif route == "sum":
-                    self._accumulate(i, c.payload["dense"])
+                    dense = c.payload["dense"]
+                    self._accumulate(i, dense if live is None else self._masked_dense(i, w, dense))
                     if "nnz" in c.payload:
                         nnz = c.payload["nnz"][0]
                         self.nnz = nnz.clone() if self.nnz is None else self.nnz + nnz
                         self.nnz_of += b.size
                 else:
-                    self._payloads[i].append(c.payload)
+                    payload = c.payload
+                    if self._valid is not None:
+                        payload = integrity.corrupt_payload(self.kind, payload, live.flag[w])
+                        self._valid[i][w] = self._payload_valid(comp, payload, knobs)
+                    self._payloads[i].append(payload)
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
             if a_hat is not None:
-                feedback.post_compress(comm, a, a_hat, self.state, i, w)
+                feedback.post_compress(comm, a, a_hat, self.state, i, w,
+                                       alive=self._gate(i, w))
+            if u_prev is not None:  # a quarantined round's momentum is undone
+                u_row = self.state["u"][i][w]
+                torch.where(self._valid[i][w] > 0, u_row, u_prev, out=u_row)
+
+    @staticmethod
+    def _payload_valid(comp, payload: dict[str, torch.Tensor], knobs: dict) -> torch.Tensor:
+        """A gathered payload's validity: its float leaves finite and in
+        range, its ``code`` leaf within the level bound (when the compressor
+        has levels)."""
+        bound = knobs.get("levels", getattr(comp, "levels", None))
+        v = torch.ones((), dtype=f32, device=next(iter(payload.values())).device)
+        for k, x in payload.items():
+            if x.is_floating_point():
+                v = v * integrity.dense_valid(x)
+            elif k == "code" and bound is not None:
+                v = v * integrity.code_valid(x, bound)
+        return v
+
+    # ---- receive side ------------------------------------------------------------
+
+    def _weights(self, i: int, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-worker decode weights ``w`` (W,) with the churn bits folded in
+        (alive, and validity selected, in the integrity program), and the
+        denominator of the mean; the alive bits' all-gather is booked."""
+        comms.book_all_gather(self.live.alive[0], self.n_workers)
+        if self._valid is None:
+            return w * self.live.alive, self.n_eff
+        valid = self._valid[i]
+        return (torch.where(valid > 0, w * self.live.alive, 0.0),
+                torch.clamp_min(torch.sum(self.live.alive * valid), 1.0))
+
+    def _psum_denom(self, i: int) -> torch.Tensor:
+        """The live-and-valid count of a psum route in the integrity program
+        (a booked scalar psum), else n_eff."""
+        if self._valid is None:
+            return self.n_eff
+        return torch.clamp_min(comms.psum((self.live.alive * self._valid[i])[:, None])[0], 1.0)
 
     def _powersgd(self, i: int, b: Bucket, comp, denom: torch.Tensor) -> torch.Tensor:
         """PowerSGD's receive side (the reference's ``_powersgd_aggregate``):
         P = orthonormalize(psum(M_w @ Q) / W), Q' = psum(M_w^T @ P) / W,
         agg = P @ Q'^T; Q' is the next round's Q, and with EF each worker's
-        residual becomes a_w - agg."""
+        residual becomes a_w - agg.  Under churn M_w is masked by the alive
+        bit, W is n_eff and a masked worker's residual freezes."""
         W, bb = self.n_workers, shape2d(b.size)[1]
+        live = self.live
         comms.book_psum(self._sums[i], W)
         P = orthonormalize(self._sums[i] / denom)
-        rows = self.state["ef"][i] if self.comm.error_feedback else self._stacks[i]
+        rows = (self.state["ef"][i] if self.comm.error_feedback and live is None
+                else self._stacks[i])
         qsum = None
         for w in range(W):  # worker order
-            t = matmul_rows_t(rows[w], P, bb)
+            t = matmul_rows_t(rows[w] if live is None else rows[w] * live.alive[w], P, bb)
             qsum = t if qsum is None else qsum.add_(t)
         comms.book_psum(qsum, W)
         qn = qsum / denom
         agg = (P @ qn.T).reshape(-1)[:b.size]
-        self.state["psgd_q"][i] = qn.reshape(-1)
+        self.state["psgd_q"][i].copy_(qn.reshape(-1))
         if self.comm.error_feedback:  # against the global approximation
-            rows.sub_(agg)
+            if live is None:
+                rows.sub_(agg)
+            else:
+                ef = self.state["ef"][i]
+                torch.where(live.alive[:, None] > 0, rows - agg, ef, out=ef)
         return agg
 
     def finish(self) -> tuple[list[torch.Tensor], dict[str, Any]]:
         """Receive side: reduce every bucket to its worker mean (or vote)."""
-        W = self.n_workers
+        W, live = self.n_workers, self.live
         # scalars filled on the device: a host-to-card copy would wait for it
         denom = torch.full((), float(W), dtype=f32, device=self.device)
+        if live is not None:  # the live count: one scalar psum, untagged as there
+            self.n_eff = torch.clamp_min(comms.psum(live.alive[:, None])[0], 1.0)
+            denom = self.n_eff
         out = []
         with comms.tag("grad_agg"):
             for i, (b, comp, route) in enumerate(zip(self.plan.buckets, self.comps,
                                                      self.routes)):
+                den = denom
+                if live is not None and route in ("dense", "widen", "sum"):
+                    den = self._psum_denom(i)
                 if route == "dense" and self.comm.collective != "xla":
                     agg = collectives.allreduce(self._stacks[i], b.size,
-                                                self.comm.collective).to(f32) / denom
+                                                self.comm.collective).to(f32) / den
                 elif route in ("dense", "sum"):  # sum: the dense leaf alone
                     comms.book_psum(self._sums[i], W)
-                    agg = self._sums[i].to(f32) / denom
+                    agg = self._sums[i].to(f32) / den
                 elif route == "widen":
-                    agg = comms.widening_psum(self._stacks[i]) / denom
+                    agg = comms.widening_psum(self._stacks[i]) / den
                 elif route == "powersgd":
-                    agg = self._powersgd(i, b, comp, denom)
+                    agg = self._powersgd(i, b, comp, den)
                 elif route in ("fused_ef", "int8_acc"):
                     # _int8_code_reduce: codes at wire width, then the norms
                     # and (when the payload carries it) s, each row weighing
@@ -483,52 +788,95 @@ class AggregationRound:
                     ng = self._gather_scalars(i, "norm")
                     sg = (self._gather_scalars(i, "s") if "s" in self._scalars[i] else
                           torch.full((), self.knobs[i]["levels"], dtype=f32, device=self.device))
-                    agg = ops.int8_weighted_sum(cg, ng / sg) / denom
+                    wt = ng / sg
+                    if live is not None:
+                        wt, den = self._weights(i, wt)
+                    agg = ops.int8_weighted_sum(cg, wt) / den
                 elif route == "sign":
                     with comms.wire_format("packed1"):
                         pg = comms.all_gather(self._stacks[i])
-                    votes = ops.sign_vote(pg, torch.ones(W, dtype=f32, device=self.device),
-                                          b.size)
+                    if live is None:
+                        wt = torch.ones(W, dtype=f32, device=self.device)
+                    else:  # masked workers cast zero votes; no validation
+                        comms.book_all_gather(live.alive[0], W)
+                        wt = live.alive
+                    votes = ops.sign_vote(pg, wt, b.size)
                     if comp.wire_reduce == "sign_vote":  # majority, ties to +1
                         agg = torch.where(votes >= 0, 1.0, -1.0)
                     else:  # mean of +-1 votes
-                        agg = votes / denom
+                        agg = votes / den
                 elif route == "tern":
                     # the packed 2-bit rows, then the f32 scales, each worker's
                     # scale its weight in one decode-and-accumulate pass
                     with comms.wire_format("packed2"):
                         pg = comms.all_gather(self._stacks[i])
-                    agg = ops.tern_acc(pg, self._gather_scalars(i, "scale"), b.size) / denom
+                    wt = self._gather_scalars(i, "scale")
+                    if live is not None:
+                        wt, den = self._weights(i, wt)
+                    agg = ops.tern_acc(pg, wt, b.size) / den
                 elif route == "majority":
                     # int8 vote sum: exact for W <= 127, as the reference's psum
                     comms.book_psum(self._sums[i], W)
                     agg = torch.where(self._sums[i] >= 0, 1.0, -1.0)
                 else:  # gather: every leaf booked in payload order, then decoded
-                    payloads = self._payloads[i]
-                    for v in payloads[0].values():
-                        comms.book_all_gather(v, W)
-                    acc = torch.zeros(b.size, dtype=f32, device=self.device)
-                    for pw in payloads:  # worker order
-                        if "indices" in pw:  # distinct within a row: no colliding adds
-                            acc.index_add_(0, pw["indices"], pw["values"])
-                        else:
-                            acc = acc + decompress_p(comp, Compressed(pw, b.size), self.knobs[i])
-                    agg = acc / denom
+                    agg = self._gather_reduce(i, b, comp, den)
                 if getattr(comp, "re_sparsify", False):  # gTop-k: the k largest of the mean
                     idx = top_k(torch.abs(agg), k_of(b.size, comp.ratio, comp.k))
                     agg = torch.zeros_like(agg).index_put_((idx,), agg[idx])
                 out.append(agg)
+        if self._valid is not None:
+            valid = self._valid[0]
+            for v in self._valid[1:]:
+                valid = valid * v
+            quarantine_update(self.comm, self.state, live.alive, valid)
         self.state["step"] += 1
         return out, self.state
 
+    def _gather_reduce(self, i: int, b: Bucket, comp, denom: torch.Tensor) -> torch.Tensor:
+        """The ``gather`` route: each payload decoded (or scatter-added) in
+        worker order; under churn a row weighs its alive bit (selected out
+        when invalid, in the integrity program)."""
+        W, live = self.n_workers, self.live
+        payloads = self._payloads[i]
+        for v in payloads[0].values():
+            comms.book_all_gather(v, W)
+        wrow = None
+        if live is not None:
+            comms.book_all_gather(live.alive[0], W)
+            wrow = live.alive
+            if self._valid is not None:
+                wrow = live.alive * self._valid[i]
+                denom = torch.clamp_min(torch.sum(wrow), 1.0)
+        acc = torch.zeros(b.size, dtype=f32, device=self.device)
+        for w, pw in enumerate(payloads):  # worker order
+            if "indices" in pw:  # distinct within a row: no colliding adds
+                vals = pw["values"]
+                if wrow is not None:
+                    vals = (torch.where(wrow[w] > 0, vals, 0.0) if self._valid is not None
+                            else vals * wrow[w])
+                acc.index_add_(0, pw["indices"], vals)
+            else:
+                dec = decompress_p(comp, Compressed(pw, b.size), self.knobs[i])
+                if wrow is not None:
+                    dec = (torch.where(wrow[w] > 0, dec, 0.0) if self._valid is not None
+                           else wrow[w] * dec)
+                acc = acc + dec
+        return acc / denom
 
-def _rows_view(comm_state: dict[str, Any], lo: int, hi: int) -> dict[str, Any]:
-    """``comm_state`` with every per-worker stack cut to rows lo:hi (views:
-    in-place updates reach the whole stacks)."""
+
+def _rows_view(comm_state: dict[str, Any], lo: int, hi: int, group: int) -> dict[str, Any]:
+    """``comm_state`` with every per-worker stack and vector cut to rows
+    lo:hi, and PowerSGD's Q to the pod's row ``group`` (views: in-place
+    updates reach the whole)."""
     view = dict(comm_state)
     for k in ("ef", "u"):
         if k in view:
             view[k] = [None if e is None else e[lo:hi] for e in view[k]]
+    for k in ("alive_prev", "qcount", "quarantine_total", "escalation_total"):
+        if k in view:
+            view[k] = view[k][lo:hi]
+    if "psgd_q" in view:
+        view["psgd_q"] = [q[group] if q.dim() == 2 else q for q in view["psgd_q"]]
     return view
 
 
@@ -541,26 +889,38 @@ class GroupedRound:
     the index over the aggregation axes only into the key, so worker d of
     every pod draws the same dither.  Every pod books the same collectives
     over ``("data",)``; pod 0's are booked, once, as each worker's view
-    sees them.  PowerSGD's Q, one per pod there, is not ported for groups
-    > 1.  With one group this is an :class:`AggregationRound` over the
-    comm state itself.
+    sees them.  Each pod carries its own PowerSGD Q (``psgd_q[i]`` (P, ...)).
+    With one group this is an :class:`AggregationRound` over the comm state
+    itself.
+
+    Churn: ``live`` is the round's draws over all W workers; without it a
+    churn cell draws them here (:func:`draw_liveness`, each worker keyed by
+    its index over every data axis, as the reference's ``mask_axes``) from
+    ``churn_draws``, and the rejoiners' EF and momentum rows reset.
 
     :meth:`finish` returns the per-group lists of per-bucket aggregates and
     the comm state (``step`` advanced once)."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device,
-                 step: int | None = None, rnd: int | None = None, groups: int = 1):
+                 step: int | None = None, rnd: int | None = None, groups: int = 1,
+                 live: Liveness | None = None, churn_draws: ChurnDraws | None = None):
         if n_workers % groups:
             raise ValueError(f"{n_workers} workers do not split into {groups} pods")
-        if groups > 1 and "psgd_q" in comm_state:
-            raise NotImplementedError("powersgd under pod-local SGD over several pods is not "
-                                      "ported (each pod carries its own Q there)")
         self.state, self.D = comm_state, n_workers // groups
+        if live is None and churn_enabled(comm):
+            live = draw_liveness(comm, comm_state, churn_draws or seeded_churn_draws(0, device),
+                                 comm_state["step"] if step is None else step, n_workers,
+                                 device, rnd)
+        if live is not None and live.rejoined is not None:
+            reset_rows(comm_state, live.rejoined)
+        self.live = live
         self.rounds = [AggregationRound(
             comm, plan, comm_state if groups == 1 else _rows_view(comm_state, g * self.D,
-                                                                   (g + 1) * self.D),
-            self.D, noise, device, step=step, rnd=rnd) for g in range(groups)]
+                                                                   (g + 1) * self.D, g),
+            self.D, noise, device, step=step, rnd=rnd,
+            live=None if live is None else live.rows(g * self.D, (g + 1) * self.D))
+            for g in range(groups)]
 
     def add(self, w: int, bufs: Iterable[torch.Tensor]) -> None:
         self.rounds[w // self.D].add(w % self.D, bufs)
@@ -587,12 +947,16 @@ class GroupedRound:
 
 
 def aggregate_buckets(comm: CommConfig, plan: BucketPlan, bufs: list[torch.Tensor],
-                      comm_state: dict[str, Any], noise: Noise
+                      comm_state: dict[str, Any], noise: Noise,
+                      churn_draws: ChurnDraws | None = None
                       ) -> tuple[list[torch.Tensor], dict[str, Any]]:
     """One round over already-stacked gradients: ``bufs[i]`` is bucket i's
-    (W, size) f32 stack.  Returns the per-bucket means and the state."""
+    (W, size) f32 stack.  Returns the per-bucket means and the state (a
+    churn cell draws its round from ``churn_draws``)."""
     W = bufs[0].shape[0]
-    rnd = AggregationRound(comm, plan, comm_state, W, noise, bufs[0].device)
+    rnd = GroupedRound(comm, plan, comm_state, W, noise, bufs[0].device,
+                       churn_draws=churn_draws)
     for w in range(W):
         rnd.add(w, [b[w] for b in bufs])
-    return rnd.finish()
+    agg, state = rnd.finish()
+    return agg[0], state

@@ -69,9 +69,12 @@ class CommLog:
             out[key] = out.get(key, 0.0) + r.wire_bytes * r.mult
         return out
 
-    def by_wire_format(self, *, payload: bool = False) -> dict[str, float]:
+    def by_wire_format(self, *, payload: bool = False,
+                       exclude_tags: tuple[str, ...] = ()) -> dict[str, float]:
         out: dict[str, float] = {}
         for r in self.records:
+            if r.tag in exclude_tags:
+                continue
             b = r.payload_bytes if payload else r.wire_bytes
             out[r.wire_format] = out.get(r.wire_format, 0.0) + b * r.mult
         return out

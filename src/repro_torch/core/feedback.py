@@ -6,8 +6,9 @@ sparsity warm-up ramp.
 
 The port keeps the W stacked workers' state as (W, size) stacks per bucket
 (``state["u"][i]``, ``state["ef"][i]``), so the functions take the worker
-index ``w`` and update that worker's row in place.  Churn's freeze masks
-are not ported.  ``state["ef"][i]`` is None for a
+index ``w`` and update that worker's row in place.  Under churn a masked
+worker (``alive`` 0) neither sends nor accumulates: its momentum row and
+EF residual freeze.  ``state["ef"][i]`` is None for a
 bucket without a compressor: its residual would stay zero for ever (the
 reference never updates it), and adding a zero changes nothing.
 """
@@ -51,12 +52,19 @@ def warmup_ratio(base_ratio: float, step, warmup_steps: int) -> torch.Tensor:
 
 
 def pre_compress(comm: CommConfig, g: torch.Tensor, state: dict[str, Any], idx: int, w: int,
-                 n_workers: int) -> torch.Tensor:
+                 n_workers: int, alive: torch.Tensor | None = None) -> torch.Tensor:
     """Momentum correction + EF accumulation + local clipping for worker
     ``w``'s bucket ``idx``: returns the vector handed to the compressor.
-    Worker w's momentum row is updated in place (``u = m*u + g``)."""
+    Worker w's momentum row is updated in place (``u = m*u + g``); with
+    ``alive`` (its 0-dim 0/1 bit) only where it is 1, though the vector
+    returned is built from the new ``u`` either way."""
     if comm.momentum_correction:
-        g = state["u"][idx][w].mul_(comm.momentum_correction).add_(g)
+        u = state["u"][idx][w]
+        if alive is None:
+            g = u.mul_(comm.momentum_correction).add_(g)
+        else:
+            g = u * _scalar(comm.momentum_correction, u) + g
+            torch.where(alive > 0, g, u, out=u)
     if comm.local_clip:
         g = local_clip(g, comm.local_clip, n_workers)
     if comm.error_feedback and state["ef"][idx] is not None:
@@ -65,7 +73,14 @@ def pre_compress(comm: CommConfig, g: torch.Tensor, state: dict[str, Any], idx: 
 
 
 def post_compress(comm: CommConfig, a: torch.Tensor, a_hat: torch.Tensor,
-                  state: dict[str, Any], idx: int, w: int) -> None:
-    """Error accumulation ``e = a - C(a)``, written into worker ``w``'s row."""
+                  state: dict[str, Any], idx: int, w: int,
+                  alive: torch.Tensor | None = None) -> None:
+    """Error accumulation ``e = a - C(a)``, written into worker ``w``'s row
+    (with ``alive``, only where it is 1: a masked or quarantined round
+    leaves the residual frozen)."""
     if comm.error_feedback:
-        torch.sub(a, a_hat, out=state["ef"][idx][w])
+        e = state["ef"][idx][w]
+        if alive is None:
+            torch.sub(a, a_hat, out=e)
+        else:
+            torch.where(alive > 0, a - a_hat, e, out=e)

@@ -33,8 +33,21 @@ Noise.  The engine takes a ``draws`` factory; the default
 same cell inside a batch.  Torch's Philox cannot replay jax's threefry, so
 the parity tests feed the reference's draws through the same hook.
 
-Churn, rejoin and gradient integrity are not ported (``split_cfg`` raises
-``NotImplementedError``); the timeline keeps all of its axes.
+Churn, rejoin and gradient integrity (the reference's masked program): a
+churn cell draws a per-step participation mask per worker (two more
+uniforms per step from the ``draws`` hook, the mask's and the corruption's,
+each (C, R, n)); the mean renormalizes over the live workers, a masked
+worker's EF residual freezes and a rejoiner's is dropped at the end of its
+rejoin round; ``pull_avg`` pulls a rejoiner to the live-set average under
+local SGD and gossip (charged 32 * dim bits a rejoiner); local SGD averages
+over the live workers; gossip mixes by :func:`masked_mixing_matrix`.  A
+corruption kind corrupts each worker's dense reconstruction (its wire
+image) where its flag is set, validates it per row and quarantines an
+invalid row for the round; ``quarantine_limit`` consecutive quarantines
+escalate into the rejoin path.  Such cells add the series
+``quarantined_bits``, ``quarantine_rounds`` and ``escalations``.  The
+churn flag, rejoin policy and corruption kind split shape classes; the
+dropout and corruption rates, window and quarantine limit are values.
 """
 
 from __future__ import annotations
@@ -56,8 +69,14 @@ from repro_torch.core.compression.base import (
     shape_fingerprint,
     structural_envelope,
 )
+from repro_torch.core import integrity
 from repro_torch.core.costmodel import round_wire_bytes
-from repro_torch.core.gossip import ring_mixing_matrix, ring_mixing_matrix_traced
+from repro_torch.core.gossip import (
+    masked_mixing_matrix,
+    ring_mixing_matrix,
+    ring_mixing_matrix_traced,
+)
+from repro_torch.core.types import churn_enabled, effective_corruption_kind
 
 f32 = torch.float32
 
@@ -379,24 +398,22 @@ class SimCfg:
     steps: int = 300
     seed: int = 0
     gossip_w: float = 1.0 / 3.0
-    # the reference's churn and gradient-integrity axes: kept so a cell
-    # carries them, refused by split_cfg (not ported yet)
+    # churn: a per-step participation mask (``churn`` structural; the rates
+    # and the [churn_start, churn_end) window are values)
     churn: bool = False
-    dropout_rate: float = 0.0
-    worker_dropout: tuple = ()
-    churn_start: int = 0
-    churn_end: int = -1
+    dropout_rate: float = 0.0  # shared per-step P(worker offline)
+    worker_dropout: tuple = ()  # per-worker override (length n_workers)
+    churn_start: int = 0  # first step (inclusive) dropout applies
+    churn_end: int = -1  # last step (exclusive); -1 = until the end
+    #: "reset" drops a rejoiner's EF residual; "pull_avg" also pulls the
+    #: live-set parameter average (local SGD, gossip), a dense download
     rejoin_policy: str = "reset"
+    # gradient integrity: per-round P(a live worker's payload is corrupted)
+    # (a value), the kind (structural), and the consecutive quarantines a
+    # worker tolerates before it escalates into the rejoin path
     corruption_rate: float = 0.0
-    corruption_kind: str = "none"
+    corruption_kind: str = "none"  # none | nan | inf | spike | bitflip
     quarantine_limit: int = 3
-
-
-#: SimCfg fields whose non-default values select the reference's churn,
-#: rejoin or integrity program, which the engine does not run yet
-_NOT_PORTED = ("churn", "dropout_rate", "worker_dropout", "churn_start", "churn_end",
-               "rejoin_policy", "corruption_rate", "corruption_kind", "quarantine_limit")
-_DEFAULT = SimCfg()
 
 
 class Problem(tuple):
@@ -520,26 +537,41 @@ PROBLEMS = {
 DRAW_BLOCK = 64
 
 
+#: offset of the seed of a cell's churn generator from its noise seed's
+CHURN_SEED = 0x6368 << 32
+
+
 class GeneratorDraws:
     """The engine's default noise, as a ``draws`` factory: ``GeneratorDraws(
-    seeds, steps, n, dim, noise_len, device)`` is the step hook ``hook(t) ->
-    (z (C, R, n, dim) standard normal, u (C, R, n, noise_len) uniform, or
-    None when noise_len is 0)`` for the (C, R) list of lists ``seeds``.
-    Each seed has its own ``torch.Generator`` on ``device``, which draws
-    blocks of DRAW_BLOCK steps at a time (a block is the same whatever the
-    batch), so a cell's stream does not depend on the cells beside it.  The
+    seeds, steps, n, dim, noise_len, device[, churn=True])`` is the step hook
+    ``hook(t) -> (z (C, R, n, dim) standard normal, u (C, R, n, noise_len)
+    uniform, or None when noise_len is 0)`` for the (C, R) list of lists
+    ``seeds``; with ``churn`` the hook returns two more (C, R, n) uniforms,
+    the mask draw and the corruption draw.  Each seed has its own
+    ``torch.Generator`` on ``device``, which draws blocks of DRAW_BLOCK steps
+    at a time (a block is the same whatever the batch), so a cell's stream
+    does not depend on the cells beside it; the churn draws come from a
+    second generator per seed (seeded ``seed + CHURN_SEED``), so a churn
+    cell's gradient and compressor noise is its churn-free twin's.  The
     draws run once per block, outside the steps."""
 
-    def __init__(self, seeds, steps: int, n: int, dim: int, noise_len: int, device):
+    def __init__(self, seeds, steps: int, n: int, dim: int, noise_len: int, device,
+                 churn: bool = False):
         self.device = torch.device(device)
-        self.gens = []
-        for row in seeds:
-            gens = []
-            for sd in row:
-                g = torch.Generator(device=self.device)
-                g.manual_seed(int(sd))
-                gens.append(g)
-            self.gens.append(gens)
+
+        def gens(offset):
+            out = []
+            for row in seeds:
+                row_gens = []
+                for sd in row:
+                    g = torch.Generator(device=self.device)
+                    g.manual_seed(int(sd) + offset)
+                    row_gens.append(g)
+                out.append(row_gens)
+            return out
+
+        self.gens = gens(0)
+        self.churn_gens = gens(CHURN_SEED) if churn else None
         self.shape = (len(seeds), len(seeds[0]), n)
         self.steps, self.dim, self.noise_len = steps, dim, noise_len
         self.block = -1
@@ -558,13 +590,22 @@ class GeneratorDraws:
                 if self.noise_len:
                     self.u[:, c, r] = torch.rand((k, n, self.noise_len), generator=g,
                                                  dtype=f32, device=self.device)
+        if self.churn_gens is not None:
+            self.cu = torch.empty((k, 2, C, R, n), dtype=f32, device=self.device)
+            for c, gens in enumerate(self.churn_gens):
+                for r, g in enumerate(gens):
+                    self.cu[:, :, c, r] = torch.rand((k, 2, n), generator=g, dtype=f32,
+                                                     device=self.device)
         self.block = block
 
     def __call__(self, t: int):
         if t // DRAW_BLOCK != self.block:
             self._fill(t // DRAW_BLOCK)
         i = t - self.block * DRAW_BLOCK
-        return self.z[i], (self.u[i] if self.u is not None else None)
+        zu = (self.z[i], (self.u[i] if self.u is not None else None))
+        if self.churn_gens is None:
+            return zu
+        return zu + (self.cu[i, 0], self.cu[i, 1])
 
 
 # ---------------------------------------------------------------------------
@@ -594,13 +635,21 @@ class EngineSpec:
     comp_key: tuple  # compressor shape fingerprint (("dense",) for None)
     delay_slots: int = 1  # delay-line depth >= max staleness + 1 in the class
     traced_noise: bool = False  # gradient noise given per cell
+    churn: bool = False  # participation mask carried through the steps
+    #: "reset" | "pull_avg"; "reset" when churn is off
+    rejoin_policy: str = "reset"
+    #: corruption kind; "none" unless the rate is positive or an explicit
+    #: churn keeps a rate-0 cell in the integrity program
+    corruption_kind: str = "none"
 
 
 @dataclass
 class CellParams:
     """Values half of a cell.  ``comp`` holds the compressor's knob values
     (``base.batch_param_values``); ``grad_noise`` is None when the
-    problem's own noise applies."""
+    problem's own noise applies; ``dropout`` (per worker) and the window
+    are set only for a churn cell, ``corruption`` only for an integrity
+    cell."""
 
     lr: float = 0.05
     local_steps: int = 8
@@ -608,15 +657,30 @@ class CellParams:
     gossip_w: float = 1.0 / 3.0
     grad_noise: float | None = None
     comp: dict[str, float] = field(default_factory=dict)
+    dropout: tuple | None = None
+    churn_start: float = 0.0
+    churn_end: float = float("inf")
+    corruption: float | None = None
+    quarantine_limit: float = 3.0
 
 
-def _refuse_unported(cfg: SimCfg) -> None:
-    for name in _NOT_PORTED:
-        if getattr(cfg, name) != getattr(_DEFAULT, name):
-            raise NotImplementedError(
-                f"SimCfg.{name}={getattr(cfg, name)!r}: the engine's churn, rejoin and "
-                "integrity program is not ported yet (ROADMAP queue 1 item 4); "
-                "simulate_timeline models churn and corruption")
+def _check_churn(cfg: SimCfg) -> None:
+    """The reference's ``split_cfg`` checks on the churn and integrity
+    fields (each message names the field)."""
+    if cfg.worker_dropout and len(cfg.worker_dropout) != cfg.n_workers:
+        raise ValueError("worker_dropout length must equal n_workers")
+    if cfg.rejoin_policy not in ("reset", "pull_avg"):
+        raise ValueError(f"unknown rejoin_policy {cfg.rejoin_policy!r} "
+                         "(expected 'reset' or 'pull_avg')")
+    if cfg.corruption_kind not in ("none",) + integrity.KINDS:
+        raise ValueError(f"unknown corruption_kind {cfg.corruption_kind!r} "
+                         "(expected none|nan|inf|spike|bitflip)")
+    if cfg.corruption_rate > 0 and cfg.corruption_kind == "none":
+        raise ValueError("corruption_rate > 0 needs a corruption_kind")
+    if not 0.0 <= cfg.corruption_rate < 1.0:
+        raise ValueError("corruption_rate must be in [0, 1)")
+    if cfg.quarantine_limit < 1:
+        raise ValueError("quarantine_limit must be >= 1")
 
 
 def split_cfg(cfg: SimCfg, *, grad_noise: float | None = None,
@@ -626,11 +690,13 @@ def split_cfg(cfg: SimCfg, *, grad_noise: float | None = None,
     knobs: element-count knobs such as top-k's k derive from it."""
     if cfg.sync not in ("bsp", "local", "ssp", "asp", "gossip"):
         raise ValueError(cfg.sync)
-    _refuse_unported(cfg)
+    _check_churn(cfg)
     if dim is None and cfg.compressor is not None and batch_knobs(cfg.compressor):
         raise ValueError(
             f"split_cfg needs dim to derive {type(cfg.compressor).__name__} "
             f"knob values ({batch_knobs(cfg.compressor)})")
+    # the trainer's structural rules, which read the same fields
+    churn, kind = churn_enabled(cfg), effective_corruption_kind(cfg)
     spec = EngineSpec(
         sync=cfg.sync,
         n_workers=cfg.n_workers,
@@ -639,7 +705,12 @@ def split_cfg(cfg: SimCfg, *, grad_noise: float | None = None,
         comp_key=shape_fingerprint(cfg.compressor),
         delay_slots=cfg.staleness + 1 if cfg.sync in ("ssp", "asp") else 1,
         traced_noise=grad_noise is not None,
+        churn=churn,
+        rejoin_policy=cfg.rejoin_policy if churn else "reset",
+        corruption_kind=kind,
     )
+    dropout = (tuple(float(p) for p in cfg.worker_dropout) if cfg.worker_dropout
+               else (float(cfg.dropout_rate),) * cfg.n_workers)
     params = CellParams(
         lr=cfg.lr,
         local_steps=cfg.local_steps,
@@ -647,6 +718,11 @@ def split_cfg(cfg: SimCfg, *, grad_noise: float | None = None,
         gossip_w=cfg.gossip_w,
         grad_noise=grad_noise,
         comp=batch_param_values(cfg.compressor, dim) if dim is not None else {},
+        dropout=dropout if churn else None,
+        churn_start=float(cfg.churn_start),
+        churn_end=float(cfg.churn_end) if cfg.churn_end >= 0 else float("inf"),
+        corruption=float(cfg.corruption_rate) if kind != "none" else None,
+        quarantine_limit=float(cfg.quarantine_limit),
     )
     return spec, params
 
@@ -655,11 +731,11 @@ def shape_class_key(cfg: SimCfg) -> tuple:
     """Hashable grouping key: cells with equal keys (and one problem family)
     run as one batch.  The delay-line depth and structural knob envelopes
     (PowerSGD's largest rank) are not in the key: they resolve to the class
-    maximum after grouping.  The trailing entries stand where the
-    reference's churn, rejoin and integrity statics stand (always off)."""
-    _refuse_unported(cfg)
+    maximum after grouping."""
+    churn = churn_enabled(cfg)
     return (cfg.sync, cfg.n_workers, cfg.steps, bool(cfg.error_feedback),
-            shape_fingerprint(cfg.compressor), False, "reset", "none")
+            shape_fingerprint(cfg.compressor), churn,
+            cfg.rejoin_policy if churn else "reset", effective_corruption_kind(cfg))
 
 
 class ClassProgram:
@@ -682,6 +758,9 @@ class ClassProgram:
         C, R, n, dim = self.C, self.R, spec.n_workers, self.dim
         B = C * R * n
         sync, slots = spec.sync, spec.delay_slots
+        churn, kind = spec.churn, spec.corruption_kind
+        corrupt = kind != "none"
+        pull = churn and spec.rejoin_policy == "pull_avg" and sync in ("local", "gossip")
 
         def col(name, dtype=f32):  # a (C,) tensor of one value of every cell
             return torch.tensor([getattr(c, name) for c in cells], dtype=dtype, device=dev)
@@ -692,7 +771,10 @@ class ClassProgram:
                 .view(C, 1).expand(C, R * n).reshape(B) for k in cells[0].comp}
         if sync == "gossip":
             # (C, 1, n, n); the mix runs in f64 for the reason the problems' do
-            Wmix = ring_mixing_matrix_traced(n, col("gossip_w"))[:, None].to(f64)
+            # (a churn cell masks the f32 matrix first, as the reference does)
+            Wmix = ring_mixing_matrix_traced(n, col("gossip_w"))[:, None]
+            if not churn:
+                Wmix = Wmix.to(f64)
         if sync == "local":
             H = col("local_steps", torch.int64)
         if sync == "asp":
@@ -712,12 +794,50 @@ class ClassProgram:
         if sync in ("ssp", "asp"):
             delay = torch.zeros((slots, C, R, n, dim), dtype=f32, device=dev)
         total = torch.zeros((C, R), dtype=f32, device=dev)
-        out = {k: torch.empty((spec.steps, C, R), dtype=f32, device=dev)
-               for k in ("loss", "consensus", "bits")}
+        names = ("loss", "consensus", "bits")
+        if corrupt:
+            names += ("quarantined_bits", "quarantine_rounds", "escalations")
+        out = {k: torch.empty((spec.steps, C, R), dtype=f32, device=dev) for k in names}
         dense_bits = torch.full((C, R, n), 32.0 * dim, dtype=f32, device=dev)
+        if churn:
+            drop = torch.tensor([c.dropout for c in cells], dtype=f32, device=dev).view(C, 1, n)
+            c_start, c_end = col("churn_start"), col("churn_end")
+            m_prev = torch.ones((C, R, n), dtype=f32, device=dev)
+        if corrupt:
+            rate_c = col("corruption").view(C, 1, 1)
+            qlim = col("quarantine_limit").view(C, 1, 1)
+            qc = torch.zeros((C, R, n), dtype=f32, device=dev)
+            qb, qr, qe = (torch.zeros((C, R), dtype=f32, device=dev) for _ in range(3))
+
+        def rows_valid(x):  # (C, R, n, dim) -> (C, R, n) 0/1
+            return integrity.dense_valid(x.reshape(B, dim), per_row=True).view(C, R, n)
+
+        def pull_from(X, donors, takers):
+            """Takers adopt the donors' mean where a donor exists; returns X
+            and the bits of the downloads."""
+            n_don = donors.sum(-1)
+            xpull = (X * donors[..., None]).sum(2) / torch.clamp_min(n_don, 1.0)[..., None]
+            take = (takers > 0) & (n_don > 0)[..., None]
+            X = torch.where(take[..., None], xpull[:, :, None], X)
+            return X, torch.where(n_don > 0, takers.sum(-1) * (32.0 * dim), 0.0)
 
         for t in range(spec.steps):
-            z, u = hook(t)
+            if churn:
+                z, u, u_mask, u_corr = hook(t)
+                in_window = ((t >= c_start) & (t < c_end)).view(C, 1, 1)
+                m = torch.where(in_window & (u_mask < drop), 0.0, 1.0)
+                n_alive = torch.clamp_min(m.sum(-1), 1.0)
+                # a rejoiner: alive now, masked last step
+                rejoined = m * (1.0 - m_prev)
+                if pull:  # donors were live both steps
+                    X, pulled = pull_from(X, m * m_prev, rejoined)
+                    total = total + pulled
+                if corrupt:  # only live in-window workers send a payload
+                    cflag = torch.where(in_window & (m > 0) & (u_corr < rate_c), 1.0, 0.0)
+                    valid_round = torch.ones_like(m)
+                    qbits = torch.zeros_like(total)
+            else:
+                z, u = hook(t)
             G = self.grad_fn(X, data, noise, z)
             if sync in ("ssp", "asp"):
                 # a ring of `slots` steps: slot t % slots holds this step's
@@ -728,6 +848,7 @@ class ClassProgram:
                     G = delay[torch.remainder(t - s_cell, slots), c_idx]
                 else:
                     G = delay[(torch.remainder(t - d_idx, slots)[:, None, :],) + gidx]
+            ef_prev = ef
             if comp is None:
                 Ghat, wb = G, dense_bits
             else:
@@ -739,18 +860,95 @@ class ClassProgram:
                 else:
                     Ghat, wb = roundtrip_bits(comp, u_rows, G.reshape(B, dim), prow)
                 Ghat, wb = Ghat.reshape(C, R, n, dim), wb.reshape(C, R, n)
-            if sync == "gossip":
+            mc = m[..., None] if churn else None
+            if sync == "gossip" and churn:
+                # dead rows mix as identity rows, dead columns fold into the
+                # live rows' self weights; a rejoiner's residual is dropped
+                ef = torch.where(rejoined[..., None] > 0, 0.0,
+                                 torch.where(mc > 0, ef, ef_prev))
+                Y = X - lr * Ghat * mc
+                m_eff = m
+                if corrupt:
+                    # the wire payload is the worker's updated row: a detected
+                    # row leaves the mix (its own update stays), an undetected
+                    # one mixes in
+                    Yw = integrity.corrupt_dense(kind, Y, cflag[..., None])
+                    valid = rows_valid(Yw)
+                    m_eff = m * valid
+                    Y = torch.where(valid[..., None] > 0, Yw, Y)
+                    valid_round = valid
+                    qbits = (wb * m * (1.0 - valid)).sum(-1)
+                Wm = masked_mixing_matrix(Wmix, m_eff).to(f64)
+                X = torch.matmul(Wm, Y.to(f64)).to(f32)
+                total = total + (wb * m).sum(-1)
+            elif sync == "gossip":
                 X = torch.matmul(Wmix, (X - lr * Ghat).to(f64)).to(f32)
                 total = total + wb.sum(-1)
-            elif sync == "local":
-                X = X - lr * Ghat
-                is_sync = ((t + 1) % H == 0).view(C, 1, 1, 1)
-                X = torch.where(is_sync, X.mean(2, keepdim=True).expand_as(X), X)
-                # Local SGD communicates only at its sync steps
-                total = total + torch.where(is_sync.view(C, 1), wb.sum(-1), 0.0)
-            else:  # bsp / ssp / asp: the exact mean of the effective gradients
-                X = X - lr * Ghat.mean(2, keepdim=True)
-                total = total + wb.sum(-1)
+            else:
+                m_ef = m if churn else None
+                if corrupt and sync != "local":
+                    # the dense image of the wire payload, corrupted where
+                    # flagged; a detected row is selected out (NaN * 0 is NaN)
+                    Gw = integrity.corrupt_dense(kind, Ghat, cflag[..., None])
+                    valid = rows_valid(Gw)
+                    Ghat = torch.where(valid[..., None] > 0, Gw, 0.0)
+                    m_ef = m * valid
+                    valid_round = valid
+                    qbits = (wb * m * (1.0 - valid)).sum(-1)
+                if churn:  # masked and quarantined rows freeze; a rejoiner's drops
+                    ef = torch.where(rejoined[..., None] > 0, 0.0,
+                                     torch.where(m_ef[..., None] > 0, ef, ef_prev))
+                if sync == "local":
+                    X = X - lr * (Ghat * mc if churn else Ghat)
+                    is_sync = (t + 1) % H == 0
+                    sync4 = is_sync.view(C, 1, 1, 1)
+                    if churn:
+                        if corrupt:
+                            # the payload at a sync point is the parameters: a
+                            # detected row leaves the average for one round
+                            Xw = integrity.corrupt_dense(kind, X, cflag[..., None])
+                            valid = rows_valid(Xw)
+                            xs = ((torch.where(valid[..., None] > 0, Xw, 0.0) * mc).sum(2)
+                                  / torch.clamp_min((m * valid).sum(-1), 1.0)[..., None])
+                            valid_round = torch.where(is_sync.view(C, 1, 1), valid, 1.0)
+                            qbits = torch.where(is_sync.view(C, 1),
+                                                (wb * m * (1.0 - valid)).sum(-1), 0.0)
+                        else:
+                            xs = (X * mc).sum(2) / n_alive[..., None]
+                        # live workers adopt the live-set average
+                        X = torch.where(sync4 & (mc > 0), xs[:, :, None], X)
+                        total = total + torch.where(is_sync.view(C, 1), (wb * m).sum(-1), 0.0)
+                    else:
+                        X = torch.where(sync4, X.mean(2, keepdim=True).expand_as(X), X)
+                        # Local SGD communicates only at its sync steps
+                        total = total + torch.where(is_sync.view(C, 1), wb.sum(-1), 0.0)
+                elif churn:
+                    # the live (and valid) rows' mean updates every row
+                    den = torch.clamp_min(m_ef.sum(-1), 1.0) if corrupt else n_alive
+                    X = X - lr * ((Ghat * mc).sum(2) / den[..., None])[:, :, None]
+                    total = total + (wb * m).sum(-1)
+                else:  # bsp / ssp / asp: the exact mean of the effective gradients
+                    X = X - lr * Ghat.mean(2, keepdim=True)
+                    total = total + wb.sum(-1)
+            if corrupt:
+                # bounded quarantine: consecutive quarantined rounds escalate
+                # into the rejoin path (EF reset, and the pull under
+                # pull_avg); m_prev keeps the true liveness
+                q_new = torch.where(m > 0, torch.where(valid_round > 0, 0.0, qc + 1.0), qc)
+                esc = torch.where(q_new >= qlim, 1.0, 0.0)
+                ef = torch.where(esc[..., None] > 0, 0.0, ef)
+                if pull:
+                    X, pulled = pull_from(X, m * valid_round * (1.0 - esc), esc)
+                    total = total + pulled
+                qc = torch.where(esc > 0, 0.0, q_new)
+                qb = qb + qbits
+                qr = qr + (m * (1.0 - valid_round)).sum(-1)
+                qe = qe + esc.sum(-1)
+                out["quarantined_bits"][t] = qb
+                out["quarantine_rounds"][t] = qr
+                out["escalations"][t] = qe
+            if churn:
+                m_prev = m
             xbar = X.mean(2)
             out["loss"][t] = self.loss_fn(xbar, data)
             out["consensus"][t] = torch.linalg.vector_norm(X - xbar[:, :, None], dim=-1).mean(-1)
@@ -809,8 +1007,11 @@ def simulate_training_classbatch(
     :class:`GeneratorDraws`); ``cache=False`` builds a fresh program.
 
     Returns, per cfg, per seed, ``{"loss", "consensus" (steps,) f32, "bits"
-    (steps,) f64, "x_star_err" float}`` -- equal to running each cell alone
-    within float tolerance."""
+    (steps,) f64, "x_star_err" float}`` (an integrity cell adds the
+    cumulative ``quarantined_bits``, ``quarantine_rounds`` and
+    ``escalations`` series, f64) -- equal to running each cell alone within
+    float tolerance.  A churn cell's ``draws`` factory is called with
+    ``churn=True`` and its hook returns the two churn uniforms too."""
     if not cfgs:
         return []
     keys = {shape_class_key(c) for c in cfgs}
@@ -867,9 +1068,10 @@ def simulate_training_classbatch(
     noise = torch.tensor([nz if spec.traced_noise else problem.noise for nz in noises],
                          dtype=f32, device=device)
     hook = (draws or GeneratorDraws)(seeds, spec.steps, spec.n_workers, dim, prog.noise_len,
-                                      device)
+                                      device, **({"churn": True} if spec.churn else {}))
     res = prog.run(cells, data, noise, problem[2], hook)
     host = {k: v.cpu().numpy() for k, v in res.items()}  # the one copy to the host
+    extras = [k for k in ("quarantined_bits", "quarantine_rounds", "escalations") if k in host]
     return [
         [
             {
@@ -877,6 +1079,7 @@ def simulate_training_classbatch(
                 "consensus": host["consensus"][:, c, r].copy(),
                 "bits": host["bits"][:, c, r].astype(np.float64),
                 "x_star_err": float(host["x_star_err"][c, r]),
+                **{k: host[k][:, c, r].astype(np.float64) for k in extras},
             }
             for r in range(R)
         ]
@@ -919,10 +1122,15 @@ def simulate_training_reference(cfg: SimCfg, problem: Problem | None = None, *,
     flat vector (``compress``/``decompress``), a host sync per step.  The
     semantic baseline the batched engine is tested against, and the
     baseline of ``measure_engine_speedup``; it draws the same noise as the
-    engine does for the cell's seed."""
+    engine does for the cell's seed.  As the reference's loop, it runs
+    churn-free cells only: a churn or integrity cell raises ``ValueError``
+    naming the field (the batched engine runs them)."""
     from repro_torch.core.compression.powersgd import PowerSGD
 
-    _refuse_unported(cfg)
+    for name in ("churn", "dropout_rate", "worker_dropout", "corruption_rate"):
+        if getattr(cfg, name):
+            raise ValueError(f"SimCfg.{name}={getattr(cfg, name)!r}: the loop reference runs "
+                             "churn-free cells only (simulate_training runs churn)")
     problem = problem or quadratic_problem(n_workers=cfg.n_workers, seed=cfg.seed)
     grad_fn, loss_fn, x0, x_star = problem
     device = torch.device(device)

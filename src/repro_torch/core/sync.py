@@ -11,6 +11,11 @@ Pod-local SGD (``pod_local``, which overrides ``sync``) aggregates
 gradients inside each pod on every step and averages the parameters across
 pods every H steps; its stack holds one row per pod, so that average is an
 all-reduce over the pod rows, booked over the ``pod`` axis.
+
+Under churn the average runs over the live rows only (``alive``), or over
+the donors (``donor``: ``pull_avg`` excludes a stale rejoiner), and may
+carry a wire copy of the parameters (``payload``: the integrity axis's
+possibly corrupted copy, selected out where it is no donor's).
 """
 
 from __future__ import annotations
@@ -62,22 +67,51 @@ def average_params(params: list[torch.Tensor], impl: str = "xla", alive=None, do
     divided by n and cast back to the leaf's dtype, booked under tag
     ``local_sgd_sync`` (over the axes of the enclosing ``comms.over``).
 
-    ``alive``, ``donor`` and ``payload`` (churn and integrity) are not
-    ported and raise ``NotImplementedError``."""
-    if alive is not None or donor is not None or payload is not None:
-        raise NotImplementedError("average_params under churn or integrity is not ported")
+    Churn (the reference's masked averaging): ``alive`` is the (R,) 0/1
+    participation vector of the round.  The average is taken over the rows
+    whose ``donor`` bit is set (``alive`` when no ``donor`` is given), their
+    count one booked scalar psum; a live row adopts it, a dead row keeps its
+    parameters, and with no donor at all every row keeps its own.
+    ``payload`` (integrity) maps a leaf's index to its f32 wire copy, (R,
+    ...) like the leaf (a function, so one copy lives at a time): the sum
+    runs over the copies, a non-donor's copy selected out (never multiplied by
+    0: a NaN times 0 is NaN); adoption and the fallback use the clean
+    ``params``.  ``donor`` or ``payload`` without ``alive`` raises
+    ``ValueError``."""
+    if alive is None:
+        if donor is not None or payload is not None:
+            raise ValueError("average_params: donor and payload need alive")
+        with comms.tag("local_sgd_sync"), torch.no_grad():
+            for p in params:
+                p.copy_((_allreduce(p.reshape(p.shape[0], -1).to(f32), impl, copies)
+                         / (p.shape[0] * copies)).reshape(p.shape[1:]).to(p.dtype))
+        return params
+    w = alive if donor is None else donor
     with comms.tag("local_sgd_sync"), torch.no_grad():
-        for p in params:
-            W, n = p.shape[0] * copies, p[0].numel()
-            x = p.reshape(p.shape[0], n).to(f32)
-            if copies > 1:
-                x = x.repeat_interleave(copies, 0)
-            if impl == "xla":
-                total = comms.psum(x)
+        n_don = comms.psum(w.repeat_interleave(copies)[:, None])[0]
+        n_eff = torch.clamp_min(n_don, 1.0)
+        adopt = (alive > 0) & (n_don > 0)
+        for i, p in enumerate(params):
+            x = p.reshape(p.shape[0], -1).to(f32)
+            if payload is not None:
+                x = torch.where(w[:, None] > 0, payload(i).reshape(x.shape).to(f32), 0.0)
             else:
-                stack = x.new_zeros((W, collectives.padded_len(n, W)))
-                stack[:, :n] = x
-                del x
-                total = collectives.allreduce(stack, n, impl)
-            p.copy_((total / W).reshape(p.shape[1:]).to(p.dtype))
+                x = x * w[:, None]
+            avg = (_allreduce(x, impl, copies) / n_eff).reshape(p.shape[1:]).to(p.dtype)
+            del x
+            p.copy_(torch.where(adopt.reshape((-1,) + (1,) * (p.dim() - 1)), avg, p))
     return params
+
+
+def _allreduce(x: torch.Tensor, impl: str, copies: int) -> torch.Tensor:
+    """The f32 sum over the workers of an (R, n) stack whose rows each
+    stand for ``copies`` workers, by schedule ``impl``."""
+    W, n = x.shape[0] * copies, x.shape[1]
+    if copies > 1:
+        x = x.repeat_interleave(copies, 0)
+    if impl == "xla":
+        return comms.psum(x)
+    stack = x.new_zeros((W, collectives.padded_len(n, W)))
+    stack[:, :n] = x
+    del x
+    return collectives.allreduce(stack, n, impl)

@@ -15,10 +15,17 @@ the sparse scatter-add, the sum of masked payloads, PowerSGD's factor
 psums) or the compressed wire (int8 codes, 1-bit signs, 2-bit ternary
 codes, the bf16 widening psum).  ``warmup_steps`` and ``gossip_graph`` are
 accepted and, as in the reference's runtime, read by nothing (the gossip
-ring is always the ring).  :func:`validate` raises on any field that asks
-for a part not ported yet (churn and rejoin, integrity), and applies the
-reference's ``bundle_spec`` checks on ``overlap``, ``overlap_staleness``,
-``wire_format`` and ``agg_dtype``.
+ring is always the ring), with churn (a per-round participation mask drawn
+per worker: ``churn``, ``dropout_rate`` or ``worker_dropout`` inside the
+step window [``churn_start``, ``churn_end``), rejoin by ``reset`` or
+``pull_avg``) and gradient integrity (in-domain corruption of the wire
+payload by ``corruption_kind`` at ``corruption_rate``, validation,
+quarantine, and escalation after ``quarantine_limit`` consecutive
+quarantined rounds).  :func:`validate` applies the reference's
+``bundle_spec`` checks on those fields and on ``overlap``,
+``overlap_staleness``, ``wire_format`` and ``agg_dtype``;
+:func:`effective_corruption_kind` and :func:`churn_enabled` are the
+reference's structural rules for the two axes.
 """
 
 from __future__ import annotations
@@ -85,33 +92,60 @@ class CommConfig:
 
 DENSE = CommConfig()
 
-#: fields whose non-default values select a part of the reference that the
-#: port does not run yet
-_NOT_PORTED = (
-    "churn", "dropout_rate", "worker_dropout", "churn_start", "churn_end", "rejoin_policy",
-    "corruption_rate", "corruption_kind", "quarantine_limit",
-)
+
+def churn_enabled(comm: CommConfig) -> bool:
+    """Whether the masked (churn) program is on: an explicit ``churn``, a
+    positive ``dropout_rate``, any positive ``worker_dropout`` rate or a
+    positive ``corruption_rate`` (the reference's ``bundle_spec`` rule)."""
+    return bool(comm.churn or comm.dropout_rate > 0
+                or any(r > 0 for r in comm.worker_dropout)
+                or comm.corruption_rate > 0)
+
+
+def effective_corruption_kind(comm: CommConfig) -> str:
+    """The structural corruption family: the kind when the rate is positive,
+    or when an explicit ``churn=True`` keeps a rate-0 cell in the integrity
+    program; "none" otherwise."""
+    if comm.corruption_rate > 0 or (comm.churn and comm.corruption_kind != "none"):
+        return comm.corruption_kind
+    return "none"
+
+
+def _validate_churn(comm: CommConfig) -> None:
+    """The reference's ``bundle_spec`` checks on the churn and integrity
+    fields (each message names the field)."""
+    churn = churn_enabled(comm)
+    if comm.rejoin_policy not in ("reset", "pull_avg"):
+        raise ValueError(f"unknown rejoin_policy {comm.rejoin_policy!r} "
+                         "(expected 'reset' or 'pull_avg')")
+    if churn and not 0.0 <= comm.dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {comm.dropout_rate!r}")
+    if churn and not all(0.0 <= r < 1.0 for r in comm.worker_dropout):
+        raise ValueError(f"worker_dropout rates must be in [0, 1), got {comm.worker_dropout!r}")
+    if comm.corruption_kind not in ("none", "nan", "inf", "spike", "bitflip"):
+        raise ValueError(f"unknown corruption_kind {comm.corruption_kind!r} "
+                         "(expected 'none', 'nan', 'inf', 'spike' or 'bitflip')")
+    if comm.corruption_rate > 0 and comm.corruption_kind == "none":
+        raise ValueError("corruption_rate > 0 needs a corruption_kind")
+    if not 0.0 <= comm.corruption_rate < 1.0:
+        raise ValueError(f"corruption_rate must be in [0, 1), got {comm.corruption_rate!r}")
+    if comm.quarantine_limit < 1:
+        raise ValueError(f"quarantine_limit must be >= 1, got {comm.quarantine_limit!r}")
 
 
 def validate(comm: CommConfig):
     """Check ``comm`` for the port and return its compressor (or None).
 
-    Raises ``NotImplementedError`` for fields set away from their defaults
-    that select an unported part, and ``ValueError`` where the reference's
-    ``bundle_spec`` does on ``overlap``, ``overlap_staleness`` (pipelined
-    overlap needs per-step aggregation: BSP, unless the cell gossips, which
+    Raises ``ValueError`` where the reference's ``bundle_spec`` does: on the
+    churn and integrity fields (:func:`_validate_churn`), ``overlap``,
+    ``overlap_staleness`` (pipelined overlap needs per-step aggregation: BSP, unless the cell gossips, which
     reads neither), ``wire_format`` and ``agg_dtype`` (a gossip cell's wire
     is dense whatever it says, as there), and for a ``sync``,
     ``aggregator``, ``gossip_compress`` or ``collective`` that is none of
     the reference's."""
     from repro_torch.core.compression.base import get_compressor
 
-    for name in _NOT_PORTED:
-        if getattr(comm, name) != getattr(DENSE, name):
-            raise NotImplementedError(
-                f"CommConfig.{name}={getattr(comm, name)!r} is not ported yet "
-                "(the port runs bsp / local / post_local / pod-local sync over the "
-                "all-reduce or gossip, without churn or integrity)")
+    _validate_churn(comm)
     for name, allowed in (("sync", ("bsp", "local", "post_local")),
                           ("aggregator", ("allreduce", "gossip")),
                           ("gossip_compress", ("none", "dcd", "choco"))):

@@ -448,6 +448,14 @@ def _run_training_scenarios(
             if replicas > 1:
                 measured["final_loss_std"] = float(
                     np.std([float(o["loss"][-1]) for o in cell]))
+            if "quarantine_rounds" in cell[0]:
+                # an integrity cell's tallies: worker-rounds quarantined, wire
+                # bits sent but not delivered, escalations
+                measured["quarantine_rounds"] = _agg(
+                    [float(o["quarantine_rounds"][-1]) for o in cell])
+                measured["quarantined_gbits"] = _agg(
+                    [float(o["quarantined_bits"][-1]) for o in cell]) / 1e9
+                measured["escalations"] = _agg([float(o["escalations"][-1]) for o in cell])
             series = {
                 "loss": np.stack([o["loss"] for o in cell]),
                 "consensus": np.stack([o["consensus"] for o in cell]),

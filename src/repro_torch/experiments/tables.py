@@ -56,6 +56,13 @@ _COLUMNS = {
     ),
 }
 
+#: the training table's integrity columns, shown when a cell books them
+_INTEGRITY_COLUMNS = (
+    ("quarantined", "quarantine_rounds", None),
+    ("q_Gbits", "quarantined_gbits", None),
+    ("escalations", "escalations", None),
+)
+
 _SCALE = {"GB/worker": 1e-9, "iter_time(ms)": 1e3, "comm_time(ms)": 1e3,
           "no_overlap(ms)": 1e3, "overlap_bound(ms)": 1e3, "saving(ms)": 1e3,
           "step(ms)": 1e3, "compute(ms)": 1e3, "memory(ms)": 1e3,
@@ -76,11 +83,14 @@ def _fmt(v) -> str:
 
 def format_table(results: Sequence[ScenarioResult], *, title: str = "") -> str:
     """Markdown table, one row per scenario. Measured/predicted pairs are
-    rendered as ``measured (pred)`` in one column."""
+    rendered as ``measured (pred)`` in one column; a training table whose
+    cells book integrity tallies adds their three columns."""
     if not results:
         return "(no scenarios)\n"
     substrate = results[0].substrate
     cols = _COLUMNS.get(substrate, ())
+    if any("quarantine_rounds" in r.measured for r in results):
+        cols = cols + _INTEGRITY_COLUMNS
     header = ["scenario"] + [c[0] for c in cols]
     lines = []
     if title:

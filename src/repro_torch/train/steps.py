@@ -55,6 +55,19 @@ w = p * D + d) and runs the workers in turn.
 * **eval_step**: the forward loss of each worker's parameters on its rows,
   then the worker mean.
 
+Churn and integrity (the reference's masked programs; ``churn_draws`` gives
+each worker's two uniforms per round, beside ``noise``): a train step's
+round draws each worker's participation bit and corruption flag and
+reduces over the live, valid payloads (:mod:`repro_torch.core.aggregate`);
+the staleness-1 pipelined step holds one mask over its M rounds, and a
+rejoiner's carried-over stale bucket is gated off in round 0.  A sync step
+averages over the live rows (``pull_avg``: a rejoiner adopts but does not
+donate); under local and post-local SGD the parameters' wire copy is
+corrupted where flagged, validated and quarantined, with the bounded
+escalation into the reset; under pod-local SGD the unit is the pod, alive
+when any of its workers was alive in the last in-pod round.  A gossip step
+masks the ring (D-PSGD, CHOCO-SGD's mirror freeze and resync).
+
 Loss, ``ce`` and ``aux`` are worker means.  The wire bytes of each program
 are booked at build time by running it once on the ``meta`` device, which
 computes shapes only.
@@ -74,9 +87,14 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.core import aggregate, comms, gossip, sync
+from repro_torch.core import aggregate, comms, gossip, integrity, sync
 from repro_torch.core.compression.base import get_compressor
-from repro_torch.core.types import CommConfig, validate
+from repro_torch.core.types import (
+    CommConfig,
+    churn_enabled,
+    effective_corruption_kind,
+    validate,
+)
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, global_clip
 from repro_torch.utils.tree import leaves, tree_map, unflatten_like
@@ -123,6 +141,9 @@ class StepBundle:
     wire: dict[str, dict[str, float]] = field(default_factory=dict)
     #: the booked records of each program's shape-only run (axes included)
     logs: dict[str, comms.CommLog] = field(default_factory=dict)
+    #: churn_draws(step, worker[, round]) -> (u_mask, u_corrupt): each
+    #: worker's participation and corruption uniforms of a churn round
+    churn_draws: aggregate.ChurnDraws | None = None
     #: the pipelined step's side stream on the card (made at first use)
     _side: Any = field(default=None, repr=False, compare=False)
 
@@ -176,7 +197,7 @@ class StepBundle:
             "params": params,
             "opt": self.opt.init(tree_map(lambda p: p[0], params) if sharded else params),
             "comm": aggregate.init_comm_state(self.comm, self.bucket_plan,
-                                              self.n_workers, self.device),
+                                              self.n_workers, self.device, self.pods),
             "step": 0,
         }
 
@@ -199,8 +220,12 @@ class StepBundle:
         the W shards concatenated (a bucket without a compressor, whose EF
         row the port leaves out, is the reference's zeros); PowerSGD's Q,
         shared here, is repeated once per worker, as each reference shard
-        holds it.  Diverging parameters keep their rows (W, or P under
-        pod-local SGD).  Views where it can."""
+        holds it (under pod-local SGD over several pods, each pod's Q once
+        per worker of the pod).  The churn and integrity entries
+        (``alive_prev``, ``pod_alive_prev``, ``qcount``,
+        ``quarantine_total``, ``escalation_total``) are (W,) here as there.
+        Diverging parameters keep their rows (W, or P under pod-local SGD).
+        Views where it can."""
         W, defs = self.n_workers, T.param_defs(self.cfg)
         n_leaves = len(leaves(defs))
 
@@ -219,7 +244,9 @@ class StepBundle:
                            if e is None else e.reshape(-1)
                            for e, b in zip(comm[k], self.bucket_plan.buckets)]
         if "psgd_q" in comm:
-            comm["psgd_q"] = [q.repeat(W) for q in comm["psgd_q"]]
+            comm["psgd_q"] = [q.repeat(W) if q.dim() == 1 else
+                              q.repeat_interleave(W // q.shape[0], 0).reshape(-1)
+                              for q in comm["psgd_q"]]
         return {"params": state["params"], "opt": opt_ref(state["opt"]), "comm": comm,
                 "step": state["step"]}
 
@@ -256,7 +283,9 @@ class StepBundle:
                     comm[k] = [None if t is None else e.reshape(t.shape)
                                for e, t in zip(comm[k], tmpl["comm"][k])]
             if "psgd_q" in comm:
-                comm["psgd_q"] = [q[:q.numel() // self.n_workers] for q in comm["psgd_q"]]
+                comm["psgd_q"] = [q[:q.numel() // self.n_workers] if t.dim() == 1 else
+                                  q.reshape(self.n_workers, -1)[::self.n_workers // t.shape[0]]
+                                  for q, t in zip(comm["psgd_q"], tmpl["comm"]["psgd_q"])]
             out["comm"] = comm
         if "step" in tree:
             out["step"] = tree["step"]
@@ -330,10 +359,19 @@ class StepBundle:
             return {k: comms.pmean(torch.stack([m[k] for m in ms]))
                     for k in ("loss", "ce", "aux")}
 
-    def _round(self, state: dict[str, Any], rnd: int | None = None) -> aggregate.GroupedRound:
+    def _round(self, state: dict[str, Any], rnd: int | None = None,
+               live: aggregate.Liveness | None = None) -> aggregate.GroupedRound:
         return aggregate.GroupedRound(self.comm, self.bucket_plan, state["comm"],
                                       self.n_workers, self.noise, self.device,
-                                      step=state["step"], rnd=rnd, groups=self.groups)
+                                      step=state["step"], rnd=rnd, groups=self.groups,
+                                      live=live, churn_draws=self.churn_draws)
+
+    def _step_mask(self, state: dict[str, Any]) -> tuple:
+        """One participation bit per worker for a whole step (the sync,
+        gossip and staleness-1 pipelined steps), drawn and windowed at the
+        trainer step, with no round index (:func:`aggregate.draw_mask`)."""
+        return aggregate.draw_mask(self.comm, state["comm"], self.churn_draws, state["step"],
+                                   state["step"], self.n_workers, self.device)
 
     def _sequential_grads(self, state: dict[str, Any], parts: list[dict[str, torch.Tensor]]
                           ) -> tuple[list[list[torch.Tensor]], list[dict], Any]:
@@ -404,13 +442,33 @@ class StepBundle:
                 del grads
                 ms[w].append({"loss": loss.detach(), **{k: v.detach() for k, v in m.items()}})
 
+        # churn under the staleness-1 double buffer: one mask for the step,
+        # held over its M rounds; a rejoiner's carried-over stale bucket
+        # (round 0, computed while it was out) is gated off as well
+        step_mask = None
+        if churn_enabled(comm) and comm.overlap_staleness == 1:
+            step_mask = self._step_mask(state)
+        kind = effective_corruption_kind(comm)
+
+        def live_of(k: int) -> aggregate.Liveness | None:
+            if step_mask is None:
+                return None  # the round draws its own (staleness 0) or none
+            alive, rejoined, window, _ = step_mask
+            a_k = alive * (1.0 - rejoined) if k == 0 else alive
+            flag = None
+            if kind != "none":  # the corruption draw is the round's
+                _, u_corr = aggregate.draw_uniforms(self.churn_draws, state["step"], range(W),
+                                                    k, dev)
+                flag = aggregate.corruption_flags(comm, u_corr, a_k, window)
+            return aggregate.Liveness(a_k, rejoined if k == 0 else None, flag, kind)
+
         def run_round(k: int, scale: float):
             """Round k over ``pending``, its aggregates (times ``scale``)
             added into ``acc``; returns the per-worker events and the last."""
             if side is not None:
                 side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
-                rnd, freed = self._round(state, rnd=k), []
+                rnd, freed = self._round(state, rnd=k, live=live_of(k)), []
                 for w in range(W):
                     rnd.add(w, [p[w] for p in pending])
                     freed.append(side.record_event() if side is not None else None)
@@ -490,11 +548,63 @@ class StepBundle:
     def sync_step(self, state: dict[str, Any]) -> dict[str, Any]:
         """The parameter average: over the pods under pod-local SGD (one row
         each; all W workers when there is one pod), over the workers'
-        rows otherwise."""
+        rows otherwise.  A churn cell runs :meth:`_churn_sync`."""
         across_pods = self.comm.pod_local and self.pods > 1
+        if churn_enabled(self.comm):
+            return self._churn_sync(state, across_pods)
         with comms.over(("pod",) if across_pods else self.data_axes):
             sync.average_params(leaves(state["params"]), impl=self.comm.collective,
                                 copies=1 if across_pods else self.n_workers // self.rows)
+        return state
+
+    def _churn_sync(self, state: dict[str, Any], across_pods: bool) -> dict[str, Any]:
+        """The reference's masked sync round.  The unit is the parameter
+        row: a worker under local and post-local SGD (its bit drawn at the
+        trainer step, as its train step's), a pod under pod-local SGD
+        (alive when any of its workers was alive in the last in-pod round,
+        a booked scalar psum over ``data``).  Dead rows freeze, live rows
+        adopt the live average; ``pull_avg`` keeps a rejoiner out of the
+        donors.  Integrity (local and post-local SGD; pod-local SGD corrupts
+        its in-pod rounds instead): each worker's wire copy of its
+        parameters is corrupted where flagged and validated, an invalid copy
+        leaves the donors, and the bounded quarantine escalates into the
+        reset.  The rejoiners' (and escalations') EF and momentum rows
+        reset."""
+        comm, cstate, W, rows = self.comm, state["comm"], self.n_workers, self.rows
+        plist = leaves(state["params"])
+        valid = payload = None
+        if comm.pod_local:
+            D = W // rows
+            with comms.over(("data",)):  # the shard bits' psum, untagged as there
+                comms.book_psum(cstate["alive_prev"][0], D)
+            alive = torch.where(cstate["alive_prev"].reshape(rows, D).sum(1) > 0, 1.0, 0.0)
+            prev = cstate["pod_alive_prev"].reshape(rows, D)[:, 0].clone()
+            cstate["pod_alive_prev"].copy_(alive.repeat_interleave(D))
+            rejoined = alive * (1.0 - prev)
+        else:
+            alive, rejoined, window, u_corr = self._step_mask(state)
+        # pull_avg: the donors are the rows alive this round and the last
+        donor = alive - rejoined if comm.rejoin_policy == "pull_avg" else None
+        kind = effective_corruption_kind(comm)
+        if kind != "none" and not comm.pod_local:
+            flag = aggregate.corruption_flags(comm, u_corr, alive, window)
+
+            def payload(i: int) -> torch.Tensor:  # worker w's wire copy of leaf i
+                p = plist[i]
+                return integrity.corrupt_dense(kind, p.reshape(W, -1).to(f32), flag[:, None])
+
+            valid = torch.ones(W, dtype=f32, device=self.device)
+            for i in range(len(plist)):
+                valid = valid * integrity.dense_valid(payload(i), per_row=True)
+            with comms.over(("model",)):  # the validity vote over the unit's shards
+                comms.book_psum(valid[0], 1)
+            donor = (alive if donor is None else donor) * valid
+        with comms.over(("pod",) if across_pods else self.data_axes):
+            sync.average_params(plist, impl=comm.collective, alive=alive, donor=donor,
+                                payload=payload, copies=1 if across_pods else W // rows)
+        if valid is not None:  # the bounded quarantine, escalating into the reset
+            aggregate.quarantine_update(comm, cstate, alive, valid)
+        aggregate.reset_rows(cstate, rejoined.repeat_interleave(W // rows))
         return state
 
     def gossip_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
@@ -513,8 +623,14 @@ class StepBundle:
         choco = comm.gossip_compress == "choco" and comp is not None
         knobs = self.bucket_plan.knob_values()
         pl = leaves(params)
+        alive = rejoined = nbr = None
+        if churn_enabled(comm):  # each worker's bit for this mixing round
+            alive, rejoined, _, _ = self._step_mask(state)
         # bucket by bucket: one (W, n) f32 stack at a time (the largest is 2.5 GB)
         with comms.tag("gossip_mix"), comms.over(self.data_axes), torch.no_grad():
+            if alive is not None:  # the neighbours' bits, exchanged once a round
+                nbr = (gossip.choco_nbr_bits(alive, rejoined) if choco
+                       else gossip.ring_bits(alive))
             for i, b in enumerate(self.bucket_plan.buckets):
                 parts_i = [pl[j].reshape(W, -1).to(f32) for j, _ in b.segments]
                 x = parts_i[0] if len(parts_i) == 1 else torch.cat(parts_i, 1)
@@ -523,9 +639,13 @@ class StepBundle:
                     st = gossip.ChocoState([cstate["choco_xhat"][i]], [cstate["choco_nbr"][i]])
                     (x,), _ = gossip.choco_mix(
                         comm, comp, lambda _, n, i=i: self.noise(step, None, i, n), [x], st,
-                        comm.gossip_mix_weight, comp_knobs=(knobs[i],))
+                        comm.gossip_mix_weight, comp_knobs=(knobs[i],), alive=alive,
+                        rejoined=rejoined, nbr_bits=nbr)
                 else:
-                    (x,) = gossip.dpsgd_mix([x], comm.gossip_mix_weight)
+                    (x,) = gossip.dpsgd_mix(
+                        [x], comm.gossip_mix_weight, alive=alive,
+                        rejoined=rejoined if comm.rejoin_policy == "pull_avg" else None,
+                        nbr_alive=nbr)
                 off = 0
                 for j, n in b.segments:
                     pl[j].copy_(x[:, off:off + n].reshape(pl[j].shape))
@@ -551,7 +671,8 @@ def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:
     there: it changes no collective.  Returns each program's records."""
     meta = torch.device("meta")
     mb = dataclasses.replace(bundle, cfg=bundle.cfg.with_updates(remat="none"), device=meta,
-                             noise=aggregate.seeded_noise(0, meta))
+                             noise=aggregate.seeded_noise(0, meta),
+                             churn_draws=aggregate.seeded_churn_draws(0, meta))
     shape, comm = bundle.shape, bundle.comm
     batch = {k: torch.zeros((shape.global_batch, shape.seq_len), dtype=torch.int32,
                             device=meta) for k in ("tokens", "labels")}
@@ -575,7 +696,8 @@ def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:
 def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,
                  n_workers: int = 1, seed: int = 0, device: str | torch.device = "cuda",
                  noise: aggregate.Noise | None = None, clip_norm: float = 0.0,
-                 microbatch: int = 1, pods: int = 1) -> StepBundle:
+                 microbatch: int = 1, pods: int = 1,
+                 churn_draws: aggregate.ChurnDraws | None = None) -> StepBundle:
     """Build the steps of one cell.  ``noise(step, worker, bucket, n)``
     overrides the compressors' uniform draws (default: a generator seeded
     from (seed, step, worker, bucket) on ``device``; worker None for
@@ -585,7 +707,9 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
     before the update, as the reference's step does; ``microbatch`` splits
     each worker's rows into that many accumulated chunks (the pipelined
     step's microbatches); ``pods`` P lays the W workers out as (pod, data),
-    W = P * D (0 and 1: no pod axis)."""
+    W = P * D (0 and 1: no pod axis); ``churn_draws(step, worker[, round])``
+    overrides a churn cell's two uniforms per worker and round (default: a
+    generator seeded from (seed, step, worker, round) on ``device``)."""
     validate(comm)
     pods = max(pods, 1)
     if n_workers % pods:
@@ -595,16 +719,23 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
                          f"the bundle has {n_workers}")
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
+    if comm.worker_dropout and len(comm.worker_dropout) != n_workers:
+        raise ValueError(f"worker_dropout has {len(comm.worker_dropout)} rates but the bundle "
+                         f"has {n_workers} workers")
     device = torch.device(device)
     bundle = StepBundle(
         cfg=cfg, comm=comm, shape=shape, n_workers=n_workers, device=device,
         bucket_plan=aggregate.make_bucket_plan(comm, T.param_defs(cfg)), opt=opt,
         noise=noise if noise is not None else aggregate.seeded_noise(seed, device),
         clip_norm=clip_norm, microbatch=microbatch, pods=pods,
+        churn_draws=(churn_draws if churn_draws is not None
+                     else aggregate.seeded_churn_draws(seed, device)),
     )
     bundle.logs = _book_wire(bundle)
     for name, log in bundle.logs.items():
-        bundle.wire[name], bundle.wire[name + "_formats"] = log.by_tag(), log.by_wire_format()
+        # the formats leave out the churn_resync channel, as the reference's
+        bundle.wire[name] = log.by_tag()
+        bundle.wire[name + "_formats"] = log.by_wire_format(exclude_tags=("churn_resync",))
     return bundle
 
 

@@ -81,7 +81,7 @@ class Trainer:
                              partial=True)
         state = b.from_checkpoint(tree)
         state["comm"] = aggregate.init_comm_state(b.comm, b.bucket_plan, b.n_workers,
-                                                  b.device)
+                                                  b.device, b.pods)
         state["comm"]["step"] = state["step"]
         return state, step
 

@@ -203,22 +203,20 @@ def test_seeded_noise_is_reproducible_per_round():
     # the reference's bundle_spec: a bf16 agg_dtype means nothing on a
     # compressed wire that carries a compressor's payload
     (dict(wire_format="compressed", agg_dtype="bfloat16", **QSGD), ValueError),
-    (dict(churn=True), NotImplementedError),
-    (dict(overlap="pipelined", churn=True), NotImplementedError),
-    # gossip, local, post-local and pod-local SGD, pipelined overlap and
-    # warmup_steps are ported now (tests/test_torch_sync.py,
-    # test_torch_pod_local.py, test_torch_overlap.py): these cells keep only
-    # their unported part
-    (dict(aggregator="gossip", churn=True), NotImplementedError),
-    (dict(sync="local", dropout_rate=0.1), NotImplementedError),
-    (dict(warmup_steps=10, **QSGD, wire_format="compressed", worker_dropout=(0.1, 0.0)),
-     NotImplementedError),
-    (dict(sync="post_local", post_local_switch=10, pod_local=True, churn=True),
-     NotImplementedError),
-    (dict(pod_local=True, corruption_rate=0.1), NotImplementedError),
-    (dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
-     NotImplementedError),
-    (dict(churn=True, rejoin_policy="pull_avg"), NotImplementedError),
+    # churn, rejoin and integrity are ported: these cells hold a value the
+    # reference's bundle_spec refuses, whichever other part they select
+    (dict(churn=True, dropout_rate=1.0), ValueError),
+    (dict(overlap="pipelined", churn=True, rejoin_policy="bogus"), ValueError),
+    (dict(aggregator="gossip", churn=True, corruption_kind="bogus"), ValueError),
+    (dict(sync="local", dropout_rate=1.5), ValueError),
+    (dict(warmup_steps=10, **QSGD, wire_format="compressed", worker_dropout=(0.1, 1.0)),
+     ValueError),
+    (dict(sync="post_local", post_local_switch=10, pod_local=True, churn=True,
+          quarantine_limit=0), ValueError),
+    (dict(pod_local=True, corruption_rate=0.1), ValueError),  # a rate without a kind
+    (dict(corruption_rate=1.0, corruption_kind="nan", error_feedback=True, **QSGD),
+     ValueError),
+    (dict(churn=True, rejoin_policy="pull"), ValueError),
     (dict(collective="tree"), ValueError),  # none of the reference's schedules
     # no compressed-domain reduction for a sparsifier (or for PowerSGD), as
     # in the reference
@@ -274,6 +272,13 @@ def test_validate_rejects_unported_cells(kw, err):
     dict(sync="post_local", post_local_switch=10, pod_local=True),
     dict(overlap="pipelined", **QSGD, wire_format="compressed", error_feedback=True),
     dict(overlap="pipelined", overlap_staleness=0, stale_scale=0.5),
+    # churn, rejoin and integrity over the routes
+    dict(churn=True, rejoin_policy="pull_avg", **QSGD, wire_format="compressed"),
+    dict(dropout_rate=0.3, worker_dropout=(0.1, 0.0, 0.5, 0.0), churn_start=2, churn_end=9),
+    dict(corruption_rate=0.1, corruption_kind="nan", error_feedback=True, **QSGD),
+    dict(churn=True, corruption_kind="bitflip", overlap="pipelined"),
+    dict(aggregator="gossip", gossip_compress="choco", compressor="topk", dropout_rate=0.2),
+    dict(pod_local=True, compressor="powersgd", dropout_rate=0.1, quarantine_limit=5),
 ])
 def test_validate_accepts_ported_cells(kw):
     validate(CommConfig(**kw))

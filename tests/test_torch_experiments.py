@@ -257,12 +257,18 @@ def test_unported_substrates_raise(substrate, capsys):
 
 
 def test_churn_cells_raise_on_training():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        prunner.run_scenario(Scenario(n_workers=4, steps=4, dropout_rate=0.1), "training",
+    """Churn and corruption cells run on the training substrate now
+    (test_torch_churn_engine.py); invalid ones raise the reference's errors,
+    each naming its field."""
+    with pytest.raises(ValueError, match="rejoin_policy"):
+        prunner.run_scenario(Scenario(n_workers=4, steps=4, dropout_rate=0.1,
+                                      rejoin_policy="bogus"), "training", device="cpu")
+    with pytest.raises(ValueError, match="corruption_kind"):
+        prunner.run_scenario(Scenario(n_workers=4, steps=4, corruption_rate=0.1), "training",
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        prunner.run_scenario(Scenario(n_workers=4, steps=4, corruption_rate=0.1,
+    r = prunner.run_scenario(Scenario(n_workers=4, steps=4, dropout_rate=0.1, corruption_rate=0.1,
                                       corruption_kind="nan"), "training", device="cpu")
+    assert {"quarantine_rounds", "quarantined_gbits", "escalations"} <= set(r.measured)
 
 
 # ---------------------------------------------------------------------------

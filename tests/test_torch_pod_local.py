@@ -22,7 +22,8 @@ across pods every H steps), against the JAX package.
   are the BSP run's, and its wire that of ``run_trainer_scenario(
   pod_local=True, data_par=4)``.
 * ``launch/train.py --pod 2 --workers 2 --pod-local`` runs on the CPU.
-* ``powersgd`` over several pods raises (the reference keeps a Q per pod).
+* ``powersgd`` over several pods keeps one Q per pod, as the reference does
+  (its parity: test_torch_churn_pod.py).
 * On the card: the whole path's cell launches exactly its kernels, once per
   worker (qsgd_ef) and once per pod (int8_acc) and step.
 """
@@ -238,10 +239,14 @@ def test_pod_local_on_card_launches_its_kernels(cuda):
 
 
 def test_powersgd_over_several_pods_is_refused():
-    """The reference keeps one PowerSGD Q per pod under pod-local SGD; the
-    port carries one Q, so several pods raise (one pod runs)."""
+    """Nothing refuses it now: the port keeps one PowerSGD Q per pod under
+    pod-local SGD, as the reference does, a (P, b * rank) stack, and one pod
+    keeps the flat Q."""
     kw = dict(pod_local=True, local_steps=2, bucket_mb=4.0, compressor="powersgd",
               compressor_kwargs={"rank": 2})
-    with pytest.raises(NotImplementedError, match="powersgd"):
-        port_run(CommConfig(**kw), steps=1, pods=P)
-    assert np.isfinite(port_run(CommConfig(**kw), steps=1, pods=1)[3]).all()
+    _, _, state, losses = port_run(CommConfig(**kw), steps=1, pods=P)
+    assert np.isfinite(losses).all()
+    assert all(q.shape[0] == P for q in state["comm"]["psgd_q"] if q.numel())
+    _, _, state, losses = port_run(CommConfig(**kw), steps=1, pods=1)
+    assert np.isfinite(losses).all()
+    assert all(q.dim() == 1 for q in state["comm"]["psgd_q"])

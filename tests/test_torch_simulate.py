@@ -142,11 +142,27 @@ def test_logistic_cell_matches_reference():
                                          ("rejoin_policy", "pull_avg"),
                                          ("corruption_rate", 0.05), ("corruption_kind", "nan")])
 def test_churn_and_integrity_cells_are_refused(field, value):
-    c = cfg(P, "bsp", "qsgd", {"levels": 16}, True, **{field: value})
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """The engine runs churn and integrity cells now
+    (test_torch_churn_engine.py); what it refuses, as the reference's
+    split_cfg does, is a churn or integrity value out of range, with a
+    message naming the field, and the loop reference refuses every churn
+    cell (it runs churn-free cells only, as the reference's)."""
+    bad = {"churn": dict(worker_dropout=(0.1, 0.0)),
+           "dropout_rate": dict(rejoin_policy="bogus"),
+           "worker_dropout": dict(worker_dropout=(0.1, 0.0, 0.0)),
+           "rejoin_policy": dict(rejoin_policy="pull"),
+           "corruption_rate": dict(corruption_rate=1.0, corruption_kind="nan"),
+           "corruption_kind": dict(corruption_kind="nans")}[field]
+    c = cfg(P, "bsp", "qsgd", {"levels": 16}, True, **{field: value, **bad})
+    match = "worker_dropout|rejoin_policy|corruption_rate|corruption_kind"
+    with pytest.raises(ValueError, match=match):
         P.simulate_training(c, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match=match):
         P.split_cfg(c, dim=64)
+    good = cfg(P, "bsp", "qsgd", {"levels": 16}, True, **{field: value})
+    if field in ("churn", "dropout_rate", "worker_dropout", "corruption_rate"):
+        with pytest.raises(ValueError, match=field):
+            P.simulate_training_reference(good, device="cpu")
 
 
 def test_unknown_sync_is_refused():

@@ -23,8 +23,8 @@ trainer's ``inner_step`` and ``sync_step``), microbatched accumulation and
   own gradient clipped on an inner step) against the reference's bundle;
   ``warmup_steps`` accepted and read by nothing, in both packages.
 * ``validate`` admits the sync, gossip, pod-local and pipelined fields,
-  raises the reference's ``bundle_spec`` errors on the overlap fields and
-  still refuses churn, rejoin and integrity.
+  and raises the reference's ``bundle_spec`` errors on the overlap fields
+  and on the churn, rejoin and integrity values it refuses.
 """
 
 import json
@@ -161,7 +161,8 @@ def _reference_params(cfg, device):
 
 
 def port_run(comm, *, n_workers=W, steps=4, lr=0.05, microbatch=1, optimizer=None,
-             clip_norm=0.0, device="cpu", noise=_noise, cfg_updates=None, pods=1):
+             clip_norm=0.0, device="cpu", noise=_noise, cfg_updates=None, pods=1,
+             churn_draws=None):
     """``steps`` of ``Trainer.fit`` on the tiny workload from the reference's
     initial parameters (cast to ``cfg_updates``' parameter dtype, if it
     sets one); returns (bundle, trainer, state, losses)."""
@@ -169,7 +170,8 @@ def port_run(comm, *, n_workers=W, steps=4, lr=0.05, microbatch=1, optimizer=Non
     cfg = cfg.with_updates(**(cfg_updates or {}))
     bundle = build_bundle(cfg, comm, optimizer or opt.momentum_sgd(0.0), shape,
                           n_workers=n_workers, seed=0, device=device, noise=noise,
-                          clip_norm=clip_norm, microbatch=microbatch, pods=pods)
+                          clip_norm=clip_norm, microbatch=microbatch, pods=pods,
+                          churn_draws=churn_draws)
     tr = Trainer(bundle, _Data(shape), constant(lr), log_every=1)
     state = tr.fit(bundle.init_state(_reference_params(cfg, device)), steps)
     return bundle, tr, state, np.asarray([h["loss"] for h in tr.history])
@@ -229,8 +231,12 @@ def test_average_params_matches_reference_under_vmap(impl):
 
 
 def test_average_params_refuses_churn_arguments():
-    with pytest.raises(NotImplementedError, match="churn"):
-        sync.average_params([torch.zeros(W, 3)], alive=torch.ones(()))
+    """A donor or payload needs the round's alive bits (the churn
+    arguments themselves are ported: test_torch_churn_sync.py)."""
+    with pytest.raises(ValueError, match="alive"):
+        sync.average_params([torch.zeros(W, 3)], donor=torch.ones(W))
+    with pytest.raises(ValueError, match="alive"):
+        sync.average_params([torch.zeros(W, 3)], payload=lambda i: torch.zeros(W, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -340,10 +346,11 @@ ADMITTED = [dict(sync="local", local_steps=4), dict(sync="post_local", post_loca
             # a gossip cell's wire is dense whatever it says, as in the reference
             dict(aggregator="gossip", compressor="topk", wire_format="compressed"),
             dict(pod_local=True), dict(overlap="pipelined")]
-REFUSED = [dict(churn=True),
-           dict(dropout_rate=0.1), dict(worker_dropout=(0.1, 0.0)),
-           dict(rejoin_policy="pull_avg"), dict(corruption_rate=0.1, corruption_kind="nan"),
-           dict(quarantine_limit=5)]
+#: churn, rejoin and integrity values the reference's bundle_spec refuses
+REFUSED = [dict(churn=True, dropout_rate=1.0),
+           dict(dropout_rate=-0.1, worker_dropout=(0.1, 1.0)), dict(worker_dropout=(0.1, 2.0)),
+           dict(rejoin_policy="pull"), dict(corruption_rate=0.1, corruption_kind="nans"),
+           dict(quarantine_limit=0)]
 
 
 @pytest.mark.parametrize("kw", ADMITTED, ids=str)
@@ -353,7 +360,8 @@ def test_validate_admits_sync_and_gossip(kw):
 
 @pytest.mark.parametrize("kw", REFUSED, ids=str)
 def test_validate_still_refuses_unported_parts(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Each refusal names its field."""
+    with pytest.raises(ValueError, match="dropout|rejoin_policy|corruption_kind|quarantine"):
         validate(CommConfig(**kw))
 
 
