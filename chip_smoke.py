@@ -166,7 +166,8 @@ result line:
    timeline`` on the default grid (16 workers, 120 steps), in-process, each
    table printed.  Before it the three row kernels are held against their
    plain versions at (rows, n) = (432, 64) (a class of E2: 18 cells x 3
-   replicas x 8 workers; timed), (2160, 64), (1, 100003) and (100003, 1),
+   replicas x 8 workers; timed per call by CUDA events and as the kernel's
+   own device time by torch.profiler), (2160, 64), (1, 100003) and (100003, 1),
    with per-row levels: codes bitwise, e' within rtol 1e-6.  Then the
    engine's churn legs, BENCH_churn.json's engine configurations at their
    sizes: (C1) {qsgd 4, qsgd 16, adaptive_qsgd var_target 0.5} x dropout
@@ -181,6 +182,22 @@ result line:
    final loss; and a dropout-0 churn cell against its churn-free twin
    within rtol 1e-5 / atol 1e-6 (bitwise printed).  Each prints its wall,
    cells/s, class programs, launches and peak MiB.
+9. phase T, the sweep CLI's trainer and roofline substrates, on the tiny
+   workload of the trainer substrate (qwen3-0.6b at d_model 128, 2 layers,
+   batch 64 x seq 16, bigram data): (T1) ``measure_trainer_sweep`` on
+   ``trainer_matrix_16`` (W = 4, 24 steps, deterministic algorithms):
+   builds shared at most the classes, per cell one per cell,
+   ``max_rel_dev_loss`` < 1e-5, no kernel launched; (T2) the
+   ``overlap_bench`` twin's 14 cells (W = 2, microbatch 4, 16 steps) with
+   the reference's assertions, each pipelined cell's measured overlap
+   saving beside the predicted one; (T3) ``run.py --substrate trainer`` on
+   compressor {qsgd_kernel, terngrad_kernel, signsgd_packed, threshold} x
+   wire {compressed, dense} x EF (W = 4, 6 steps): each dropped cell
+   printed with its reason, each cell that runs launching exactly the
+   kernels its CommConfig routes (``ROUTE_KERNELS``); (T4) the
+   ``train_micro`` twin's nine cells, likewise; (T5) ``run.py --substrate
+   roofline`` on the default grid: every term finite.  Nothing is written
+   into the tree.
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -206,6 +223,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 
+from repro_torch.benchmarks import overlap_bench, train_micro  # noqa: E402
+from repro_torch.benchmarks.common import deterministic  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core import aggregate  # noqa: E402
@@ -215,8 +234,8 @@ from repro_torch.core.compression.powersgd import shape2d  # noqa: E402
 from repro_torch.core.types import CommConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticBatches  # noqa: E402
 from repro_torch.experiments import run as sweep_cli  # noqa: E402
-from repro_torch.experiments import runner  # noqa: E402
-from repro_torch.experiments.scenario import Scenario  # noqa: E402
+from repro_torch.experiments import runner, trainer_substrate  # noqa: E402
+from repro_torch.experiments.scenario import Scenario, expand  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import LIBRARY  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -596,10 +615,10 @@ def _wkv6_inputs(B: int, S: int, H: int, hd: int, dtype: torch.dtype, seed: int,
     return r, k, v, w, u, s0
 
 
-def wkv6_device_ms(fn, iters: int) -> float:
-    """The wkv6 kernel's own device time per launch over ``iters`` calls of
-    ``fn``, from torch.profiler (CUDA events around the calls time the
-    host-bound enqueue instead)."""
+def device_ms(fn, iters: int, kernel: str) -> float:
+    """The own device time per launch of the kernels whose name holds
+    ``kernel``, over ``iters`` calls of ``fn``, from torch.profiler (CUDA
+    events around the calls time the host-bound enqueue instead)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -608,10 +627,10 @@ def wkv6_device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and "wkv6" in e.key]
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and kernel in e.key]
     count = sum(e.count for e in ev)
     if not count:
-        raise AssertionError("wkv6: the profiler saw no device time of the kernel")
+        raise AssertionError(f"{kernel}: the profiler saw no device time of the kernel")
     return sum(e.self_device_time_total for e in ev) / 1e3 / count
 
 
@@ -656,7 +675,7 @@ def check_wkv6() -> dict[str, dict]:
         if shape[1] == 1 and shape[0] == SERVE_B:
             b_ms, b_by = wkv6_bound(*shape, in_bytes=2)
             call_ms = ms_per_call(lambda: ops.wkv6(*args), 20)
-            dev_ms = wkv6_device_ms(lambda: ops.wkv6(*args), 20)
+            dev_ms = device_ms(lambda: ops.wkv6(*args), 20, "wkv6")
             decode = dict(decode_ms=call_ms, decode_device_ms=dev_ms)
             detail.append(f"{shape} {call_ms:.4f} ms per call (host-bound), "
                           f"{dev_ms:.4f} ms of device time per launch (profiler) (bound "
@@ -1236,7 +1255,8 @@ def check_row_kernels(rows: int, n: int, timed: bool) -> dict[str, dict]:
                         "detail": f"codes differ at {int((codes != plain).sum())}"}
     if timed:
         out["qsgd_rows"].update(ms=ms_per_call(run_q, 50), plain_ms=ms_per_call(
-            lambda: ref.qsgd_codes_rows(x, u, inv, lv), 20))
+            lambda: ref.qsgd_codes_rows(x, u, inv, lv), 20),
+            device_ms=device_ms(run_q, 50, "qsgd_rows_kernel"))
 
     a = e + x
     inv_a = torch.reciprocal(torch.clamp_min(torch.linalg.vector_norm(a, dim=-1), 1e-30))
@@ -1257,7 +1277,8 @@ def check_row_kernels(rows: int, n: int, timed: bool) -> dict[str, dict]:
                                      f"within rtol 1e-6 {e_ok}"}
     if timed:
         out["qsgd_ef_rows"].update(ms=ms_per_call(run_ef, 50), plain_ms=ms_per_call(
-            lambda: ref.qsgd_ef_rows(x, e, u, inv_a, lv, torch.tensor(1.0, device=DEV)), 20))
+            lambda: ref.qsgd_ef_rows(x, e, u, inv_a, lv, torch.tensor(1.0, device=DEV)), 20),
+            device_ms=device_ms(run_ef, 50, "qsgd_ef_rows_kernel"))
 
     inv_t = torch.reciprocal(torch.clamp_min(torch.amax(torch.abs(x), dim=-1), 1e-30))
     u.view(-1)[5::13] = (torch.abs(x) * inv_t[:, None]).view(-1)[5::13]  # u == p: strict compare
@@ -1269,7 +1290,8 @@ def check_row_kernels(rows: int, n: int, timed: bool) -> dict[str, dict]:
                             "detail": f"codes differ at {int((codes != plain).sum())}"}
     if timed:
         out["terngrad_rows"].update(ms=ms_per_call(run_t, 50), plain_ms=ms_per_call(
-            lambda: ref.terngrad_codes_rows(x, u, inv_t), 20))
+            lambda: ref.terngrad_codes_rows(x, u, inv_t), 20),
+            device_ms=device_ms(run_t, 50, "terngrad_rows_kernel"))
     return out
 
 
@@ -1635,6 +1657,171 @@ def run_server(profile_step: bool) -> int:
     return launches["wkv6"]
 
 
+# ---------------------------------------------------------------------------
+# Phase T: the sweep CLI's trainer and roofline substrates.
+# ---------------------------------------------------------------------------
+
+#: T3's grid on run.py's trainer lane: 16 raw cells, of which the
+#: scenario's rules drop threshold on the compressed wire (no
+#: compressed-domain reduction)
+T3_GRID = ("compressor=qsgd_kernel:levels=16,terngrad_kernel,signsgd_packed,threshold:tau=0.001 "
+           "wire_format=compressed,dense error_feedback=true,false")
+#: the kernels a bucket of each (compressor, route) launches per step that
+#: runs the route: "send" once per worker, "recv" once (the rule of PATHS),
+#: "decode" once per worker's gathered payload and, under error feedback,
+#: once more per worker for its own residual (e' = a - C(a)); every other
+#: pair launches none
+ROUTE_KERNELS = {
+    ("qsgd_kernel", "fused_ef"): {"qsgd_ef": "send", "int8_acc": "recv"},
+    ("qsgd_kernel", "int8_acc"): {"qsgd": "send", "int8_acc": "recv"},
+    ("qsgd_kernel", "gather"): {"qsgd": "send"},
+    ("qsgd", "int8_acc"): {"int8_acc": "recv"},
+    ("terngrad_kernel", "tern"): {"terngrad": "send", "tern_pack": "send", "tern_acc": "recv"},
+    ("terngrad_kernel", "gather"): {"terngrad": "send"},
+    ("terngrad", "tern"): {"tern_pack": "send", "tern_acc": "recv"},
+    ("signsgd_packed", "sign"): {"sign_pack": "send", "sign_vote": "recv"},
+    ("signsgd_packed", "gather"): {"sign_pack": "send", "sign_unpack": "decode"},
+    ("signsgd", "sign"): {"sign_pack": "send", "sign_vote": "recv"},
+    ("threshold", "sum"): {"threshold": "send"},
+    ("adaptive_threshold", "sum"): {"threshold": "send"},
+}
+
+
+def route_launches(comm: CommConfig, plan, workers: int, steps: int) -> dict[str, int]:
+    """The launches a cell's CommConfig routes: per bucket of ``plan`` its
+    route's kernels (ROUTE_KERNELS), x workers for the send side, x the
+    kernel-running steps of a ``steps``-step run (``kernel_steps``).  A
+    gossip cell mixes parameters: its CHOCO compressors are not covered."""
+    if comm.aggregator == "gossip":
+        if comm.gossip_compress == "choco" and comm.compressor != "none":
+            raise ValueError("route_launches: no rule for CHOCO's compressors")
+        return {}
+    per_step: dict[str, int] = {}
+    for b in plan.buckets:
+        comp = plan.compressor(b)
+        route = aggregate.bucket_route(comm, comp)
+        for k, side in ROUTE_KERNELS.get((b.compressor_name, route), {}).items():
+            n = {"send": workers, "recv": 1,
+                 "decode": workers * (2 if comm.error_feedback else 1)}[side]
+            per_step[k] = per_step.get(k, 0) + n
+    n = kernel_steps(comm, steps)
+    return {k: v * n for k, v in per_step.items()}
+
+
+@contextlib.contextmanager
+def launches_per_cell():
+    """Each trainer cell's launches (the counts' change over its run), as
+    (scenario, workers, launches), recorded around
+    ``trainer_substrate.run_trainer_scenario``, which the sweep calls per
+    cell."""
+    seen, real = [], trainer_substrate.run_trainer_scenario
+
+    def counted(s, **kw):
+        before = dict(ops.LAUNCHES)
+        r = real(s, **kw)
+        seen.append((s, kw["data_par"], {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                                         if v != before[k]}))
+        return r
+
+    trainer_substrate.run_trainer_scenario = counted
+    try:
+        yield seen
+    finally:
+        trainer_substrate.run_trainer_scenario = real
+
+
+def run_phase_t(card: str) -> None:
+    """T1 the trainer sweep's registry record, T2 the overlap twin, T3 the
+    trainer lane of run.py on kernel cells, T4 the train_micro twin's cells,
+    T5 the roofline lane; nothing is written into the tree."""
+    t_phase = time.perf_counter()
+    tiny = trainer_substrate.make_tiny_workload()[0]
+
+    ops.reset_launches()
+    with deterministic():
+        rec = trainer_substrate.measure_trainer_sweep(trainer_substrate.trainer_matrix_16(),
+                                                      device=DEV)
+    print(f"phase T1 ({card}): trainer_matrix_16 ({rec['n_cells']} cells, W = 4 stacked, "
+          f"{rec['steps']} steps, deterministic algorithms): {rec['n_shape_classes']} classes, "
+          f"builds shared {rec['builds_shared']} / per cell {rec['builds_percell']}, hits "
+          f"{rec['cache_hits']}; shared {rec['shared_s']:.3f} s ({rec['n_cells'] / rec['shared_s']:.2f} "
+          f"cells/s), per cell {rec['percell_s']:.3f} s ({rec['n_cells'] / rec['percell_s']:.2f} "
+          f"cells/s), x{rec['speedup']:.3f}; max_rel_dev_loss {rec['max_rel_dev_loss']:.3g}; "
+          f"launches {dict(ops.LAUNCHES)}")
+    if rec["builds_shared"] > rec["n_shape_classes"] or rec["builds_percell"] != rec["n_cells"] \
+            or not rec["max_rel_dev_loss"] < 1e-5 or any(ops.LAUNCHES.values()):
+        raise AssertionError(f"phase T1: {rec}, launches {dict(ops.LAUNCHES)}")
+
+    t0 = time.perf_counter()
+    with deterministic():
+        ov = overlap_bench.measure(DEV)
+    print(f"phase T2 ({card}): overlap matrix, {ov['n_cells']} cells in {ov['n_shape_classes']} "
+          f"classes (W = {ov['n_workers_stacked']}, microbatch {ov['microbatch']}, {ov['steps']} "
+          f"steps): {ov['builds']} builds, {ov['cache_hits']} hits (the re-run included), sweep "
+          f"{ov['sweep_wall_clock_s']:.3f} s, worst pipelined / sequential loss "
+          f"{ov['worst_pipelined_loss_ratio']:.5f} (ssp(1) reference "
+          f"{ov['staleness_reference']['sim_ssp1_ratio']:.5f}); {time.perf_counter() - t0:.1f} s")
+    for p in ov["pairs"]:
+        print(f"  {p['tag']}: overlap_saving_s measured {p['measured_overlap_saving_s']:.6f}, "
+              f"predicted {p['predicted_overlap_saving_s']:.6f}; loss / sequential "
+              f"{p['loss_ratio_vs_sequential']:.5f}")
+
+    t0 = time.perf_counter()
+    raw = sweep_cli.parse_grid(T3_GRID, n_workers=W, steps=6)
+    kept = set(expand(raw, substrate="trainer"))
+    for s in raw:
+        if s not in kept:
+            print(f"  T3 dropped {s.tag()}: {'; '.join(s.violations('trainer'))}")
+    with tempfile.TemporaryDirectory() as tmp, launches_per_cell() as seen:
+        path = str(Path(tmp) / "trainer.json")
+        rc = sweep_cli.main(["--substrate", "trainer", "--device", str(DEV), "--workers", str(W),
+                             "--steps", "6", "--grid", T3_GRID, "--emit-json", path])
+        t3 = json.loads(Path(path).read_text())
+    if rc != 0 or t3["n_cells"] != len(kept) or len(seen) != len(kept):
+        raise AssertionError(f"phase T3: rc {rc}, {t3['n_cells']} cells, {len(seen)} runs, "
+                             f"want {len(kept)}")
+    for s, dp, got in seen:
+        comm = trainer_substrate.to_comm_config(s)
+        want = route_launches(comm, aggregate.make_bucket_plan(comm, T.param_defs(tiny)), dp,
+                              s.steps)
+        print(f"  T3 {s.tag()}: W = {dp}, launches {got}")
+        if got != want:
+            raise AssertionError(f"phase T3 {s.tag()}: must launch exactly {want}: {got}")
+    vals = [v for c in t3["cells"] for v in (c["measured"]["final_loss"],
+                                             c["measured"]["wire_kb_per_step"])]
+    print(f"phase T3 ({card}): run.py --substrate trainer, {len(raw)} cells in the grid, "
+          f"{t3['n_cells']} run, bundle {t3['bundle']}; {time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"phase T3: non-finite loss or wire in {t3['cells']}")
+
+    t0 = time.perf_counter()
+    for cell in train_micro.micro_cells(DEV):
+        b = cell["bundle"]
+        want = route_launches(cell["comm"], b.bucket_plan, b.n_workers, cell["steps"])
+        fmt = {k: round(v / 1e3, 3) for k, v in cell["formats"].items() if v}
+        print(f"  T4 train_micro/{cell['tag']}: {cell['us'] / 1e3:.3f} ms per step (median of "
+              f"{train_micro.REPS}), wire {cell['wire'] / 1e3:.3f} KB per step {fmt}, "
+              f"launches {cell['launches']}")
+        if cell["launches"] != want:
+            raise AssertionError(f"phase T4 {cell['tag']}: must launch exactly {want}: "
+                                 f"{cell['launches']}")
+    print(f"phase T4 ({card}): the train_micro twin's nine cells in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "roofline.json")
+        rc = sweep_cli.main(["--substrate", "roofline", "--emit-json", path])
+        t5 = json.loads(Path(path).read_text())
+    terms = [c["measured"][k] for c in t5["cells"]
+             for k in ("t_compute", "t_memory", "t_collective", "iter_time_bound")]
+    print(f"phase T5: run.py --substrate roofline, {t5['n_cells']} cells, bottlenecks "
+          f"{sorted({c['measured']['bottleneck'] for c in t5['cells']})}, all terms finite "
+          f"{all(math.isfinite(v) for v in terms)}")
+    if rc != 0 or not t5["n_cells"] or not all(math.isfinite(v) for v in terms):
+        raise AssertionError(f"phase T5: rc {rc}, record {t5}")
+    print(f"phase T: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="*", metavar="LABEL",
@@ -1742,18 +1929,20 @@ def main() -> None:
     engine_launches["qsgd_ef"] += run_churn_engine(card)
     check_rwkv_path()
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
+    run_phase_t(card)
     for name, r in row_checks.items():
         b_ms, b_by = _bound(ROW_KERNELS[name]["bytes"](ENGINE_ROWS, ENGINE_DIM),
                             ROW_KERNELS[name]["ops"](ENGINE_ROWS, ENGINE_DIM))
         kernel = ROW_KERNELS[name]["kernel"]
-        print(f"kernel {name} (rows, n)=({ENGINE_ROWS}, {ENGINE_DIM}): {r['ms']:.4f} ms (bound "
-              f"{b_ms:.6f} ms by {b_by}), plain {r['plain_ms']:.4f} ms, max_abs_err "
-              f"{r['max_abs_err']}; engine launches {engine_launches[kernel]}")
+        print(f"kernel {name} (rows, n)=({ENGINE_ROWS}, {ENGINE_DIM}): {r['ms']:.4f} ms per call "
+              f"(CUDA events), {r['device_ms']:.4f} ms of the kernel's own device time "
+              f"(torch.profiler; bound {b_ms:.6f} ms by {b_by}), plain {r['plain_ms']:.4f} ms, "
+              f"max_abs_err {r['max_abs_err']}; engine launches {engine_launches[kernel]}")
         rows.append({"name": name, "route": "cuda", "source": KERNELS[kernel]["source"],
                      "replaces": KERNELS[kernel]["replaces"],
                      "launches": engine_launches[kernel], "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None,
+                     "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                      "library_note": NO_LIBRARY[kernel], "ok": r["ok"]})
     print(f"engine phase launches of the flat sign kernels (E3): sign_pack "
           f"{engine_launches['sign_pack']}, sign_unpack {engine_launches['sign_unpack']}")

@@ -1,6 +1,6 @@
 """Compressor protocol and registry (counterpart of
 ``repro.core.compression.base``: ``Compressed``, ``register``,
-``get_compressor``, ``runtime_knob_values``, ``compress_p``,
+``get_compressor``, ``runtime_knob_values``, ``runtime_fingerprint``, ``compress_p``,
 ``decompress_p``, and the convergence engine's half of the protocol:
 ``compress_decompress``, ``roundtrip_bits``, ``roundtrip_bits_ef``,
 ``measured_wire_bits``, ``batch_knobs``, ``batch_param_values``,
@@ -52,6 +52,19 @@ def runtime_knob_values(comp) -> dict[str, float]:
     if fn is not None:
         return {k: float(v) for k, v in fn().items()}
     return {k: float(getattr(comp, k)) for k in runtime_knobs(comp)}
+
+
+def runtime_fingerprint(comp) -> tuple:
+    """The trainer-layer identity of a compressor: its class and every
+    dataclass field that is not a runtime knob (payload-shaping knobs such
+    as top-k's ratio are structural here).  Two cells whose compressors
+    share it book the same wire."""
+    if comp is None:
+        return ("dense",)
+    knobs = set(runtime_knobs(comp))
+    return (type(comp).__name__,) + tuple((f.name, getattr(comp, f.name))
+                                          for f in dataclasses.fields(comp)
+                                          if f.name not in knobs)
 
 
 def needs_noise(comp) -> bool:

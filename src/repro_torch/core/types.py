@@ -25,7 +25,9 @@ quarantined rounds).  :func:`validate` applies the reference's
 ``bundle_spec`` checks on those fields and on ``overlap``,
 ``overlap_staleness``, ``wire_format`` and ``agg_dtype``;
 :func:`effective_corruption_kind` and :func:`churn_enabled` are the
-reference's structural rules for the two axes.
+reference's structural rules for the two axes.  :func:`bundle_spec`
+projects a config onto its structural half (:class:`BundleSpec`), the key
+of the trainer's shape classes.
 """
 
 from __future__ import annotations
@@ -186,3 +188,74 @@ def validate(comm: CommConfig):
     for _, name, kwargs in comm.per_tensor_rules:
         bucket_route(comm, get_compressor(name, **kwargs))
     return comp
+
+
+@dataclass(frozen=True)
+class BundleSpec:
+    """The structural half of a :class:`CommConfig` (the reference's
+    ``BundleSpec``): two configs with equal specs run the same step programs
+    and book the same wire; they differ only in value knobs (compressor
+    runtime knobs such as qsgd's levels, ``ef_decay``, ``stale_scale``,
+    churn rates and windows, ``corruption_rate``, gossip weights), which
+    each cell binds itself.  ``comp_key`` is the compressor's
+    ``runtime_fingerprint``; inert knobs are normalized so that they never
+    split a class (``overlap`` for gossip, ``overlap_staleness`` for
+    sequential cells, ``rejoin_policy`` for churn-free ones, the wire format
+    for gossip)."""
+
+    sync: str
+    pod_local: bool
+    aggregator: str
+    collective: str
+    gossip_graph: str
+    gossip_compress: str
+    error_feedback: bool
+    momentum_correction: bool
+    local_clip: bool
+    warmup_steps: int
+    comp_key: tuple
+    rules_key: tuple
+    bucket_mb: float
+    agg_dtype: str
+    overlap: str = "sequential"
+    overlap_staleness: int = 0
+    churn: bool = False
+    rejoin_policy: str = "reset"
+    wire_format: str = "dense"
+    corruption_kind: str = "none"
+
+
+def bundle_spec(comm: CommConfig) -> BundleSpec:
+    """Project ``comm`` onto its structural half, after :func:`validate`'s
+    checks (the reference's ``bundle_spec`` raises on the same fields).
+    ``local_steps``, ``post_local_switch`` (the trainer's step-count
+    decisions) and every value knob are absent."""
+    from repro_torch.core.compression.base import runtime_fingerprint
+
+    comp = validate(comm)
+    gossip = comm.aggregator == "gossip"
+    churn = churn_enabled(comm)
+    return BundleSpec(
+        sync=comm.sync,
+        pod_local=bool(comm.pod_local),
+        aggregator=comm.aggregator,
+        collective=comm.collective,
+        gossip_graph=comm.gossip_graph,
+        gossip_compress=comm.gossip_compress,
+        error_feedback=bool(comm.error_feedback),
+        momentum_correction=bool(comm.momentum_correction),
+        local_clip=bool(comm.local_clip),
+        warmup_steps=int(comm.warmup_steps),
+        comp_key=runtime_fingerprint(comp),
+        rules_key=tuple((sub, name, tuple(sorted(dict(kw).items())))
+                        for sub, name, kw in comm.per_tensor_rules),
+        bucket_mb=float(comm.bucket_mb),
+        agg_dtype=comm.agg_dtype,
+        overlap=comm.overlap if not gossip else "sequential",
+        overlap_staleness=(int(comm.overlap_staleness)
+                           if comm.overlap == "pipelined" and not gossip else 0),
+        churn=churn,
+        rejoin_policy=comm.rejoin_policy if churn else "reset",
+        wire_format=comm.wire_format if not gossip else "dense",
+        corruption_kind=effective_corruption_kind(comm),
+    )

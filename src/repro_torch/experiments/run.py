@@ -18,8 +18,23 @@ measured against cost-model-predicted time and bytes.
 values (lr, staleness, H, compressor knobs, problem seed); ``--emit-json``
 records the class programs built next to the cells/s, and the batched
 engine against the loop reference on the fixed speedup cell
-(``--no-speedup`` skips it).  The reference's ``roofline`` and ``trainer``
-substrates, ``--cache-dir`` and ``--calibration`` are not ported.
+(``--no-speedup`` skips it).
+
+``--substrate trainer`` runs the cells through the real trainer on the tiny
+workload, on ``--device``, W workers stacked on one device.  The worker
+count is selected per cell as in the reference (the largest that fits the
+devices and the scenario and divides the batch; cells that cannot run are
+skipped with the reason on stderr), reading the reference's own cap,
+``min(max n_workers, 8)``, as the devices available.  The sweep is grouped
+by trainer shape class, so the cells of a class share one bundle build
+(``--emit-json`` gains the ``bundle`` block: classes, builds, hits,
+cells/s).  The overlap axis runs here too (``overlap=sequential,pipelined
+microbatch=4``): a pipelined cell carries the predicted overlap saving and,
+when its sequential twin is in the sweep, the measured one.
+
+``--substrate roofline`` emits the analytic per-cell compute, memory and
+collective terms with the H100's constants.  The reference's ``--cache-dir``
+and ``--calibration`` are not ported (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -118,7 +133,8 @@ def main(argv=None) -> int:
     p.add_argument("--no-speedup", action="store_true",
                    help="skip the engine-against-loop measurement in --emit-json")
     p.add_argument("--device", default="cuda",
-                   help="the training engine's device (default cuda; cpu to run without a card)")
+                   help="the training engine's and the trainer's device (default cuda; cpu to "
+                        "run without a card)")
     args = p.parse_args(argv)
 
     base = dict(n_workers=args.workers, steps=args.steps, seed=args.seed, lr=args.lr,
@@ -136,18 +152,17 @@ def main(argv=None) -> int:
     print(f"# sweeping {len(scenarios)} scenarios on the {args.substrate} substrate "
           f"({len(dropped)} invalid cells dropped)", file=sys.stderr)
 
+    if args.substrate == "trainer":
+        return _trainer_sweep(args, scenarios)
+
     from repro_torch.core.simulate import engine_cache_stats
     from repro_torch.experiments.runner import (
-        NOT_PORTED,
         measure_engine_speedup,
         run_scenarios,
         training_shape_key,
     )
     from repro_torch.experiments.tables import format_csv, format_table
 
-    if args.substrate in NOT_PORTED:
-        print(f"--substrate {args.substrate}: {NOT_PORTED[args.substrate]}", file=sys.stderr)
-        return 2
     st0 = dataclasses.replace(engine_cache_stats())
     t0 = time.perf_counter()
     results = run_scenarios(scenarios, args.substrate, replicas=args.replicas,
@@ -173,6 +188,60 @@ def main(argv=None) -> int:
             }
             if not args.no_speedup:
                 record["engine_speedup"] = measure_engine_speedup(device=args.device)
+        with open(args.emit_json, "w") as f:
+            json.dump(record, f, indent=2)
+        print(f"# wrote {args.emit_json}", file=sys.stderr)
+    return 0
+
+
+def _trainer_sweep(args, scenarios) -> int:
+    """The ``--substrate trainer`` lane: ``run_trainer_sweep`` over the
+    cells with the worker count selected per cell, grouped by trainer shape
+    class (``bundle_cache_stats`` lands in the ``--emit-json`` record)."""
+    from repro_torch.experiments.tables import format_csv, format_table
+    from repro_torch.experiments.trainer_substrate import (
+        run_trainer_sweep,
+        select_trainer_device_count,
+        stacked_devices,
+        trainer_shape_key,
+    )
+    from repro_torch.train.steps import bundle_cache_stats
+
+    ndev = stacked_devices(scenarios)
+    st0 = dataclasses.replace(bundle_cache_stats())
+    t0 = time.perf_counter()
+    all_results, skip_reasons = run_trainer_sweep(scenarios, n_devices=ndev, verbose=True,
+                                                  device=args.device)
+    sweep_s = time.perf_counter() - t0
+    for s, why in skip_reasons:
+        print(f"# skip {s.tag()}: {why}", file=sys.stderr)
+    results = [r for r in all_results if r is not None]
+    skipped = len(skip_reasons)
+    if not results:
+        print(f"# no trainer cells runnable ({skipped} skipped)", file=sys.stderr)
+        return 0
+    st1 = bundle_cache_stats()
+    builds, hits = st1.builds - st0.builds, st1.hits - st0.hits
+    n_classes = len({trainer_shape_key(r.scenario,
+                                       data_par=select_trainer_device_count(r.scenario, ndev)[0])
+                     for r in results})
+    print(f"# bundle cache: {len(results)} cells, {builds} builds, {hits} hits", file=sys.stderr)
+    title = (f"trainer sweep: {len(results)} cells ({skipped} skipped), at most {ndev} "
+             f"workers stacked on {args.device}, steps={args.steps}, {builds} bundle builds")
+    text = format_table(results, title=title) if args.format == "table" else format_csv(results)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    if args.emit_json:
+        record = emit_json_record(results, sweep_s)
+        record["bundle"] = {
+            "n_shape_classes": n_classes,
+            "builds": builds,
+            "cache_hits": hits,
+            "cells_per_s": len(results) / sweep_s,
+            "device": args.device,
+        }
         with open(args.emit_json, "w") as f:
             json.dump(record, f, indent=2)
         print(f"# wrote {args.emit_json}", file=sys.stderr)

@@ -17,10 +17,12 @@ Substrates:
   each class, times its replica seeds and workers, as one batch through one
   class program;
 * ``schedule`` -- :func:`repro_torch.core.schedule.simulate_schedule`
-  (section VII WFBP / MG-WFBP iteration-time model).
-
-The reference's ``roofline`` and ``trainer`` substrates are not ported
-here and raise ``NotImplementedError`` (ROADMAP queue 1).
+  (section VII WFBP / MG-WFBP iteration-time model);
+* ``roofline`` -- :func:`roofline_row`, the analytic compute / memory /
+  collective terms of :mod:`repro_torch.launch.roofline` (H100 constants);
+* ``trainer`` -- :mod:`repro_torch.experiments.trainer_substrate`, the
+  cells through the real trainer on the tiny workload, W workers stacked on
+  one device, grouped by trainer shape class.
 """
 
 from __future__ import annotations
@@ -55,14 +57,6 @@ from repro_torch.core.simulate import (
     simulate_training_reference,
 )
 from repro_torch.experiments.scenario import Scenario
-
-#: why each substrate of the reference that this package does not run is missing
-NOT_PORTED = {
-    "roofline": "the roofline substrate reuses the trainer's roofline terms "
-                "(repro.launch.roofline), not ported (ROADMAP queue 1)",
-    "trainer": "the trainer substrate (real execution of a Scenario through the "
-               "trainer) is not ported to the sweep runner (ROADMAP queue 1)",
-}
 
 
 @dataclass
@@ -208,8 +202,13 @@ def predict(s: Scenario, substrate: str) -> dict[str, float]:
             "no_overlap_time": bwd + per_layer,
             "full_overlap_bound": max(bwd, per_layer),
         }
-    if substrate in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[substrate])
+    if substrate == "roofline":
+        # the alpha-beta counterpart of the roofline terms: compute and
+        # communication in series
+        return {
+            "iter_time": s.compute_time + comm_per_iter,
+            "comm_frac": comm_per_iter / (s.compute_time + comm_per_iter),
+        }
     raise ValueError(substrate)
 
 
@@ -313,6 +312,53 @@ def to_sim_cfg(s: Scenario, seed: int | None = None) -> SimCfg:
         corruption_kind=s.corruption_kind,
         quarantine_limit=s.quarantine_limit,
     )
+
+
+# ---------------------------------------------------------------------------
+# Roofline substrate: the analytic per-cell terms (no trainer run).
+# ---------------------------------------------------------------------------
+
+
+def _hbm_passes(s: Scenario) -> float:
+    """Gradient-sized HBM passes per iteration of the compression pipeline
+    (the reference's ``qsgd_ef`` kernel analysis): the dense SGD apply is 3
+    (read g, read x, write x); an unfused compress with error feedback adds
+    8, a compress without it 2.5, and a compressor with a fused EF kernel
+    (the port's ``roundtrip_ef_p``, the reference's
+    ``compress_decompress_ef``) adds 4.25."""
+    passes = 3.0
+    if s.compressor is None:
+        return passes
+    if s.error_feedback:
+        return passes + (4.25 if hasattr(s.make_compressor(), "roundtrip_ef_p") else 8.0)
+    return passes + 2.5
+
+
+def roofline_row(s: Scenario) -> dict[str, Any]:
+    """The cell's roofline terms through :mod:`repro_torch.launch.roofline`,
+    from its analytic byte and FLOP model (no trainer run): the declared
+    ``compute_time`` is turned into FLOPs at the card's peak, so the term
+    algebra applies unchanged."""
+    from repro_torch.launch import roofline as RL
+
+    eff = estimated_wire_bytes(s)
+    rl = RL.Roofline(
+        arch=s.arch,
+        shape=s.tag(),
+        mesh=f"n{s.n_workers}",
+        flops=s.compute_time * RL.PEAK_FLOPS,
+        hbm_bytes=_hbm_passes(s) * s.msg_bytes,
+        coll_bytes=_round_wire_bytes(s, eff) * rounds_per_iter(s),
+        coll_bytes_hlo=0.0,
+        coll_by_kind={},
+    )
+    return {
+        "t_compute": rl.t_compute,
+        "t_memory": rl.t_memory,
+        "t_collective": rl.t_collective,
+        "iter_time_bound": max(rl.t_compute, rl.t_memory, rl.t_collective),
+        "bottleneck": rl.bottleneck,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -470,14 +516,13 @@ def run_scenario(s: Scenario, substrate: str = "timeline", *, replicas: int = 1,
                  device: str | torch.device = "cuda",
                  draws: Callable | None = None) -> ScenarioResult:
     """Execute one scenario; replica seeds are ``seed, seed+1, ...``.
-    ``device`` and ``draws`` reach the training engine."""
-    if substrate in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[substrate])
+    ``device`` reaches the training engine and the trainer, ``draws`` the
+    training engine."""
     bad = s.violations(substrate)
     if bad:
         raise ValueError(f"invalid scenario {s.tag()} on {substrate}: {'; '.join(bad)}")
     seeds = [s.seed + r for r in range(replicas)]
-    pred = predict(s, substrate)
+    pred = predict(s, substrate) if substrate != "trainer" else {}
 
     if substrate == "timeline":
         runs = [simulate_timeline(to_timeline_cfg(s, seed=sd)).row() for sd in seeds]
@@ -503,6 +548,14 @@ def run_scenario(s: Scenario, substrate: str = "timeline", *, replicas: int = 1,
         measured = {k: float(v) for k, v in r.items()}
         return ScenarioResult(s, substrate, measured, pred, replicas=1)
 
+    if substrate == "roofline":
+        return ScenarioResult(s, substrate, roofline_row(s), pred, replicas=1)
+
+    if substrate == "trainer":
+        from repro_torch.experiments.trainer_substrate import run_trainer_scenario
+
+        return run_trainer_scenario(s, device=device)
+
     raise ValueError(f"unknown substrate {substrate!r}")
 
 
@@ -517,12 +570,26 @@ def run_scenarios(
     """Run every scenario, preserving order.  Invalid cells raise: filter
     with :func:`repro_torch.experiments.scenario.expand` first.  On the
     ``training`` substrate the list is grouped into shape classes and each
-    class runs as one batch: a sweep builds one program per class."""
-    if substrate in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[substrate])
+    class runs as one batch: a sweep builds one program per class.  The
+    ``trainer`` substrate goes through
+    :func:`repro_torch.experiments.trainer_substrate.run_trainer_sweep`, so
+    the cells of a trainer shape class share one bundle build."""
     if substrate == "training":
         return _run_training_scenarios(list(scenarios), replicas=replicas, device=device,
                                        draws=draws)
+    if substrate == "trainer":
+        from repro_torch.experiments.trainer_substrate import run_trainer_sweep
+
+        scenarios = list(scenarios)
+        for s in scenarios:
+            bad = s.violations("trainer")
+            if bad:
+                raise ValueError(f"invalid scenario {s.tag()} on trainer: {'; '.join(bad)}")
+        results, skipped = run_trainer_sweep(scenarios, device=device)
+        if skipped:
+            why = "; ".join(f"{s.tag()}: {r}" for s, r in skipped)
+            raise ValueError(f"trainer cells not runnable: {why}")
+        return results  # type: ignore[return-value]
     return [run_scenario(s, substrate, replicas=replicas) for s in scenarios]
 
 

@@ -70,7 +70,10 @@ masks the ring (D-PSGD, CHOCO-SGD's mirror freeze and resync).
 
 Loss, ``ce`` and ``aux`` are worker means.  The wire bytes of each program
 are booked at build time by running it once on the ``meta`` device, which
-computes shapes only.
+computes shapes only.  The cells of one shape class share that booking
+through the bundle registry (``build_bundle(..., cache=True)``,
+``bundle_cache_stats``, ``bundle_cache_clear``); each binds its own value
+knobs.
 
 ``build_serve`` is the serving counterpart (``ServeBundle``: prefill a batch
 of prompts, then one greedy token per call), for the RWKV6 family; one card
@@ -90,10 +93,11 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import aggregate, comms, gossip, integrity, sync
 from repro_torch.core.compression.base import get_compressor
 from repro_torch.core.types import (
+    BundleSpec,
     CommConfig,
+    bundle_spec,
     churn_enabled,
     effective_corruption_kind,
-    validate,
 )
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, global_clip
@@ -693,11 +697,65 @@ def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:
     return logs
 
 
+@dataclass
+class BundleCacheStats:
+    """Builds and hits of the bundle registry (the trainer sweeps assert
+    builds <= shape classes).  The reference's ``persistent_cache`` has no
+    field here: it reports jax's on-disk compiled programs, and the port
+    compiles no program at run time (the stand-in, a build directory for
+    its CUDA kernels and the calibration, is ROADMAP queue 1 item 4)."""
+
+    builds: int = 0
+    hits: int = 0
+
+
+@dataclass(frozen=True)
+class _SharedBuild:
+    """The knob-independent half of a build, shared by the cells of a shape
+    class: each program's booked records (the meta-device run of
+    :func:`_book_wire`) and the wire by tag and format derived from them.
+    The bucket plan's layout is in the registry key.  Nothing here holds a
+    value knob: each cell's bundle carries its own ``comm`` and bucket plan,
+    which the steps read at run time."""
+
+    logs: dict[str, comms.CommLog]
+    wire: dict[str, dict[str, float]]
+
+
+_BUNDLE_STATS = BundleCacheStats()
+_BUNDLE_CACHE: dict[tuple, _SharedBuild] = {}
+_BUNDLE_CACHE_CAP = 32
+
+
+def bundle_cache_stats() -> BundleCacheStats:
+    return _BUNDLE_STATS
+
+
+def bundle_cache_clear() -> None:
+    """Drop every shared build and zero the counters."""
+    _BUNDLE_CACHE.clear()
+    _BUNDLE_STATS.builds = 0
+    _BUNDLE_STATS.hits = 0
+
+
+def bundle_cache_key(cfg: ModelConfig, spec: BundleSpec, plan: aggregate.BucketPlan,
+                     opt: Optimizer, shape: InputShape, *, n_workers: int, pods: int,
+                     clip_norm: float, microbatch: int) -> tuple:
+    """The registry key (the reference's ``bundle_cache_key``): the model
+    config, the worker layout (the reference's mesh), the structural
+    :class:`BundleSpec`, the bucket plan's signature, the optimizer, the
+    input shape and the structural build flags.  The seed, lr,
+    ``clip_norm``'s value and every value knob are absent."""
+    return (repr(cfg), n_workers, pods, spec, aggregate.plan_signature(plan),
+            (opt.name, opt.n_shards), shape, bool(clip_norm), int(microbatch))
+
+
 def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,
                  n_workers: int = 1, seed: int = 0, device: str | torch.device = "cuda",
                  noise: aggregate.Noise | None = None, clip_norm: float = 0.0,
                  microbatch: int = 1, pods: int = 1,
-                 churn_draws: aggregate.ChurnDraws | None = None) -> StepBundle:
+                 churn_draws: aggregate.ChurnDraws | None = None,
+                 cache: bool = True) -> StepBundle:
     """Build the steps of one cell.  ``noise(step, worker, bucket, n)``
     overrides the compressors' uniform draws (default: a generator seeded
     from (seed, step, worker, bucket) on ``device``; worker None for
@@ -709,8 +767,16 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
     step's microbatches); ``pods`` P lays the W workers out as (pod, data),
     W = P * D (0 and 1: no pod axis); ``churn_draws(step, worker[, round])``
     overrides a churn cell's two uniforms per worker and round (default: a
-    generator seeded from (seed, step, worker, round) on ``device``)."""
-    validate(comm)
+    generator seeded from (seed, step, worker, round) on ``device``).
+
+    The cells of one shape class (:func:`bundle_cache_key`) share the
+    knob-independent half of the build through the bundle registry: the
+    booked wire of :func:`_book_wire`.  Each cell binds its own value knobs,
+    as the reference's ``BoundStep`` binds a ``CommKnobs`` tree: the bundle
+    holds this cell's ``comm``, bucket plan (its compressors' kwargs),
+    noise and churn draws.  ``cache=False`` forces a fresh build (the
+    per-cell baseline the trainer sweep measures against)."""
+    spec = bundle_spec(comm)  # validates comm
     pods = max(pods, 1)
     if n_workers % pods:
         raise ValueError(f"{n_workers} workers do not split into {pods} pods")
@@ -723,19 +789,35 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
         raise ValueError(f"worker_dropout has {len(comm.worker_dropout)} rates but the bundle "
                          f"has {n_workers} workers")
     device = torch.device(device)
+    plan = aggregate.make_bucket_plan(comm, T.param_defs(cfg))
     bundle = StepBundle(
         cfg=cfg, comm=comm, shape=shape, n_workers=n_workers, device=device,
-        bucket_plan=aggregate.make_bucket_plan(comm, T.param_defs(cfg)), opt=opt,
+        bucket_plan=plan, opt=opt,
         noise=noise if noise is not None else aggregate.seeded_noise(seed, device),
         clip_norm=clip_norm, microbatch=microbatch, pods=pods,
         churn_draws=(churn_draws if churn_draws is not None
                      else aggregate.seeded_churn_draws(seed, device)),
     )
-    bundle.logs = _book_wire(bundle)
-    for name, log in bundle.logs.items():
-        # the formats leave out the churn_resync channel, as the reference's
-        bundle.wire[name] = log.by_tag()
-        bundle.wire[name + "_formats"] = log.by_wire_format(exclude_tags=("churn_resync",))
+    key = bundle_cache_key(cfg, spec, plan, opt, shape, n_workers=n_workers, pods=pods,
+                           clip_norm=clip_norm, microbatch=microbatch)
+    shared = _BUNDLE_CACHE.get(key) if cache else None
+    if shared is None:
+        logs = _book_wire(bundle)
+        wire = {}
+        for name, log in logs.items():
+            # the formats leave out the churn_resync channel, as the reference's
+            wire[name] = log.by_tag()
+            wire[name + "_formats"] = log.by_wire_format(exclude_tags=("churn_resync",))
+        shared = _SharedBuild(logs, wire)
+        _BUNDLE_STATS.builds += 1
+        if cache:
+            if len(_BUNDLE_CACHE) >= _BUNDLE_CACHE_CAP:
+                _BUNDLE_CACHE.pop(next(iter(_BUNDLE_CACHE)))
+            _BUNDLE_CACHE[key] = shared
+    else:
+        _BUNDLE_STATS.hits += 1
+    bundle.logs = dict(shared.logs)
+    bundle.wire = {k: dict(v) for k, v in shared.wire.items()}
     return bundle
 
 

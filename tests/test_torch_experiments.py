@@ -10,7 +10,8 @@ and the engine's row-batched kernel wrappers against the JAX package.
   sync x architecture, and with churn and corruption on.
 * ``run_scenarios`` and ``main(argv)`` of ``run.py``: the measured and
   predicted columns against the reference's, the training engine fed the
-  reference's draws (test_torch_simulate.py's tolerances).
+  reference's draws (test_torch_simulate.py's tolerances); what the
+  roofline and trainer substrates still refuse.
 * On a CUDA card (``gpu``): the row kernels against their plain versions,
   and the engine's launches at two batch sizes.
 """
@@ -251,9 +252,24 @@ def test_main_training_matches_the_reference(tmp_path):
 
 @pytest.mark.parametrize("substrate", ("roofline", "trainer"))
 def test_unported_substrates_raise(substrate, capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prunner.run_scenarios([Scenario()], substrate)
-    assert prun.main(["--substrate", substrate]) == 2
+    """Both substrates run now (test_torch_roofline.py,
+    test_torch_trainer_lane.py); what they still refuse raises: the
+    reference's ``--calibration`` and ``--cache-dir`` flags (ROADMAP queue 1
+    item 4) are not options of the port's CLI, and the trainer refuses the
+    model axis (queue 1 item 5)."""
+    for flag in ("--calibration", "--cache-dir"):
+        with pytest.raises(SystemExit) as exc:
+            prun.main(["--substrate", substrate, flag, "x"])
+        assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+    if substrate == "trainer":
+        from repro_torch.experiments.trainer_substrate import run_trainer_scenario
+
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_trainer_scenario(Scenario(n_workers=4, steps=1), model_par=2, device="cpu")
+    else:
+        r = prunner.run_scenarios([Scenario()], substrate)[0]
+        assert r.measured["bottleneck"] in ("compute", "memory", "collective")
 
 
 def test_churn_cells_raise_on_training():
