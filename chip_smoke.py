@@ -198,6 +198,22 @@ result line:
    ``train_micro`` twin's nine cells, likewise; (T5) ``run.py --substrate
    roofline`` on the default grid: every term finite.  Nothing is written
    into the tree.
+10. phase B, the paper's benchmark suite: ``python -m
+   repro_torch.benchmarks.run --no-speedup`` (in-process, records into a
+   temporary directory) over the ten tags that phase T does not cover
+   (Tables III, IV, II / Fig. 4, Fig. 6, section VIII's convergence, the
+   batched sweep, section VII's schedules, the elastic legs, the kernels
+   bench and the cold start; ``sec7_overlap`` and ``train_micro`` are T2
+   and T4).  ``--no-speedup`` skips the convergence and sweep modules'
+   loop and per-cell denominators, which E4 and E1 time already.  Every tag
+   must print its ``claims_validated`` row; one line per tag gives its wall;
+   the kernels bench's byte model must equal ``BENCH_kernels.json``'s at N
+   = 262,144, all eleven kernels must launch there, and its fused and
+   composed times and GB/s print at both sizes (262,144 x 8 and the
+   largest bucket, 155,582,464 x 8); the cold start's legs print their
+   walls, ``nvcc`` builds and persistent hits and misses (the warm-cache
+   legs must build nothing), and the fitted profile (alpha, beta,
+   t_launch, t_step_dense) and the step-time rel-err before and after.
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -209,6 +225,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import subprocess
@@ -1822,6 +1839,107 @@ def run_phase_t(card: str) -> None:
     print(f"phase T: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase B: the paper's benchmark suite (repro_torch.benchmarks.run).
+# ---------------------------------------------------------------------------
+
+#: the orchestrator's tags phase T does not run (sec7_overlap is T2,
+#: train_micro T4)
+B_TAGS = ("tableIII_allreduce", "tableIV_comm_cost", "tableII_fig4_sync", "fig6_compression",
+          "tableIV_convergence", "sweep_batched", "sec7_schedule", "elastic", "kernels",
+          "coldstart")
+#: each tag's row prefix, and the prefix of its claims row (None: the
+#: reference's module asserts nothing and prints no such row)
+B_PREFIX = {"tableIII_allreduce": "tableIII", "tableIV_comm_cost": "tableIV",
+            "tableII_fig4_sync": "tableII", "fig6_compression": "fig6",
+            "tableIV_convergence": "convergence", "sweep_batched": "sweep",
+            "sec7_schedule": "schedule", "elastic": "churn", "kernels": "kernels",
+            "coldstart": "coldstart"}
+B_CLAIMS = {**B_PREFIX, "tableIV_comm_cost": None}
+
+
+def run_phase_b(card: str) -> None:
+    """The ten tags through the orchestrator with ``--no-speedup``, records
+    into a temporary directory; each tag's claims row, the kernels bench's
+    byte model and launches, the cold start's acceptance."""
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.benchmarks import run as bench_run
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_run.main(["--only", ",".join(B_TAGS), "--no-speedup", "--device",
+                                 str(DEV), "--out-dir", tmp])
+        recs = {p.stem: json.loads(p.read_text()) for p in Path(tmp).glob("*.json")}
+    lines = buf.getvalue().splitlines()
+    walls = {ln.split()[1]: float(ln.split()[4][:-1]) for ln in lines
+             if ln.startswith("# ") and " done in " in ln}
+    claims = {ln.split("/")[0] for ln in lines if ln.endswith("/claims_validated,0.00,True")}
+    ok = {tag: tag in walls and (B_CLAIMS[tag] is None or B_CLAIMS[tag] in claims)
+          for tag in B_TAGS}
+    for tag in B_TAGS:
+        n_rows = sum(1 for ln in lines if ln.startswith(B_PREFIX[tag] + "/"))
+        how = (f"its {B_CLAIMS[tag]}/claims_validated row" if B_CLAIMS[tag] else
+               "asserted; the reference's Table IV prints no claims row")
+        print(f"phase B {tag}: {walls.get(tag, float('nan')):.1f} s, {n_rows} rows, claims "
+              f"validated {ok[tag]} ({how})")
+    if rc != 0 or not all(ok.values()):
+        print("\n".join(lines[-60:]))
+        raise AssertionError(f"phase B: rc {rc}, walls {walls}, claims {sorted(claims)}")
+
+    kb = recs["BENCH_torch_kernels"]
+    ref = json.loads((Path(__file__).resolve().parent / "BENCH_kernels.json").read_text())
+    for name, fam in ref["families"].items():
+        got = kb["families"][name]
+        if (got["fused_bytes"], got["composed_bytes"]) != (fam["fused_bytes"],
+                                                          fam["composed_bytes"]):
+            raise AssertionError(f"phase B kernels {name}: byte model {got} against {fam}")
+    if sorted(k for k, v in kb["launches"].items() if v > 0) != sorted(ops.LAUNCHES):
+        raise AssertionError(f"phase B kernels: every kernel must launch: {kb['launches']}")
+    print(f"phase B kernels bench: byte model equal to BENCH_kernels.json at n = "
+          f"{kernels_bench.N}, launches {kb['launches']}")
+    for n, rec in kb["sizes"].items():
+        for name, f in rec["families"].items():
+            gbs = {k: f.get(k, math.nan) for k in ("fused_gb_per_s", "fused_share_of_hbm",
+                                                   "composed_gb_per_s")}
+            print(f"  kernels n={n} x W={kb['workers']} {name}: fused {f['fused_us'] / 1e3:.4f} "
+                  f"ms ({gbs['fused_gb_per_s']:.1f} GB/s, "
+                  f"{100 * gbs['fused_share_of_hbm']:.1f}% of 3.35 TB/s), composed "
+                  f"{f['composed_us'] / 1e3:.4f} ms ({gbs['composed_gb_per_s']:.1f} GB/s); bytes "
+                  f"{f['fused_bytes']:.0f} / {f['composed_bytes']:.0f}; max |fused - composed| "
+                  f"{f['max_abs_diff']}")
+        print(f"  kernels n={n} qsgd levels resweep: {rec['qsgd_levels_resweep']}")
+
+    cs = recs["BENCH_torch_coldstart"]
+    st = cs["start"]
+    print(f"phase B coldstart start: cold {st['cold_build_s']:.3f} s ({st['nvcc_builds_cold']} "
+          f"nvcc builds of {st['libraries']}), warm {st['warm_build_s']:.3f} s "
+          f"({st['nvcc_builds_warm']} nvcc builds); build and both first sweeps, cold over "
+          f"warm, x{st['wall_ratio_with_build']:.3f}")
+    for layer in ("engine", "trainer"):
+        c = cs[layer]
+        print(f"phase B coldstart {layer}: cold cache {c['cold_cache_s']:.3f} s, warm cache "
+              f"{c['warm_cache_s']:.3f} s, warm process {c['warm_process_s']:.3f} s; "
+              f"x{c['disk_speedup']:.3f}; persistent cold {c['persistent_cold']['hits']} hits / "
+              f"{c['persistent_cold']['misses']} misses, warm {c['persistent_warm']['hits']} / "
+              f"{c['persistent_warm']['misses']}")
+        if c["persistent_warm"]["misses"]:
+            raise AssertionError(f"phase B coldstart {layer}: the warm cache missed: {c}")
+    if st["nvcc_builds_warm"]:
+        raise AssertionError(f"phase B coldstart: the warm cache built: {st}")
+    cal = cs["calibration"]
+    pr = cal["profile"]
+    print(f"phase B calibration ({card}): alpha {pr['alpha']:.4e} s, beta {pr['beta']:.4e} s/B, "
+          f"t_launch {pr['t_launch']:.4e} s, t_step_dense {pr['t_step_dense']:.4f} s; step-time "
+          f"rel-err {cal['relerr_step_time_before']:.4f} -> {cal['relerr_step_time_after']:.4f}, "
+          f"overlap-saving rel-err {cal['relerr_overlap_saving_before']} -> "
+          f"{cal['relerr_overlap_saving_after']} ({cal['n_cells']} cells)")
+    if not cal["relerr_step_time_after"] < cal["relerr_step_time_before"]:
+        raise AssertionError(f"phase B calibration: rel-err did not improve: {cal}")
+    print(f"phase B: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="*", metavar="LABEL",
@@ -1930,6 +2048,7 @@ def main() -> None:
     check_rwkv_path()
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
     run_phase_t(card)
+    run_phase_b(card)
     for name, r in row_checks.items():
         b_ms, b_by = _bound(ROW_KERNELS[name]["bytes"](ENGINE_ROWS, ENGINE_DIM),
                             ROW_KERNELS[name]["ops"](ENGINE_ROWS, ENGINE_DIM))

@@ -1,4 +1,4 @@
-"""The port's twins of the reference's benchmarks (``benchmarks/``):
-``python -m repro_torch.benchmarks.train_micro`` and
-``python -m repro_torch.benchmarks.overlap_bench``, each writing its own
-``BENCH_torch_*.json``."""
+"""The port's twins of the reference's benchmarks (``benchmarks/``): one
+module per paper table or figure, each asserting its table's claims and
+writing its own ``BENCH_torch_*.json``; ``python -m
+repro_torch.benchmarks.run`` runs them under the reference's tags."""

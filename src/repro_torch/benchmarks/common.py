@@ -5,6 +5,7 @@ record carries, and deterministic algorithms for the bitwise checks."""
 from __future__ import annotations
 
 import contextlib
+import json
 import subprocess
 import time
 from dataclasses import dataclass
@@ -27,7 +28,8 @@ class Row:
         return f"{self.name},{self.us_per_call:.2f},{self.derived}"
 
 
-def sync(device: torch.device) -> None:
+def sync(device: str | torch.device) -> None:
+    device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -76,3 +78,39 @@ def deterministic():
         yield
     finally:
         torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+def rows_record(rows: list[Row]) -> list[dict[str, Any]]:
+    return [{"name": r.name, "us_per_call": r.us_per_call, "derived": str(r.derived)}
+            for r in rows]
+
+
+def write_record(record: dict[str, Any], out: str | Path | None, default: Path,
+                 device: torch.device) -> Path:
+    """Write a twin's record, with the device it was measured on, to ``out``
+    (default: ``default``, a ``BENCH_torch_*.json`` at the repository root;
+    never a reference record)."""
+    path = Path(out or default)
+    with open(path, "w") as f:
+        json.dump({**record, **device_record(device)}, f, indent=2)
+    return path
+
+
+def table_main(run: Callable, doc: str, argv=None, *, no_speedup: bool = False) -> int:
+    """The command line of a twin: ``--device`` (default cuda), ``--out``
+    and, where ``run`` takes it, ``--no-speedup``; prints the CSV rows."""
+    import argparse
+
+    p = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    p.add_argument("--device", default="cuda", help="default cuda; cpu to run without a card")
+    p.add_argument("--out", default="", help="the record's path (default: BENCH_torch_*.json "
+                                             "at the repository root)")
+    if no_speedup:
+        p.add_argument("--no-speedup", action="store_true",
+                       help="skip the per-cell or loop baseline")
+    args = p.parse_args(argv)
+    kw = {"no_speedup": args.no_speedup} if no_speedup else {}
+    print("name,us_per_call,derived")
+    for row in run(args.device, args.out or None, **kw):
+        print(row.csv())
+    return 0

@@ -23,15 +23,20 @@ record goes to ``BENCH_torch_overlap.json`` at the repository root (or
 
 from __future__ import annotations
 
-import argparse
-import json
 import sys
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.benchmarks.common import ROOT, Row, deterministic, device_record, sync
+from repro_torch.benchmarks.common import (
+    ROOT,
+    Row,
+    deterministic,
+    sync,
+    table_main,
+    write_record,
+)
 from repro_torch.experiments.scenario import Scenario
 
 BENCH_PATH = ROOT / "BENCH_torch_overlap.json"
@@ -149,9 +154,7 @@ def run(device: str | torch.device = "cuda", out: str | None = None) -> list[Row
     device = torch.device(device)
     with deterministic():
         record = measure(device)
-    record.update(device_record(device))
-    with open(out or BENCH_PATH, "w") as f:
-        json.dump(record, f, indent=2)
+    write_record(record, out, BENCH_PATH, device)
     return [
         Row("overlap/sweep", record["sweep_wall_clock_s"] * 1e6,
             f"{record['n_cells']} cells -> {record['n_shape_classes']} classes, "
@@ -163,18 +166,5 @@ def run(device: str | torch.device = "cuda", out: str | None = None) -> list[Row
     ]
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="python -m repro_torch.benchmarks.overlap_bench",
-                                description=__doc__.split("\n\n")[0])
-    p.add_argument("--device", default="cuda", help="default cuda; cpu to run without a card")
-    p.add_argument("--out", default="", help=f"the record's path (default {BENCH_PATH.name} "
-                                             "at the repository root)")
-    args = p.parse_args(argv)
-    print("name,us_per_call,derived")
-    for row in run(args.device, args.out or None):
-        print(row.csv())
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(table_main(run, __doc__))

@@ -18,13 +18,18 @@ written.  Both parts run under deterministic algorithms.
 
 from __future__ import annotations
 
-import argparse
-import json
 import sys
 
 import torch
 
-from repro_torch.benchmarks.common import ROOT, Row, deterministic, device_record, time_fn
+from repro_torch.benchmarks.common import (
+    ROOT,
+    Row,
+    deterministic,
+    table_main,
+    time_fn,
+    write_record,
+)
 
 BENCH_PATH = ROOT / "BENCH_torch_trainer.json"
 #: the reference's data shards with forced host devices
@@ -113,9 +118,7 @@ def run(device: str | torch.device = "cuda", out: str | None = None) -> list[Row
     with deterministic():
         rows = [_row(c) for c in micro_cells(device)]
         rec = trainer_sweep(device)
-    rec.update(device_record(device))
-    with open(out or BENCH_PATH, "w") as f:
-        json.dump(rec, f, indent=2)
+    write_record(rec, out, BENCH_PATH, device)
     return rows + [
         Row("train_micro/trainer_sweep", rec["shared_s"] * 1e6,
             f"{rec['n_cells']} cells -> {rec['n_shape_classes']} classes, "
@@ -127,18 +130,5 @@ def run(device: str | torch.device = "cuda", out: str | None = None) -> list[Row
     ]
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="python -m repro_torch.benchmarks.train_micro",
-                                description=__doc__.split("\n\n")[0])
-    p.add_argument("--device", default="cuda", help="default cuda; cpu to run without a card")
-    p.add_argument("--out", default="", help=f"the record's path (default {BENCH_PATH.name} "
-                                             "at the repository root)")
-    args = p.parse_args(argv)
-    print("name,us_per_call,derived")
-    for row in run(args.device, args.out or None):
-        print(row.csv())
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(table_main(run, __doc__))

@@ -966,6 +966,14 @@ class EngineStats:
     compiles: int = 0
     hits: int = 0
 
+    @property
+    def persistent_cache(self) -> dict:
+        """The manifest's hits and misses of fresh builds, at class-key
+        granularity (:mod:`repro_torch.core.compilecache`)."""
+        from repro_torch.core import compilecache
+
+        return compilecache.record("engine")
+
 
 _ENGINE_STATS = EngineStats()
 _ENGINE_CACHE: dict[tuple, ClassProgram] = {}
@@ -1057,6 +1065,9 @@ def simulate_training_classbatch(
     else:
         prog = ClassProgram(spec, comp, problem, C, R, device)
         _ENGINE_STATS.compiles += 1
+        from repro_torch.core import compilecache
+
+        compilecache.record_compile("engine", cache_key)
         if cache:
             if len(_ENGINE_CACHE) >= _ENGINE_CACHE_CAP:
                 _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))

@@ -33,8 +33,16 @@ microbatch=4``): a pipelined cell carries the predicted overlap saving and,
 when its sequential twin is in the sweep, the measured one.
 
 ``--substrate roofline`` emits the analytic per-cell compute, memory and
-collective terms with the H100's constants.  The reference's ``--cache-dir``
-and ``--calibration`` are not ported (ROADMAP queue 1 item 4).
+collective terms with the H100's constants.
+
+``--cache-dir`` (default ``$REPRO_TORCH_CACHE_DIR``) is the persistent
+cache of :mod:`repro_torch.core.compilecache`: the kernel libraries, the
+shape-class manifest and the bundles' wire artifacts.  ``--calibration``
+names a fitted profile (:mod:`repro_torch.core.calibrate`) for the
+predicted columns; by default ``<cache-dir>/calibration.json`` is adopted
+when it was fitted on this machine and device, and ``none`` forces the
+data-sheet constants.  Every ``--emit-json`` record carries the
+``persistent_cache`` counts and whether it was ``calibrated``.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -135,7 +144,17 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="the training engine's and the trainer's device (default cuda; cpu to "
                         "run without a card)")
+    p.add_argument("--cache-dir", default=os.environ.get("REPRO_TORCH_CACHE_DIR", ""),
+                   metavar="DIR",
+                   help="persistent cache: kernel libraries, the shape-class manifest and "
+                        "the bundles' wire artifacts, reused by later processes (default: "
+                        "$REPRO_TORCH_CACHE_DIR)")
+    p.add_argument("--calibration", default="", metavar="PATH",
+                   help="fitted cost-model profile (repro_torch.core.calibrate) for the "
+                        "predicted columns; empty = adopt <cache-dir>/calibration.json when "
+                        "it was fitted here; 'none' = the data-sheet constants")
     args = p.parse_args(argv)
+    _configure_cache_and_calibration(args)
 
     base = dict(n_workers=args.workers, steps=args.steps, seed=args.seed, lr=args.lr,
                 straggler_slowdown=args.straggler, msg_bytes=args.msg_mb * 1e6,
@@ -185,6 +204,7 @@ def main(argv=None) -> int:
                 "cache_hits": st1.hits - st0.hits,
                 "cells_per_s": len(results) / sweep_s,
                 "device": args.device,
+                "persistent_cache": st1.persistent_cache,
             }
             if not args.no_speedup:
                 record["engine_speedup"] = measure_engine_speedup(device=args.device)
@@ -192,6 +212,26 @@ def main(argv=None) -> int:
             json.dump(record, f, indent=2)
         print(f"# wrote {args.emit_json}", file=sys.stderr)
     return 0
+
+
+def _configure_cache_and_calibration(args) -> None:
+    """Apply ``--cache-dir`` and ``--calibration``: an explicit path is
+    loaded as given, ``none`` deactivates, and by default the profile next
+    to the cache is adopted when its fingerprint is this process's on
+    ``--device``."""
+    from repro_torch.core import calibrate, compilecache
+
+    if args.cache_dir:
+        compilecache.configure(args.cache_dir)
+    if args.calibration == "none":
+        calibrate.set_active(None)
+    elif args.calibration:
+        calibrate.set_active(calibrate.CalibrationProfile.load(args.calibration))
+    else:
+        profile = calibrate.load_default(args.device)
+        if profile is not None:
+            print(f"# calibration: adopted {calibrate.default_path()}", file=sys.stderr)
+            calibrate.set_active(profile)
 
 
 def _trainer_sweep(args, scenarios) -> int:
@@ -241,6 +281,7 @@ def _trainer_sweep(args, scenarios) -> int:
             "cache_hits": hits,
             "cells_per_s": len(results) / sweep_s,
             "device": args.device,
+            "persistent_cache": st1.persistent_cache,
         }
         with open(args.emit_json, "w") as f:
             json.dump(record, f, indent=2)
@@ -267,11 +308,18 @@ def emit_json_record(results, sweep_s: float) -> dict:
             "predicted": dict(r.predicted),
             "rel_err": rel_err,
         })
+    from repro_torch.core import calibrate, compilecache
+
     return {
         "substrate": results[0].substrate if results else "",
         "n_cells": len(results),
         "sweep_wall_clock_s": sweep_s,
-        "calibrated": False,
+        # on every lane: the persistent cache's hits and misses at each
+        # layer's key granularity, and whether the predicted columns used a
+        # fitted profile
+        "persistent_cache": {"engine": compilecache.record("engine"),
+                             "bundle": compilecache.record("bundle")},
+        "calibrated": calibrate.get_active() is not None,
         "cells": cells,
     }
 

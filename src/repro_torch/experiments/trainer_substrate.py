@@ -11,11 +11,10 @@ rule reads the reference's own cap on the devices its CLI lane forces,
 as there.  Only the data axis is ported: ``model_par`` other than 1 raises
 ``NotImplementedError`` (ROADMAP queue 1 item 5).
 
-The predictions use the Scenario's data-sheet constants (the reference's
-columns with no calibration profile active); ``predict_*`` take an
-optional ``profile`` with the reference's ``CalibrationProfile``
-interface (``link()``, ``t_launch``, ``t_step_dense``), which the port does
-not fit yet (ROADMAP queue 1 item 4).
+The predictions use the active calibration profile
+(:func:`repro_torch.core.calibrate.get_active`: the fitted link, launch
+cost and dense step) when one is installed, else the Scenario's data-sheet
+constants; ``predict_*`` also take a ``profile`` explicitly.
 
 The parity hooks of :func:`run_trainer_scenario` and
 :func:`run_trainer_sweep` (``params``, ``noise``, ``churn_draws``) reach
@@ -241,6 +240,14 @@ def plan_payload_bytes(plan) -> float:
     return total
 
 
+def _profile(profile):
+    """``profile``, else the active calibration profile (None: the data
+    sheet's constants)."""
+    from repro_torch.core import calibrate
+
+    return calibrate.get_active() if profile is None else profile
+
+
 def _link_and_launch(s: Scenario, profile):
     from repro_torch.core.costmodel import Link
 
@@ -258,15 +265,15 @@ def predict_overlap_saving(s: Scenario, *, compute_s: float, payload_round: floa
     through :func:`repro_torch.core.schedule.simulate_schedule`; returns the
     predicted step time, the overlap saving against the sequential schedule
     of the same cell and the communication time.  The link and per-message
-    launch cost come from ``profile`` when given, else from the Scenario's
-    constants and 0."""
+    launch cost come from ``profile`` (default: the active one) when there
+    is one, else from the Scenario's constants and 0."""
     from repro_torch.core.schedule import LayerSpec, simulate_schedule
 
     n = max(2, data_par)
     M = max(1, s.microbatch)
     rounds = M if s.overlap == "pipelined" else 1
     nb = max(1, n_buckets)
-    default_link, default_launch = _link_and_launch(s, profile)
+    default_link, default_launch = _link_and_launch(s, _profile(profile))
     link = default_link if link is None else link
     launch = default_launch if launch is None else launch
 
@@ -289,11 +296,12 @@ def predict_trainer_step(s: Scenario, *, data_par: int, payload_round: float, n_
                          profile=None) -> dict[str, float]:
     """Analytic per-step time of any trainer cell: the compute term plus
     (sync rounds per step) x (the collective's cost for the cell's payload
-    plus the launch cost of its messages).  With ``profile`` its link,
-    launch and dense step time apply; without one the Scenario's data-sheet
-    constants (``compute_time`` et al.)."""
+    plus the launch cost of its messages).  With ``profile`` (default: the
+    active one) its link, launch and dense step time apply; without one the
+    Scenario's data-sheet constants (``compute_time`` et al.)."""
     from repro_torch.core.costmodel import allreduce_cost, gossip_cost
 
+    profile = _profile(profile)
     link, launch = _link_and_launch(s, profile)
     compute = s.compute_time
     if profile is not None and profile.t_step_dense is not None:

@@ -5,7 +5,12 @@ for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  Builds
 happen at first use, never at import: one ``nvcc`` per source, all started
 together.  Libraries land in ``kernels/_build/`` (git-ignored) under a name
 that hashes the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.
+unchanged one is reused.  With a persistent cache configured
+(:mod:`repro_torch.core.compilecache`, read at the first build) they land
+in ``<cache>/repro-kernels/`` instead, and the name also hashes the ``nvcc
+--version`` release line and the card's name and compute capability, so a
+later process on the same toolchain and card reuses every library and one
+on another never does.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: where the libraries go when no persistent cache is configured
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # --fmad=false keeps every multiply and add separately rounded, as in the
@@ -61,20 +67,56 @@ class BuildRecord:
     ptxas: str  # the compiler's -Xptxas -v report (registers, spills)
 
 
+def _nvcc() -> str:
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def toolchain_fingerprint() -> str:
+    """The ``nvcc --version`` release line and the card's name and compute
+    capability: what a cached library is valid for besides its source."""
+    import torch
+
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                             check=True).stdout
+        release = [ln for ln in out.splitlines() if "release" in ln][-1].strip()
+    except (OSError, subprocess.CalledProcessError, IndexError):
+        release = "nvcc not found"
+    if torch.cuda.is_available():
+        major, minor = torch.cuda.get_device_capability(0)
+        card = f"{torch.cuda.get_device_name(0)} sm_{major}{minor}"
+    else:
+        card = "no card"
+    return f"{release}; {card}"
+
+
 class KernelLibrary:
     """Builds the kernel libraries on demand and hands out their C entry
-    points.  One instance per process is enough; ``LIBRARY`` is it."""
+    points.  One instance per process is enough; ``LIBRARY`` is it.  Each
+    build asks :mod:`repro_torch.core.compilecache` for the persistent
+    cache's ``repro-kernels/`` and falls back to :data:`BUILD_DIR`."""
 
-    def __init__(self, build_dir: Path = BUILD_DIR):
-        self.build_dir = build_dir
+    def __init__(self):
         self.records: dict[str, BuildRecord] = {}
         self._fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
         self._lock = threading.Lock()
+        self._toolchain: str | None = None
 
     def _target(self, name: str) -> Path:
-        digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        return self.build_dir / f"lib{name}-{digest}.so"
+        from repro_torch.core import compilecache
+
+        cached = compilecache.kernels_dir()
+        key = (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        if cached is not None:
+            if self._toolchain is None:
+                self._toolchain = toolchain_fingerprint()
+            key += self._toolchain.encode()
+        build_dir = BUILD_DIR if cached is None else cached
+        return build_dir / f"lib{name}-{hashlib.sha1(key).hexdigest()[:12]}.so"
+
+    def nvcc_builds(self) -> int:
+        """Libraries this process compiled (the rest were reused)."""
+        return sum(1 for r in self.records.values() if r.seconds > 0)
 
     def build(self, names=tuple(SIGNATURES)) -> dict[str, BuildRecord]:
         """Compile every named source not built yet, all in parallel; raise
@@ -83,8 +125,7 @@ class KernelLibrary:
             todo = [n for n in names if n not in self.records]
             if not todo:
                 return self.records
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            self.build_dir.mkdir(parents=True, exist_ok=True)
+            nvcc = _nvcc()
             procs = {}
             t0 = time.perf_counter()
             for name in todo:
@@ -94,6 +135,7 @@ class KernelLibrary:
                     continue
                 if not os.path.exists(nvcc):
                     raise RuntimeError(f"nvcc not found; cannot build kernel {name!r}")
+                target.parent.mkdir(parents=True, exist_ok=True)
                 tmp = target.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
                 procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

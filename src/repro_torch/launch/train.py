@@ -9,8 +9,11 @@
 
 The workers are stacked on one device (``--workers`` takes the place of
 the reference's ``--data``: D workers per pod; ``--pod P`` lays out P pods
-of them, W = P * D; ``--model``, ``--fake-devices`` and ``--cache-dir``
-describe a jax mesh and its compile cache and have no port).  Comm presets
+of them, W = P * D; ``--model`` and ``--fake-devices`` describe a jax mesh
+and have no port).  ``--cache-dir`` (default ``$REPRO_TORCH_CACHE_DIR``) is
+the persistent cache of :mod:`repro_torch.core.compilecache`: a later
+launch on the same toolchain and card loads the kernel libraries and the
+bundle's booked wire instead of building them.  Comm presets
 are :data:`COMM_PRESETS`, the reference's dry-run table (``pod_local_sgd``:
 BSP inside each pod, local SGD across pods every 8 steps);
 ``--local-steps``, ``--bucket-mb``, ``--pod-local`` and ``--overlap`` (with
@@ -24,6 +27,7 @@ vocab x vocab).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from repro_torch.core.types import CommConfig
@@ -73,7 +77,15 @@ def main(argv=None) -> int:
     p.add_argument("--restore", default="")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cache-dir", default=os.environ.get("REPRO_TORCH_CACHE_DIR", ""),
+                   metavar="DIR",
+                   help="persistent cache of kernel libraries and booked wire "
+                        "(default: $REPRO_TORCH_CACHE_DIR)")
     args = p.parse_args(argv)
+    if args.cache_dir:
+        from repro_torch.core import compilecache
+
+        compilecache.configure(args.cache_dir)
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape

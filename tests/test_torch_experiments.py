@@ -251,17 +251,24 @@ def test_main_training_matches_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("substrate", ("roofline", "trainer"))
-def test_unported_substrates_raise(substrate, capsys):
+def test_unported_substrates_raise(substrate, tmp_path, capsys):
     """Both substrates run now (test_torch_roofline.py,
-    test_torch_trainer_lane.py); what they still refuse raises: the
-    reference's ``--calibration`` and ``--cache-dir`` flags (ROADMAP queue 1
-    item 4) are not options of the port's CLI, and the trainer refuses the
-    model axis (queue 1 item 5)."""
-    for flag in ("--calibration", "--cache-dir"):
-        with pytest.raises(SystemExit) as exc:
-            prun.main(["--substrate", substrate, flag, "x"])
-        assert exc.value.code == 2
+    test_torch_trainer_lane.py), and so do the reference's ``--calibration``
+    and ``--cache-dir`` flags (test_torch_calibrate.py): a named profile is
+    loaded as given, so a missing one raises; what the port still refuses
+    raises too: an unknown flag, and the trainer's model axis (queue 1 item
+    5)."""
+    from repro_torch.core import compilecache
+
+    prev = compilecache.cache_dir()
+    with pytest.raises(FileNotFoundError):
+        prun.main(["--substrate", substrate, "--cache-dir", str(tmp_path),
+                   "--calibration", str(tmp_path / "missing.json")])
+    with pytest.raises(SystemExit) as exc:
+        prun.main(["--substrate", substrate, "--model", "2"])
+    assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+    compilecache.configure(prev)
     if substrate == "trainer":
         from repro_torch.experiments.trainer_substrate import run_trainer_scenario
 
