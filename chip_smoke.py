@@ -214,11 +214,47 @@ result line:
    walls, ``nvcc`` builds and persistent hits and misses (the warm-cache
    legs must build nothing), and the fitted profile (alpha, beta,
    t_launch, t_step_dense) and the step-time rel-err before and after.
+11. phase F, the MoE, MLA and dense-variant families through the trainer
+   (``F_PATHS``): each at full published width, bf16, random weights from
+   seed 0, ``SyntheticBatches``, global batch 8, momentum SGD (lr 0.01),
+   3 steps, its depth cut to one whole period of its layer pattern: (an)
+   qwen3-moe-30b-a3b, 2 of 48 layers (128 experts, top-8), W = 4, qsgd_kernel
+   EF on the int8 wire (qsgd_ef + int8_acc); (ao) the same model,
+   signsgd_packed EF on the 1-bit wire with the router leaves through
+   qsgd_kernel (sign_pack, sign_vote, qsgd_ef, int8_acc); (ap)
+   deepseek-v2-lite-16b, its dense layer 0 and 2 MoE layers of 27 (MLA,
+   2 shared + 64 routed experts), W = 4, terngrad_kernel EF on the 2-bit
+   wire (terngrad, tern_pack, tern_acc); (aq) glm4-9b, 2 of 40 (partial
+   RoPE), W = 4, threshold (tau 1e-3) EF (threshold); (ar) qwen1.5-32b, 1
+   of 64 (qkv bias), W = 4, qsgd_kernel EF (its 778,567,680-element
+   embedding bucket); (as) gemma3-12b, 6 of 48 (one 5 local : 1 global
+   period, window 1024), seq 2048, W = 2, qsgd_kernel on the int8 wire
+   (qsgd + int8_acc).  Each prints its steps (loss, ce, aux), mean step ms
+   (first step excluded), booked wire by tag, peak memory and largest
+   bucket, and must launch exactly its kernels (as many times as the bucket
+   plan's routes call them) and book grad_agg equal to the plan's
+   prediction to the byte, under 76 GiB; (an), (ap) and (as) hold their
+   first bf16 loss within 2e-2 of the same forward with the parameters in
+   f32 (TF32 off).  Then, at full width in f32: ``moe_ffn`` on 2,048
+   tokens of one qwen3-moe layer against the plain per-expert loop of
+   ``models/moe_ref.py`` (the initial router and a skewed load at the
+   configured capacity factor, tokens dropped, and cf = E / k, none) within
+   rtol 1e-4 / atol 1e-5 x max|y|, and each expert's gradient exactly zero
+   iff it kept no token (16 experts starved); gemma3's windowed
+   ``attention`` at seq 2048 (query chunks 1024 and 512) against a plain
+   attention with the explicit window mask, likewise; and ``qsgd_ef``'s row
+   entry and ``int8_acc`` on (4, 778,567,680) = 3,114,270,720 elements in
+   one call (past 2**31) against their plain versions on the first and
+   last 2**20 elements of each row and the 2**20 around flat index 2**31
+   (codes bitwise, e' rtol 1e-6, the sum rtol 1e-6 / atol 1e-5), each
+   timed beside its byte bound.  ``--profile`` takes phase F's labels too.
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
 engine phase), the nvidia-smi line, and the result line ``{"ok": true,
-"device": {...}}``.  There is no CPU fallback.
+"device": {...}}``.  The two ``*_past_2e31`` entries are phase F's
+calls past 2**31 (launches: the kernel's on the main path).  There is no
+CPU fallback.
 """
 
 from __future__ import annotations
@@ -257,7 +293,9 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import LIBRARY  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.sharding import make_plan, materialize  # noqa: E402
 from repro_torch.utils.tree import flatten_with_paths as flat  # noqa: E402
+from repro_torch.utils.tree import tree_map  # noqa: E402
 from repro_torch.optim.optimizers import adamw, momentum_sgd, zero1  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
 from repro_torch.train.steps import build_bundle  # noqa: E402
@@ -1940,17 +1978,369 @@ def run_phase_b(card: str) -> None:
     print(f"phase B: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase F: the MoE, MLA and dense-variant families through the trainer.
+# ---------------------------------------------------------------------------
+
+#: (label, arch, layers kept (published), W, seq, CommConfig fields, the
+#: kernels the path must launch, bf16-vs-f32 check).  Full published width,
+#: bf16, global batch 8, 3 steps, momentum SGD lr 0.01; depth cut to one
+#: whole period of the layer pattern so that the state fits 80 GB at W = 4:
+#: qwen3-moe-30b-a3b 2 of 48 layers, deepseek-v2-lite-16b its dense layer 0
+#: and 2 MoE layers of 27, glm4-9b 2 of 40, qwen1.5-32b 1 of 64 and
+#: gemma3-12b one 5 local : 1 global period, 6 of 48, at seq 2048 so that
+#: its window of 1024 is shorter than the sequence (W = 2: its embedding
+#: bucket alone is 1,006,632,960 elements)
+F_PATHS = (
+    ("(an) qwen3-moe qsgd ef", "qwen3-moe-30b-a3b", 2, 4, 1024, QSGD_EF,
+     ("qsgd_ef", "int8_acc"), True),
+    ("(ao) qwen3-moe signsgd_packed ef, router qsgd", "qwen3-moe-30b-a3b", 2, 4, 1024,
+     dict(compressor="signsgd_packed", wire_format="compressed", error_feedback=True,
+          per_tensor_rules=[("router", "qsgd_kernel", {"levels": 16})]),
+     ("sign_pack", "sign_vote", "qsgd_ef", "int8_acc"), False),
+    ("(ap) deepseek-v2-lite terngrad ef", "deepseek-v2-lite-16b", 3, 4, 1024,
+     dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True),
+     ("terngrad", "tern_pack", "tern_acc"), True),
+    ("(aq) glm4 threshold ef", "glm4-9b", 2, 4, 1024,
+     dict(compressor="threshold", compressor_kwargs={"tau": 1e-3}, error_feedback=True),
+     ("threshold",), False),
+    ("(ar) qwen1.5-32b qsgd ef", "qwen1.5-32b", 1, 4, 1024, QSGD_EF,
+     ("qsgd_ef", "int8_acc"), False),
+    ("(as) gemma3 qsgd", "gemma3-12b", 6, 2, 2048, QSGD16, ("qsgd", "int8_acc"), True),
+)
+F_STEPS, F_BATCH, F_LR = 3, 8, 0.01
+#: a path whose peak passes this drops to W = 2 (the card holds 80 GB)
+F_PEAK_GIB = 76.0
+#: the bf16 trainer's first loss against the same forward in f32 (TF32 off)
+F_BF16_RTOL = 2e-2
+
+
+def predict_grad_agg(bundle) -> float:
+    """The bytes a train call books under grad_agg, from the bucket plan:
+    per bucket, by its route, each worker's payload all-gathered, p(n-1)
+    (the int8 codes and a 4-byte norm; a packed 1-bit row; a packed 2-bit
+    row and a 4-byte scale), or the f32 sum all-reduced, 2p(n-1)/n."""
+    n, total = bundle.n_workers, 0.0
+    for b in bundle.bucket_plan.buckets:
+        route = aggregate.bucket_route(bundle.comm, bundle.bucket_plan.compressor(b))
+        if route in ("fused_ef", "int8_acc"):
+            total += (b.size + 4) * (n - 1)
+        elif route == "sign":
+            total += ops.sign_packed_bytes(b.size) * (n - 1)
+        elif route == "tern":
+            total += (ops.tern_packed_bytes(b.size) + 4) * (n - 1)
+        elif route == "sum":
+            total += 4 * b.size * 2 * (n - 1) / n
+        else:
+            raise AssertionError(f"predict_grad_agg: no rule for route {route}")
+    return total
+
+
+def _f32_first_loss(cfg, params, batch: dict, workers: int) -> float:
+    """The worker mean of the forward loss with the parameters upcast to
+    f32 and f32 compute (TF32 off), on the first step's batch."""
+    cfg32 = cfg.with_updates(param_dtype="float32", compute_dtype="float32", remat="none")
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    rows = batch["tokens"].shape[0] // workers
+    with torch.no_grad():
+        losses = [float(T.forward_loss(cfg32, p32, {k: v[w * rows:(w + 1) * rows]
+                                                    for k, v in batch.items()})[0])
+                  for w in range(workers)]
+    del p32
+    torch.cuda.empty_cache()
+    return float(np.mean(losses))
+
+
+def run_family_path(label: str, arch: str, layers: int, workers: int, seq: int, comm_kw: dict,
+                    kernels: tuple, bf16_check: bool, card: str,
+                    profile_step: bool = False) -> dict[str, int]:
+    """One phase F path: 3 trainer steps; its step ms (the first excluded),
+    launches (exactly ``kernels``, as many times as the bucket plan's routes
+    call them), booked grad_agg against the plan's prediction to the byte,
+    peak memory and largest bucket; for ``bf16_check`` the first loss
+    against the f32 forward; ``profile_step``: one more step under
+    torch.profiler, after the launches are read.  Returns the launches of
+    its steps."""
+    cfg = get_config(arch).with_updates(n_layers=layers)
+    shape = InputShape(f"train_{seq}", seq, F_BATCH, "train")
+    comm = CommConfig(**comm_kw)
+    t0 = time.perf_counter()
+    bundle = build_bundle(cfg, comm, momentum_sgd(0.9), shape, n_workers=workers, seed=0,
+                          device=DEV)
+    tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(F_LR), log_every=1)
+    state = tr.init(seed=0)
+    torch.cuda.synchronize()
+    buckets = bundle.bucket_plan.buckets
+    big = max(buckets, key=lambda b: b.size)
+    print(f"family {label}: {arch} {layers} of {get_config(arch).n_layers} layers at full "
+          f"width, W {workers}, seq {seq}, global batch {F_BATCH}, {comm_kw}: {len(buckets)} "
+          f"buckets, {sum(b.size for b in buckets)} params, largest bucket {big.name} "
+          f"{big.size} elements (x W = {big.size * workers}); build+init "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+    f32_loss = None
+    if bf16_check:
+        f32_loss = _f32_first_loss(cfg, state["params"], tr._put(tr.data.batch(0)), workers)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    step_ms = []
+    for t in range(F_STEPS):
+        t1 = time.perf_counter()
+        state = tr.fit(state, 1, start_step=t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        h = tr.history[-1]
+        print(f"  step {t}: loss {h['loss']:.6f} ce {h['ce']:.6f} aux {h['aux']:.6f} "
+              f"step_ms {step_ms[-1]:.1f}")
+        if not all(math.isfinite(h[k]) for k in ("loss", "ce", "aux")):
+            raise AssertionError(f"family {label}: non-finite metrics at step {t}: {h}")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = route_launches(comm, bundle.bucket_plan, workers, F_STEPS)
+    got = {k: v for k, v in launches.items() if v}
+    booked, predicted = bundle.wire["train"].get("grad_agg", 0.0), predict_grad_agg(bundle)
+    print(f"  mean step_ms (first step excluded) {np.mean(step_ms[1:]):.1f}; launches {got}; "
+          f"booked wire KB/step by tag "
+          f"{ {k: round(v / 1e3, 3) for k, v in bundle.wire['train'].items()} }, grad_agg "
+          f"{booked:.0f} B against the plan's {predicted:.0f} B; peak memory {peak:.2f} GiB "
+          f"({card})")
+    if f32_loss is not None:
+        gap = abs(tr.history[0]["loss"] - f32_loss) / abs(f32_loss)
+        print(f"  first loss bf16 {tr.history[0]['loss']:.6f} against f32 {f32_loss:.6f}: "
+              f"relative gap {gap:.3e} (bound {F_BF16_RTOL})")
+        if not gap <= F_BF16_RTOL:
+            raise AssertionError(f"family {label}: bf16 loss off the f32 one by {gap}")
+    if got != want or sorted(got) != sorted(kernels):
+        raise AssertionError(f"family {label}: must launch exactly {want} ({kernels}): {got}")
+    if booked != predicted:
+        raise AssertionError(f"family {label}: booked {booked} B under grad_agg, the plan "
+                             f"predicts {predicted} B")
+    if peak > F_PEAK_GIB:
+        raise AssertionError(f"family {label}: peak {peak:.2f} GiB > {F_PEAK_GIB}: drop to W 2")
+    if profile_step:
+        profile_one_step(lambda: tr.fit(state, 1, start_step=F_STEPS), f"step {F_STEPS}",
+                         float(np.mean(step_ms[1:])))
+    STEP_MS[label] = float(np.mean(step_ms[1:]))
+    del state, tr, bundle
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: tokens of the full-width moe_ffn check: one worker's rows of (an)
+MOE_TOKENS = (2, 1024)
+
+
+def check_moe_ffn() -> None:
+    """``moe_ffn`` on 2,048 tokens of one qwen3-moe-30b-a3b layer at full
+    width, parameters in f32 and TF32 off, against the plain per-expert
+    loop (``models/moe_ref.py``) at the configured capacity factor, with the
+    initial router and under a skewed load (every token routed to expert 0:
+    tokens must drop), and at cf = E / k (none may): rtol 1e-4 / atol 1e-5
+    x max|y|.  Then, with E / 8 experts starved (their router columns
+    zeroed), an expert's wi / wg / wo gradient is exactly zero iff the loop
+    kept none of its tokens."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe_ref import moe_ffn_loop
+
+    cfg = get_config("qwen3-moe-30b-a3b").with_updates(n_layers=1, param_dtype="float32",
+                                                       compute_dtype="float32")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    p = materialize(L.moe_defs(cfg, make_plan(cfg)), gen, torch.float32, DEV)
+    x = torch.randn((*MOE_TOKENS, cfg.d_model), generator=gen, device=DEV)
+    T_, k, E = MOE_TOKENS[0] * MOE_TOKENS[1], cfg.experts_per_token, cfg.n_experts
+    # a skewed load: every token shifted along u, and expert 0's router
+    # column along u, so every token routes to expert 0 (T > C)
+    u = torch.randn(cfg.d_model, generator=gen, device=DEV)
+    router = p["router"].clone()
+    router[:, 0] = u / torch.linalg.vector_norm(u)
+    # (what, params, input, cf, must drop): the initial router, the skewed
+    # load (the buffers overflow) and cf = E / k (C = T: nothing may drop)
+    for what, pr, xx, cf, drops in (
+            ("initial router", p, x, cfg.moe_capacity_factor, None),
+            ("skewed load", dict(p, router=router), x + u, cfg.moe_capacity_factor, True),
+            ("initial router", p, x, E / k, False)):
+        with torch.no_grad():
+            y, aux = L.moe_ffn(cfg, pr, xx, capacity_factor=cf)
+            want, kept = moe_ffn_loop(pr, xx, k=k, capacity_factor=cf)
+        err, top = float((y - want).abs().max()), float(want.abs().max())
+        C = L.moe_capacity(cfg, T_, cf)
+        dropped = T_ * k - int(kept.sum())
+        print(f"moe_ffn qwen3-moe-30b-a3b layer at full width, {T_} tokens, {what}, cf "
+              f"{cf:g} (C {C}): max abs err {err:.3e} against the plain loop (max|y| "
+              f"{top:.3e}); {dropped} of {T_ * k} choices dropped; aux {float(aux):.6f}")
+        if not _close(y, want, rtol=1e-4, atol=1e-5 * top):
+            raise AssertionError(f"moe_ffn at cf {cf}: max abs err {err} against the loop")
+        if drops is not None and (dropped > 0) != drops:
+            raise AssertionError(f"moe_ffn at cf {cf}: {dropped} choices dropped")
+    # a zero logit loses to the k-th largest of E - ns others unless fewer
+    # than k of them are positive (odds ~1e-24 at 112 others, k = 8)
+    ns = E // 8  # 16 of qwen3-moe's 128
+    starved = dict(p, router=torch.cat([torch.zeros_like(p["router"][:, :ns]),
+                                        p["router"][:, ns:]], dim=1))
+    w = {n: starved[n].detach().requires_grad_(True) for n in ("wi", "wg", "wo")}
+    y, _ = L.moe_ffn(cfg, {**starved, **w}, x)
+    r = torch.randn(y.shape, generator=gen, device=DEV)
+    grads = torch.autograd.grad((y * r).sum(), list(w.values()))
+    with torch.no_grad():
+        _, kept = moe_ffn_loop(starved, x, k=k, capacity_factor=cfg.moe_capacity_factor)
+    nonzero = [torch.count_nonzero(g.reshape(E, -1), dim=1) > 0 for g in grads]
+    routed = kept > 0
+    print(f"moe_ffn gradients, {ns} experts starved: {int((~routed).sum())} experts kept no "
+          f"token; their wi / wg / wo gradients zero "
+          f"{[bool((~nz[~routed]).all()) for nz in nonzero]}, every other expert's nonzero "
+          f"{[bool(nz[routed].all()) for nz in nonzero]}")
+    if any(not torch.equal(nz, routed) for nz in nonzero) or routed[:ns].any():
+        raise AssertionError("moe_ffn: an expert's gradient is nonzero without a kept token, "
+                             "or zero with one")
+    del p, starved, w, grads, y
+    torch.cuda.empty_cache()
+
+
+def check_windowed_attention() -> None:
+    """gemma3-12b's local ``attention`` (window 1024) at full width, seq
+    2048, f32 and TF32 off, at query chunks 1024 (the reference's default:
+    window + chunk covers the sequence) and 512 (each chunk reads 1,536
+    keys), against a plain attention with the explicit window mask:
+    rtol 1e-4 / atol 1e-5 x max|o|."""
+    from repro_torch.models import layers as L
+
+    cfg = get_config("gemma3-12b").with_updates(n_layers=6, param_dtype="float32",
+                                                compute_dtype="float32")
+    B, S = 2, 2048
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(6)
+    p = materialize(L.attn_defs(cfg, make_plan(cfg)), gen, torch.float32, DEV)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=DEV)
+    pos = T.make_positions(B, S, DEV)
+    with torch.no_grad():
+        q = L.rmsnorm(p["q_norm"], torch.einsum("bsd,dhk->bshk", x, p["wq"]))
+        kk = L.rmsnorm(p["k_norm"], torch.einsum("bsd,dhk->bshk", x, p["wk"]))
+        vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        q, kk = L.apply_rope(cfg, q, pos), L.apply_rope(cfg, kk, pos)
+        rep = cfg.n_heads // cfg.n_kv_heads
+        kk, vv = kk.repeat_interleave(rep, 2), vv.repeat_interleave(rep, 2)
+        s = torch.einsum("bqhk,bshk->bhqs", q, kk) * cfg.resolved_head_dim ** -0.5
+        ar = torch.arange(S, device=DEV)
+        s = s.masked_fill(~L.window_mask(ar, ar, cfg.window), -1e30)
+        want = torch.einsum("bhqs,bshk,hkd->bqd", torch.softmax(s, -1), vv, p["wo"])
+        del s
+        top = float(want.abs().max())
+        for qc in (1024, 512):
+            got = L.attention(cfg, p, x, positions=pos, window=cfg.window, q_chunk=qc)
+            err = float((got - want).abs().max())
+            print(f"windowed attention gemma3-12b local layer at full width, seq {S}, window "
+                  f"{cfg.window}, q_chunk {qc} (keys per chunk {min(S, cfg.window + qc)}): max "
+                  f"abs err {err:.3e} against the plain masked attention (max|o| {top:.3e})")
+            if not _close(got, want, rtol=1e-4, atol=1e-5 * top):
+                raise AssertionError(f"windowed attention at q_chunk {qc}: max abs err {err}")
+    del p, x, want, got
+    torch.cuda.empty_cache()
+
+
+#: (ar)'s embedding bucket: qwen1.5-32b's 152,064 x 5,120 embedding, W = 4
+#: rows, 3,114,270,720 elements in one call (past 2**31)
+BIG_N, BIG_W, BIG_SLICE = 778_567_680, 4, 2**20
+
+
+def check_past_2e31() -> dict[str, dict]:
+    """``qsgd_ef``'s row-batched entry and ``int8_acc`` on a (4, 778,567,680)
+    stack, e' in place as the trainer writes it: against the plain versions
+    on the first and last 2**20 elements of each row and on the 2**20
+    around flat index 2**31 (the whole plain version does not fit beside
+    the kernels' buffers): codes bitwise, e' rtol 1e-6, the sum rtol 1e-6 /
+    atol 1e-5; each timed beside its byte bound."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(31)
+    shape = (BIG_W, BIG_N)
+    g = torch.randn(shape, generator=gen, device=DEV).mul_(0.1)
+    e = torch.randn(shape, generator=gen, device=DEV).mul_(0.05)
+    u = torch.rand(shape, generator=gen, device=DEV)
+    decay = 0.9
+    inv = torch.stack([torch.reciprocal(torch.clamp_min(torch.linalg.vector_norm(
+        e[r] * decay + g[r]), 1e-30)) for r in range(BIG_W)])
+    levels = torch.full((BIG_W,), 16.0, device=DEV)
+    # the flat index 2**31 (row 2, column 590,348,288 here)
+    row, mid = divmod(min(2**31, BIG_W * BIG_N // 2), BIG_N)
+    lo = min(max(mid - BIG_SLICE // 2, 0), BIG_N - BIG_SLICE)
+    cols = [(r, slice(0, BIG_SLICE)) for r in range(BIG_W)]
+    cols += [(r, slice(BIG_N - BIG_SLICE, BIG_N)) for r in range(BIG_W)]
+    cols += [(row, slice(lo, lo + BIG_SLICE))]
+    saved = [(r, sl, g[r, sl].clone(), e[r, sl].clone(), u[r, sl].clone()) for r, sl in cols]
+    codes = torch.empty(shape, dtype=torch.int8, device=DEV)
+    ops.qsgd_ef_rows_into(g, e, u, inv, levels, decay, codes, e)
+    torch.cuda.synchronize()
+    bad, worst_e = [], 0.0
+    for r, sl, gs, es, us in saved:
+        c, en = ref.qsgd_ef_rows(gs[None], es[None], us[None], inv[r:r + 1], levels[r:r + 1],
+                                 torch.full((), decay, device=DEV))
+        worst_e = max(worst_e, float((e[r, sl] - en[0]).abs().max()))
+        if not torch.equal(codes[r, sl], c[0]) or not _close(e[r, sl], en[0], 1e-6, 0.0):
+            bad.append(f"qsgd_ef row {r} [{sl.start}, {sl.stop})")
+    wt = torch.tensor([0.3, -1.2, 0.7, 2.0], device=DEV)
+    out = ops.int8_weighted_sum(codes, wt)
+    torch.cuda.synchronize()
+    worst_s = 0.0
+    for _, sl, *_ in saved[BIG_W:]:
+        want = ref.int8_acc(codes[:, sl], wt)
+        worst_s = max(worst_s, float((out[sl] - want).abs().max()))
+        if not _close(out[sl], want, 1e-6, 1e-5):
+            bad.append(f"int8_acc [{sl.start}, {sl.stop})")
+    ms_q = ms_per_call(lambda: ops.qsgd_ef_rows_into(g, e, u, inv, levels, decay, codes, e), 3)
+    ms_a = ms_per_call(lambda: ops.int8_weighted_sum(codes, wt), 5)
+    dec = torch.full((), decay, device=DEV)
+    # the plain qsgd_ef row by row (its temporaries for the whole stack do
+    # not fit beside the buffers), the plain int8_acc on the whole stack
+    plain_q = ms_per_call(lambda: [ref.qsgd_ef_rows(g[r:r + 1], e[r:r + 1], u[r:r + 1],
+                                                    inv[r:r + 1], levels[r:r + 1], dec)
+                                   for r in range(BIG_W)], 1)
+    plain_a = ms_per_call(lambda: ref.int8_acc(codes, wt), 1)
+    total = BIG_W * BIG_N
+    res = {}
+    for name, ms, plain, errv in (("qsgd_ef", ms_q, plain_q, worst_e),
+                                  ("int8_acc", ms_a, plain_a, worst_s)):
+        rk = ROW_KERNELS["qsgd_ef_rows"]
+        b_ms, b_by = (_bound(rk["bytes"](BIG_W, BIG_N), rk["ops"](BIG_W, BIG_N))
+                      if name == "qsgd_ef" else bound(name, BIG_N, BIG_W))
+        print(f"kernel {name} past 2**31: ({BIG_W}, {BIG_N}) = {total} elements in one call, "
+              f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}%), plain "
+              f"{plain:.4f} ms, max abs err {errv:.3e} on the compared slices")
+        res[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=errv)
+    if bad:
+        raise AssertionError(f"past 2**31: kernels disagree with their plain versions: {bad}")
+    del g, e, u, codes, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_phase_f(card: str, profile: set | None = None) -> tuple[dict[str, int], dict[str, dict]]:
+    """Paths (an)-(as) (each labelled in ``profile`` with one more step under
+    torch.profiler), then the full-width checks of moe_ffn, the windowed
+    attention and the kernels past 2**31.  Returns the paths' launches and
+    the big kernels' measurements."""
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in KERNELS}
+    for path in F_PATHS:
+        for k, v in run_family_path(*path, card=card,
+                                    profile_step=path[0] in (profile or ())).items():
+            launches[k] += v
+    check_moe_ffn()
+    check_windowed_attention()
+    big = check_past_2e31()
+    print(f"phase F: {time.perf_counter() - t_phase:.1f} s")
+    return launches, big
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="*", metavar="LABEL",
                     help="run one more step of the QSGD EF path (or of the paths with "
-                         "these labels; 'serve' for a decode step of the server) under "
-                         "torch.profiler after the timed steps (its launches are counted "
-                         "apart)")
+                         "these labels, phase F's included; 'serve' for a decode step of "
+                         "the server) under torch.profiler after the timed steps (its "
+                         "launches are counted apart)")
     profile = ap.parse_args().profile
     if profile is not None:
         profile = set(profile or [PATHS[0][0]])
-        unknown = profile - {p[0] for p in PATHS + CHURN_PATHS} - {"serve"}
+        unknown = profile - {p[0] for p in PATHS + CHURN_PATHS + F_PATHS} - {"serve"}
         if unknown:
             ap.error(f"--profile: no path labelled {sorted(unknown)}")
     t_start = time.perf_counter()
@@ -2049,6 +2439,9 @@ def main() -> None:
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
     run_phase_t(card)
     run_phase_b(card)
+    f_launches, f_big = run_phase_f(card, profile)
+    for k, v in f_launches.items():
+        launches[k] += v
     for name, r in row_checks.items():
         b_ms, b_by = _bound(ROW_KERNELS[name]["bytes"](ENGINE_ROWS, ENGINE_DIM),
                             ROW_KERNELS[name]["ops"](ENGINE_ROWS, ENGINE_DIM))
@@ -2065,6 +2458,13 @@ def main() -> None:
                      "library_note": NO_LIBRARY[kernel], "ok": r["ok"]})
     print(f"engine phase launches of the flat sign kernels (E3): sign_pack "
           f"{engine_launches['sign_pack']}, sign_unpack {engine_launches['sign_unpack']}")
+    for name, r in f_big.items():
+        rows.append({"name": f"{name}_past_2e31", "route": "cuda",
+                     "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
+                     "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None,
+                     "library_note": NO_LIBRARY[name], "ok": True})
     for row in rows:
         if row["name"] in KERNELS:
             row["launches"] = launches[row["name"]]

@@ -1,4 +1,6 @@
-"""Architecture registry of the port (the dense GQA family and RWKV6 so far)."""
+"""Architecture registry of the port: the dense GQA family and its variants
+(partial RoPE, qkv bias, sliding windows), the MoE family with and without
+MLA, and RWKV6."""
 
 from __future__ import annotations
 
@@ -6,7 +8,8 @@ import importlib
 
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
-ARCHS = ("qwen3-0.6b", "rwkv6-3b")
+ARCHS = ("qwen3-0.6b", "rwkv6-3b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "glm4-9b",
+         "qwen1.5-32b", "gemma3-12b")
 
 
 def get_config(name: str) -> ModelConfig:

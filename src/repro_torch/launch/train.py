@@ -146,7 +146,7 @@ def main(argv=None) -> int:
     trainer.fit(state, args.steps, start_step=start)
     for row in trainer.history:
         print(f"step {row['step']:5d} loss {row['loss']:.4f} "
-              f"ce {row['ce']:.4f} wall {row['wall']:.1f}s")
+              f"ce {row['ce']:.4f} aux {row['aux']:.4f} wall {row['wall']:.1f}s")
     return 0
 
 

@@ -1,10 +1,16 @@
-"""Transformer building blocks of the dense GQA family (counterpart of
-``repro.models.layers`` at model-axis size 1).
+"""Transformer building blocks of the attention families (counterpart of
+``repro.models.layers`` at model-axis size 1): GQA with standard or
+partial RoPE, qkv bias, qk-norm and sliding windows; MLA (deepseek-v2's
+compressed-latent attention, training path); the dense SwiGLU MLP; the
+capacity-buffered top-k MoE with shared experts; the embedding and the
+(softcapped) cross-entropy.
 
 Layouts are the reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd),
-``wo`` (H, hd, d), MLP ``wi``/``wg`` (d, dff) and ``wo`` (dff, d), the
-embedding (V, d).  Activations are (B, S, d).  Attention and the
-projections are plain PyTorch products, as the reference leaves them to XLA.
+``wo`` (H, hd, d), biases (H, hd) / (KV, hd), MLP ``wi``/``wg`` (d, dff) and
+``wo`` (dff, d), experts ``wi``/``wg`` (E, d, dff) and ``wo`` (E, dff, d),
+the router (d, E), the embedding (V, d).  Activations are (B, S, d).
+Attention, the projections and the expert products are plain PyTorch
+products, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -48,8 +54,18 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (3, B, S) (stream 0 is the sequential
-    position).  Only the standard branch is ported (``check_ported``)."""
-    cos, sin = _rope_cos_sin(positions[0], x.shape[-1], cfg.rope_theta)
+    position).  The standard branch, and the partial one (glm4): the first
+    ``int(hd * rope_fraction)`` dims (rounded down to even) rotate, the rest
+    pass through.  M-RoPE is refused by ``check_ported``."""
+    hd = x.shape[-1]
+    pos = positions[0]
+    if cfg.rope_type == "partial" and cfg.rope_fraction < 1.0:
+        rot = int(hd * cfg.rope_fraction)
+        rot -= rot % 2
+        cos, sin = _rope_cos_sin(pos, rot, cfg.rope_theta)
+        x_rot = _rotate(x[..., :rot], cos[:, :, None, :], sin[:, :, None, :])
+        return torch.cat([x_rot, x[..., rot:]], dim=-1)
+    cos, sin = _rope_cos_sin(pos, hd, cfg.rope_theta)
     return _rotate(x, cos[:, :, None, :], sin[:, :, None, :])
 
 
@@ -63,23 +79,118 @@ def mlp(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"])
 
 
+def moe_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, Any]:
+    d, E, dff = plan.d, plan.E, plan.Dff_e
+    defs: dict[str, Any] = {
+        "router": ParamDef((d, E), init="small"),
+        "wi": ParamDef((E, d, dff)),
+        "wg": ParamDef((E, d, dff)),
+        "wo": ParamDef((E, dff, d)),
+    }
+    if plan.Dff_shared:
+        defs["shared"] = mlp_defs(d, plan.Dff_shared)
+    return defs
+
+
+def moe_capacity(cfg: ModelConfig, T: int, capacity_factor: float | None = None) -> int:
+    """Tokens each expert buffers, C = max(1, int(cf * T * k / E)), in the
+    reference's float order."""
+    cf = cfg.moe_capacity_factor if capacity_factor is None else capacity_factor
+    return max(1, int(cf * T * cfg.experts_per_token / cfg.n_experts))
+
+
+def router_top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row, largest first, ties to the lower index as
+    ``lax.top_k`` orders them (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def moe_ffn(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
+            capacity_factor: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dropping top-k MoE (the reference's ``moe_ffn`` at model-axis size
+    1: every expert is local).  Returns (out (B, S, d), aux).
+
+    The (token, choice) pairs in flat ``T*k`` order take their slot in
+    their expert's buffer by a running count; the first C of each expert
+    are kept, the rest go to the dummy tail row ``E * C`` (written with
+    zeros, never read back).  ``aux`` is the Switch-style E * sum_e f_e P_e:
+    f_e (the routed share) carries no gradient, P_e (the mean probability)
+    does."""
+    B, S, d = x.shape
+    T, k, E = B * S, cfg.experts_per_token, cfg.n_experts
+    xt = x.reshape(T, d)
+    probs = torch.softmax(xt.to(f32) @ p["router"].to(f32), dim=-1)
+    top_p, top_i = router_top_k(probs, k)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    f_e = torch.zeros(E, dtype=f32, device=x.device).index_add_(
+        0, top_i.reshape(-1), torch.ones(T * k, dtype=f32, device=x.device)) / T
+    aux = E * torch.sum(f_e * torch.mean(probs, dim=0))
+
+    flat_e = top_i.reshape(-1)
+    flat_w = top_p.reshape(-1)
+    C = moe_capacity(cfg, T, capacity_factor)
+    onehot = F.one_hot(flat_e, E).to(torch.int32)
+    slot_in_e = torch.gather(torch.cumsum(onehot, dim=0), 1, flat_e[:, None])[:, 0] - 1
+    keep = slot_in_e < C
+    slot = torch.where(keep, flat_e * C + slot_in_e, E * C)
+    tok = torch.arange(T * k, device=x.device) // k
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device).index_put(
+        (slot,), xt[tok] * keep[:, None].to(x.dtype))
+    eb = buf[:E * C].reshape(E, C, d)
+    h = torch.bmm(eb, p["wi"])
+    g = torch.bmm(eb, p["wg"])
+    eo = torch.bmm(F.silu(g) * h, p["wo"]).reshape(E * C, d)
+    eo = torch.cat([eo, torch.zeros((1, d), dtype=eo.dtype, device=eo.device)], 0)
+    y = eo[slot] * (flat_w * keep.to(f32)).to(x.dtype)[:, None]
+    y = y.reshape(T, k, d).sum(1)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x).reshape(T, d)
+    return y.reshape(B, S, d), aux
+
+
 def attn_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, ParamDef]:
     d, H, KV, hd = plan.d, plan.H, plan.KV, plan.hd
+    if cfg.kv_lora:  # MLA (deepseek-v2)
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        return {
+            "wq": ParamDef((d, H, qk)),
+            "w_dkv": ParamDef((d, cfg.kv_lora + cfg.qk_rope_dim)),
+            "kv_norm": rmsnorm_def(cfg.kv_lora),
+            "w_uk": ParamDef((cfg.kv_lora, H, cfg.qk_nope_dim)),
+            "w_uv": ParamDef((cfg.kv_lora, H, cfg.v_head_dim)),
+            "wo": ParamDef((H, cfg.v_head_dim, d)),
+        }
     defs = {
         "wq": ParamDef((d, H, hd)),
         "wk": ParamDef((d, KV, hd)),
         "wv": ParamDef((d, KV, hd)),
         "wo": ParamDef((H, hd, d)),
     }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((H, hd), init="zeros")
+        defs["bk"] = ParamDef((KV, hd), init="zeros")
+        defs["bv"] = ParamDef((KV, hd), init="zeros")
     if cfg.qk_norm:
         defs["q_norm"] = rmsnorm_def(hd)
         defs["k_norm"] = rmsnorm_def(hd)
     return defs
 
 
-def sdpa_chunked(q, k, v, *, q_chunk: int = 1024) -> torch.Tensor:
+def window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
+    """(Q, K) causal mask of a window that counts the tokens attended to,
+    self included (the reference's ``_window_mask`` with ``causal``)."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    return (diff < window) & (diff >= 0)
+
+
+def sdpa_chunked(q, k, v, *, window: int, q_chunk: int = 1024) -> torch.Tensor:
     """Exact causal attention in f32 scores and softmax, over query chunks.
-    q (B, S, H, hd); k, v (B, S, KV, hd); H a multiple of KV."""
+    q (B, S, H, hd); k (B, S, KV, hd); v (B, S, KV, hd_v); H a multiple of
+    KV.  A windowed layer (``window`` < S) reads, per chunk, only the
+    ``min(S, window + qc)`` keys that can reach it (the reference's slice,
+    clipped into the sequence), not a full masked row."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     group = H // KV
@@ -88,31 +199,35 @@ def sdpa_chunked(q, k, v, *, q_chunk: int = 1024) -> torch.Tensor:
     qc = min(q_chunk, Sq)
     if Sq % qc:
         raise ValueError(f"Sq={Sq} is not a multiple of the query chunk {qc}")
+    kv_len = min(Sk, window + qc) if window < Sk else Sk
     k_pos = torch.arange(Sk, device=q.device)
+    neg = torch.full((), -1e30, dtype=f32, device=q.device)
     outs = []
     for i in range(Sq // qc):
         qs = qg[:, i * qc:(i + 1) * qc]
         q_pos = torch.arange(i * qc, (i + 1) * qc, device=q.device)
-        s = torch.einsum("bqkgh,bskh->bkgqs", qs.to(f32) * scale, k.to(f32))
-        causal = q_pos[:, None] >= k_pos[None, :]
-        s = torch.where(causal[None, None, None], s, torch.full((), -1e30, dtype=f32,
-                                                                 device=s.device))
-        a = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bkgqs,bskh->bqkgh", a, v.to(f32)).to(q.dtype))
+        start = min(max(i * qc + qc - kv_len, 0), Sk - kv_len)
+        ks, vs = k[:, start:start + kv_len], v[:, start:start + kv_len]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qs.to(f32) * scale, ks.to(f32))
+        mask = window_mask(q_pos, k_pos[start:start + kv_len], window)
+        a = torch.softmax(torch.where(mask[None, None, None], s, neg), dim=-1)
+        outs.append(torch.einsum("bkgqs,bskh->bqkgh", a, vs.to(f32)).to(q.dtype))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
 def attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
-              positions: torch.Tensor, window: int) -> torch.Tensor:
-    """Causal train attention over the full sequence. Returns (B, S, d)."""
-    B, S, _ = x.shape
-    if window < S:
-        raise NotImplementedError(f"sliding-window attention (window {window} < seq {S}) "
-                                  "is not ported yet")
+              positions: torch.Tensor, window: int, q_chunk: int = 1024) -> torch.Tensor:
+    """Causal train attention over the full sequence, ``window`` tokens
+    back (the sequence length for a global layer), in query chunks of
+    ``q_chunk``. Returns (B, S, d)."""
+    if "w_dkv" in p:
+        return _mla_attention(cfg, p, x, positions=positions, window=window, q_chunk=q_chunk)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, kk, vv = q + p["bq"], kk + p["bk"], vv + p["bv"]
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         kk = rmsnorm(p["k_norm"], kk)
@@ -120,7 +235,26 @@ def attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     kk = apply_rope(cfg, kk, positions)
     # GQA: sdpa_chunked groups the query heads, so q-head h reads kv-head
     # h * KV // H, the reference's head gather, without copying K and V
-    out = sdpa_chunked(q, kk, vv)
+    out = sdpa_chunked(q, kk, vv, window=window, q_chunk=q_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _mla_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
+                   positions: torch.Tensor, window: int, q_chunk: int) -> torch.Tensor:
+    """Multi-head latent attention, training path: K and V decompressed
+    from the rms-normed latent, one shared RoPE key per position."""
+    B, S, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = apply_rope(cfg, q[..., cfg.qk_nope_dim:], positions)
+    latent = torch.einsum("bsd,dc->bsc", x, p["w_dkv"])
+    kv_lat = rmsnorm(p["kv_norm"], latent[..., :cfg.kv_lora])
+    k_rope = apply_rope(cfg, latent[..., None, cfg.kv_lora:], positions)  # (B, S, 1, rope)
+    k_nope = torch.einsum("bsc,chk->bshk", kv_lat, p["w_uk"])
+    v = torch.einsum("bsc,chk->bshk", kv_lat, p["w_uv"])
+    H = q.shape[2]
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)], -1)
+    out = sdpa_chunked(torch.cat([q_nope, q_rope], -1), k, v, window=window, q_chunk=q_chunk)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -135,8 +269,13 @@ def embed(p: dict[str, torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
     return vec * ok[..., None].to(vec.dtype)
 
 
-def _chunk_loss(emb: torch.Tensor, h_c: torch.Tensor, labels_c: torch.Tensor):
-    logits = torch.einsum("bsd,vd->bsv", h_c.to(f32), emb.to(f32))
+def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
+    return softcap * torch.tanh(logits / softcap) if softcap else logits
+
+
+def _chunk_loss(emb: torch.Tensor, h_c: torch.Tensor, labels_c: torch.Tensor,
+                softcap: float = 0.0):
+    logits = _softcap(torch.einsum("bsd,vd->bsv", h_c.to(f32), emb.to(f32)), softcap)
     m = torch.amax(logits, dim=-1).detach()
     lse = torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1)) + m
     V = emb.shape[0]
@@ -147,13 +286,15 @@ def _chunk_loss(emb: torch.Tensor, h_c: torch.Tensor, labels_c: torch.Tensor):
 
 
 def logits_and_loss(p: dict[str, torch.Tensor], h: torch.Tensor, labels: torch.Tensor,
-                    *, s_chunk: int = 1024) -> torch.Tensor:
-    """Cross-entropy in f32 against the embedding; sequences longer than
-    ``s_chunk`` are chunked and each chunk is recomputed in the backward, so
-    the (B, S, V) f32 logits never exist at once."""
+                    *, softcap: float = 0.0, s_chunk: int = 1024) -> torch.Tensor:
+    """Cross-entropy in f32 against the embedding, the logits softcapped
+    (``softcap * tanh(logits / softcap)``) when ``softcap`` is set;
+    sequences longer than ``s_chunk`` are chunked and each chunk is
+    recomputed in the backward, so the (B, S, V) f32 logits never exist at
+    once."""
     B, S = labels.shape
     if S <= s_chunk:
-        tot, cnt = _chunk_loss(p["embedding"], h, labels)
+        tot, cnt = _chunk_loss(p["embedding"], h, labels, softcap)
         return tot / torch.clamp(cnt, min=1.0)
     if S % s_chunk:
         raise ValueError(f"S={S} is not a multiple of s_chunk={s_chunk}")
@@ -161,14 +302,14 @@ def logits_and_loss(p: dict[str, torch.Tensor], h: torch.Tensor, labels: torch.T
     cnt = torch.zeros((), dtype=f32, device=h.device)
     for i in range(S // s_chunk):
         sl = slice(i * s_chunk, (i + 1) * s_chunk)
-        t, c = checkpoint(_chunk_loss, p["embedding"], h[:, sl], labels[:, sl],
+        t, c = checkpoint(_chunk_loss, p["embedding"], h[:, sl], labels[:, sl], softcap,
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def logits_local(p: dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+def logits_local(p: dict[str, torch.Tensor], h: torch.Tensor, *,
+                 softcap: float = 0.0) -> torch.Tensor:
     """Decode-time logits (B, S, V) in f32 against the embedding (the whole
-    vocabulary: one card holds it all).  The reference's softcap is refused
-    by ``check_ported``."""
-    return torch.einsum("bsd,vd->bsv", h.to(f32), p["embedding"].to(f32))
+    vocabulary: one card holds it all), softcapped as in training."""
+    return _softcap(torch.einsum("bsd,vd->bsv", h.to(f32), p["embedding"].to(f32)), softcap)

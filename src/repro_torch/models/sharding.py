@@ -36,28 +36,48 @@ class ShapePlan:
     hd: int
     Dff: int
     V: int  # padded vocab
+    E: int  # routed experts (a multiple of msize)
+    Dff_e: int  # expert hidden
+    Dff_shared: int  # shared-expert hidden, all shared experts together
     rwkv_heads: int  # padded rwkv heads
     rwkv_hd: int
 
+    @property
+    def E_l(self) -> int:
+        return self.E // self.msize if self.E else 0
+
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for model options the port does not run yet: the dense GQA
-    family with standard RoPE (what qwen3-0.6b sets) and the attention-free
-    RWKV6 family (``family="ssm"``, no attention, no RoPE), both without qkv
-    bias, logits softcap or MoE.  Sliding windows are checked per sequence
-    length in ``layers.attention``."""
+    """Raise for model options the port does not run yet, naming the slice
+    each waits for.  Ported: the attention families (dense and MoE, GQA or
+    MLA, standard or partial RoPE, qkv bias, logits softcap, leading dense
+    layers, sliding-window patterns) and the attention-free RWKV6 family
+    (``family="ssm"``: no attention, no RoPE)."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack (seamless) is a "
+                                  "later slice")
+    if cfg.modality != "text":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.modality} frontend (qwen2-vl, "
+                                  "seamless) is a later slice")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(f"{cfg.name}: the hybrid attention + SSM heads (hymba) are a "
+                                  "later slice")
     if cfg.family == "ssm":
-        wanted = (("attn_kind", "none"), ("rope_type", "none"))
-    elif cfg.family == "dense" and cfg.attn_kind == "gqa" and not cfg.kv_lora:
-        wanted = (("rope_type", "rope"),)
-    else:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and RWKV6 families are ported")
-    for field, default in (*wanted, ("qkv_bias", False), ("logits_softcap", 0.0),
-                           ("moe", False)):
-        if getattr(cfg, field) != default:
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported yet")
+        for field, want in (("attn_kind", "none"), ("rope_type", "none"), ("moe", False),
+                            ("qkv_bias", False), ("logits_softcap", 0.0)):
+            if getattr(cfg, field) != want:
+                raise NotImplementedError(
+                    f"{cfg.name}: RWKV6 with {field}={getattr(cfg, field)!r} is not ported")
+        return
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is a later slice")
+    if cfg.rope_type not in ("rope", "partial"):
+        raise NotImplementedError(f"{cfg.name}: rope_type={cfg.rope_type!r} is not ported "
+                                  "(M-RoPE waits for the qwen2-vl slice)")
+    if cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"{cfg.name}: attn_kind={cfg.attn_kind!r} is not ported")
+    if cfg.moe != (cfg.family == "moe"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} with moe={cfg.moe}")
 
 
 def make_plan(cfg: ModelConfig, msize: int = 1) -> ShapePlan:
@@ -71,6 +91,10 @@ def make_plan(cfg: ModelConfig, msize: int = 1) -> ShapePlan:
     if cfg.family == "ssm" and cfg.d_model % (cfg.rwkv_head_dim * msize):
         raise ValueError(f"{cfg.name}: d_model {cfg.d_model} does not split into heads "
                          f"of {cfg.rwkv_head_dim} over {msize}")
+    E = cfg.n_experts
+    if E % msize:
+        raise ValueError(f"{cfg.name}: {E} experts do not split over {msize}")
+    dff_e = cfg.d_ff_expert or cfg.d_ff
     return ShapePlan(
         msize=msize,
         d=cfg.d_model,
@@ -80,6 +104,9 @@ def make_plan(cfg: ModelConfig, msize: int = 1) -> ShapePlan:
         hd=cfg.resolved_head_dim,
         Dff=pad_to(cfg.d_ff, msize),
         V=pad_to(cfg.vocab, 128 * msize),
+        E=E,
+        Dff_e=dff_e,
+        Dff_shared=pad_to(cfg.n_shared_experts * dff_e, msize) if cfg.n_shared_experts else 0,
         rwkv_heads=pad_to(cfg.d_model // cfg.rwkv_head_dim, msize),
         rwkv_hd=cfg.rwkv_head_dim,
     )

@@ -1,13 +1,17 @@
-"""Model assembly for the dense GQA and RWKV6 families (counterpart of
+"""Model assembly for the attention families and RWKV6 (counterpart of
 ``repro.models.transformer``: ``build_defs``, ``init_params``,
-``forward_loss`` for the dense family; ``prefill`` and ``decode_step`` for
-RWKV6).
+``forward_loss`` for the dense and MoE families, GQA or MLA; ``prefill``
+and ``decode_step`` for RWKV6).
 
-With ``scan_layers=True`` the layer group is stacked over a leading
-``n_layers`` axis (one leaf per weight, as the reference's ``lax.scan``
-carries them); with ``scan_layers=False`` ``blocks`` is a list of groups.
-Either way the parameter tree, its paths and so the bucket plan match the
-reference's.  ``remat != "none"`` recomputes each block in the backward
+The tree is the reference's: ``prefix`` is the list of leading dense-FFN
+layers (deepseek-v2's layer 0; empty elsewhere), unstacked; ``blocks``
+holds the pattern groups (gemma3's five local layers and one global one
+are the group's entries "0".."5"), each layer with ``moe`` or ``mlp``.
+With ``scan_layers=True`` the group is stacked over a leading repeats axis
+(one leaf per weight, as the reference's ``lax.scan`` carries them); with
+``scan_layers=False`` ``blocks`` is a list of groups.  Either way the
+parameter tree, its paths and so the bucket plan match the reference's.
+``remat != "none"`` recomputes each block of ``blocks`` in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 
 Serving keeps the reference's cache tree: ``{"prefix": [], "pos": int32,
@@ -34,30 +38,38 @@ from repro_torch.utils.tree import leaves, unflatten_like
 f32 = torch.float32
 
 
-def _block_defs(cfg: ModelConfig, plan: ShapePlan) -> dict:
+def _block_defs(cfg: ModelConfig, plan: ShapePlan, *, moe_layer: bool) -> dict:
     defs = {"ln1": L.rmsnorm_def(plan.d), "ln2": L.rmsnorm_def(plan.d)}
     if cfg.family == "ssm":  # rwkv6: time-mix + channel-mix
         defs.update(RW.rwkv_defs(cfg, plan))
+        return defs
+    defs["attn"] = L.attn_defs(cfg, plan)
+    if moe_layer:
+        defs["moe"] = L.moe_defs(cfg, plan)
     else:
-        defs.update(attn=L.attn_defs(cfg, plan), mlp=L.mlp_defs(plan.d, plan.Dff))
+        defs["mlp"] = L.mlp_defs(plan.d, plan.Dff)
     return defs
 
 
 def build_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, Any]:
-    if cfg.moe or cfg.is_encoder_decoder or cfg.modality != "text" or cfg.first_dense_layers:
-        raise NotImplementedError(f"{cfg.name}: only the dense and RWKV6 text families "
-                                  "are ported")
     pat = cfg.attn_pattern
-    repeats = cfg.pattern_repeats
-    defs: dict[str, Any] = {"embed": L.embed_defs(plan), "ln_f": L.rmsnorm_def(plan.d),
-                            "prefix": []}
-    if cfg.scan_layers:
-        defs["blocks"] = stack_defs({str(i): _block_defs(cfg, plan)
-                                     for i in range(len(pat))}, repeats)
-    else:
-        defs["blocks"] = [{str(i): _block_defs(cfg, plan) for i in range(len(pat))}
-                          for _ in range(repeats)]
-    return defs
+    n_rest = cfg.n_layers - cfg.first_dense_layers
+    if n_rest % len(pat):
+        raise ValueError(f"{cfg.name}: {n_rest} layers after the prefix do not split into "
+                         f"pattern {pat}")
+    repeats = n_rest // len(pat)
+
+    def group():
+        return {str(i): _block_defs(cfg, plan, moe_layer=cfg.moe) for i in range(len(pat))}
+
+    return {
+        "embed": L.embed_defs(plan),
+        "ln_f": L.rmsnorm_def(plan.d),
+        "prefix": [_block_defs(cfg, plan, moe_layer=False)
+                   for _ in range(cfg.first_dense_layers)],
+        "blocks": (stack_defs(group(), repeats) if cfg.scan_layers
+                   else [group() for _ in range(repeats)]),
+    }
 
 
 def param_defs(cfg: ModelConfig) -> dict[str, Any]:
@@ -80,11 +92,19 @@ def make_positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
-               attn_type: str, seq_len: int, positions: torch.Tensor) -> torch.Tensor:
+               attn_type: str, seq_len: int, positions: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One attention block; returns (x, the router's aux loss: 0 for an MLP
+    block)."""
     window = cfg.layer_window(attn_type, seq_len)
     x = x + L.attention(cfg, p["attn"], L.rmsnorm(p["ln1"], x),
                         positions=positions, window=window)
-    return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x))
+    h = L.rmsnorm(p["ln2"], x)
+    if "moe" in p:
+        ff, aux = L.moe_ffn(cfg, p["moe"], h)
+    else:
+        ff, aux = L.mlp(p["mlp"], h), torch.zeros((), dtype=f32, device=x.device)
+    return x + ff, aux
 
 
 def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
@@ -105,29 +125,36 @@ def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
 
 def forward_loss(cfg: ModelConfig, params: dict[str, Any],
                  batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Training forward: returns (loss, {"ce", "aux"})."""
-    if cfg.family != "dense":
+    """Training forward: returns (loss, {"ce", "aux"}): the prefix layers
+    (attention type ``attn_pattern[0]``), then the pattern groups; ``aux``
+    sums the MoE layers' router losses, ``ce`` is the (softcapped)
+    cross-entropy and loss = ce + router_aux_coef * aux."""
+    if cfg.family == "ssm":
         raise NotImplementedError(f"{cfg.name}: training the {cfg.family} family is a later "
                                   "slice (RWKV6 needs a gradient through the wkv6 recurrence)")
     x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
     B, S, _ = x.shape
     positions = make_positions(B, S, x.device)
     pat = cfg.attn_pattern
+    aux_total = torch.zeros((), dtype=f32, device=x.device)
+    for p in params["prefix"]:
+        x, aux = _run_block(cfg, p, x, attn_type=pat[0], seq_len=S, positions=positions)
+        aux_total = aux_total + aux
     for pgroup in _layer_groups(cfg, params["blocks"]):
         for i, attn_type in enumerate(pat):
             kw = dict(attn_type=attn_type, seq_len=S, positions=positions)
             if cfg.remat == "none":
-                x = _run_block(cfg, pgroup[str(i)], x, **kw)
+                x, aux = _run_block(cfg, pgroup[str(i)], x, **kw)
             else:
                 # the block draws no random numbers: no RNG state to replay
-                x = checkpoint(lambda p, h, kw=kw: _run_block(cfg, p, h, **kw),
-                               pgroup[str(i)], x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux = checkpoint(lambda p, h, kw=kw: _run_block(cfg, p, h, **kw),
+                                    pgroup[str(i)], x, use_reentrant=False,
+                                    preserve_rng_state=False)
+            aux_total = aux_total + aux
     x = L.rmsnorm(params["ln_f"], x)
-    ce = L.logits_and_loss(params["embed"], x, batch["labels"])
-    aux = torch.zeros((), dtype=f32, device=x.device)  # dense family: no router loss
-    loss = ce + cfg.router_aux_coef * aux
-    return loss, {"ce": ce, "aux": aux}
+    ce = L.logits_and_loss(params["embed"], x, batch["labels"], softcap=cfg.logits_softcap)
+    loss = ce + cfg.router_aux_coef * aux_total
+    return loss, {"ce": ce, "aux": aux_total}
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +169,8 @@ def check_serving(cfg: ModelConfig) -> None:
     if cfg.family != "ssm" or cfg.seq_par:
         raise NotImplementedError(
             f"{cfg.name}: serving the {cfg.family} family (its ring KV cache, decode "
-            "attention and seq_par prefill) is a later slice; the port serves RWKV6 "
-            "without seq_par")
+            "attention, MLA's latent decode and the seq_par prefill) is a later slice; the "
+            "port serves RWKV6 without seq_par")
 
 
 def _stack_groups(cfg: ModelConfig, groups: list[Any]) -> Any:
@@ -207,7 +234,8 @@ def decode_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],
             x, ncs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], use_kernel)
         groups.append(ncs)
     x = L.rmsnorm(params["ln_f"], x)
-    next_tok = _distributed_argmax(L.logits_local(params["embed"], x))
+    next_tok = _distributed_argmax(L.logits_local(params["embed"], x,
+                                                  softcap=cfg.logits_softcap))
     return next_tok, {"prefix": [], "pos": cache["pos"] + 1,
                       "blocks": _stack_groups(cfg, groups)}
 

@@ -661,12 +661,17 @@ class StepBundle:
         return ({"params": params, "opt": opt_state, "comm": cstate, "step": step + 1},
                 self._metrics(ms))
 
-    def eval_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        """The worker mean of each worker's forward loss on its rows."""
+    def eval_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor], *,
+                  metrics: bool = False) -> Any:
+        """The worker mean of each worker's forward loss on its rows (with
+        ``metrics``: ``(loss, {"ce", "aux"})``, each a worker mean)."""
         with torch.no_grad():
-            losses = [T.forward_loss(self.cfg, self._worker_params(state["params"], w, False),
-                                     part)[0] for w, part in enumerate(self._split(batch))]
-        return comms.pmean(torch.stack(losses))
+            outs = [T.forward_loss(self.cfg, self._worker_params(state["params"], w, False), part)
+                    for w, part in enumerate(self._split(batch))]
+        loss = comms.pmean(torch.stack([o[0] for o in outs]))
+        if not metrics:
+            return loss
+        return loss, {k: comms.pmean(torch.stack([o[1][k] for o in outs])) for k in ("ce", "aux")}
 
 
 def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:

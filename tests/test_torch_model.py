@@ -30,6 +30,7 @@ from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.data.pipeline import BigramSource, SyntheticBatches
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
@@ -114,21 +115,45 @@ def test_full_width_param_tree_matches_reference():
     assert len(got) == 13 and sum(int(np.prod(s)) for s in got.values()) == 596_049_920
 
 
-@pytest.mark.parametrize("upd", [dict(rope_type="partial", rope_fraction=0.5),
-                                 dict(rope_type="none"), dict(qkv_bias=True),
-                                 dict(logits_softcap=30.0)])
+@pytest.mark.parametrize("upd", [dict(rope_type="mrope"), dict(family="hybrid"),
+                                 dict(is_encoder_decoder=True, encoder_layers=2),
+                                 dict(modality="vision")])
 def test_unported_model_options_raise(upd):
-    """Options qwen3-0.6b does not set are refused, not run unverified."""
-    with pytest.raises(NotImplementedError):
+    """Options no ported configuration runs yet (qwen2-vl's M-RoPE and
+    vision input, hymba's hybrid heads, seamless's encoder-decoder) are
+    refused, not run unverified."""
+    with pytest.raises(NotImplementedError, match="later slice|not ported"):
         T.param_defs(_tiny_cfg(**upd))
 
 
-def test_sliding_window_raises():
-    cfg = _tiny_cfg(attn_pattern=("local",))  # window 16 < seq 64
-    params = T.init_params(cfg, seed=0, device="cpu")
-    tokens = torch.zeros((2, 64), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        T.forward_loss(cfg, params, {"tokens": tokens, "labels": tokens})
+@pytest.mark.parametrize("q_chunk", [64, 16, 8])
+def test_sliding_window_matches_reference(q_chunk, monkeypatch):
+    """A ``local`` layer, window 16 at seq 64, against the reference's
+    ``attention`` at the same query chunk: 64 reads the whole KV block,
+    16 and 8 slice it to window + chunk keys; rtol 1e-5."""
+    import functools
+
+    from repro.models import layers as JL
+
+    jcfg = make_tiny_workload()[0].with_updates(attn_pattern=("local",))
+    cfg = _tiny_cfg(attn_pattern=("local",))
+    assert cfg.layer_window("local", 64) == 16
+    jp = JT.init_params(jcfg, jax.random.key(0), 1)["blocks"][0]["0"]["attn"]
+    x = np.random.default_rng(3).standard_normal((2, 64, 128)).astype(np.float32)
+    monkeypatch.setattr(JL, "sdpa_chunked", functools.partial(JL.sdpa_chunked, q_chunk=q_chunk))
+    specs = jax.tree.map(lambda _: P(), jp)
+    fn = jax.jit(shard_map(
+        lambda p, h: JL.attention(jcfg, p, h, AxisCtx(), positions=JT.make_positions(jcfg, 2, 64),
+                                  window=16),
+        mesh=make_test_mesh(1, 1), in_specs=(specs, P()), out_specs=P(), check_vma=False))
+    want = np.asarray(fn(jp, jnp.asarray(x)))
+    p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    got = L.attention(cfg, p, torch.from_numpy(x), positions=T.make_positions(2, 64, "cpu"),
+                      window=16, q_chunk=q_chunk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    full = L.attention(cfg, p, torch.from_numpy(x), positions=T.make_positions(2, 64, "cpu"),
+                       window=64, q_chunk=q_chunk)
+    assert not np.allclose(full.numpy(), want, rtol=1e-3)  # the window bites
 
 
 def test_init_params_shapes_and_dtype():
