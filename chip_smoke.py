@@ -185,7 +185,8 @@ result line:
 9. phase T, the sweep CLI's trainer and roofline substrates, on the tiny
    workload of the trainer substrate (qwen3-0.6b at d_model 128, 2 layers,
    batch 64 x seq 16, bigram data): (T1) ``measure_trainer_sweep`` on
-   ``trainer_matrix_16`` (W = 4, 24 steps, deterministic algorithms):
+   ``trainer_matrix_16`` (W = 4, 8 of its 24 steps, deterministic
+   algorithms):
    builds shared at most the classes, per cell one per cell,
    ``max_rel_dev_loss`` < 1e-5, no kernel launched; (T2) the
    ``overlap_bench`` twin's 14 cells (W = 2, microbatch 4, 16 steps) with
@@ -248,6 +249,31 @@ result line:
    last 2**20 elements of each row and the 2**20 around flat index 2**31
    (codes bitwise, e' rtol 1e-6, the sum rtol 1e-6 / atol 1e-5), each
    timed beside its byte bound.  ``--profile`` takes phase F's labels too.
+12. phase S, the attention families served (``S_PATHS``): each at full
+   published width, bf16, random weights from seed 0, ``SyntheticBatches``
+   prompts, batch 8, prompt 1024, 32 greedy decode tokens through
+   ``launch.serve.run`` (``build_serve``: the prefill's rings hold the
+   prompt, the decode runs at max_seq = prompt + 32 and writes the ring in
+   place): (at) qwen3-0.6b, all 28 layers (GQA 16:8, qk-norm); (au)
+   glm4-9b, all 40 (partial RoPE, 2 KV heads); (av) qwen1.5-32b, 16 of 64
+   (MHA 40:40, qkv bias); (aw) gemma3-12b, all 48, prompt 2048 (5 local :
+   1 global, window 1024: the prefill's window and the 1024-slot local
+   rings bite); (ax) qwen3-moe-30b-a3b, 12 of 48 (128 experts, top-8); (ay)
+   deepseek-v2-lite-16b, all 27 (MLA's latent cache, the dense layer 0,
+   shared experts; C = 1 per expert in decode, so choices drop).  Each
+   prints prefill ms and decode ms per token (host clock ending in a
+   synchronize), tok/s, peak GiB (weights included) and the cache's GiB,
+   and must launch no port kernel, its tokens in [0, vocab) and its last
+   hidden state finite.  Then, in f32 at full width, one pattern period
+   each (deepseek its dense layer 0 and 2 MoE layers; the MoE at cf = E;
+   the list layout: a stacked leaf is drawn at std 1/sqrt(repeats)),
+   batch 2, prompt 256 (gemma3 1024: its local rings full, so the decode
+   evicts position 0, as the forward's window does): ``prefill(max_seq=S +
+   1)`` plus one ``decode_logits`` against the full forward's
+   last-position logits over S + 1 tokens within 1e-4 of max|logits|, the
+   greedy tokens equal wherever the top-2 margin exceeds the error, and one
+   ``serve_step`` against ``decode_step`` from the same cache: tokens and
+   cache bitwise.  ``--profile`` takes the tags at..ay (a decode step).
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -261,6 +287,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import math
@@ -298,7 +325,7 @@ from repro_torch.utils.tree import flatten_with_paths as flat  # noqa: E402
 from repro_torch.utils.tree import tree_map  # noqa: E402
 from repro_torch.optim.optimizers import adamw, momentum_sgd, zero1  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
-from repro_torch.train.steps import build_bundle  # noqa: E402
+from repro_torch.train.steps import build_bundle, build_serve  # noqa: E402
 from repro_torch.train.trainer import Trainer, wire_per_step  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1785,6 +1812,12 @@ def launches_per_cell():
         trainer_substrate.run_trainer_scenario = real
 
 
+#: T1's steps: the matrix's 24 cut to 8 (two local-SGD rounds of H 4) to
+#: keep the script inside its time limit; what T1 checks (builds per class
+#: and per cell, the shared and per-cell loss series alike) is per step
+T1_STEPS = 8
+
+
 def run_phase_t(card: str) -> None:
     """T1 the trainer sweep's registry record, T2 the overlap twin, T3 the
     trainer lane of run.py on kernel cells, T4 the train_micro twin's cells,
@@ -1794,8 +1827,8 @@ def run_phase_t(card: str) -> None:
 
     ops.reset_launches()
     with deterministic():
-        rec = trainer_substrate.measure_trainer_sweep(trainer_substrate.trainer_matrix_16(),
-                                                      device=DEV)
+        rec = trainer_substrate.measure_trainer_sweep(
+            trainer_substrate.trainer_matrix_16(steps=T1_STEPS), device=DEV)
     print(f"phase T1 ({card}): trainer_matrix_16 ({rec['n_cells']} cells, W = 4 stacked, "
           f"{rec['steps']} steps, deterministic algorithms): {rec['n_shape_classes']} classes, "
           f"builds shared {rec['builds_shared']} / per cell {rec['builds_percell']}, hits "
@@ -2330,17 +2363,165 @@ def run_phase_f(card: str, profile: set | None = None) -> tuple[dict[str, int], 
     return launches, big
 
 
+# ---------------------------------------------------------------------------
+# Phase S: the attention families served through build_serve.
+# ---------------------------------------------------------------------------
+
+#: (tag, arch, layers kept, prompt): full published width, bf16, random
+#: weights from seed 0, SyntheticBatches prompts, batch 8, 32 greedy tokens
+#: through launch.serve.run.  qwen1.5-32b and qwen3-moe-30b-a3b are cut in
+#: depth to fit the card (65.5 and 61.1 GB of bf16 weights at full depth);
+#: gemma3-12b's prompt of 2048 is twice its window, so the prefill's window
+#: and the local rings (1024 slots against 2048 for the global layers) bite
+S_PATHS = (
+    ("at", "qwen3-0.6b", 28, 1024),
+    ("au", "glm4-9b", 40, 1024),
+    ("av", "qwen1.5-32b", 16, 1024),
+    ("aw", "gemma3-12b", 48, 2048),
+    ("ax", "qwen3-moe-30b-a3b", 12, 1024),
+    ("ay", "deepseek-v2-lite-16b", 27, 1024),
+)
+S_BATCH, S_DECODE = 8, 32
+#: the f32 identity at full width, one pattern period each (deepseek its
+#: dense layer 0 and 2 MoE layers), batch 2, the MoE at cf = E, in the
+#: per-layer list layout: (arch, layers, prompt S).  A stacked leaf
+#: (scan_layers) is drawn at std 1/sqrt(its repeats), the reference's rule
+#: (fan-in = shape[0]), so its scores run to thousands and the f32 sum
+#: orders of the decode's and the forward's products differ by up to 2.5e-4
+#: of max|logits| through the softmax; each unstacked leaf takes its own
+#: fan-in.  gemma3's S = 1024 fills its local rings of 1024
+#: slots: the decode at position 1024 evicts position 0, which the full
+#: forward's window (a 1024-query chunk and a 1-query one) leaves out too
+S_IDENTITY = (
+    ("qwen3-0.6b", 2, 256),
+    ("glm4-9b", 2, 256),
+    ("qwen1.5-32b", 2, 256),
+    ("gemma3-12b", 6, 1024),
+    ("qwen3-moe-30b-a3b", 2, 256),
+    ("deepseek-v2-lite-16b", 3, 256),
+)
+#: max |decode logits - full-forward logits| over max |logits|
+S_IDENTITY_TOL = 1e-4
+
+
+def run_serve_path(tag: str, arch: str, layers: int, prompt: int, card: str,
+                   profile_step: bool = False) -> None:
+    """One timed phase S path through ``launch.serve.run``: prefill ms, decode
+    ms per token, tok/s, peak and cache GiB; no port kernel may launch; the
+    tokens in [0, vocab) and the last hidden state finite."""
+    from repro_torch.models import layers as L
+
+    cfg = get_config(arch).with_updates(n_layers=layers)
+    n_params = sum(int(np.prod(d.shape)) for d in flat(T.param_defs(cfg)).values())
+    gc.collect()  # earlier phases' cycles, so the peak is this path's
+    torch.cuda.empty_cache()
+    print(f"serve ({tag}) {arch}, {layers} of {get_config(arch).n_layers} layers at full width "
+          f"({n_params} params, {cfg.param_dtype}): batch {S_BATCH}, prompt {prompt}, "
+          f"{S_DECODE} decode tokens"
+          + (f"; MoE decode capacity C = {L.moe_capacity(cfg, S_BATCH)} per expert "
+             f"(T = {S_BATCH}, k = {cfg.experts_per_token}, E = {cfg.n_experts})"
+             if cfg.moe else ""))
+    ops.reset_launches()
+    res = serve.run(cfg, prompt_len=prompt, batch=S_BATCH, decode=S_DECODE, device=DEV, seed=0)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    tokens, last = res["tokens"], res["last"]
+    per_tok = res["decode_ms"] / S_DECODE
+    peak = res["peak_bytes"] / 2**30
+    print(f"  ({tag}) prefill {res['prefill_ms']:.1f} ms; decode {per_tok:.2f} ms per token "
+          f"({res['tok_per_s']:.1f} tok/s over {S_BATCH} sequences); peak memory {peak:.2f} GiB "
+          f"(weights included), cache {res['cache_bytes'] / 2**30:.3f} GiB; port kernel "
+          f"launches {launches or 'none'} ({card})")
+    if launches:
+        raise AssertionError(f"serve ({tag}): must launch no port kernel: {launches}")
+    if tokens.shape != (S_BATCH, S_DECODE) or tokens.min() < 0 or tokens.max() >= cfg.vocab \
+            or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"serve ({tag}): bad output, tokens {tokens.shape} in "
+                             f"[{tokens.min()}, {tokens.max()}], last finite "
+                             f"{bool(torch.isfinite(last).all())}")
+    if peak > F_PEAK_GIB:
+        raise AssertionError(f"serve ({tag}): peak {peak:.2f} GiB > {F_PEAK_GIB}")
+    if profile_step:
+        step, params, cache = res["bundle"].serve_step, res["params"], res["cache"]
+        tok = torch.from_numpy(tokens[:, -1:]).to(DEV)
+        profile_one_step(lambda: step(params, cache, tok), f"({tag}) decode step", per_tok)
+    del res, last
+    torch.cuda.empty_cache()
+
+
+def check_serve_identity(arch: str, layers: int, prompt: int) -> None:
+    """The decode-equivalence identity at full width in f32 (TF32 off):
+    ``prefill(max_seq=S+1)`` plus one ``decode_logits`` against the full
+    forward's last-position logits over the S + 1 tokens, within
+    S_IDENTITY_TOL of max|logits|, the greedy tokens equal wherever the
+    top-2 margin exceeds the error; then one ``serve_step`` (in place)
+    against ``decode_step`` from the same cache, under deterministic
+    algorithms: tokens and every cache leaf bitwise."""
+    from repro_torch.models import layers as L
+
+    cfg = get_config(arch).with_updates(n_layers=layers, param_dtype="float32",
+                                        compute_dtype="float32", scan_layers=False)
+    if cfg.moe:  # cf = E: no (token, choice) dropped, in decode (T = 2) or forward
+        cfg = cfg.with_updates(moe_capacity_factor=float(cfg.n_experts))
+    B, S = 2, prompt
+    params = T.init_params(cfg, 0, DEV)
+    toks = torch.from_numpy(SyntheticBatches(cfg, InputShape("p", S + 1, B, "prefill"), seed=1)
+                            .batch(0)["tokens"]).to(DEV)
+    with torch.inference_mode(), deterministic():
+        _, cache = T.prefill(cfg, params, {"tokens": toks[:, :S]}, max_seq=S + 1)
+        got, _ = T.decode_logits(cfg, params, cache, toks[:, S:], max_seq=S + 1)
+        h, _ = T.forward_hidden(cfg, params, toks)
+        want = L.logits_local(params["embed"], h[:, -1:], softcap=cfg.logits_softcap)
+        del h
+        top = float(want.abs().max())
+        err = float((got - want).abs().max())
+        top2 = torch.topk(want[:, 0], 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = torch.argmax(got[:, 0], -1) == torch.argmax(want[:, 0], -1)
+        decided = margin > err
+        tok_ok = bool(same[decided].all())
+        # serve_step writes the ring in place: give it a copy
+        sb = build_serve(cfg, InputShape("identity", S + 1, B, "decode"), DEV)
+        want_tok, want_cache = T.decode_step(cfg, params, cache, toks[:, S:], max_seq=S + 1)
+        tok, new_cache = sb.serve_step(params, tree_map(torch.clone, cache), toks[:, S:])
+        bitwise = torch.equal(tok, want_tok) and all(
+            torch.equal(a, b) for a, b in zip(flat(new_cache).values(),
+                                              flat(want_cache).values()))
+    print(f"serve identity {arch} f32 at full width, {layers} layers, batch {B}, prompt {S}: "
+          f"decode logits vs the full forward over {S + 1} tokens, max abs err {err:.3e} on "
+          f"max|logits| {top:.3e} ({err / top:.3e}, bound {S_IDENTITY_TOL}); greedy tokens "
+          f"equal {same.tolist()} (top-2 margins {[f'{m:.3e}' for m in margin.tolist()]}); "
+          f"serve_step vs decode_step bitwise {bitwise}")
+    if not (err <= S_IDENTITY_TOL * top and tok_ok and bitwise):
+        raise AssertionError(f"serve identity {arch}: err {err / top:.3e} of max|logits|, "
+                             f"tokens equal {same.tolist()} where decided {decided.tolist()}, "
+                             f"serve_step bitwise {bitwise}")
+    del params, cache, want_cache, new_cache, got, want
+    torch.cuda.empty_cache()
+
+
+def run_phase_s(card: str, profile: set | None = None) -> None:
+    """Paths (at)-(ay) (each tagged in ``profile`` with one more decode step
+    under torch.profiler), then the f32 identity of each family."""
+    t_phase = time.perf_counter()
+    for tag, arch, layers, prompt in S_PATHS:
+        run_serve_path(tag, arch, layers, prompt, card, profile_step=tag in (profile or ()))
+    for arch, layers, prompt in S_IDENTITY:
+        check_serve_identity(arch, layers, prompt)
+    print(f"phase S: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="*", metavar="LABEL",
                     help="run one more step of the QSGD EF path (or of the paths with "
                          "these labels, phase F's included; 'serve' for a decode step of "
-                         "the server) under torch.profiler after the timed steps (its "
-                         "launches are counted apart)")
+                         "the server; phase S's tags at-ay for a decode step of each) under "
+                         "torch.profiler after the timed steps (its launches are counted "
+                         "apart)")
     profile = ap.parse_args().profile
     if profile is not None:
         profile = set(profile or [PATHS[0][0]])
-        unknown = profile - {p[0] for p in PATHS + CHURN_PATHS + F_PATHS} - {"serve"}
+        unknown = profile - {p[0] for p in PATHS + CHURN_PATHS + F_PATHS + S_PATHS} - {"serve"}
         if unknown:
             ap.error(f"--profile: no path labelled {sorted(unknown)}")
     t_start = time.perf_counter()
@@ -2440,6 +2621,7 @@ def main() -> None:
     run_phase_t(card)
     run_phase_b(card)
     f_launches, f_big = run_phase_f(card, profile)
+    run_phase_s(card, profile)
     for k, v in f_launches.items():
         launches[k] += v
     for name, r in row_checks.items():

@@ -39,8 +39,10 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig,
 
 def cache_from_numpy(flat: dict[str, np.ndarray], like: Any) -> Any:
     """A cache tree with ``like``'s structure, paths, dtypes and device (e.g.
-    the port's own ``prefill`` cache for the same config and batch), filled
-    from ``{path: array}``."""
+    the port's own ``prefill`` cache for the same config and batch: RWKV6's
+    states, or the attention rings ``k``, ``v``, ``pos`` and MLA's ``lat``,
+    ``rope``, ``pos``, stacked over layers or listed), filled from ``{path:
+    array}``."""
     want = flatten_with_paths(like)
     if set(flat) != set(want):
         raise ValueError(f"cache paths differ: missing {sorted(set(want) - set(flat))}, "

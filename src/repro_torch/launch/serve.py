@@ -4,7 +4,13 @@ from a zero token, as the reference's ``repro.launch.serve`` does.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
         --prompt-len 1024 --batch 8 --decode 32 [--reduced] [--device cpu] [--seed 0] \\
         [--restore ckpts/step100]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --prompt-len 1024 --batch 8 --decode 32      # dense GQA, the ring KV cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --prompt-len 1024 --batch 8 --decode 32      # MLA's latent cache, MoE decode
 
+Any architecture the port serves runs: rwkv6-3b, qwen3-0.6b, glm4-9b,
+qwen1.5-32b, gemma3-12b, qwen3-moe-30b-a3b and deepseek-v2-lite-16b.
 Weights are random from ``--seed``, or the ``params`` of the checkpoint
 that ``--restore`` names (``repro_torch.checkpoint``, the reference's
 format: its other keys are left alone); prompts are ``SyntheticBatches``
@@ -29,6 +35,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.data.pipeline import SyntheticBatches
 from repro_torch.models.transformer import init_params
 from repro_torch.train.steps import build_serve
+from repro_torch.utils.tree import leaves
 
 
 def _sync(device: torch.device) -> None:
@@ -40,9 +47,10 @@ def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
         device: str | torch.device = "cuda", seed: int = 0, restore: str = "") -> dict:
     """Build, prefill and decode; print the launcher's lines and return
     ``{"prefill_ms", "decode_ms", "tok_per_s", "tokens" (B, decode) int32
-    numpy, "last" (B, d) tensor, "cache", "params", "bundle", "peak_bytes"
-    (device memory high-water mark, weights included, None off the
-    card)}``.  Times are host clock ending in a synchronize of the device."""
+    numpy, "last" (B, d) tensor, "cache", "cache_bytes" (the prefill
+    cache's), "params", "bundle", "peak_bytes" (device memory high-water
+    mark, weights included, None off the card)}``.  Times are host clock
+    ending in a synchronize of the device."""
     device = torch.device(device)
     sb = build_serve(cfg, InputShape("serve", prompt_len + decode, batch, "decode"), device)
     params = init_params(cfg, seed, device)
@@ -58,6 +66,7 @@ def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
     last, cache = sb.prefill_step(params, prompts)
     _sync(device)
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(cache))
     print(f"prefill {prompt_len}x{batch}: {prefill_ms:.1f} ms")
 
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
@@ -73,7 +82,8 @@ def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
     print(f"decoded {decode} tokens/seq in {decode_ms:.1f} ms ({tok_per_s:.1f} tok/s total)")
     print("sample:", gen[0].tolist())
     return {"prefill_ms": prefill_ms, "decode_ms": decode_ms, "tok_per_s": tok_per_s,
-            "tokens": gen, "last": last, "cache": cache, "params": params, "bundle": sb,
+            "tokens": gen, "last": last, "cache": cache, "cache_bytes": cache_bytes,
+            "params": params, "bundle": sb,
             "peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda"
             else None}
 

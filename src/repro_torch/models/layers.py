@@ -1,7 +1,8 @@
 """Transformer building blocks of the attention families (counterpart of
 ``repro.models.layers`` at model-axis size 1): GQA with standard or
 partial RoPE, qkv bias, qk-norm and sliding windows; MLA (deepseek-v2's
-compressed-latent attention, training path); the dense SwiGLU MLP; the
+compressed-latent attention); one-token decode attention over the ring
+KV cache (MLA: over the latent cache); the dense SwiGLU MLP; the
 capacity-buffered top-k MoE with shared experts; the embedding and the
 (softcapped) cross-entropy.
 
@@ -186,27 +187,28 @@ def window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.
 
 
 def sdpa_chunked(q, k, v, *, window: int, q_chunk: int = 1024) -> torch.Tensor:
-    """Exact causal attention in f32 scores and softmax, over query chunks.
-    q (B, S, H, hd); k (B, S, KV, hd); v (B, S, KV, hd_v); H a multiple of
-    KV.  A windowed layer (``window`` < S) reads, per chunk, only the
-    ``min(S, window + qc)`` keys that can reach it (the reference's slice,
-    clipped into the sequence), not a full masked row."""
+    """Exact causal attention in f32 scores and softmax, over query chunks
+    of ``q_chunk`` (the last one takes what is left: unlike the reference,
+    S need not be a multiple of the chunk).  q (B, S, H, hd); k (B, S, KV,
+    hd); v (B, S, KV, hd_v); H a multiple of KV.  A windowed layer
+    (``window`` < S) reads, per chunk, only the ``min(S, window + qc)`` keys
+    that can reach it (the reference's slice, clipped into the sequence),
+    not a full masked row."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     group = H // KV
     scale = hd ** -0.5
     qg = q.reshape(B, Sq, KV, group, hd)
     qc = min(q_chunk, Sq)
-    if Sq % qc:
-        raise ValueError(f"Sq={Sq} is not a multiple of the query chunk {qc}")
     kv_len = min(Sk, window + qc) if window < Sk else Sk
     k_pos = torch.arange(Sk, device=q.device)
     neg = torch.full((), -1e30, dtype=f32, device=q.device)
     outs = []
-    for i in range(Sq // qc):
-        qs = qg[:, i * qc:(i + 1) * qc]
-        q_pos = torch.arange(i * qc, (i + 1) * qc, device=q.device)
-        start = min(max(i * qc + qc - kv_len, 0), Sk - kv_len)
+    for q0 in range(0, Sq, qc):
+        q1 = min(q0 + qc, Sq)
+        qs = qg[:, q0:q1]
+        q_pos = torch.arange(q0, q1, device=q.device)
+        start = min(max(q1 - kv_len, 0), Sk - kv_len)
         ks, vs = k[:, start:start + kv_len], v[:, start:start + kv_len]
         s = torch.einsum("bqkgh,bskh->bkgqs", qs.to(f32) * scale, ks.to(f32))
         mask = window_mask(q_pos, k_pos[start:start + kv_len], window)
@@ -216,6 +218,40 @@ def sdpa_chunked(q, k, v, *, window: int, q_chunk: int = 1024) -> torch.Tensor:
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
+def kv_proj(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
+            positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K and V (B, S, KV, hd) of x: biased, K qk-normed and rotated at
+    ``positions``, as attention reads them and as the decode cache holds
+    them."""
+    kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        kk, vv = kk + p["bk"], vv + p["bv"]
+    if cfg.qk_norm:
+        kk = rmsnorm(p["k_norm"], kk)
+    return apply_rope(cfg, kk, positions), vv
+
+
+def _q_proj(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+    return apply_rope(cfg, q, positions)
+
+
+def mla_latent(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """MLA's rms-normed latent (B, S, kv_lora) and its shared RoPE key
+    (B, S, 1, qk_rope_dim), rotated at ``positions``: what the latent
+    cache holds."""
+    latent = torch.einsum("bsd,dc->bsc", x, p["w_dkv"])
+    kv_lat = rmsnorm(p["kv_norm"], latent[..., :cfg.kv_lora])
+    return kv_lat, apply_rope(cfg, latent[..., None, cfg.kv_lora:], positions)
+
+
 def attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
               positions: torch.Tensor, window: int, q_chunk: int = 1024) -> torch.Tensor:
     """Causal train attention over the full sequence, ``window`` tokens
@@ -223,16 +259,8 @@ def attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     ``q_chunk``. Returns (B, S, d)."""
     if "w_dkv" in p:
         return _mla_attention(cfg, p, x, positions=positions, window=window, q_chunk=q_chunk)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    if cfg.qkv_bias:
-        q, kk, vv = q + p["bq"], kk + p["bk"], vv + p["bv"]
-    if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
-        kk = rmsnorm(p["k_norm"], kk)
-    q = apply_rope(cfg, q, positions)
-    kk = apply_rope(cfg, kk, positions)
+    q = _q_proj(cfg, p, x, positions)
+    kk, vv = kv_proj(cfg, p, x, positions)
     # GQA: sdpa_chunked groups the query heads, so q-head h reads kv-head
     # h * KV // H, the reference's head gather, without copying K and V
     out = sdpa_chunked(q, kk, vv, window=window, q_chunk=q_chunk)
@@ -247,15 +275,106 @@ def _mla_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     q_nope = q[..., :cfg.qk_nope_dim]
     q_rope = apply_rope(cfg, q[..., cfg.qk_nope_dim:], positions)
-    latent = torch.einsum("bsd,dc->bsc", x, p["w_dkv"])
-    kv_lat = rmsnorm(p["kv_norm"], latent[..., :cfg.kv_lora])
-    k_rope = apply_rope(cfg, latent[..., None, cfg.kv_lora:], positions)  # (B, S, 1, rope)
+    kv_lat, k_rope = mla_latent(cfg, p, x, positions)  # k_rope (B, S, 1, rope)
     k_nope = torch.einsum("bsc,chk->bshk", kv_lat, p["w_uk"])
     v = torch.einsum("bsc,chk->bshk", kv_lat, p["w_uv"])
     H = q.shape[2]
     k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)], -1)
     out = sdpa_chunked(torch.cat([q_nope, q_rope], -1), k, v, window=window, q_chunk=q_chunk)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Decode attention over the ring cache (the reference's decode_attention at
+# model-axis size 1: its all-gathers are identities, the cache is one shard
+# and its LSE combine is a plain softmax).
+# ---------------------------------------------------------------------------
+
+
+def _cache_write(cache: dict[str, torch.Tensor], new: dict[str, torch.Tensor],
+                pos: torch.Tensor, *, inplace: bool = False) -> dict[str, torch.Tensor]:
+    """Ring write of one token: each ``new[name]`` (B, ...) into slot
+    ``pos % S`` of ``cache[name]`` (B, S, ...), and ``pos`` into
+    ``cache["pos"]`` (S,) there.  ``pos`` is a 0-dim device tensor, so the
+    slot is never read back to the host.  ``inplace`` writes into the
+    cache's own buffers (the caller gives them up); otherwise the returned
+    leaves are new and ``cache`` is left as it was."""
+    slot = torch.remainder(pos, cache["pos"].shape[0]).reshape(1).long()
+    out = dict(cache)
+    upd = {name: (1, t[:, None].to(cache[name].dtype)) for name, t in new.items()}
+    upd["pos"] = (0, pos.reshape(1).to(torch.int32))
+    for name, (dim, t) in upd.items():
+        out[name] = (cache[name].index_copy_(dim, slot, t) if inplace
+                     else cache[name].index_copy(dim, slot, t))
+    return out
+
+
+def _cache_valid(cache_pos: torch.Tensor, pos: torch.Tensor, window: int) -> torch.Tensor:
+    """(S,) slots a query at ``pos`` reads: filled, not ahead of it, and
+    within ``window`` tokens back (self included)."""
+    return (cache_pos >= 0) & (cache_pos <= pos) & (cache_pos > pos - window)
+
+
+def _softmax_read(s: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
+    """The reference's ``_partial_softmax_combine`` on one shard: exp of the
+    max-subtracted masked scores ``s``, contracted with ``v`` (f32) by
+    ``eq``, over the clamped sum."""
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    o = torch.einsum(eq, e, v.to(f32))
+    return o / torch.clamp_min(torch.sum(e, dim=-1, keepdim=True), 1e-30)
+
+
+def decode_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
+                     cache: dict[str, torch.Tensor], *, pos: torch.Tensor, window: int,
+                     inplace: bool = False) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One-token attention of x (B, 1, d) at position ``pos`` (0-dim int32
+    tensor) over the ring cache ``{"k", "v" (B, S, KV, hd), "pos" (S,)
+    int32, -1 empty}`` (MLA: ``{"lat" (B, S, kv_lora), "rope" (B, S,
+    qk_rope_dim), "pos"}``).  The token's K and V are written first
+    (:func:`_cache_write`), then every valid slot is read: scores in f32,
+    masked to -1e30.  Returns (out (B, 1, d), the written cache)."""
+    if "w_dkv" in p:
+        return _mla_decode(cfg, p, x, cache, pos=pos, window=window, inplace=inplace)
+    B = x.shape[0]
+    pos3 = pos.expand(3, B, 1)
+    q = _q_proj(cfg, p, x, pos3)
+    kk, vv = kv_proj(cfg, p, x, pos3)
+    cache = _cache_write(cache, {"k": kk[:, 0], "v": vv[:, 0]}, pos, inplace=inplace)
+    valid = _cache_valid(cache["pos"], pos, window)
+    q = q[:, 0]
+    H, hd = q.shape[1], q.shape[2]
+    KV = cache["k"].shape[2]
+    # q-head h reads kv-head h // (H / KV), as in training
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.to(f32) * hd ** -0.5, cache["k"].to(f32))
+    s = torch.where(valid, s, torch.full((), -1e30, dtype=f32, device=s.device))
+    ctx = _softmax_read(s, cache["v"], "bkgs,bskh->bkgh").reshape(B, 1, H, hd).to(x.dtype)
+    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache
+
+
+def _mla_decode(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
+                cache: dict[str, torch.Tensor], *, pos: torch.Tensor, window: int,
+                inplace: bool) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """MLA over the latent cache: ``w_uk`` absorbed into q, scores over the
+    latents plus the shared RoPE keys in f32, the softmax-weighted latent
+    decompressed by ``w_uv`` in f32, then ``wo``."""
+    B = x.shape[0]
+    pos3 = pos.expand(3, B, 1)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = apply_rope(cfg, q[..., cfg.qk_nope_dim:], pos3)
+    kv_lat, k_rope = mla_latent(cfg, p, x, pos3)
+    q_lat = torch.einsum("bshn,chn->bshc", q_nope, p["w_uk"])  # (B, 1, H, c)
+    cache = _cache_write(cache, {"lat": kv_lat[:, 0], "rope": k_rope[:, 0, 0]}, pos,
+                        inplace=inplace)
+    valid = _cache_valid(cache["pos"], pos, window)
+    s = torch.einsum("bhc,btc->bht", q_lat[:, 0].to(f32), cache["lat"].to(f32))
+    s = s + torch.einsum("bhr,btr->bht", q_rope[:, 0].to(f32), cache["rope"].to(f32))
+    s = s * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    s = torch.where(valid, s, torch.full((), -1e30, dtype=f32, device=s.device))
+    ctx_lat = _softmax_read(s, cache["lat"], "bht,btc->bhc")
+    v_ctx = torch.einsum("bhc,chn->bhn", ctx_lat, p["w_uv"].to(f32)).to(x.dtype)
+    return torch.einsum("bhn,hnd->bd", v_ctx, p["wo"])[:, None], cache
 
 
 def embed_defs(plan: ShapePlan) -> dict[str, ParamDef]:

@@ -141,5 +141,7 @@ def materialize(defs: Any, generator: torch.Generator, dtype: torch.dtype,
             std = 0.02 if d.init == "small" else d.scale / math.sqrt(fan_in)
             w = torch.randn(d.shape, generator=generator, device=device,
                             dtype=torch.float32)
-            out.append((w * std).to(dtype))
+            # scaled in place: a leaf of billions of elements takes 4 B
+            # each in f32 beside its own dtype, not 8
+            out.append(w.mul_(std).to(dtype))
     return unflatten_like(defs, out)

@@ -1,7 +1,7 @@
 """Model assembly for the attention families and RWKV6 (counterpart of
 ``repro.models.transformer``: ``build_defs``, ``init_params``,
 ``forward_loss`` for the dense and MoE families, GQA or MLA; ``prefill``
-and ``decode_step`` for RWKV6).
+and ``decode_step`` for those families and for RWKV6).
 
 The tree is the reference's: ``prefix`` is the list of leading dense-FFN
 layers (deepseek-v2's layer 0; empty elsewhere), unstacked; ``blocks``
@@ -14,12 +14,15 @@ parameter tree, its paths and so the bucket plan match the reference's.
 ``remat != "none"`` recomputes each block of ``blocks`` in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 
-Serving keeps the reference's cache tree: ``{"prefix": [], "pos": int32,
-"blocks": ...}`` with ``blocks`` stacked over layers (``scan_layers``) or a
-list of groups, each block ``{"tm": {"shift" (B, d), "wkv" (B, H, hd, hd)
-f32}, "cm_last" (B, d)}``.  Training RWKV6 (a gradient through the
-recurrence) and serving the dense family (its ring KV cache and decode
-attention) are later slices; both raise ``NotImplementedError``.
+Serving keeps the reference's cache tree: ``{"prefix": [...], "pos":
+int32, "blocks": ...}`` with ``blocks`` stacked over layers
+(``scan_layers``) or a list of groups.  An attention block holds ``{"attn":
+{"k", "v" (B, W, KV, hd), "pos" (W,) int32}}`` (MLA: ``{"lat" (B, W,
+kv_lora), "rope" (B, W, qk_rope_dim), "pos"}``), a ring of W slots per
+layer; an RWKV6 block ``{"tm": {"shift" (B, d), "wkv" (B, H, hd, hd) f32},
+"cm_last" (B, d)}``.  Training RWKV6 (a gradient through the recurrence)
+and the sequence-parallel prefill are later slices; both raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RW
-from repro_torch.models.sharding import ShapePlan, make_plan, materialize, stack_defs
+from repro_torch.models.sharding import (ShapePlan, check_ported, make_plan, materialize,
+                                         stack_defs)
 from repro_torch.utils.tree import leaves, unflatten_like
 
 f32 = torch.float32
@@ -92,19 +96,53 @@ def make_positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
-               attn_type: str, seq_len: int, positions: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+               attn_type: str, seq_len: int, positions: torch.Tensor,
+               collect_cache: bool = False, max_seq: int = 0
+               ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
     """One attention block; returns (x, the router's aux loss: 0 for an MLP
-    block)."""
+    block, with ``collect_cache`` the block's decode cache of capacity
+    ``max_seq`` (the sequence length when 0), else None)."""
     window = cfg.layer_window(attn_type, seq_len)
-    x = x + L.attention(cfg, p["attn"], L.rmsnorm(p["ln1"], x),
-                        positions=positions, window=window)
+    h_in = L.rmsnorm(p["ln1"], x)
+    x = x + L.attention(cfg, p["attn"], h_in, positions=positions, window=window)
     h = L.rmsnorm(p["ln2"], x)
     if "moe" in p:
         ff, aux = L.moe_ffn(cfg, p["moe"], h)
     else:
         ff, aux = L.mlp(p["mlp"], h), torch.zeros((), dtype=f32, device=x.device)
-    return x + ff, aux
+    cache = None
+    if collect_cache:
+        cache = {"attn": _build_cache_from_prefill(cfg, p["attn"], h_in, positions, attn_type,
+                                                   max_seq or seq_len)}
+    return x + ff, aux, cache
+
+
+def _build_cache_from_prefill(cfg: ModelConfig, p: dict[str, Any], h_in: torch.Tensor,
+                              positions: torch.Tensor, attn_type: str,
+                              max_seq: int) -> dict[str, torch.Tensor]:
+    """The block's decode cache from its normed input: K and V (MLA: the
+    latent and its RoPE key) recomputed from ``h_in`` and laid out as a
+    ring of ``W = min(layer_window(max_seq), max_seq)`` slots, position p
+    at slot p % W for the last ``min(S, W)`` positions, the other slots
+    zero with pos -1."""
+    S = h_in.shape[1]
+    W = min(cfg.layer_window(attn_type, max_seq), max_seq)
+    fill = min(S, W)
+    src = torch.arange(S - fill, S, device=h_in.device)
+    slots = torch.remainder(src, W)
+
+    def ring(t: torch.Tensor) -> torch.Tensor:
+        buf = torch.zeros((t.shape[0], W, *t.shape[2:]), dtype=t.dtype, device=t.device)
+        buf[:, slots] = t[:, S - fill:]
+        return buf
+
+    pos = torch.full((W,), -1, dtype=torch.int32, device=h_in.device)
+    pos[slots] = src.to(torch.int32)
+    if "w_dkv" in p:
+        kv_lat, k_rope = L.mla_latent(cfg, p, h_in, positions)
+        return {"lat": ring(kv_lat), "rope": ring(k_rope[:, :, 0]), "pos": pos}
+    kk, vv = L.kv_proj(cfg, p, h_in, positions)
+    return {"k": ring(kk), "v": ring(vv), "pos": pos}
 
 
 def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
@@ -123,54 +161,61 @@ def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
     return split(blocks)
 
 
-def forward_loss(cfg: ModelConfig, params: dict[str, Any],
-                 batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Training forward: returns (loss, {"ce", "aux"}): the prefix layers
-    (attention type ``attn_pattern[0]``), then the pattern groups; ``aux``
-    sums the MoE layers' router losses, ``ce`` is the (softcapped)
-    cross-entropy and loss = ce + router_aux_coef * aux."""
+def forward_hidden(cfg: ModelConfig, params: dict[str, Any],
+                   tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The attention families' full forward: (hidden states (B, S, d) after
+    ``ln_f``, the summed router loss of the MoE layers).  The prefix layers
+    take attention type ``attn_pattern[0]``, then come the pattern
+    groups."""
     if cfg.family == "ssm":
         raise NotImplementedError(f"{cfg.name}: training the {cfg.family} family is a later "
                                   "slice (RWKV6 needs a gradient through the wkv6 recurrence)")
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+    x = L.embed(params["embed"], tokens).to(cfg.dtype)
     B, S, _ = x.shape
     positions = make_positions(B, S, x.device)
     pat = cfg.attn_pattern
     aux_total = torch.zeros((), dtype=f32, device=x.device)
     for p in params["prefix"]:
-        x, aux = _run_block(cfg, p, x, attn_type=pat[0], seq_len=S, positions=positions)
+        x, aux, _ = _run_block(cfg, p, x, attn_type=pat[0], seq_len=S, positions=positions)
         aux_total = aux_total + aux
     for pgroup in _layer_groups(cfg, params["blocks"]):
         for i, attn_type in enumerate(pat):
             kw = dict(attn_type=attn_type, seq_len=S, positions=positions)
             if cfg.remat == "none":
-                x, aux = _run_block(cfg, pgroup[str(i)], x, **kw)
+                x, aux, _ = _run_block(cfg, pgroup[str(i)], x, **kw)
             else:
                 # the block draws no random numbers: no RNG state to replay
-                x, aux = checkpoint(lambda p, h, kw=kw: _run_block(cfg, p, h, **kw),
+                x, aux = checkpoint(lambda p, h, kw=kw: _run_block(cfg, p, h, **kw)[:2],
                                     pgroup[str(i)], x, use_reentrant=False,
                                     preserve_rng_state=False)
             aux_total = aux_total + aux
-    x = L.rmsnorm(params["ln_f"], x)
+    return L.rmsnorm(params["ln_f"], x), aux_total
+
+
+def forward_loss(cfg: ModelConfig, params: dict[str, Any],
+                 batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Training forward: returns (loss, {"ce", "aux"}): ``aux`` sums the MoE
+    layers' router losses, ``ce`` is the (softcapped) cross-entropy and
+    loss = ce + router_aux_coef * aux."""
+    x, aux_total = forward_hidden(cfg, params, batch["tokens"])
     ce = L.logits_and_loss(params["embed"], x, batch["labels"], softcap=cfg.logits_softcap)
     loss = ce + cfg.router_aux_coef * aux_total
     return loss, {"ce": ce, "aux": aux_total}
 
 
 # ---------------------------------------------------------------------------
-# Serving (RWKV6): prefill and one decode step.
+# Serving: prefill and one decode step.
 # ---------------------------------------------------------------------------
 
 
 def check_serving(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a family the port serves (RWKV6, without the
-    sequence-parallel prefill, which the reference runs for the dense family
-    only)."""
-    if cfg.family != "ssm" or cfg.seq_par:
+    """Raise unless the port serves ``cfg``: what ``check_ported`` refuses
+    (hymba, VL, the encoder-decoder) and the sequence-parallel prefill."""
+    check_ported(cfg)
+    if cfg.seq_par:
         raise NotImplementedError(
-            f"{cfg.name}: serving the {cfg.family} family (its ring KV cache, decode "
-            "attention, MLA's latent decode and the seq_par prefill) is a later slice; the "
-            "port serves RWKV6 without seq_par")
+            f"{cfg.name}: the seq_par prefill (activations sequence-sharded over the model "
+            "axis) is a later slice, with the torch.distributed backend's model axis")
 
 
 def _stack_groups(cfg: ModelConfig, groups: list[Any]) -> Any:
@@ -198,46 +243,99 @@ def _rwkv_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict | 
 
 
 def prefill(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor], *,
-            use_kernel: bool = False) -> tuple[torch.Tensor, dict[str, Any]]:
+            max_seq: int = 0, use_kernel: bool = False) -> tuple[torch.Tensor, dict[str, Any]]:
     """Runs the prompt, returns (last hidden (B, d) after ``ln_f``, cache).
-    The reference's ``max_seq`` (a KV-cache capacity) has no meaning for the
-    recurrent state, and its ``seq_par`` prefill is a dense-family path."""
+    ``max_seq``: the attention caches' capacity (the prompt length when 0;
+    each layer's ring holds ``min(layer_window(max_seq), max_seq)`` slots).
+    RWKV6 carries a recurrent state, for which ``max_seq`` has no meaning;
+    ``use_kernel`` runs its recurrence through kernel ``wkv6``."""
     check_serving(cfg)
     x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
-    S = x.shape[1]
+    B, S, _ = x.shape
     pat = cfg.attn_pattern
-    groups = []
+    positions = make_positions(B, S, x.device)
+    prefix, groups = [], []
+    for p in params["prefix"]:
+        x, _, c = _run_block(cfg, p, x, attn_type=pat[0], seq_len=S, positions=positions,
+                             collect_cache=True, max_seq=max_seq)
+        prefix.append(c)
     for pgroup in _layer_groups(cfg, params["blocks"]):
         cs = {}
-        for i in range(len(pat)):
-            x, cs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, None, use_kernel)
+        for i, attn_type in enumerate(pat):
+            if cfg.family == "ssm":
+                x, cs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, None, use_kernel)
+            else:
+                x, _, cs[str(i)] = _run_block(cfg, pgroup[str(i)], x, attn_type=attn_type,
+                                              seq_len=S, positions=positions,
+                                              collect_cache=True, max_seq=max_seq)
         groups.append(cs)
-    cache = {"prefix": [], "pos": torch.full((), S, dtype=torch.int32, device=x.device),
+    cache = {"prefix": prefix, "pos": torch.full((), S, dtype=torch.int32, device=x.device),
              "blocks": _stack_groups(cfg, groups)}
     x = L.rmsnorm(params["ln_f"], x)
     return x[:, -1], cache
 
 
-def decode_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],
-                tokens: torch.Tensor, *, use_kernel: bool = False
-                ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """One decode step from ``tokens`` (B, 1). Returns (next token (B, 1)
-    int32, new cache); the input cache is left as it was."""
+def _decode_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict[str, Any], *,
+                  pos: torch.Tensor, window: int, inplace: bool
+                  ) -> tuple[torch.Tensor, dict[str, Any]]:
+    """One attention block on one token: decode attention over the block's
+    ring, then the MLP or the MoE (its router loss dropped; T = B tokens
+    set its capacity)."""
+    attn_out, ac = L.decode_attention(cfg, p["attn"], L.rmsnorm(p["ln1"], x), c["attn"],
+                                      pos=pos, window=window, inplace=inplace)
+    x = x + attn_out
+    h = L.rmsnorm(p["ln2"], x)
+    ff = L.moe_ffn(cfg, p["moe"], h)[0] if "moe" in p else L.mlp(p["mlp"], h)
+    return x + ff, {"attn": ac}
+
+
+def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],
+                  tokens: torch.Tensor, *, max_seq: int = 0, use_kernel: bool = False,
+                  inplace: bool = False) -> tuple[torch.Tensor, dict[str, Any]]:
+    """One decode step from ``tokens`` (B, 1): (logits (B, 1, V) f32, new
+    cache).  The attention families need ``max_seq``, which sets each
+    layer's window (``layer_window(attn_type, max_seq)``); their ring slot
+    ``pos % S`` is written out of place, leaving ``cache`` as it was,
+    unless ``inplace``, which writes it into ``cache``'s buffers (the
+    caller gives ``cache`` up).  RWKV6's state is new each step."""
     check_serving(cfg)
+    if cfg.family != "ssm" and max_seq < 1:
+        raise ValueError(f"{cfg.name}: decoding an attention cache needs max_seq >= 1")
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    pos = cache["pos"]
     pat = cfg.attn_pattern
-    groups = []
+    prefix, groups = [], []
+    for p, c in zip(params["prefix"], cache["prefix"]):
+        x, nc = _decode_layer(cfg, p, x, c, pos=pos, window=cfg.layer_window(pat[0], max_seq),
+                              inplace=inplace)
+        prefix.append(nc)
     for pgroup, cgroup in zip(_layer_groups(cfg, params["blocks"]),
                               _layer_groups(cfg, cache["blocks"])):
         ncs = {}
-        for i in range(len(pat)):
-            x, ncs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], use_kernel)
+        for i, attn_type in enumerate(pat):
+            if cfg.family == "ssm":
+                x, ncs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], use_kernel)
+            else:
+                x, ncs[str(i)] = _decode_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], pos=pos,
+                                               window=cfg.layer_window(attn_type, max_seq),
+                                               inplace=inplace)
         groups.append(ncs)
+    # written in place, the stacked leaves already hold the new slots
+    blocks = cache["blocks"] if inplace and cfg.family != "ssm" else _stack_groups(cfg, groups)
     x = L.rmsnorm(params["ln_f"], x)
-    next_tok = _distributed_argmax(L.logits_local(params["embed"], x,
-                                                  softcap=cfg.logits_softcap))
-    return next_tok, {"prefix": [], "pos": cache["pos"] + 1,
-                      "blocks": _stack_groups(cfg, groups)}
+    return (L.logits_local(params["embed"], x, softcap=cfg.logits_softcap),
+            {"prefix": prefix, "pos": pos + 1, "blocks": blocks})
+
+
+def decode_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],
+                tokens: torch.Tensor, *, max_seq: int = 0, use_kernel: bool = False,
+                inplace: bool = False) -> tuple[torch.Tensor, dict[str, Any]]:
+    """One greedy decode step (:func:`decode_logits`). Returns (next token
+    (B, 1) int32, new cache); the input cache is left as it was unless
+    ``inplace``."""
+    logits, cache = decode_logits(cfg, params, cache, tokens, max_seq=max_seq,
+                                  use_kernel=use_kernel, inplace=inplace)
+    return _distributed_argmax(logits), cache
 
 
 def _distributed_argmax(logits: torch.Tensor) -> torch.Tensor:

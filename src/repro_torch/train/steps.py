@@ -78,8 +78,8 @@ knobs.  With a persistent cache configured
 on disk too, so a later process loads it instead of tracing.
 
 ``build_serve`` is the serving counterpart (``ServeBundle``: prefill a batch
-of prompts, then one greedy token per call), for the RWKV6 family; one card
-is one device, so there is no mesh.
+of prompts, then one greedy token per call), for the attention families
+and RWKV6; one card is one device, so there is no mesh.
 """
 
 from __future__ import annotations
@@ -870,11 +870,16 @@ class ServeBundle:
 
 def build_serve(cfg: ModelConfig, shape: InputShape,
                 device: str | torch.device = "cuda") -> ServeBundle:
-    """Prefill and decode steps for ``cfg`` (RWKV6 only: the dense family's
-    serving is a later slice and raises ``NotImplementedError``).  Both steps
-    run under ``torch.inference_mode()``, take their tokens as numpy arrays
-    or tensors (moved to ``device``), and run the recurrence through kernel
-    ``wkv6`` (its plain version on the CPU)."""
+    """Prefill and decode steps for ``cfg``, both under
+    ``torch.inference_mode()``, their tokens numpy arrays or tensors (moved
+    to ``device``).  As the reference's ``build_serve``: the prefill passes
+    no ``max_seq``, so each attention layer's ring holds ``min(window,
+    prompt length)`` slots and the first decoded token evicts the oldest
+    position of a full ring; decode runs with ``max_seq = shape.seq_len``.
+    ``serve_step`` writes the new token's ring slot into the cache it is
+    given: that cache is consumed (the reference donates it), so use only
+    the one it returns.  RWKV6 runs its recurrence through kernel ``wkv6``
+    (its plain version on the CPU)."""
     T.check_serving(cfg)
     device = torch.device(device)
 
@@ -891,7 +896,8 @@ def build_serve(cfg: ModelConfig, shape: InputShape,
 
     def serve_step(params, cache, tok):
         with torch.inference_mode():
-            return T.decode_step(cfg, params, cache, _tokens(tok), use_kernel=True)
+            return T.decode_step(cfg, params, cache, _tokens(tok), max_seq=shape.seq_len,
+                                 use_kernel=True, inplace=True)
 
     return ServeBundle(cfg=cfg, shape=shape, device=device, prefill_step=prefill_step,
                        serve_step=serve_step)

@@ -320,7 +320,9 @@ def test_serve_launcher_runs_on_cpu():
 
 
 def test_dense_serving_is_refused():
-    cfg = get_config("qwen3-0.6b").reduced()
+    """Only the dense family's sequence-parallel prefill is still refused
+    (the dense ring-cache serving is ported: tests/test_torch_serve.py)."""
+    cfg = get_config("qwen3-0.6b").reduced().with_updates(seq_par=True)
     for bad in (cfg, _reduced(seq_par=True)):  # the reference's seq_par prefill is dense-only
         with pytest.raises(NotImplementedError, match="later slice"):
             build_serve(bad, InputShape("t", 8, 2, "decode"), "cpu")
