@@ -34,7 +34,13 @@ result line:
    the latter beside its bound, with the chunked design's registers,
    shared memory and resident CTAs per SM; the decode shape's call also as
    the kernel's own device time from torch.profiler, beside the host-bound
-   call time;
+   call time; and wkv6_bwd (wkv6's backward, no TPU counterpart) against
+   its plain version ref.wkv6_backward and both against autograd through
+   ref.wkv6, at the training shape (2, 1024, 32, 80) in bf16 and f32, a
+   ragged S = 1000 and S = 20, w holding 0.0, 1.0 and 1e-3, nonzero s0
+   and dsT (absent once): each gradient within rtol 1e-4 / atol 1e-5 x its
+   largest magnitude, two calls bitwise alike, timed at the training shape
+   in bf16 beside its bound (``wkv6_bwd_bound``);
 4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
    weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
    global batch 8, twelve paths: QSGD (16 levels) on the int8 compressed wire
@@ -133,7 +139,12 @@ result line:
    plain ``wkv_scan`` fed the same tokens: the last hidden state and every
    cache leaf (each layer's wkv state, shifts) after the prefill and after
    the decode within rtol 1e-4 and an atol of 1e-5 times the leaf's largest
-   magnitude; prints whether the plain path's own greedy tokens agree;
+   magnitude; prints whether the plain path's own greedy tokens agree; then
+   training: rwkv6-3b at full width, f32, 2 layers (list layout), batch 2,
+   seq 256, remat="full": every leaf's gradient of ``forward_loss`` through
+   kernels wkv6 and wkv6_bwd (exactly 2 and 1 launches a layer) against
+   the plain scan's within rtol 1e-3 / atol 1e-4 x the leaf's largest
+   magnitude (``TRAIN_GRAD_RTOL``), the losses within 1e-5;
 7. the server: rwkv6-3b at full published width and depth (bf16), random
    weights from seed 0, ``SyntheticBatches`` prompts, batch 8, prompt 1024,
    32 greedy decode tokens, through ``launch.serve.run`` (``build_serve``):
@@ -230,11 +241,18 @@ result line:
    of 64 (qkv bias), W = 4, qsgd_kernel EF (its 778,567,680-element
    embedding bucket); (as) gemma3-12b, 6 of 48 (one 5 local : 1 global
    period, window 1024), seq 2048, W = 2, qsgd_kernel on the int8 wire
-   (qsgd + int8_acc).  Each prints its steps (loss, ce, aux), mean step ms
+   (qsgd + int8_acc); (az) rwkv6-3b, 16 of 32 layers (cut for memory),
+   W = 4, qsgd_kernel EF (qsgd_ef, int8_acc, and its recurrence through
+   wkv6 and wkv6_bwd: 2 and 1 launches a layer, worker and step); (ba)
+   hymba-1.5b, one pattern period (16 of 32 layers: the global layer and
+   15 local; cut for the script's time), W = 4, terngrad_kernel EF
+   (terngrad, tern_pack, tern_acc), its selective scan in chunks of
+   ``ssm.SCAN_CHUNK`` steps.  Each prints the aten operations its first
+   step dispatched (``OpCounter``), its steps (loss, ce, aux), mean step ms
    (first step excluded), booked wire by tag, peak memory and largest
    bucket, and must launch exactly its kernels (as many times as the bucket
    plan's routes call them) and book grad_agg equal to the plan's
-   prediction to the byte, under 76 GiB; (an), (ap) and (as) hold their
+   prediction to the byte, under 76 GiB; (an), (ap), (as) and (az) hold their
    first bf16 loss within 2e-2 of the same forward with the parameters in
    f32 (TF32 off).  Then, at full width in f32: ``moe_ffn`` on 2,048
    tokens of one qwen3-moe layer against the plain per-expert loop of
@@ -260,20 +278,24 @@ result line:
    1 global, window 1024: the prefill's window and the 1024-slot local
    rings bite); (ax) qwen3-moe-30b-a3b, 12 of 48 (128 experts, top-8); (ay)
    deepseek-v2-lite-16b, all 27 (MLA's latent cache, the dense layer 0,
-   shared experts; C = 1 per expert in decode, so choices drop).  Each
+   shared experts; C = 1 per expert in decode, so choices drop); (bb)
+   hymba-1.5b, all 32, prompt 2048 (the 1024-slot local rings bite; the
+   Mamba heads' conv and SSM state carried beside them).  Each
    prints prefill ms and decode ms per token (host clock ending in a
    synchronize), tok/s, peak GiB (weights included) and the cache's GiB,
-   and must launch no port kernel, its tokens in [0, vocab) and its last
+   and must launch no port kernel, its tokens in [0, padded vocab) and its last
    hidden state finite.  Then, in f32 at full width, one pattern period
    each (deepseek its dense layer 0 and 2 MoE layers; the MoE at cf = E;
    the list layout: a stacked leaf is drawn at std 1/sqrt(repeats)),
-   batch 2, prompt 256 (gemma3 1024: its local rings full, so the decode
-   evicts position 0, as the forward's window does): ``prefill(max_seq=S +
+   batch 2, prompt 256 (gemma3 and hymba 1024: their local rings full, so
+   the decode evicts position 0, as the forward's window does; hymba's
+   chunked scan against the decode's one step): ``prefill(max_seq=S +
    1)`` plus one ``decode_logits`` against the full forward's
    last-position logits over S + 1 tokens within 1e-4 of max|logits|, the
    greedy tokens equal wherever the top-2 margin exceeds the error, and one
    ``serve_step`` against ``decode_step`` from the same cache: tokens and
-   cache bitwise.  ``--profile`` takes the tags at..ay (a decode step).
+   cache bitwise (hymba's SSM and conv states written in place too).
+   ``--profile`` takes the tags at..bb (a decode step).
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -298,6 +320,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -319,6 +342,7 @@ from repro_torch.experiments.scenario import Scenario, expand  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import LIBRARY  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import ssm as SM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.sharding import make_plan, materialize  # noqa: E402
 from repro_torch.utils.tree import flatten_with_paths as flat  # noqa: E402
@@ -380,6 +404,11 @@ KERNELS = {
     # timed at the prefill shape, not at n elements: see wkv6_bound
     "wkv6": dict(source="src/repro_torch/kernels/csrc/wkv6.cu",
                  replaces="src/repro/kernels/wkv6.py:73"),
+    # no TPU counterpart: the gradient of wkv_scan, which XLA derives there;
+    # timed at the training shape, see wkv6_bwd_bound
+    "wkv6_bwd": dict(source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                     replaces="none: the gradient of src/repro/models/rwkv.py:87 (wkv_scan, "
+                              "lax.scan), derived by XLA"),
 }
 #: why a kernel's row has library_ms null
 NO_LIBRARY = {
@@ -394,6 +423,8 @@ NO_LIBRARY = {
     "tern_acc": "no single PyTorch call unpacks and sums 2-bit crumbs",
     "threshold": "no single PyTorch call both masks by |x| >= tau and counts",
     "wkv6": "no single PyTorch call runs a linear recurrence with a data-dependent decay",
+    "wkv6_bwd": "no single PyTorch call is the gradient of a linear recurrence with a "
+                "data-dependent decay",
 }
 #: the convergence engine's row launches (a (rows, n) stack, per-row inv and
 #: levels): bytes per element as the flat kernels, plus 4 B per row for each
@@ -415,6 +446,9 @@ E3_STEPS = 300
 #: prefill shape (B, S, H, hd) of kernel wkv6 there
 SERVE_B, SERVE_PROMPT, SERVE_DECODE = 8, 1024, 32
 WKV6_PREFILL = (SERVE_B, SERVE_PROMPT, 32, 80)
+#: kernel wkv6_bwd's shape on path (az): one worker's rows of global batch 8
+#: at W = 4, seq 1024, rwkv6-3b's 32 heads of 80
+WKV6_TRAIN = (2, 1024, 32, 80)
 
 
 def smi() -> str:
@@ -458,6 +492,20 @@ def wkv6_bound(B: int, S: int, H: int, hd: int, in_bytes: int,
     n = B * S * H * hd
     n_bytes = n * (3 * in_bytes + 4 + 4) + B * H * hd * hd * 8 + H * hd * in_bytes
     return _bound(n_bytes, B * S * H * (5 * hd * hd + 5 * hd), ops_per_s)
+
+
+def wkv6_bwd_bound(B: int, S: int, H: int, hd: int, in_bytes: int,
+                   ops_per_s: float = TF32_OPS_PER_S) -> tuple[float, str]:
+    """As :func:`wkv6_bound`: r, k, v (and u) read at ``in_bytes`` per
+    element, w and dy read as f32, dr, dk, dv, dw written as f32 (du as f32
+    per head), s0 and dsT read and ds0 written as f32.  The least
+    operations per head and step: the state rebuilt (w*P + k v^T, 3 hd^2),
+    dr = P dy and dk = D v (2 hd^2 each), dw = rowsum(D * P) (2 hd^2), dv =
+    D^T k (2 hd^2), D <- w*D + r dy^T (3 hd^2): 14 hd^2, plus 16 hd for the
+    v . dy and r u k sums and the u terms; over ``ops_per_s``."""
+    n = B * S * H * hd
+    n_bytes = n * (3 * in_bytes + 4 + 4 + 16) + B * H * hd * hd * 12 + H * hd * (in_bytes + 4)
+    return _bound(n_bytes, B * S * H * (14 * hd * hd + 16 * hd), ops_per_s)
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> bool:
@@ -697,23 +745,29 @@ def _wkv6_inputs(B: int, S: int, H: int, hd: int, dtype: torch.dtype, seed: int,
     return r, k, v, w, u, s0
 
 
-def device_ms(fn, iters: int, kernel: str) -> float:
+def device_ms(fn, iters: int, kernel: str, sessions: int = 3) -> float:
     """The own device time per launch of the kernels whose name holds
     ``kernel``, over ``iters`` calls of ``fn``, from torch.profiler (CUDA
-    events around the calls time the host-bound enqueue instead)."""
+    events around the calls time the host-bound enqueue instead).  A
+    profiler session on the card has been seen to deliver no kernel record
+    at all, right after a session that did: such a session is run again,
+    up to ``sessions`` in all, and a kernel that none of them saw fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and kernel in e.key]
-    count = sum(e.count for e in ev)
-    if not count:
-        raise AssertionError(f"{kernel}: the profiler saw no device time of the kernel")
-    return sum(e.self_device_time_total for e in ev) / 1e3 / count
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and kernel in e.key]
+        count = sum(e.count for e in ev)
+        if count:
+            return sum(e.self_device_time_total for e in ev) / 1e3 / count
+        print(f"  {kernel}: a profiler session saw no record of the kernel; profiling again")
+    raise AssertionError(f"{kernel}: the profiler saw no device time of the kernel")
 
 
 def check_wkv6() -> dict[str, dict]:
@@ -758,7 +812,8 @@ def check_wkv6() -> dict[str, dict]:
             b_ms, b_by = wkv6_bound(*shape, in_bytes=2)
             call_ms = ms_per_call(lambda: ops.wkv6(*args), 20)
             dev_ms = device_ms(lambda: ops.wkv6(*args), 20, "wkv6")
-            decode = dict(decode_ms=call_ms, decode_device_ms=dev_ms)
+            decode = dict(decode_ms=call_ms, decode_device_ms=dev_ms,
+                          decode_plain_ms=ms_per_call(lambda: ref.wkv6(*args), 20))
             detail.append(f"{shape} {call_ms:.4f} ms per call (host-bound), "
                           f"{dev_ms:.4f} ms of device time per launch (profiler) (bound "
                           f"{b_ms:.4f} ms by {b_by}, nearly all of it the state)")
@@ -769,6 +824,55 @@ def check_wkv6() -> dict[str, dict]:
     out.update(ms=min(turns[1:3]), plain_ms=ms_per_call(lambda: ref.wkv6(*args), 2),
                recurrent_ms=min(turns[0], turns[3]), turns=turns)
     return {"wkv6": out}
+
+
+def check_wkv6_backward() -> dict[str, dict]:
+    """Kernel wkv6_bwd against its plain version ref.wkv6_backward, and both
+    against autograd through ref.wkv6 (the leaves widened to f32, as both
+    widen them), on the card: at the training shape WKV6_TRAIN in bf16 and
+    f32, a ragged S = 1000, and S = 20 (< WKV6_CHUNK: the forward's
+    recurrent design); w holding 0, 1 and 1e-3 in some channels, nonzero
+    s0, dsT nonzero (and absent once).  Each gradient within rtol 1e-4 /
+    atol 1e-5 x its largest magnitude; two kernel calls bitwise alike.
+    Timed at WKV6_TRAIN bf16 with CUDA events."""
+    H, hd = WKV6_TRAIN[2:]
+    cases = [(WKV6_TRAIN, torch.bfloat16, True), (WKV6_TRAIN, torch.float32, True),
+             ((1, 1000, H, hd), torch.bfloat16, True), ((2, 20, H, hd), torch.float32, False)]
+    ok, err, detail = True, 0.0, []
+    for i, (shape, dt, with_dsT) in enumerate(cases):
+        args = _wkv6_inputs(*shape, dt, seed=300 + i, edge=True)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(400 + i)
+        dy = torch.randn(shape, generator=gen, device=DEV)
+        dsT = (torch.randn((shape[0], H, hd, hd), generator=gen, device=DEV) * 0.1
+               if with_dsT else None)
+        got = ops.wkv6_backward(*args, dy, dsT)
+        again = ops.wkv6_backward(*args, dy, dsT)
+        want = ref.wkv6_backward(*args, dy, dsT)
+        leaves = [t.detach().float().requires_grad_(True) for t in args]
+        y, sT = ref.wkv6(*leaves)
+        loss = (y * dy).sum() + (0.0 if dsT is None else (sT * dsT).sum())
+        auto = torch.autograd.grad(loss, leaves)
+        del y, sT, loss, leaves
+        worst = []
+        for name, g, a, wv, au in zip(("r", "k", "v", "w", "u", "s0"), got, again, want, auto):
+            top = float(wv.abs().max())
+            e_ref, e_auto = float((g - wv).abs().max()), float((g - au).abs().max())
+            case_ok = (torch.equal(g, a) and _close(g, wv, 1e-4, 1e-5 * top)
+                       and _close(wv, au, 1e-4, 1e-5 * top))
+            ok &= case_ok
+            err = max(err, e_ref)
+            worst.append(f"d{name} {e_ref:.1e}/{e_auto:.1e} of {top:.1e}"
+                         + ("" if case_ok else " FAILED"))
+        detail.append(f"{shape} {str(dt)[6:]}{'' if with_dsT else ' dsT absent'}: "
+                      f"max abs err against the plain / autograd (max|g|): {', '.join(worst)}")
+        if shape == WKV6_TRAIN and dt == torch.bfloat16:
+            fn = lambda: ops.wkv6_backward(*args, dy, dsT)  # noqa: E731
+            out = dict(ms=ms_per_call(fn, 10),
+                       plain_ms=ms_per_call(lambda: ref.wkv6_backward(*args, dy, dsT), 1))
+        del got, again, want, auto
+    torch.cuda.empty_cache()
+    return {"wkv6_bwd": {"max_abs_err": err, "ok": ok, "detail": "; ".join(detail), **out}}
 
 
 def require(results: dict[str, dict], n: int) -> None:
@@ -1002,6 +1106,21 @@ def kernel_steps(comm: CommConfig, steps: int) -> int:
     if comm.aggregator == "gossip":
         return steps
     return sum(sync.grads_need_aggregation(comm, t) for t in range(steps))
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the aten operations dispatched while it is entered, forward
+    and backward (each launches about one kernel on the card; the port's
+    ctypes kernels are counted apart, in ops.LAUNCHES): a step's launch
+    count at a fraction of torch.profiler's cost."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
 
 
 def profile_one_step(run, what: str, step_ms: float) -> None:
@@ -1705,6 +1824,58 @@ def check_rwkv_path() -> None:
     torch.cuda.empty_cache()
 
 
+#: check_rwkv_train_path's gradients, kernels against the plain scan: the
+#: chunked forward holds y within rtol 3e-4 / atol 3e-5 of the scan
+#: (check_wkv6), so the leaves are held an order looser than a plain f32
+#: comparison, at rtol 1e-3 / atol 1e-4 x the leaf's largest magnitude
+TRAIN_GRAD_RTOL = 1e-3
+
+
+def check_rwkv_train_path() -> None:
+    """rwkv6-3b at full width, f32 (TF32 off), 2 layers, the list layout,
+    batch 2, seq 256, remat="full": every leaf's gradient of forward_loss
+    through kernels wkv6 and wkv6_bwd (exactly 2 wkv6 and 1 wkv6_bwd
+    launches a layer: the forward, its recomputation, the backward) against
+    the plain scan's, within TRAIN_GRAD_RTOL; the losses within 1e-5."""
+    cfg = get_config("rwkv6-3b").with_updates(n_layers=2, param_dtype="float32",
+                                              compute_dtype="float32", scan_layers=False)
+    B, S = 2, 256
+    params = T.init_params(cfg, 0, DEV)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticBatches(
+        cfg, InputShape("t", S, B, "train"), seed=0).batch(0).items()}
+    leaves = flat(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    out = {}
+    for use_kernel in (True, False):
+        ops.reset_launches()
+        loss, _ = T.forward_loss(cfg, params, batch, use_kernel=use_kernel)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        out[use_kernel] = (float(loss.detach()), dict(zip(leaves, grads)),
+                           {k: v for k, v in ops.LAUNCHES.items() if v})
+    ops.reset_launches()
+    want = {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
+    bad, worst = [], (0.0, "")
+    for path, w in out[False][1].items():
+        g, top = out[True][1][path], float(w.abs().max())
+        ratio = float(((g - w).abs() / (TRAIN_GRAD_RTOL * (w.abs() + 0.1 * top))).max())
+        worst = max(worst, (ratio, path))
+        if not _close(g, w, TRAIN_GRAD_RTOL, 0.1 * TRAIN_GRAD_RTOL * top) or not top:
+            bad.append(path)
+    gap = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    print(f"rwkv training kernels vs plain ({cfg.name} f32, {cfg.n_layers} layers, batch {B}, "
+          f"seq {S}, remat {cfg.remat}): loss {out[True][0]:.7f} vs {out[False][0]:.7f} "
+          f"(relative gap {gap:.2e}); {len(leaves)} leaves, largest error over its tolerance "
+          f"{worst[0]:.3f} ({worst[1]}), {len(bad)} outside; launches {out[True][2]} "
+          f"(plain {out[False][2] or 'none'})")
+    if bad or gap > 1e-5 or out[True][2] != want or out[False][2]:
+        raise AssertionError(f"rwkv training path: leaves {bad}, loss gap {gap}, launches "
+                             f"{out[True][2]} (want {want}), plain {out[False][2]}")
+    del params, leaves, out
+    torch.cuda.empty_cache()
+
+
 def run_server(profile_step: bool) -> int:
     """The server phase; returns the launches of kernel wkv6."""
     cfg = get_config("rwkv6-3b")
@@ -1966,7 +2137,9 @@ def run_phase_b(card: str) -> None:
         if (got["fused_bytes"], got["composed_bytes"]) != (fam["fused_bytes"],
                                                           fam["composed_bytes"]):
             raise AssertionError(f"phase B kernels {name}: byte model {got} against {fam}")
-    if sorted(k for k, v in kb["launches"].items() if v > 0) != sorted(ops.LAUNCHES):
+    # the bench covers the reference's kernels; wkv6_bwd has no counterpart there
+    if sorted(k for k, v in kb["launches"].items() if v > 0) != \
+            sorted(set(ops.LAUNCHES) - {"wkv6_bwd"}):
         raise AssertionError(f"phase B kernels: every kernel must launch: {kb['launches']}")
     print(f"phase B kernels bench: byte model equal to BENCH_kernels.json at n = "
           f"{kernels_bench.N}, launches {kb['launches']}")
@@ -2040,6 +2213,14 @@ F_PATHS = (
     ("(ar) qwen1.5-32b qsgd ef", "qwen1.5-32b", 1, 4, 1024, QSGD_EF,
      ("qsgd_ef", "int8_acc"), False),
     ("(as) gemma3 qsgd", "gemma3-12b", 6, 2, 2048, QSGD16, ("qsgd", "int8_acc"), True),
+    # the recurrent families: rwkv6-3b cut to 16 of 32 layers for memory (W
+    # EF rows and gradients of its 2.93B parameters would need ~94 GB);
+    # hymba-1.5b to one pattern period (16 of 32) for the script's time
+    ("(az) rwkv6-3b qsgd ef", "rwkv6-3b", 16, 4, 1024, QSGD_EF,
+     ("qsgd_ef", "int8_acc", "wkv6", "wkv6_bwd"), True),
+    ("(ba) hymba terngrad ef", "hymba-1.5b", 16, 4, 1024,
+     dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True),
+     ("terngrad", "tern_pack", "tern_acc"), False),
 )
 F_STEPS, F_BATCH, F_LR = 3, 8, 0.01
 #: a path whose peak passes this drops to W = 2 (the card holds 80 GB)
@@ -2116,9 +2297,12 @@ def run_family_path(label: str, arch: str, layers: int, workers: int, seq: int, 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     step_ms = []
+    counter = OpCounter()
     for t in range(F_STEPS):
         t1 = time.perf_counter()
-        state = tr.fit(state, 1, start_step=t)
+        # the first step, left out of the mean, counts its operations
+        with counter if t == 0 else contextlib.nullcontext():
+            state = tr.fit(state, 1, start_step=t)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         h = tr.history[-1]
@@ -2129,6 +2313,9 @@ def run_family_path(label: str, arch: str, layers: int, workers: int, seq: int, 
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = route_launches(comm, bundle.bucket_plan, workers, F_STEPS)
+    if cfg.family == "ssm":  # under remat="full" each layer runs wkv6 twice (the
+        # forward and its recomputation) and wkv6_bwd once, per worker and step
+        want.update(wkv6=2 * layers * workers * F_STEPS, wkv6_bwd=layers * workers * F_STEPS)
     got = {k: v for k, v in launches.items() if v}
     booked, predicted = bundle.wire["train"].get("grad_agg", 0.0), predict_grad_agg(bundle)
     print(f"  mean step_ms (first step excluded) {np.mean(step_ms[1:]):.1f}; launches {got}; "
@@ -2149,6 +2336,9 @@ def run_family_path(label: str, arch: str, layers: int, workers: int, seq: int, 
                              f"predicts {predicted} B")
     if peak > F_PEAK_GIB:
         raise AssertionError(f"family {label}: peak {peak:.2f} GiB > {F_PEAK_GIB}: drop to W 2")
+    print(f"  {counter.n} aten operations dispatched in step 0"
+          + (f"; selective scan in chunks of L = {SM.SCAN_CHUNK} steps: {seq // SM.SCAN_CHUNK} "
+             f"loop iterations a layer and pass" if cfg.family == "hybrid" else ""))
     if profile_step:
         profile_one_step(lambda: tr.fit(state, 1, start_step=F_STEPS), f"step {F_STEPS}",
                          float(np.mean(step_ms[1:])))
@@ -2380,6 +2570,9 @@ S_PATHS = (
     ("aw", "gemma3-12b", 48, 2048),
     ("ax", "qwen3-moe-30b-a3b", 12, 1024),
     ("ay", "deepseek-v2-lite-16b", 27, 1024),
+    # hymba-1.5b at full depth: prompt 2048 is twice its window, so the
+    # 1024-slot local rings bite beside the Mamba heads' carried state
+    ("bb", "hymba-1.5b", 32, 2048),
 )
 S_BATCH, S_DECODE = 8, 32
 #: the f32 identity at full width, one pattern period each (deepseek its
@@ -2399,6 +2592,7 @@ S_IDENTITY = (
     ("gemma3-12b", 6, 1024),
     ("qwen3-moe-30b-a3b", 2, 256),
     ("deepseek-v2-lite-16b", 3, 256),
+    ("hymba-1.5b", 16, 1024),
 )
 #: max |decode logits - full-forward logits| over max |logits|
 S_IDENTITY_TOL = 1e-4
@@ -2433,7 +2627,11 @@ def run_serve_path(tag: str, arch: str, layers: int, prompt: int, card: str,
           f"launches {launches or 'none'} ({card})")
     if launches:
         raise AssertionError(f"serve ({tag}): must launch no port kernel: {launches}")
-    if tokens.shape != (S_BATCH, S_DECODE) or tokens.min() < 0 or tokens.max() >= cfg.vocab \
+    # a token is a row of the embedding, which the reference pads to a
+    # multiple of 128 (hymba's 32,001 to 32,128) and does not mask: random
+    # weights may pick a pad row
+    V = make_plan(cfg).V
+    if tokens.shape != (S_BATCH, S_DECODE) or tokens.min() < 0 or tokens.max() >= V \
             or not bool(torch.isfinite(last).all()):
         raise AssertionError(f"serve ({tag}): bad output, tokens {tokens.shape} in "
                              f"[{tokens.min()}, {tokens.max()}], last finite "
@@ -2550,12 +2748,14 @@ def main() -> None:
     big = {k: v for check in checks for k, v in check(LARGEST, timed=True).items()}
     require(big, LARGEST)
     wkv = check_wkv6()
+    wkv.update(check_wkv6_backward())
     require(wkv, 0)
+    print(f"kernel wkv6_bwd: {wkv['wkv6_bwd']['detail']}")
     print(f"kernel wkv6: {wkv['wkv6']['detail']}")
     w6 = wkv["wkv6"]
     print(f"kernel wkv6 at the decode shape ({SERVE_B}, 1, 32, 80) bf16: {w6['decode_ms']:.4f} ms "
           f"per call on the host clock, {w6['decode_device_ms']:.4f} ms of the kernel's own "
-          f"device time per launch (torch.profiler)")
+          f"device time per launch (torch.profiler); plain {w6['decode_plain_ms']:.4f} ms")
     print(f"kernel wkv6 at the prefill shape {WKV6_PREFILL} bf16, in turns (recurrent, chunked, "
           f"chunked, recurrent): {', '.join(f'{t:.4f}' for t in w6['turns'])} ms; recurrent "
           f"{w6['recurrent_ms']:.4f} ms against its CUDA-core bound "
@@ -2571,6 +2771,9 @@ def main() -> None:
         if name == "wkv6":
             b_ms, b_by = wkv6_bound(*WKV6_PREFILL, in_bytes=2)
             at = f"(B, S, H, hd)={WKV6_PREFILL} bf16"
+        elif name == "wkv6_bwd":
+            b_ms, b_by = wkv6_bwd_bound(*WKV6_TRAIN, in_bytes=2)
+            at = f"(B, S, H, hd)={WKV6_TRAIN} bf16"
         else:
             b_ms, b_by = bound(name, LARGEST, W)
             at = f"n={LARGEST}"
@@ -2617,6 +2820,7 @@ def main() -> None:
     engine_launches = run_engine(card)
     engine_launches["qsgd_ef"] += run_churn_engine(card)
     check_rwkv_path()
+    check_rwkv_train_path()
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
     run_phase_t(card)
     run_phase_b(card)

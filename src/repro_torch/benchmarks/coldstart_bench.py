@@ -7,8 +7,8 @@ in a subprocess that imports only ``repro_torch`` and configures the cache
 reference's legs do:
 
 * **cold process, cold cache**: a fresh interpreter and an empty
-  directory, so it pays what a first process pays: the eleven ``nvcc``
-  builds on the card, then the engine's first sweep (its class programs)
+  directory, so it pays what a first process pays: the ``nvcc``
+  builds of every kernel source on the card, then the engine's first sweep (its class programs)
   and the trainer's (the meta-device wire traces of its bundle classes);
 * **cold process, warm cache**: a fresh interpreter on the same
   directory: every kernel library is reused (no ``nvcc``) and every shape

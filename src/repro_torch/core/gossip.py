@@ -5,8 +5,10 @@ Each worker's parameters are row w of a (W, n) f32 bucket stack, so a ring
 exchange is a roll of the stack along the worker axis
 (:func:`repro_torch.core.comms.ppermute`).  The ring mixing matrix is
 I(1 - 2w) + w(L + R), doubly stochastic; the reference's runtime runs this
-ring whatever ``gossip_graph`` says, and so does the port.  Churn (the
-``alive``/``rejoined`` arguments, ``masked_mixing_matrix``) is not ported.
+ring whatever ``gossip_graph`` says, and so does the port.  Under churn the
+ring is masked: :func:`masked_mixing_matrix` folds a dropped peer's weight
+into each live row's self weight, ``dpsgd_mix(alive, rejoined)`` mixes with it,
+and ``choco_mix`` runs its masked round (``_choco_mix_churn``).
 """
 
 from __future__ import annotations

@@ -50,6 +50,7 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "tern_acc": ("tern_acc_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
     "threshold": ("threshold_launch", (_P, _P, _P, _P, _LL, _P)),
     "wkv6": ("wkv6_launch", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "wkv6_bwd": ("wkv6_bwd_launch", (_P,) * 15 + (_I,) * 6 + (_P,)),
 }
 #: the row-batched entry points (a (rows, n) stack with per-row scalars in
 #: device memory), beside the flat ones in the same sources

@@ -2,7 +2,8 @@
 ``repro.kernels.ops``: ``qsgd_quantize``, ``qsgd_dequantize``,
 ``qsgd_ef_fused``, ``int8_weighted_sum``, ``sign_pack``, ``sign_unpack``,
 ``sign_vote``, ``terngrad_quantize``, ``tern_pack``, ``tern_acc``,
-``threshold_sparsify``, ``wkv6``), with the row-batched forms of the
+``threshold_sparsify``, ``wkv6``; ``wkv6`` differentiable through kernel
+``wkv6_bwd``, which has no TPU counterpart), with the row-batched forms of the
 quantizers that the convergence engine calls on a (rows, n) stack
 (``*_rows``: the reference's ops under ``jax.vmap``, one launch per call).
 
@@ -13,7 +14,8 @@ launches its hand-written kernel (``csrc/*.cu``) on the current stream,
 checks the returned ``cudaGetLastError()`` and counts the launch in
 ``LAUNCHES``; there is no fallback.  Off the card (CPU tensors, or the
 shape-only ``meta`` device the trainer books its wire bytes on) it runs the
-kernel's plain version from ``ref.py``.  No padding to the TPU's
+kernel's plain version from ``ref.py``; ``wkv6`` and ``wkv6_backward`` give
+shapes alone on ``meta`` (their plain versions loop over time).  No padding to the TPU's
 (rows, 128) tiles for the quantizers and the threshold: the kernels mask
 their own tails.
 The packed wires keep the reference's padded payloads byte for byte, so
@@ -35,7 +37,8 @@ f32 = torch.float32
 #: launches per kernel since the last ``reset_launches()``
 LAUNCHES: dict[str, int] = {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
                             "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
-                            "tern_pack": 0, "tern_acc": 0, "threshold": 0, "wkv6": 0}
+                            "tern_pack": 0, "tern_acc": 0, "threshold": 0, "wkv6": 0,
+                            "wkv6_bwd": 0}
 
 #: elements per 1024-byte tile of the packed sign wire: the reference packs
 #: (8 rows, 8 bits, 128 lanes) blocks, and pads the last one with +1.0
@@ -537,15 +540,101 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: 
         if tuple(t.shape) != tuple(shape) or t.device != r.device:
             raise ValueError(f"wkv6: {what} must be {tuple(shape)} on {r.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
-    if not r.is_cuda:
+    if not _on_card(r):
         return ref.wkv6(r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0)):
+        # the casts are recorded, so each gradient comes back in its input's type
+        return WKV6Function.apply(r, k, v, w.to(f32), u.to(f32), s0.to(f32))
     return _wkv6_launch(r, k, v, w, u, s0, chunked=S >= WKV6_CHUNK)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """wkv6's route: a CUDA tensor launches the kernels; a meta tensor (the
+    trainer's shape-only trace of its wire) takes the same route with
+    shape-only outputs, where the plain version would trace S steps a
+    layer.  One function, so a CPU test can send the autograd route through
+    the plain versions."""
+    return t.is_cuda or t.is_meta
+
+
+class WKV6Function(torch.autograd.Function):
+    """``wkv6`` on CUDA tensors under autograd: forward kernel ``wkv6`` (the
+    design ``ops.wkv6`` takes), backward kernel ``wkv6_bwd``.  w, u and s0
+    arrive as f32; r, k, v keep their type, and so do their gradients."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return _wkv6_launch(r, k, v, w, u, s0, chunked=r.shape[1] >= WKV6_CHUNK)
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=f32, device=r.device)
+        dr, dk, dv, dw, du, ds0 = wkv6_backward(r, k, v, w, u, s0, dy, dsT)
+        grads = (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, ds0)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+#: steps between the states kernel wkv6_bwd checkpoints (its kC)
+WKV6_BWD_CKPT = 8
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor, s0: torch.Tensor, dy: torch.Tensor,
+                  dsT: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """Kernel ``wkv6_bwd``: the gradient of :func:`wkv6` -> (dr, dk, dv, dw
+    (B, S, H, hd), du (H, hd), ds0 (B, H, hd, hd)), all f32, from ``dy`` (B,
+    S, H, hd) and ``dsT`` (B, H, hd, hd; None: zero), both taken as f32, and
+    :func:`wkv6`'s inputs.  The kernel writes du per (b, h); one
+    ``torch.sum`` over b adds them, so the result is bitwise from run to
+    run.  On a CPU tensor: ``ref.wkv6_backward``."""
+    B, S, H, hd = r.shape
+    for t, shape, what in ((k, r.shape, "k"), (v, r.shape, "v"), (w, r.shape, "w"),
+                           (dy, r.shape, "dy"), (u, (H, hd), "u"), (s0, (B, H, hd, hd), "s0"),
+                           (dsT, (B, H, hd, hd), "dsT")):
+        if t is not None and (tuple(t.shape) != tuple(shape) or t.device != r.device):
+            raise ValueError(f"wkv6_backward: {what} must be {tuple(shape)} on {r.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    if r.dtype not in (f32, torch.bfloat16) or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"wkv6_backward: need r, k, v of one type (f32 or bf16), got "
+                         f"{r.dtype} {k.dtype} {v.dtype}")
+    if r.is_meta:
+        return tuple(torch.empty(shape, dtype=f32, device=r.device)
+                     for shape in (r.shape,) * 4 + ((H, hd), (B, H, hd, hd)))
+    if not r.is_cuda:
+        return ref.wkv6_backward(r, k, v, w, u, s0, dy, dsT)
+    if hd not in WKV6_HEAD_DIMS:
+        raise ValueError(f"wkv6_backward: head width {hd} not in the kernel's {WKV6_HEAD_DIMS}")
+    r, k, v = (t.contiguous() for t in (r, k, v))
+    w, u, s0, dy = (t.to(f32).contiguous() for t in (w, u, s0, dy))
+    dsT = None if dsT is None else dsT.to(f32).contiguous()
+    dr, dk, dv, dw = (torch.empty((B, S, H, hd), dtype=f32, device=r.device) for _ in range(4))
+    du_part = torch.empty((B, H, hd), dtype=f32, device=r.device)
+    ds0 = torch.empty((B, H, hd, hd), dtype=f32, device=r.device)
+    ckpt = torch.empty((B * H * -(-S // WKV6_BWD_CKPT) * hd * hd,), dtype=f32, device=r.device)
+    _launch("wkv6_bwd", r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            s0.data_ptr(), dy.data_ptr(), None if dsT is None else dsT.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+            ds0.data_ptr(), ckpt.data_ptr(), B, S, H, hd, int(r.dtype == torch.bfloat16),
+            WKV6_BWD_CKPT)
+    return dr, dk, dv, dw, torch.sum(du_part, dim=0), ds0
 
 
 def _wkv6_launch(r, k, v, w, u, s0, *, chunked: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of kernel ``wkv6`` on checked CUDA tensors, through the
-    chunked design or the recurrent one (``chip_smoke.py`` times both)."""
+    chunked design or the recurrent one (``chip_smoke.py`` times both).
+    Outputs carry no gradient, so a call that autograd would record is
+    refused: such calls go through :class:`WKV6Function`."""
     B, S, H, hd = r.shape
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0)):
+        raise RuntimeError("wkv6: a kernel launch under autograd would drop the gradient; "
+                           "call ops.wkv6, which routes it through WKV6Function")
+    if r.is_meta:
+        return (torch.empty((B, S, H, hd), dtype=f32, device=r.device),
+                torch.empty((B, H, hd, hd), dtype=f32, device=r.device))
     if hd not in WKV6_HEAD_DIMS:
         raise ValueError(f"wkv6: head width {hd} not in the kernel's {WKV6_HEAD_DIMS}")
     r, k, v = (_aligned(t) for t in (r, k, v))

@@ -247,3 +247,42 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
             state = torch.exp2(sq["T"])[..., None] * state + sq["k"].transpose(-1, -2) @ sq["v"]
     y = torch.cat(ys, dim=2)[:, :, :S].permute(0, 2, 1, 3).contiguous()
     return y, state
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor, s0: torch.Tensor, dy: torch.Tensor,
+                  dsT: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6` (kernel ``wkv6_bwd``'s plain version), a
+    reverse loop over time in the kernel's arithmetic.  Arguments as
+    :func:`wkv6`, plus ``dy`` (B, S, H, hd) and ``dsT`` (B, H, hd, hd; None:
+    zero), all widened to f32 -> (dr, dk, dv, dw (B, S, H, hd), du (H, hd),
+    ds0 (B, H, hd, hd)), f32.  With P_t the state before step t and D the
+    gradient of the state after it (dsT at t = S - 1):
+
+    * ``dr_t = P_t dy_t + u k_t (v_t . dy_t)``, ``dk_t = D v_t + r_t u (v_t .
+      dy_t)``, ``dv_t = D^T k_t + (sum_i r_t u k_t) dy_t``, ``dw_t[i] =
+      sum_j D[i, j] P_t[i, j]``, ``du += r_t k_t (v_t . dy_t)``;
+    * then ``D <- w_t D + r_t dy_t^T``, which is ds0 after step 0.
+
+    The states P_t are rebuilt forward (``w_t P_t + k_t v_t^T``), so no
+    step divides by w: a decay that underflowed to 0 is safe."""
+    r, k, v, w, dy = (t.to(f32) for t in (r, k, v, w, dy))
+    u = u.to(f32)
+    states = [s0.to(f32)]
+    for t in range(r.shape[1] - 1):
+        states.append(w[:, t, :, :, None] * states[-1] + k[:, t, :, :, None] * v[:, t, :, None, :])
+    D = torch.zeros_like(states[0]) if dsT is None else dsT.to(f32).clone()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(r[:, 0])
+    for t in reversed(range(r.shape[1])):
+        rt, kt, vt, wt, dyt = (x[:, t] for x in (r, k, v, w, dy))
+        P = states[t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)
+        ruk = (rt * u * kt).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", P, dyt) + u * kt * vdy
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", D, vt) + rt * u * vdy
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", D, kt) + ruk * dyt
+        dw[:, t] = (D * P).sum(-1)
+        du = du + rt * kt * vdy
+        D = wt[..., None] * D + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du.sum(0), D

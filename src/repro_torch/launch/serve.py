@@ -10,7 +10,8 @@ from a zero token, as the reference's ``repro.launch.serve`` does.
         --prompt-len 1024 --batch 8 --decode 32      # MLA's latent cache, MoE decode
 
 Any architecture the port serves runs: rwkv6-3b, qwen3-0.6b, glm4-9b,
-qwen1.5-32b, gemma3-12b, qwen3-moe-30b-a3b and deepseek-v2-lite-16b.
+qwen1.5-32b, gemma3-12b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b and
+hymba-1.5b.
 Weights are random from ``--seed``, or the ``params`` of the checkpoint
 that ``--restore`` names (``repro_torch.checkpoint``, the reference's
 format: its other keys are left alone); prompts are ``SyntheticBatches``

@@ -10,7 +10,9 @@ and w_t = exp(-exp(w0 + lora_w(x_t))).  Layouts are the reference's:
 (B, S, d).  The dtype steps are the reference's too: r, k, v, g in the
 compute dtype, the decay widened to f32 before its exponentials, ``u``
 widened to f32, and y cast back to the compute dtype before its per-head
-norm.
+norm.  With ``use_kernel`` the recurrence runs through ``ops.wkv6``, which
+is differentiable: on the card its forward is kernel ``wkv6`` and its
+backward kernel ``wkv6_bwd``, so the block trains through the kernels.
 """
 
 from __future__ import annotations
@@ -88,8 +90,9 @@ def rwkv_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
                state: dict[str, torch.Tensor] | None = None, *,
                use_kernel: bool = False) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Time-mix sub-block. state: {"shift": (B,d), "wkv": (B,H,hd,hd) f32}.
-    ``use_kernel`` runs the recurrence through ``ops.wkv6`` (the kernel on a
-    CUDA tensor), else through the plain ``wkv_scan``."""
+    ``use_kernel`` runs the recurrence through ``ops.wkv6`` (the kernels on
+    a CUDA tensor, forward and backward), else through the plain
+    ``wkv_scan``."""
     B, S, d = x.shape
     H, hd = p["w0"].shape
     if state is None:

@@ -41,6 +41,7 @@ class ShapePlan:
     Dff_shared: int  # shared-expert hidden, all shared experts together
     rwkv_heads: int  # padded rwkv heads
     rwkv_hd: int
+    d_inner: int  # the SSM heads' inner width (hybrid)
 
     @property
     def E_l(self) -> int:
@@ -51,17 +52,15 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise for model options the port does not run yet, naming the slice
     each waits for.  Ported: the attention families (dense and MoE, GQA or
     MLA, standard or partial RoPE, qkv bias, logits softcap, leading dense
-    layers, sliding-window patterns) and the attention-free RWKV6 family
-    (``family="ssm"``: no attention, no RoPE)."""
+    layers, sliding-window patterns), the attention-free RWKV6 family
+    (``family="ssm"``: no attention, no RoPE) and the hybrid family (hymba:
+    GQA attention and Mamba heads side by side in every layer)."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack (seamless) is a "
                                   "later slice")
     if cfg.modality != "text":
         raise NotImplementedError(f"{cfg.name}: the {cfg.modality} frontend (qwen2-vl, "
                                   "seamless) is a later slice")
-    if cfg.family == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: the hybrid attention + SSM heads (hymba) are a "
-                                  "later slice")
     if cfg.family == "ssm":
         for field, want in (("attn_kind", "none"), ("rope_type", "none"), ("moe", False),
                             ("qkv_bias", False), ("logits_softcap", 0.0)):
@@ -69,7 +68,7 @@ def check_ported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: RWKV6 with {field}={getattr(cfg, field)!r} is not ported")
         return
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is a later slice")
     if cfg.rope_type not in ("rope", "partial"):
         raise NotImplementedError(f"{cfg.name}: rope_type={cfg.rope_type!r} is not ported "
@@ -109,6 +108,7 @@ def make_plan(cfg: ModelConfig, msize: int = 1) -> ShapePlan:
         Dff_shared=pad_to(cfg.n_shared_experts * dff_e, msize) if cfg.n_shared_experts else 0,
         rwkv_heads=pad_to(cfg.d_model // cfg.rwkv_head_dim, msize),
         rwkv_hd=cfg.rwkv_head_dim,
+        d_inner=pad_to(int(cfg.ssm_expand * cfg.d_model), msize),
     )
 
 

@@ -1,28 +1,31 @@
-"""Model assembly for the attention families and RWKV6 (counterpart of
-``repro.models.transformer``: ``build_defs``, ``init_params``,
-``forward_loss`` for the dense and MoE families, GQA or MLA; ``prefill``
-and ``decode_step`` for those families and for RWKV6).
+"""Model assembly for the attention families, RWKV6 and hymba (counterpart
+of ``repro.models.transformer``: ``build_defs``, ``init_params``,
+``forward_loss`` for the dense and MoE families, GQA or MLA, for RWKV6 and
+for the hybrid family; ``prefill`` and ``decode_step`` for all of them).
 
 The tree is the reference's: ``prefix`` is the list of leading dense-FFN
 layers (deepseek-v2's layer 0; empty elsewhere), unstacked; ``blocks``
 holds the pattern groups (gemma3's five local layers and one global one
-are the group's entries "0".."5"), each layer with ``moe`` or ``mlp``.
+are the group's entries "0".."5"), each layer with ``moe`` or ``mlp``
+(hymba's also with ``ssm``, its Mamba heads beside the attention).
 With ``scan_layers=True`` the group is stacked over a leading repeats axis
 (one leaf per weight, as the reference's ``lax.scan`` carries them); with
 ``scan_layers=False`` ``blocks`` is a list of groups.  Either way the
 parameter tree, its paths and so the bucket plan match the reference's.
 ``remat != "none"`` recomputes each block of ``blocks`` in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+An RWKV6 block trains through kernel ``wkv6`` and its backward
+``wkv6_bwd`` on the card (``ops.wkv6``; the plain scan on the CPU).
 
 Serving keeps the reference's cache tree: ``{"prefix": [...], "pos":
 int32, "blocks": ...}`` with ``blocks`` stacked over layers
 (``scan_layers``) or a list of groups.  An attention block holds ``{"attn":
 {"k", "v" (B, W, KV, hd), "pos" (W,) int32}}`` (MLA: ``{"lat" (B, W,
 kv_lora), "rope" (B, W, qk_rope_dim), "pos"}``), a ring of W slots per
-layer; an RWKV6 block ``{"tm": {"shift" (B, d), "wkv" (B, H, hd, hd) f32},
-"cm_last" (B, d)}``.  Training RWKV6 (a gradient through the recurrence)
-and the sequence-parallel prefill are later slices; both raise
-``NotImplementedError``.
+layer; a hymba block also ``"ssm": {"conv" (B, kc-1, d_inner), "h" (B,
+d_inner, state) f32}``; an RWKV6 block ``{"tm": {"shift" (B, d), "wkv"
+(B, H, hd, hd) f32}, "cm_last" (B, d)}``.  The sequence-parallel prefill is
+a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RW
+from repro_torch.models import ssm as SM
 from repro_torch.models.sharding import (ShapePlan, check_ported, make_plan, materialize,
                                          stack_defs)
 from repro_torch.utils.tree import leaves, unflatten_like
@@ -48,6 +52,8 @@ def _block_defs(cfg: ModelConfig, plan: ShapePlan, *, moe_layer: bool) -> dict:
         defs.update(RW.rwkv_defs(cfg, plan))
         return defs
     defs["attn"] = L.attn_defs(cfg, plan)
+    if cfg.family == "hybrid":
+        defs["ssm"] = SM.ssm_defs(cfg, plan)
     if moe_layer:
         defs["moe"] = L.moe_defs(cfg, plan)
     else:
@@ -97,14 +103,26 @@ def make_positions(B: int, S: int, device) -> torch.Tensor:
 
 def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
                attn_type: str, seq_len: int, positions: torch.Tensor,
-               collect_cache: bool = False, max_seq: int = 0
+               collect_cache: bool = False, max_seq: int = 0, use_kernel: bool = True
                ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
-    """One attention block; returns (x, the router's aux loss: 0 for an MLP
+    """One block; returns (x, the router's aux loss: 0 for an MLP or RWKV6
     block, with ``collect_cache`` the block's decode cache of capacity
-    ``max_seq`` (the sequence length when 0), else None)."""
+    ``max_seq`` (the sequence length when 0), else None).  RWKV6 runs its
+    recurrence through ``ops.wkv6`` with ``use_kernel`` (the kernels on a
+    CUDA tensor), else through the plain scan; hymba adds its Mamba heads'
+    output to the attention's, halved, as the reference does."""
+    if cfg.family == "ssm":
+        x, cache = _rwkv_layer(cfg, p, x, None, use_kernel)
+        return x, torch.zeros((), dtype=f32, device=x.device), cache if collect_cache else None
     window = cfg.layer_window(attn_type, seq_len)
     h_in = L.rmsnorm(p["ln1"], x)
-    x = x + L.attention(cfg, p["attn"], h_in, positions=positions, window=window)
+    attn_out = L.attention(cfg, p["attn"], h_in, positions=positions, window=window)
+    ssm_state = None
+    if "ssm" in p:
+        ssm_out, ssm_state = SM.ssm_block(cfg, p["ssm"], h_in)
+        x = x + 0.5 * (attn_out + ssm_out)
+    else:
+        x = x + attn_out
     h = L.rmsnorm(p["ln2"], x)
     if "moe" in p:
         ff, aux = L.moe_ffn(cfg, p["moe"], h)
@@ -114,6 +132,8 @@ def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     if collect_cache:
         cache = {"attn": _build_cache_from_prefill(cfg, p["attn"], h_in, positions, attn_type,
                                                    max_seq or seq_len)}
+        if ssm_state is not None:
+            cache["ssm"] = ssm_state
     return x + ff, aux, cache
 
 
@@ -161,15 +181,13 @@ def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
     return split(blocks)
 
 
-def forward_hidden(cfg: ModelConfig, params: dict[str, Any],
-                   tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The attention families' full forward: (hidden states (B, S, d) after
-    ``ln_f``, the summed router loss of the MoE layers).  The prefix layers
-    take attention type ``attn_pattern[0]``, then come the pattern
-    groups."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} family is a later "
-                                  "slice (RWKV6 needs a gradient through the wkv6 recurrence)")
+def forward_hidden(cfg: ModelConfig, params: dict[str, Any], tokens: torch.Tensor, *,
+                   use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full forward: (hidden states (B, S, d) after ``ln_f``, the summed
+    router loss of the MoE layers).  The prefix layers take attention type
+    ``attn_pattern[0]``, then come the pattern groups.  ``use_kernel``:
+    RWKV6's recurrence through ``ops.wkv6`` (kernels ``wkv6`` and
+    ``wkv6_bwd`` on the card), else the plain scan."""
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     B, S, _ = x.shape
     positions = make_positions(B, S, x.device)
@@ -180,7 +198,7 @@ def forward_hidden(cfg: ModelConfig, params: dict[str, Any],
         aux_total = aux_total + aux
     for pgroup in _layer_groups(cfg, params["blocks"]):
         for i, attn_type in enumerate(pat):
-            kw = dict(attn_type=attn_type, seq_len=S, positions=positions)
+            kw = dict(attn_type=attn_type, seq_len=S, positions=positions, use_kernel=use_kernel)
             if cfg.remat == "none":
                 x, aux, _ = _run_block(cfg, pgroup[str(i)], x, **kw)
             else:
@@ -192,12 +210,13 @@ def forward_hidden(cfg: ModelConfig, params: dict[str, Any],
     return L.rmsnorm(params["ln_f"], x), aux_total
 
 
-def forward_loss(cfg: ModelConfig, params: dict[str, Any],
-                 batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+def forward_loss(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor], *,
+                 use_kernel: bool = True) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training forward: returns (loss, {"ce", "aux"}): ``aux`` sums the MoE
     layers' router losses, ``ce`` is the (softcapped) cross-entropy and
-    loss = ce + router_aux_coef * aux."""
-    x, aux_total = forward_hidden(cfg, params, batch["tokens"])
+    loss = ce + router_aux_coef * aux.  ``use_kernel`` as in
+    :func:`forward_hidden`."""
+    x, aux_total = forward_hidden(cfg, params, batch["tokens"], use_kernel=use_kernel)
     ce = L.logits_and_loss(params["embed"], x, batch["labels"], softcap=cfg.logits_softcap)
     loss = ce + cfg.router_aux_coef * aux_total
     return loss, {"ce": ce, "aux": aux_total}
@@ -210,7 +229,7 @@ def forward_loss(cfg: ModelConfig, params: dict[str, Any],
 
 def check_serving(cfg: ModelConfig) -> None:
     """Raise unless the port serves ``cfg``: what ``check_ported`` refuses
-    (hymba, VL, the encoder-decoder) and the sequence-parallel prefill."""
+    (VL, the encoder-decoder) and the sequence-parallel prefill."""
     check_ported(cfg)
     if cfg.seq_par:
         raise NotImplementedError(
@@ -247,27 +266,24 @@ def prefill(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Ten
     """Runs the prompt, returns (last hidden (B, d) after ``ln_f``, cache).
     ``max_seq``: the attention caches' capacity (the prompt length when 0;
     each layer's ring holds ``min(layer_window(max_seq), max_seq)`` slots).
-    RWKV6 carries a recurrent state, for which ``max_seq`` has no meaning;
-    ``use_kernel`` runs its recurrence through kernel ``wkv6``."""
+    RWKV6 and hymba's Mamba heads carry recurrent states, for which
+    ``max_seq`` has no meaning; ``use_kernel`` runs RWKV6's recurrence
+    through kernel ``wkv6``."""
     check_serving(cfg)
     x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
     B, S, _ = x.shape
     pat = cfg.attn_pattern
     positions = make_positions(B, S, x.device)
+    kw = dict(seq_len=S, positions=positions, collect_cache=True, max_seq=max_seq,
+              use_kernel=use_kernel)
     prefix, groups = [], []
     for p in params["prefix"]:
-        x, _, c = _run_block(cfg, p, x, attn_type=pat[0], seq_len=S, positions=positions,
-                             collect_cache=True, max_seq=max_seq)
+        x, _, c = _run_block(cfg, p, x, attn_type=pat[0], **kw)
         prefix.append(c)
     for pgroup in _layer_groups(cfg, params["blocks"]):
         cs = {}
         for i, attn_type in enumerate(pat):
-            if cfg.family == "ssm":
-                x, cs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, None, use_kernel)
-            else:
-                x, _, cs[str(i)] = _run_block(cfg, pgroup[str(i)], x, attn_type=attn_type,
-                                              seq_len=S, positions=positions,
-                                              collect_cache=True, max_seq=max_seq)
+            x, _, cs[str(i)] = _run_block(cfg, pgroup[str(i)], x, attn_type=attn_type, **kw)
         groups.append(cs)
     cache = {"prefix": prefix, "pos": torch.full((), S, dtype=torch.int32, device=x.device),
              "blocks": _stack_groups(cfg, groups)}
@@ -279,14 +295,25 @@ def _decode_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict[
                   pos: torch.Tensor, window: int, inplace: bool
                   ) -> tuple[torch.Tensor, dict[str, Any]]:
     """One attention block on one token: decode attention over the block's
-    ring, then the MLP or the MoE (its router loss dropped; T = B tokens
-    set its capacity)."""
-    attn_out, ac = L.decode_attention(cfg, p["attn"], L.rmsnorm(p["ln1"], x), c["attn"],
-                                      pos=pos, window=window, inplace=inplace)
-    x = x + attn_out
+    ring (hymba: and one step of its Mamba heads from the cached state),
+    then the MLP or the MoE (its router loss dropped; T = B tokens set its
+    capacity).  ``inplace`` writes the ring slot and the new SSM state into
+    ``c``'s buffers."""
+    h_in = L.rmsnorm(p["ln1"], x)
+    attn_out, ac = L.decode_attention(cfg, p["attn"], h_in, c["attn"], pos=pos, window=window,
+                                      inplace=inplace)
+    nc = {"attn": ac}
+    if "ssm" in p:
+        ssm_out, sc = SM.ssm_block(cfg, p["ssm"], h_in, state=c["ssm"])
+        if inplace:
+            sc = {k: c["ssm"][k].copy_(v) for k, v in sc.items()}
+        nc["ssm"] = sc
+        x = x + 0.5 * (attn_out + ssm_out)
+    else:
+        x = x + attn_out
     h = L.rmsnorm(p["ln2"], x)
     ff = L.moe_ffn(cfg, p["moe"], h)[0] if "moe" in p else L.mlp(p["mlp"], h)
-    return x + ff, {"attn": ac}
+    return x + ff, nc
 
 
 def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],
@@ -296,8 +323,9 @@ def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any
     cache).  The attention families need ``max_seq``, which sets each
     layer's window (``layer_window(attn_type, max_seq)``); their ring slot
     ``pos % S`` is written out of place, leaving ``cache`` as it was,
-    unless ``inplace``, which writes it into ``cache``'s buffers (the
-    caller gives ``cache`` up).  RWKV6's state is new each step."""
+    unless ``inplace``, which writes it (and hymba's new SSM and conv
+    states) into ``cache``'s buffers (the caller gives ``cache`` up).
+    RWKV6's state is new each step."""
     check_serving(cfg)
     if cfg.family != "ssm" and max_seq < 1:
         raise ValueError(f"{cfg.name}: decoding an attention cache needs max_seq >= 1")
@@ -320,7 +348,8 @@ def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any
                                                window=cfg.layer_window(attn_type, max_seq),
                                                inplace=inplace)
         groups.append(ncs)
-    # written in place, the stacked leaves already hold the new slots
+    # written in place, the stacked leaves already hold the new slots and
+    # hymba's new SSM states
     blocks = cache["blocks"] if inplace and cfg.family != "ssm" else _stack_groups(cfg, groups)
     x = L.rmsnorm(params["ln_f"], x)
     return (L.logits_local(params["embed"], x, softcap=cfg.logits_softcap),

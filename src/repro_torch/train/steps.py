@@ -152,6 +152,8 @@ class StepBundle:
     churn_draws: aggregate.ChurnDraws | None = None
     #: the pipelined step's side stream on the card (made at first use)
     _side: Any = field(default=None, repr=False, compare=False)
+    #: the meta-device wire trace's one traced gradient per (rows, microbatch)
+    _meta_grads: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def rows(self) -> int:
@@ -316,7 +318,20 @@ class StepBundle:
 
     def _grads(self, params: Any, part: dict[str, torch.Tensor], microbatch: int
                ) -> tuple[list[torch.Tensor], dict[str, torch.Tensor]]:
-        """One worker's gradients (leaf order) and its loss and metrics."""
+        """One worker's gradients (leaf order) and its loss and metrics.  On
+        the meta device (the wire trace, shapes only) every worker's
+        gradients have the same shapes and the model books no collective,
+        so the first worker's trace stands for the rest."""
+        if part["tokens"].is_meta:
+            key = (part["tokens"].shape, microbatch)
+            if key not in self._meta_grads:
+                self._meta_grads[key] = self._traced_grads(params, part, microbatch)
+            grads, m = self._meta_grads[key]
+            return [torch.empty_like(g) for g in grads], dict(m)
+        return self._traced_grads(params, part, microbatch)
+
+    def _traced_grads(self, params: Any, part: dict[str, torch.Tensor], microbatch: int
+                      ) -> tuple[list[torch.Tensor], dict[str, torch.Tensor]]:
         pleaves = leaves(params)
         if microbatch == 1:
             loss, m = T.forward_loss(self.cfg, params, part)
@@ -878,8 +893,9 @@ def build_serve(cfg: ModelConfig, shape: InputShape,
     position of a full ring; decode runs with ``max_seq = shape.seq_len``.
     ``serve_step`` writes the new token's ring slot into the cache it is
     given: that cache is consumed (the reference donates it), so use only
-    the one it returns.  RWKV6 runs its recurrence through kernel ``wkv6``
-    (its plain version on the CPU)."""
+    the one it returns (hymba's new SSM and conv states are written into
+    it too).  RWKV6 runs its recurrence through kernel ``wkv6`` (its plain
+    version on the CPU)."""
     T.check_serving(cfg)
     device = torch.device(device)
 

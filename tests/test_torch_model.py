@@ -115,13 +115,13 @@ def test_full_width_param_tree_matches_reference():
     assert len(got) == 13 and sum(int(np.prod(s)) for s in got.values()) == 596_049_920
 
 
-@pytest.mark.parametrize("upd", [dict(rope_type="mrope"), dict(family="hybrid"),
+@pytest.mark.parametrize("upd", [dict(rope_type="mrope"),
                                  dict(is_encoder_decoder=True, encoder_layers=2),
                                  dict(modality="vision")])
 def test_unported_model_options_raise(upd):
     """Options no ported configuration runs yet (qwen2-vl's M-RoPE and
-    vision input, hymba's hybrid heads, seamless's encoder-decoder) are
-    refused, not run unverified."""
+    vision input, seamless's encoder-decoder) are refused, not run
+    unverified."""
     with pytest.raises(NotImplementedError, match="later slice|not ported"):
         T.param_defs(_tiny_cfg(**upd))
 

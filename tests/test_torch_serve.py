@@ -18,8 +18,8 @@ MoE decode, through both packages' ``build_serve``.
   one ``decode_logits`` against the full forward's last-position logits
   over the S+1 tokens (the MoE at cf = E: no token dropped).
 * ``decode_step`` leaves its input cache alone; ``serve_step`` (in place)
-  equals it bitwise; ``check_serving`` refuses ``seq_par``, hymba, VL and
-  the encoder-decoder, each naming its slice; the launcher runs.
+  equals it bitwise; ``check_serving`` refuses ``seq_par``, VL and the
+  encoder-decoder, each naming its slice; the launcher runs.
 
 Tolerances (f32 on the CPU; the frameworks sum products in other orders):
 last hidden state and caches rtol 1e-5 with an atol of 1e-5 times the
@@ -216,7 +216,7 @@ def test_seq_par_serving_is_refused():
                   {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
 
 
-@pytest.mark.parametrize("arch,slice_", [("hymba-1.5b", "hymba"), ("qwen2-vl-2b", "qwen2-vl"),
+@pytest.mark.parametrize("arch,slice_", [("qwen2-vl-2b", "qwen2-vl"),
                                          ("seamless-m4t-large-v2", "encoder-decoder")])
 def test_unported_serving_is_refused(arch, slice_):
     cfg = ModelConfig(**dataclasses.asdict(jget(arch)))
