@@ -34,13 +34,20 @@ result line:
    the latter beside its bound, with the chunked design's registers,
    shared memory and resident CTAs per SM; the decode shape's call also as
    the kernel's own device time from torch.profiler, beside the host-bound
-   call time; and wkv6_bwd (wkv6's backward, no TPU counterpart) against
-   its plain version ref.wkv6_backward and both against autograd through
-   ref.wkv6, at the training shape (2, 1024, 32, 80) in bf16 and f32, a
-   ragged S = 1000 and S = 20, w holding 0.0, 1.0 and 1e-3, nonzero s0
-   and dsT (absent once): each gradient within rtol 1e-4 / atol 1e-5 x its
-   largest magnitude, two calls bitwise alike, timed at the training shape
-   in bf16 beside its bound (``wkv6_bwd_bound``);
+   call time, and at the training shape (2, 1024, 32, 80) beside its bound;
+   and wkv6_bwd (wkv6's backward, no TPU counterpart: two launches,
+   wkv6_bwd_states and wkv6_bwd) against its plain versions
+   ref.wkv6_backward and ref.wkv6_backward_chunked and both against
+   autograd through ref.wkv6, at the training shape (2, 1024, 32, 80) in
+   bf16 and f32, a ragged S = 1000, S = 20, 1, 63, 64, 65 and 37 (a chunk
+   is 64 steps), hd 80 and 64, w holding 0.0, 1.0 and 1e-3, nonzero s0 and
+   dsT (absent twice): each gradient within rtol 1e-4 / atol 1e-5 x its
+   largest magnitude, two calls bitwise alike, the boundary states of
+   wkv6_bwd_states against ref.wkv6_bwd_states at the same tolerance;
+   timed at the training shape in bf16 (the whole backward, and each
+   launch alone) beside its bounds (``wkv6_bwd_bound``,
+   ``wkv6_bwd_states_bound``), with both launches' registers, shared
+   memory and resident CTAs per SM;
 4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
    weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
    global batch 8, twelve paths: QSGD (16 levels) on the int8 compressed wire
@@ -142,7 +149,8 @@ result line:
    magnitude; prints whether the plain path's own greedy tokens agree; then
    training: rwkv6-3b at full width, f32, 2 layers (list layout), batch 2,
    seq 256, remat="full": every leaf's gradient of ``forward_loss`` through
-   kernels wkv6 and wkv6_bwd (exactly 2 and 1 launches a layer) against
+   kernels wkv6, wkv6_bwd_states and wkv6_bwd (exactly 2, 1 and 1
+   launches a layer) against
    the plain scan's within rtol 1e-3 / atol 1e-4 x the leaf's largest
    magnitude (``TRAIN_GRAD_RTOL``), the losses within 1e-5;
 7. the server: rwkv6-3b at full published width and depth (bf16), random
@@ -243,7 +251,8 @@ result line:
    period, window 1024), seq 2048, W = 2, qsgd_kernel on the int8 wire
    (qsgd + int8_acc); (az) rwkv6-3b, 16 of 32 layers (cut for memory),
    W = 4, qsgd_kernel EF (qsgd_ef, int8_acc, and its recurrence through
-   wkv6 and wkv6_bwd: 2 and 1 launches a layer, worker and step); (ba)
+   wkv6, wkv6_bwd_states and wkv6_bwd: 2, 1 and 1 launches a layer,
+   worker and step); (ba)
    hymba-1.5b, one pattern period (16 of 32 layers: the global layer and
    15 local; cut for the script's time), W = 4, terngrad_kernel EF
    (terngrad, tern_pack, tern_acc), its selective scan in chunks of
@@ -409,6 +418,11 @@ KERNELS = {
     "wkv6_bwd": dict(source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
                      replaces="none: the gradient of src/repro/models/rwkv.py:87 (wkv_scan, "
                               "lax.scan), derived by XLA"),
+    # wkv6_bwd's first launch (the states at the chunk boundaries), in the
+    # same source; timed alone at the training shape, see wkv6_bwd_states_bound
+    "wkv6_bwd_states": dict(source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                            replaces="none: the first pass of the gradient of "
+                                     "src/repro/models/rwkv.py:87 (wkv_scan), derived by XLA"),
 }
 #: why a kernel's row has library_ms null
 NO_LIBRARY = {
@@ -425,6 +439,8 @@ NO_LIBRARY = {
     "wkv6": "no single PyTorch call runs a linear recurrence with a data-dependent decay",
     "wkv6_bwd": "no single PyTorch call is the gradient of a linear recurrence with a "
                 "data-dependent decay",
+    "wkv6_bwd_states": "no single PyTorch call runs a linear recurrence with a data-dependent "
+                       "decay",
 }
 #: the convergence engine's row launches (a (rows, n) stack, per-row inv and
 #: levels): bytes per element as the flat kernels, plus 4 B per row for each
@@ -506,6 +522,21 @@ def wkv6_bwd_bound(B: int, S: int, H: int, hd: int, in_bytes: int,
     n = B * S * H * hd
     n_bytes = n * (3 * in_bytes + 4 + 4 + 16) + B * H * hd * hd * 12 + H * hd * (in_bytes + 4)
     return _bound(n_bytes, B * S * H * (14 * hd * hd + 16 * hd), ops_per_s)
+
+
+def wkv6_bwd_states_bound(B: int, S: int, H: int, hd: int, in_bytes: int,
+                          ops_per_s: float = TF32_OPS_PER_S) -> tuple[float, str]:
+    """wkv6_bwd's first launch alone: r, k, v read at ``in_bytes`` per
+    element, w and dy as f32, s0 and dsT read and ds0 written as f32, and
+    the boundary states written, two f32 states per chunk of
+    ops.WKV6_BWD_CHUNK steps and head.  The least operations per head and
+    step: the two carries' products (k^T v and r^T dy, 2 hd^2 each), the
+    decay's running product and the scaled operands (4 hd); over
+    ``ops_per_s``."""
+    n = B * S * H * hd
+    chunks = -(-S // ops.WKV6_BWD_CHUNK)
+    n_bytes = n * (3 * in_bytes + 4 + 4) + B * H * hd * hd * (12 + 8 * chunks)
+    return _bound(n_bytes, B * S * H * (4 * hd * hd + 4 * hd), ops_per_s)
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> bool:
@@ -823,56 +854,95 @@ def check_wkv6() -> dict[str, dict]:
     turns = [ms_per_call(f, 20) for f in (recurrent, chunked, chunked, recurrent)]
     out.update(ms=min(turns[1:3]), plain_ms=ms_per_call(lambda: ref.wkv6(*args), 2),
                recurrent_ms=min(turns[0], turns[3]), turns=turns)
+    # the training shape, where (az) launches the forward (chunked design)
+    args = _wkv6_inputs(*WKV6_TRAIN, torch.bfloat16, seed=120)
+    chunked = lambda: ops._wkv6_launch(*args, chunked=True)  # noqa: E731
+    out.update(train_shape_ms=min(ms_per_call(chunked, 20), ms_per_call(chunked, 20)),
+               train_shape_bound_ms=wkv6_bound(*WKV6_TRAIN, in_bytes=2)[0])
     return {"wkv6": out}
 
 
 def check_wkv6_backward() -> dict[str, dict]:
-    """Kernel wkv6_bwd against its plain version ref.wkv6_backward, and both
-    against autograd through ref.wkv6 (the leaves widened to f32, as both
-    widen them), on the card: at the training shape WKV6_TRAIN in bf16 and
-    f32, a ragged S = 1000, and S = 20 (< WKV6_CHUNK: the forward's
-    recurrent design); w holding 0, 1 and 1e-3 in some channels, nonzero
-    s0, dsT nonzero (and absent once).  Each gradient within rtol 1e-4 /
-    atol 1e-5 x its largest magnitude; two kernel calls bitwise alike.
-    Timed at WKV6_TRAIN bf16 with CUDA events."""
+    """Kernel wkv6_bwd (its launches wkv6_bwd_states and wkv6_bwd) against
+    its plain versions ref.wkv6_backward and ref.wkv6_backward_chunked, and
+    the plain one against autograd through ref.wkv6 (the leaves widened to
+    f32, as both widen them), on the card: at the training shape WKV6_TRAIN
+    in bf16 and f32, a ragged S = 1000, S = 20 (< WKV6_CHUNK: the forward's
+    recurrent design), and the chunk edges S = 1, 63, 64, 65 and 37 at hd
+    80 and 64; w holding 0, 1 and 1e-3 in some channels, nonzero s0, dsT
+    nonzero (and absent twice).  Each gradient within rtol 1e-4 / atol 1e-5
+    x its largest magnitude; two kernel calls bitwise alike;
+    wkv6_bwd_states' boundary states against ref.wkv6_bwd_states at the
+    same tolerance.  Timed at WKV6_TRAIN bf16 with CUDA events: the whole
+    backward, and each launch alone."""
     H, hd = WKV6_TRAIN[2:]
+    L = ops.WKV6_BWD_CHUNK
     cases = [(WKV6_TRAIN, torch.bfloat16, True), (WKV6_TRAIN, torch.float32, True),
-             ((1, 1000, H, hd), torch.bfloat16, True), ((2, 20, H, hd), torch.float32, False)]
+             ((1, 1000, H, hd), torch.bfloat16, True), ((2, 20, H, hd), torch.float32, False),
+             ((2, 1, H, hd), torch.bfloat16, True), ((2, L - 1, H, hd), torch.float32, True),
+             ((2, L, H, 64), torch.bfloat16, True), ((1, L + 1, H, hd), torch.float32, False),
+             ((2, L + 1, H, 64), torch.bfloat16, True), ((2, 37, 4, 64), torch.float32, True)]
     ok, err, detail = True, 0.0, []
+    states = {"max_abs_err": 0.0, "ok": True}
     for i, (shape, dt, with_dsT) in enumerate(cases):
         args = _wkv6_inputs(*shape, dt, seed=300 + i, edge=True)
         gen = torch.Generator(device=DEV)
         gen.manual_seed(400 + i)
         dy = torch.randn(shape, generator=gen, device=DEV)
-        dsT = (torch.randn((shape[0], H, hd, hd), generator=gen, device=DEV) * 0.1
-               if with_dsT else None)
+        dsT = (torch.randn((shape[0], shape[2], shape[3], shape[3]), generator=gen, device=DEV)
+               * 0.1 if with_dsT else None)
         got = ops.wkv6_backward(*args, dy, dsT)
         again = ops.wkv6_backward(*args, dy, dsT)
         want = ref.wkv6_backward(*args, dy, dsT)
+        twin = ref.wkv6_backward_chunked(*args, dy, dsT)
         leaves = [t.detach().float().requires_grad_(True) for t in args]
         y, sT = ref.wkv6(*leaves)
         loss = (y * dy).sum() + (0.0 if dsT is None else (sT * dsT).sum())
         auto = torch.autograd.grad(loss, leaves)
         del y, sT, loss, leaves
         worst = []
-        for name, g, a, wv, au in zip(("r", "k", "v", "w", "u", "s0"), got, again, want, auto):
+        for name, g, a, wv, tw, au in zip(("r", "k", "v", "w", "u", "s0"), got, again, want,
+                                          twin, auto):
             top = float(wv.abs().max())
             e_ref, e_auto = float((g - wv).abs().max()), float((g - au).abs().max())
             case_ok = (torch.equal(g, a) and _close(g, wv, 1e-4, 1e-5 * top)
-                       and _close(wv, au, 1e-4, 1e-5 * top))
+                       and _close(g, tw, 1e-4, 1e-5 * top) and _close(wv, au, 1e-4, 1e-5 * top))
             ok &= case_ok
             err = max(err, e_ref)
             worst.append(f"d{name} {e_ref:.1e}/{e_auto:.1e} of {top:.1e}"
                          + ("" if case_ok else " FAILED"))
+        st_got = ops.wkv6_bwd_states(*args[:4], args[5], dy, dsT)
+        st_want = ref.wkv6_bwd_states(*args[:4], args[5], dy, dsT)
+        st = []
+        for name, g, wv in zip(("P", "D", "ds0"), st_got, st_want):
+            top = float(wv.abs().max())
+            e = float((g - wv).abs().max())
+            s_ok = _close(g, wv, 1e-4, 1e-5 * top)
+            states["ok"] &= s_ok
+            states["max_abs_err"] = max(states["max_abs_err"], e)
+            st.append(f"{name} {e:.1e} of {top:.1e}" + ("" if s_ok else " FAILED"))
         detail.append(f"{shape} {str(dt)[6:]}{'' if with_dsT else ' dsT absent'}: "
-                      f"max abs err against the plain / autograd (max|g|): {', '.join(worst)}")
+                      f"max abs err against the plain / autograd (max|g|): {', '.join(worst)}; "
+                      f"states {', '.join(st)}")
         if shape == WKV6_TRAIN and dt == torch.bfloat16:
             fn = lambda: ops.wkv6_backward(*args, dy, dsT)  # noqa: E731
-            out = dict(ms=ms_per_call(fn, 10),
+            r, k, v, w, u, s0 = args
+            P, G, _ = st_got
+            w32, u32 = w.float().contiguous(), u.float().contiguous()
+            st_fn = lambda: ops.wkv6_bwd_states(r, k, v, w, s0, dy, dsT)  # noqa: E731
+            ch_fn = lambda: ops._wkv6_bwd_chunks(r, k, v, w32, u32, dy, P, G)  # noqa: E731
+            turns = [ms_per_call(f, 10) for f in (fn, st_fn, ch_fn, ch_fn, st_fn, fn)]
+            out = dict(ms=min(turns[0], turns[5]), states_ms=min(turns[1], turns[4]),
+                       chunks_ms=min(turns[2], turns[3]), turns=turns,
                        plain_ms=ms_per_call(lambda: ref.wkv6_backward(*args, dy, dsT), 1))
-        del got, again, want, auto
+            states.update(ms=out["states_ms"], plain_ms=ms_per_call(
+                lambda: ref.wkv6_bwd_states(*args[:4], args[5], dy, dsT), 1))
+        del got, again, want, twin, auto, st_got, st_want
     torch.cuda.empty_cache()
-    return {"wkv6_bwd": {"max_abs_err": err, "ok": ok, "detail": "; ".join(detail), **out}}
+    states["detail"] = "boundary states within rtol 1e-4 / atol 1e-5 x max" if states["ok"] \
+        else "boundary states outside tolerance"
+    return {"wkv6_bwd": {"max_abs_err": err, "ok": ok, "detail": "; ".join(detail), **out},
+            "wkv6_bwd_states": states}
 
 
 def require(results: dict[str, dict], n: int) -> None:
@@ -1834,8 +1904,9 @@ TRAIN_GRAD_RTOL = 1e-3
 def check_rwkv_train_path() -> None:
     """rwkv6-3b at full width, f32 (TF32 off), 2 layers, the list layout,
     batch 2, seq 256, remat="full": every leaf's gradient of forward_loss
-    through kernels wkv6 and wkv6_bwd (exactly 2 wkv6 and 1 wkv6_bwd
-    launches a layer: the forward, its recomputation, the backward) against
+    through kernels wkv6, wkv6_bwd_states and wkv6_bwd (exactly 2 wkv6
+    launches a layer, the forward and its recomputation, and the backward's
+    1 wkv6_bwd_states and 1 wkv6_bwd) against
     the plain scan's, within TRAIN_GRAD_RTOL; the losses within 1e-5."""
     cfg = get_config("rwkv6-3b").with_updates(n_layers=2, param_dtype="float32",
                                               compute_dtype="float32", scan_layers=False)
@@ -1855,7 +1926,8 @@ def check_rwkv_train_path() -> None:
         out[use_kernel] = (float(loss.detach()), dict(zip(leaves, grads)),
                            {k: v for k, v in ops.LAUNCHES.items() if v})
     ops.reset_launches()
-    want = {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
+    want = {"wkv6": 2 * cfg.n_layers, "wkv6_bwd_states": cfg.n_layers,
+            "wkv6_bwd": cfg.n_layers}
     bad, worst = [], (0.0, "")
     for path, w in out[False][1].items():
         g, top = out[True][1][path], float(w.abs().max())
@@ -2137,9 +2209,9 @@ def run_phase_b(card: str) -> None:
         if (got["fused_bytes"], got["composed_bytes"]) != (fam["fused_bytes"],
                                                           fam["composed_bytes"]):
             raise AssertionError(f"phase B kernels {name}: byte model {got} against {fam}")
-    # the bench covers the reference's kernels; wkv6_bwd has no counterpart there
+    # the bench covers the reference's kernels; wkv6's backward has no counterpart there
     if sorted(k for k, v in kb["launches"].items() if v > 0) != \
-            sorted(set(ops.LAUNCHES) - {"wkv6_bwd"}):
+            sorted(set(ops.LAUNCHES) - {"wkv6_bwd_states", "wkv6_bwd"}):
         raise AssertionError(f"phase B kernels: every kernel must launch: {kb['launches']}")
     print(f"phase B kernels bench: byte model equal to BENCH_kernels.json at n = "
           f"{kernels_bench.N}, launches {kb['launches']}")
@@ -2217,7 +2289,7 @@ F_PATHS = (
     # EF rows and gradients of its 2.93B parameters would need ~94 GB);
     # hymba-1.5b to one pattern period (16 of 32) for the script's time
     ("(az) rwkv6-3b qsgd ef", "rwkv6-3b", 16, 4, 1024, QSGD_EF,
-     ("qsgd_ef", "int8_acc", "wkv6", "wkv6_bwd"), True),
+     ("qsgd_ef", "int8_acc", "wkv6", "wkv6_bwd_states", "wkv6_bwd"), True),
     ("(ba) hymba terngrad ef", "hymba-1.5b", 16, 4, 1024,
      dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True),
      ("terngrad", "tern_pack", "tern_acc"), False),
@@ -2314,8 +2386,11 @@ def run_family_path(label: str, arch: str, layers: int, workers: int, seq: int, 
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = route_launches(comm, bundle.bucket_plan, workers, F_STEPS)
     if cfg.family == "ssm":  # under remat="full" each layer runs wkv6 twice (the
-        # forward and its recomputation) and wkv6_bwd once, per worker and step
-        want.update(wkv6=2 * layers * workers * F_STEPS, wkv6_bwd=layers * workers * F_STEPS)
+        # forward and its recomputation) and its backward's two launches once,
+        # per worker and step
+        want.update(wkv6=2 * layers * workers * F_STEPS,
+                    wkv6_bwd_states=layers * workers * F_STEPS,
+                    wkv6_bwd=layers * workers * F_STEPS)
     got = {k: v for k, v in launches.items() if v}
     booked, predicted = bundle.wire["train"].get("grad_agg", 0.0), predict_grad_agg(bundle)
     print(f"  mean step_ms (first step excluded) {np.mean(step_ms[1:]):.1f}; launches {got}; "
@@ -2751,11 +2826,27 @@ def main() -> None:
     wkv.update(check_wkv6_backward())
     require(wkv, 0)
     print(f"kernel wkv6_bwd: {wkv['wkv6_bwd']['detail']}")
+    wb = wkv["wkv6_bwd"]
+    print(f"kernel wkv6_bwd at the training shape {WKV6_TRAIN} bf16, in turns (whole, states, "
+          f"chunks, chunks, states, whole): {', '.join(f'{t:.4f}' for t in wb['turns'])} ms; "
+          f"whole backward {wb['ms']:.4f} ms (bound "
+          f"{wkv6_bwd_bound(*WKV6_TRAIN, in_bytes=2)[0]:.4f} ms), wkv6_bwd_states "
+          f"{wb['states_ms']:.4f} ms (bound "
+          f"{wkv6_bwd_states_bound(*WKV6_TRAIN, in_bytes=2)[0]:.4f} ms), wkv6_bwd alone "
+          f"{wb['chunks_ms']:.4f} ms")
+    for bf16 in (True, False):
+        for launch, res in ops.wkv6_bwd_info(WKV6_TRAIN[3], bf16).items():
+            print(f"kernel {launch}, hd {WKV6_TRAIN[3]} {'bf16' if bf16 else 'f32'} r, k, v: "
+                  f"{res['registers']} registers per thread, {res['dynamic_smem']} + "
+                  f"{res['static_smem']} bytes of shared memory per CTA (dynamic + static), "
+                  f"{res['ctas_per_sm']} CTAs resident per SM")
     print(f"kernel wkv6: {wkv['wkv6']['detail']}")
     w6 = wkv["wkv6"]
     print(f"kernel wkv6 at the decode shape ({SERVE_B}, 1, 32, 80) bf16: {w6['decode_ms']:.4f} ms "
           f"per call on the host clock, {w6['decode_device_ms']:.4f} ms of the kernel's own "
           f"device time per launch (torch.profiler); plain {w6['decode_plain_ms']:.4f} ms")
+    print(f"kernel wkv6 (chunked design) at the training shape {WKV6_TRAIN} bf16: "
+          f"{w6['train_shape_ms']:.4f} ms (bound {w6['train_shape_bound_ms']:.4f} ms)")
     print(f"kernel wkv6 at the prefill shape {WKV6_PREFILL} bf16, in turns (recurrent, chunked, "
           f"chunked, recurrent): {', '.join(f'{t:.4f}' for t in w6['turns'])} ms; recurrent "
           f"{w6['recurrent_ms']:.4f} ms against its CUDA-core bound "
@@ -2773,6 +2864,9 @@ def main() -> None:
             at = f"(B, S, H, hd)={WKV6_PREFILL} bf16"
         elif name == "wkv6_bwd":
             b_ms, b_by = wkv6_bwd_bound(*WKV6_TRAIN, in_bytes=2)
+            at = f"(B, S, H, hd)={WKV6_TRAIN} bf16, both launches"
+        elif name == "wkv6_bwd_states":
+            b_ms, b_by = wkv6_bwd_states_bound(*WKV6_TRAIN, in_bytes=2)
             at = f"(B, S, H, hd)={WKV6_TRAIN} bf16"
         else:
             b_ms, b_by = bound(name, LARGEST, W)
@@ -2784,6 +2878,11 @@ def main() -> None:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                      "library_note": NO_LIBRARY[name], "ok": r["ok"]})
+        if name == "wkv6":  # the forward also at the training shape, where (az) runs it
+            rows[-1].update(train_shape_ms=r["train_shape_ms"],
+                            train_shape_bound_ms=r["train_shape_bound_ms"])
+        if name == "wkv6_bwd":  # the whole backward is the row's ms; its second launch alone
+            rows[-1].update(wkv6_bwd_alone_ms=r["chunks_ms"])
 
     launches = {k: 0 for k in KERNELS}
     for label, comm_kw, steps, lr, path_kernels, *build in PATHS:

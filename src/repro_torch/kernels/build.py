@@ -50,7 +50,12 @@ SIGNATURES: dict[str, tuple[str, tuple]] = {
     "tern_acc": ("tern_acc_launch", (_P, _LL, _P, _I, _P, _LL, _P)),
     "threshold": ("threshold_launch", (_P, _P, _P, _P, _LL, _P)),
     "wkv6": ("wkv6_launch", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "wkv6_bwd": ("wkv6_bwd_launch", (_P,) * 15 + (_I,) * 6 + (_P,)),
+    "wkv6_bwd": ("wkv6_bwd_launch", (_P,) * 13 + (_I,) * 6 + (_P,)),
+}
+#: launches whose kernel lives in another launch's source: launch name ->
+#: (source, C entry point, argument types)
+SHARED_SIGNATURES: dict[str, tuple[str, str, tuple]] = {
+    "wkv6_bwd_states": ("wkv6_bwd", "wkv6_bwd_states_launch", (_P,) * 10 + (_I,) * 6 + (_P,)),
 }
 #: the row-batched entry points (a (rows, n) stack with per-row scalars in
 #: device memory), beside the flat ones in the same sources

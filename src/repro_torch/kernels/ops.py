@@ -3,7 +3,8 @@
 ``qsgd_ef_fused``, ``int8_weighted_sum``, ``sign_pack``, ``sign_unpack``,
 ``sign_vote``, ``terngrad_quantize``, ``tern_pack``, ``tern_acc``,
 ``threshold_sparsify``, ``wkv6``; ``wkv6`` differentiable through kernel
-``wkv6_bwd``, which has no TPU counterpart), with the row-batched forms of the
+``wkv6_bwd``, two launches, ``wkv6_bwd_states`` and ``wkv6_bwd``, which have
+no TPU counterpart), with the row-batched forms of the
 quantizers that the convergence engine calls on a (rows, n) stack
 (``*_rows``: the reference's ops under ``jax.vmap``, one launch per call).
 
@@ -30,7 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import LIBRARY, ROW_SIGNATURES
+from repro_torch.kernels.build import LIBRARY, ROW_SIGNATURES, SHARED_SIGNATURES
 
 f32 = torch.float32
 
@@ -38,7 +39,7 @@ f32 = torch.float32
 LAUNCHES: dict[str, int] = {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
                             "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
                             "tern_pack": 0, "tern_acc": 0, "threshold": 0, "wkv6": 0,
-                            "wkv6_bwd": 0}
+                            "wkv6_bwd_states": 0, "wkv6_bwd": 0}
 
 #: elements per 1024-byte tile of the packed sign wire: the reference packs
 #: (8 rows, 8 bits, 128 lanes) blocks, and pads the last one with +1.0
@@ -87,6 +88,17 @@ def _launch_rows(name: str, *args) -> None:
     err = LIBRARY.symbol(name, *ROW_SIGNATURES[name])(*args, stream)
     if err != 0:
         raise RuntimeError(f"kernel {name} (rows) failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _launch_shared(name: str, *args) -> None:
+    """One launch of ``name``, whose kernel lives in another launch's source
+    (``SHARED_SIGNATURES``), counted under ``name``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    source, symbol, argtypes = SHARED_SIGNATURES[name]
+    err = LIBRARY.symbol(source, symbol, argtypes)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
 
 
@@ -578,8 +590,25 @@ class WKV6Function(torch.autograd.Function):
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
-#: steps between the states kernel wkv6_bwd checkpoints (its kC)
-WKV6_BWD_CKPT = 8
+#: steps per chunk of kernel wkv6_bwd: its first launch writes one state of
+#: each kind (P before a chunk, the gradient D after it) per chunk and head
+WKV6_BWD_CHUNK = ref.WKV6_BWD_CHUNK
+
+
+def _wkv6_bwd_checked(r, k, v, w, u, s0, dy, dsT, what: str):
+    """Check wkv6_backward's arguments: shapes, devices and r, k, v's type."""
+    B, S, H, hd = r.shape
+    for t, shape, name in ((k, r.shape, "k"), (v, r.shape, "v"), (w, r.shape, "w"),
+                           (dy, r.shape, "dy"), (u, (H, hd), "u"), (s0, (B, H, hd, hd), "s0"),
+                           (dsT, (B, H, hd, hd), "dsT")):
+        if t is not None and (tuple(t.shape) != tuple(shape) or t.device != r.device):
+            raise ValueError(f"{what}: {name} must be {tuple(shape)} on {r.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    if r.dtype not in (f32, torch.bfloat16) or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"{what}: need r, k, v of one type (f32 or bf16), got "
+                         f"{r.dtype} {k.dtype} {v.dtype}")
+    if r.is_cuda and hd not in WKV6_HEAD_DIMS:
+        raise ValueError(f"{what}: head width {hd} not in the kernel's {WKV6_HEAD_DIMS}")
 
 
 def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -588,39 +617,63 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
     """Kernel ``wkv6_bwd``: the gradient of :func:`wkv6` -> (dr, dk, dv, dw
     (B, S, H, hd), du (H, hd), ds0 (B, H, hd, hd)), all f32, from ``dy`` (B,
     S, H, hd) and ``dsT`` (B, H, hd, hd; None: zero), both taken as f32, and
-    :func:`wkv6`'s inputs.  The kernel writes du per (b, h); one
-    ``torch.sum`` over b adds them, so the result is bitwise from run to
-    run.  On a CPU tensor: ``ref.wkv6_backward``."""
+    :func:`wkv6`'s inputs.  Two launches: ``wkv6_bwd_states`` (the states
+    at the chunk boundaries, :func:`wkv6_bwd_states`) and ``wkv6_bwd`` (one
+    CTA per head and chunk).  The kernel writes du per (b, h, chunk); one
+    ``torch.sum`` adds them, so the result is bitwise from run to run.  On a
+    CPU tensor: ``ref.wkv6_backward``."""
     B, S, H, hd = r.shape
-    for t, shape, what in ((k, r.shape, "k"), (v, r.shape, "v"), (w, r.shape, "w"),
-                           (dy, r.shape, "dy"), (u, (H, hd), "u"), (s0, (B, H, hd, hd), "s0"),
-                           (dsT, (B, H, hd, hd), "dsT")):
-        if t is not None and (tuple(t.shape) != tuple(shape) or t.device != r.device):
-            raise ValueError(f"wkv6_backward: {what} must be {tuple(shape)} on {r.device}, "
-                             f"got {tuple(t.shape)} on {t.device}")
-    if r.dtype not in (f32, torch.bfloat16) or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise ValueError(f"wkv6_backward: need r, k, v of one type (f32 or bf16), got "
-                         f"{r.dtype} {k.dtype} {v.dtype}")
+    _wkv6_bwd_checked(r, k, v, w, u, s0, dy, dsT, "wkv6_backward")
     if r.is_meta:
         return tuple(torch.empty(shape, dtype=f32, device=r.device)
                      for shape in (r.shape,) * 4 + ((H, hd), (B, H, hd, hd)))
     if not r.is_cuda:
         return ref.wkv6_backward(r, k, v, w, u, s0, dy, dsT)
-    if hd not in WKV6_HEAD_DIMS:
-        raise ValueError(f"wkv6_backward: head width {hd} not in the kernel's {WKV6_HEAD_DIMS}")
-    r, k, v = (t.contiguous() for t in (r, k, v))
-    w, u, s0, dy = (t.to(f32).contiguous() for t in (w, u, s0, dy))
+    r, k, v = (_aligned(t) for t in (r, k, v))
+    w, u, dy = (_aligned(t.to(f32)) for t in (w, u, dy))
+    P, G, ds0 = wkv6_bwd_states(r, k, v, w, s0, dy, dsT)
+    dr, dk, dv, dw, du_part = _wkv6_bwd_chunks(r, k, v, w, u, dy, P, G)
+    return dr, dk, dv, dw, torch.sum(du_part, dim=(0, 2)), ds0
+
+
+def wkv6_bwd_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    s0: torch.Tensor, dy: torch.Tensor, dsT: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``wkv6_bwd_states``, wkv6_backward's first: (P, D, ds0), P and
+    D (B, H, C, hd, hd) with C = ceil(S / WKV6_BWD_CHUNK) the state before
+    each chunk and the gradient of the state after it.  On a CPU tensor:
+    ``ref.wkv6_bwd_states``."""
+    B, S, H, hd = r.shape
+    _wkv6_bwd_checked(r, k, v, w, None, s0, dy, dsT, "wkv6_bwd_states")
+    if not r.is_cuda:
+        return ref.wkv6_bwd_states(r, k, v, w, s0, dy, dsT, chunk=WKV6_BWD_CHUNK)
+    r, k, v = (_aligned(t) for t in (r, k, v))  # the kernel copies 16-byte units
+    w, dy = (_aligned(t.to(f32)) for t in (w, dy))
+    s0 = s0.to(f32).contiguous()
     dsT = None if dsT is None else dsT.to(f32).contiguous()
-    dr, dk, dv, dw = (torch.empty((B, S, H, hd), dtype=f32, device=r.device) for _ in range(4))
-    du_part = torch.empty((B, H, hd), dtype=f32, device=r.device)
+    C = -(-S // WKV6_BWD_CHUNK)
+    P, G = (torch.empty((B, H, C, hd, hd), dtype=f32, device=r.device) for _ in range(2))
     ds0 = torch.empty((B, H, hd, hd), dtype=f32, device=r.device)
-    ckpt = torch.empty((B * H * -(-S // WKV6_BWD_CKPT) * hd * hd,), dtype=f32, device=r.device)
+    _launch_shared("wkv6_bwd_states", r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                   s0.data_ptr(), dy.data_ptr(), None if dsT is None else dsT.data_ptr(),
+                   P.data_ptr(), G.data_ptr(), ds0.data_ptr(), B, S, H, hd,
+                   int(r.dtype == torch.bfloat16), WKV6_BWD_CHUNK)
+    return P, G, ds0
+
+
+def _wkv6_bwd_chunks(r, k, v, w, u, dy, P, G) -> tuple[torch.Tensor, ...]:
+    """Launch ``wkv6_bwd`` on checked, 16-byte aligned CUDA tensors and the
+    boundary states of :func:`wkv6_bwd_states` -> (dr, dk, dv, dw, du's
+    partials (B, H, C, hd))."""
+    B, S, H, hd = r.shape
+    C = P.shape[2]
+    dr, dk, dv, dw = (torch.empty((B, S, H, hd), dtype=f32, device=r.device) for _ in range(4))
+    du_part = torch.empty((B, H, C, hd), dtype=f32, device=r.device)
     _launch("wkv6_bwd", r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            s0.data_ptr(), dy.data_ptr(), None if dsT is None else dsT.data_ptr(),
-            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-            ds0.data_ptr(), ckpt.data_ptr(), B, S, H, hd, int(r.dtype == torch.bfloat16),
-            WKV6_BWD_CKPT)
-    return dr, dk, dv, dw, torch.sum(du_part, dim=0), ds0
+            dy.data_ptr(), P.data_ptr(), G.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(), B, S, H, hd,
+            int(r.dtype == torch.bfloat16), WKV6_BWD_CHUNK)
+    return dr, dk, dv, dw, du_part
 
 
 def _wkv6_launch(r, k, v, w, u, s0, *, chunked: bool) -> tuple[torch.Tensor, torch.Tensor]:
@@ -656,3 +709,16 @@ def wkv6_chunked_info(hd: int, bf16: bool) -> dict[str, int]:
     if err != 0:
         raise RuntimeError(f"wkv6_chunked_info failed: cudaError {err}")
     return dict(zip(("registers", "dynamic_smem", "static_smem", "ctas_per_sm"), out))
+
+
+def wkv6_bwd_info(hd: int, bf16: bool) -> dict[str, dict[str, int]]:
+    """Registers per thread, dynamic and static shared bytes per CTA and
+    resident CTAs per SM of wkv6_backward's two launches, from the CUDA
+    runtime."""
+    out = (ctypes.c_int * 8)()
+    err = LIBRARY.symbol("wkv6_bwd", "wkv6_bwd_info", (ctypes.c_int, ctypes.c_int,
+                                                       ctypes.c_void_p))(hd, int(bf16), out)
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd_info failed: cudaError {err}")
+    keys = ("registers", "dynamic_smem", "static_smem", "ctas_per_sm")
+    return {"wkv6_bwd": dict(zip(keys, out[:4])), "wkv6_bwd_states": dict(zip(keys, out[4:]))}

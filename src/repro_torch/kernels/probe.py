@@ -1,6 +1,6 @@
 """Probes of what holds kernel ``wkv6``'s chunked design on the card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.probe [mma] [phases]
+    PYTHONPATH=src python -m repro_torch.kernels.probe [mma] [phases] [bwd]
 
 ``mma``: ``mma.sync`` m16n8k8 TF32 (the chunked design's products) and
 m16n8k16 BF16, with one dependent chain per warp (cycles per product: the
@@ -12,7 +12,11 @@ are then wrong; only the times are read), so the difference is what that
 phase costs; and with every phase compiled out (the staging loads and the
 barriers alone).
 
-Both build with ``nvcc`` into ``kernels/_build/probe/`` and need the card.
+``bwd``: wkv6_backward's two launches at the training shape (2, 1024, 32,
+80) bf16 in the same way: ``wkv6_bwd_states`` and ``wkv6_bwd``, each whole,
+with each of its phases compiled out in turn and with all of them.
+
+All build with ``nvcc`` into ``kernels/_build/probe/`` and need the card.
 """
 
 from __future__ import annotations
@@ -89,6 +93,40 @@ PHASES = (
 )
 
 
+#: the same for launch wkv6_bwd (csrc/wkv6_bwd.cu): each phase's lines end
+#: in a comment that names it (a phase of several loops repeats its line,
+#: and every copy is cut)
+BWD_PHASES = (
+    ("the D carry (backward sweep)", "unit < MT * NT / 2; unit += kWarps) {  // the D carry",
+     "unit < 0; unit += kWarps) {  // the D carry"),
+    ("k * sigma and E", "if (tid >= kThreads - HD) {  // k * sigma, E",
+     "if (false) {  // k * sigma, E"),
+    ("the scores A (CUDA cores)", "for (int i = lane; i < HD; i += 32) {  // the scores",
+     "for (int i = lane; i < 0; i += 32) {  // the scores"),
+    ("M, PD, GV (tensor cores)", "for (int ks = 0; ks < KS; ++ks) {  // M, PD, GV",
+     "for (int ks = 0; ks < 0; ++ks) {  // M, PD, GV"),
+    ("rowsum(P * D)", "if (warp < HD) {  // rowsum(P * D)", "if (false) {  // rowsum(P * D)"),
+    ("dv (tensor cores)", "for (int job = warp; job < NT; job += kWarps) {  // dv",
+     "for (int job = warp; job < 0; job += kWarps) {  // dv"),
+    ("dr's group", "if (grp == 0) {  // dr", "if (false) {  // dr"),
+    ("dk's group", "if (grp == 1) {  // dk", "if (false) {  // dk"),
+    ("dw's last term's group", "if (grp == 2) {  // dw's last term",
+     "if (false) {  // dw's last term"),
+    ("the P carry", "unit < MT * NT / 2; unit += kWarps - kFree) {  // the P carry",
+     "unit < 0; unit += kWarps - kFree) {  // the P carry"),
+)
+
+
+#: the same for launch wkv6_bwd_states (in csrc/wkv6_bwd.cu too)
+STATES_PHASES = (
+    ("the running products", "for (int j = 0; j < kH; ++j) {  // the running products",
+     "for (int j = 0; j < 0; ++j) {  // the running products"),
+    ("the carry's products (tensor cores)",
+     "for (int ks = 0; ks < kC / 8; ++ks) {  // the carry's products",
+     "for (int ks = 0; ks < 0; ++ks) {  // the carry's products"),
+)
+
+
 def _nvcc(src: str, name: str) -> Path:
     OUT.mkdir(parents=True, exist_ok=True)
     cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
@@ -129,19 +167,26 @@ def probe_mma() -> None:
                   f"{n * flop / ms / 1e9:.1f} TFLOP/s")
 
 
-def probe_phases() -> None:
-    base = (CSRC / "wkv6.cu").read_text()
+def _variants(source: str, phases: tuple, tag: str, count: int = 1) -> dict[str, Path]:
+    """The source whole, with each phase cut in turn and with all of them
+    cut, each built (in parallel); ``count`` copies of a phase's line are
+    cut (-1: all)."""
+    base = (CSRC / source).read_text()
     variants = {"whole": base}
     loads_only = base
-    for name, line, cut in PHASES:
+    for name, line, cut in phases:
         if line not in base:
-            raise RuntimeError(f"phase {name!r}: its line is no longer in wkv6.cu")
-        variants[f"without {name}"] = base.replace(line, cut, 1)
-        loads_only = loads_only.replace(line, cut, 1)
+            raise RuntimeError(f"phase {name!r}: its line is no longer in {source}")
+        variants[f"without {name}"] = base.replace(line, cut, count)
+        loads_only = loads_only.replace(line, cut, count)
     variants["the loads and barriers alone"] = loads_only
     with ThreadPoolExecutor(len(variants)) as ex:
-        libs = dict(zip(variants, ex.map(lambda kv: _nvcc(kv[1], f"wkv6_v{kv[0]}"),
+        return dict(zip(variants, ex.map(lambda kv: _nvcc(kv[1], f"{tag}_v{kv[0]}"),
                                          enumerate(variants.values()))))
+
+
+def probe_phases() -> None:
+    libs = _variants("wkv6.cu", PHASES, "wkv6")
     B, S, H, hd = 8, 1024, 32, 80
     gen = torch.Generator(device="cuda").manual_seed(0)
     r, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
@@ -162,16 +207,57 @@ def probe_phases() -> None:
         print(f"wkv6 chunked at {(B, S, H, hd)} bf16, {name}: {ms:.4f} ms{gap}")
 
 
+def probe_bwd() -> None:
+    from repro_torch.kernels import ops
+
+    libs = _variants("wkv6_bwd.cu", BWD_PHASES, "wkv6_bwd", count=-1)
+    states_libs = _variants("wkv6_bwd.cu", STATES_PHASES, "wkv6_bwd_states", count=-1)
+    B, S, H, hd = 2, 1024, 32, 80
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, S, H, hd), generator=gen, device="cuda")) * 0.5 + 0.4
+    u = torch.randn((H, hd), device="cuda") * 0.1
+    s0 = torch.randn((B, H, hd, hd), device="cuda") * 0.1
+    dy = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    P, G, _ = ops.wkv6_bwd_states(r, k, v, w, s0, dy)
+    outs = [torch.empty_like(w) for _ in range(4)] + [torch.empty((B, H, P.shape[2], hd),
+                                                                  device="cuda")]
+    stream = torch.cuda.current_stream().cuda_stream
+    args = ([t.data_ptr() for t in (r, k, v, w, u, dy, P, G, *outs)]
+            + [B, S, H, hd, 1, ops.WKV6_BWD_CHUNK, stream])
+    P2, G2, ds0 = torch.empty_like(P), torch.empty_like(G), torch.empty_like(s0)
+    st_args = ([t.data_ptr() for t in (r, k, v, w, s0, dy)] + [None]
+               + [t.data_ptr() for t in (P2, G2, ds0)]
+               + [B, S, H, hd, 1, ops.WKV6_BWD_CHUNK, stream])
+    st_times = {}
+    for name, so in states_libs.items():
+        fn = ctypes.CDLL(str(so)).wkv6_bwd_states_launch
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        st_times[name] = min(_events_ms(lambda: fn(*st_args), 20) for _ in range(2))
+    for name, ms in st_times.items():
+        gap = "" if name == "whole" else f" ({st_times['whole'] - ms:+.4f} ms)"
+        print(f"wkv6_bwd_states at {(B, S, H, hd)} bf16, {name}: {ms:.4f} ms{gap}")
+    times = {}
+    for name, so in libs.items():
+        fn = ctypes.CDLL(str(so)).wkv6_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        times[name] = min(_events_ms(lambda: fn(*args), 20) for _ in range(2))
+    for name, ms in times.items():
+        gap = "" if name == "whole" else f" ({times['whole'] - ms:+.4f} ms)"
+        print(f"wkv6_bwd at {(B, S, H, hd)} bf16, {name}: {ms:.4f} ms{gap}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probes", nargs="*", metavar="{mma,phases}", help="default: both")
-    probes = ap.parse_args().probes or ["mma", "phases"]
-    if set(probes) - {"mma", "phases"}:
+    ap.add_argument("probes", nargs="*", metavar="{mma,phases,bwd}", help="default: all")
+    probes = ap.parse_args().probes or ["mma", "phases", "bwd"]
+    if set(probes) - {"mma", "phases", "bwd"}:
         ap.error(f"unknown probe in {probes}")
     if not torch.cuda.is_available():
         raise SystemExit("probe: needs a CUDA card")
     for name in probes:
-        {"mma": probe_mma, "phases": probe_phases}[name]()
+        {"mma": probe_mma, "phases": probe_phases, "bwd": probe_bwd}[name]()
 
 
 if __name__ == "__main__":

@@ -286,3 +286,162 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
         du = du + rt * kt * vdy
         D = wt[..., None] * D + rt[..., None] * dyt[..., None, :]
     return dr, dk, dv, dw, du.sum(0), D
+
+
+#: steps per chunk of kernel wkv6_bwd (one boundary state of each kind per
+#: chunk goes to device memory) and per sub-chunk inside a chunk
+WKV6_BWD_CHUNK = 64
+WKV6_BWD_SUB = 16
+
+
+def _head_major(*ts: torch.Tensor, pad: int) -> list[torch.Tensor]:
+    """(B, S, H, hd) -> (B, H, S + pad, hd) f32, zero-padded in time."""
+    out = [t.to(f32).permute(0, 2, 1, 3) for t in ts]
+    return [torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t for t in out]
+
+
+def _running(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per channel, along dim -2 of (..., n, hd) decays: the product of the
+    decays before each step (rho, 1 at the first step) and after it (sigma,
+    1 at the last), each a running product of exact w: every factor is <= 1,
+    so nothing overflows and nothing is divided."""
+    n = w.shape[-2]
+    rho, sig = torch.ones_like(w), torch.ones_like(w)
+    for t in range(1, n):
+        rho[..., t, :] = rho[..., t - 1, :] * w[..., t - 1, :]
+        sig[..., n - 1 - t, :] = sig[..., n - t, :] * w[..., n - t, :]
+    return rho, sig
+
+
+def wkv6_bwd_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    s0: torch.Tensor, dy: torch.Tensor, dsT: torch.Tensor | None = None, *,
+                    chunk: int = WKV6_BWD_CHUNK
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first pass of kernel ``wkv6_bwd`` (launch ``wkv6_bwd_states``) in
+    plain PyTorch: the states at the chunk boundaries.  Arguments as
+    :func:`wkv6_backward` -> (P (B, H, C, hd, hd): the state before each
+    chunk of ``chunk`` steps, P[:, :, 0] = s0; G (B, H, C, hd, hd): the
+    gradient of the state after each chunk, G[:, :, -1] = dsT; ds0), C =
+    ceil(S / chunk), all f32.  Per chunk, with E = prod w over the chunk,
+    sigma and rho the running products of w after and before each step:
+    ``P <- E * P + (k * sigma)^T v`` forward and ``G <- E * G + (r *
+    rho)^T dy`` backward (the tail is padded with r = k = v = dy = 0, w =
+    1, which leaves both unchanged)."""
+    B, S, H, hd = r.shape
+    C = -(-S // chunk)
+    pad = C * chunk - S
+    r, k, v, dy = _head_major(r, k, v, dy, pad=pad)
+    w = w.to(f32).permute(0, 2, 1, 3)
+    if pad:
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    P = torch.empty((B, H, C, hd, hd), dtype=f32, device=r.device)
+    G = torch.empty_like(P)
+    state = s0.to(f32)
+    for c in range(C):
+        P[:, :, c] = state
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rho, sig = _running(w[:, :, sl])
+        E = rho[:, :, -1] * w[:, :, sl][:, :, -1]
+        state = E[..., None] * state + (k[:, :, sl] * sig).transpose(-1, -2) @ v[:, :, sl]
+    state = torch.zeros_like(s0, dtype=f32) if dsT is None else dsT.to(f32)
+    for c in reversed(range(C)):
+        G[:, :, c] = state
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rho, _ = _running(w[:, :, sl])
+        E = rho[:, :, -1] * w[:, :, sl][:, :, -1]
+        state = E[..., None] * state + (r[:, :, sl] * rho).transpose(-1, -2) @ dy[:, :, sl]
+    return P, G, state
+
+
+def wkv6_backward_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                          u: torch.Tensor, s0: torch.Tensor, dy: torch.Tensor,
+                          dsT: torch.Tensor | None = None, *, chunk: int = WKV6_BWD_CHUNK,
+                          sub: int = WKV6_BWD_SUB) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6` in kernel ``wkv6_bwd``'s arithmetic, in
+    plain PyTorch: the same function as :func:`wkv6_backward` (same
+    arguments and results).  Used by the tests and ``chip_smoke.py``; the
+    kernel cannot run on a CPU.
+
+    :func:`wkv6_bwd_states` gives each chunk's starting state P and the
+    gradient G of its final state.  Inside a chunk, G is carried backward
+    sub-chunk by sub-chunk (``G <- E * G + (r * rho)^T dy``), then the
+    sub-chunks are taken forward with P carried (``P <- E * P + (k *
+    sigma)^T v``).  In a sub-chunk of ``sub`` steps, with P its starting
+    state, G the gradient of its final state, rho / sigma the running
+    products of w before / after each step and pi(s, t) = prod_{s < tau <
+    t} w_tau:
+
+    * ``M = dy v^T``, ``PD = dy P^T``, ``GV = v G^T`` (16 x 16 and 16 x hd
+      products, no decay inside the sum);
+    * ``dr_t = rho_t PD_t + sum_{s<t} pi(s, t) k_s M[t, s] + u k_t M[t, t]``;
+    * ``dk_t = sigma_t GV_t + sum_{s>t} pi(t, s) r_s M[s, t] + r_t u M[t, t]``;
+    * ``dv = (k * sigma) G + A^T dy`` with A the forward's intra-chunk
+      scores, ``A[s, t] = sum_i r_s k_t pi(t, s)`` below the diagonal and
+      ``sum_i r_t u k_t`` on it;
+    * ``dw_t = rho_t sigma_t rowsum(P * G) + rho_t sum_{s>t} pi(t, s) r_s
+      PD_s + sigma_t sum_{s<t} pi(s, t) k_s GV_s + sum_{s<t<s'} pi(s, t)
+      pi(t, s') k_s r_s' M[s', s]``, the expansion of ``sum_j D_t[i, j]
+      P_t[i, j]`` over the boundary states: no division by w anywhere, so
+      w = 0 is exact;
+    * ``du += sum_t r_t k_t M[t, t]``."""
+    if chunk % sub:
+        raise ValueError(f"wkv6_backward_chunked: chunk {chunk} must be a multiple of sub {sub}")
+    B, S, H, hd = r.shape
+    Pc, Gc, ds0 = wkv6_bwd_states(r, k, v, w, s0, dy, dsT, chunk=chunk)
+    C = Pc.shape[2]
+    pad = C * chunk - S
+    r, k, v, dy = _head_major(r, k, v, dy, pad=pad)
+    w = w.to(f32).permute(0, 2, 1, 3)
+    if pad:
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    u = u.to(f32)
+    lower = torch.tril(torch.ones(sub, sub, dtype=torch.bool, device=r.device), -1)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros((B, H, hd), dtype=f32, device=r.device)
+    for c in range(C):
+        subs = range(c * chunk, (c + 1) * chunk, sub)
+        G = Gc[:, :, c]
+        Gs = {}
+        for q0 in reversed(subs):  # G at the end of each sub-chunk
+            Gs[q0] = G
+            sl = slice(q0, q0 + sub)
+            rho, _ = _running(w[:, :, sl])
+            E = rho[:, :, -1] * w[:, :, sl][:, :, -1]
+            G = E[..., None] * G + (r[:, :, sl] * rho).transpose(-1, -2) @ dy[:, :, sl]
+        P = Pc[:, :, c]
+        for q0 in subs:
+            sl = slice(q0, q0 + sub)
+            rq, kq, vq, wq, dyq = (t[:, :, sl] for t in (r, k, v, w, dy))
+            G = Gs[q0]
+            rho, sig = _running(wq)
+            # pi[t, s] = prod_{s < tau < t} w_tau for s < t, else 0
+            pi = torch.zeros((B, H, sub, sub, hd), dtype=f32, device=r.device)
+            for t in range(1, sub):
+                pi[:, :, t, :t - 1] = pi[:, :, t - 1, :t - 1] * wq[:, :, t - 1, None]
+                pi[:, :, t, t - 1] = 1.0
+            M = dyq @ vq.transpose(-1, -2)
+            PD = dyq @ P.transpose(-1, -2)
+            GV = vq @ G.transpose(-1, -2)
+            diag = torch.diagonal(M, dim1=-2, dim2=-1)[..., None]
+            Mlow = M * lower
+            dr[:, :, sl] = (rho * PD + torch.einsum("btsi,bsi,bts->bti", pi.flatten(0, 1),
+                                                    kq.flatten(0, 1), Mlow.flatten(0, 1)
+                                                    ).view(B, H, sub, hd) + u[:, None] * kq * diag)
+            dk[:, :, sl] = (sig * GV + torch.einsum("bsti,bsi,bst->bti", pi.flatten(0, 1),
+                                                    rq.flatten(0, 1), Mlow.flatten(0, 1)
+                                                    ).view(B, H, sub, hd) + rq * u[:, None] * diag)
+            A = torch.einsum("bhsi,bhti,bhsti->bhst", rq, kq, pi)
+            A = A + torch.diag_embed(torch.einsum("bhti,hi,bhti->bht", rq, u, kq))
+            dv[:, :, sl] = (kq * sig) @ G + A.transpose(-1, -2) @ dyq
+            left = pi * kq[:, :, None]          # [t, s]: pi(s, t) k_s, s < t
+            right = pi * rq[:, :, :, None]      # [s', t]: pi(t, s') r_s', s' > t
+            d = torch.einsum("bhtsi,bhpti,bhps->bhti", left, right, Mlow)
+            b = torch.einsum("bhtsi,bhsi->bhti", left, GV)
+            cc = torch.einsum("bhpti,bhpi->bhti", right, PD)
+            rd = (P * G).sum(-1)[:, :, None]
+            dw[:, :, sl] = rho * sig * rd + rho * cc + sig * b + d
+            du = du + (rq * kq * diag).sum(2)
+            E = rho[:, :, -1] * wq[:, :, -1]
+            P = E[..., None] * P + (kq * sig).transpose(-1, -2) @ vq
+    out = [t[:, :, :S].permute(0, 2, 1, 3).contiguous() for t in (dr, dk, dv, dw)]
+    return (*out, du.sum(0), ds0)

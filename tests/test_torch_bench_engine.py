@@ -158,14 +158,16 @@ def test_kernels_byte_model_equals_the_reference_record(tmp_path):
 @pytest.mark.gpu
 def test_kernels_bench_on_card(cuda, tmp_path):
     """At N = 262,144 on the card: every kernel of the reference's bench
-    launches (``wkv6_bwd``, the port's backward of ``wkv6``, has no row
-    there), sign_vote's fused output equals the composed one bitwise, the
-    others within f32 rounding of theirs (sums in another order)."""
+    launches (``wkv6_bwd_states`` and ``wkv6_bwd``, the port's backward of
+    ``wkv6``, have no row there), sign_vote's fused output equals the
+    composed one bitwise, the others within f32 rounding of theirs (sums in
+    another order)."""
     from repro_torch.kernels import ops
 
     kernels_bench.run(cuda, str(tmp_path / "k.json"), sizes=(kernels_bench.N,))
     rec = json.loads((tmp_path / "k.json").read_text())
-    assert all(v > 0 for k, v in rec["launches"].items() if k != "wkv6_bwd"), rec["launches"]
+    assert all(v > 0 for k, v in rec["launches"].items()
+               if k not in ("wkv6_bwd_states", "wkv6_bwd")), rec["launches"]
     assert set(rec["launches"]) == set(ops.LAUNCHES)
     fams = kernels_bench.families(kernels_bench.inputs(kernels_bench.N, cuda))
     assert rec["families"]["sign_vote"]["max_abs_diff"] == 0.0

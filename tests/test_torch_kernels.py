@@ -195,7 +195,7 @@ def test_cpu_tensors_take_the_plain_path():
     assert ops.LAUNCHES == {"qsgd": 0, "qsgd_ef": 0, "int8_acc": 0, "sign_pack": 0,
                             "sign_unpack": 0, "sign_vote": 0, "terngrad": 0,
                             "tern_pack": 0, "tern_acc": 0, "threshold": 0, "wkv6": 0,
-                            "wkv6_bwd": 0}
+                            "wkv6_bwd_states": 0, "wkv6_bwd": 0}
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -5,16 +5,19 @@ no jax, so it runs on a machine with the port alone:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_recurrent_card.py
 
-* ``wkv6_bwd`` against ``ref.wkv6_backward`` on the same card tensors: f32
-  and bf16 r, k, v, w holding 0, 1 and 1e-3, nonzero s0, dsT given and
-  absent, S below and above the checkpoint interval and ragged; each
-  gradient within rtol 1e-4 / atol 1e-5 x its largest magnitude, and two
-  calls bitwise alike (no float atomics).
+* ``wkv6_bwd`` (its two launches, ``wkv6_bwd_states`` and ``wkv6_bwd``)
+  against both plain versions, ``ref.wkv6_backward`` and
+  ``ref.wkv6_backward_chunked``, on the same card tensors: f32 and bf16 r,
+  k, v, w holding 0, 1 and 1e-3, nonzero s0, dsT given and absent, hd 16,
+  32, 64 and 80, S = 1, below a sub-chunk, one chunk (64) and one step
+  either side of it, ragged; each gradient within rtol 1e-4 / atol 1e-5 x
+  its largest magnitude, and two calls bitwise alike (no float atomics).
+  ``wkv6_bwd_states`` alone against ``ref.wkv6_bwd_states``.
 * ``rwkv_block`` on the card with ``use_kernel=True`` under autograd: the
-  graph goes through ``WKV6Function`` (one ``wkv6`` and one ``wkv6_bwd``
-  launch), and every leaf (wr, wk, wv, wg, w0, wd_A, wd_B, u and the ddlerp
-  weights) gets the plain scan's gradient within rtol 1e-4 / atol 1e-5 x
-  max (f32, TF32 off).
+  graph goes through ``WKV6Function`` (one ``wkv6``, one
+  ``wkv6_bwd_states`` and one ``wkv6_bwd`` launch), and every leaf (wr,
+  wk, wv, wg, w0, wd_A, wd_B, u and the ddlerp weights) gets the plain
+  scan's gradient within rtol 1e-4 / atol 1e-5 x max (f32, TF32 off).
 * The reduced hymba-1.5b through ``build_serve`` on the card (f32, TF32
   off) against the CPU: greedy tokens equal, the last hidden state and
   every cache leaf within rtol 1e-4 / atol 1e-5 x max.
@@ -65,11 +68,17 @@ def _inputs(B, S, H, hd, dtype, dev, seed):
     return (r, k, v, w, u, s0), dy, dsT
 
 
+L = ops.WKV6_BWD_CHUNK
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,hd,dtype,with_dsT", [
     (1, 5, 2, 16, torch.float32, True), (2, 37, 3, 32, torch.float32, True),
     (2, 100, 2, 64, torch.bfloat16, True), (1, 61, 4, 80, torch.bfloat16, False),
-    (2, 256, 4, 80, torch.float32, True)])
+    (2, 256, 4, 80, torch.float32, True), (2, 1, 2, 32, torch.bfloat16, True),
+    (1, L - 1, 2, 64, torch.float32, True), (2, L, 2, 80, torch.bfloat16, True),
+    (1, L + 1, 3, 80, torch.float32, False), (2, L + 1, 2, 64, torch.bfloat16, True),
+    (1, 3 * L + 19, 2, 80, torch.bfloat16, True), (1, 3 * L + 19, 2, 80, torch.float32, True)])
 def test_wkv6_bwd_matches_plain(cuda, B, S, H, hd, dtype, with_dsT):
     ins, dy, dsT = _inputs(B, S, H, hd, dtype, cuda, seed=S + hd)
     dsT = dsT if with_dsT else None
@@ -77,12 +86,17 @@ def test_wkv6_bwd_matches_plain(cuda, B, S, H, hd, dtype, with_dsT):
     got = ops.wkv6_backward(*ins, dy, dsT)
     again = ops.wkv6_backward(*ins, dy, dsT)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["wkv6_bwd"] == 2
+    assert ops.LAUNCHES["wkv6_bwd_states"] == 2 and ops.LAUNCHES["wkv6_bwd"] == 2
     want = ref.wkv6_backward(*ins, dy, dsT)
-    for name, g, a, wv in zip(("r", "k", "v", "w", "u", "s0"), got, again, want):
+    twin = ref.wkv6_backward_chunked(*ins, dy, dsT)
+    for name, g, a, wv, tw in zip(("r", "k", "v", "w", "u", "s0"), got, again, want, twin):
         assert g.dtype == torch.float32 and g.shape == wv.shape, name
         assert torch.equal(g, a), name
         _close(g, wv, f"d{name}")
+        _close(g, tw, f"d{name} against the chunked twin")
+    for name, g, wv in zip(("P", "D", "ds0"), ops.wkv6_bwd_states(*ins[:4], ins[5], dy, dsT),
+                           ref.wkv6_bwd_states(*ins[:4], ins[5], dy, dsT)):
+        _close(g, wv, f"{name} of wkv6_bwd_states")
 
 
 @pytest.mark.gpu
@@ -103,7 +117,7 @@ def test_rwkv_block_trains_through_the_kernels(cuda):
         out, _ = RW.rwkv_block(cfg, {**p, **leaves}, x, use_kernel=use_kernel)
         g = torch.autograd.grad((out * out).sum(), list(leaves.values()))
         torch.cuda.synchronize()
-        want = {"wkv6": 1, "wkv6_bwd": 1} if use_kernel else {}
+        want = {"wkv6": 1, "wkv6_bwd_states": 1, "wkv6_bwd": 1} if use_kernel else {}
         assert {k: v for k, v in ops.LAUNCHES.items() if v} == want
         grads[use_kernel] = dict(zip(names, g))
     for n in names:

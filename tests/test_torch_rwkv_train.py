@@ -119,7 +119,8 @@ def plain_route(monkeypatch):
         ops.LAUNCHES["wkv6"] += 1
         return ref.wkv6(r, k, v, w, u, s0)
 
-    def backward(*args):
+    def backward(*args):  # the card's two launches, wkv6_bwd_states and wkv6_bwd
+        ops.LAUNCHES["wkv6_bwd_states"] += 1
         ops.LAUNCHES["wkv6_bwd"] += 1
         return ref.wkv6_backward(*args)
 
@@ -149,7 +150,8 @@ def test_autograd_route_gives_every_leaf_its_gradient(plain_route, dtype):
         assert _reaches(out.grad_fn, "WKV6FunctionBackward") == use_kernel
         g = torch.autograd.grad((out.float() * out.float()).sum(), list(leaves.values()))
         grads[use_kernel] = dict(zip(names, g))
-    assert ops.LAUNCHES["wkv6"] == 1 and ops.LAUNCHES["wkv6_bwd"] == 1, ops.LAUNCHES
+    assert ops.LAUNCHES == {**{k: 0 for k in ops.LAUNCHES}, "wkv6": 1, "wkv6_bwd_states": 1,
+                            "wkv6_bwd": 1}, ops.LAUNCHES
     for n in names:
         got, want = grads[True][n], grads[False][n]
         assert got.dtype == p[n].dtype and bool(torch.count_nonzero(want)), n
@@ -176,8 +178,9 @@ def test_a_launch_under_autograd_is_refused():
 
 def test_wkv6_function_in_a_training_loss(plain_route):
     """forward_loss of the reduced rwkv6-3b through the card route (remat
-    recomputes each block: 2 forward launches and 1 backward launch a
-    layer) gives the plain path's loss and gradients."""
+    recomputes each block: 2 forward launches a layer, and the backward's
+    wkv6_bwd_states and wkv6_bwd) gives the plain path's loss and
+    gradients."""
     cfg = get_config("rwkv6-3b").reduced()
     params = T.init_params(cfg, seed=5, device="cpu")
     rng = np.random.default_rng(5)
@@ -191,7 +194,7 @@ def test_wkv6_function_in_a_training_loss(plain_route):
         loss, _ = T.forward_loss(cfg, params, batch, use_kernel=use_kernel)
         out[use_kernel] = (loss.detach(), torch.autograd.grad(loss, list(leaves.values())))
     assert ops.LAUNCHES == {**{k: 0 for k in ops.LAUNCHES}, "wkv6": 2 * cfg.n_layers,
-                            "wkv6_bwd": cfg.n_layers}
+                            "wkv6_bwd_states": cfg.n_layers, "wkv6_bwd": cfg.n_layers}
     assert torch.equal(out[True][0], out[False][0])
     for a, b in zip(out[True][1], out[False][1]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
