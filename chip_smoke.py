@@ -204,7 +204,7 @@ result line:
 9. phase T, the sweep CLI's trainer and roofline substrates, on the tiny
    workload of the trainer substrate (qwen3-0.6b at d_model 128, 2 layers,
    batch 64 x seq 16, bigram data): (T1) ``measure_trainer_sweep`` on
-   ``trainer_matrix_16`` (W = 4, 8 of its 24 steps, deterministic
+   ``trainer_matrix_16`` (W = 4, 4 of its 24 steps, deterministic
    algorithms):
    builds shared at most the classes, per cell one per cell,
    ``max_rel_dev_loss`` < 1e-5, no kernel launched; (T2) the
@@ -212,7 +212,7 @@ result line:
    the reference's assertions, each pipelined cell's measured overlap
    saving beside the predicted one; (T3) ``run.py --substrate trainer`` on
    compressor {qsgd_kernel, terngrad_kernel, signsgd_packed, threshold} x
-   wire {compressed, dense} x EF (W = 4, 6 steps): each dropped cell
+   wire {compressed, dense} x EF (W = 4, 3 steps): each dropped cell
    printed with its reason, each cell that runs launching exactly the
    kernels its CommConfig routes (``ROUTE_KERNELS``); (T4) the
    ``train_micro`` twin's nine cells, likewise; (T5) ``run.py --substrate
@@ -256,14 +256,21 @@ result line:
    hymba-1.5b, one pattern period (16 of 32 layers: the global layer and
    15 local; cut for the script's time), W = 4, terngrad_kernel EF
    (terngrad, tern_pack, tern_acc), its selective scan in chunks of
-   ``ssm.SCAN_CHUNK`` steps.  Each prints the aten operations its first
+   ``ssm.SCAN_CHUNK`` steps; (bc) qwen2-vl-2b, all 28 layers (M-RoPE, 256
+   patches through ``frontend_proj`` before 768 text tokens at seq 1024,
+   only the text labelled), W = 4, qsgd_kernel EF (qsgd_ef, int8_acc);
+   (bd) seamless-m4t-large-v2, all 24 decoder and 24 encoder layers (256
+   audio frames through the non-causal encoder, cross-attention in every
+   decoder block, the vocabulary padded to 256,256), W = 4,
+   signsgd_packed EF on the 1-bit wire (sign_pack, sign_vote).  Each
+   prints the aten operations its first
    step dispatched (``OpCounter``), its steps (loss, ce, aux), mean step ms
    (first step excluded), booked wire by tag, peak memory and largest
    bucket, and must launch exactly its kernels (as many times as the bucket
    plan's routes call them) and book grad_agg equal to the plan's
-   prediction to the byte, under 76 GiB; (an), (ap), (as) and (az) hold their
-   first bf16 loss within 2e-2 of the same forward with the parameters in
-   f32 (TF32 off).  Then, at full width in f32: ``moe_ffn`` on 2,048
+   prediction to the byte, under 76 GiB; (an), (ap), (as), (az), (bc) and
+   (bd) hold their first bf16 loss within 2e-2 of the same forward with
+   the parameters in f32 (TF32 off).  Then, at full width in f32: ``moe_ffn`` on 2,048
    tokens of one qwen3-moe layer against the plain per-expert loop of
    ``models/moe_ref.py`` (the initial router and a skewed load at the
    configured capacity factor, tokens dropped, and cf = E / k, none) within
@@ -289,7 +296,11 @@ result line:
    deepseek-v2-lite-16b, all 27 (MLA's latent cache, the dense layer 0,
    shared experts; C = 1 per expert in decode, so choices drop); (bb)
    hymba-1.5b, all 32, prompt 2048 (the 1024-slot local rings bite; the
-   Mamba heads' conv and SSM state carried beside them).  Each
+   Mamba heads' conv and SSM state carried beside them); (be) qwen2-vl-2b,
+   all 28 (256 patches then 768 text tokens, M-RoPE; the decode's three
+   streams at its position); (bf) seamless-m4t-large-v2, all 24 + 24 (the
+   encoder's output kept in the cache, its K and V recomputed by every
+   decoder block each token).  Each
    prints prefill ms and decode ms per token (host clock ending in a
    synchronize), tok/s, peak GiB (weights included) and the cache's GiB,
    and must launch no port kernel, its tokens in [0, padded vocab) and its last
@@ -304,7 +315,12 @@ result line:
    greedy tokens equal wherever the top-2 margin exceeds the error, and one
    ``serve_step`` against ``decode_step`` from the same cache: tokens and
    cache bitwise (hymba's SSM and conv states written in place too).
-   ``--profile`` takes the tags at..bb (a decode step).
+   qwen2-vl-2b (2 layers) and seamless (2 + 2 encoder layers) at prompt
+   256: the prompt's patches or frames come with it, and qwen2-vl's full
+   forward gives the decoded index its decode positions (all three M-RoPE
+   streams at S, where ``make_positions`` would put S - n_vis + side; 256
+   and 257 give the same n_vis = 64).  ``--profile`` takes the tags
+   at..bf (a decode step).
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -2055,10 +2071,14 @@ def launches_per_cell():
         trainer_substrate.run_trainer_scenario = real
 
 
-#: T1's steps: the matrix's 24 cut to 8 (two local-SGD rounds of H 4) to
-#: keep the script inside its time limit; what T1 checks (builds per class
-#: and per cell, the shared and per-cell loss series alike) is per step
-T1_STEPS = 8
+#: T1's steps: the matrix's 24 cut to 5 to keep the script inside its time
+#: limit.  The local cells average every 4 steps and a step's loss is
+#: logged before its average, so 5 is the least count whose loss series
+#: (shared and per cell, held alike) reads averaged parameters (step 4)
+T1_STEPS = 5
+#: T3's steps: 3 (all its cells are BSP); its check (each cell's exact
+#: launches) is per step
+T3_STEPS = 3
 
 
 def run_phase_t(card: str) -> None:
@@ -2098,7 +2118,7 @@ def run_phase_t(card: str) -> None:
               f"{p['loss_ratio_vs_sequential']:.5f}")
 
     t0 = time.perf_counter()
-    raw = sweep_cli.parse_grid(T3_GRID, n_workers=W, steps=6)
+    raw = sweep_cli.parse_grid(T3_GRID, n_workers=W, steps=T3_STEPS)
     kept = set(expand(raw, substrate="trainer"))
     for s in raw:
         if s not in kept:
@@ -2106,7 +2126,7 @@ def run_phase_t(card: str) -> None:
     with tempfile.TemporaryDirectory() as tmp, launches_per_cell() as seen:
         path = str(Path(tmp) / "trainer.json")
         rc = sweep_cli.main(["--substrate", "trainer", "--device", str(DEV), "--workers", str(W),
-                             "--steps", "6", "--grid", T3_GRID, "--emit-json", path])
+                             "--steps", str(T3_STEPS), "--grid", T3_GRID, "--emit-json", path])
         t3 = json.loads(Path(path).read_text())
     if rc != 0 or t3["n_cells"] != len(kept) or len(seen) != len(kept):
         raise AssertionError(f"phase T3: rc {rc}, {t3['n_cells']} cells, {len(seen)} runs, "
@@ -2293,6 +2313,13 @@ F_PATHS = (
     ("(ba) hymba terngrad ef", "hymba-1.5b", 16, 4, 1024,
      dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True),
      ("terngrad", "tern_pack", "tern_acc"), False),
+    # the vision and audio families at full depth: qwen2-vl-2b's 1.55B and
+    # seamless's 1.77B parameters fit W = 4 stacked EF rows
+    ("(bc) qwen2-vl qsgd ef", "qwen2-vl-2b", 28, 4, 1024, QSGD_EF, ("qsgd_ef", "int8_acc"),
+     True),
+    ("(bd) seamless signsgd_packed ef", "seamless-m4t-large-v2", 24, 4, 1024,
+     dict(compressor="signsgd_packed", wire_format="compressed", error_feedback=True),
+     ("sign_pack", "sign_vote"), True),
 )
 F_STEPS, F_BATCH, F_LR = 3, 8, 0.01
 #: a path whose peak passes this drops to W = 2 (the card holds 80 GB)
@@ -2509,7 +2536,7 @@ def check_windowed_attention() -> None:
     gen.manual_seed(6)
     p = materialize(L.attn_defs(cfg, make_plan(cfg)), gen, torch.float32, DEV)
     x = torch.randn((B, S, cfg.d_model), generator=gen, device=DEV)
-    pos = T.make_positions(B, S, DEV)
+    pos = T.make_positions(cfg, B, S, DEV)
     with torch.no_grad():
         q = L.rmsnorm(p["q_norm"], torch.einsum("bsd,dhk->bshk", x, p["wq"]))
         kk = L.rmsnorm(p["k_norm"], torch.einsum("bsd,dhk->bshk", x, p["wk"]))
@@ -2611,7 +2638,7 @@ def check_past_2e31() -> dict[str, dict]:
 
 
 def run_phase_f(card: str, profile: set | None = None) -> tuple[dict[str, int], dict[str, dict]]:
-    """Paths (an)-(as) (each labelled in ``profile`` with one more step under
+    """Paths (an)-(bd) (each labelled in ``profile`` with one more step under
     torch.profiler), then the full-width checks of moe_ffn, the windowed
     attention and the kernels past 2**31.  Returns the paths' launches and
     the big kernels' measurements."""
@@ -2648,6 +2675,10 @@ S_PATHS = (
     # hymba-1.5b at full depth: prompt 2048 is twice its window, so the
     # 1024-slot local rings bite beside the Mamba heads' carried state
     ("bb", "hymba-1.5b", 32, 2048),
+    # the prompt counts qwen2-vl's 256 patches; seamless's 256 frames come
+    # beside its 1024 prompt tokens
+    ("be", "qwen2-vl-2b", 28, 1024),
+    ("bf", "seamless-m4t-large-v2", 24, 1024),
 )
 S_BATCH, S_DECODE = 8, 32
 #: the f32 identity at full width, one pattern period each (deepseek its
@@ -2668,6 +2699,8 @@ S_IDENTITY = (
     ("qwen3-moe-30b-a3b", 2, 256),
     ("deepseek-v2-lite-16b", 3, 256),
     ("hymba-1.5b", 16, 1024),
+    ("qwen2-vl-2b", 2, 256),
+    ("seamless-m4t-large-v2", 2, 256),  # and 2 of its 24 encoder layers
 )
 #: max |decode logits - full-forward logits| over max |logits|
 S_IDENTITY_TOL = 1e-4
@@ -2728,21 +2761,36 @@ def check_serve_identity(arch: str, layers: int, prompt: int) -> None:
     S_IDENTITY_TOL of max|logits|, the greedy tokens equal wherever the
     top-2 margin exceeds the error; then one ``serve_step`` (in place)
     against ``decode_step`` from the same cache, under deterministic
-    algorithms: tokens and every cache leaf bitwise."""
+    algorithms: tokens and every cache leaf bitwise.  The prompt's patches
+    or frames come with it (an encoder-decoder cut to ``layers`` encoder
+    layers too); under M-RoPE with patches the full forward gives the
+    decoded index the decode's positions, S in all three streams."""
     from repro_torch.models import layers as L
 
     cfg = get_config(arch).with_updates(n_layers=layers, param_dtype="float32",
                                         compute_dtype="float32", scan_layers=False)
     if cfg.moe:  # cf = E: no (token, choice) dropped, in decode (T = 2) or forward
         cfg = cfg.with_updates(moe_capacity_factor=float(cfg.n_experts))
+    if cfg.is_encoder_decoder:
+        cfg = cfg.with_updates(encoder_layers=min(cfg.encoder_layers, layers))
     B, S = 2, prompt
     params = T.init_params(cfg, 0, DEV)
-    toks = torch.from_numpy(SyntheticBatches(cfg, InputShape("p", S + 1, B, "prefill"), seed=1)
-                            .batch(0)["tokens"]).to(DEV)
+    full = {k: torch.from_numpy(v).to(DEV) for k, v in
+            SyntheticBatches(cfg, InputShape("p", S + 1, B, "prefill"), seed=1).batch(0).items()}
+    toks = full["tokens"]
+    n = toks.shape[1] - 1  # the prompt's text tokens
+    vision = cfg.rope_type == "mrope" and cfg.modality == "vision"
+    if vision and int(S * cfg.vision_fraction) != int((S + 1) * cfg.vision_fraction):
+        raise AssertionError(f"serve identity {arch}: prompts {S} and {S + 1} differ in n_vis")
     with torch.inference_mode(), deterministic():
-        _, cache = T.prefill(cfg, params, {"tokens": toks[:, :S]}, max_seq=S + 1)
-        got, _ = T.decode_logits(cfg, params, cache, toks[:, S:], max_seq=S + 1)
-        h, _ = T.forward_hidden(cfg, params, toks)
+        _, cache = T.prefill(cfg, params, {**full, "tokens": toks[:, :n]}, max_seq=S + 1)
+        got, _ = T.decode_logits(cfg, params, cache, toks[:, n:], max_seq=S + 1)
+        if vision:  # the decode's streams at the decoded index
+            pos = T.make_positions(cfg, B, S + 1, DEV).clone()
+            pos[:, :, S] = S
+            h, _ = T._trunk(cfg, params, T._embed_inputs(cfg, params, full), pos, None)
+        else:
+            h, _ = T.forward_hidden(cfg, params, full)
         want = L.logits_local(params["embed"], h[:, -1:], softcap=cfg.logits_softcap)
         del h
         top = float(want.abs().max())
@@ -2754,8 +2802,8 @@ def check_serve_identity(arch: str, layers: int, prompt: int) -> None:
         tok_ok = bool(same[decided].all())
         # serve_step writes the ring in place: give it a copy
         sb = build_serve(cfg, InputShape("identity", S + 1, B, "decode"), DEV)
-        want_tok, want_cache = T.decode_step(cfg, params, cache, toks[:, S:], max_seq=S + 1)
-        tok, new_cache = sb.serve_step(params, tree_map(torch.clone, cache), toks[:, S:])
+        want_tok, want_cache = T.decode_step(cfg, params, cache, toks[:, n:], max_seq=S + 1)
+        tok, new_cache = sb.serve_step(params, tree_map(torch.clone, cache), toks[:, n:])
         bitwise = torch.equal(tok, want_tok) and all(
             torch.equal(a, b) for a, b in zip(flat(new_cache).values(),
                                               flat(want_cache).values()))
@@ -2773,7 +2821,7 @@ def check_serve_identity(arch: str, layers: int, prompt: int) -> None:
 
 
 def run_phase_s(card: str, profile: set | None = None) -> None:
-    """Paths (at)-(ay) (each tagged in ``profile`` with one more decode step
+    """Paths (at)-(bf) (each tagged in ``profile`` with one more decode step
     under torch.profiler), then the f32 identity of each family."""
     t_phase = time.perf_counter()
     for tag, arch, layers, prompt in S_PATHS:
@@ -2788,7 +2836,7 @@ def main() -> None:
     ap.add_argument("--profile", nargs="*", metavar="LABEL",
                     help="run one more step of the QSGD EF path (or of the paths with "
                          "these labels, phase F's included; 'serve' for a decode step of "
-                         "the server; phase S's tags at-ay for a decode step of each) under "
+                         "the server; phase S's tags at-bf for a decode step of each) under "
                          "torch.profiler after the timed steps (its launches are counted "
                          "apart)")
     profile = ap.parse_args().profile

@@ -4,8 +4,9 @@
   builds a vocab x vocab float64 table, so it serves small vocabularies
   only (the CPU parity tests); at qwen3-0.6b's 151936 tokens the table
   would take 185 GB.
-* :class:`SyntheticBatches` — uniform tokens, the throughput source the
-  card runs at full width.
+* :class:`SyntheticBatches` — uniform tokens, with gaussian patch or frame
+  embeddings for the vision and audio families: the throughput source
+  the card runs at full width.
 
 Batch t depends only on (seed, t[, worker]); the arrays are host numpy, the
 caller moves them to its device.
@@ -43,6 +44,28 @@ class BigramSource:
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
 
 
+def input_specs(cfg: ModelConfig, shape: InputShape
+                ) -> dict[str, tuple[tuple[int, ...], type]]:
+    """The arrays of a batch, ``{name: (shape, numpy dtype)}`` in the order
+    :class:`SyntheticBatches` draws them (the reference's): vision
+    ``patches`` (B, int(S * vision_fraction), d) f32, the encoder-decoder's
+    ``frames`` (B, max(1, S // encoder_ratio), d) f32, then ``tokens`` and
+    (train) ``labels`` over the S_text = S - S_vis text positions."""
+    B, S = shape.global_batch, shape.seq_len
+    out: dict[str, tuple[tuple[int, ...], type]] = {}
+    S_text = S
+    if cfg.modality == "vision":
+        S_vis = int(S * cfg.vision_fraction)
+        S_text = S - S_vis
+        out["patches"] = ((B, S_vis, cfg.d_model), np.float32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = ((B, max(1, S // cfg.encoder_ratio), cfg.d_model), np.float32)
+    out["tokens"] = ((B, S_text), np.int32)
+    if shape.kind == "train":
+        out["labels"] = ((B, S_text), np.int32)
+    return out
+
+
 @dataclass
 class SyntheticBatches:
     cfg: ModelConfig
@@ -50,12 +73,10 @@ class SyntheticBatches:
     seed: int = 0
 
     def batch(self, step: int) -> dict[str, np.ndarray]:
-        cfg, shape = self.cfg, self.shape
-        if cfg.modality != "text" or cfg.is_encoder_decoder:
-            raise NotImplementedError("only text batches are ported")
-        B, S = shape.global_batch, shape.seq_len
+        """Gaussian ``patches`` / ``frames`` and uniform ``tokens`` /
+        ``labels`` (:func:`input_specs`), drawn from one Philox stream keyed
+        by (seed, step) in the reference's order."""
         rng = np.random.default_rng(np.random.Philox(key=self.seed, counter=[step, 0, 0, 0]))
-        out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
-        if shape.kind == "train":
-            out["labels"] = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-        return out
+        return {name: (rng.normal(size=shp).astype(dt) if dt == np.float32
+                       else rng.integers(0, self.cfg.vocab, shp).astype(dt))
+                for name, (shp, dt) in input_specs(self.cfg, self.shape).items()}

@@ -19,9 +19,10 @@ BSP inside each pod, local SGD across pods every 8 steps);
 ``--local-steps``, ``--bucket-mb``, ``--pod-local`` and ``--overlap`` (with
 ``--overlap-staleness``; ``--microbatch`` sets the pipeline's depth) tweak
 the preset.  ``--zero1`` shards the optimizer state over all W workers,
-under every scheme.  The data is the bigram stream for a vocabulary of at
-most 4,096 tokens and uniform synthetic tokens above (the bigram table is
-vocab x vocab).
+under every scheme.  The data is the bigram stream for a text model with a
+vocabulary of at most 4,096 tokens (the bigram table is vocab x vocab);
+above, and for the vision and audio families (whose batches carry patch or
+frame embeddings), ``SyntheticBatches``.
 """
 
 from __future__ import annotations
@@ -123,7 +124,7 @@ def main(argv=None) -> int:
                           microbatch=args.microbatch, pods=pods)
     print(f"{n_workers} workers ({pods} pods x {args.workers}), {args.comm}: "
           f"{len(bundle.bucket_plan.buckets)} buckets, {bundle.opt.name}")
-    if cfg.vocab <= BIGRAM_MAX_VOCAB:
+    if cfg.vocab <= BIGRAM_MAX_VOCAB and cfg.modality == "text":
         src = BigramSource(cfg.vocab, seed=args.seed)
 
         class Data:

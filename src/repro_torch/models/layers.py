@@ -1,9 +1,10 @@
 """Transformer building blocks of the attention families (counterpart of
-``repro.models.layers`` at model-axis size 1): GQA with standard or
-partial RoPE, qkv bias, qk-norm and sliding windows; MLA (deepseek-v2's
-compressed-latent attention); one-token decode attention over the ring
-KV cache (MLA: over the latent cache); the dense SwiGLU MLP; the
-capacity-buffered top-k MoE with shared experts; the embedding and the
+``repro.models.layers`` at model-axis size 1): GQA with standard, partial
+or multimodal (M-RoPE) rotary positions, qkv bias, qk-norm and sliding
+windows, causal or not, and cross-attention to an encoder's output; MLA
+(deepseek-v2's compressed-latent attention); one-token decode attention
+over the ring KV cache (MLA: over the latent cache); the dense SwiGLU MLP;
+the capacity-buffered top-k MoE with shared experts; the embedding and the
 (softcapped) cross-entropy.
 
 Layouts are the reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd),
@@ -38,12 +39,16 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (h * w.to(f32)).to(x.dtype)
 
 
+def _inv_freq(theta: float, n: int, dim: int, device) -> torch.Tensor:
+    """1 / theta^(2i / dim) for i < n, in f32."""
+    exps = torch.arange(0, 2 * n, 2, dtype=f32, device=device) / dim
+    # torch.full, not torch.tensor: a host-to-card copy would wait for the card
+    return 1.0 / torch.pow(torch.full((), theta, dtype=f32, device=device), exps)
+
+
 def _rope_cos_sin(pos: torch.Tensor, dim: int, theta: float):
     """pos (...,) -> cos/sin (..., dim//2)."""
-    exps = torch.arange(0, dim, 2, dtype=f32, device=pos.device) / dim
-    # torch.full, not torch.tensor: a host-to-card copy would wait for the card
-    inv = 1.0 / torch.pow(torch.full((), theta, dtype=f32, device=pos.device), exps)
-    ang = pos.to(f32)[..., None] * inv
+    ang = pos.to(f32)[..., None] * _inv_freq(theta, dim // 2, dim, pos.device)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -54,11 +59,19 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 
 
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (3, B, S) (stream 0 is the sequential
-    position).  The standard branch, and the partial one (glm4): the first
-    ``int(hd * rope_fraction)`` dims (rounded down to even) rotate, the rest
-    pass through.  M-RoPE is refused by ``check_ported``."""
+    """x: (B, S, H, hd); positions: (3, B, S) (t/h/w streams; stream 0 is
+    the sequential position).  The standard branch; the partial one (glm4):
+    the first ``int(hd * rope_fraction)`` dims (rounded down to even)
+    rotate, the rest pass through; M-RoPE (qwen2-vl): the hd/2 rotary pairs
+    split into ``mrope_sections`` (t, h, w), each section driven by its own
+    stream, its inverse frequencies 1/theta^(2i/hd) restarting at i = 0 (the
+    reference's layout, not Qwen2-VL's published interleaving)."""
     hd = x.shape[-1]
+    if cfg.rope_type == "mrope":
+        angles = [positions[i].to(f32)[..., None] * _inv_freq(cfg.rope_theta, sec, hd, x.device)
+                  for i, sec in enumerate(cfg.mrope_sections)]
+        ang = torch.cat(angles, -1)[:, :, None, :]  # (B, S, 1, hd/2)
+        return _rotate(x, torch.cos(ang), torch.sin(ang))
     pos = positions[0]
     if cfg.rope_type == "partial" and cfg.rope_fraction < 1.0:
         rot = int(hd * cfg.rope_fraction)
@@ -179,28 +192,35 @@ def attn_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, ParamDef]:
     return defs
 
 
-def window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
-    """(Q, K) causal mask of a window that counts the tokens attended to,
-    self included (the reference's ``_window_mask`` with ``causal``)."""
+def window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+                causal: bool = True) -> torch.Tensor:
+    """(Q, K) mask of a window that counts the tokens attended to, self
+    included: q - k < window, and with ``causal`` also k <= q (the
+    reference's ``_window_mask``)."""
     diff = q_pos[:, None] - k_pos[None, :]
-    return (diff < window) & (diff >= 0)
+    ok = diff < window
+    return ok & (diff >= 0) if causal else ok
 
 
-def sdpa_chunked(q, k, v, *, window: int, q_chunk: int = 1024) -> torch.Tensor:
-    """Exact causal attention in f32 scores and softmax, over query chunks
-    of ``q_chunk`` (the last one takes what is left: unlike the reference,
-    S need not be a multiple of the chunk).  q (B, S, H, hd); k (B, S, KV,
-    hd); v (B, S, KV, hd_v); H a multiple of KV.  A windowed layer
-    (``window`` < S) reads, per chunk, only the ``min(S, window + qc)`` keys
-    that can reach it (the reference's slice, clipped into the sequence),
-    not a full masked row."""
+def sdpa_chunked(q, k, v, *, window: int, causal: bool = True,
+                 q_chunk: int = 1024) -> torch.Tensor:
+    """Exact attention in f32 scores and softmax, over query chunks of
+    ``q_chunk`` (the last one takes what is left: unlike the reference, S
+    need not be a multiple of the chunk).  q (B, Sq, H, hd); k (B, Sk, KV,
+    hd); v (B, Sk, KV, hd_v); H a multiple of KV; queries at positions
+    0..Sq-1 and keys at 0..Sk-1, masked by :func:`window_mask`.  A causal
+    windowed layer (``window`` < Sk) reads, per chunk, only the
+    ``min(Sk, window + qc)`` keys that can reach it (the reference's slice,
+    clipped into the sequence), not a full masked row; a non-causal one
+    (the encoder, cross-attention) reads every key, as the reference
+    does."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     group = H // KV
     scale = hd ** -0.5
     qg = q.reshape(B, Sq, KV, group, hd)
     qc = min(q_chunk, Sq)
-    kv_len = min(Sk, window + qc) if window < Sk else Sk
+    kv_len = min(Sk, window + qc) if causal and window < Sk else Sk
     k_pos = torch.arange(Sk, device=q.device)
     neg = torch.full((), -1e30, dtype=f32, device=q.device)
     outs = []
@@ -211,7 +231,7 @@ def sdpa_chunked(q, k, v, *, window: int, q_chunk: int = 1024) -> torch.Tensor:
         start = min(max(q1 - kv_len, 0), Sk - kv_len)
         ks, vs = k[:, start:start + kv_len], v[:, start:start + kv_len]
         s = torch.einsum("bqkgh,bskh->bkgqs", qs.to(f32) * scale, ks.to(f32))
-        mask = window_mask(q_pos, k_pos[start:start + kv_len], window)
+        mask = window_mask(q_pos, k_pos[start:start + kv_len], window, causal)
         a = torch.softmax(torch.where(mask[None, None, None], s, neg), dim=-1)
         outs.append(torch.einsum("bkgqs,bskh->bqkgh", a, vs.to(f32)).to(q.dtype))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
@@ -219,27 +239,27 @@ def sdpa_chunked(q, k, v, *, window: int, q_chunk: int = 1024) -> torch.Tensor:
 
 
 def kv_proj(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
-            positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            positions: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
     """K and V (B, S, KV, hd) of x: biased, K qk-normed and rotated at
-    ``positions``, as attention reads them and as the decode cache holds
-    them."""
+    ``positions`` (not rotated when None: cross-attention), as attention
+    reads them and as the decode cache holds them."""
     kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         kk, vv = kk + p["bk"], vv + p["bv"]
     if cfg.qk_norm:
         kk = rmsnorm(p["k_norm"], kk)
-    return apply_rope(cfg, kk, positions), vv
+    return (kk if positions is None else apply_rope(cfg, kk, positions)), vv
 
 
 def _q_proj(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
-            positions: torch.Tensor) -> torch.Tensor:
+            positions: torch.Tensor | None) -> torch.Tensor:
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
-    return apply_rope(cfg, q, positions)
+    return q if positions is None else apply_rope(cfg, q, positions)
 
 
 def mla_latent(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
@@ -253,17 +273,22 @@ def mla_latent(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
 
 
 def attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
-              positions: torch.Tensor, window: int, q_chunk: int = 1024) -> torch.Tensor:
-    """Causal train attention over the full sequence, ``window`` tokens
-    back (the sequence length for a global layer), in query chunks of
-    ``q_chunk``. Returns (B, S, d)."""
+              positions: torch.Tensor | None, window: int, causal: bool = True,
+              kv_source: torch.Tensor | None = None, q_chunk: int = 1024) -> torch.Tensor:
+    """Train attention over the full sequence, ``window`` tokens back (the
+    sequence length for a global layer), causal or not (the encoder), in
+    query chunks of ``q_chunk``.  With ``kv_source`` (B, Sk, d), the encoder's
+    output, it is cross-attention: K and V come from ``kv_source``, nothing
+    is rotated and nothing is causal. Returns (B, S, d)."""
     if "w_dkv" in p:
         return _mla_attention(cfg, p, x, positions=positions, window=window, q_chunk=q_chunk)
-    q = _q_proj(cfg, p, x, positions)
-    kk, vv = kv_proj(cfg, p, x, positions)
+    rot = positions if kv_source is None else None
+    q = _q_proj(cfg, p, x, rot)
+    kk, vv = kv_proj(cfg, p, x if kv_source is None else kv_source, rot)
     # GQA: sdpa_chunked groups the query heads, so q-head h reads kv-head
     # h * KV // H, the reference's head gather, without copying K and V
-    out = sdpa_chunked(q, kk, vv, window=window, q_chunk=q_chunk)
+    out = sdpa_chunked(q, kk, vv, window=window, causal=causal and kv_source is None,
+                       q_chunk=q_chunk)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

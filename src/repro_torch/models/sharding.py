@@ -49,34 +49,46 @@ class ShapePlan:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for model options the port does not run yet, naming the slice
-    each waits for.  Ported: the attention families (dense and MoE, GQA or
-    MLA, standard or partial RoPE, qkv bias, logits softcap, leading dense
-    layers, sliding-window patterns), the attention-free RWKV6 family
-    (``family="ssm"``: no attention, no RoPE) and the hybrid family (hymba:
-    GQA attention and Mamba heads side by side in every layer)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack (seamless) is a "
-                                  "later slice")
-    if cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.modality} frontend (qwen2-vl, "
-                                  "seamless) is a later slice")
+    """Raise for model options the port does not run.  Ported: the attention
+    families (dense and MoE, GQA or MLA, standard, partial or M-RoPE, qkv
+    bias, logits softcap, leading dense layers, sliding-window patterns),
+    the attention-free RWKV6 family (``family="ssm"``: no attention, no
+    RoPE), the hybrid family (hymba: GQA attention and Mamba heads side by
+    side in every layer), the vision family (qwen2-vl: patch embeddings
+    before the text, M-RoPE) and the audio encoder-decoder (seamless: frame
+    embeddings through a non-causal encoder, cross-attention in every
+    decoder block), both on dense GQA/MHA blocks."""
+    if cfg.modality not in ("text", "vision", "audio"):
+        raise NotImplementedError(f"{cfg.name}: modality {cfg.modality!r} is not ported")
+    if cfg.is_encoder_decoder != (cfg.modality == "audio"):
+        # the encoder reads the audio frames through frontend_proj, and only
+        # the encoder-decoder draws frames
+        raise NotImplementedError(f"{cfg.name}: is_encoder_decoder={cfg.is_encoder_decoder} "
+                                  f"with modality {cfg.modality!r} is not ported")
     if cfg.family == "ssm":
         for field, want in (("attn_kind", "none"), ("rope_type", "none"), ("moe", False),
-                            ("qkv_bias", False), ("logits_softcap", 0.0)):
+                            ("qkv_bias", False), ("logits_softcap", 0.0),
+                            ("modality", "text")):
             if getattr(cfg, field) != want:
                 raise NotImplementedError(
                     f"{cfg.name}: RWKV6 with {field}={getattr(cfg, field)!r} is not ported")
         return
-    if cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is a later slice")
-    if cfg.rope_type not in ("rope", "partial"):
-        raise NotImplementedError(f"{cfg.name}: rope_type={cfg.rope_type!r} is not ported "
-                                  "(M-RoPE waits for the qwen2-vl slice)")
+    if cfg.family not in ("dense", "moe", "hybrid", "vlm", "audio"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported")
+    if cfg.rope_type not in ("rope", "partial", "mrope"):
+        raise NotImplementedError(f"{cfg.name}: rope_type={cfg.rope_type!r} is not ported")
+    if cfg.rope_type == "mrope" and sum(cfg.mrope_sections) != cfg.resolved_head_dim // 2:
+        raise ValueError(f"{cfg.name}: M-RoPE sections {cfg.mrope_sections} do not fill "
+                         f"half of head_dim {cfg.resolved_head_dim}")
     if cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.name}: attn_kind={cfg.attn_kind!r} is not ported")
     if cfg.moe != (cfg.family == "moe"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} with moe={cfg.moe}")
+    if cfg.is_encoder_decoder and (cfg.kv_lora or cfg.moe or cfg.family == "hybrid"):
+        # no configuration asks for one; the reference's encoder would still
+        # be dense while its decoder blocks were not
+        raise NotImplementedError(f"{cfg.name}: an encoder-decoder with MLA, MoE or Mamba "
+                                  "heads is not ported")
 
 
 def make_plan(cfg: ModelConfig, msize: int = 1) -> ShapePlan:

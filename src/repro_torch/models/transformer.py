@@ -1,13 +1,18 @@
-"""Model assembly for the attention families, RWKV6 and hymba (counterpart
-of ``repro.models.transformer``: ``build_defs``, ``init_params``,
-``forward_loss`` for the dense and MoE families, GQA or MLA, for RWKV6 and
-for the hybrid family; ``prefill`` and ``decode_step`` for all of them).
+"""Model assembly for the attention families, RWKV6, hymba, the vision
+family and the encoder-decoder (counterpart of
+``repro.models.transformer``: ``build_defs``, ``init_params``,
+``forward_loss``, ``prefill`` and ``decode_step`` for all of them).
 
 The tree is the reference's: ``prefix`` is the list of leading dense-FFN
 layers (deepseek-v2's layer 0; empty elsewhere), unstacked; ``blocks``
 holds the pattern groups (gemma3's five local layers and one global one
 are the group's entries "0".."5"), each layer with ``moe`` or ``mlp``
-(hymba's also with ``ssm``, its Mamba heads beside the attention).
+(hymba's also with ``ssm``, its Mamba heads beside the attention; an
+encoder-decoder's also with ``ln_x`` and ``xattn``, its cross-attention).
+The vision and audio families add ``frontend_proj`` (d, d), which projects
+the batch's precomputed ``patches`` (put before the text tokens, M-RoPE
+positions on a grid) or ``frames`` (through the non-causal ``encoder``
+stack and ``enc_ln_f``: the memory every decoder block cross-attends to).
 With ``scan_layers=True`` the group is stacked over a leading repeats axis
 (one leaf per weight, as the reference's ``lax.scan`` carries them); with
 ``scan_layers=False`` ``blocks`` is a list of groups.  Either way the
@@ -24,8 +29,10 @@ int32, "blocks": ...}`` with ``blocks`` stacked over layers
 kv_lora), "rope" (B, W, qk_rope_dim), "pos"}``), a ring of W slots per
 layer; a hymba block also ``"ssm": {"conv" (B, kc-1, d_inner), "h" (B,
 d_inner, state) f32}``; an RWKV6 block ``{"tm": {"shift" (B, d), "wkv"
-(B, H, hd, hd) f32}, "cm_last" (B, d)}``.  The sequence-parallel prefill is
-a later slice and raises ``NotImplementedError``.
+(B, H, hd, hd) f32}, "cm_last" (B, d)}``; an encoder-decoder's cache also
+holds the encoder's output ``"enc_out"`` (B, S_enc, d), whose K and V each
+decode step recomputes, as the reference does.  The sequence-parallel
+prefill is a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,14 +46,25 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SM
-from repro_torch.models.sharding import (ShapePlan, check_ported, make_plan, materialize,
-                                         stack_defs)
+from repro_torch.models.sharding import (ParamDef, ShapePlan, check_ported, make_plan,
+                                         materialize, stack_defs)
 from repro_torch.utils.tree import leaves, unflatten_like
 
 f32 = torch.float32
 
 
-def _block_defs(cfg: ModelConfig, plan: ShapePlan, *, moe_layer: bool) -> dict:
+def _cross_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The cross-attention's config: plain GQA/MHA projections (no latent,
+    no qk-norm, no bias), as the reference defines ``xattn``."""
+    return cfg.with_updates(kv_lora=0, qk_norm=False, qkv_bias=False)
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder blocks' config: dense, as the reference builds them."""
+    return cfg.with_updates(moe=False, family="dense", kv_lora=0)
+
+
+def _block_defs(cfg: ModelConfig, plan: ShapePlan, *, moe_layer: bool, cross: bool) -> dict:
     defs = {"ln1": L.rmsnorm_def(plan.d), "ln2": L.rmsnorm_def(plan.d)}
     if cfg.family == "ssm":  # rwkv6: time-mix + channel-mix
         defs.update(RW.rwkv_defs(cfg, plan))
@@ -54,6 +72,9 @@ def _block_defs(cfg: ModelConfig, plan: ShapePlan, *, moe_layer: bool) -> dict:
     defs["attn"] = L.attn_defs(cfg, plan)
     if cfg.family == "hybrid":
         defs["ssm"] = SM.ssm_defs(cfg, plan)
+    if cross:
+        defs["ln_x"] = L.rmsnorm_def(plan.d)
+        defs["xattn"] = L.attn_defs(_cross_cfg(cfg), plan)
     if moe_layer:
         defs["moe"] = L.moe_defs(cfg, plan)
     else:
@@ -68,18 +89,30 @@ def build_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, Any]:
         raise ValueError(f"{cfg.name}: {n_rest} layers after the prefix do not split into "
                          f"pattern {pat}")
     repeats = n_rest // len(pat)
+    cross = cfg.is_encoder_decoder
 
     def group():
-        return {str(i): _block_defs(cfg, plan, moe_layer=cfg.moe) for i in range(len(pat))}
+        return {str(i): _block_defs(cfg, plan, moe_layer=cfg.moe, cross=cross)
+                for i in range(len(pat))}
 
-    return {
+    defs = {
         "embed": L.embed_defs(plan),
         "ln_f": L.rmsnorm_def(plan.d),
-        "prefix": [_block_defs(cfg, plan, moe_layer=False)
+        "prefix": [_block_defs(cfg, plan, moe_layer=False, cross=cross)
                    for _ in range(cfg.first_dense_layers)],
         "blocks": (stack_defs(group(), repeats) if cfg.scan_layers
                    else [group() for _ in range(repeats)]),
     }
+    if cross:
+        def enc_block():
+            return _block_defs(_encoder_cfg(cfg), plan, moe_layer=False, cross=False)
+
+        defs["encoder"] = (stack_defs(enc_block(), cfg.encoder_layers) if cfg.scan_layers
+                           else [enc_block() for _ in range(cfg.encoder_layers)])
+        defs["enc_ln_f"] = L.rmsnorm_def(plan.d)
+    if cfg.modality in ("vision", "audio"):
+        defs["frontend_proj"] = ParamDef((plan.d, plan.d), init="small")
+    return defs
 
 
 def param_defs(cfg: ModelConfig) -> dict[str, Any]:
@@ -94,15 +127,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
     return materialize(param_defs(cfg), gen, cfg.pdtype, device)
 
 
-def make_positions(B: int, S: int, device) -> torch.Tensor:
-    """(3, B, S) positions as the reference lays them out (stream 0 is the
-    sequential position; the M-RoPE streams are not ported)."""
-    seq = torch.arange(S, device=device)
-    return seq.expand(3, B, S)
+def make_positions(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
+    """(3, B, S) positions, the reference's t/h/w streams: the sequential
+    position in all three, except under M-RoPE with vision input, where the
+    first ``n_vis = int(S * vision_fraction)`` positions (the patches) lie
+    on a grid of ``side = max(1, int(sqrt(n_vis)))`` columns (t 0, h the
+    row, w the column) and text position i sits at i - n_vis + side in
+    all three."""
+    idx = torch.arange(S, device=device)
+    if cfg.rope_type == "mrope" and cfg.modality == "vision":
+        n_vis = int(S * cfg.vision_fraction)
+        side = max(1, int(n_vis ** 0.5))
+        vis, text = idx < n_vis, idx - n_vis + side
+        t = torch.where(vis, 0, text)
+        h = torch.where(vis, idx // side, text)
+        w = torch.where(vis, idx % side, text)
+        return torch.stack([t, h, w])[:, None, :].expand(3, B, S)
+    return idx.expand(3, B, S)
 
 
 def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
                attn_type: str, seq_len: int, positions: torch.Tensor,
+               enc_out: torch.Tensor | None = None, causal: bool = True,
                collect_cache: bool = False, max_seq: int = 0, use_kernel: bool = True
                ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
     """One block; returns (x, the router's aux loss: 0 for an MLP or RWKV6
@@ -110,19 +156,24 @@ def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     ``max_seq`` (the sequence length when 0), else None).  RWKV6 runs its
     recurrence through ``ops.wkv6`` with ``use_kernel`` (the kernels on a
     CUDA tensor), else through the plain scan; hymba adds its Mamba heads'
-    output to the attention's, halved, as the reference does."""
+    output to the attention's, halved, as the reference does; a block with
+    ``xattn`` adds its cross-attention to ``enc_out`` after the
+    self-attention.  ``causal`` False: the encoder's self-attention."""
     if cfg.family == "ssm":
         x, cache = _rwkv_layer(cfg, p, x, None, use_kernel)
         return x, torch.zeros((), dtype=f32, device=x.device), cache if collect_cache else None
     window = cfg.layer_window(attn_type, seq_len)
     h_in = L.rmsnorm(p["ln1"], x)
-    attn_out = L.attention(cfg, p["attn"], h_in, positions=positions, window=window)
+    attn_out = L.attention(cfg, p["attn"], h_in, positions=positions, window=window,
+                           causal=causal)
     ssm_state = None
     if "ssm" in p:
         ssm_out, ssm_state = SM.ssm_block(cfg, p["ssm"], h_in)
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
+    if enc_out is not None and "xattn" in p:
+        x = x + _cross_attention(cfg, p, x, enc_out, window=seq_len)
     h = L.rmsnorm(p["ln2"], x)
     if "moe" in p:
         ff, aux = L.moe_ffn(cfg, p["moe"], h)
@@ -135,6 +186,16 @@ def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
         if ssm_state is not None:
             cache["ssm"] = ssm_state
     return x + ff, aux, cache
+
+
+def _cross_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
+                     enc_out: torch.Tensor, *, window: int) -> torch.Tensor:
+    """The block's cross-attention residual: ``ln_x``, then queries from x
+    and K/V from the encoder's output, no rotation, not causal.  The
+    reference passes the decoder's length (training) or the encoder's
+    (decode) as the window; either reaches every key."""
+    return L.attention(_cross_cfg(cfg), p["xattn"], L.rmsnorm(p["ln_x"], x), positions=None,
+                       window=window, causal=False, kv_source=enc_out)
 
 
 def _build_cache_from_prefill(cfg: ModelConfig, p: dict[str, Any], h_in: torch.Tensor,
@@ -181,42 +242,90 @@ def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
     return split(blocks)
 
 
-def forward_hidden(cfg: ModelConfig, params: dict[str, Any], tokens: torch.Tensor, *,
-                   use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """The full forward: (hidden states (B, S, d) after ``ln_f``, the summed
-    router loss of the MoE layers).  The prefix layers take attention type
-    ``attn_pattern[0]``, then come the pattern groups.  ``use_kernel``:
-    RWKV6's recurrence through ``ops.wkv6`` (kernels ``wkv6`` and
-    ``wkv6_bwd`` on the card), else the plain scan."""
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
-    B, S, _ = x.shape
-    positions = make_positions(B, S, x.device)
+def _embed_inputs(cfg: ModelConfig, params: dict[str, Any],
+                  batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The decoder's input (B, S, d) in the compute dtype: the token
+    embeddings, after the projected ``patches`` (B, S_vis, d) for vision."""
+    x = L.embed(params["embed"], batch["tokens"])
+    if cfg.modality == "vision":
+        patches = torch.einsum("bsd,de->bse", batch["patches"].to(x.dtype),
+                               params["frontend_proj"])
+        x = torch.cat([patches, x], dim=1)
+    return x.to(cfg.dtype)
+
+
+def _encode(cfg: ModelConfig, params: dict[str, Any],
+            batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The encoder's output (B, S_enc, d): the projected ``frames`` through
+    the dense encoder blocks, self-attention not causal, then
+    ``enc_ln_f``."""
+    x = torch.einsum("bsd,de->bse", batch["frames"].to(cfg.dtype), params["frontend_proj"])
+    B, S_enc, _ = x.shape
+    positions = make_positions(cfg, B, S_enc, x.device)
+    ecfg = _encoder_cfg(cfg)
+    for p in _layer_groups(cfg, params["encoder"]):
+        x, _, _ = _run_block(ecfg, p, x, attn_type="global", seq_len=S_enc,
+                             positions=positions, causal=False)
+    return L.rmsnorm(params["enc_ln_f"], x)
+
+
+def _inputs(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor]
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(the decoder's input, its positions, the encoder's output or None)."""
+    x = _embed_inputs(cfg, params, batch)
+    positions = make_positions(cfg, x.shape[0], x.shape[1], x.device)
+    return x, positions, _encode(cfg, params, batch) if cfg.is_encoder_decoder else None
+
+
+def _trunk(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
+           positions: torch.Tensor, enc_out: torch.Tensor | None, *,
+           use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoder stack on its input ``x`` at ``positions``: (hidden states
+    after ``ln_f``, the summed router loss).  The prefix layers take
+    attention type ``attn_pattern[0]``, then come the pattern groups, each
+    block recomputed in the backward under ``remat``."""
+    S = x.shape[1]
     pat = cfg.attn_pattern
     aux_total = torch.zeros((), dtype=f32, device=x.device)
     for p in params["prefix"]:
-        x, aux, _ = _run_block(cfg, p, x, attn_type=pat[0], seq_len=S, positions=positions)
+        x, aux, _ = _run_block(cfg, p, x, attn_type=pat[0], seq_len=S, positions=positions,
+                               enc_out=enc_out)
         aux_total = aux_total + aux
     for pgroup in _layer_groups(cfg, params["blocks"]):
         for i, attn_type in enumerate(pat):
             kw = dict(attn_type=attn_type, seq_len=S, positions=positions, use_kernel=use_kernel)
             if cfg.remat == "none":
-                x, aux, _ = _run_block(cfg, pgroup[str(i)], x, **kw)
+                x, aux, _ = _run_block(cfg, pgroup[str(i)], x, enc_out=enc_out, **kw)
             else:
                 # the block draws no random numbers: no RNG state to replay
-                x, aux = checkpoint(lambda p, h, kw=kw: _run_block(cfg, p, h, **kw)[:2],
-                                    pgroup[str(i)], x, use_reentrant=False,
-                                    preserve_rng_state=False)
+                x, aux = checkpoint(
+                    lambda p, h, e, kw=kw: _run_block(cfg, p, h, enc_out=e, **kw)[:2],
+                    pgroup[str(i)], x, enc_out, use_reentrant=False, preserve_rng_state=False)
             aux_total = aux_total + aux
     return L.rmsnorm(params["ln_f"], x), aux_total
+
+
+def forward_hidden(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor], *,
+                   use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full forward of ``batch`` (``tokens``; vision: ``patches`` too;
+    the encoder-decoder: ``frames`` too): (hidden states (B, S, d) after
+    ``ln_f``, S counting the patches, the summed router loss of the MoE
+    layers).  ``use_kernel``: RWKV6's recurrence through ``ops.wkv6``
+    (kernels ``wkv6`` and ``wkv6_bwd`` on the card), else the plain scan."""
+    x, positions, enc_out = _inputs(cfg, params, batch)
+    return _trunk(cfg, params, x, positions, enc_out, use_kernel=use_kernel)
 
 
 def forward_loss(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor], *,
                  use_kernel: bool = True) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training forward: returns (loss, {"ce", "aux"}): ``aux`` sums the MoE
-    layers' router losses, ``ce`` is the (softcapped) cross-entropy and
+    layers' router losses, ``ce`` is the (softcapped) cross-entropy of the
+    text positions (after the patches under vision) against ``labels`` and
     loss = ce + router_aux_coef * aux.  ``use_kernel`` as in
     :func:`forward_hidden`."""
-    x, aux_total = forward_hidden(cfg, params, batch["tokens"], use_kernel=use_kernel)
+    x, aux_total = forward_hidden(cfg, params, batch, use_kernel=use_kernel)
+    if cfg.modality == "vision":  # only text positions carry labels
+        x = x[:, -batch["labels"].shape[1]:]
     ce = L.logits_and_loss(params["embed"], x, batch["labels"], softcap=cfg.logits_softcap)
     loss = ce + cfg.router_aux_coef * aux_total
     return loss, {"ce": ce, "aux": aux_total}
@@ -229,7 +338,7 @@ def forward_loss(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torc
 
 def check_serving(cfg: ModelConfig) -> None:
     """Raise unless the port serves ``cfg``: what ``check_ported`` refuses
-    (VL, the encoder-decoder) and the sequence-parallel prefill."""
+    and the sequence-parallel prefill."""
     check_ported(cfg)
     if cfg.seq_par:
         raise NotImplementedError(
@@ -268,14 +377,15 @@ def prefill(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Ten
     each layer's ring holds ``min(layer_window(max_seq), max_seq)`` slots).
     RWKV6 and hymba's Mamba heads carry recurrent states, for which
     ``max_seq`` has no meaning; ``use_kernel`` runs RWKV6's recurrence
-    through kernel ``wkv6``."""
+    through kernel ``wkv6``.  ``batch`` as in :func:`forward_hidden` (S
+    counts the patches); the encoder's output goes into the cache as
+    ``"enc_out"``."""
     check_serving(cfg)
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
-    B, S, _ = x.shape
+    x, positions, enc_out = _inputs(cfg, params, batch)
+    S = x.shape[1]
     pat = cfg.attn_pattern
-    positions = make_positions(B, S, x.device)
-    kw = dict(seq_len=S, positions=positions, collect_cache=True, max_seq=max_seq,
-              use_kernel=use_kernel)
+    kw = dict(seq_len=S, positions=positions, enc_out=enc_out, collect_cache=True,
+              max_seq=max_seq, use_kernel=use_kernel)
     prefix, groups = [], []
     for p in params["prefix"]:
         x, _, c = _run_block(cfg, p, x, attn_type=pat[0], **kw)
@@ -287,18 +397,21 @@ def prefill(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Ten
         groups.append(cs)
     cache = {"prefix": prefix, "pos": torch.full((), S, dtype=torch.int32, device=x.device),
              "blocks": _stack_groups(cfg, groups)}
+    if enc_out is not None:
+        cache["enc_out"] = enc_out
     x = L.rmsnorm(params["ln_f"], x)
     return x[:, -1], cache
 
 
 def _decode_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict[str, Any], *,
-                  pos: torch.Tensor, window: int, inplace: bool
-                  ) -> tuple[torch.Tensor, dict[str, Any]]:
+                  pos: torch.Tensor, window: int, inplace: bool,
+                  enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, dict[str, Any]]:
     """One attention block on one token: decode attention over the block's
-    ring (hymba: and one step of its Mamba heads from the cached state),
-    then the MLP or the MoE (its router loss dropped; T = B tokens set its
-    capacity).  ``inplace`` writes the ring slot and the new SSM state into
-    ``c``'s buffers."""
+    ring (hymba: and one step of its Mamba heads from the cached state; an
+    encoder-decoder: then cross-attention to ``enc_out``, its K and V
+    recomputed), then the MLP or the MoE (its router loss dropped; T = B
+    tokens set its capacity).  ``inplace`` writes the ring slot and the new
+    SSM state into ``c``'s buffers."""
     h_in = L.rmsnorm(p["ln1"], x)
     attn_out, ac = L.decode_attention(cfg, p["attn"], h_in, c["attn"], pos=pos, window=window,
                                       inplace=inplace)
@@ -311,6 +424,8 @@ def _decode_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict[
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
+    if enc_out is not None and "xattn" in p:
+        x = x + _cross_attention(cfg, p, x, enc_out, window=enc_out.shape[1])
     h = L.rmsnorm(p["ln2"], x)
     ff = L.moe_ffn(cfg, p["moe"], h)[0] if "moe" in p else L.mlp(p["mlp"], h)
     return x + ff, nc
@@ -325,17 +440,19 @@ def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any
     ``pos % S`` is written out of place, leaving ``cache`` as it was,
     unless ``inplace``, which writes it (and hymba's new SSM and conv
     states) into ``cache``'s buffers (the caller gives ``cache`` up).
-    RWKV6's state is new each step."""
+    RWKV6's state is new each step.  The decoded token's M-RoPE streams are
+    all its position ``pos``, as the reference's; ``"enc_out"`` passes
+    through unchanged."""
     check_serving(cfg)
     if cfg.family != "ssm" and max_seq < 1:
         raise ValueError(f"{cfg.name}: decoding an attention cache needs max_seq >= 1")
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
-    pos = cache["pos"]
+    pos, enc_out = cache["pos"], cache.get("enc_out")
     pat = cfg.attn_pattern
     prefix, groups = [], []
     for p, c in zip(params["prefix"], cache["prefix"]):
         x, nc = _decode_layer(cfg, p, x, c, pos=pos, window=cfg.layer_window(pat[0], max_seq),
-                              inplace=inplace)
+                              inplace=inplace, enc_out=enc_out)
         prefix.append(nc)
     for pgroup, cgroup in zip(_layer_groups(cfg, params["blocks"]),
                               _layer_groups(cfg, cache["blocks"])):
@@ -346,14 +463,16 @@ def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any
             else:
                 x, ncs[str(i)] = _decode_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], pos=pos,
                                                window=cfg.layer_window(attn_type, max_seq),
-                                               inplace=inplace)
+                                               inplace=inplace, enc_out=enc_out)
         groups.append(ncs)
     # written in place, the stacked leaves already hold the new slots and
     # hymba's new SSM states
     blocks = cache["blocks"] if inplace and cfg.family != "ssm" else _stack_groups(cfg, groups)
     x = L.rmsnorm(params["ln_f"], x)
-    return (L.logits_local(params["embed"], x, softcap=cfg.logits_softcap),
-            {"prefix": prefix, "pos": pos + 1, "blocks": blocks})
+    new = {"prefix": prefix, "pos": pos + 1, "blocks": blocks}
+    if enc_out is not None:
+        new["enc_out"] = enc_out
+    return L.logits_local(params["embed"], x, softcap=cfg.logits_softcap), new
 
 
 def decode_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],

@@ -78,8 +78,8 @@ knobs.  With a persistent cache configured
 on disk too, so a later process loads it instead of tracing.
 
 ``build_serve`` is the serving counterpart (``ServeBundle``: prefill a batch
-of prompts, then one greedy token per call), for the attention families
-and RWKV6; one card is one device, so there is no mesh.
+of prompts, then one greedy token per call), for every ported family; one
+card is one device, so there is no mesh.
 """
 
 from __future__ import annotations
@@ -89,6 +89,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
@@ -101,6 +102,7 @@ from repro_torch.core.types import (
     churn_enabled,
     effective_corruption_kind,
 )
+from repro_torch.data.pipeline import input_specs
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, global_clip
 from repro_torch.utils.tree import leaves, tree_map, unflatten_like
@@ -700,8 +702,8 @@ def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:
                              noise=aggregate.seeded_noise(0, meta),
                              churn_draws=aggregate.seeded_churn_draws(0, meta))
     shape, comm = bundle.shape, bundle.comm
-    batch = {k: torch.zeros((shape.global_batch, shape.seq_len), dtype=torch.int32,
-                            device=meta) for k in ("tokens", "labels")}
+    batch = {k: torch.zeros(shp, dtype=torch.from_numpy(np.empty(0, dt)).dtype, device=meta)
+             for k, (shp, dt) in input_specs(bundle.cfg, shape).items()}
     programs = {}
     if comm.aggregator == "gossip":
         programs["gossip"] = lambda st: mb.gossip_step(st, batch, 0.0)
@@ -877,7 +879,8 @@ class ServeBundle:
     cfg: ModelConfig
     shape: InputShape  # global_batch is the batch every call must carry
     device: torch.device
-    #: (params, {"tokens": (B, S)}) -> (last hidden (B, d), cache)
+    #: (params, {"tokens" (B, S_text)[, "patches" | "frames"]}) -> (last hidden (B, d),
+    #: cache)
     prefill_step: Callable
     #: (params, cache, tokens (B, 1)) -> (next tokens (B, 1) int32, new cache)
     serve_step: Callable
@@ -886,10 +889,12 @@ class ServeBundle:
 def build_serve(cfg: ModelConfig, shape: InputShape,
                 device: str | torch.device = "cuda") -> ServeBundle:
     """Prefill and decode steps for ``cfg``, both under
-    ``torch.inference_mode()``, their tokens numpy arrays or tensors (moved
-    to ``device``).  As the reference's ``build_serve``: the prefill passes
-    no ``max_seq``, so each attention layer's ring holds ``min(window,
-    prompt length)`` slots and the first decoded token evicts the oldest
+    ``torch.inference_mode()``, their inputs numpy arrays or tensors (moved
+    to ``device``): the prefill's ``tokens`` and, for the vision and audio
+    families, its ``patches`` or ``frames``.  As the reference's
+    ``build_serve``: the prefill passes no ``max_seq``, so each attention
+    layer's ring holds ``min(window, prompt length)`` slots (the prompt
+    counting its patches) and the first decoded token evicts the oldest
     position of a full ring; decode runs with ``max_seq = shape.seq_len``.
     ``serve_step`` writes the new token's ring slot into the cache it is
     given: that cache is consumed (the reference donates it), so use only
@@ -899,20 +904,20 @@ def build_serve(cfg: ModelConfig, shape: InputShape,
     T.check_serving(cfg)
     device = torch.device(device)
 
-    def _tokens(tok) -> torch.Tensor:
-        tok = torch.as_tensor(tok).to(device)
-        if tok.shape[0] != shape.global_batch:
-            raise ValueError(f"batch {tok.shape[0]} != the bundle's {shape.global_batch}")
-        return tok
+    def _rows(a) -> torch.Tensor:
+        a = torch.as_tensor(a).to(device)
+        if a.shape[0] != shape.global_batch:
+            raise ValueError(f"batch {a.shape[0]} != the bundle's {shape.global_batch}")
+        return a
 
     def prefill_step(params, batch):
         with torch.inference_mode():
-            return T.prefill(cfg, params, {"tokens": _tokens(batch["tokens"])},
+            return T.prefill(cfg, params, {k: _rows(v) for k, v in batch.items()},
                              use_kernel=True)
 
     def serve_step(params, cache, tok):
         with torch.inference_mode():
-            return T.decode_step(cfg, params, cache, _tokens(tok), max_seq=shape.seq_len,
+            return T.decode_step(cfg, params, cache, _rows(tok), max_seq=shape.seq_len,
                                  use_kernel=True, inplace=True)
 
     return ServeBundle(cfg=cfg, shape=shape, device=device, prefill_step=prefill_step,

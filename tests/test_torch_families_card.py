@@ -71,7 +71,7 @@ def test_windowed_attention_on_card_matches_cpu(cuda, q_chunk):
     p = T.init_params(cfg, seed=0, device="cpu")["blocks"][0]["0"]["attn"]
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 64, cfg.d_model))
                          .astype(np.float32))
-    pos = T.make_positions(2, 64, "cpu")
+    pos = T.make_positions(cfg, 2, 64, "cpu")
     want = L.attention(cfg, p, x, positions=pos, window=16, q_chunk=q_chunk)
     got = L.attention(cfg, {k: v.to(cuda) for k, v in p.items()}, x.to(cuda),
                       positions=pos.to(cuda), window=16, q_chunk=q_chunk)

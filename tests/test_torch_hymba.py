@@ -199,7 +199,7 @@ def test_decode_matches_full_forward():
     with torch.no_grad():
         _, cache = T.prefill(cfg, params, {"tokens": toks[:, :S]}, max_seq=S + 1)
         got, _ = T.decode_logits(cfg, params, cache, toks[:, S:], max_seq=S + 1)
-        h, _ = T.forward_hidden(cfg, params, toks)
+        h, _ = T.forward_hidden(cfg, params, {"tokens": toks})
         want = L.logits_local(params["embed"], h[:, -1:], softcap=cfg.logits_softcap)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-4 * float(want.abs().max()))

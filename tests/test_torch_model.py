@@ -115,17 +115,6 @@ def test_full_width_param_tree_matches_reference():
     assert len(got) == 13 and sum(int(np.prod(s)) for s in got.values()) == 596_049_920
 
 
-@pytest.mark.parametrize("upd", [dict(rope_type="mrope"),
-                                 dict(is_encoder_decoder=True, encoder_layers=2),
-                                 dict(modality="vision")])
-def test_unported_model_options_raise(upd):
-    """Options no ported configuration runs yet (qwen2-vl's M-RoPE and
-    vision input, seamless's encoder-decoder) are refused, not run
-    unverified."""
-    with pytest.raises(NotImplementedError, match="later slice|not ported"):
-        T.param_defs(_tiny_cfg(**upd))
-
-
 @pytest.mark.parametrize("q_chunk", [64, 16, 8])
 def test_sliding_window_matches_reference(q_chunk, monkeypatch):
     """A ``local`` layer, window 16 at seq 64, against the reference's
@@ -148,11 +137,10 @@ def test_sliding_window_matches_reference(q_chunk, monkeypatch):
         mesh=make_test_mesh(1, 1), in_specs=(specs, P()), out_specs=P(), check_vma=False))
     want = np.asarray(fn(jp, jnp.asarray(x)))
     p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
-    got = L.attention(cfg, p, torch.from_numpy(x), positions=T.make_positions(2, 64, "cpu"),
-                      window=16, q_chunk=q_chunk)
+    pos = T.make_positions(cfg, 2, 64, "cpu")
+    got = L.attention(cfg, p, torch.from_numpy(x), positions=pos, window=16, q_chunk=q_chunk)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
-    full = L.attention(cfg, p, torch.from_numpy(x), positions=T.make_positions(2, 64, "cpu"),
-                       window=64, q_chunk=q_chunk)
+    full = L.attention(cfg, p, torch.from_numpy(x), positions=pos, window=64, q_chunk=q_chunk)
     assert not np.allclose(full.numpy(), want, rtol=1e-3)  # the window bites
 
 

@@ -40,7 +40,7 @@ from repro.train.steps import build_serve as jbuild_serve
 from repro.utils.tree import flatten_with_paths as jflatten
 from repro_torch import interop
 from repro_torch.configs import get_config
-from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.base import InputShape
 from repro_torch.kernels import ops, ref
 from repro_torch.models import rwkv as RW
 from repro_torch.models import transformer as T
@@ -330,15 +330,6 @@ def test_dense_serving_is_refused():
     tokens = torch.zeros((2, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="later slice"):
         T.prefill(cfg, params, {"tokens": tokens})
-
-
-@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
-def test_unported_families_are_refused(arch):
-    cfg = ModelConfig(**dataclasses.asdict(jget(arch)))
-    with pytest.raises(NotImplementedError):
-        check_ported(cfg)
-    with pytest.raises(NotImplementedError):
-        T.param_defs(cfg)
 
 
 @pytest.mark.parametrize("upd", [dict(attn_kind="gqa"), dict(rope_type="rope"),

@@ -18,16 +18,14 @@ MoE decode, through both packages' ``build_serve``.
   one ``decode_logits`` against the full forward's last-position logits
   over the S+1 tokens (the MoE at cf = E: no token dropped).
 * ``decode_step`` leaves its input cache alone; ``serve_step`` (in place)
-  equals it bitwise; ``check_serving`` refuses ``seq_par``, VL and the
-  encoder-decoder, each naming its slice; the launcher runs.
+  equals it bitwise; ``check_serving`` refuses ``seq_par``, naming its
+  slice; the launcher runs.
 
 Tolerances (f32 on the CPU; the frameworks sum products in other orders):
 last hidden state and caches rtol 1e-5 with an atol of 1e-5 times the
 tensor's largest magnitude; the identity's logits within 1e-4 of max|logits|
 (the card's criterion, phase S of ``chip_smoke.py``), tokens equal.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -156,7 +154,7 @@ def test_decode_matches_full_forward(arch):
         # capacity S + 1: decoding position S must not evict position 0
         _, cache = T.prefill(cfg, params, {"tokens": toks[:, :S]}, max_seq=S + 1)
         got, _ = T.decode_logits(cfg, params, cache, toks[:, S:], max_seq=S + 1)
-        h, _ = T.forward_hidden(cfg, params, toks)
+        h, _ = T.forward_hidden(cfg, params, {"tokens": toks})
         want = L.logits_local(params["embed"], h[:, -1:], softcap=cfg.logits_softcap)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-4 * float(want.abs().max()))
@@ -214,14 +212,6 @@ def test_seq_par_serving_is_refused():
     with pytest.raises(NotImplementedError, match="later slice"):
         T.prefill(cfg.with_updates(seq_par=True), params,
                   {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
-
-
-@pytest.mark.parametrize("arch,slice_", [("qwen2-vl-2b", "qwen2-vl"),
-                                         ("seamless-m4t-large-v2", "encoder-decoder")])
-def test_unported_serving_is_refused(arch, slice_):
-    cfg = ModelConfig(**dataclasses.asdict(jget(arch)))
-    with pytest.raises(NotImplementedError, match=f"{slice_}.*later slice"):
-        T.check_serving(cfg)
 
 
 def test_decode_needs_max_seq():

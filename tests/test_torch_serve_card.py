@@ -52,7 +52,7 @@ def test_full_width_decode_matches_full_forward(cuda, arch, layers):
     with torch.inference_mode():
         _, cache = T.prefill(cfg, params, {"tokens": toks[:, :S]}, max_seq=S + 1)
         got, _ = T.decode_logits(cfg, params, cache, toks[:, S:], max_seq=S + 1)
-        h, _ = T.forward_hidden(cfg, params, toks)
+        h, _ = T.forward_hidden(cfg, params, {"tokens": toks})
         want = L.logits_local(params["embed"], h[:, -1:], softcap=cfg.logits_softcap)
         err, top = float((got - want).abs().max()), float(want.abs().max())
         assert err <= 1e-4 * top, (err, top)
