@@ -321,6 +321,30 @@ result line:
    streams at S, where ``make_positions`` would put S - n_vis + side; 256
    and 257 give the same n_vis = 64).  ``--profile`` takes the tags
    at..bf (a decode step).
+13. phase M, the reference's model axis in training (``M_PATHS``): data 4
+   x model 2 stacked on the card, full published width, bf16, random
+   weights from seed 0 (padded for 2), ``SyntheticBatches``, seq 1024,
+   global batch 8, momentum SGD, 3 steps: (bg) qwen3-0.6b, all 28 layers,
+   qsgd_kernel EF (qsgd_ef, int8_acc); (bh) deepseek-v2-lite-16b, 3 of 27
+   layers (as (ap): its dense layer 0 and 2 MoE layers, 32 of the 64
+   experts a shard), terngrad_kernel EF (terngrad, tern_pack, tern_acc).
+   Each prints its mean step ms (the first step excluded), the aten
+   operations of its first step (``OpCounter``), peak GiB and, from one
+   more step under torch.profiler (kernels only), the device's busy share;
+   and must launch exactly its kernels, W x M per shard-local bucket on the
+   send side and M on the receive side, a step; book grad_agg equal to the
+   shard-local plan's prediction to the byte; and book the model axis's
+   records equal to the shapes' formula by tag (``predict_tp``: the two
+   row-parallel psums of each layer's (b, S, d) partial, the embedding's
+   psum and the loss's pmax and two psums of (b, S) f32, and the
+   ``tp_grad_fixup`` psum of each replicated leaf's gradient).  Then the TP
+   identity on the card, in f32 with TF32 off, 2 layers at full width
+   (``M_IDENTITY``): qwen3-0.6b, deepseek-v2-lite-16b and rwkv6-3b (its
+   recurrence through wkv6 / wkv6_bwd, one launch over the 2 shards' 16
+   heads each) from the same padded-for-2 parameters and batch (2 x 1024):
+   the objective ce + coef * aux at model-axis size 2 within 2e-4 relative
+   of size 1's and the squared gradient norm within 5e-3 relative, as
+   tests/test_tp_equivalence.py bounds the reference.
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -371,7 +395,7 @@ from repro_torch.models import ssm as SM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.sharding import make_plan, materialize  # noqa: E402
 from repro_torch.utils.tree import flatten_with_paths as flat  # noqa: E402
-from repro_torch.utils.tree import tree_map  # noqa: E402
+from repro_torch.utils.tree import tree_map, unflatten_like  # noqa: E402
 from repro_torch.optim.optimizers import adamw, momentum_sgd, zero1  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
 from repro_torch.train.steps import build_bundle, build_serve  # noqa: E402
@@ -2637,6 +2661,180 @@ def check_past_2e31() -> dict[str, dict]:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase M: the model axis in training, data 4 x model 2 stacked on the card.
+# ---------------------------------------------------------------------------
+
+TERN_EF = dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True)
+#: (label, arch, layers kept, workers W, model shards M, comm, kernels): full
+#: width, bf16, seq 1024, global batch 8, 3 steps; deepseek cut as (ap)
+M_PATHS = (
+    ("(bg) qwen3-0.6b qsgd ef, data 4 x model 2", "qwen3-0.6b", 28, 4, 2, QSGD_EF,
+     ("qsgd_ef", "int8_acc")),
+    ("(bh) deepseek-v2-lite terngrad ef, data 4 x model 2", "deepseek-v2-lite-16b", 3, 4, 2,
+     TERN_EF, ("terngrad", "tern_pack", "tern_acc")),
+)
+#: (arch, layers) of the TP identity at full width in f32, batch 2 x 1024
+M_IDENTITY = (("qwen3-0.6b", 2), ("deepseek-v2-lite-16b", 2), ("rwkv6-3b", 2))
+M_LOSS_RTOL, M_GRAD2_RTOL = 2e-4, 5e-3
+
+
+def predict_tp(bundle) -> dict[str, float]:
+    """The model axis's booked wire of one train call by tag, from the
+    shapes: each layer's two row-parallel psums (attention, then the MLP or
+    the MoE) of one shard's (b, S, d) partial in the compute dtype, the
+    embedding's psum of (b, S, d) in the parameter dtype, the loss's pmax
+    and two psums of (b, S) f32 (untagged, as the reference's), and the
+    ``tp_grad_fixup`` psum of each replicated leaf's gradient; a psum or
+    pmax moves 2p(M-1)/M."""
+    cfg, M = bundle.cfg, bundle.model
+    b, S, d = bundle.shape.global_batch // bundle.n_workers, bundle.shape.seq_len, cfg.d_model
+    act = torch.finfo(cfg.dtype).bits // 8
+    par = torch.finfo(cfg.pdtype).bits // 8
+    per = 2.0 * (M - 1) / M
+    untagged = (2 * cfg.n_layers * b * S * d * act + b * S * d * par + 3 * b * S * 4) * per
+    fix = sum(math.prod(x.shape) for x in flat(T.param_defs(cfg, M)).values()
+              if x.shard is None) * par * per
+    return {"untagged": untagged, "tp_grad_fixup": fix}
+
+
+def device_busy(run, step_ms: float) -> tuple[float, int]:
+    """``run()`` once under torch.profiler tracing the card's kernels only:
+    (their summed device time over the unprofiled mean ``step_ms``, the
+    kernel launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return busy / step_ms, sum(e.count for e in kernels)
+
+
+def run_model_path(label: str, arch: str, layers: int, workers: int, model: int,
+                   comm_kw: dict, kernels: tuple, card: str) -> dict[str, int]:
+    """One phase M path: 3 trainer steps at W workers x M model shards; its
+    step ms (the first excluded), operations, peak, busy share; launches,
+    grad_agg and the model axis's booked records held to their formulas.
+    Returns the launches of its steps."""
+    cfg = get_config(arch).with_updates(n_layers=layers)
+    shape = InputShape("train_1024", 1024, F_BATCH, "train")
+    comm = CommConfig(**comm_kw)
+    t0 = time.perf_counter()
+    bundle = build_bundle(cfg, comm, momentum_sgd(0.9), shape, n_workers=workers, seed=0,
+                          device=DEV, model=model)
+    tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(F_LR), log_every=1)
+    state = tr.init(seed=0)
+    torch.cuda.synchronize()
+    buckets = bundle.bucket_plan.buckets
+    print(f"model axis {label}: {arch} {layers} of {get_config(arch).n_layers} layers at full "
+          f"width, W {workers} x M {model}, seq 1024, global batch {F_BATCH}, {comm_kw}: "
+          f"{len(buckets)} shard-local buckets of {sum(b.size for b in buckets)} elements a "
+          f"shard; build+init {time.perf_counter() - t0:.2f} s ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    step_ms, counter = [], OpCounter()
+    for t in range(F_STEPS):
+        t1 = time.perf_counter()
+        with counter if t == 0 else contextlib.nullcontext():
+            state = tr.fit(state, 1, start_step=t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        h = tr.history[-1]
+        print(f"  step {t}: loss {h['loss']:.6f} ce {h['ce']:.6f} aux {h['aux']:.6f} "
+              f"step_ms {step_ms[-1]:.1f}")
+        if not all(math.isfinite(h[k]) for k in ("loss", "ce", "aux")):
+            raise AssertionError(f"model axis {label}: non-finite metrics at step {t}: {h}")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mean_ms = float(np.mean(step_ms[1:]))
+    want = {k: v * model for k, v in route_launches(comm, bundle.bucket_plan, workers,
+                                                     F_STEPS).items()}
+    got = {k: v for k, v in launches.items() if v}
+    booked, predicted = bundle.wire["train"].get("grad_agg", 0.0), predict_grad_agg(bundle)
+    tp_want = predict_tp(bundle)
+    tp_got: dict[str, float] = {}
+    for r in bundle.logs["train"].records:
+        if r.axes == ("model",):
+            key = r.tag or "untagged"
+            tp_got[key] = tp_got.get(key, 0.0) + r.wire_bytes * r.mult
+    busy, n_kernels = device_busy(lambda: tr.fit(state, 1, start_step=F_STEPS), mean_ms)
+    print(f"  mean step_ms (first step excluded) {mean_ms:.1f}; {counter.n} aten operations "
+          f"dispatched in step 0; device busy {100 * busy:.1f}% of the mean step "
+          f"({n_kernels} kernel launches in a profiled step); peak memory {peak:.2f} GiB; "
+          f"launches {got} ({F_STEPS} steps); booked wire KB/step by tag "
+          f"{ {k: round(v / 1e3, 3) for k, v in bundle.wire['train'].items()} }, grad_agg "
+          f"{booked:.0f} B against the shard-local plan's {predicted:.0f} B; model-axis records "
+          f"{ {k: round(v) for k, v in tp_got.items()} } B against the shapes' "
+          f"{ {k: round(v) for k, v in tp_want.items()} } B ({card})")
+    if got != want or sorted(got) != sorted(kernels):
+        raise AssertionError(f"model axis {label}: must launch exactly {want} ({kernels}): "
+                             f"{got}")
+    if booked != predicted:
+        raise AssertionError(f"model axis {label}: booked {booked} B under grad_agg, the plan "
+                             f"predicts {predicted} B")
+    if tp_got != tp_want:
+        raise AssertionError(f"model axis {label}: model-axis records {tp_got} B, the shapes "
+                             f"give {tp_want} B")
+    if peak > F_PEAK_GIB:
+        raise AssertionError(f"model axis {label}: peak {peak:.2f} GiB > {F_PEAK_GIB}")
+    STEP_MS[label] = mean_ms
+    del state, tr, bundle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_tp_identity(arch: str, layers: int) -> None:
+    """The same padded-for-2 parameters (f32, TF32 off) and batch at
+    model-axis size 2 and 1: the objective and the squared gradient norm
+    within the reference test's bounds; rwkv6-3b's recurrence through
+    kernels wkv6 and wkv6_bwd."""
+    cfg = get_config(arch).with_updates(n_layers=layers, param_dtype="float32",
+                                        compute_dtype="float32", remat="none")
+    params = T.init_params(cfg, 0, DEV, 2)
+    shape = InputShape("train_1024", 1024, 2, "train")
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in
+             SyntheticBatches(cfg, shape, seed=0).batch(0).items()}
+    got = []
+    for m in (2, 1):
+        ps = [p.detach().clone().requires_grad_(True) for p in flat(params).values()]
+        ops.reset_launches()
+        loss, met = T.forward_loss(cfg, unflatten_like(params, ps), batch, msize=m)
+        g2 = sum(float(torch.sum(torch.square(g.double())))
+                 for g in torch.autograd.grad(loss, ps))
+        got.append((float((met["ce"] + cfg.router_aux_coef * met["aux"]).detach()), g2,
+                    {k: v for k, v in ops.LAUNCHES.items() if v}))
+        del ps
+    (l2, g2, k2), (l1, g1, _) = got
+    dl, dg = abs(l2 - l1) / max(1.0, abs(l1)), abs(g2 - g1) / max(1.0, abs(g1))
+    print(f"TP identity {arch} {layers} layers at full width, f32, batch 2 x 1024: objective "
+          f"{l2:.7f} at model 2 against {l1:.7f} at 1 (relative {dl:.2e}, bound {M_LOSS_RTOL}); "
+          f"squared gradient norm {g2:.6e} against {g1:.6e} (relative {dg:.2e}, bound "
+          f"{M_GRAD2_RTOL}); launches at model 2 {k2}")
+    if not (dl < M_LOSS_RTOL and dg < M_GRAD2_RTOL):
+        raise AssertionError(f"TP identity {arch}: {dl} / {dg}")
+    if cfg.family == "ssm" and not (k2.get("wkv6") and k2.get("wkv6_bwd")):
+        raise AssertionError(f"TP identity {arch}: the recurrence did not launch wkv6 / "
+                             f"wkv6_bwd: {k2}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def run_phase_m(card: str) -> dict[str, int]:
+    """Paths (bg) and (bh), then the TP identity; returns the paths'
+    launches (the identity's comparison launches are not counted)."""
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in KERNELS}
+    for path in M_PATHS:
+        for k, v in run_model_path(*path, card=card).items():
+            launches[k] += v
+    for arch, layers in M_IDENTITY:
+        check_tp_identity(arch, layers)
+    print(f"phase M: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def run_phase_f(card: str, profile: set | None = None) -> tuple[dict[str, int], dict[str, dict]]:
     """Paths (an)-(bd) (each labelled in ``profile`` with one more step under
     torch.profiler), then the full-width checks of moe_ffn, the windowed
@@ -2972,8 +3170,9 @@ def main() -> None:
     run_phase_t(card)
     run_phase_b(card)
     f_launches, f_big = run_phase_f(card, profile)
+    m_launches = run_phase_m(card)
     run_phase_s(card, profile)
-    for k, v in f_launches.items():
+    for k, v in (*f_launches.items(), *m_launches.items()):
         launches[k] += v
     for name, r in row_checks.items():
         b_ms, b_by = _bound(ROW_KERNELS[name]["bytes"](ENGINE_ROWS, ENGINE_DIM),

@@ -13,7 +13,9 @@ the receive side: the booked collective and the reduction of each bucket.
 The trainer calls ``add`` right after each worker's backward, so W full f32
 gradients never live at once; :func:`aggregate_buckets` runs both halves
 over already-stacked (W, n) gradients.  :class:`GroupedRound` runs one
-round per pod of a two-level layout, each over that pod's D workers.
+round per pod of a two-level layout, each over that pod's D workers, and
+:class:`ShardedRound` one such round per shard of the model axis, each over
+the W workers' shard-local buckets.
 
 The reductions, per bucket (:func:`bucket_route`):
 
@@ -193,7 +195,8 @@ def make_bucket_plan(comm: CommConfig, grads_abstract: Any) -> BucketPlan:
 
 
 def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
-                    device: str | torch.device, pods: int = 1) -> dict[str, Any]:
+                    device: str | torch.device, pods: int = 1,
+                    shards: int = 1) -> dict[str, Any]:
     """Communication state of W workers: ``ef[i]`` and ``u[i]`` are the
     (W, size) stacks of bucket i's EF residuals and momentum buffers, one
     row per worker (``ef[i]`` is None for a bucket without a compressor).
@@ -214,7 +217,13 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     worker's copy of its pod's bit of the previous sync); the integrity
     program adds ``qcount``, ``quarantine_total`` and ``escalation_total``,
     (W,) f32 zeros.  Under pod-local SGD over ``pods`` > 1 pods each pod
-    carries its own PowerSGD Q: ``psgd_q[i]`` is then (pods, b * rank)."""
+    carries its own PowerSGD Q: ``psgd_q[i]`` is then (pods, b * rank).
+
+    Over ``shards`` M > 1 model shards (``plan`` then holds the shard-local
+    buckets) every per-worker stack has one row per (worker, shard), W * M
+    rows in the reference's device order (row w * M + m); the churn and
+    PowerSGD entries do not run under the model axis yet."""
+    rows = n_workers * shards
     state: dict[str, Any] = {"step": 0}
     if churn_enabled(comm):
         state["alive_prev"] = torch.ones(n_workers, dtype=f32, device=device)
@@ -224,10 +233,10 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
         for k in ("qcount", "quarantine_total", "escalation_total"):
             state[k] = torch.zeros(n_workers, dtype=f32, device=device)
     if comm.error_feedback:
-        state["ef"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
+        state["ef"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
                        if plan.compressor(b) is not None else None for b in plan.buckets]
     if comm.momentum_correction:
-        state["u"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
+        state["u"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
                       for b in plan.buckets]
     if any(b.compressor_name == "powersgd" for b in plan.buckets):
         groups = pods if comm.pod_local and pods > 1 else 0
@@ -237,13 +246,31 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
                  if b.compressor_name == "powersgd" else torch.zeros(0, dtype=f32, device=device))
             state["psgd_q"].append(torch.stack([q] * groups) if groups else q)
     if comm.overlap == "pipelined" and comm.overlap_staleness == 1:
-        state["overlap_pending"] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
+        state["overlap_pending"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
                                     for b in plan.buckets]
     if comm.aggregator == "gossip" and comm.gossip_compress == "choco":
         for k in ("choco_xhat", "choco_nbr"):
-            state[k] = [torch.zeros((n_workers, b.size), dtype=f32, device=device)
+            state[k] = [torch.zeros((rows, b.size), dtype=f32, device=device)
                         for b in plan.buckets]
     return state
+
+
+#: the per-worker (rows, size) comm-state stacks, one per bucket
+COMM_STACKS = ("ef", "u", "choco_xhat", "choco_nbr", "overlap_pending")
+
+
+def shard_view(comm_state: dict[str, Any], m: int, shards: int) -> dict[str, Any]:
+    """Model shard m's comm state: each (W * M, size) stack cut to its W
+    rows w * M + m (views: in-place updates reach the whole).  ``step`` is
+    a copy: the caller advances the whole state's."""
+    if shards == 1:
+        return comm_state
+    view = dict(comm_state)
+    for k in COMM_STACKS:
+        if k in view:
+            view[k] = [None if e is None else e.view(-1, shards, e.shape[1])[:, m]
+                       for e in view[k]]
+    return view
 
 
 def gather_bucket(b: Bucket, leaves: list[torch.Tensor]) -> torch.Tensor:
@@ -943,6 +970,51 @@ class GroupedRound:
             with comms.muted(g > 0):
                 out.append(r.finish()[0])
         self.state["step"] += 1
+        return out, self.state
+
+
+class ShardedRound:
+    """One aggregation round per model shard, over the same W workers
+    (:class:`GroupedRound` each, on its shard's rows of the comm state):
+    each (worker, shard)'s shard-local buckets are compressed and reduced
+    over the workers, with its own error feedback and comm state.  The
+    shards of one worker share their noise draws, as the reference folds
+    only the aggregation axes into the key.  Every shard books the same
+    collectives; shard 0's are booked, as each device's view sees them.
+    With one shard this is the :class:`GroupedRound` itself.
+
+    :meth:`add` takes worker w's buckets of shard m from ``bufs_of(m)``;
+    :meth:`finish` returns the per-shard lists of per-group aggregates and
+    the comm state (``step`` advanced once)."""
+
+    def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
+                 n_workers: int, noise: Noise, device: str | torch.device, *,
+                 shards: int = 1, **kw):
+        self.state, self.shards = comm_state, shards
+        self.rounds = [GroupedRound(comm, plan, shard_view(comm_state, m, shards), n_workers,
+                                    noise, device, **kw) for m in range(shards)]
+
+    def add(self, w: int, bufs_of: Callable[[int], Iterable[torch.Tensor]]) -> None:
+        for m, r in enumerate(self.rounds):
+            with comms.muted(m > 0):
+                r.add(w, bufs_of(m))
+
+    @property
+    def nnz(self) -> torch.Tensor | None:
+        got = [r.nnz for r in self.rounds if r.nnz is not None]
+        return sum(got[1:], got[0]) if got else None
+
+    @property
+    def nnz_of(self) -> int:
+        return sum(r.nnz_of for r in self.rounds)
+
+    def finish(self) -> tuple[list[list[list[torch.Tensor]]], dict[str, Any]]:
+        out = []
+        for m, r in enumerate(self.rounds):
+            with comms.muted(m > 0):
+                out.append(r.finish()[0])
+        if self.shards > 1:
+            self.state["step"] += 1
         return out, self.state
 
 

@@ -7,7 +7,11 @@ a real n-way collective would move: the local payload of one worker, its
 wire format, the mesh axes it reduces over (``over``: ``("data",)`` by
 default; ``("pod",)`` or ``("pod", "data")`` on a two-level layout) and n,
 their extent, priced by the reference's ``wire_bytes`` formulas, times the
-enclosing ``loop`` multiplicity.  Records are kept only inside
+enclosing ``loop`` multiplicity.  The reference's ``model`` axis is a
+stacked axis of M shards as well: the model code's tensor-parallel
+collectives (:func:`model_psum`, :func:`book_model`) reduce over that axis
+and are booked over ``("model",)`` whatever axes the enclosing ``over``
+names.  Records are kept only inside
 ``capture()``, and not inside ``muted()``: a program that runs the same
 collectives again (the pipelined step's later rounds, every pod's round
 but the first) books them once, as the reference traces them once.
@@ -104,14 +108,20 @@ def capture():
         _STATE.log = prev
 
 
-@contextlib.contextmanager
-def _setting(name: str, value):
-    prev = getattr(_STATE, name, "")
-    setattr(_STATE, name, value)
-    try:
-        yield
-    finally:
-        setattr(_STATE, name, prev)
+class _setting:
+    """Set one field of the thread's booking state inside the context (a
+    class, so one object can be entered again: a recomputed block's
+    context)."""
+
+    def __init__(self, name: str, value):
+        self.name, self.value, self.prev = name, value, []
+
+    def __enter__(self):
+        self.prev.append(getattr(_STATE, self.name, ""))
+        setattr(_STATE, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(_STATE, self.name, self.prev.pop())
 
 
 def tag(name: str):
@@ -135,8 +145,9 @@ def loop(n: int):
 
 
 def muted(on: bool = True):
-    """Book nothing inside (when ``on``)."""
-    return _setting("muted", bool(on))
+    """Book nothing inside (when ``on``; off, an enclosing ``muted`` still
+    holds)."""
+    return _setting("muted", bool(on) or getattr(_STATE, "muted", False))
 
 
 def wire_format(name: str):
@@ -192,6 +203,26 @@ def book_ppermute(local: torch.Tensor, n_workers: int) -> None:
     """Book one neighbour exchange of ``local`` (one worker's hop payload)
     by every worker of a W-way schedule (``repro_torch.core.collectives``)."""
     _record("ppermute", local, n_workers)
+
+
+MODEL_AXES = ("model",)
+
+
+def model_psum(partials: torch.Tensor) -> torch.Tensor:
+    """All-reduce sum of the M shards' partials, a (M, ...) stack, over the
+    model axis (the row-parallel reductions); booked as one shard's
+    operand over ``("model",)``."""
+    with over(MODEL_AXES):
+        _record("psum", partials[0], partials.shape[0])
+    return torch.sum(partials, dim=0)
+
+
+def book_model(kind: str, local: torch.Tensor, msize: int) -> None:
+    """Book a model-axis collective of one shard's operand ``local`` whose
+    result the caller computes itself (a vocab-parallel lookup or loss term
+    computed on the global vocabulary at once)."""
+    with over(MODEL_AXES):
+        _record(kind, local, msize)
 
 
 def ppermute(stacked: torch.Tensor, shift: int) -> torch.Tensor:

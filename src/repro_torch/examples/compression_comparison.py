@@ -3,11 +3,9 @@ model trained under each compression family, loss against per-step wire
 bytes, as scenarios on the trainer substrate (the twin of
 ``examples/compression_comparison.py``).
 
-The reference runs a 4-way data x 2-way model mesh (``model_par=2``).  The
-port has no model axis yet (ROADMAP queue 1 item 5), so this twin runs the
-same cells at ``data_par=4`` alone: the model axis only shards the
-parameters and activations, and the result is the same math
-(``tests/test_tp_equivalence.py`` holds the reference to that).
+Both run a 4-way data x 2-way model layout (``model_par=2``): here the 4
+workers and the 2 model shards are stacked on one device, each (worker,
+shard) compressing its shard-local buckets.
 
     PYTHONPATH=src python -m repro_torch.examples.compression_comparison [--device cpu]
 """
@@ -45,7 +43,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     # one class-grouped sweep: the two qsgd cells differ only in the levels
     # knob and share one bundle build
-    results, _ = run_trainer_sweep([s for _, s in CELLS], data_par=4, device=args.device)
+    results, _ = run_trainer_sweep([s for _, s in CELLS], data_par=4, model_par=2,
+                                   device=args.device)
     print(f"{'scheme':28s} {'final loss':>10s} {'agg wire/step':>14s}")
     for (name, _), res in zip(CELLS, results):
         print(f"{name:28s} {res.measured['final_loss']:10.4f} "

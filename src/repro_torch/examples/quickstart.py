@@ -2,12 +2,12 @@
 (DGC-style top-k + error feedback + momentum correction) over 4 workers,
 then serve the trained model (the twin of ``examples/quickstart.py``).
 
-The reference runs a 4-way data x 2-way model mesh.  The port has no model
-axis yet (ROADMAP queue 1 item 5), so this twin trains at ``data_par=4``
-alone, the 4 workers stacked on one device: the model axis only shards the
-parameters and activations, and the result is the same math
-(``tests/test_tp_equivalence.py`` holds the reference to that).  Serving
-runs through ``build_serve``: prefill a prompt into the ring KV cache, then
+Both train on a 4-way data x 2-way model layout: here the 4 workers and
+the 2 model shards are stacked on one device (the parameters padded for 2,
+each (worker, shard) compressing its shard-local buckets).  Serving runs
+through ``build_serve`` at model-axis size 1 on the trained weights (the
+reference serves them on its 4 x 2 mesh, the same function; serving under
+the model axis is slice 20): prefill a prompt into the ring KV cache, then
 16 greedy tokens.
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
@@ -27,6 +27,7 @@ from repro_torch.train.steps import build_bundle, build_serve
 from repro_torch.train.trainer import Trainer
 
 WORKERS = 4
+MODEL = 2
 
 
 def main(argv=None):
@@ -36,7 +37,7 @@ def main(argv=None):
     cfg = get_config("qwen3-0.6b").reduced().with_updates(
         vocab=128, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256)
     shape = InputShape("train", seq_len=64, global_batch=16, kind="train")
-    print(f"workers: {WORKERS} data-parallel, stacked on {args.device}")
+    print(f"workers: {WORKERS} data-parallel x {MODEL} model shards, stacked on {args.device}")
 
     # the paper's pipeline: top-k sparsification [25,184] + error feedback
     # [132,138] + momentum correction [25], bucketed MG-WFBP style [64]
@@ -45,7 +46,7 @@ def main(argv=None):
         error_feedback=True, momentum_correction=0.9, bucket_mb=4,
     )
     bundle = build_bundle(cfg, comm, momentum_sgd(0.0), shape, n_workers=WORKERS,
-                          device=args.device)
+                          device=args.device, model=MODEL)
 
     src = BigramSource(cfg.vocab, seed=0)
 

@@ -8,8 +8,9 @@ The reference runs each cell on a mesh of W host devices and picks W from
 the devices it has.  Here one device holds every worker, so the selection
 rule reads the reference's own cap on the devices its CLI lane forces,
 :data:`MAX_STACKED`, as the devices available: the same cells run and skip
-as there.  Only the data axis is ported: ``model_par`` other than 1 raises
-``NotImplementedError`` (ROADMAP queue 1 item 5).
+as there.  ``model_par`` M is the reference's model axis: M shards stacked
+beside the workers (:func:`repro_torch.train.steps.build_bundle`'s
+``model``), the parameters padded for M.
 
 The predictions use the active calibration profile
 (:func:`repro_torch.core.calibrate.get_active`: the fitted link, launch
@@ -40,10 +41,6 @@ from repro_torch.experiments.scenario import Scenario
 #: forces, ``min(max n_workers, 8)``; one card stacks every worker, so the
 #: device-count rule reads this cap as the devices available
 MAX_STACKED = 8
-
-_MODEL_AXIS = ("model_par {}: the model axis (tensor parallel) is not ported; it comes with "
-               "the distributed backend, ROADMAP queue 1 item 5")
-
 
 def to_comm_config(s: Scenario):
     """Scenario -> the trainer's CommConfig (:mod:`repro_torch.core.types`)."""
@@ -329,15 +326,14 @@ def run_trainer_scenario(s: Scenario, *, data_par: int | None = None, model_par:
     carries :func:`predict_trainer_step`; pipelined cells also
     :func:`predict_overlap_saving`.  ``bundle_cache=False`` forces a fresh
     build (the per-cell baseline).  ``params`` (the initial parameter tree,
-    copied), ``noise`` and ``churn_draws`` reach the bundle."""
+    copied; padded for ``model_par``), ``noise`` and ``churn_draws`` reach
+    the bundle."""
     from repro_torch.optim.optimizers import momentum_sgd
     from repro_torch.optim.schedules import constant
     from repro_torch.train.steps import build_bundle
     from repro_torch.train.trainer import Trainer
     from repro_torch.utils.tree import tree_map
 
-    if model_par != 1:
-        raise NotImplementedError(_MODEL_AXIS.format(model_par))
     comm = to_comm_config(s)
     cfg, shape, data = make_tiny_workload()
     dp = data_par or s.n_workers
@@ -348,7 +344,7 @@ def run_trainer_scenario(s: Scenario, *, data_par: int | None = None, model_par:
     device = torch.device(device)
     bundle = build_bundle(cfg, comm, momentum_sgd(momentum), shape, n_workers=dp, seed=s.seed,
                           device=device, noise=noise, microbatch=mb, churn_draws=churn_draws,
-                          cache=bundle_cache)
+                          model=model_par, cache=bundle_cache)
     trainer = Trainer(bundle, data, constant(s.lr), log_every=1)
     if params is None:
         state = trainer.init(s.seed)
@@ -378,8 +374,10 @@ def run_trainer_scenario(s: Scenario, *, data_par: int | None = None, model_par:
                                       for fmt, kb in measured["wire_format_kb"].items()}
         measured["wire_resync_kb_per_step"] = trainer_wire_resync_per_step(s, wire) / 1e3
     if s._corruption_active:
-        # the tallies of the final comm state, (W,) each; the wire-rounds
-        # denominator is sync rounds x microbatch rounds of a pipelined cell
+        # the tallies of the final comm state, (W,) each (the reference's are
+        # per (worker, shard), hence its division by model_par); the
+        # wire-rounds denominator is sync rounds x microbatch rounds of a
+        # pipelined cell
         cst = state["comm"]
         q_rounds = float(cst["quarantine_total"].to("cpu", torch.float64).sum())
         esc = float(cst["escalation_total"].to("cpu", torch.float64).sum())
@@ -420,8 +418,6 @@ def run_trainer_sweep(scenarios: list[Scenario], *, n_devices: int | None = None
     :func:`select_trainer_device_count` over ``n_devices`` (default:
     :func:`stacked_devices`).  Returns ``(results, skipped)``: results in
     input order (``None`` for a skipped cell) and the skip reasons."""
-    if model_par != 1:
-        raise NotImplementedError(_MODEL_AXIS.format(model_par))
     if data_par is None and n_devices is None:
         n_devices = stacked_devices(scenarios)
 
@@ -439,7 +435,8 @@ def run_trainer_sweep(scenarios: list[Scenario], *, n_devices: int | None = None
 
     groups: dict[tuple, list[tuple[int, Scenario, int]]] = {}
     for item in plan:
-        groups.setdefault(trainer_shape_key(item[1], data_par=item[2]), []).append(item)
+        groups.setdefault(trainer_shape_key(item[1], data_par=item[2], model_par=model_par),
+                          []).append(item)
 
     results: list[ScenarioResult | None] = [None] * len(scenarios)
     for items in groups.values():
@@ -447,7 +444,7 @@ def run_trainer_sweep(scenarios: list[Scenario], *, n_devices: int | None = None
             if verbose:
                 print(f"# trainer cell {s.tag()}: data_par={dp}", file=sys.stderr)
             results[i] = run_trainer_scenario(
-                s, data_par=dp, momentum=momentum, log_every=log_every,
+                s, data_par=dp, model_par=model_par, momentum=momentum, log_every=log_every,
                 bundle_cache=bundle_cache, device=device, params=params, noise=noise,
                 churn_draws=churn_draws)
     _attach_measured_overlap_saving(results)

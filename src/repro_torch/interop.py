@@ -21,8 +21,11 @@ from repro_torch.utils.tree import flatten_with_paths, unflatten_like
 
 
 def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig,
-                      device: str | torch.device = "cuda") -> Any:
-    defs = flatten_with_paths(param_defs(cfg))
+                      device: str | torch.device = "cuda", msize: int = 1) -> Any:
+    """The port's parameter tree from ``{path: array}``: the reference's
+    parameters padded for model-axis size ``msize`` (``T.init_params(cfg,
+    key, msize)``), in their global layout."""
+    defs = flatten_with_paths(param_defs(cfg, msize))
     if set(flat) != set(defs):
         raise ValueError(f"parameter paths differ: missing {sorted(set(defs) - set(flat))}, "
                          f"unexpected {sorted(set(flat) - set(defs))}")
@@ -34,7 +37,7 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig,
         if a.shape != tuple(d.shape):
             raise ValueError(f"{path}: shape {a.shape}, expected {tuple(d.shape)}")
         out.append(torch.from_numpy(a).to(device=device, dtype=cfg.pdtype))
-    return unflatten_like(param_defs(cfg), out)
+    return unflatten_like(param_defs(cfg, msize), out)
 
 
 def cache_from_numpy(flat: dict[str, np.ndarray], like: Any) -> Any:

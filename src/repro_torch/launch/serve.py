@@ -15,9 +15,10 @@ hymba-1.5b.
 Weights are random from ``--seed``, or the ``params`` of the checkpoint
 that ``--restore`` names (``repro_torch.checkpoint``, the reference's
 format: its other keys are left alone); prompts are ``SyntheticBatches``
-(kind "prefill").  The reference's ``--data``, ``--model``,
-``--fake-devices`` and ``--seq-par`` describe a mesh and have no meaning on
-one card, so they are left out.  Prints the prefill ms, the decode ms and
+(kind "prefill").  ``--model`` above 1 raises: serving under the model axis
+(the context-parallel decode cache) is slice 20.  The reference's
+``--data``, ``--fake-devices`` and ``--seq-par`` describe a mesh and have
+no meaning on one card, so they are left out.  Prints the prefill ms, the decode ms and
 tok/s, and the first sequence's tokens.
 """
 
@@ -45,7 +46,8 @@ def _sync(device: torch.device) -> None:
 
 
 def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
-        device: str | torch.device = "cuda", seed: int = 0, restore: str = "") -> dict:
+        device: str | torch.device = "cuda", seed: int = 0, restore: str = "",
+        model: int = 1) -> dict:
     """Build, prefill and decode; print the launcher's lines and return
     ``{"prefill_ms", "decode_ms", "tok_per_s", "tokens" (B, decode) int32
     numpy, "last" (B, d) tensor, "cache", "cache_bytes" (the prefill
@@ -53,7 +55,8 @@ def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
     mark, weights included, None off the card)}``.  Times are host clock
     ending in a synchronize of the device."""
     device = torch.device(device)
-    sb = build_serve(cfg, InputShape("serve", prompt_len + decode, batch, "decode"), device)
+    sb = build_serve(cfg, InputShape("serve", prompt_len + decode, batch, "decode"), device,
+                     msize=model)
     params = init_params(cfg, seed, device)
     if restore:
         params = restore_ckpt(restore, {"params": params}, partial=True)[0]["params"]
@@ -99,12 +102,13 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--restore", default="")
+    p.add_argument("--model", type=int, default=1, help="model-axis shards (1 only)")
     args = p.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     run(cfg, prompt_len=args.prompt_len, batch=args.batch, decode=args.decode,
-        device=args.device, seed=args.seed, restore=args.restore)
+        device=args.device, seed=args.seed, restore=args.restore, model=args.model)
     return 0
 
 

@@ -2,16 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen3-0.6b --reduced --steps 200 \\
-        --comm topk_ef --opt momentum --lr 0.1 --workers 4 \\
+        --comm topk_ef --opt momentum --lr 0.1 --workers 4 [--model 2] \\
         [--pod 2] [--pod-local] [--overlap pipelined --overlap-staleness 0] \\
         [--microbatch 4] [--zero1] [--local-steps 8] [--device cpu] \\
         [--ckpt-dir ckpts --ckpt-every 100] [--restore ckpts/step100]
 
 The workers are stacked on one device (``--workers`` takes the place of
 the reference's ``--data``: D workers per pod; ``--pod P`` lays out P pods
-of them, W = P * D; ``--model`` and ``--fake-devices`` describe a jax mesh
-and have no port).  ``--cache-dir`` (default ``$REPRO_TORCH_CACHE_DIR``) is
-the persistent cache of :mod:`repro_torch.core.compilecache`: a later
+of them, W = P * D); ``--model M`` is the reference's model axis, M shards
+stacked on the same device beside the workers (tensor-parallel layers, the
+vocabulary-parallel loss, per-shard gradient buckets: W * M (worker, shard)
+pairs); ``--fake-devices`` describes a jax mesh and has no port.
+``--cache-dir`` (default ``$REPRO_TORCH_CACHE_DIR``) is the persistent
+cache of :mod:`repro_torch.core.compilecache`: a later
 launch on the same toolchain and card loads the kernel libraries and the
 bundle's booked wire instead of building them.  Comm presets
 are :data:`COMM_PRESETS`, the reference's dry-run table (``pod_local_sgd``:
@@ -65,6 +68,7 @@ def main(argv=None) -> int:
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--workers", type=int, default=1, help="data-parallel workers per pod")
     p.add_argument("--pod", type=int, default=0, help="pods P (W = P x --workers)")
+    p.add_argument("--model", type=int, default=1, help="model-axis shards M")
     p.add_argument("--microbatch", type=int, default=1)
     p.add_argument("--zero1", action="store_true")
     p.add_argument("--pod-local", action="store_true")
@@ -121,8 +125,9 @@ def main(argv=None) -> int:
         opt = zero1(opt, n_workers)
     bundle = build_bundle(cfg, comm, opt, shape, n_workers=n_workers, seed=args.seed,
                           device=args.device, clip_norm=args.clip_norm,
-                          microbatch=args.microbatch, pods=pods)
-    print(f"{n_workers} workers ({pods} pods x {args.workers}), {args.comm}: "
+                          microbatch=args.microbatch, pods=pods, model=args.model)
+    print(f"{n_workers} workers ({pods} pods x {args.workers}) x {args.model} model shards, "
+          f"{args.comm}: "
           f"{len(bundle.bucket_plan.buckets)} buckets, {bundle.opt.name}")
     if cfg.vocab <= BIGRAM_MAX_VOCAB and cfg.modality == "text":
         src = BigramSource(cfg.vocab, seed=args.seed)

@@ -1,5 +1,5 @@
 """Transformer building blocks of the attention families (counterpart of
-``repro.models.layers`` at model-axis size 1): GQA with standard, partial
+``repro.models.layers``): GQA with standard, partial
 or multimodal (M-RoPE) rotary positions, qkv bias, qk-norm and sliding
 windows, causal or not, and cross-attention to an encoder's output; MLA
 (deepseek-v2's compressed-latent attention); one-token decode attention
@@ -13,10 +13,25 @@ Layouts are the reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd),
 the router (d, E), the embedding (V, d).  Activations are (B, S, d).
 Attention, the projections and the expert products are plain PyTorch
 products, as the reference leaves them to XLA.
+
+The training paths take the model-axis size ``msize`` M (the reference's
+``ax.model``; 1 leaves every path as it was).  The leaves are the global,
+padded-for-M ones (:mod:`repro_torch.models.sharding`): a column-parallel
+product over all M shards' columns is one product of the global leaf, and
+the row-parallel products run on the M shards' blocks at once (a leading
+shard axis), their partials summed by :func:`comms.model_psum`, booked over
+``("model",)`` as the reference's ``psum``.  Padded query heads are zeroed
+before ``wo``; over replicated GQA KV a padded head set reads each head's
+KV head through the reference's explicit gather.  The vocabulary-parallel
+embedding and loss compute on the whole padded vocabulary at once and book
+the reference's ``psum``/``pmax`` of one shard's operand
+(:func:`comms.book_model`).  The decode paths stay at model-axis size 1:
+serving under the axis is a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -24,7 +39,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.sharding import ParamDef, ShapePlan
+from repro_torch.core import comms
+from repro_torch.models.sharding import ParamDef, ShapePlan, shards
 
 f32 = torch.float32
 
@@ -84,22 +100,42 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> to
 
 
 def mlp_defs(d: int, dff: int) -> dict[str, ParamDef]:
-    return {"wi": ParamDef((d, dff)), "wg": ParamDef((d, dff)), "wo": ParamDef((dff, d))}
+    return {"wi": ParamDef((d, dff), shard=1), "wg": ParamDef((d, dff), shard=1),
+            "wo": ParamDef((dff, d), shard=0)}
 
 
-def mlp(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def row_parallel(h: torch.Tensor, w: torch.Tensor, eq: str, msize: int, *,
+                 reduce: bool = True) -> torch.Tensor:
+    """``einsum(eq, h, w)`` of a row-parallel product whose contracted
+    dimension is ``h``'s third (heads or hidden columns) and ``w``'s first.
+    At ``msize`` M > 1 the M shards' products run at once, each on its
+    block of that dimension, and ``reduce`` sums their (M, ...) partials
+    over the model axis (booked); without it the partials are returned."""
+    if msize == 1:
+        return torch.einsum(eq, h, w)
+    lhs, rest = eq.split(",")
+    rhs, out = rest.split("->")
+    part = torch.einsum(f"{lhs[:2]}m{lhs[2:]},m{rhs}->m{out}", h.unflatten(2, (msize, -1)),
+                        shards(w, 0, msize))
+    return comms.model_psum(part) if reduce else part
+
+
+def mlp(p: dict[str, torch.Tensor], x: torch.Tensor, msize: int = 1, *,
+        reduce: bool = True) -> torch.Tensor:
+    """SwiGLU; at ``msize`` > 1 ``wi``/``wg`` column-parallel and ``wo``
+    row-parallel (``reduce`` False: the (M, B, S, d) partials)."""
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     g = torch.einsum("bsd,df->bsf", x, p["wg"])
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"])
+    return row_parallel(F.silu(g) * h, p["wo"], "bsf,fd->bsd", msize, reduce=reduce)
 
 
 def moe_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, Any]:
     d, E, dff = plan.d, plan.E, plan.Dff_e
     defs: dict[str, Any] = {
         "router": ParamDef((d, E), init="small"),
-        "wi": ParamDef((E, d, dff)),
-        "wg": ParamDef((E, d, dff)),
-        "wo": ParamDef((E, dff, d)),
+        "wi": ParamDef((E, d, dff), shard=0),
+        "wg": ParamDef((E, d, dff), shard=0),
+        "wo": ParamDef((E, dff, d), shard=0),
     }
     if plan.Dff_shared:
         defs["shared"] = mlp_defs(d, plan.Dff_shared)
@@ -122,9 +158,16 @@ def router_top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
 
 
 def moe_ffn(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
-            capacity_factor: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dropping top-k MoE (the reference's ``moe_ffn`` at model-axis size
-    1: every expert is local).  Returns (out (B, S, d), aux).
+            capacity_factor: float | None = None, msize: int = 1
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dropping top-k MoE (the reference's ``moe_ffn``).  Returns (out
+    (B, S, d), aux).  At ``msize`` M > 1 the experts split into M shards of
+    E / M; each shard's buffer holds its own experts' slots (a slot's place
+    in its expert does not depend on the other experts, so the M buffers
+    together are the one below and C stays global, as there), each shard
+    combines its own experts' outputs with its block of the shared
+    experts', and the M partials are summed over the model axis in one
+    booked psum.
 
     The (token, choice) pairs in flat ``T*k`` order take their slot in
     their expert's buffer by a running count; the first C of each expert
@@ -158,6 +201,13 @@ def moe_ffn(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     eo = torch.bmm(F.silu(g) * h, p["wo"]).reshape(E * C, d)
     eo = torch.cat([eo, torch.zeros((1, d), dtype=eo.dtype, device=eo.device)], 0)
     y = eo[slot] * (flat_w * keep.to(f32)).to(x.dtype)[:, None]
+    if msize > 1:
+        # each (token, choice) pair lands in the shard that owns its expert
+        owner = F.one_hot(flat_e // (E // msize), msize).T.to(x.dtype)  # (M, T*k)
+        y = (y[None] * owner[:, :, None]).reshape(msize, T, k, d).sum(2)
+        if "shared" in p:
+            y = y + mlp(p["shared"], x, msize, reduce=False).reshape(msize, T, d)
+        return comms.model_psum(y).reshape(B, S, d), aux
     y = y.reshape(T, k, d).sum(1)
     if "shared" in p:
         y = y + mlp(p["shared"], x).reshape(T, d)
@@ -169,23 +219,24 @@ def attn_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, ParamDef]:
     if cfg.kv_lora:  # MLA (deepseek-v2)
         qk = cfg.qk_nope_dim + cfg.qk_rope_dim
         return {
-            "wq": ParamDef((d, H, qk)),
+            "wq": ParamDef((d, H, qk), shard=1),
             "w_dkv": ParamDef((d, cfg.kv_lora + cfg.qk_rope_dim)),
             "kv_norm": rmsnorm_def(cfg.kv_lora),
-            "w_uk": ParamDef((cfg.kv_lora, H, cfg.qk_nope_dim)),
-            "w_uv": ParamDef((cfg.kv_lora, H, cfg.v_head_dim)),
-            "wo": ParamDef((H, cfg.v_head_dim, d)),
+            "w_uk": ParamDef((cfg.kv_lora, H, cfg.qk_nope_dim), shard=1),
+            "w_uv": ParamDef((cfg.kv_lora, H, cfg.v_head_dim), shard=1),
+            "wo": ParamDef((H, cfg.v_head_dim, d), shard=0),
         }
+    kv = 1 if plan.kv_sharded else None
     defs = {
-        "wq": ParamDef((d, H, hd)),
-        "wk": ParamDef((d, KV, hd)),
-        "wv": ParamDef((d, KV, hd)),
-        "wo": ParamDef((H, hd, d)),
+        "wq": ParamDef((d, H, hd), shard=1),
+        "wk": ParamDef((d, KV, hd), shard=kv),
+        "wv": ParamDef((d, KV, hd), shard=kv),
+        "wo": ParamDef((H, hd, d), shard=0),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((H, hd), init="zeros")
-        defs["bk"] = ParamDef((KV, hd), init="zeros")
-        defs["bv"] = ParamDef((KV, hd), init="zeros")
+        defs["bq"] = ParamDef((H, hd), init="zeros", shard=0)
+        defs["bk"] = ParamDef((KV, hd), init="zeros", shard=None if kv is None else 0)
+        defs["bv"] = ParamDef((KV, hd), init="zeros", shard=None if kv is None else 0)
     if cfg.qk_norm:
         defs["q_norm"] = rmsnorm_def(hd)
         defs["k_norm"] = rmsnorm_def(hd)
@@ -272,28 +323,50 @@ def mla_latent(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     return kv_lat, apply_rope(cfg, latent[..., None, cfg.kv_lora:], positions)
 
 
+def _head_out(cfg: ModelConfig, out: torch.Tensor, wo: torch.Tensor, msize: int) -> torch.Tensor:
+    """The attention output (B, S, H, hd_v) through ``wo``: padded heads
+    (H > n_heads) zeroed first, so their random-weight outputs never leak;
+    row-parallel over the heads at ``msize`` > 1."""
+    H = out.shape[2]
+    if H > cfg.n_heads:
+        keep = torch.arange(H, device=out.device) < cfg.n_heads
+        out = out * keep[None, None, :, None].to(out.dtype)
+    return row_parallel(out, wo, "bshk,hkd->bsd", msize)
+
+
 def attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
               positions: torch.Tensor | None, window: int, causal: bool = True,
-              kv_source: torch.Tensor | None = None, q_chunk: int = 1024) -> torch.Tensor:
+              kv_source: torch.Tensor | None = None, q_chunk: int = 1024,
+              msize: int = 1) -> torch.Tensor:
     """Train attention over the full sequence, ``window`` tokens back (the
     sequence length for a global layer), causal or not (the encoder), in
     query chunks of ``q_chunk``.  With ``kv_source`` (B, Sk, d), the encoder's
     output, it is cross-attention: K and V come from ``kv_source``, nothing
-    is rotated and nothing is causal. Returns (B, S, d)."""
+    is rotated and nothing is causal. Returns (B, S, d).  ``msize``: the
+    model-axis size (heads column-parallel, ``wo`` row-parallel)."""
     if "w_dkv" in p:
-        return _mla_attention(cfg, p, x, positions=positions, window=window, q_chunk=q_chunk)
+        return _mla_attention(cfg, p, x, positions=positions, window=window, q_chunk=q_chunk,
+                              msize=msize)
     rot = positions if kv_source is None else None
     q = _q_proj(cfg, p, x, rot)
     kk, vv = kv_proj(cfg, p, x if kv_source is None else kv_source, rot)
+    H = q.shape[2]
+    if H != cfg.n_heads and kk.shape[2] == cfg.n_kv_heads != cfg.n_heads:
+        # padded query heads over replicated GQA KV: the reference's explicit
+        # gather, q-head h -> kv-head min(h, n_heads - 1) * KV // n_heads
+        sel = (torch.clamp_max(torch.arange(H, device=q.device), cfg.n_heads - 1)
+               * cfg.n_kv_heads // cfg.n_heads)
+        kk, vv = kk[:, :, sel], vv[:, :, sel]
     # GQA: sdpa_chunked groups the query heads, so q-head h reads kv-head
     # h * KV // H, the reference's head gather, without copying K and V
     out = sdpa_chunked(q, kk, vv, window=window, causal=causal and kv_source is None,
                        q_chunk=q_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _head_out(cfg, out, p["wo"], msize)
 
 
 def _mla_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
-                   positions: torch.Tensor, window: int, q_chunk: int) -> torch.Tensor:
+                   positions: torch.Tensor, window: int, q_chunk: int,
+                   msize: int = 1) -> torch.Tensor:
     """Multi-head latent attention, training path: K and V decompressed
     from the rms-normed latent, one shared RoPE key per position."""
     B, S, _ = x.shape
@@ -306,7 +379,7 @@ def _mla_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     H = q.shape[2]
     k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)], -1)
     out = sdpa_chunked(torch.cat([q_nope, q_rope], -1), k, v, window=window, q_chunk=q_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _head_out(cfg, out, p["wo"], msize)
 
 
 # ---------------------------------------------------------------------------
@@ -403,14 +476,21 @@ def _mla_decode(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
 
 
 def embed_defs(plan: ShapePlan) -> dict[str, ParamDef]:
-    return {"embedding": ParamDef((plan.V, plan.d), init="small")}
+    return {"embedding": ParamDef((plan.V, plan.d), init="small", shard=0)}
 
 
-def embed(p: dict[str, torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
+def embed(p: dict[str, torch.Tensor], ids: torch.Tensor, msize: int = 1) -> torch.Tensor:
+    """Embedding lookup; ids outside the vocabulary read zeros.  At
+    ``msize`` > 1 the vocabulary is split over the model axis: each shard's
+    lookup reads zeros for the ids it does not hold, so the psum of the M
+    lookups (booked) is the one lookup of the whole table."""
     V = p["embedding"].shape[0]
     ok = (ids >= 0) & (ids < V)
     vec = p["embedding"][torch.clamp(ids, 0, V - 1).long()]
-    return vec * ok[..., None].to(vec.dtype)
+    vec = vec * ok[..., None].to(vec.dtype)
+    if msize > 1:
+        comms.book_model("psum", vec, msize)
+    return vec
 
 
 def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -418,10 +498,21 @@ def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
 
 
 def _chunk_loss(emb: torch.Tensor, h_c: torch.Tensor, labels_c: torch.Tensor,
-                softcap: float = 0.0):
+                softcap: float = 0.0, msize: int = 1):
+    """One chunk's summed cross-entropy and label count.  At ``msize`` > 1
+    (the vocabulary-parallel loss) the exponentials are summed within each
+    shard's block of the vocabulary, then over the shards; the max, the sum
+    and the label's logit are booked as the reference's ``pmax`` and two
+    ``psum``s over the model axis."""
     logits = _softcap(torch.einsum("bsd,vd->bsv", h_c.to(f32), emb.to(f32)), softcap)
     m = torch.amax(logits, dim=-1).detach()
-    lse = torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1)) + m
+    e = torch.exp(logits - m[..., None])
+    if msize > 1:
+        comms.book_model("pmax", m, msize)
+        comms.book_model("psum", m, msize)
+        comms.book_model("psum", m, msize)
+        e = e.unflatten(-1, (msize, -1)).sum(-1)
+    lse = torch.log(torch.sum(e, dim=-1)) + m
     V = emb.shape[0]
     y = torch.gather(logits, -1, torch.clamp(labels_c, 0, V - 1).long()[..., None])[..., 0]
     y = y * ((labels_c >= 0) & (labels_c < V)).to(f32)
@@ -430,15 +521,18 @@ def _chunk_loss(emb: torch.Tensor, h_c: torch.Tensor, labels_c: torch.Tensor,
 
 
 def logits_and_loss(p: dict[str, torch.Tensor], h: torch.Tensor, labels: torch.Tensor,
-                    *, softcap: float = 0.0, s_chunk: int = 1024) -> torch.Tensor:
+                    *, softcap: float = 0.0, s_chunk: int = 1024,
+                    msize: int = 1) -> torch.Tensor:
     """Cross-entropy in f32 against the embedding, the logits softcapped
     (``softcap * tanh(logits / softcap)``) when ``softcap`` is set;
     sequences longer than ``s_chunk`` are chunked and each chunk is
     recomputed in the backward, so the (B, S, V) f32 logits never exist at
-    once."""
+    once.  ``msize``: the model-axis size (vocabulary-parallel); the
+    chunks' collectives are booked once, as the reference books its scan
+    body once."""
     B, S = labels.shape
     if S <= s_chunk:
-        tot, cnt = _chunk_loss(p["embedding"], h, labels, softcap)
+        tot, cnt = _chunk_loss(p["embedding"], h, labels, softcap, msize)
         return tot / torch.clamp(cnt, min=1.0)
     if S % s_chunk:
         raise ValueError(f"S={S} is not a multiple of s_chunk={s_chunk}")
@@ -446,8 +540,11 @@ def logits_and_loss(p: dict[str, torch.Tensor], h: torch.Tensor, labels: torch.T
     cnt = torch.zeros((), dtype=f32, device=h.device)
     for i in range(S // s_chunk):
         sl = slice(i * s_chunk, (i + 1) * s_chunk)
-        t, c = checkpoint(_chunk_loss, p["embedding"], h[:, sl], labels[:, sl], softcap,
-                          use_reentrant=False)
+        with comms.muted(i > 0):
+            # the recomputation in the backward books nothing
+            t, c = checkpoint(_chunk_loss, p["embedding"], h[:, sl], labels[:, sl], softcap,
+                              msize, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), comms.muted()))
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
 

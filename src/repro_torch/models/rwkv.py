@@ -1,6 +1,10 @@
 """RWKV6 ("Finch") block [arXiv:2404.05892] (counterpart of
-``repro.models.rwkv`` at model-axis size 1): attention-free time mixing
-with a data-dependent decay, and the RWKV channel-mix FFN.
+``repro.models.rwkv``): attention-free time mixing with a data-dependent
+decay, and the RWKV channel-mix FFN.  Under the model axis (``msize`` M >
+1) the heads and the channel mix's hidden columns split over the M shards:
+the recurrence runs on every shard's H / M heads in one launch (the heads
+are independent), and ``wo`` and ``cm_wv`` are row-parallel, their
+partials summed over the model axis (booked).
 
 State per head: S (hd x hd, f32) with
     y_t[j]   = sum_i r_t[i] (S_{t-1}[i,j] + u[i] k_t[i] v_t[j])
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
-from repro_torch.models.layers import rmsnorm, rmsnorm_def
+from repro_torch.models.layers import rmsnorm, rmsnorm_def, row_parallel
 from repro_torch.models.sharding import ParamDef, ShapePlan
 
 f32 = torch.float32
@@ -45,22 +49,22 @@ def rwkv_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, Any]:
         "mu": ParamDef((5, d), init="zeros"),
         "mix_A": ParamDef((d, 5 * mix), init="small"),
         "mix_B": ParamDef((5, mix, d), init="small"),
-        "wr": ParamDef((d, H, hd)),
-        "wk": ParamDef((d, H, hd)),
-        "wv": ParamDef((d, H, hd)),
-        "wg": ParamDef((d, H, hd)),
+        "wr": ParamDef((d, H, hd), shard=1),
+        "wk": ParamDef((d, H, hd), shard=1),
+        "wv": ParamDef((d, H, hd), shard=1),
+        "wg": ParamDef((d, H, hd), shard=1),
         # decay: w0 + tanh(x A_w) B_w (per attention channel)
-        "w0": ParamDef((H, hd), init="zeros"),
+        "w0": ParamDef((H, hd), init="zeros", shard=0),
         "wd_A": ParamDef((d, lora), init="small"),
-        "wd_B": ParamDef((lora, H, hd), init="small"),
-        "u": ParamDef((H, hd), init="small"),  # bonus
+        "wd_B": ParamDef((lora, H, hd), init="small", shard=1),
+        "u": ParamDef((H, hd), init="small", shard=0),  # bonus
         "ln_y": rmsnorm_def(hd),  # per-head group norm
-        "wo": ParamDef((H, hd, d)),
+        "wo": ParamDef((H, hd, d), shard=0),
         # channel mix
         "cm_mu_k": ParamDef((d,), init="zeros"),
         "cm_mu_r": ParamDef((d,), init="zeros"),
-        "cm_wk": ParamDef((d, plan.Dff)),
-        "cm_wv": ParamDef((plan.Dff, d)),
+        "cm_wk": ParamDef((d, plan.Dff), shard=1),
+        "cm_wv": ParamDef((plan.Dff, d), shard=0),
         "cm_wr": ParamDef((d, d)),
     }
 
@@ -88,7 +92,8 @@ def _last(x: torch.Tensor) -> torch.Tensor:
 
 def rwkv_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
                state: dict[str, torch.Tensor] | None = None, *,
-               use_kernel: bool = False) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+               use_kernel: bool = False, msize: int = 1
+               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Time-mix sub-block. state: {"shift": (B,d), "wkv": (B,H,hd,hd) f32}.
     ``use_kernel`` runs the recurrence through ``ops.wkv6`` (the kernels on
     a CUDA tensor, forward and backward), else through the plain
@@ -114,12 +119,13 @@ def rwkv_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     # per-head norm; eps scaled like RWKV's GroupNorm (64e-5 * head_dim basis)
     y = rmsnorm(p["ln_y"], y.to(x.dtype), eps=1e-3)
     y = y * F.silu(g)
-    out = torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    out = row_parallel(y, p["wo"], "bshk,hkd->bsd", msize)
     return out, {"shift": _last(x), "wkv": wkv}
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
-                     last: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                     last: torch.Tensor | None = None, msize: int = 1
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV FFN: squared-relu key path with sigmoid receptance gate."""
     B, S, d = x.shape
     if last is None:
@@ -129,6 +135,6 @@ def rwkv_channel_mix(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     xk = x + dx * p["cm_mu_k"]
     xr = x + dx * p["cm_mu_r"]
     kk = torch.square(F.relu(torch.einsum("bsd,df->bsf", xk, p["cm_wk"])))
-    vv = torch.einsum("bsf,fd->bsd", kk, p["cm_wv"])
+    vv = row_parallel(kk, p["cm_wv"], "bsf,fd->bsd", msize)
     r = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["cm_wr"]))
     return r * vv, _last(x)

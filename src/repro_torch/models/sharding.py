@@ -1,10 +1,18 @@
 """Shape plan and parameter definitions (counterpart of
 ``repro.models.sharding``).
 
-The port runs one model replica per card, so only the model-axis size 1 of
-the reference's plan is exercised; ``make_plan`` keeps the padding rules
-(vocab padded to a multiple of 128, heads to the axis size) so shapes match
-the reference's at msize 1.
+The reference's ``model`` mesh axis of size M is a stacked axis of M shards
+in one process here, as its ``data`` and ``pod`` axes are.  ``make_plan``
+pads as the reference does (heads to a multiple of M, the vocabulary to one
+of 128 * M, ``Dff``, ``d_inner`` and the experts split over M).  A
+``ParamDef`` names the dimension its ``PartitionSpec`` shards over
+``model`` (``shard``; None: replicated).  A parameter is held in its
+global, padded-for-M layout, which is the reference's checkpoint layout and
+the array ``T.init_params(cfg, key, M)`` returns, and replicated leaves are
+held once; shard m's local leaf is the m-th of M equal blocks along
+``shard`` (:func:`shard_local`, a view), and the model code computes on all
+M blocks at once (:func:`shards`, a view with a leading shard axis).  The
+gradient exchange works on the shard-local leaves (:func:`local_defs`).
 """
 
 from __future__ import annotations
@@ -129,11 +137,50 @@ class ParamDef:
     shape: tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones | small
     scale: float = 1.0
+    #: the dimension split over the model axis (None: replicated)
+    shard: int | None = None
 
 
 def stack_defs(defs: Any, n: int) -> Any:
-    """Add a leading stacked-layer dimension to every def."""
-    return tree_map(lambda d: dataclasses.replace(d, shape=(n, *d.shape)), defs)
+    """Add a leading stacked-layer dimension (replicated) to every def."""
+    return tree_map(lambda d: dataclasses.replace(
+        d, shape=(n, *d.shape), shard=None if d.shard is None else d.shard + 1), defs)
+
+
+def local_shape(d: ParamDef, msize: int) -> tuple[int, ...]:
+    """One shard's shape of ``d`` (the reference's ``local_abstract``)."""
+    if d.shard is None or msize == 1:
+        return d.shape
+    if d.shape[d.shard] % msize:
+        raise ValueError(f"dimension {d.shard} of {d.shape} does not split over {msize}")
+    return tuple(n // msize if i == d.shard else n for i, n in enumerate(d.shape))
+
+
+def local_defs(defs: Any, msize: int) -> Any:
+    """The shard-local ParamDef tree: the shapes each of the M shards holds."""
+    return tree_map(lambda d: dataclasses.replace(d, shape=local_shape(d, msize)), defs)
+
+
+def shard_dims(defs: Any) -> list[int | None]:
+    """Each leaf's sharded dimension, in leaf order."""
+    return [d.shard for d in flatten_with_paths(defs).values()]
+
+
+def shard_local(t: torch.Tensor, dim: int | None, msize: int, m: int) -> torch.Tensor:
+    """Shard m's block of the global ``t`` along ``dim`` (a view); a
+    replicated leaf (``dim`` None) is its own local leaf.  ``dim`` counts
+    ``t``'s own dimensions, so a stacked (rows, *shape) leaf passes the
+    def's dimension plus one."""
+    if dim is None or msize == 1:
+        return t
+    n = t.shape[dim] // msize
+    return t.narrow(dim, m * n, n)
+
+
+def shards(t: torch.Tensor, dim: int, msize: int) -> torch.Tensor:
+    """The M shard-local blocks of ``t`` along ``dim``, stacked on a new
+    leading shard axis (a view)."""
+    return t.unflatten(dim, (msize, -1)).movedim(dim, 0)
 
 
 def materialize(defs: Any, generator: torch.Generator, dtype: torch.dtype,

@@ -1,6 +1,9 @@
 """Mamba-style selective SSM head of the Hymba hybrid block
-[arXiv:2411.13676] (counterpart of ``repro.models.ssm`` at model-axis size
-1, where the reference's ``psum`` over the model axis is the identity).
+[arXiv:2411.13676] (counterpart of ``repro.models.ssm``).  Under the model
+axis (``msize`` M > 1) ``d_inner`` splits over the M shards: ``w_dbc`` and
+``out`` are row-parallel, their partials summed over the model axis
+(booked, as the reference's two ``psum``s); the scan is per channel, so it
+runs on every shard's channels at once.
 
 The scan has no Pallas kernel in the reference (a ``lax.scan``), so it stays
 plain PyTorch.  :func:`selective_scan` computes it in time chunks of
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import row_parallel
 from repro_torch.models.sharding import ParamDef, ShapePlan
 
 f32 = torch.float32
@@ -36,17 +40,17 @@ def ssm_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, Any]:
     d, di, st = plan.d, plan.d_inner, cfg.ssm_state
     kc = cfg.ssm_conv
     return {
-        "in_x": ParamDef((d, di)),
-        "in_z": ParamDef((d, di)),
-        "conv": ParamDef((kc, di), init="small"),
-        "conv_b": ParamDef((di,), init="zeros"),
+        "in_x": ParamDef((d, di), shard=1),
+        "in_z": ParamDef((d, di), shard=1),
+        "conv": ParamDef((kc, di), init="small", shard=1),
+        "conv_b": ParamDef((di,), init="zeros", shard=0),
         # dt/B/C from the post-conv stream
-        "w_dbc": ParamDef((di, DT_RANK + 2 * st), init="small"),
-        "dt_proj": ParamDef((DT_RANK, di), init="small"),
-        "dt_bias": ParamDef((di,), init="zeros"),
-        "A_log": ParamDef((di, st), init="zeros"),
-        "D": ParamDef((di,), init="ones"),
-        "out": ParamDef((di, d)),
+        "w_dbc": ParamDef((di, DT_RANK + 2 * st), init="small", shard=0),
+        "dt_proj": ParamDef((DT_RANK, di), init="small", shard=1),
+        "dt_bias": ParamDef((di,), init="zeros", shard=0),
+        "A_log": ParamDef((di, st), init="zeros", shard=0),
+        "D": ParamDef((di,), init="ones", shard=0),
+        "out": ParamDef((di, d), shard=0),
     }
 
 
@@ -126,7 +130,7 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
 
 
 def ssm_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
-              state: dict[str, torch.Tensor] | None = None
+              state: dict[str, torch.Tensor] | None = None, msize: int = 1
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The Mamba head on x (B, S, d): (out (B, S, d), new state).  state:
     {"conv": (B, kc-1, di) in x's dtype, "h": (B, di, st) f32}; None: a
@@ -141,12 +145,12 @@ def ssm_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     z = torch.einsum("bsd,de->bse", x, p["in_z"])
     xs, conv_state = _causal_conv(xs, p["conv"], p["conv_b"], state["conv"])
     xs = F.silu(xs)
-    dbc = torch.einsum("bse,ek->bsk", xs, p["w_dbc"])
+    dbc = row_parallel(xs, p["w_dbc"], "bse,ek->bsk", msize)
     dt_r, Bm, Cm = torch.split(dbc, [DT_RANK, st, st], dim=-1)
     dt = F.softplus(torch.einsum("bsk,ke->bse", dt_r, p["dt_proj"]) + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(f32))
     y, h = selective_scan(xs, dt, A, Bm, Cm, state["h"])
     y = y.to(x.dtype) + xs * p["D"]
     y = y * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", y, p["out"])
+    out = row_parallel(y, p["out"], "bse,ed->bsd", msize)
     return out, {"conv": conv_state, "h": h}

@@ -33,16 +33,24 @@ d_inner, state) f32}``; an RWKV6 block ``{"tm": {"shift" (B, d), "wkv"
 holds the encoder's output ``"enc_out"`` (B, S_enc, d), whose K and V each
 decode step recomputes, as the reference does.  The sequence-parallel
 prefill is a later slice and raises ``NotImplementedError``.
+
+Training takes the reference's model axis as ``msize`` M: the parameters
+are the padded-for-M tree (:func:`param_defs`), every layer runs its M
+shards' local computations at once and books its collectives over
+``("model",)`` (:mod:`repro_torch.models.layers`).  Serving stays at M = 1
+(the context-parallel decode cache is slice 20).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comms
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SM
@@ -115,16 +123,20 @@ def build_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, Any]:
     return defs
 
 
-def param_defs(cfg: ModelConfig) -> dict[str, Any]:
-    """The ParamDef tree at model-axis size 1 (shapes only, nothing allocated)."""
-    return build_defs(cfg, make_plan(cfg, 1))
+def param_defs(cfg: ModelConfig, msize: int = 1) -> dict[str, Any]:
+    """The global ParamDef tree padded for model-axis size ``msize`` (shapes
+    only, nothing allocated; each def names its sharded dimension)."""
+    return build_defs(cfg, make_plan(cfg, msize))
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda"):
+def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda",
+                msize: int = 1):
+    """Random parameters of the padded-for-``msize`` tree (the reference's
+    ``init_params(cfg, key, msize)`` shapes, not its draws)."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return materialize(param_defs(cfg), gen, cfg.pdtype, device)
+    return materialize(param_defs(cfg, msize), gen, cfg.pdtype, device)
 
 
 def make_positions(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
@@ -149,8 +161,8 @@ def make_positions(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
 def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
                attn_type: str, seq_len: int, positions: torch.Tensor,
                enc_out: torch.Tensor | None = None, causal: bool = True,
-               collect_cache: bool = False, max_seq: int = 0, use_kernel: bool = True
-               ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
+               collect_cache: bool = False, max_seq: int = 0, use_kernel: bool = True,
+               msize: int = 1) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
     """One block; returns (x, the router's aux loss: 0 for an MLP or RWKV6
     block, with ``collect_cache`` the block's decode cache of capacity
     ``max_seq`` (the sequence length when 0), else None).  RWKV6 runs its
@@ -158,27 +170,27 @@ def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     CUDA tensor), else through the plain scan; hymba adds its Mamba heads'
     output to the attention's, halved, as the reference does; a block with
     ``xattn`` adds its cross-attention to ``enc_out`` after the
-    self-attention.  ``causal`` False: the encoder's self-attention."""
+    self-attention.  ``msize``: the model-axis size."""
     if cfg.family == "ssm":
-        x, cache = _rwkv_layer(cfg, p, x, None, use_kernel)
+        x, cache = _rwkv_layer(cfg, p, x, None, use_kernel, msize)
         return x, torch.zeros((), dtype=f32, device=x.device), cache if collect_cache else None
     window = cfg.layer_window(attn_type, seq_len)
     h_in = L.rmsnorm(p["ln1"], x)
     attn_out = L.attention(cfg, p["attn"], h_in, positions=positions, window=window,
-                           causal=causal)
+                           causal=causal, msize=msize)
     ssm_state = None
     if "ssm" in p:
-        ssm_out, ssm_state = SM.ssm_block(cfg, p["ssm"], h_in)
+        ssm_out, ssm_state = SM.ssm_block(cfg, p["ssm"], h_in, msize=msize)
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
     if enc_out is not None and "xattn" in p:
-        x = x + _cross_attention(cfg, p, x, enc_out, window=seq_len)
+        x = x + _cross_attention(cfg, p, x, enc_out, window=seq_len, msize=msize)
     h = L.rmsnorm(p["ln2"], x)
     if "moe" in p:
-        ff, aux = L.moe_ffn(cfg, p["moe"], h)
+        ff, aux = L.moe_ffn(cfg, p["moe"], h, msize=msize)
     else:
-        ff, aux = L.mlp(p["mlp"], h), torch.zeros((), dtype=f32, device=x.device)
+        ff, aux = L.mlp(p["mlp"], h, msize), torch.zeros((), dtype=f32, device=x.device)
     cache = None
     if collect_cache:
         cache = {"attn": _build_cache_from_prefill(cfg, p["attn"], h_in, positions, attn_type,
@@ -189,13 +201,13 @@ def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
 
 
 def _cross_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
-                     enc_out: torch.Tensor, *, window: int) -> torch.Tensor:
+                     enc_out: torch.Tensor, *, window: int, msize: int = 1) -> torch.Tensor:
     """The block's cross-attention residual: ``ln_x``, then queries from x
     and K/V from the encoder's output, no rotation, not causal.  The
     reference passes the decoder's length (training) or the encoder's
     (decode) as the window; either reaches every key."""
     return L.attention(_cross_cfg(cfg), p["xattn"], L.rmsnorm(p["ln_x"], x), positions=None,
-                       window=window, causal=False, kv_source=enc_out)
+                       window=window, causal=False, kv_source=enc_out, msize=msize)
 
 
 def _build_cache_from_prefill(cfg: ModelConfig, p: dict[str, Any], h_in: torch.Tensor,
@@ -243,10 +255,10 @@ def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
 
 
 def _embed_inputs(cfg: ModelConfig, params: dict[str, Any],
-                  batch: dict[str, torch.Tensor]) -> torch.Tensor:
+                  batch: dict[str, torch.Tensor], msize: int = 1) -> torch.Tensor:
     """The decoder's input (B, S, d) in the compute dtype: the token
     embeddings, after the projected ``patches`` (B, S_vis, d) for vision."""
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(params["embed"], batch["tokens"], msize)
     if cfg.modality == "vision":
         patches = torch.einsum("bsd,de->bse", batch["patches"].to(x.dtype),
                                params["frontend_proj"])
@@ -255,7 +267,7 @@ def _embed_inputs(cfg: ModelConfig, params: dict[str, Any],
 
 
 def _encode(cfg: ModelConfig, params: dict[str, Any],
-            batch: dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: dict[str, torch.Tensor], msize: int = 1) -> torch.Tensor:
     """The encoder's output (B, S_enc, d): the projected ``frames`` through
     the dense encoder blocks, self-attention not causal, then
     ``enc_ln_f``."""
@@ -265,21 +277,21 @@ def _encode(cfg: ModelConfig, params: dict[str, Any],
     ecfg = _encoder_cfg(cfg)
     for p in _layer_groups(cfg, params["encoder"]):
         x, _, _ = _run_block(ecfg, p, x, attn_type="global", seq_len=S_enc,
-                             positions=positions, causal=False)
+                             positions=positions, causal=False, msize=msize)
     return L.rmsnorm(params["enc_ln_f"], x)
 
 
-def _inputs(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor]
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+def _inputs(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor],
+            msize: int = 1) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """(the decoder's input, its positions, the encoder's output or None)."""
-    x = _embed_inputs(cfg, params, batch)
+    x = _embed_inputs(cfg, params, batch, msize)
     positions = make_positions(cfg, x.shape[0], x.shape[1], x.device)
-    return x, positions, _encode(cfg, params, batch) if cfg.is_encoder_decoder else None
+    return x, positions, _encode(cfg, params, batch, msize) if cfg.is_encoder_decoder else None
 
 
 def _trunk(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
            positions: torch.Tensor, enc_out: torch.Tensor | None, *,
-           use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+           use_kernel: bool = True, msize: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """The decoder stack on its input ``x`` at ``positions``: (hidden states
     after ``ln_f``, the summed router loss).  The prefix layers take
     attention type ``attn_pattern[0]``, then come the pattern groups, each
@@ -289,45 +301,58 @@ def _trunk(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
     aux_total = torch.zeros((), dtype=f32, device=x.device)
     for p in params["prefix"]:
         x, aux, _ = _run_block(cfg, p, x, attn_type=pat[0], seq_len=S, positions=positions,
-                               enc_out=enc_out)
+                               enc_out=enc_out, msize=msize)
         aux_total = aux_total + aux
     for pgroup in _layer_groups(cfg, params["blocks"]):
         for i, attn_type in enumerate(pat):
-            kw = dict(attn_type=attn_type, seq_len=S, positions=positions, use_kernel=use_kernel)
+            kw = dict(attn_type=attn_type, seq_len=S, positions=positions, use_kernel=use_kernel,
+                      msize=msize)
             if cfg.remat == "none":
                 x, aux, _ = _run_block(cfg, pgroup[str(i)], x, enc_out=enc_out, **kw)
             else:
-                # the block draws no random numbers: no RNG state to replay
+                # the block draws no random numbers: no RNG state to replay;
+                # its recomputation in the backward books no collective
                 x, aux = checkpoint(
                     lambda p, h, e, kw=kw: _run_block(cfg, p, h, enc_out=e, **kw)[:2],
-                    pgroup[str(i)], x, enc_out, use_reentrant=False, preserve_rng_state=False)
+                    pgroup[str(i)], x, enc_out, use_reentrant=False, preserve_rng_state=False,
+                    context_fn=_recompute_muted)
             aux_total = aux_total + aux
     return L.rmsnorm(params["ln_f"], x), aux_total
 
 
+def _recompute_muted():
+    return contextlib.nullcontext(), comms.muted()
+
+
 def forward_hidden(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor], *,
-                   use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+                   use_kernel: bool = True, msize: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """The full forward of ``batch`` (``tokens``; vision: ``patches`` too;
     the encoder-decoder: ``frames`` too): (hidden states (B, S, d) after
     ``ln_f``, S counting the patches, the summed router loss of the MoE
     layers).  ``use_kernel``: RWKV6's recurrence through ``ops.wkv6``
-    (kernels ``wkv6`` and ``wkv6_bwd`` on the card), else the plain scan."""
-    x, positions, enc_out = _inputs(cfg, params, batch)
-    return _trunk(cfg, params, x, positions, enc_out, use_kernel=use_kernel)
+    (kernels ``wkv6`` and ``wkv6_bwd`` on the card), else the plain scan;
+    ``msize`` the model-axis size of the padded ``params``."""
+    x, positions, enc_out = _inputs(cfg, params, batch, msize)
+    return _trunk(cfg, params, x, positions, enc_out, use_kernel=use_kernel, msize=msize)
 
 
 def forward_loss(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor], *,
-                 use_kernel: bool = True) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                 use_kernel: bool = True, msize: int = 1
+                 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training forward: returns (loss, {"ce", "aux"}): ``aux`` sums the MoE
     layers' router losses, ``ce`` is the (softcapped) cross-entropy of the
     text positions (after the patches under vision) against ``labels`` and
     loss = ce + router_aux_coef * aux.  ``use_kernel`` as in
-    :func:`forward_hidden`."""
-    x, aux_total = forward_hidden(cfg, params, batch, use_kernel=use_kernel)
+    :func:`forward_hidden`.  At ``msize`` M > 1 the loss is the
+    reference's, ce + coef * aux / M, value and gradient: its fixed-up
+    gradient under the model axis is this loss's, not ce + coef * aux's
+    (the router's balance term trains at 1 / M strength there)."""
+    x, aux_total = forward_hidden(cfg, params, batch, use_kernel=use_kernel, msize=msize)
     if cfg.modality == "vision":  # only text positions carry labels
         x = x[:, -batch["labels"].shape[1]:]
-    ce = L.logits_and_loss(params["embed"], x, batch["labels"], softcap=cfg.logits_softcap)
-    loss = ce + cfg.router_aux_coef * aux_total
+    ce = L.logits_and_loss(params["embed"], x, batch["labels"], softcap=cfg.logits_softcap,
+                           msize=msize)
+    loss = ce + cfg.router_aux_coef * (aux_total if msize == 1 else aux_total / msize)
     return loss, {"ce": ce, "aux": aux_total}
 
 
@@ -336,10 +361,15 @@ def forward_loss(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torc
 # ---------------------------------------------------------------------------
 
 
-def check_serving(cfg: ModelConfig) -> None:
-    """Raise unless the port serves ``cfg``: what ``check_ported`` refuses
-    and the sequence-parallel prefill."""
+def check_serving(cfg: ModelConfig, msize: int = 1) -> None:
+    """Raise unless the port serves ``cfg`` at model-axis size ``msize``:
+    what ``check_ported`` refuses, serving under the model axis and the
+    sequence-parallel prefill."""
     check_ported(cfg)
+    if msize != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: serving at model-axis size {msize} (the context-parallel decode "
+            "cache and the decode's psum/pmax over the shards) is slice 20")
     if cfg.seq_par:
         raise NotImplementedError(
             f"{cfg.name}: the seq_par prefill (activations sequence-sharded over the model "
@@ -357,16 +387,16 @@ def _stack_groups(cfg: ModelConfig, groups: list[Any]) -> Any:
 
 
 def _rwkv_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict | None,
-                use_kernel: bool) -> tuple[torch.Tensor, dict[str, Any]]:
+                use_kernel: bool, msize: int = 1) -> tuple[torch.Tensor, dict[str, Any]]:
     """One RWKV6 block: the reference's ``_run_block`` ssm branch with
     ``collect_cache`` (``c`` None: a prompt from zero state) and its
     ``_rwkv_decode_block`` (``c`` the block's cache: the shift and the
     channel mix's last token come from the stored state)."""
     h, tm_state = RW.rwkv_block(cfg, p, L.rmsnorm(p["ln1"], x), None if c is None else c["tm"],
-                                use_kernel=use_kernel)
+                                use_kernel=use_kernel, msize=msize)
     x = x + h
     h, cm_last = RW.rwkv_channel_mix(cfg, p, L.rmsnorm(p["ln2"], x),
-                                     None if c is None else c["cm_last"])
+                                     None if c is None else c["cm_last"], msize)
     return x + h, {"tm": tm_state, "cm_last": cm_last}
 
 

@@ -15,6 +15,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import comms
+from repro_torch.models.sharding import shard_local
 from repro_torch.utils.tree import leaves
 
 f32 = torch.float32
@@ -37,6 +38,9 @@ class Optimizer:
     #: (grads_of, state, params, lr, row_of) -> state, ``grads_of(r)`` row
     #: r's gradient leaves and ``row_of(w)`` the row worker w holds
     update_rows: Callable | None = None
+    #: ``zero1`` under the model axis: (shard dims, M) -> the optimizer that
+    #: slices each shard-local leaf over the workers
+    for_model: Callable | None = None
 
 
 def sgd() -> Optimizer:
@@ -97,7 +101,8 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.0)
     return Optimizer(init, update, "adamw")
 
 
-def zero1(opt: Optimizer, n_workers: int) -> Optimizer:
+def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
+          msize: int = 1) -> Optimizer:
     """ZeRO-1: optimizer state sharded over the W data-parallel workers.
 
     Every leaf is flattened and zero-padded to a multiple of W; worker w
@@ -114,27 +119,52 @@ def zero1(opt: Optimizer, n_workers: int) -> Optimizer:
     worker hands each worker the same concatenation of the W slices, which
     every row then holds.  So the rows are equal after every ZeRO-1 step, as
     in the reference.
+
+    Under the model axis (``msize`` M > 1, ``shard_dims`` each leaf's
+    sharded dimension) each of the M shards slices its own local leaf
+    (:func:`shard_local`, flattened and padded) over the W workers, as the
+    reference's devices do: a state leaf is (W, M, k), in the reference's
+    (worker, shard) device order, and the all-gather books one shard's
+    slice.  A replicated leaf's M slices hold the same values; shard 0's
+    are written back.
     """
 
-    def _rows(leaf):
-        flat = leaf.reshape(-1)
+    def _pad_rows(flat):
         pad = (-flat.numel()) % n_workers
         if pad:
             flat = torch.cat([flat, flat.new_zeros(pad)])
         return flat.reshape(n_workers, -1)
 
+    def _rows(leaf, dim=None):
+        if msize == 1:
+            return _pad_rows(leaf.reshape(-1))
+        return torch.stack([_pad_rows(shard_local(leaf, dim, msize, m).reshape(-1))
+                            for m in range(msize)], 1)
+
+    def _dims(n):  # each leaf's sharded dimension (none at model-axis size 1)
+        return shard_dims or [None] * n
+
     def init(params):
-        return {"inner": opt.init([_rows(p) for p in leaves(params)])}
+        ps = leaves(params)
+        return {"inner": opt.init([_rows(p, d) for p, d in zip(ps, _dims(len(ps)))])}
 
     def update(grads, state, params, lr):
+        ds = _dims(len(params))
         with torch.no_grad():
-            p_sl = [_rows(p) for p in params]
-            _, inner = opt.update([_rows(g) for g in grads], state["inner"], p_sl, lr)
+            p_sl = [_rows(p, d) for p, d in zip(params, ds)]
+            _, inner = opt.update([_rows(g, d) for g, d in zip(grads, ds)], state["inner"],
+                                  p_sl, lr)
             with comms.tag("zero1_gather"):
-                for p, new in zip(params, p_sl):
-                    comms.all_gather(new)
-                    if new.data_ptr() != p.data_ptr():  # padded: a copy of p
-                        p.copy_(new.reshape(-1)[:p.numel()].reshape(p.shape))
+                for p, new, d in zip(params, p_sl, ds):
+                    if msize == 1:
+                        comms.all_gather(new)
+                        if new.data_ptr() != p.data_ptr():  # padded: a copy of p
+                            p.copy_(new.reshape(-1)[:p.numel()].reshape(p.shape))
+                        continue
+                    comms.all_gather(new[:, 0])
+                    for m in range(msize if d is not None else 1):
+                        blk = shard_local(p, d, msize, m)
+                        blk.copy_(new[:, m].reshape(-1)[:blk.numel()].reshape(blk.shape))
         return params, {"inner": inner}
 
     def _slice_into(dst, leaf, w):
@@ -166,7 +196,8 @@ def zero1(opt: Optimizer, n_workers: int) -> Optimizer:
                     p.copy_(new.reshape(-1)[:p[0].numel()].reshape(p.shape[1:]))
         return {"inner": inner}
 
-    return Optimizer(init, update, f"zero1_{opt.name}", n_workers, update_rows)
+    return Optimizer(init, update, f"zero1_{opt.name}", n_workers, update_rows,
+                     lambda sdims, m: zero1(opt, n_workers, tuple(sdims), m))
 
 
 def global_clip(grads: list, max_norm: float) -> list:

@@ -68,6 +68,24 @@ escalation into the reset; under pod-local SGD the unit is the pod, alive
 when any of its workers was alive in the last in-pod round.  A gossip step
 masks the ring (D-PSGD, CHOCO-SGD's mirror freeze and resync).
 
+The model axis (``model`` M > 1, the reference's ``model`` mesh axis) is
+a stacked axis of M shards too.  The parameters are the global,
+padded-for-M tree, each replicated leaf held once; the forward runs the M
+shards' local computations at once and books its tensor-parallel
+collectives over ``("model",)``; autograd gives the true gradient, and the
+reference's fix-up psum of the replicated leaves' gradients is booked
+(``tp_grad_fixup``).  The bucket plan is built from the shard-local leaves
+(:func:`repro_torch.models.sharding.local_defs`), and each (worker, shard)
+compresses and reduces its own buckets with its own EF and comm state
+(:class:`aggregate.ShardedRound`, the comm stacks W * M rows); a
+replicated leaf's aggregate is shard 0's (the reference's shards may
+disagree there: their buckets' scales differ).  ``clip_norm`` takes the
+norm of the global gradient: the sharded leaves summed over the shards,
+the replicated ones once.  ZeRO-1 slices each shard-local leaf over the
+data workers.  The sync and gossip steps average or mix each shard's
+local leaves over the data axes, shard by shard.  Churn, integrity,
+PowerSGD and the pipelined step do not run under the model axis yet.
+
 Loss, ``ce`` and ``aux`` are worker means.  The wire bytes of each program
 are booked at build time by running it once on the ``meta`` device, which
 computes shapes only.  The cells of one shape class share that booking
@@ -104,13 +122,11 @@ from repro_torch.core.types import (
 )
 from repro_torch.data.pipeline import input_specs
 from repro_torch.models import transformer as T
+from repro_torch.models.sharding import local_defs, shard_dims, shard_local
 from repro_torch.optim.optimizers import Optimizer, global_clip
 from repro_torch.utils.tree import leaves, tree_map, unflatten_like
 
 f32 = torch.float32
-
-#: the per-worker (W, size) comm-state stacks, one per bucket
-_COMM_STACKS = ("ef", "u", "choco_xhat", "choco_nbr", "overlap_pending")
 
 
 def param_rows(comm: CommConfig, n_workers: int, pods: int) -> int:
@@ -142,6 +158,10 @@ class StepBundle:
     microbatch: int = 1
     #: pods P of the two-level (pod, data) layout (1: no pod axis)
     pods: int = 1
+    #: shards M of the model axis (1: no model axis)
+    model: int = 1
+    #: each parameter leaf's sharded dimension (None: replicated), leaf order
+    shard_dims: tuple = ()
     #: per-call wire bytes of each program, booked from one shape-only run:
     #: {name: {tag: bytes}, name + "_formats": {format: bytes}} for the
     #: programs of the scheme ("train", "inner", "sync", "gossip"); a
@@ -184,6 +204,60 @@ class StepBundle:
         ``data`` axis under pod-local SGD)."""
         return ("data",) if self.comm.pod_local else self.data_axes
 
+    # ---- the model axis -----------------------------------------------------------
+
+    def local_leaves(self, ts: list[torch.Tensor], m: int, lead: int = 0,
+                     replicated: bool = True) -> list[torch.Tensor]:
+        """Shard m's local leaves of the global leaves ``ts`` (views), each
+        with ``lead`` leading row dimensions; ``replicated`` False leaves
+        the replicated leaves out of every shard but shard 0."""
+        return [shard_local(t, None if d is None else d + lead, self.model, m)
+                for t, d in zip(ts, self.shard_dims) if d is not None or replicated or m == 0]
+
+    def _bufs_of(self, grads: list[torch.Tensor]) -> Callable[[int], Any]:
+        """Shard m's flat f32 buckets of the global gradient (a generator)."""
+        def bufs(m: int):
+            loc = self.local_leaves(grads, m)
+            return (aggregate.gather_bucket(b, loc) for b in self.bucket_plan.buckets)
+        return bufs
+
+    def _scatter(self, per_shard: list[list[torch.Tensor]], like: list[torch.Tensor]
+                 ) -> list[torch.Tensor]:
+        """The global gradient leaves from each shard's bucket aggregates
+        (``per_shard[m][i]``): a sharded leaf's blocks from their shards, a
+        replicated leaf from shard 0."""
+        plan, M = self.bucket_plan, self.model
+        if M == 1:
+            return aggregate._scatter_buckets(plan, per_shard[0], like)
+        out: list[torch.Tensor | None] = [None] * len(like)
+        for m, vals in enumerate(per_shard):
+            for b, v in zip(plan.buckets, vals):
+                off = 0
+                for i, n in b.segments:
+                    seg, off, dim = v[off:off + n], off + n, self.shard_dims[i]
+                    if dim is None:
+                        if m == 0:
+                            out[i] = seg.reshape(like[i].shape).to(like[i].dtype)
+                        continue
+                    if out[i] is None:
+                        out[i] = torch.empty(like[i].shape, dtype=like[i].dtype,
+                                             device=like[i].device)
+                    blk = shard_local(out[i], dim, M, m)
+                    blk.copy_(seg.reshape(blk.shape))
+        return out
+
+    def _book_fixup(self, grads: list[torch.Tensor]) -> None:
+        """The reference's ``_fix_model_grads`` psum of each replicated
+        leaf's gradient over the model axis (tag ``tp_grad_fixup``).
+        Autograd already sums the shards' contributions, so only the wire is
+        booked."""
+        if self.model == 1:
+            return
+        with comms.tag("tp_grad_fixup"):
+            for g, d in zip(grads, self.shard_dims):
+                if d is None:
+                    comms.book_model("psum", g, self.model)
+
     # ---- state ----------------------------------------------------------------
 
     def _place(self, params: Any, stack: bool) -> Any:
@@ -207,7 +281,8 @@ class StepBundle:
             "params": params,
             "opt": self.opt.init(tree_map(lambda p: p[0], params) if sharded else params),
             "comm": aggregate.init_comm_state(self.comm, self.bucket_plan,
-                                              self.n_workers, self.device, self.pods),
+                                              self.n_workers, self.device, self.pods,
+                                              self.model),
             "step": 0,
         }
 
@@ -217,7 +292,7 @@ class StepBundle:
         meta = dataclasses.replace(self, device=torch.device("meta"))
         return meta.init_state(tree_map(
             lambda d: torch.empty(d.shape, dtype=self.cfg.pdtype, device="meta"),
-            T.param_defs(self.cfg)))
+            T.param_defs(self.cfg, self.model)))
 
     # ---- checkpoint layout ------------------------------------------------------
 
@@ -235,8 +310,10 @@ class StepBundle:
         (``alive_prev``, ``pod_alive_prev``, ``qcount``,
         ``quarantine_total``, ``escalation_total``) are (W,) here as there.
         Diverging parameters keep their rows (W, or P under pod-local SGD).
-        Views where it can."""
-        W, defs = self.n_workers, T.param_defs(self.cfg)
+        Under the model axis the parameters are the global tree and every
+        per-worker entry has one row per (worker, shard), in the
+        reference's device order.  Views where it can."""
+        W, defs = self.n_workers * self.model, T.param_defs(self.cfg, self.model)
         n_leaves = len(leaves(defs))
 
         def opt_ref(x):
@@ -248,7 +325,7 @@ class StepBundle:
             return x
 
         comm = dict(state["comm"])
-        for k in _COMM_STACKS:
+        for k in aggregate.COMM_STACKS:
             if k in comm:
                 comm[k] = [torch.zeros(W * b.size, dtype=f32, device=self.device)
                            if e is None else e.reshape(-1)
@@ -288,7 +365,7 @@ class StepBundle:
             out["opt"] = self._opt_from_checkpoint(tree["opt"], tmpl["opt"])
         if "comm" in tree:
             comm = dict(tree["comm"])
-            for k in _COMM_STACKS:
+            for k in aggregate.COMM_STACKS:
                 if k in comm:
                     comm[k] = [None if t is None else e.reshape(t.shape)
                                for e, t in zip(comm[k], tmpl["comm"][k])]
@@ -336,8 +413,9 @@ class StepBundle:
                       ) -> tuple[list[torch.Tensor], dict[str, torch.Tensor]]:
         pleaves = leaves(params)
         if microbatch == 1:
-            loss, m = T.forward_loss(self.cfg, params, part)
+            loss, m = T.forward_loss(self.cfg, params, part, msize=self.model)
             grads = list(torch.autograd.grad(loss, pleaves))
+            self._book_fixup(grads)
             return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in m.items()}}
         rows = part["tokens"].shape[0]
         if rows % microbatch:
@@ -347,12 +425,14 @@ class StepBundle:
         ms: dict[str, list[torch.Tensor]] = {"loss": [], "ce": [], "aux": []}
         for j in range(microbatch):
             loss, m = T.forward_loss(self.cfg, params, {k: v[j * mb:(j + 1) * mb]
-                                                        for k, v in part.items()})
+                                                        for k, v in part.items()},
+                                     msize=self.model)
             for a, g in zip(acc, torch.autograd.grad(loss, pleaves)):
                 a.add_(g.to(f32))
             for k, v in (("loss", loss), *m.items()):
                 ms[k].append(v.detach())
         grads = [(a / microbatch).to(p.dtype) for a, p in zip(acc, pleaves)]
+        self._book_fixup(grads)
         return grads, {k: torch.mean(torch.stack(v)) for k, v in ms.items()}
 
     def _update(self, opt_state: Any, params: Any, grads_of: Callable[[int], list],
@@ -383,11 +463,12 @@ class StepBundle:
                     for k in ("loss", "ce", "aux")}
 
     def _round(self, state: dict[str, Any], rnd: int | None = None,
-               live: aggregate.Liveness | None = None) -> aggregate.GroupedRound:
-        return aggregate.GroupedRound(self.comm, self.bucket_plan, state["comm"],
+               live: aggregate.Liveness | None = None) -> aggregate.ShardedRound:
+        return aggregate.ShardedRound(self.comm, self.bucket_plan, state["comm"],
                                       self.n_workers, self.noise, self.device,
-                                      step=state["step"], rnd=rnd, groups=self.groups,
-                                      live=live, churn_draws=self.churn_draws)
+                                      shards=self.model, step=state["step"], rnd=rnd,
+                                      groups=self.groups, live=live,
+                                      churn_draws=self.churn_draws)
 
     def _step_mask(self, state: dict[str, Any]) -> tuple:
         """One participation bit per worker for a whole step (the sync,
@@ -399,13 +480,13 @@ class StepBundle:
     def _sequential_grads(self, state: dict[str, Any], parts: list[dict[str, torch.Tensor]]
                           ) -> tuple[list[list[torch.Tensor]], list[dict], Any]:
         """Every worker's (microbatch-accumulated) gradient through one
-        round: returns the per-group bucket aggregates, the per-worker
-        metrics and the round."""
+        round: returns the per-shard lists of per-group bucket aggregates,
+        the per-worker metrics and the round."""
         rnd, ms = self._round(state), []
         for w, part in enumerate(parts):
             grads, m = self._grads(self._worker_params(state["params"], w), part,
                                    self.microbatch)
-            rnd.add(w, (aggregate.gather_bucket(b, grads) for b in self.bucket_plan.buckets))
+            rnd.add(w, self._bufs_of(grads))
             del grads
             ms.append(m)
         return rnd.finish()[0], ms, rnd
@@ -493,9 +574,9 @@ class StepBundle:
             with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
                 rnd, freed = self._round(state, rnd=k, live=live_of(k)), []
                 for w in range(W):
-                    rnd.add(w, [p[w] for p in pending])
+                    rnd.add(w, lambda m, w=w: [p[w] for p in pending])
                     freed.append(side.record_event() if side is not None else None)
-                aggs = rnd.finish()[0]
+                aggs = rnd.finish()[0][0]
                 s = torch.full((), scale, dtype=f32, device=dev)
                 for acc_g, agg_g in zip(acc, aggs):
                     for a, x in zip(acc_g, agg_g):
@@ -536,14 +617,15 @@ class StepBundle:
         with comms.over(self.agg_axes):
             if self.comm.overlap == "pipelined":
                 aggs, ms, kept = self._pipelined_grads(state, parts)
-                nnz, nnz_of = kept["nnz"], kept["of"]
+                aggs, nnz, nnz_of = [aggs], kept["nnz"], kept["of"]
             else:
                 aggs, ms, rnd = self._sequential_grads(state, parts)
                 nnz, nnz_of = rnd.nnz, rnd.nnz_of
         like = [p[0] for p in leaves(params)] if self.stacked else leaves(params)
-        # one aggregate per pod under pod-local SGD (row r is pod r), else one
-        grads = [global_clip(aggregate._scatter_buckets(plan, a, like), self.clip_norm)
-                 for a in aggs]
+        # one aggregate per pod under pod-local SGD (row r is pod r), else
+        # one; aggs[m][g] is shard m's of group g
+        grads = [global_clip(self._scatter([a[g] for a in aggs], like), self.clip_norm)
+                 for g in range(len(aggs[0]))]
         del aggs
         own = self.comm.pod_local
         opt_state = self._update(state["opt"], params, lambda r: grads[r if own else 0], lr)
@@ -575,9 +657,13 @@ class StepBundle:
         across_pods = self.comm.pod_local and self.pods > 1
         if churn_enabled(self.comm):
             return self._churn_sync(state, across_pods)
+        plist = leaves(state["params"])
         with comms.over(("pod",) if across_pods else self.data_axes):
-            sync.average_params(leaves(state["params"]), impl=self.comm.collective,
-                                copies=1 if across_pods else self.n_workers // self.rows)
+            for m in range(self.model):  # each shard's local leaves, replicated ones once
+                with comms.muted(m > 0):
+                    sync.average_params(self.local_leaves(plist, m, 1, replicated=False),
+                                        impl=self.comm.collective,
+                                        copies=1 if across_pods else self.n_workers // self.rows)
         return state
 
     def _churn_sync(self, state: dict[str, Any], across_pods: bool) -> dict[str, Any]:
@@ -649,31 +735,38 @@ class StepBundle:
         alive = rejoined = nbr = None
         if churn_enabled(comm):  # each worker's bit for this mixing round
             alive, rejoined, _, _ = self._step_mask(state)
-        # bucket by bucket: one (W, n) f32 stack at a time (the largest is 2.5 GB)
+        # bucket by bucket: one (W, n) f32 stack at a time (the largest is 2.5 GB);
+        # under the model axis shard by shard, last to first: only shard 0
+        # writes the replicated leaves, so every shard reads them unmixed
         with comms.tag("gossip_mix"), comms.over(self.data_axes), torch.no_grad():
             if alive is not None:  # the neighbours' bits, exchanged once a round
                 nbr = (gossip.choco_nbr_bits(alive, rejoined) if choco
                        else gossip.ring_bits(alive))
-            for i, b in enumerate(self.bucket_plan.buckets):
-                parts_i = [pl[j].reshape(W, -1).to(f32) for j, _ in b.segments]
-                x = parts_i[0] if len(parts_i) == 1 else torch.cat(parts_i, 1)
-                del parts_i
-                if choco:
-                    st = gossip.ChocoState([cstate["choco_xhat"][i]], [cstate["choco_nbr"][i]])
-                    (x,), _ = gossip.choco_mix(
-                        comm, comp, lambda _, n, i=i: self.noise(step, None, i, n), [x], st,
-                        comm.gossip_mix_weight, comp_knobs=(knobs[i],), alive=alive,
-                        rejoined=rejoined, nbr_bits=nbr)
-                else:
-                    (x,) = gossip.dpsgd_mix(
-                        [x], comm.gossip_mix_weight, alive=alive,
-                        rejoined=rejoined if comm.rejoin_policy == "pull_avg" else None,
-                        nbr_alive=nbr)
-                off = 0
-                for j, n in b.segments:
-                    pl[j].copy_(x[:, off:off + n].reshape(pl[j].shape))
-                    off += n
-                del x
+            for m in reversed(range(self.model)):
+                loc = self.local_leaves(pl, m, 1)
+                cst = aggregate.shard_view(cstate, m, self.model)
+                with comms.muted(m > 0):
+                    for i, b in enumerate(self.bucket_plan.buckets):
+                        parts_i = [loc[j].reshape(W, -1).to(f32) for j, _ in b.segments]
+                        x = parts_i[0] if len(parts_i) == 1 else torch.cat(parts_i, 1)
+                        del parts_i
+                        if choco:
+                            st = gossip.ChocoState([cst["choco_xhat"][i]], [cst["choco_nbr"][i]])
+                            (x,), _ = gossip.choco_mix(
+                                comm, comp, lambda _, n, i=i: self.noise(step, None, i, n), [x],
+                                st, comm.gossip_mix_weight, comp_knobs=(knobs[i],), alive=alive,
+                                rejoined=rejoined, nbr_bits=nbr)
+                        else:
+                            (x,) = gossip.dpsgd_mix(
+                                [x], comm.gossip_mix_weight, alive=alive,
+                                rejoined=rejoined if comm.rejoin_policy == "pull_avg" else None,
+                                nbr_alive=nbr)
+                        off = 0
+                        for j, n in b.segments:
+                            if m == 0 or self.shard_dims[j] is not None:
+                                loc[j].copy_(x[:, off:off + n].reshape(loc[j].shape))
+                            off += n
+                        del x
         cstate["step"] += 1
         return ({"params": params, "opt": opt_state, "comm": cstate, "step": step + 1},
                 self._metrics(ms))
@@ -683,7 +776,8 @@ class StepBundle:
         """The worker mean of each worker's forward loss on its rows (with
         ``metrics``: ``(loss, {"ce", "aux"})``, each a worker mean)."""
         with torch.no_grad():
-            outs = [T.forward_loss(self.cfg, self._worker_params(state["params"], w, False), part)
+            outs = [T.forward_loss(self.cfg, self._worker_params(state["params"], w, False), part,
+                                   msize=self.model)
                     for w, part in enumerate(self._split(batch))]
         loss = comms.pmean(torch.stack([o[0] for o in outs]))
         if not metrics:
@@ -715,6 +809,7 @@ def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:
             programs["sync"] = mb.sync_step
     logs = {}
     for name, run in programs.items():
+        mb._meta_grads = {}  # each program books its own forward collectives
         state = mb._meta_state()
         with comms.capture() as logs[name]:
             run(state)
@@ -779,20 +874,20 @@ def bundle_cache_clear() -> None:
 
 def bundle_cache_key(cfg: ModelConfig, spec: BundleSpec, plan: aggregate.BucketPlan,
                      opt: Optimizer, shape: InputShape, *, n_workers: int, pods: int,
-                     clip_norm: float, microbatch: int) -> tuple:
+                     clip_norm: float, microbatch: int, model: int = 1) -> tuple:
     """The registry key (the reference's ``bundle_cache_key``): the model
     config, the worker layout (the reference's mesh), the structural
     :class:`BundleSpec`, the bucket plan's signature, the optimizer, the
     input shape and the structural build flags.  The seed, lr,
     ``clip_norm``'s value and every value knob are absent."""
-    return (repr(cfg), n_workers, pods, spec, aggregate.plan_signature(plan),
+    return (repr(cfg), n_workers, pods, model, spec, aggregate.plan_signature(plan),
             (opt.name, opt.n_shards), shape, bool(clip_norm), int(microbatch))
 
 
 def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,
                  n_workers: int = 1, seed: int = 0, device: str | torch.device = "cuda",
                  noise: aggregate.Noise | None = None, clip_norm: float = 0.0,
-                 microbatch: int = 1, pods: int = 1,
+                 microbatch: int = 1, pods: int = 1, model: int = 1,
                  churn_draws: aggregate.ChurnDraws | None = None,
                  cache: bool = True) -> StepBundle:
     """Build the steps of one cell.  ``noise(step, worker, bucket, n)``
@@ -806,7 +901,10 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
     step's microbatches); ``pods`` P lays the W workers out as (pod, data),
     W = P * D (0 and 1: no pod axis); ``churn_draws(step, worker[, round])``
     overrides a churn cell's two uniforms per worker and round (default: a
-    generator seeded from (seed, step, worker, round) on ``device``).
+    generator seeded from (seed, step, worker, round) on ``device``);
+    ``model`` M is the model axis's size: the parameters are the
+    padded-for-M tree (``T.init_params(cfg, seed, device, M)``), the W * M
+    (worker, shard) pairs each aggregate their shard-local buckets.
 
     The cells of one shape class (:func:`bundle_cache_key`) share the
     knob-independent half of the build through the bundle registry: the
@@ -828,17 +926,24 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
         raise ValueError(f"worker_dropout has {len(comm.worker_dropout)} rates but the bundle "
                          f"has {n_workers} workers")
     device = torch.device(device)
-    plan = aggregate.make_bucket_plan(comm, T.param_defs(cfg))
+    if model < 1:
+        raise ValueError(f"model must be >= 1, got {model}")
+    defs = T.param_defs(cfg, model)
+    plan = aggregate.make_bucket_plan(comm, local_defs(defs, model))
+    if model > 1:
+        _check_model_axis(cfg, comm, opt, plan, param_rows(comm, n_workers, pods))
+        if opt.n_shards:
+            opt = opt.for_model(shard_dims(defs), model)
     bundle = StepBundle(
         cfg=cfg, comm=comm, shape=shape, n_workers=n_workers, device=device,
-        bucket_plan=plan, opt=opt,
+        bucket_plan=plan, opt=opt, model=model, shard_dims=tuple(shard_dims(defs)),
         noise=noise if noise is not None else aggregate.seeded_noise(seed, device),
         clip_norm=clip_norm, microbatch=microbatch, pods=pods,
         churn_draws=(churn_draws if churn_draws is not None
                      else aggregate.seeded_churn_draws(seed, device)),
     )
     key = bundle_cache_key(cfg, spec, plan, opt, shape, n_workers=n_workers, pods=pods,
-                           clip_norm=clip_norm, microbatch=microbatch)
+                           clip_norm=clip_norm, microbatch=microbatch, model=model)
     shared = _BUNDLE_CACHE.get(key) if cache else None
     if shared is None:
         from repro_torch.core import compilecache
@@ -874,6 +979,23 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
     return bundle
 
 
+def _check_model_axis(cfg: ModelConfig, comm: CommConfig, opt: Optimizer,
+                      plan: aggregate.BucketPlan, rows: int) -> None:
+    """Raise for the options that do not train under the model axis yet."""
+    if cfg.seq_par:
+        raise NotImplementedError(f"{cfg.name}: seq_par under the model axis is slice 20 "
+                                  "(serving on the model axis)")
+    if churn_enabled(comm):
+        raise NotImplementedError("churn and integrity under the model axis are not ported")
+    if comm.overlap == "pipelined":
+        raise NotImplementedError("the pipelined step under the model axis is not ported")
+    if any(b.compressor_name == "powersgd" for b in plan.buckets):
+        raise NotImplementedError("PowerSGD under the model axis is not ported")
+    if opt.n_shards and rows:
+        raise NotImplementedError(f"{opt.name} with diverging parameter rows under the model "
+                                  "axis is not ported")
+
+
 @dataclass
 class ServeBundle:
     cfg: ModelConfig
@@ -887,7 +1009,7 @@ class ServeBundle:
 
 
 def build_serve(cfg: ModelConfig, shape: InputShape,
-                device: str | torch.device = "cuda") -> ServeBundle:
+                device: str | torch.device = "cuda", msize: int = 1) -> ServeBundle:
     """Prefill and decode steps for ``cfg``, both under
     ``torch.inference_mode()``, their inputs numpy arrays or tensors (moved
     to ``device``): the prefill's ``tokens`` and, for the vision and audio
@@ -900,8 +1022,9 @@ def build_serve(cfg: ModelConfig, shape: InputShape,
     given: that cache is consumed (the reference donates it), so use only
     the one it returns (hymba's new SSM and conv states are written into
     it too).  RWKV6 runs its recurrence through kernel ``wkv6`` (its plain
-    version on the CPU)."""
-    T.check_serving(cfg)
+    version on the CPU).  ``msize`` other than 1 raises: serving under the
+    model axis is slice 20."""
+    T.check_serving(cfg, msize)
     device = torch.device(device)
 
     def _rows(a) -> torch.Tensor:

@@ -54,7 +54,7 @@ class Trainer:
 
     def init(self, seed: int = 0) -> dict[str, Any]:
         b = self.bundle
-        return b.init_state(init_params(b.cfg, seed, b.device))
+        return b.init_state(init_params(b.cfg, seed, b.device, b.model))
 
     def save(self, path: str, state: dict[str, Any], step: int) -> None:
         """Checkpoint ``state`` at ``path`` in the reference's layout
@@ -81,7 +81,7 @@ class Trainer:
                              partial=True)
         state = b.from_checkpoint(tree)
         state["comm"] = aggregate.init_comm_state(b.comm, b.bucket_plan, b.n_workers,
-                                                  b.device, b.pods)
+                                                  b.device, b.pods, b.model)
         state["comm"]["step"] = state["step"]
         return state, step
 

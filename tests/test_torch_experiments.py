@@ -256,8 +256,8 @@ def test_unported_substrates_raise(substrate, tmp_path, capsys):
     test_torch_trainer_lane.py), and so do the reference's ``--calibration``
     and ``--cache-dir`` flags (test_torch_calibrate.py): a named profile is
     loaded as given, so a missing one raises; what the port still refuses
-    raises too: an unknown flag, and the trainer's model axis (queue 1 item
-    5)."""
+    raises too: an unknown flag, and on the trainer's model axis a churn
+    cell (its masks per (worker, shard) are not ported)."""
     from repro_torch.core import compilecache
 
     prev = compilecache.cache_dir()
@@ -272,8 +272,9 @@ def test_unported_substrates_raise(substrate, tmp_path, capsys):
     if substrate == "trainer":
         from repro_torch.experiments.trainer_substrate import run_trainer_scenario
 
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_trainer_scenario(Scenario(n_workers=4, steps=1), model_par=2, device="cpu")
+        with pytest.raises(NotImplementedError, match="model axis"):
+            run_trainer_scenario(Scenario(n_workers=4, steps=1, dropout_rate=0.1),
+                                 model_par=2, device="cpu")
     else:
         r = prunner.run_scenarios([Scenario()], substrate)[0]
         assert r.measured["bottleneck"] in ("compute", "memory", "collective")
