@@ -345,6 +345,28 @@ result line:
    the objective ce + coef * aux at model-axis size 2 within 2e-4 relative
    of size 1's and the squared gradient norm within 5e-3 relative, as
    tests/test_tp_equivalence.py bounds the reference.
+14. phase SM, serving on the model axis (``SM_PATHS``): model 2 stacked on
+   the card, full published width, bf16, random weights from seed 0
+   padded for 2, ``SyntheticBatches`` prompts, batch 8, prompt 1024, 32
+   greedy tokens through ``launch.serve.run(..., model=2)``: (bi)
+   qwen3-0.6b, all 28 layers (8 KV heads sharded: the prefill's two
+   all_to_alls a layer); (bj) deepseek-v2-lite-16b, all 27 (MLA's latent
+   decode, 32 of 64 experts a shard); (bk) rwkv6-3b, all 32 (kernel wkv6,
+   one launch over both shards' 16 heads: exactly 32 in the prefill and 32
+   a token); (bl) glm4-9b, all 40, ``seq_par`` (capacity = the prompt).
+   Each prints prefill ms, decode ms per token, tok/s, peak and cache GiB,
+   must launch exactly its kernels, its tokens in [0, padded vocab) and
+   its last hidden state finite, and one more prefill and decode step book
+   the model-axis records of ``predict_serve_tp`` to the byte.  Then, in
+   f32 at full width from parameters padded for 2 (``SM_IDENTITY``: one
+   period each, batch 2, prompt 256, hymba 1024): ``prefill(max_seq=S +
+   2)`` plus one ``decode_logits`` at model 2 against the model-2 full
+   forward within 1e-4 of max|logits| (qwen3-0.6b, glm4-9b, deepseek,
+   hymba-1.5b: 25 heads padded to 26 over 5 replicated KV heads, rwkv6-3b
+   through wkv6, seamless 2 + 2), ``serve_step`` against ``decode_step``
+   bitwise; and glm4-9b's seq_par prefill and decode against its model-2
+   baseline, the last hidden state within rtol 2e-3 / atol 2e-4, the token
+   equal.
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -380,6 +402,7 @@ from repro_torch.benchmarks.common import deterministic  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core import aggregate  # noqa: E402
+from repro_torch.core import comms  # noqa: E402
 from repro_torch.core import simulate  # noqa: E402
 from repro_torch.core import sync  # noqa: E402
 from repro_torch.core.compression.powersgd import shape2d  # noqa: E402
@@ -3029,6 +3052,286 @@ def run_phase_s(card: str, profile: set | None = None) -> None:
     print(f"phase S: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase SM: serving on the model axis, stacked at M = 2 on the card.
+# ---------------------------------------------------------------------------
+
+SM_M = 2
+#: (tag, arch, layers kept, prompt, seq_par, kernels a layer launches in the
+#: prefill and a token): full published width, bf16, random weights from
+#: seed 0 padded for 2, batch 8, 32 greedy tokens through
+#: launch.serve.run(..., model=2)
+SM_PATHS = (
+    ("bi", "qwen3-0.6b", 28, 1024, False, ()),  # 8 KV heads, sharded: the cache's all_to_all
+    ("bj", "deepseek-v2-lite-16b", 27, 1024, False, ()),  # MLA; 32 of 64 experts a shard
+    ("bk", "rwkv6-3b", 32, 1024, False, ("wkv6",)),  # 16 of 32 heads a shard, one launch
+    ("bl", "glm4-9b", 40, 1024, True, ()),  # --seq-par: the capacity is the prompt
+)
+#: the M = 2 identity in f32, one pattern period each, batch 2, the list
+#: layout, the MoE at cf = E: (arch, layers, prompt S); hymba at S = 1024
+#: (its local rings full, as S_IDENTITY runs it)
+SM_IDENTITY = (
+    ("qwen3-0.6b", 2, 256),
+    ("glm4-9b", 2, 256),
+    ("deepseek-v2-lite-16b", 3, 256),
+    ("hymba-1.5b", 16, 1024),
+    ("rwkv6-3b", 2, 256),
+    ("seamless-m4t-large-v2", 2, 256),
+)
+#: tests/test_seqpar.py's bounds on the seq_par prefill's last hidden state
+SEQPAR_RTOL, SEQPAR_ATOL = 2e-3, 2e-4
+
+
+def predict_serve_tp(cfg, M: int, B: int, S: int) -> dict[str, dict]:
+    """The model axis's booked records of one prefill of B prompts of S
+    positions and of one decode step, summed by (kind, tag), from the
+    shapes (a = the compute dtype's bytes, p = the parameters'):
+    the embedding's psum of (B, S or 1, d) in p; per attention layer the
+    row-parallel psums of (B, S or 1, d) in a after the attention and the
+    MLP or MoE, and, with the KV heads sharded, the prefill's two
+    all_to_alls of one shard's (B, W, KV / M, hd) ring (W = S: global
+    layers); in the decode the gathers of the query heads (MLA: the
+    absorbed query and its RoPE part) and of the new K and V when sharded,
+    the pmax and psum of (B, KV, G, 1) f32 and the psum of (B, KV, G, hd)
+    f32 (G = n_heads / KV over replicated KV, else H / KV; MLA: (B,
+    n_heads, kv_lora)); an RWKV6 layer's two psums; the argmax's pmax of
+    (B, 1) f32 and psum of (B, 1) int32.  Under seq_par: two all_gathers of
+    one shard's (B, S / M, KV, hd) K and V per layer, the MLP's three
+    weight blocks gathered under ``ffn_weight_gather``, the last row's psum
+    of (B, d), and no query gather or ``wo`` psum in the decode."""
+    plan = make_plan(cfg, M)
+    a, pb = torch.finfo(cfg.dtype).bits // 8, torch.finfo(cfg.pdtype).bits // 8
+    d, H, KV, hd, L_ = cfg.d_model, plan.H, plan.KV, plan.hd, cfg.n_layers
+    out: dict[str, dict] = {"prefill": {}, "decode": {}}
+
+    def add(phase: str, kind: str, nbytes: int, tag: str = "") -> None:
+        out[phase][(kind, tag)] = out[phase].get((kind, tag), 0) + nbytes
+
+    for phase, n in (("prefill", S), ("decode", 1)):
+        add(phase, "psum", B * n * d * pb)
+        if cfg.family == "ssm":
+            add(phase, "psum", 2 * L_ * B * n * d * a)
+            continue
+        if cfg.seq_par:
+            if phase == "prefill":
+                add(phase, "all_gather", 2 * L_ * B * (S // M) * cfg.n_kv_heads * hd * a)
+                add(phase, "all_gather", 3 * L_ * d * (plan.Dff // M) * pb, "ffn_weight_gather")
+                add(phase, "psum", B * d * a)
+            else:
+                G = cfg.n_heads // cfg.n_kv_heads
+                add(phase, "pmax", L_ * B * cfg.n_heads * 4)
+                add(phase, "psum", L_ * (B * cfg.n_heads * 4 + B * cfg.n_heads * hd * 4))
+                add(phase, "psum", L_ * B * d * a)
+            continue
+        add(phase, "psum", 2 * L_ * B * n * d * a)
+        if phase == "prefill":
+            if not cfg.kv_lora and plan.kv_sharded:
+                add(phase, "all_to_all", 2 * L_ * B * S * (KV // M) * hd * a)
+        elif cfg.kv_lora:
+            nh, c = cfg.n_heads, cfg.kv_lora
+            add(phase, "all_gather", L_ * B * (H // M) * (c + cfg.qk_rope_dim) * a)
+            add(phase, "pmax", L_ * B * nh * 4)
+            add(phase, "psum", L_ * (B * nh * 4 + B * nh * c * 4))
+        else:
+            eff = cfg.n_heads if cfg.n_kv_heads != cfg.n_heads else H
+            add(phase, "all_gather", L_ * B * (H // M) * hd * a)
+            if plan.kv_sharded:
+                add(phase, "all_gather", 2 * L_ * B * (KV // M) * hd * a)
+            add(phase, "pmax", L_ * B * eff * 4)
+            add(phase, "psum", L_ * (B * eff * 4 + B * eff * hd * 4))
+    add("decode", "pmax", B * 4)
+    add("decode", "psum", B * 4)
+    return out
+
+
+def _booked(log) -> dict:
+    got: dict = {}
+    for r in log.records:
+        if r.axes == ("model",):
+            key = (r.kind, r.tag)
+            got[key] = got.get(key, 0) + int(r.payload_bytes * r.mult)
+    return got
+
+
+def run_serve_tp_path(tag: str, arch: str, layers: int, prompt: int, seq_par: bool,
+                      kernels: tuple, card: str) -> dict[str, int]:
+    """One phase SM path through ``launch.serve.run(..., model=2)``: prefill
+    ms, decode ms per token, tok/s, peak and cache GiB; exactly its
+    kernels, ``layers`` launches in the prefill and as many a token; the
+    tokens in [0, padded vocab) and the last hidden state finite; one more
+    prefill and decode step under ``comms.capture``, their model-axis
+    records equal to :func:`predict_serve_tp` to the byte.  Returns the
+    launches of the served run."""
+    cfg = get_config(arch).with_updates(n_layers=layers, seq_par=seq_par)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve on the model axis ({tag}) {arch}, {layers} of {get_config(arch).n_layers} "
+          f"layers at full width, model {SM_M} stacked{', seq_par' if seq_par else ''}: batch "
+          f"{S_BATCH}, prompt {prompt}, {S_DECODE} decode tokens, capacity "
+          f"{prompt if seq_par else prompt + S_DECODE}")
+    ops.reset_launches()
+    res = serve.run(cfg, prompt_len=prompt, batch=S_BATCH, decode=S_DECODE, device=DEV, seed=0,
+                    model=SM_M)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    want = {k: layers * (1 + S_DECODE) for k in kernels}
+    tokens, last, sb = res["tokens"], res["last"], res["bundle"]
+    per_tok = res["decode_ms"] / S_DECODE
+    peak = res["peak_bytes"] / 2**30
+    prompts = SyntheticBatches(cfg, InputShape("p", prompt, S_BATCH, "prefill"),
+                               seed=0).batch(0)
+    ops.reset_launches()
+    with comms.capture() as lp:
+        _, cache = sb.prefill_step(res["params"], prompts)
+    pre_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    ops.reset_launches()
+    with comms.capture() as ld:
+        sb.serve_step(res["params"], cache, torch.from_numpy(tokens[:, -1:]).to(DEV))
+    step_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    del cache
+    pred = predict_serve_tp(cfg, SM_M, S_BATCH, prompt)
+    got = {"prefill": _booked(lp), "decode": _booked(ld)}
+
+    def kb(recs: dict) -> dict:
+        return {f"{k}{'/' + t if t else ''}": v for (k, t), v in sorted(recs.items())}
+
+    print(f"  ({tag}) prefill {res['prefill_ms']:.1f} ms; decode {per_tok:.2f} ms per token "
+          f"({res['tok_per_s']:.1f} tok/s over {S_BATCH} sequences); peak memory {peak:.2f} GiB "
+          f"(weights included), cache {res['cache_bytes'] / 2**30:.3f} GiB; port kernel "
+          f"launches {launches or 'none'} (prefill {pre_launches or 'none'}, a token "
+          f"{step_launches or 'none'}); model-axis records B, prefill {kb(got['prefill'])}, a "
+          f"decode step {kb(got['decode'])}, the shapes' {kb(pred['prefill'])} / "
+          f"{kb(pred['decode'])} ({card})")
+    if launches != want or pre_launches != {k: layers for k in kernels} \
+            or step_launches != pre_launches:
+        raise AssertionError(f"serve ({tag}): must launch exactly {want} ({layers} in the "
+                             f"prefill and a token): {launches}, {pre_launches}, "
+                             f"{step_launches}")
+    V = make_plan(cfg, SM_M).V
+    if tokens.shape != (S_BATCH, S_DECODE) or tokens.min() < 0 or tokens.max() >= V \
+            or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"serve ({tag}): bad output, tokens {tokens.shape} in "
+                             f"[{tokens.min()}, {tokens.max()}], last finite "
+                             f"{bool(torch.isfinite(last).all())}")
+    if got != pred:
+        raise AssertionError(f"serve ({tag}): model-axis records {got}, the shapes give {pred}")
+    if peak > F_PEAK_GIB:
+        raise AssertionError(f"serve ({tag}): peak {peak:.2f} GiB > {F_PEAK_GIB}")
+    del res, last, sb
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_serve_tp_identity(arch: str, layers: int, prompt: int) -> None:
+    """The decode-equivalence identity at model-axis size 2, full width, f32
+    (TF32 off), from parameters padded for 2: ``prefill(max_seq=S+2)`` (the
+    least capacity above S whose rings split over 2) plus one
+    ``decode_logits`` against the model-2 full forward's last-position
+    logits over S + 1 tokens within S_IDENTITY_TOL of max|logits|, the
+    greedy tokens equal wherever the top-2 margin exceeds the error; then
+    one ``serve_step`` against ``decode_step`` from the same cache, under
+    deterministic algorithms: tokens and every cache leaf bitwise.  RWKV6
+    runs its recurrence through kernel wkv6 in all three."""
+    from repro_torch.models import layers as L
+
+    cfg = get_config(arch).with_updates(n_layers=layers, param_dtype="float32",
+                                        compute_dtype="float32", scan_layers=False)
+    if cfg.moe:
+        cfg = cfg.with_updates(moe_capacity_factor=float(cfg.n_experts))
+    if cfg.is_encoder_decoder:
+        cfg = cfg.with_updates(encoder_layers=min(cfg.encoder_layers, layers))
+    B, S, M = 2, prompt, SM_M
+    kern = cfg.family == "ssm"
+    params = T.init_params(cfg, 0, DEV, M)
+    full = {k: torch.from_numpy(v).to(DEV) for k, v in
+            SyntheticBatches(cfg, InputShape("p", S + 1, B, "prefill"), seed=1).batch(0).items()}
+    toks = full["tokens"]
+    n = toks.shape[1] - 1
+    ops.reset_launches()
+    with torch.inference_mode(), deterministic():
+        _, cache = T.prefill(cfg, params, {**full, "tokens": toks[:, :n]}, max_seq=S + M,
+                             use_kernel=kern, msize=M)
+        got, _ = T.decode_logits(cfg, params, cache, toks[:, n:], max_seq=S + M,
+                                 use_kernel=kern, msize=M)
+        h, _ = T.forward_hidden(cfg, params, full, use_kernel=kern, msize=M)
+        want = L.logits_local(params["embed"], h[:, -1:], softcap=cfg.logits_softcap)
+        del h
+        top = float(want.abs().max())
+        err = float((got - want).abs().max())
+        top2 = torch.topk(want[:, 0], 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = torch.argmax(got[:, 0], -1) == torch.argmax(want[:, 0], -1)
+        tok_ok = bool(same[margin > err].all())
+        sb = build_serve(cfg, InputShape("identity", S + M, B, "decode"), DEV, msize=M)
+        want_tok, want_cache = T.decode_step(cfg, params, cache, toks[:, n:], max_seq=S + M,
+                                             use_kernel=True, msize=M)
+        tok, new_cache = sb.serve_step(params, tree_map(torch.clone, cache), toks[:, n:])
+        bitwise = torch.equal(tok, want_tok) and all(
+            torch.equal(a, b) for a, b in zip(flat(new_cache).values(),
+                                              flat(want_cache).values()))
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    print(f"serve identity at model {M} {arch} f32 at full width, {layers} layers, batch {B}, "
+          f"prompt {S}: decode logits vs the model-{M} full forward over {S + 1} tokens, max abs "
+          f"err {err:.3e} on max|logits| {top:.3e} ({err / top:.3e}, bound {S_IDENTITY_TOL}); "
+          f"greedy tokens equal {same.tolist()} (top-2 margins "
+          f"{[f'{m:.3e}' for m in margin.tolist()]}); serve_step vs decode_step bitwise "
+          f"{bitwise}; launches {launched or 'none'}")
+    if not (err <= S_IDENTITY_TOL * top and tok_ok and bitwise):
+        raise AssertionError(f"serve identity at model {M} {arch}: err {err / top:.3e}, tokens "
+                             f"equal {same.tolist()}, serve_step bitwise {bitwise}")
+    if kern and not launched.get("wkv6"):
+        raise AssertionError(f"serve identity at model {M} {arch}: wkv6 did not launch")
+    del params, cache, want_cache, new_cache, got, want
+    torch.cuda.empty_cache()
+
+
+def check_seqpar_identity(arch: str = "glm4-9b", layers: int = 2, prompt: int = 256) -> None:
+    """glm4-9b's seq_par prefill and decode against its model-2 baseline on
+    the same values (f32, full width; the trees coincide: 32 heads and 2
+    KV heads split over 2 without padding), capacity = prompt: the last
+    hidden state within tests/test_seqpar.py's rtol 2e-3 / atol 2e-4, the
+    next token equal."""
+    base = get_config(arch).with_updates(n_layers=layers, param_dtype="float32",
+                                         compute_dtype="float32", scan_layers=False)
+    B, S, M = 2, prompt, SM_M
+    params = T.init_params(base, 0, DEV, M)
+    toks = torch.from_numpy(SyntheticBatches(base, InputShape("p", S + 1, B, "prefill"),
+                                             seed=1).batch(0)["tokens"]).to(DEV)
+    out = {}
+    with torch.inference_mode():
+        for mode in ("baseline", "seqpar"):
+            cfg = base.with_updates(seq_par=mode == "seqpar")
+            last, cache = T.prefill(cfg, params, {"tokens": toks[:, :S]}, msize=M)
+            tok, _ = T.decode_step(cfg, params, cache, toks[:, S:], max_seq=S, msize=M)
+            out[mode] = (last, tok)
+            del cache
+    (l0, t0), (l1, t1) = out["baseline"], out["seqpar"]
+    dev = float(((l1 - l0).abs() - SEQPAR_RTOL * l0.abs()).max())
+    print(f"seq_par identity {arch} f32 at full width, {layers} layers, model {M}, batch {B}, "
+          f"prompt {S}: last hidden max |diff| {float((l1 - l0).abs().max()):.3e} (max|h| "
+          f"{float(l0.abs().max()):.3e}; bound rtol {SEQPAR_RTOL} / atol {SEQPAR_ATOL}), next "
+          f"tokens {t1[:, 0].tolist()} against {t0[:, 0].tolist()}")
+    if not (dev <= SEQPAR_ATOL and torch.equal(t0, t1)):
+        raise AssertionError(f"seq_par identity {arch}: {dev} over rtol, tokens {t1} vs {t0}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def run_phase_sm(card: str) -> dict[str, int]:
+    """Paths (bi)-(bl), then the model-2 identities and the seq_par one;
+    returns the paths' launches (the identities' are checks)."""
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in KERNELS}
+    for tag, arch, layers, prompt, seq_par, kernels in SM_PATHS:
+        for k, v in run_serve_tp_path(tag, arch, layers, prompt, seq_par, kernels,
+                                      card).items():
+            launches[k] += v
+    for arch, layers, prompt in SM_IDENTITY:
+        check_serve_tp_identity(arch, layers, prompt)
+    check_seqpar_identity()
+    print(f"phase SM: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="*", metavar="LABEL",
@@ -3172,7 +3475,8 @@ def main() -> None:
     f_launches, f_big = run_phase_f(card, profile)
     m_launches = run_phase_m(card)
     run_phase_s(card, profile)
-    for k, v in (*f_launches.items(), *m_launches.items()):
+    sm_launches = run_phase_sm(card)
+    for k, v in (*f_launches.items(), *m_launches.items(), *sm_launches.items()):
         launches[k] += v
     for name, r in row_checks.items():
         b_ms, b_by = _bound(ROW_KERNELS[name]["bytes"](ENGINE_ROWS, ENGINE_DIM),

@@ -4,11 +4,11 @@ then serve the trained model (the twin of ``examples/quickstart.py``).
 
 Both train on a 4-way data x 2-way model layout: here the 4 workers and
 the 2 model shards are stacked on one device (the parameters padded for 2,
-each (worker, shard) compressing its shard-local buckets).  Serving runs
-through ``build_serve`` at model-axis size 1 on the trained weights (the
-reference serves them on its 4 x 2 mesh, the same function; serving under
-the model axis is slice 20): prefill a prompt into the ring KV cache, then
-16 greedy tokens.
+each (worker, shard) compressing its shard-local buckets).  Both serve the
+trained weights on the same layout through ``build_serve``: the reference
+on its 4 x 2 mesh, the twin at model-axis size 2 (the batch of 4 covers the
+data axis, so the 2 model shards split the ring KV cache by sequence, as
+the reference's): prefill a prompt, then 16 greedy tokens.
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -63,7 +63,7 @@ def main(argv=None):
 
     # --- serve the trained model ------------------------------------------------
     serve_shape = InputShape("serve", seq_len=64, global_batch=4, kind="decode")
-    sb = build_serve(cfg, serve_shape, args.device)
+    sb = build_serve(cfg, serve_shape, args.device, msize=MODEL)
     prompt = src.batch(999, 4, 32)["tokens"]
     last, cache = sb.prefill_step(state["params"], {"tokens": prompt})
     toks = [torch.as_tensor(prompt[:, -1:]).to(args.device)]

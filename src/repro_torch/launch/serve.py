@@ -3,23 +3,29 @@ from a zero token, as the reference's ``repro.launch.serve`` does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
         --prompt-len 1024 --batch 8 --decode 32 [--reduced] [--device cpu] [--seed 0] \\
-        [--restore ckpts/step100]
+        [--model 2] [--seq-par] [--restore ckpts/step100]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --prompt-len 1024 --batch 8 --decode 32      # dense GQA, the ring KV cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
         --prompt-len 1024 --batch 8 --decode 32      # MLA's latent cache, MoE decode
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
+        --prompt-len 1024 --batch 8 --decode 32 --model 2 --seq-par
 
 Any architecture the port serves runs: rwkv6-3b, qwen3-0.6b, glm4-9b,
-qwen1.5-32b, gemma3-12b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b and
-hymba-1.5b.
+qwen1.5-32b, gemma3-12b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b,
+hymba-1.5b, qwen2-vl-2b and seamless-m4t-large-v2.
 Weights are random from ``--seed``, or the ``params`` of the checkpoint
 that ``--restore`` names (``repro_torch.checkpoint``, the reference's
 format: its other keys are left alone); prompts are ``SyntheticBatches``
-(kind "prefill").  ``--model`` above 1 raises: serving under the model axis
-(the context-parallel decode cache) is slice 20.  The reference's
-``--data``, ``--fake-devices`` and ``--seq-par`` describe a mesh and have
-no meaning on one card, so they are left out.  Prints the prefill ms, the decode ms and
-tok/s, and the first sequence's tokens.
+(kind "prefill").  ``--model M`` serves on the reference's model axis,
+its M shards stacked on the device: the parameters padded for M, the
+context-parallel decode cache (each ring a multiple of M slots), the
+vocabulary-sharded argmax.  ``--seq-par`` runs the sequence-parallel
+prefill (dense models of global layers); its cache holds the prompt, so
+the capacity is the prompt, as the reference's.  The reference's
+``--data`` and ``--fake-devices`` lay the shards on a mesh of devices;
+here one device holds every shard, so they are left out.  Prints the
+prefill ms, the decode ms and tok/s, and the first sequence's tokens.
 """
 
 from __future__ import annotations
@@ -48,16 +54,18 @@ def _sync(device: torch.device) -> None:
 def run(cfg: ModelConfig, *, prompt_len: int, batch: int, decode: int,
         device: str | torch.device = "cuda", seed: int = 0, restore: str = "",
         model: int = 1) -> dict:
-    """Build, prefill and decode; print the launcher's lines and return
+    """Build, prefill and decode (``model`` shards on the model axis; under
+    ``cfg.seq_par`` the capacity is the prompt); print the launcher's
+    lines and return
     ``{"prefill_ms", "decode_ms", "tok_per_s", "tokens" (B, decode) int32
     numpy, "last" (B, d) tensor, "cache", "cache_bytes" (the prefill
     cache's), "params", "bundle", "peak_bytes" (device memory high-water
     mark, weights included, None off the card)}``.  Times are host clock
     ending in a synchronize of the device."""
     device = torch.device(device)
-    sb = build_serve(cfg, InputShape("serve", prompt_len + decode, batch, "decode"), device,
-                     msize=model)
-    params = init_params(cfg, seed, device)
+    cap = prompt_len if cfg.seq_par else prompt_len + decode
+    sb = build_serve(cfg, InputShape("serve", cap, batch, "decode"), device, msize=model)
+    params = init_params(cfg, seed, device, msize=model)
     if restore:
         params = restore_ckpt(restore, {"params": params}, partial=True)[0]["params"]
         print(f"restored params from {restore}")
@@ -102,11 +110,16 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--restore", default="")
-    p.add_argument("--model", type=int, default=1, help="model-axis shards (1 only)")
+    p.add_argument("--model", type=int, default=1,
+                   help="model-axis shards, stacked on the device")
+    p.add_argument("--seq-par", action="store_true",
+                   help="sequence-parallel prefill (dense models of global layers)")
     args = p.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.seq_par:
+        cfg = cfg.with_updates(seq_par=True)
     run(cfg, prompt_len=args.prompt_len, batch=args.batch, decode=args.decode,
         device=args.device, seed=args.seed, restore=args.restore, model=args.model)
     return 0

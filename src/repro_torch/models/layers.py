@@ -25,8 +25,16 @@ before ``wo``; over replicated GQA KV a padded head set reads each head's
 KV head through the reference's explicit gather.  The vocabulary-parallel
 embedding and loss compute on the whole padded vocabulary at once and book
 the reference's ``psum``/``pmax`` of one shard's operand
-(:func:`comms.book_model`).  The decode paths stay at model-axis size 1:
-serving under the axis is a later slice.
+(:func:`comms.book_model`).
+
+Serving takes ``msize`` too.  The decode cache stays in the reference's
+global layout, a ring of W slots of which shard i holds the block
+``[i W / M, (i + 1) W / M)``; the decode reads the ring as its M blocks at
+once (each block's max, their max over the shards, then the blocks' sums
+added in shard order: the reference's ``pmax`` and two ``psum``s), gathers
+the query heads (and the new K/V when the KV heads are sharded) and books
+every collective.  Under ``cfg.seq_par`` the attention weights are
+replicated and unpadded (:func:`attention_seqpar` for the prefill).
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import comms
-from repro_torch.models.sharding import ParamDef, ShapePlan, shards
+from repro_torch.models.sharding import ParamDef, ShapePlan, make_plan, shards
 
 f32 = torch.float32
 
@@ -216,6 +224,21 @@ def moe_ffn(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
 
 def attn_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, ParamDef]:
     d, H, KV, hd = plan.d, plan.H, plan.KV, plan.hd
+    if cfg.seq_par:
+        # the sequence carries the parallelism: the attention weights are
+        # replicated over the model axis and not padded (the reference's
+        # seq_par branch, GQA only)
+        if cfg.attn_kind != "gqa" or cfg.kv_lora or cfg.moe:
+            raise NotImplementedError(f"{cfg.name}: seq_par runs dense GQA attention only")
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        defs = {"wq": ParamDef((d, H, hd)), "wk": ParamDef((d, KV, hd)),
+                "wv": ParamDef((d, KV, hd)), "wo": ParamDef((H, hd, d))}
+        if cfg.qkv_bias:
+            defs.update(bq=ParamDef((H, hd), init="zeros"), bk=ParamDef((KV, hd), init="zeros"),
+                        bv=ParamDef((KV, hd), init="zeros"))
+        if cfg.qk_norm:
+            defs.update(q_norm=rmsnorm_def(hd), k_norm=rmsnorm_def(hd))
+        return defs
     if cfg.kv_lora:  # MLA (deepseek-v2)
         qk = cfg.qk_nope_dim + cfg.qk_rope_dim
         return {
@@ -241,6 +264,21 @@ def attn_defs(cfg: ModelConfig, plan: ShapePlan) -> dict[str, ParamDef]:
         defs["q_norm"] = rmsnorm_def(hd)
         defs["k_norm"] = rmsnorm_def(hd)
     return defs
+
+
+def kv_sharded(cfg: ModelConfig, msize: int) -> bool:
+    """Whether the KV heads are split over ``msize`` > 1 model shards
+    (``plan.kv_sharded``; not under ``seq_par``, whose weights are
+    replicated): the prefill then moves them into the sequence-sharded
+    cache by ``all_to_all`` and the decode gathers the new token's K and
+    V."""
+    return msize > 1 and not cfg.seq_par and make_plan(cfg, msize).kv_sharded
+
+
+def book_shard(kind: str, t: torch.Tensor, dim: int, msize: int) -> None:
+    """Book a model-axis collective of one shard's block of the global
+    ``t`` along ``dim`` (the reference's local operand)."""
+    comms.book_model(kind, t.narrow(dim, 0, t.shape[dim] // msize), msize)
 
 
 def window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
@@ -326,7 +364,15 @@ def mla_latent(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
 def _head_out(cfg: ModelConfig, out: torch.Tensor, wo: torch.Tensor, msize: int) -> torch.Tensor:
     """The attention output (B, S, H, hd_v) through ``wo``: padded heads
     (H > n_heads) zeroed first, so their random-weight outputs never leak;
-    row-parallel over the heads at ``msize`` > 1."""
+    row-parallel over the heads at ``msize`` > 1.  Under ``seq_par`` (``wo``
+    replicated) the reference's shard 0 holds every head and the others
+    mask theirs out (their global head ids are >= n_heads), so the psum
+    (booked) adds the one full product."""
+    if cfg.seq_par:
+        o = torch.einsum("bshk,hkd->bsd", out, wo)
+        if msize > 1:
+            comms.book_model("psum", o, msize)
+        return o
     H = out.shape[2]
     if H > cfg.n_heads:
         keep = torch.arange(H, device=out.device) < cfg.n_heads
@@ -382,10 +428,29 @@ def _mla_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     return _head_out(cfg, out, p["wo"], msize)
 
 
+def attention_seqpar(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
+                     positions: torch.Tensor, msize: int) -> torch.Tensor:
+    """The sequence-parallel prefill's attention (the reference's
+    ``attention_seqpar``) on the M sequence shards of x (B, S, d) at once:
+    each shard's queries stay on it, the K and V of every shard are
+    all-gathered over the sequence (booked: two ``all_gather``s of one
+    shard's (B, S / M, KV, hd)), every head is local, so the query chunk is
+    128 within a shard, and the replicated ``wo`` needs no psum."""
+    S = x.shape[1]
+    q = _q_proj(cfg, p, x, positions)
+    kk, vv = kv_proj(cfg, p, x, positions)
+    if msize > 1:
+        book_shard("all_gather", kk, 1, msize)
+        book_shard("all_gather", vv, 1, msize)
+    out = sdpa_chunked(q, kk, vv, window=cfg.layer_window("global", S),
+                       q_chunk=min(128, S // msize))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
 # ---------------------------------------------------------------------------
-# Decode attention over the ring cache (the reference's decode_attention at
-# model-axis size 1: its all-gathers are identities, the cache is one shard
-# and its LSE combine is a plain softmax).
+# Decode attention over the ring cache, context-parallel over the model axis
+# (the reference's decode_attention: at model-axis size 1 its all-gathers
+# are identities, the cache is one shard and its LSE combine a softmax).
 # ---------------------------------------------------------------------------
 
 
@@ -396,7 +461,9 @@ def _cache_write(cache: dict[str, torch.Tensor], new: dict[str, torch.Tensor],
     ``cache["pos"]`` (S,) there.  ``pos`` is a 0-dim device tensor, so the
     slot is never read back to the host.  ``inplace`` writes into the
     cache's own buffers (the caller gives them up); otherwise the returned
-    leaves are new and ``cache`` is left as it was."""
+    leaves are new and ``cache`` is left as it was.  The ring is the
+    global one, so slot ``pos % S`` lands in the block of its owner
+    ``(pos % S) // (S / M)``, where the reference's masked write puts it."""
     slot = torch.remainder(pos, cache["pos"].shape[0]).reshape(1).long()
     out = dict(cache)
     upd = {name: (1, t[:, None].to(cache[name].dtype)) for name, t in new.items()}
@@ -413,49 +480,101 @@ def _cache_valid(cache_pos: torch.Tensor, pos: torch.Tensor, window: int) -> tor
     return (cache_pos >= 0) & (cache_pos <= pos) & (cache_pos > pos - window)
 
 
-def _softmax_read(s: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
-    """The reference's ``_partial_softmax_combine`` on one shard: exp of the
-    max-subtracted masked scores ``s``, contracted with ``v`` (f32) by
-    ``eq``, over the clamped sum."""
-    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    o = torch.einsum(eq, e, v.to(f32))
-    return o / torch.clamp_min(torch.sum(e, dim=-1, keepdim=True), 1e-30)
+def _softmax_read(s: torch.Tensor, v: torch.Tensor, eq: str, msize: int = 1) -> torch.Tensor:
+    """The reference's ``_partial_softmax_combine``: the masked scores ``s``
+    (..., S) against the ring ``v`` (B, S, ...), contracted by ``eq`` (the
+    sequence letter last in ``s``), over the clamped sum of the
+    exponentials, in f32.  At ``msize`` M > 1 the ring is its M shards'
+    blocks of S / M slots: each block's max, their max (the ``pmax``), then
+    each block's sum of ``exp(s - m)`` and its product with ``v``, both
+    added over the blocks in shard order (the two ``psum``s); all booked,
+    every block in one launch."""
+    if msize == 1:
+        e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+        o = torch.einsum(eq, e, v.to(f32))
+        return o / torch.clamp_min(torch.sum(e, dim=-1, keepdim=True), 1e-30)
+    lhs, rest = eq.split(",")
+    rhs, out = rest.split("->")
+    t = lhs[-1]
+    blocked = f"{lhs[:-1]}m{t},{rhs.replace(t, 'm' + t)}->m{out}"
+    sb = s.unflatten(-1, (msize, -1))
+    m_loc = torch.amax(sb, dim=-1, keepdim=True)
+    m = torch.amax(m_loc, dim=-2, keepdim=True)
+    e = torch.exp(sb - m)
+    l_parts = torch.sum(e, dim=-1)  # (..., M)
+    o_parts = torch.einsum(blocked, e, v.to(f32).unflatten(1, (msize, -1)))
+    l, o = l_parts[..., :1], o_parts[0]
+    for i in range(1, msize):
+        l, o = l + l_parts[..., i:i + 1], o + o_parts[i]
+    comms.book_model("pmax", m_loc[..., 0, :], msize)
+    comms.book_model("psum", l, msize)
+    comms.book_model("psum", o, msize)
+    return o / torch.clamp_min(l, 1e-30)
 
 
 def decode_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
                      cache: dict[str, torch.Tensor], *, pos: torch.Tensor, window: int,
-                     inplace: bool = False) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                     inplace: bool = False, msize: int = 1
+                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One-token attention of x (B, 1, d) at position ``pos`` (0-dim int32
     tensor) over the ring cache ``{"k", "v" (B, S, KV, hd), "pos" (S,)
     int32, -1 empty}`` (MLA: ``{"lat" (B, S, kv_lora), "rope" (B, S,
     qk_rope_dim), "pos"}``).  The token's K and V are written first
     (:func:`_cache_write`), then every valid slot is read: scores in f32,
-    masked to -1e30.  Returns (out (B, 1, d), the written cache)."""
+    masked to -1e30.  Returns (out (B, 1, d), the written cache).
+
+    At ``msize`` M > 1, as the reference's shards: the query heads are
+    gathered (not under ``seq_par``), and the new K and V when the KV heads
+    are sharded (:func:`kv_sharded`); over replicated GQA KV only the
+    ``n_heads`` real heads read the cache, else all ``H_pad`` in aligned
+    groups; the padded heads are masked, and the M shards' head slices go
+    through the row-parallel ``wo`` (under ``seq_par``, the replicated
+    ``wo``: no psum)."""
     if "w_dkv" in p:
-        return _mla_decode(cfg, p, x, cache, pos=pos, window=window, inplace=inplace)
+        return _mla_decode(cfg, p, x, cache, pos=pos, window=window, inplace=inplace,
+                           msize=msize)
     B = x.shape[0]
     pos3 = pos.expand(3, B, 1)
     q = _q_proj(cfg, p, x, pos3)
     kk, vv = kv_proj(cfg, p, x, pos3)
+    if msize > 1:
+        if not cfg.seq_par:
+            book_shard("all_gather", q, 2, msize)
+        if kv_sharded(cfg, msize):
+            book_shard("all_gather", kk, 2, msize)
+            book_shard("all_gather", vv, 2, msize)
     cache = _cache_write(cache, {"k": kk[:, 0], "v": vv[:, 0]}, pos, inplace=inplace)
     valid = _cache_valid(cache["pos"], pos, window)
     q = q[:, 0]
     H, hd = q.shape[1], q.shape[2]
     KV = cache["k"].shape[2]
-    # q-head h reads kv-head h // (H / KV), as in training
-    qg = q.reshape(B, KV, H // KV, hd)
+    # replicated GQA KV: the real heads (they come first) in groups of
+    # n_heads / KV; else (MHA, sharded KV) all heads in aligned groups.  Either
+    # way q-head h reads kv-head h // group, as in training
+    eff = cfg.n_heads if KV == cfg.n_kv_heads != cfg.n_heads else H
+    qg = q[:, :eff].reshape(B, KV, eff // KV, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.to(f32) * hd ** -0.5, cache["k"].to(f32))
     s = torch.where(valid, s, torch.full((), -1e30, dtype=f32, device=s.device))
-    ctx = _softmax_read(s, cache["v"], "bkgs,bskh->bkgh").reshape(B, 1, H, hd).to(x.dtype)
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache
+    ctx = _softmax_read(s, cache["v"], "bkgs,bskh->bkgh", msize)
+    ctx = ctx.reshape(B, 1, eff, hd).to(x.dtype)
+    if cfg.seq_par:
+        return torch.einsum("bshk,hkd->bsd", ctx, p["wo"]), cache
+    if eff < H:
+        ctx = F.pad(ctx, (0, 0, 0, H - eff))
+    return _head_out(cfg, ctx, p["wo"], msize), cache
 
 
 def _mla_decode(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
                 cache: dict[str, torch.Tensor], *, pos: torch.Tensor, window: int,
-                inplace: bool) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                inplace: bool, msize: int = 1
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """MLA over the latent cache: ``w_uk`` absorbed into q, scores over the
     latents plus the shared RoPE keys in f32, the softmax-weighted latent
-    decompressed by ``w_uv`` in f32, then ``wo``."""
+    decompressed by ``w_uv`` in f32, then ``wo``.  At ``msize`` > 1 the
+    absorbed queries and their RoPE parts are gathered over the heads
+    (booked), the ``n_heads`` real heads read the ring, the latent context
+    is padded back to ``H_pad`` and each shard's heads go through its
+    ``w_uv`` and row-parallel ``wo`` blocks."""
     B = x.shape[0]
     pos3 = pos.expand(3, B, 1)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -463,16 +582,22 @@ def _mla_decode(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     q_rope = apply_rope(cfg, q[..., cfg.qk_nope_dim:], pos3)
     kv_lat, k_rope = mla_latent(cfg, p, x, pos3)
     q_lat = torch.einsum("bshn,chn->bshc", q_nope, p["w_uk"])  # (B, 1, H, c)
+    if msize > 1:
+        book_shard("all_gather", q_lat, 2, msize)
+        book_shard("all_gather", q_rope, 2, msize)
     cache = _cache_write(cache, {"lat": kv_lat[:, 0], "rope": k_rope[:, 0, 0]}, pos,
                         inplace=inplace)
     valid = _cache_valid(cache["pos"], pos, window)
-    s = torch.einsum("bhc,btc->bht", q_lat[:, 0].to(f32), cache["lat"].to(f32))
-    s = s + torch.einsum("bhr,btr->bht", q_rope[:, 0].to(f32), cache["rope"].to(f32))
+    H, nh = q_lat.shape[2], cfg.n_heads
+    s = torch.einsum("bhc,btc->bht", q_lat[:, 0, :nh].to(f32), cache["lat"].to(f32))
+    s = s + torch.einsum("bhr,btr->bht", q_rope[:, 0, :nh].to(f32), cache["rope"].to(f32))
     s = s * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
     s = torch.where(valid, s, torch.full((), -1e30, dtype=f32, device=s.device))
-    ctx_lat = _softmax_read(s, cache["lat"], "bht,btc->bhc")
+    ctx_lat = _softmax_read(s, cache["lat"], "bht,btc->bhc", msize)
+    if nh < H:
+        ctx_lat = F.pad(ctx_lat, (0, 0, 0, H - nh))
     v_ctx = torch.einsum("bhc,chn->bhn", ctx_lat, p["w_uv"].to(f32)).to(x.dtype)
-    return torch.einsum("bhn,hnd->bd", v_ctx, p["wo"])[:, None], cache
+    return row_parallel(v_ctx[:, None], p["wo"], "bshk,hkd->bsd", msize), cache
 
 
 def embed_defs(plan: ShapePlan) -> dict[str, ParamDef]:
@@ -551,6 +676,8 @@ def logits_and_loss(p: dict[str, torch.Tensor], h: torch.Tensor, labels: torch.T
 
 def logits_local(p: dict[str, torch.Tensor], h: torch.Tensor, *,
                  softcap: float = 0.0) -> torch.Tensor:
-    """Decode-time logits (B, S, V) in f32 against the embedding (the whole
-    vocabulary: one card holds it all), softcapped as in training."""
+    """Decode-time logits (B, S, V) in f32 against the embedding, softcapped
+    as in training: the whole padded vocabulary, which under the model axis
+    is the M shards' local logits side by side (no collective; the greedy
+    token's is :func:`repro_torch.models.transformer._distributed_argmax`)."""
     return _softcap(torch.einsum("bsd,vd->bsv", h.to(f32), p["embedding"].to(f32)), softcap)

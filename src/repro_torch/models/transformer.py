@@ -31,14 +31,16 @@ layer; a hymba block also ``"ssm": {"conv" (B, kc-1, d_inner), "h" (B,
 d_inner, state) f32}``; an RWKV6 block ``{"tm": {"shift" (B, d), "wkv"
 (B, H, hd, hd) f32}, "cm_last" (B, d)}``; an encoder-decoder's cache also
 holds the encoder's output ``"enc_out"`` (B, S_enc, d), whose K and V each
-decode step recomputes, as the reference does.  The sequence-parallel
-prefill is a later slice and raises ``NotImplementedError``.
+decode step recomputes, as the reference does.
 
-Training takes the reference's model axis as ``msize`` M: the parameters
-are the padded-for-M tree (:func:`param_defs`), every layer runs its M
-shards' local computations at once and books its collectives over
-``("model",)`` (:mod:`repro_torch.models.layers`).  Serving stays at M = 1
-(the context-parallel decode cache is slice 20).
+Training and serving take the reference's model axis as ``msize`` M: the
+parameters are the padded-for-M tree (:func:`param_defs`), every layer runs
+its M shards' local computations at once and books its collectives over
+``("model",)`` (:mod:`repro_torch.models.layers`).  The decode cache keeps
+the reference's global layout, its rings read as M blocks of W / M slots
+(the context-parallel decode), so the stacked cache is the model-1 one; the
+greedy token is the reference's packed argmax over the vocabulary shards.
+Under ``cfg.seq_par`` the prefill is :func:`prefill_seqpar`.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from repro_torch.core import comms
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SM
-from repro_torch.models.sharding import (ParamDef, ShapePlan, check_ported, make_plan,
+from repro_torch.models.sharding import (ParamDef, ShapePlan, make_plan,
                                          materialize, stack_defs)
 from repro_torch.utils.tree import leaves, unflatten_like
 
@@ -194,7 +196,7 @@ def _run_block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, *,
     cache = None
     if collect_cache:
         cache = {"attn": _build_cache_from_prefill(cfg, p["attn"], h_in, positions, attn_type,
-                                                   max_seq or seq_len)}
+                                                   max_seq or seq_len, msize)}
         if ssm_state is not None:
             cache["ssm"] = ssm_state
     return x + ff, aux, cache
@@ -212,14 +214,20 @@ def _cross_attention(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
 
 def _build_cache_from_prefill(cfg: ModelConfig, p: dict[str, Any], h_in: torch.Tensor,
                               positions: torch.Tensor, attn_type: str,
-                              max_seq: int) -> dict[str, torch.Tensor]:
+                              max_seq: int, msize: int = 1) -> dict[str, torch.Tensor]:
     """The block's decode cache from its normed input: K and V (MLA: the
     latent and its RoPE key) recomputed from ``h_in`` and laid out as a
     ring of ``W = min(layer_window(max_seq), max_seq)`` slots, position p
     at slot p % W for the last ``min(S, W)`` positions, the other slots
-    zero with pos -1."""
+    zero with pos -1.  At ``msize`` M the ring is the reference's
+    context-parallel cache, shard i holding slots [i W / M, (i + 1) W / M),
+    so W must split over M; KV heads sharded over the shards reach it by
+    two ``all_to_all``s of one shard's (B, W, KV / M, hd) (booked)."""
     S = h_in.shape[1]
     W = min(cfg.layer_window(attn_type, max_seq), max_seq)
+    if W % msize:
+        raise ValueError(f"{cfg.name}: a decode ring of {W} slots does not split over "
+                         f"{msize} model shards")
     fill = min(S, W)
     src = torch.arange(S - fill, S, device=h_in.device)
     slots = torch.remainder(src, W)
@@ -235,7 +243,11 @@ def _build_cache_from_prefill(cfg: ModelConfig, p: dict[str, Any], h_in: torch.T
         kv_lat, k_rope = L.mla_latent(cfg, p, h_in, positions)
         return {"lat": ring(kv_lat), "rope": ring(k_rope[:, :, 0]), "pos": pos}
     kk, vv = L.kv_proj(cfg, p, h_in, positions)
-    return {"k": ring(kk), "v": ring(vv), "pos": pos}
+    kk, vv = ring(kk), ring(vv)
+    if L.kv_sharded(cfg, msize):
+        L.book_shard("all_to_all", kk, 2, msize)
+        L.book_shard("all_to_all", vv, 2, msize)
+    return {"k": kk, "v": vv, "pos": pos}
 
 
 def _layer_groups(cfg: ModelConfig, blocks: Any) -> list[dict[str, Any]]:
@@ -363,17 +375,16 @@ def forward_loss(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torc
 
 def check_serving(cfg: ModelConfig, msize: int = 1) -> None:
     """Raise unless the port serves ``cfg`` at model-axis size ``msize``:
-    what ``check_ported`` refuses, serving under the model axis and the
-    sequence-parallel prefill."""
-    check_ported(cfg)
-    if msize != 1:
+    what ``check_ported`` refuses, a model that does not split over
+    ``msize`` shards (``make_plan``), and ``seq_par`` for what the
+    reference's ``prefill_seqpar`` does not run (anything but a dense model
+    of global-attention layers without leading dense layers)."""
+    make_plan(cfg, msize)
+    if cfg.seq_par and (cfg.family != "dense" or cfg.attn_pattern != ("global",)
+                        or cfg.first_dense_layers or cfg.moe or cfg.kv_lora):
         raise NotImplementedError(
-            f"{cfg.name}: serving at model-axis size {msize} (the context-parallel decode "
-            "cache and the decode's psum/pmax over the shards) is slice 20")
-    if cfg.seq_par:
-        raise NotImplementedError(
-            f"{cfg.name}: the seq_par prefill (activations sequence-sharded over the model "
-            "axis) is a later slice, with the torch.distributed backend's model axis")
+            f"{cfg.name}: the seq_par prefill runs dense models of global-attention layers "
+            f"only (family {cfg.family!r}, pattern {cfg.attn_pattern})")
 
 
 def _stack_groups(cfg: ModelConfig, groups: list[Any]) -> Any:
@@ -401,21 +412,26 @@ def _rwkv_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict | 
 
 
 def prefill(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor], *,
-            max_seq: int = 0, use_kernel: bool = False) -> tuple[torch.Tensor, dict[str, Any]]:
+            max_seq: int = 0, use_kernel: bool = False,
+            msize: int = 1) -> tuple[torch.Tensor, dict[str, Any]]:
     """Runs the prompt, returns (last hidden (B, d) after ``ln_f``, cache).
     ``max_seq``: the attention caches' capacity (the prompt length when 0;
-    each layer's ring holds ``min(layer_window(max_seq), max_seq)`` slots).
-    RWKV6 and hymba's Mamba heads carry recurrent states, for which
-    ``max_seq`` has no meaning; ``use_kernel`` runs RWKV6's recurrence
-    through kernel ``wkv6``.  ``batch`` as in :func:`forward_hidden` (S
-    counts the patches); the encoder's output goes into the cache as
-    ``"enc_out"``."""
-    check_serving(cfg)
-    x, positions, enc_out = _inputs(cfg, params, batch)
+    each layer's ring holds ``min(layer_window(max_seq), max_seq)`` slots,
+    a multiple of ``msize``).  RWKV6 and hymba's Mamba heads carry
+    recurrent states, for which ``max_seq`` has no meaning; ``use_kernel``
+    runs RWKV6's recurrence through kernel ``wkv6``.  ``batch`` as in
+    :func:`forward_hidden` (S counts the patches); the encoder's output
+    goes into the cache as ``"enc_out"``.  ``msize``: the model-axis size
+    of the padded ``params``; under ``cfg.seq_par``,
+    :func:`prefill_seqpar`."""
+    check_serving(cfg, msize)
+    if cfg.seq_par:
+        return prefill_seqpar(cfg, params, batch, max_seq=max_seq, msize=msize)
+    x, positions, enc_out = _inputs(cfg, params, batch, msize)
     S = x.shape[1]
     pat = cfg.attn_pattern
     kw = dict(seq_len=S, positions=positions, enc_out=enc_out, collect_cache=True,
-              max_seq=max_seq, use_kernel=use_kernel)
+              max_seq=max_seq, use_kernel=use_kernel, msize=msize)
     prefix, groups = [], []
     for p in params["prefix"]:
         x, _, c = _run_block(cfg, p, x, attn_type=pat[0], **kw)
@@ -433,21 +449,61 @@ def prefill(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Ten
     return x[:, -1], cache
 
 
+def prefill_seqpar(cfg: ModelConfig, params: dict[str, Any], batch: dict[str, torch.Tensor],
+                   *, max_seq: int = 0, msize: int = 1) -> tuple[torch.Tensor, dict[str, Any]]:
+    """The sequence-parallel prefill (the reference's ``prefill_seqpar``) of a
+    dense model of global layers: the activations are M sequence shards of
+    S / M positions, computed at once.  Per layer, the attention keeps each
+    shard's queries and gathers the K and V over the sequence
+    (:func:`L.attention_seqpar`); the FFN runs each shard's tokens through
+    the whole MLP, its column- and row-sharded weights all-gathered (booked
+    under ``ffn_weight_gather``); each shard's sequence slice is its block
+    of the cache, so the ring is the prompt, W = S.  The last position lives
+    on the last shard, whose ``ln_f`` row the others' zeros join in a psum
+    (booked).  S must split over M and the capacity equal S."""
+    x = _embed_inputs(cfg, params, batch, msize)
+    B, S, _ = x.shape
+    if S % msize or (max_seq or S) != S:
+        raise ValueError(f"{cfg.name}: the seq_par prefill needs a prompt ({S}) that splits "
+                         f"over {msize} shards and a capacity ({max_seq or S}) equal to it")
+    positions = make_positions(cfg, B, S, x.device)
+    groups = []
+    for pgroup in _layer_groups(cfg, params["blocks"]):
+        p = pgroup["0"]
+        h_in = L.rmsnorm(p["ln1"], x)
+        x = x + L.attention_seqpar(cfg, p["attn"], h_in, positions=positions, msize=msize)
+        if msize > 1:
+            with comms.tag("ffn_weight_gather"):
+                for name, dim in (("wi", 1), ("wg", 1), ("wo", 0)):
+                    L.book_shard("all_gather", p["mlp"][name], dim, msize)
+        x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x))
+        kk, vv = L.kv_proj(cfg, p["attn"], h_in, positions)
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)
+        groups.append({"0": {"attn": {"k": kk, "v": vv, "pos": pos}}})
+    cache = {"prefix": [], "pos": torch.full((), S, dtype=torch.int32, device=x.device),
+             "blocks": _stack_groups(cfg, groups)}
+    last = L.rmsnorm(params["ln_f"], x)[:, -1]
+    if msize > 1:
+        comms.book_model("psum", last, msize)
+    return last, cache
+
+
 def _decode_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict[str, Any], *,
                   pos: torch.Tensor, window: int, inplace: bool,
-                  enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, dict[str, Any]]:
+                  enc_out: torch.Tensor | None = None,
+                  msize: int = 1) -> tuple[torch.Tensor, dict[str, Any]]:
     """One attention block on one token: decode attention over the block's
     ring (hymba: and one step of its Mamba heads from the cached state; an
     encoder-decoder: then cross-attention to ``enc_out``, its K and V
     recomputed), then the MLP or the MoE (its router loss dropped; T = B
     tokens set its capacity).  ``inplace`` writes the ring slot and the new
-    SSM state into ``c``'s buffers."""
+    SSM state into ``c``'s buffers.  ``msize``: the model-axis size."""
     h_in = L.rmsnorm(p["ln1"], x)
     attn_out, ac = L.decode_attention(cfg, p["attn"], h_in, c["attn"], pos=pos, window=window,
-                                      inplace=inplace)
+                                      inplace=inplace, msize=msize)
     nc = {"attn": ac}
     if "ssm" in p:
-        ssm_out, sc = SM.ssm_block(cfg, p["ssm"], h_in, state=c["ssm"])
+        ssm_out, sc = SM.ssm_block(cfg, p["ssm"], h_in, state=c["ssm"], msize=msize)
         if inplace:
             sc = {k: c["ssm"][k].copy_(v) for k, v in sc.items()}
         nc["ssm"] = sc
@@ -455,15 +511,16 @@ def _decode_layer(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor, c: dict[
     else:
         x = x + attn_out
     if enc_out is not None and "xattn" in p:
-        x = x + _cross_attention(cfg, p, x, enc_out, window=enc_out.shape[1])
+        x = x + _cross_attention(cfg, p, x, enc_out, window=enc_out.shape[1], msize=msize)
     h = L.rmsnorm(p["ln2"], x)
-    ff = L.moe_ffn(cfg, p["moe"], h)[0] if "moe" in p else L.mlp(p["mlp"], h)
+    ff = (L.moe_ffn(cfg, p["moe"], h, msize=msize)[0] if "moe" in p
+          else L.mlp(p["mlp"], h, msize))
     return x + ff, nc
 
 
 def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],
                   tokens: torch.Tensor, *, max_seq: int = 0, use_kernel: bool = False,
-                  inplace: bool = False) -> tuple[torch.Tensor, dict[str, Any]]:
+                  inplace: bool = False, msize: int = 1) -> tuple[torch.Tensor, dict[str, Any]]:
     """One decode step from ``tokens`` (B, 1): (logits (B, 1, V) f32, new
     cache).  The attention families need ``max_seq``, which sets each
     layer's window (``layer_window(attn_type, max_seq)``); their ring slot
@@ -472,28 +529,30 @@ def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any
     states) into ``cache``'s buffers (the caller gives ``cache`` up).
     RWKV6's state is new each step.  The decoded token's M-RoPE streams are
     all its position ``pos``, as the reference's; ``"enc_out"`` passes
-    through unchanged."""
-    check_serving(cfg)
+    through unchanged.  ``msize``: the model-axis size of the padded
+    ``params`` (the logits cover the padded vocabulary)."""
+    check_serving(cfg, msize)
     if cfg.family != "ssm" and max_seq < 1:
         raise ValueError(f"{cfg.name}: decoding an attention cache needs max_seq >= 1")
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    x = L.embed(params["embed"], tokens, msize).to(cfg.dtype)
     pos, enc_out = cache["pos"], cache.get("enc_out")
     pat = cfg.attn_pattern
     prefix, groups = [], []
     for p, c in zip(params["prefix"], cache["prefix"]):
         x, nc = _decode_layer(cfg, p, x, c, pos=pos, window=cfg.layer_window(pat[0], max_seq),
-                              inplace=inplace, enc_out=enc_out)
+                              inplace=inplace, enc_out=enc_out, msize=msize)
         prefix.append(nc)
     for pgroup, cgroup in zip(_layer_groups(cfg, params["blocks"]),
                               _layer_groups(cfg, cache["blocks"])):
         ncs = {}
         for i, attn_type in enumerate(pat):
             if cfg.family == "ssm":
-                x, ncs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], use_kernel)
+                x, ncs[str(i)] = _rwkv_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], use_kernel,
+                                             msize)
             else:
                 x, ncs[str(i)] = _decode_layer(cfg, pgroup[str(i)], x, cgroup[str(i)], pos=pos,
                                                window=cfg.layer_window(attn_type, max_seq),
-                                               inplace=inplace, enc_out=enc_out)
+                                               inplace=inplace, enc_out=enc_out, msize=msize)
         groups.append(ncs)
     # written in place, the stacked leaves already hold the new slots and
     # hymba's new SSM states
@@ -507,18 +566,37 @@ def decode_logits(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any
 
 def decode_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, Any],
                 tokens: torch.Tensor, *, max_seq: int = 0, use_kernel: bool = False,
-                inplace: bool = False) -> tuple[torch.Tensor, dict[str, Any]]:
+                inplace: bool = False, msize: int = 1) -> tuple[torch.Tensor, dict[str, Any]]:
     """One greedy decode step (:func:`decode_logits`). Returns (next token
     (B, 1) int32, new cache); the input cache is left as it was unless
     ``inplace``."""
     logits, cache = decode_logits(cfg, params, cache, tokens, max_seq=max_seq,
-                                  use_kernel=use_kernel, inplace=inplace)
-    return _distributed_argmax(logits), cache
+                                  use_kernel=use_kernel, inplace=inplace, msize=msize)
+    return _distributed_argmax(logits, msize), cache
 
 
-def _distributed_argmax(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy token of (B, 1, V) logits as (B, 1) int32.  The reference packs
-    (value, shard index) to take a global argmax over vocab shards; on one
-    device that is a plain argmax, which keeps the first maximum as
-    ``jnp.argmax`` does."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _distributed_argmax(logits: torch.Tensor, msize: int = 1) -> torch.Tensor:
+    """Greedy token of (B, 1, V) logits as (B, 1) int32, the reference's
+    packed argmax over ``msize`` vocabulary shards of V / M: each shard's
+    first maximum ``val`` at ``loc``, packed as ``f32(val) * 1e6 - f32(i)``
+    for shard i; the packed values' max over the shards (booked ``pmax``);
+    then ``loc + i * V / M`` summed over every shard whose packed value
+    equals it (booked ``psum``).  Exactly the reference's token, ties
+    included: where ``|val| * 1e6`` passes 2**24 the f32 subtraction can
+    round the shard index away (at 20.0, 2e7 - 1 rounds back to 2e7), so
+    two shards that tie both win and the token is the sum of their
+    indices.  At one shard it is a plain argmax, the first maximum as
+    ``jnp.argmax`` keeps it."""
+    if msize == 1:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    blocks = logits.unflatten(-1, (msize, -1))  # (B, 1, M, V / M)
+    loc = torch.argmax(blocks, dim=-1)
+    val = torch.gather(blocks, -1, loc[..., None])[..., 0]
+    shard = torch.arange(msize, device=logits.device)
+    packed = val.to(f32) * 1e6 - shard.to(f32)
+    best = torch.amax(packed, dim=-1, keepdim=True)
+    comms.book_model("pmax", best[..., 0], msize)
+    gidx = torch.where(packed == best, loc + shard * blocks.shape[-1], 0)
+    tok = torch.sum(gidx, dim=-1).to(torch.int32)
+    comms.book_model("psum", tok, msize)
+    return tok

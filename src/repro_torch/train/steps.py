@@ -981,19 +981,17 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
 
 def _check_model_axis(cfg: ModelConfig, comm: CommConfig, opt: Optimizer,
                       plan: aggregate.BucketPlan, rows: int) -> None:
-    """Raise for the options that do not train under the model axis yet."""
-    if cfg.seq_par:
-        raise NotImplementedError(f"{cfg.name}: seq_par under the model axis is slice 20 "
-                                  "(serving on the model axis)")
+    """Raise for the options that do not train under the model axis yet
+    (ROADMAP queue 1, slice 21)."""
     if churn_enabled(comm):
-        raise NotImplementedError("churn and integrity under the model axis are not ported")
+        raise NotImplementedError("churn and integrity under the model axis are slice 21")
     if comm.overlap == "pipelined":
-        raise NotImplementedError("the pipelined step under the model axis is not ported")
+        raise NotImplementedError("the pipelined step under the model axis is slice 21")
     if any(b.compressor_name == "powersgd" for b in plan.buckets):
-        raise NotImplementedError("PowerSGD under the model axis is not ported")
+        raise NotImplementedError("PowerSGD under the model axis is slice 21")
     if opt.n_shards and rows:
         raise NotImplementedError(f"{opt.name} with diverging parameter rows under the model "
-                                  "axis is not ported")
+                                  "axis is slice 21")
 
 
 @dataclass
@@ -1022,8 +1020,12 @@ def build_serve(cfg: ModelConfig, shape: InputShape,
     given: that cache is consumed (the reference donates it), so use only
     the one it returns (hymba's new SSM and conv states are written into
     it too).  RWKV6 runs its recurrence through kernel ``wkv6`` (its plain
-    version on the CPU).  ``msize`` other than 1 raises: serving under the
-    model axis is slice 20."""
+    version on the CPU).  ``msize``: the reference's model axis, stacked on
+    the device: ``params`` are the padded-for-``msize`` tree and the cache
+    the context-parallel one in its global layout (each ring a multiple of
+    ``msize`` slots).  Under ``cfg.seq_par`` the prefill is sequence
+    parallel and its rings hold the prompt, so ``shape.seq_len`` is the
+    prompt too (the reference's launcher sets it so)."""
     T.check_serving(cfg, msize)
     device = torch.device(device)
 
@@ -1036,12 +1038,12 @@ def build_serve(cfg: ModelConfig, shape: InputShape,
     def prefill_step(params, batch):
         with torch.inference_mode():
             return T.prefill(cfg, params, {k: _rows(v) for k, v in batch.items()},
-                             use_kernel=True)
+                             use_kernel=True, msize=msize)
 
     def serve_step(params, cache, tok):
         with torch.inference_mode():
             return T.decode_step(cfg, params, cache, _rows(tok), max_seq=shape.seq_len,
-                                 use_kernel=True, inplace=True)
+                                 use_kernel=True, inplace=True, msize=msize)
 
     return ServeBundle(cfg=cfg, shape=shape, device=device, prefill_step=prefill_step,
                        serve_step=serve_step)

@@ -15,9 +15,9 @@ stacked in one process), without a reference run.
   formula from the shapes (qwen3-0.6b reduced at W = 2 x M = 2).
 * ZeRO-1 under the axis: its state is (W, M, k) per leaf and the step
   equals the unsharded optimizer's.
-* What stays refused: serving at M > 1 (``build_serve``, ``launch/serve.py
-  --model 2``) with a message naming slice 20; churn, PowerSGD and the
-  pipelined step under the axis.
+* Serving at M = 2 runs (``check_serving``, ``build_serve``,
+  ``launch/serve.py --model 2``); what stays refused under the axis, each
+  naming slice 21: churn, PowerSGD and the pipelined step.
 """
 
 import numpy as np
@@ -157,17 +157,21 @@ def test_zero1_state_and_step_under_model_axis():
     assert b1.wire["train"]["zero1_gather"] > 0
 
 
-def test_serving_and_unported_options_refused():
+def test_serving_and_unported_options_refused(capsys):
     cfg, shape = _tiny()
-    with pytest.raises(NotImplementedError, match="slice 20"):
-        build_serve(cfg, InputShape("s", 32, 2, "decode"), "cpu", msize=2)
-    with pytest.raises(NotImplementedError, match="slice 20"):
-        serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--model", "2"])
-    with pytest.raises(NotImplementedError, match="slice 20"):
-        T.check_serving(cfg, 2)
-    for comm, what in ((CommConfig(dropout_rate=0.1), "churn"),
-                       (CommConfig(compressor="powersgd"), "PowerSGD"),
-                       (CommConfig(overlap="pipelined", overlap_staleness=0), "pipelined")):
+    T.check_serving(cfg, 2)
+    sb = build_serve(cfg, InputShape("s", 32, 2, "decode"), "cpu", msize=2)
+    params = T.init_params(cfg, 0, "cpu", 2)
+    last, cache = sb.prefill_step(params, {"tokens": np.zeros((2, 16), np.int32)})
+    tok, cache = sb.serve_step(params, cache, torch.zeros((2, 1), dtype=torch.int32))
+    assert last.shape == (2, cfg.d_model) and tok.shape == (2, 1) and int(cache["pos"]) == 17
+    assert serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--model", "2",
+                       "--prompt-len", "16", "--batch", "2", "--decode", "3"]) == 0
+    assert capsys.readouterr().out.splitlines()[1].startswith("decoded 3 tokens/seq")
+    for comm, what in ((CommConfig(dropout_rate=0.1), "churn.*slice 21"),
+                       (CommConfig(compressor="powersgd"), "PowerSGD.*slice 21"),
+                       (CommConfig(overlap="pipelined", overlap_staleness=0),
+                        "pipelined.*slice 21")):
         with pytest.raises(NotImplementedError, match=what):
             build_bundle(cfg, comm, opt.sgd(), shape, n_workers=2, device="cpu", model=2,
                          microbatch=2 if comm.overlap == "pipelined" else 1, cache=False)

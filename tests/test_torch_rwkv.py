@@ -320,16 +320,16 @@ def test_serve_launcher_runs_on_cpu():
 
 
 def test_dense_serving_is_refused():
-    """Only the dense family's sequence-parallel prefill is still refused
-    (the dense ring-cache serving is ported: tests/test_torch_serve.py)."""
-    cfg = get_config("qwen3-0.6b").reduced().with_updates(seq_par=True)
-    for bad in (cfg, _reduced(seq_par=True)):  # the reference's seq_par prefill is dense-only
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_serve(bad, InputShape("t", 8, 2, "decode"), "cpu")
-    params = T.init_params(cfg, seed=0, device="cpu")
+    """RWKV6's sequence-parallel prefill is refused: the reference's
+    ``prefill_seqpar`` is dense-only (the dense family's runs,
+    tests/test_torch_seqpar.py)."""
+    bad = _reduced(seq_par=True)
+    with pytest.raises(NotImplementedError, match="seq_par prefill runs dense models"):
+        build_serve(bad, InputShape("t", 8, 2, "decode"), "cpu")
+    params = T.init_params(_reduced(), seed=0, device="cpu")
     tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.prefill(cfg, params, {"tokens": tokens})
+    with pytest.raises(NotImplementedError, match="seq_par prefill runs dense models"):
+        T.prefill(bad, params, {"tokens": tokens})
 
 
 @pytest.mark.parametrize("upd", [dict(attn_kind="gqa"), dict(rope_type="rope"),

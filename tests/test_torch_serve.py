@@ -18,8 +18,9 @@ MoE decode, through both packages' ``build_serve``.
   one ``decode_logits`` against the full forward's last-position logits
   over the S+1 tokens (the MoE at cf = E: no token dropped).
 * ``decode_step`` leaves its input cache alone; ``serve_step`` (in place)
-  equals it bitwise; ``check_serving`` refuses ``seq_par``, naming its
-  slice; the launcher runs.
+  equals it bitwise; ``check_serving`` refuses ``seq_par`` where the
+  reference's ``prefill_seqpar`` does not run (tests/test_torch_seqpar.py
+  serves it); the launcher runs.
 
 Tolerances (f32 on the CPU; the frameworks sum products in other orders):
 last hidden state and caches rtol 1e-5 with an atol of 1e-5 times the
@@ -203,15 +204,22 @@ def test_serve_step_is_decode_step(arch, scan_layers):
 
 
 def test_seq_par_serving_is_refused():
-    for arch in ("qwen3-0.6b", "rwkv6-3b"):
+    """Refused where the reference's ``prefill_seqpar`` asserts (a dense
+    model of global layers only): gemma3's local layers, RWKV6, the MoE;
+    qwen3-0.6b's seq_par prefill runs."""
+    for arch in ("gemma3-12b", "rwkv6-3b", "qwen3-moe-30b-a3b"):
         cfg = get_config(arch).reduced().with_updates(seq_par=True)
-        with pytest.raises(NotImplementedError, match="seq_par prefill .* later slice"):
+        with pytest.raises(NotImplementedError, match="seq_par prefill runs dense models"):
             build_serve(cfg, InputShape("t", 8, 2, "decode"), "cpu")
-    cfg = get_config("qwen3-0.6b").reduced()
+    cfg = get_config("gemma3-12b").reduced()
     params = T.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="global-attention layers"):
         T.prefill(cfg.with_updates(seq_par=True), params,
                   {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
+    cfg = get_config("qwen3-0.6b").reduced().with_updates(seq_par=True)
+    last, cache = T.prefill(cfg, T.init_params(cfg, seed=0, device="cpu"),
+                            {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
+    assert last.shape == (2, cfg.d_model) and cache["blocks"][0]["0"]["attn"]["k"].shape[1] == 8
 
 
 def test_decode_needs_max_seq():
