@@ -344,7 +344,25 @@ result line:
    heads each) from the same padded-for-2 parameters and batch (2 x 1024):
    the objective ce + coef * aux at model-axis size 2 within 2e-4 relative
    of size 1's and the squared gradient norm within 5e-3 relative, as
-   tests/test_tp_equivalence.py bounds the reference.
+   tests/test_tp_equivalence.py bounds the reference.  Then, on the same
+   layout and width at 14 of the 28 layers (``M_OPT_LAYERS``), the training
+   options of slice 21: (bm) qsgd_kernel EF
+   under 25% dropout and 25% ``"nan"`` corruption, ``quarantine_limit`` 2;
+   (bn) pod-local SGD on 2 pods x 2 x model 2, H 2, qsgd_kernel EF in the
+   in-pod rounds, ZeRO-1 (momentum SGD) over the pods' diverging rows,
+   25% dropout; (bo) the pipelined step at staleness 1, microbatch 2,
+   terngrad_kernel EF, 25% dropout (one mask held over the rounds); (bp)
+   PowerSGD rank 4 with EF (no port kernel, by design).  Each as (bg),
+   with its launches x the rounds of a step (x the pods on the receive
+   side), grad_agg to the byte with the churn bits' all-gathers and
+   PowerSGD's two factor psums per bucket, the churn rounds' live-count
+   psums among the untagged records over the data axes.  Then two
+   identities at full width cut to 2 layers, under deterministic
+   algorithms: (bm) at dropout 0 and corruption 0 (``churn=True``, the
+   integrity program on) against its churn-free twin, losses and every
+   parameter within rtol 1e-6 (bitwise here); the staleness-0 pipelined
+   step at 4 x 2 against the sequential one (dense, f32, 2 microbatches,
+   the side stream for real), rtol 1e-5 / atol 1e-7.
 14. phase SM, serving on the model axis (``SM_PATHS``): model 2 stacked on
    the card, full published width, bf16, random weights from seed 0
    padded for 2, ``SyntheticBatches`` prompts, batch 8, prompt 1024, 32
@@ -406,7 +424,7 @@ from repro_torch.core import comms  # noqa: E402
 from repro_torch.core import simulate  # noqa: E402
 from repro_torch.core import sync  # noqa: E402
 from repro_torch.core.compression.powersgd import shape2d  # noqa: E402
-from repro_torch.core.types import CommConfig  # noqa: E402
+from repro_torch.core.types import CommConfig, churn_enabled  # noqa: E402
 from repro_torch.data.pipeline import SyntheticBatches  # noqa: E402
 from repro_torch.experiments import run as sweep_cli  # noqa: E402
 from repro_torch.experiments import runner, trainer_substrate  # noqa: E402
@@ -921,6 +939,7 @@ def check_wkv6() -> dict[str, dict]:
     args = _wkv6_inputs(*WKV6_TRAIN, torch.bfloat16, seed=120)
     chunked = lambda: ops._wkv6_launch(*args, chunked=True)  # noqa: E731
     out.update(train_shape_ms=min(ms_per_call(chunked, 20), ms_per_call(chunked, 20)),
+               train_shape_plain_ms=ms_per_call(lambda: ref.wkv6(*args), 2),
                train_shape_bound_ms=wkv6_bound(*WKV6_TRAIN, in_bytes=2)[0])
     return {"wkv6": out}
 
@@ -1528,13 +1547,13 @@ def check_checkpoint() -> None:
     torch.cuda.empty_cache()
 
 
-def check_pipelined_staleness0() -> None:
+def check_pipelined_staleness0(model: int = 1) -> None:
     """The staleness-0 pipelined step against the sequential one, dense, 2
-    microbatches, at full width cut to CKPT_LAYERS layers in f32: 2 steps of
-    each from one state (one set of initial weights), losses and every
-    parameter within rtol 1e-5 / atol 1e-7.  The pipelined rounds run on
-    the side stream, so a missing wait or a buffer reused too early shows
-    here."""
+    microbatches, at full width cut to CKPT_LAYERS layers in f32, at W
+    workers x ``model`` shards: 2 steps of each from one state (one set of
+    initial weights), losses and every parameter within rtol 1e-5 / atol
+    1e-7.  The pipelined rounds run on the side stream, so a missing wait
+    or a buffer reused too early shows here."""
     cfg = get_config("qwen3-0.6b").with_updates(n_layers=CKPT_LAYERS, param_dtype="float32",
                                                 compute_dtype="float32")
     shape = InputShape("train_1k", 1024, 8, "train")
@@ -1542,7 +1561,7 @@ def check_pipelined_staleness0() -> None:
     for name, kw in (("sequential", {}), ("pipelined", dict(overlap="pipelined",
                                                            overlap_staleness=0))):
         bundle = build_bundle(cfg, CommConfig(**kw), momentum_sgd(0.9), shape, n_workers=W,
-                              seed=0, device=DEV, microbatch=2)
+                              seed=0, device=DEV, microbatch=2, model=model)
         tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(0.01), log_every=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1556,7 +1575,8 @@ def check_pipelined_staleness0() -> None:
     bad = [k for k in ps if not _close(pp[k], ps[k], rtol=1e-5, atol=1e-7)]
     worst = max(float((pp[k] - ps[k]).abs().max()) for k in ps)
     print(f"pipelined staleness 0 vs sequential ({cfg.name} f32, {CKPT_LAYERS} layers at full "
-          f"width, dense, W {W}, 2 microbatches, 2 steps): losses {lp} / {ls}; {len(ps)} "
+          f"width, dense, W {W} x M {model}, 2 microbatches, 2 steps): losses {lp} / {ls}; "
+          f"{len(ps)} "
           f"parameter leaves, largest max abs err {worst:.3e}, {len(bad)} outside rtol 1e-5 / "
           f"atol 1e-7; ms per step {ms_p:.1f} / {ms_s:.1f} (first step included)")
     if bad or not np.allclose(lp, ls, rtol=1e-5, atol=1e-7):
@@ -1814,6 +1834,46 @@ def check_churn_twin() -> None:
           f"{len(pt)} parameter leaves, {len(bad)} outside rtol 1e-6; bitwise {bitwise}")
     if bad or not np.allclose(lc, lt, rtol=1e-6, atol=0.0):
         raise AssertionError(f"(ah): the churn path left its twin: losses {lc} / {lt}, {bad}")
+
+
+def check_model_churn_twin() -> None:
+    """(bm) at dropout 0 and corruption 0 (``churn=True``, the integrity
+    program on) against its churn-free twin at data 4 x model 2, full width
+    cut to CKPT_LAYERS layers, 3 steps each from one seed under
+    deterministic algorithms: losses and every parameter within rtol
+    1e-6, the same kernels launched."""
+    cfg = get_config("qwen3-0.6b").with_updates(n_layers=CKPT_LAYERS)
+    shape = InputShape("train_1024", 1024, F_BATCH, "train")
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    for name, kw in (("twin", QSGD_EF), ("churn0", dict(**QSGD_EF, churn=True,
+                                                        corruption_kind="nan"))):
+        bundle = build_bundle(cfg, CommConfig(**kw), momentum_sgd(0.9), shape, n_workers=W,
+                              seed=0, device=DEV, model=2)
+        tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(F_LR), log_every=1)
+        ops.reset_launches()
+        state = tr.fit(tr.init(seed=0), F_STEPS)
+        torch.cuda.synchronize()
+        out[name] = ([h["loss"] for h in tr.history],
+                     {k: v.detach().clone() for k, v in _tensor_leaves(state["params"]).items()},
+                     {k: v for k, v in ops.LAUNCHES.items() if v},
+                     state["comm"].get("alive_prev"))
+        del bundle, tr, state
+    torch.use_deterministic_algorithms(det)
+    (lt, pt, kt, _), (lc, pc, kc, alive) = out["twin"], out["churn0"]
+    bad = [k for k in pt if not _close(pc[k].float(), pt[k].float(), rtol=1e-6, atol=0.0)]
+    bitwise = lt == lc and all(torch.equal(pc[k], pt[k]) for k in pt)
+    print(f"(bm) churn=True at dropout 0 and corruption 0 against the churn-free twin, data 4 x "
+          f"model 2, {CKPT_LAYERS} layers at full width, {F_STEPS} steps: losses {lc} / {lt}; "
+          f"{len(pt)} parameter leaves, {len(bad)} outside rtol 1e-6; bitwise {bitwise}; "
+          f"launches {kc} / {kt}; live bits {alive.tolist()}")
+    if bad or not np.allclose(lc, lt, rtol=1e-6, atol=0.0) or kc != kt \
+            or alive.tolist() != [1.0] * (W * 2):
+        raise AssertionError(f"(bm): the churn path left its twin: losses {lc} / {lt}, {bad}, "
+                             f"launches {kc} / {kt}")
+    del out
+    torch.cuda.empty_cache()
 
 
 #: BSP churn cells of BENCH_churn.json's engine leg (benchmarks/churn_bench.py
@@ -2375,25 +2435,55 @@ F_PEAK_GIB = 76.0
 F_BF16_RTOL = 2e-2
 
 
+def agg_rounds(bundle) -> tuple[int, int]:
+    """(n, rounds): the workers one aggregation round reduces over (a pod's
+    under pod-local SGD) and the rounds of a train call (the pipelined
+    step's microbatches)."""
+    comm = bundle.comm
+    n = bundle.n_workers // (bundle.pods if comm.pod_local else 1)
+    return n, bundle.microbatch if comm.overlap == "pipelined" else 1
+
+
 def predict_grad_agg(bundle) -> float:
     """The bytes a train call books under grad_agg, from the bucket plan:
     per bucket, by its route, each worker's payload all-gathered, p(n-1)
     (the int8 codes and a 4-byte norm; a packed 1-bit row; a packed 2-bit
-    row and a 4-byte scale), or the f32 sum all-reduced, 2p(n-1)/n."""
-    n, total = bundle.n_workers, 0.0
+    row and a 4-byte scale), or the f32 sum all-reduced, 2p(n-1)/n;
+    PowerSGD's two f32 factor psums, of P (a x rank) and Q (b x rank).
+    Under churn a gathered route also gathers each worker's 4-byte alive
+    bit.  Times the rounds of the call."""
+    comm = bundle.comm
+    (n, rounds), churn, total = agg_rounds(bundle), churn_enabled(comm), 0.0
     for b in bundle.bucket_plan.buckets:
-        route = aggregate.bucket_route(bundle.comm, bundle.bucket_plan.compressor(b))
+        comp = bundle.bucket_plan.compressor(b)
+        route = aggregate.bucket_route(comm, comp)
+        alive = 4 * (n - 1) if churn else 0
         if route in ("fused_ef", "int8_acc"):
-            total += (b.size + 4) * (n - 1)
+            total += (b.size + 4) * (n - 1) + alive
         elif route == "sign":
-            total += ops.sign_packed_bytes(b.size) * (n - 1)
+            total += ops.sign_packed_bytes(b.size) * (n - 1) + alive
         elif route == "tern":
-            total += (ops.tern_packed_bytes(b.size) + 4) * (n - 1)
+            total += (ops.tern_packed_bytes(b.size) + 4) * (n - 1) + alive
         elif route == "sum":
             total += 4 * b.size * 2 * (n - 1) / n
+        elif route == "powersgd":
+            total += sum(shape2d(b.size)) * comp.rank * 4 * 2 * (n - 1) / n
         else:
             raise AssertionError(f"predict_grad_agg: no rule for route {route}")
-    return total
+    return total * rounds
+
+
+def predict_untagged_data(bundle) -> dict[tuple, float]:
+    """A train call's untagged records off the model axis, by axes: the
+    loss, ce and aux worker means (three f32 psums over the data axes) and,
+    under churn, each round's live count (one f32 psum over the
+    aggregation axes)."""
+    n, rounds = agg_rounds(bundle)
+    W = bundle.n_workers
+    out = {bundle.data_axes: 3 * 4 * 2 * (W - 1) / W}
+    if churn_enabled(bundle.comm):
+        out[bundle.agg_axes] = out.get(bundle.agg_axes, 0.0) + rounds * 4 * 2 * (n - 1) / n
+    return out
 
 
 def _f32_first_loss(cfg, params, batch: dict, workers: int) -> float:
@@ -2689,13 +2779,31 @@ def check_past_2e31() -> dict[str, dict]:
 # ---------------------------------------------------------------------------
 
 TERN_EF = dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True)
-#: (label, arch, layers kept, workers W, model shards M, comm, kernels): full
-#: width, bf16, seq 1024, global batch 8, 3 steps; deepseek cut as (ap)
+DROP25 = dict(dropout_rate=0.25)
+#: (bm)-(bp)'s depth: at all 28 layers they added 102 s to phase M (its
+#: budget ~90 s) and brought the script to 949.5 s of its 1200; width stays
+M_OPT_LAYERS = 14
+#: (label, arch, layers kept, workers W, model shards M, comm, kernels[, build
+#: options: "pods", "microbatch", "opt" (a key of OPTIMIZERS)]): full width,
+#: bf16, seq 1024, global batch 8, 3 steps; deepseek cut as (ap)
 M_PATHS = (
     ("(bg) qwen3-0.6b qsgd ef, data 4 x model 2", "qwen3-0.6b", 28, 4, 2, QSGD_EF,
      ("qsgd_ef", "int8_acc")),
     ("(bh) deepseek-v2-lite terngrad ef, data 4 x model 2", "deepseek-v2-lite-16b", 3, 4, 2,
      TERN_EF, ("terngrad", "tern_pack", "tern_acc")),
+    # slice 21: churn and integrity, ZeRO-1 over pod rows, the pipelined
+    # step and PowerSGD under the model axis, at M_OPT_LAYERS of 28 layers
+    ("(bm) qwen3-0.6b qsgd ef, churn + nan, data 4 x model 2", "qwen3-0.6b", M_OPT_LAYERS, 4, 2,
+     dict(**QSGD_EF, **DROP25, corruption_kind="nan", corruption_rate=0.25,
+          quarantine_limit=2), ("qsgd_ef", "int8_acc")),
+    ("(bn) qwen3-0.6b pod-local zero1 qsgd ef churn, 2 pods x 2 x model 2", "qwen3-0.6b",
+     M_OPT_LAYERS, 4, 2, dict(pod_local=True, local_steps=2, **QSGD_EF, **DROP25),
+     ("qsgd_ef", "int8_acc"), {"pods": PODS, "opt": "zero1"}),
+    ("(bo) qwen3-0.6b pipelined s1 terngrad ef churn, data 4 x model 2", "qwen3-0.6b",
+     M_OPT_LAYERS, 4, 2, dict(overlap="pipelined", overlap_staleness=1, **TERN_EF, **DROP25),
+     ("terngrad", "tern_pack", "tern_acc"), {"microbatch": 2}),
+    ("(bp) qwen3-0.6b powersgd ef, data 4 x model 2", "qwen3-0.6b", M_OPT_LAYERS, 4, 2,
+     dict(compressor="powersgd", compressor_kwargs={"rank": 4}, error_feedback=True), ()),
 )
 #: (arch, layers) of the TP identity at full width in f32, batch 2 x 1024
 M_IDENTITY = (("qwen3-0.6b", 2), ("deepseek-v2-lite-16b", 2), ("rwkv6-3b", 2))
@@ -2709,7 +2817,8 @@ def predict_tp(bundle) -> dict[str, float]:
     embedding's psum of (b, S, d) in the parameter dtype, the loss's pmax
     and two psums of (b, S) f32 (untagged, as the reference's), and the
     ``tp_grad_fixup`` psum of each replicated leaf's gradient; a psum or
-    pmax moves 2p(M-1)/M."""
+    pmax moves 2p(M-1)/M; the fix-up once per microbatch round of a
+    pipelined call."""
     cfg, M = bundle.cfg, bundle.model
     b, S, d = bundle.shape.global_batch // bundle.n_workers, bundle.shape.seq_len, cfg.d_model
     act = torch.finfo(cfg.dtype).bits // 8
@@ -2718,7 +2827,9 @@ def predict_tp(bundle) -> dict[str, float]:
     untagged = (2 * cfg.n_layers * b * S * d * act + b * S * d * par + 3 * b * S * 4) * per
     fix = sum(math.prod(x.shape) for x in flat(T.param_defs(cfg, M)).values()
               if x.shard is None) * par * per
-    return {"untagged": untagged, "tp_grad_fixup": fix}
+    # the pipelined step fixes up each microbatch's gradient, as the
+    # reference's scan does (its forwards book the same bytes in halves)
+    return {"untagged": untagged, "tp_grad_fixup": fix * agg_rounds(bundle)[1]}
 
 
 def device_busy(run, step_ms: float) -> tuple[float, int]:
@@ -2735,24 +2846,46 @@ def device_busy(run, step_ms: float) -> tuple[float, int]:
     return busy / step_ms, sum(e.count for e in kernels)
 
 
+def model_path_launches(bundle, steps: int) -> dict[str, int]:
+    """A phase M path's launches over ``steps`` steps: its routes' kernels
+    (``route_launches``) on each of the M shards, x the rounds of a step,
+    the receive side also x the pods of a pod-local round.  A churn round
+    launches its churn-free twin's kernels (a dead worker's codes go
+    through the reduction at weight 0)."""
+    comm, plan, (_, rounds) = bundle.comm, bundle.bucket_plan, agg_rounds(bundle)
+    groups = bundle.pods if comm.pod_local else 1
+    out: dict[str, int] = {}
+    for b in plan.buckets:
+        route = aggregate.bucket_route(comm, plan.compressor(b))
+        for k, side in ROUTE_KERNELS.get((b.compressor_name, route), {}).items():
+            n = bundle.n_workers if side == "send" else groups
+            out[k] = out.get(k, 0) + n * bundle.model * rounds * kernel_steps(comm, steps)
+    return out
+
+
 def run_model_path(label: str, arch: str, layers: int, workers: int, model: int,
-                   comm_kw: dict, kernels: tuple, card: str) -> dict[str, int]:
+                   comm_kw: dict, kernels: tuple, build: dict | None = None, *,
+                   card: str) -> dict[str, int]:
     """One phase M path: 3 trainer steps at W workers x M model shards; its
     step ms (the first excluded), operations, peak, busy share; launches,
-    grad_agg and the model axis's booked records held to their formulas.
-    Returns the launches of its steps."""
+    grad_agg, the untagged records over the data axes and the model axis's
+    booked records held to their formulas.  Returns the launches of its
+    steps."""
     cfg = get_config(arch).with_updates(n_layers=layers)
     shape = InputShape("train_1024", 1024, F_BATCH, "train")
-    comm = CommConfig(**comm_kw)
+    comm, build = CommConfig(**comm_kw), build or {}
     t0 = time.perf_counter()
-    bundle = build_bundle(cfg, comm, momentum_sgd(0.9), shape, n_workers=workers, seed=0,
-                          device=DEV, model=model)
+    bundle = build_bundle(cfg, comm, OPTIMIZERS[build.get("opt", "momentum")](), shape,
+                          n_workers=workers, seed=0, device=DEV, model=model,
+                          pods=build.get("pods", 1), microbatch=build.get("microbatch", 1))
     tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(F_LR), log_every=1)
     state = tr.init(seed=0)
     torch.cuda.synchronize()
     buckets = bundle.bucket_plan.buckets
     print(f"model axis {label}: {arch} {layers} of {get_config(arch).n_layers} layers at full "
-          f"width, W {workers} x M {model}, seq 1024, global batch {F_BATCH}, {comm_kw}: "
+          f"width, W {workers} x M {model}, seq 1024, global batch {F_BATCH}, {comm_kw}, "
+          f"{bundle.opt.name}{', %d pods' % bundle.pods if bundle.pods > 1 else ''}"
+          f"{', microbatch %d' % bundle.microbatch if bundle.microbatch > 1 else ''}: "
           f"{len(buckets)} shard-local buckets of {sum(b.size for b in buckets)} elements a "
           f"shard; build+init {time.perf_counter() - t0:.2f} s ({card})")
     torch.cuda.reset_peak_memory_stats()
@@ -2765,30 +2898,50 @@ def run_model_path(label: str, arch: str, layers: int, workers: int, model: int,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         h = tr.history[-1]
+        extra = ""
+        if churn_enabled(comm):
+            c = state["comm"]
+            extra = (f"; live bits per (worker, shard) "
+                     f"{[int(a) for a in c['alive_prev'].tolist()]}")
+            if "pod_alive_prev" in c:
+                extra += f" pod bits {[int(a) for a in c['pod_alive_prev'].tolist()]}"
+            if "quarantine_total" in c:
+                extra += (f"; quarantined rounds {[int(x) for x in c['quarantine_total'].tolist()]}"
+                          f" escalations {[int(x) for x in c['escalation_total'].tolist()]}")
+        if bundle.stacked:
+            p = state["params"]["embed"]["embedding"]
+            extra += f"; {p.shape[0]} rows equal {all(torch.equal(p[0], x) for x in p[1:])}"
         print(f"  step {t}: loss {h['loss']:.6f} ce {h['ce']:.6f} aux {h['aux']:.6f} "
-              f"step_ms {step_ms[-1]:.1f}")
+              f"step_ms {step_ms[-1]:.1f}{extra}")
         if not all(math.isfinite(h[k]) for k in ("loss", "ce", "aux")):
             raise AssertionError(f"model axis {label}: non-finite metrics at step {t}: {h}")
+        if bundle.opt.n_shards and bundle.stacked and not all(torch.equal(p[0], x) for x in p[1:]):
+            raise AssertionError(f"model axis {label}: ZeRO-1 left the rows apart at step {t}")
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     mean_ms = float(np.mean(step_ms[1:]))
-    want = {k: v * model for k, v in route_launches(comm, bundle.bucket_plan, workers,
-                                                     F_STEPS).items()}
+    want = model_path_launches(bundle, F_STEPS)
     got = {k: v for k, v in launches.items() if v}
     booked, predicted = bundle.wire["train"].get("grad_agg", 0.0), predict_grad_agg(bundle)
     tp_want = predict_tp(bundle)
     tp_got: dict[str, float] = {}
+    data_got: dict[tuple, float] = {}
     for r in bundle.logs["train"].records:
         if r.axes == ("model",):
             key = r.tag or "untagged"
             tp_got[key] = tp_got.get(key, 0.0) + r.wire_bytes * r.mult
+        elif not r.tag:
+            data_got[r.axes] = data_got.get(r.axes, 0.0) + r.wire_bytes * r.mult
+    data_want = predict_untagged_data(bundle)
     busy, n_kernels = device_busy(lambda: tr.fit(state, 1, start_step=F_STEPS), mean_ms)
     print(f"  mean step_ms (first step excluded) {mean_ms:.1f}; {counter.n} aten operations "
           f"dispatched in step 0; device busy {100 * busy:.1f}% of the mean step "
           f"({n_kernels} kernel launches in a profiled step); peak memory {peak:.2f} GiB; "
           f"launches {got} ({F_STEPS} steps); booked wire KB/step by tag "
           f"{ {k: round(v / 1e3, 3) for k, v in bundle.wire['train'].items()} }, grad_agg "
-          f"{booked:.0f} B against the shard-local plan's {predicted:.0f} B; model-axis records "
+          f"{booked:.0f} B against the shard-local plan's {predicted:.0f} B; untagged records "
+          f"off the model axis { {','.join(a): v for a, v in data_got.items()} } B against "
+          f"{ {','.join(a): v for a, v in data_want.items()} } B; model-axis records "
           f"{ {k: round(v) for k, v in tp_got.items()} } B against the shapes' "
           f"{ {k: round(v) for k, v in tp_want.items()} } B ({card})")
     if got != want or sorted(got) != sorted(kernels):
@@ -2797,6 +2950,10 @@ def run_model_path(label: str, arch: str, layers: int, workers: int, model: int,
     if booked != predicted:
         raise AssertionError(f"model axis {label}: booked {booked} B under grad_agg, the plan "
                              f"predicts {predicted} B")
+    if data_got.keys() != data_want.keys() or any(
+            not math.isclose(data_got[a], data_want[a], rel_tol=1e-12) for a in data_want):
+        raise AssertionError(f"model axis {label}: untagged records {data_got} B, want "
+                             f"{data_want} B")
     if tp_got != tp_want:
         raise AssertionError(f"model axis {label}: model-axis records {tp_got} B, the shapes "
                              f"give {tp_want} B")
@@ -2805,6 +2962,7 @@ def run_model_path(label: str, arch: str, layers: int, workers: int, model: int,
     STEP_MS[label] = mean_ms
     del state, tr, bundle
     torch.cuda.empty_cache()
+    print(f"  path wall {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2845,16 +3003,22 @@ def check_tp_identity(arch: str, layers: int) -> None:
 
 
 def run_phase_m(card: str) -> dict[str, int]:
-    """Paths (bg) and (bh), then the TP identity; returns the paths'
-    launches (the identity's comparison launches are not counted)."""
+    """Paths (bg), (bh) and (bm)-(bp), then the TP identity, (bm)'s churn
+    twin and the staleness-0 pipelined step at 4 x 2; returns the paths'
+    launches (the identities' comparison launches are not counted)."""
     t_phase = time.perf_counter()
     launches = {k: 0 for k in KERNELS}
     for path in M_PATHS:
         for k, v in run_model_path(*path, card=card).items():
             launches[k] += v
+    t_id = time.perf_counter()
     for arch, layers in M_IDENTITY:
         check_tp_identity(arch, layers)
-    print(f"phase M: {time.perf_counter() - t_phase:.1f} s")
+    t_new = time.perf_counter()
+    check_model_churn_twin()
+    check_pipelined_staleness0(model=2)
+    print(f"phase M: {time.perf_counter() - t_phase:.1f} s (TP identities {t_new - t_id:.1f} s, "
+          f"the churn twin and staleness 0 {time.perf_counter() - t_new:.1f} s)")
     return launches
 
 
@@ -3395,7 +3559,8 @@ def main() -> None:
           f"per call on the host clock, {w6['decode_device_ms']:.4f} ms of the kernel's own "
           f"device time per launch (torch.profiler); plain {w6['decode_plain_ms']:.4f} ms")
     print(f"kernel wkv6 (chunked design) at the training shape {WKV6_TRAIN} bf16: "
-          f"{w6['train_shape_ms']:.4f} ms (bound {w6['train_shape_bound_ms']:.4f} ms)")
+          f"{w6['train_shape_ms']:.4f} ms (bound {w6['train_shape_bound_ms']:.4f} ms), plain "
+          f"{w6['train_shape_plain_ms']:.4f} ms")
     print(f"kernel wkv6 at the prefill shape {WKV6_PREFILL} bf16, in turns (recurrent, chunked, "
           f"chunked, recurrent): {', '.join(f'{t:.4f}' for t in w6['turns'])} ms; recurrent "
           f"{w6['recurrent_ms']:.4f} ms against its CUDA-core bound "
@@ -3429,6 +3594,7 @@ def main() -> None:
                      "library_note": NO_LIBRARY[name], "ok": r["ok"]})
         if name == "wkv6":  # the forward also at the training shape, where (az) runs it
             rows[-1].update(train_shape_ms=r["train_shape_ms"],
+                            train_shape_plain_ms=r["train_shape_plain_ms"],
                             train_shape_bound_ms=r["train_shape_bound_ms"])
         if name == "wkv6_bwd":  # the whole backward is the row's ms; its second launch alone
             rows[-1].update(wkv6_bwd_alone_ms=r["chunks_ms"])

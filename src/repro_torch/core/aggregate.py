@@ -220,18 +220,20 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     carries its own PowerSGD Q: ``psgd_q[i]`` is then (pods, b * rank).
 
     Over ``shards`` M > 1 model shards (``plan`` then holds the shard-local
-    buckets) every per-worker stack has one row per (worker, shard), W * M
-    rows in the reference's device order (row w * M + m); the churn and
-    PowerSGD entries do not run under the model axis yet."""
+    buckets) every per-worker entry has one row per (worker, shard), W * M
+    rows in the reference's device order (row w * M + m): the stacks, the
+    churn and integrity vectors (W * M,), and PowerSGD's Q, which each
+    shard carries for its own buckets, (M, b * rank) (or (pods, M, b *
+    rank)) from the same initial draw."""
     rows = n_workers * shards
     state: dict[str, Any] = {"step": 0}
     if churn_enabled(comm):
-        state["alive_prev"] = torch.ones(n_workers, dtype=f32, device=device)
+        state["alive_prev"] = torch.ones(rows, dtype=f32, device=device)
         if comm.pod_local:
-            state["pod_alive_prev"] = torch.ones(n_workers, dtype=f32, device=device)
+            state["pod_alive_prev"] = torch.ones(rows, dtype=f32, device=device)
     if effective_corruption_kind(comm) != "none":
         for k in ("qcount", "quarantine_total", "escalation_total"):
-            state[k] = torch.zeros(n_workers, dtype=f32, device=device)
+            state[k] = torch.zeros(rows, dtype=f32, device=device)
     if comm.error_feedback:
         state["ef"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
                        if plan.compressor(b) is not None else None for b in plan.buckets]
@@ -239,12 +241,13 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
         state["u"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
                       for b in plan.buckets]
     if any(b.compressor_name == "powersgd" for b in plan.buckets):
-        groups = pods if comm.pod_local and pods > 1 else 0
+        # one Q per pod under pod-local SGD over several pods, then per shard
+        lead = ((pods,) if comm.pod_local and pods > 1 else ()) + ((shards,) if shards > 1 else ())
         state["psgd_q"] = []
         for i, b in enumerate(plan.buckets):
             q = (plan.compressor(b).init_q(b.size, 1000 + i, device).reshape(-1)
                  if b.compressor_name == "powersgd" else torch.zeros(0, dtype=f32, device=device))
-            state["psgd_q"].append(torch.stack([q] * groups) if groups else q)
+            state["psgd_q"].append(q.repeat(*lead, 1) if lead else q)
     if comm.overlap == "pipelined" and comm.overlap_staleness == 1:
         state["overlap_pending"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
                                     for b in plan.buckets]
@@ -257,12 +260,16 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
 
 #: the per-worker (rows, size) comm-state stacks, one per bucket
 COMM_STACKS = ("ef", "u", "choco_xhat", "choco_nbr", "overlap_pending")
+#: the per-worker (rows,) churn and integrity vectors
+WORKER_VECTORS = ("alive_prev", "pod_alive_prev", "qcount", "quarantine_total",
+                  "escalation_total")
 
 
 def shard_view(comm_state: dict[str, Any], m: int, shards: int) -> dict[str, Any]:
-    """Model shard m's comm state: each (W * M, size) stack cut to its W
-    rows w * M + m (views: in-place updates reach the whole).  ``step`` is
-    a copy: the caller advances the whole state's."""
+    """Model shard m's comm state: each (W * M, size) stack and (W * M,)
+    vector cut to its W rows w * M + m, and PowerSGD's Q to shard m's
+    (views: in-place updates reach the whole).  ``step`` is a copy: the
+    caller advances the whole state's."""
     if shards == 1:
         return comm_state
     view = dict(comm_state)
@@ -270,6 +277,11 @@ def shard_view(comm_state: dict[str, Any], m: int, shards: int) -> dict[str, Any
         if k in view:
             view[k] = [None if e is None else e.view(-1, shards, e.shape[1])[:, m]
                        for e in view[k]]
+    for k in WORKER_VECTORS:
+        if k in view:
+            view[k] = view[k].view(-1, shards)[:, m]
+    if "psgd_q" in view:  # (M, n), or (pods, M, n) under pod-local SGD
+        view["psgd_q"] = [q[m] if q.dim() == 2 else q[:, m] for q in view["psgd_q"]]
     return view
 
 
@@ -401,9 +413,10 @@ def draw_mask(comm: CommConfig, comm_state: dict[str, Any], churn_draws: ChurnDr
     u_mask, u_corr = draw_uniforms(churn_draws, step, workers, rnd, device)
     window = in_window(comm, window_step)
     alive = churn_mask(comm, u_mask, window, workers)
-    prev = comm_state["alive_prev"]
-    rejoined = alive * (1.0 - prev)
-    prev.copy_(alive)
+    # under the model axis a worker's M shards hold its bit (row w * M + m)
+    prev = comm_state["alive_prev"].view(n_workers, -1)
+    rejoined = alive * (1.0 - prev[:, 0])
+    prev.copy_(alive[:, None].expand_as(prev))
     return alive, rejoined, window, u_corr
 
 
@@ -899,7 +912,7 @@ def _rows_view(comm_state: dict[str, Any], lo: int, hi: int, group: int) -> dict
     for k in ("ef", "u"):
         if k in view:
             view[k] = [None if e is None else e[lo:hi] for e in view[k]]
-    for k in ("alive_prev", "qcount", "quarantine_total", "escalation_total"):
+    for k in WORKER_VECTORS:
         if k in view:
             view[k] = view[k][lo:hi]
     if "psgd_q" in view:
@@ -920,10 +933,9 @@ class GroupedRound:
     With one group this is an :class:`AggregationRound` over the comm state
     itself.
 
-    Churn: ``live`` is the round's draws over all W workers; without it a
-    churn cell draws them here (:func:`draw_liveness`, each worker keyed by
-    its index over every data axis, as the reference's ``mask_axes``) from
-    ``churn_draws``, and the rejoiners' EF and momentum rows reset.
+    Churn: ``live`` is the round's draws over all W workers (each worker
+    keyed by its index over every data axis, as the reference's
+    ``mask_axes``); the rejoiners' EF and momentum rows reset.
 
     :meth:`finish` returns the per-group lists of per-bucket aggregates and
     the comm state (``step`` advanced once)."""
@@ -931,14 +943,10 @@ class GroupedRound:
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device,
                  step: int | None = None, rnd: int | None = None, groups: int = 1,
-                 live: Liveness | None = None, churn_draws: ChurnDraws | None = None):
+                 live: Liveness | None = None):
         if n_workers % groups:
             raise ValueError(f"{n_workers} workers do not split into {groups} pods")
         self.state, self.D = comm_state, n_workers // groups
-        if live is None and churn_enabled(comm):
-            live = draw_liveness(comm, comm_state, churn_draws or seeded_churn_draws(0, device),
-                                 comm_state["step"] if step is None else step, n_workers,
-                                 device, rnd)
         if live is not None and live.rejoined is not None:
             reset_rows(comm_state, live.rejoined)
         self.live = live
@@ -983,16 +991,30 @@ class ShardedRound:
     collectives; shard 0's are booked, as each device's view sees them.
     With one shard this is the :class:`GroupedRound` itself.
 
+    Churn: the shards of a worker share its participation bit and its
+    corruption flag (the reference keys the mask by the data axes alone), so
+    the round's :class:`Liveness` is drawn once, here (:func:`draw_liveness`
+    from ``churn_draws``), unless the caller gives it, and every shard's
+    round takes it.  Each shard injects its
+    fault into its own payload, validates it and keeps its own quarantine
+    rows: there is no vote over the model axis in a gradient round.
+
     :meth:`add` takes worker w's buckets of shard m from ``bufs_of(m)``;
     :meth:`finish` returns the per-shard lists of per-group aggregates and
     the comm state (``step`` advanced once)."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device, *,
-                 shards: int = 1, **kw):
+                 shards: int = 1, step: int | None = None, rnd: int | None = None,
+                 live: Liveness | None = None, churn_draws: ChurnDraws | None = None, **kw):
         self.state, self.shards = comm_state, shards
+        if live is None and churn_enabled(comm):
+            live = draw_liveness(comm, comm_state, churn_draws or seeded_churn_draws(0, device),
+                                 comm_state["step"] if step is None else step, n_workers,
+                                 device, rnd)
         self.rounds = [GroupedRound(comm, plan, shard_view(comm_state, m, shards), n_workers,
-                                    noise, device, **kw) for m in range(shards)]
+                                    noise, device, step=step, rnd=rnd, live=live, **kw)
+                       for m in range(shards)]
 
     def add(self, w: int, bufs_of: Callable[[int], Iterable[torch.Tensor]]) -> None:
         for m, r in enumerate(self.rounds):
@@ -1026,9 +1048,9 @@ def aggregate_buckets(comm: CommConfig, plan: BucketPlan, bufs: list[torch.Tenso
     (W, size) f32 stack.  Returns the per-bucket means and the state (a
     churn cell draws its round from ``churn_draws``)."""
     W = bufs[0].shape[0]
-    rnd = GroupedRound(comm, plan, comm_state, W, noise, bufs[0].device,
+    rnd = ShardedRound(comm, plan, comm_state, W, noise, bufs[0].device,
                        churn_draws=churn_draws)
     for w in range(W):
-        rnd.add(w, [b[w] for b in bufs])
+        rnd.add(w, lambda m, w=w: [b[w] for b in bufs])
     agg, state = rnd.finish()
-    return agg[0], state
+    return agg[0][0], state

@@ -374,13 +374,12 @@ def run_trainer_scenario(s: Scenario, *, data_par: int | None = None, model_par:
                                       for fmt, kb in measured["wire_format_kb"].items()}
         measured["wire_resync_kb_per_step"] = trainer_wire_resync_per_step(s, wire) / 1e3
     if s._corruption_active:
-        # the tallies of the final comm state, (W,) each (the reference's are
-        # per (worker, shard), hence its division by model_par); the
-        # wire-rounds denominator is sync rounds x microbatch rounds of a
-        # pipelined cell
+        # the tallies of the final comm state, per (worker, shard) as the
+        # reference's, hence the division by model_par; the wire-rounds
+        # denominator is sync rounds x microbatch rounds of a pipelined cell
         cst = state["comm"]
-        q_rounds = float(cst["quarantine_total"].to("cpu", torch.float64).sum())
-        esc = float(cst["escalation_total"].to("cpu", torch.float64).sum())
+        q_rounds = float(cst["quarantine_total"].to("cpu", torch.float64).sum()) / model_par
+        esc = float(cst["escalation_total"].to("cpu", torch.float64).sum()) / model_par
         rounds = sync_rounds(s, s.steps) * (mb if s.overlap == "pipelined" else 1)
         measured["quarantine_rounds"] = q_rounds
         measured["escalations"] = esc

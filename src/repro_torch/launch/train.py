@@ -18,7 +18,8 @@ cache of :mod:`repro_torch.core.compilecache`: a later
 launch on the same toolchain and card loads the kernel libraries and the
 bundle's booked wire instead of building them.  Comm presets
 are :data:`COMM_PRESETS`, the reference's dry-run table (``pod_local_sgd``:
-BSP inside each pod, local SGD across pods every 8 steps);
+BSP inside each pod, local SGD across pods every 8 steps) and two of the
+port's own (``powersgd_ef``; ``churn_qsgd``: churn and integrity);
 ``--local-steps``, ``--bucket-mb``, ``--pod-local`` and ``--overlap`` (with
 ``--overlap-staleness``; ``--microbatch`` sets the pipeline's depth) tweak
 the preset.  ``--zero1`` shards the optimizer state over all W workers,
@@ -49,6 +50,14 @@ COMM_PRESETS = {
     "ring_manual": CommConfig(collective="ring", bucket_mb=32),
     # multi-pod: BSP inside each pod, local SGD across pods every 8 steps
     "pod_local_sgd": CommConfig(pod_local=True, local_steps=8),
+    # beyond the reference's table: PowerSGD, and churn with integrity on
+    # the int8 wire (25% of workers out a round, 25% of payloads NaN)
+    "powersgd_ef": CommConfig(compressor="powersgd", compressor_kwargs={"rank": 4},
+                              error_feedback=True, bucket_mb=32),
+    "churn_qsgd": CommConfig(compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
+                             wire_format="compressed", error_feedback=True, bucket_mb=32,
+                             dropout_rate=0.25, corruption_kind="nan", corruption_rate=0.25,
+                             quarantine_limit=2),
 }
 
 #: largest vocabulary the bigram source serves (its table is vocab x vocab)

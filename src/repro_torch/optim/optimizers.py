@@ -118,7 +118,8 @@ def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
     with slice w of that row's gradient, and the all-gather over every
     worker hands each worker the same concatenation of the W slices, which
     every row then holds.  So the rows are equal after every ZeRO-1 step, as
-    in the reference.
+    in the reference.  Under the model axis each shard does so with its
+    local leaf of the row.
 
     Under the model axis (``msize`` M > 1, ``shard_dims`` each leaf's
     sharded dimension) each of the M shards slices its own local leaf
@@ -174,26 +175,35 @@ def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
         dst[part.numel():] = 0
 
     def update_rows(grads_of, state, params, lr, row_of):
-        p_sl = [torch.empty((n_workers, -(-p[0].numel() // n_workers)), dtype=p.dtype,
-                            device=p.device) for p in params]
+        ds = _dims(len(params))
+        # each (W[, M], k) slice stack shaped like its state leaf
+        p_sl = [torch.empty((n_workers,) + ((msize,) if msize > 1 else ())
+                            + (-(-shard_local(p[0], d, msize, 0).numel() // n_workers),),
+                            dtype=p.dtype, device=p.device) for p, d in zip(params, ds)]
         g_sl, cached = [], {}
         for w in range(n_workers):
             r = row_of(w)
             if r not in cached:
                 cached = {r: grads_of(r)}  # rows come in order: keep one
             with torch.no_grad():
-                for j, (p, g) in enumerate(zip(params, cached[r])):
+                for j, (p, g, d) in enumerate(zip(params, cached[r], ds)):
                     if w == 0:
                         g_sl.append(torch.empty_like(p_sl[j], dtype=g.dtype))
-                    _slice_into(p_sl[j][w], p[r], w)
-                    _slice_into(g_sl[j][w], g, w)
+                    for m in range(msize):  # each shard its slice w of its local leaf
+                        _slice_into(p_sl[j].view(n_workers, msize, -1)[w, m],
+                                    shard_local(p[r], d, msize, m), w)
+                        _slice_into(g_sl[j].view(n_workers, msize, -1)[w, m],
+                                    shard_local(g, d, msize, m), w)
         del cached
         with torch.no_grad():
             _, inner = opt.update(g_sl, state["inner"], p_sl, lr)
             with comms.tag("zero1_gather"):
-                for p, new in zip(params, p_sl):
-                    comms.all_gather(new)
-                    p.copy_(new.reshape(-1)[:p[0].numel()].reshape(p.shape[1:]))
+                for p, new, d in zip(params, p_sl, ds):
+                    new = new.view(n_workers, msize, -1)
+                    comms.all_gather(new[:, 0])
+                    for m in range(msize if d is not None else 1):  # into every row
+                        blk = shard_local(p, None if d is None else d + 1, msize, m)
+                        blk.copy_(new[:, m].reshape(-1)[:blk[0].numel()].reshape(blk.shape[1:]))
         return {"inner": inner}
 
     return Optimizer(init, update, f"zero1_{opt.name}", n_workers, update_rows,

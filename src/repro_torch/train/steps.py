@@ -82,9 +82,13 @@ replicated leaf's aggregate is shard 0's (the reference's shards may
 disagree there: their buckets' scales differ).  ``clip_norm`` takes the
 norm of the global gradient: the sharded leaves summed over the shards,
 the replicated ones once.  ZeRO-1 slices each shard-local leaf over the
-data workers.  The sync and gossip steps average or mix each shard's
-local leaves over the data axes, shard by shard.  Churn, integrity,
-PowerSGD and the pipelined step do not run under the model axis yet.
+data workers (over diverging rows too: each row's slice of each shard).
+The sync and gossip steps average or mix each shard's local leaves over
+the data axes, shard by shard.  Churn and integrity draw one bit and one
+corruption flag per worker, which its M shards share, and keep their
+counters per (worker, shard); a sync round's validity is voted over the
+shards.  PowerSGD keeps a Q per (worker, shard); the pipelined step keeps
+``overlap_pending`` per (worker, shard).
 
 Loss, ``ce`` and ``aux`` are worker means.  The wire bytes of each program
 are booked at build time by running it once on the ``meta`` device, which
@@ -312,7 +316,9 @@ class StepBundle:
         Diverging parameters keep their rows (W, or P under pod-local SGD).
         Under the model axis the parameters are the global tree and every
         per-worker entry has one row per (worker, shard), in the
-        reference's device order.  Views where it can."""
+        reference's device order: the stacks, the churn and integrity
+        vectors, ZeRO-1's (W, M, k) slices and each shard's Q.  Views where
+        it can."""
         W, defs = self.n_workers * self.model, T.param_defs(self.cfg, self.model)
         n_leaves = len(leaves(defs))
 
@@ -330,9 +336,10 @@ class StepBundle:
                 comm[k] = [torch.zeros(W * b.size, dtype=f32, device=self.device)
                            if e is None else e.reshape(-1)
                            for e, b in zip(comm[k], self.bucket_plan.buckets)]
-        if "psgd_q" in comm:
-            comm["psgd_q"] = [q.repeat(W) if q.dim() == 1 else
-                              q.repeat_interleave(W // q.shape[0], 0).reshape(-1)
+        if "psgd_q" in comm:  # each group's (shard's) Q on each of its workers
+            G, M = self.groups, self.model
+            comm["psgd_q"] = [q.reshape(G, 1, M, -1).expand(-1, self.n_workers // G, -1, -1)
+                              .reshape(-1) if q.numel() else q.reshape(-1)
                               for q in comm["psgd_q"]]
         return {"params": state["params"], "opt": opt_ref(state["opt"]), "comm": comm,
                 "step": state["step"]}
@@ -369,9 +376,10 @@ class StepBundle:
                 if k in comm:
                     comm[k] = [None if t is None else e.reshape(t.shape)
                                for e, t in zip(comm[k], tmpl["comm"][k])]
-            if "psgd_q" in comm:
-                comm["psgd_q"] = [q[:q.numel() // self.n_workers] if t.dim() == 1 else
-                                  q.reshape(self.n_workers, -1)[::self.n_workers // t.shape[0]]
+            if "psgd_q" in comm:  # worker 0 of each group holds the group's Q
+                G, M = self.groups, self.model
+                comm["psgd_q"] = [q.reshape(G, self.n_workers // G, M, -1)[:, 0].reshape(t.shape)
+                                  if t.numel() else q.reshape(t.shape)
                                   for q, t in zip(comm["psgd_q"], tmpl["comm"]["psgd_q"])]
             out["comm"] = comm
         if "step" in tree:
@@ -395,14 +403,15 @@ class StepBundle:
             return tree_map(lambda p: p[r], params)
         return tree_map(lambda p: p[r].detach().requires_grad_(True), params)
 
-    def _grads(self, params: Any, part: dict[str, torch.Tensor], microbatch: int
-               ) -> tuple[list[torch.Tensor], dict[str, torch.Tensor]]:
+    def _grads(self, params: Any, part: dict[str, torch.Tensor], microbatch: int,
+               tag: Any = None) -> tuple[list[torch.Tensor], dict[str, torch.Tensor]]:
         """One worker's gradients (leaf order) and its loss and metrics.  On
         the meta device (the wire trace, shapes only) every worker's
-        gradients have the same shapes and the model books no collective,
-        so the first worker's trace stands for the rest."""
+        gradients have the same shapes and book the same collectives, so
+        the first worker's trace (for each ``tag``: the pipelined step's
+        microbatch) stands for the rest."""
         if part["tokens"].is_meta:
-            key = (part["tokens"].shape, microbatch)
+            key = (part["tokens"].shape, microbatch, tag)
             if key not in self._meta_grads:
                 self._meta_grads[key] = self._traced_grads(params, part, microbatch)
             grads, m = self._meta_grads[key]
@@ -515,15 +524,22 @@ class StepBundle:
         state) are held until then; the round's own temporaries live in the
         side stream's pool, which every round enters after the main stream.
         Each round keys its noise with its index; the M rounds are booked
-        once under ``comms.loop``, as the reference books its scan."""
+        once under ``comms.loop``, as the reference books its scan.
+
+        Under the model axis (S shards) ``pending`` holds one row per
+        (worker, shard), w * S + s, each shard's local buckets; every round
+        is a :class:`aggregate.ShardedRound` and the sums are per shard.
+        Each microbatch's forward collectives and ``tp_grad_fixup`` are
+        booked once per microbatch, as the reference's scan books its
+        body."""
         comm, plan, M, W = self.comm, self.bucket_plan, self.microbatch, self.n_workers
-        params, dev = state["params"], self.device
+        params, dev, S = state["params"], self.device, self.model
         rows = parts[0]["tokens"].shape[0]
         if rows % M:
             raise ValueError(f"local batch {rows} does not split into {M} microbatches")
         mb, side = rows // M, self._side_stream()
-        acc = [[torch.zeros(b.size, dtype=f32, device=dev) for b in plan.buckets]
-               for _ in range(self.groups)]
+        acc = [[[torch.zeros(b.size, dtype=f32, device=dev) for b in plan.buckets]
+                for _ in range(self.groups)] for _ in range(S)]
         ms: list[list[dict[str, torch.Tensor]]] = [[] for _ in range(W)]
         kept = {"nnz": None, "of": 0}
 
@@ -531,20 +547,22 @@ class StepBundle:
             """Microbatch j of every worker into ``pending``, worker w's
             rows once ``freed[w]`` has passed."""
             for w, part in enumerate(parts):
-                pw = self._worker_params(params, w)
-                loss, m = T.forward_loss(self.cfg, pw, {k: v[j * mb:(j + 1) * mb]
-                                                        for k, v in part.items()})
-                grads = torch.autograd.grad(loss, leaves(pw))
+                with comms.muted(w > 0):  # every worker books the same collectives
+                    grads, m = self._grads(self._worker_params(params, w),
+                                           {k: v[j * mb:(j + 1) * mb] for k, v in part.items()},
+                                           1, tag=j)
                 if freed is not None and freed[w] is not None:
                     torch.cuda.current_stream(dev).wait_event(freed[w])
                 with torch.no_grad():
-                    for i, b in enumerate(plan.buckets):  # f32 widening, as gather_bucket
-                        off = 0
-                        for li, n in b.segments:
-                            pending[i][w, off:off + n].copy_(grads[li].reshape(-1))
-                            off += n
+                    for s in range(S):
+                        loc = self.local_leaves(grads, s)
+                        for i, b in enumerate(plan.buckets):  # f32 widening, as gather_bucket
+                            off = 0
+                            for li, n in b.segments:
+                                pending[i][w * S + s, off:off + n].copy_(loc[li].reshape(-1))
+                                off += n
                 del grads
-                ms[w].append({"loss": loss.detach(), **{k: v.detach() for k, v in m.items()}})
+                ms[w].append(m)
 
         # churn under the staleness-1 double buffer: one mask for the step,
         # held over its M rounds; a rejoiner's carried-over stale bucket
@@ -574,13 +592,14 @@ class StepBundle:
             with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
                 rnd, freed = self._round(state, rnd=k, live=live_of(k)), []
                 for w in range(W):
-                    rnd.add(w, lambda m, w=w: [p[w] for p in pending])
+                    rnd.add(w, lambda s, w=w: [p[w * S + s] for p in pending])
                     freed.append(side.record_event() if side is not None else None)
-                aggs = rnd.finish()[0][0]
-                s = torch.full((), scale, dtype=f32, device=dev)
-                for acc_g, agg_g in zip(acc, aggs):
-                    for a, x in zip(acc_g, agg_g):
-                        a.add_(x * s)
+                aggs = rnd.finish()[0]
+                sc = torch.full((), scale, dtype=f32, device=dev)
+                for acc_s, agg_s in zip(acc, aggs):
+                    for acc_g, agg_g in zip(acc_s, agg_s):
+                        for a, x in zip(acc_g, agg_g):
+                            a.add_(x * sc)
                 del aggs
                 if rnd.nnz is not None:
                     kept["nnz"] = rnd.nnz if kept["nnz"] is None else kept["nnz"] + rnd.nnz
@@ -593,21 +612,22 @@ class StepBundle:
                 for k in range(M):
                     with comms.muted(k > 0):
                         freed, done = run_round(k, comm.stale_scale if k == 0 else 1.0)
-                    fill(k, freed)
+                        fill(k, freed)
         else:
-            pending = [torch.empty((W, b.size), dtype=f32, device=dev) for b in plan.buckets]
+            pending = [torch.empty((W * S, b.size), dtype=f32, device=dev)
+                       for b in plan.buckets]
             fill(0, None)
             with comms.loop(M - 1):
                 for k in range(M - 1):
                     with comms.muted(k > 0):
                         freed, done = run_round(k, 1.0)
-                    fill(k + 1, freed)
+                        fill(k + 1, freed)
             freed, done = run_round(M - 1, 1.0)  # the flush
         if done is not None:
             torch.cuda.current_stream(dev).wait_event(done)
         del pending
         metrics = [{k: torch.mean(torch.stack([d[k] for d in mw])) for k in mw[0]} for mw in ms]
-        return [[a / M for a in acc_g] for acc_g in acc], metrics, kept
+        return [[[a / M for a in acc_g] for acc_g in acc_s] for acc_s in acc], metrics, kept
 
     # ---- the programs -------------------------------------------------------------
 
@@ -617,7 +637,7 @@ class StepBundle:
         with comms.over(self.agg_axes):
             if self.comm.overlap == "pipelined":
                 aggs, ms, kept = self._pipelined_grads(state, parts)
-                aggs, nnz, nnz_of = [aggs], kept["nnz"], kept["of"]
+                nnz, nnz_of = kept["nnz"], kept["of"]
             else:
                 aggs, ms, rnd = self._sequential_grads(state, parts)
                 nnz, nnz_of = rnd.nnz, rnd.nnz_of
@@ -677,18 +697,24 @@ class StepBundle:
         its in-pod rounds instead): each worker's wire copy of its
         parameters is corrupted where flagged and validated, an invalid copy
         leaves the donors, and the bounded quarantine escalates into the
-        reset.  The rejoiners' (and escalations') EF and momentum rows
-        reset."""
-        comm, cstate, W, rows = self.comm, state["comm"], self.n_workers, self.rows
+        reset.  Under the model axis the unit's payload spans its M shards:
+        each shard validates its own local leaves, and any invalid slice
+        invalidates the whole unit (the reference's scalar psum of 1 - valid
+        over ``model``).  The rejoiners' (and escalations') EF and momentum
+        rows reset."""
+        comm, cstate, W, rows, M = self.comm, state["comm"], self.n_workers, self.rows, self.model
         plist = leaves(state["params"])
-        valid = payload = None
+        locs = [self.local_leaves(plist, m, 1, replicated=False) for m in range(M)]
+        valid, payloads = None, [None] * M
         if comm.pod_local:
             D = W // rows
             with comms.over(("data",)):  # the shard bits' psum, untagged as there
                 comms.book_psum(cstate["alive_prev"][0], D)
-            alive = torch.where(cstate["alive_prev"].reshape(rows, D).sum(1) > 0, 1.0, 0.0)
-            prev = cstate["pod_alive_prev"].reshape(rows, D)[:, 0].clone()
-            cstate["pod_alive_prev"].copy_(alive.repeat_interleave(D))
+            alive = torch.where(cstate["alive_prev"].view(rows, D, M)[:, :, 0].sum(1) > 0,
+                                1.0, 0.0)
+            pod_prev = cstate["pod_alive_prev"].view(rows, D * M)
+            prev = pod_prev[:, 0].clone()
+            pod_prev.copy_(alive[:, None].expand_as(pod_prev))
             rejoined = alive * (1.0 - prev)
         else:
             alive, rejoined, window, u_corr = self._step_mask(state)
@@ -696,24 +722,28 @@ class StepBundle:
         donor = alive - rejoined if comm.rejoin_policy == "pull_avg" else None
         kind = effective_corruption_kind(comm)
         if kind != "none" and not comm.pod_local:
-            flag = aggregate.corruption_flags(comm, u_corr, alive, window)
+            flag = aggregate.corruption_flags(comm, u_corr, alive, window)[:, None]
 
-            def payload(i: int) -> torch.Tensor:  # worker w's wire copy of leaf i
-                p = plist[i]
-                return integrity.corrupt_dense(kind, p.reshape(W, -1).to(f32), flag[:, None])
+            def payload_of(loc):  # worker w's wire copy of shard-local leaf i
+                return lambda i: integrity.corrupt_dense(kind, loc[i].reshape(W, -1), flag)
 
+            payloads = [payload_of(loc) for loc in locs]
             valid = torch.ones(W, dtype=f32, device=self.device)
-            for i in range(len(plist)):
-                valid = valid * integrity.dense_valid(payload(i), per_row=True)
+            for loc, payload in zip(locs, payloads):
+                for i in range(len(loc)):
+                    valid = valid * integrity.dense_valid(payload(i), per_row=True)
             with comms.over(("model",)):  # the validity vote over the unit's shards
-                comms.book_psum(valid[0], 1)
+                comms.book_psum(valid[0], M)
             donor = (alive if donor is None else donor) * valid
         with comms.over(("pod",) if across_pods else self.data_axes):
-            sync.average_params(plist, impl=comm.collective, alive=alive, donor=donor,
-                                payload=payload, copies=1 if across_pods else W // rows)
+            for m, (loc, payload) in enumerate(zip(locs, payloads)):
+                with comms.muted(m > 0):  # each shard's local leaves, replicated ones once
+                    sync.average_params(loc, impl=comm.collective, alive=alive, donor=donor,
+                                        payload=payload, copies=1 if across_pods else W // rows)
         if valid is not None:  # the bounded quarantine, escalating into the reset
-            aggregate.quarantine_update(comm, cstate, alive, valid)
-        aggregate.reset_rows(cstate, rejoined.repeat_interleave(W // rows))
+            aggregate.quarantine_update(comm, cstate, alive.repeat_interleave(M),
+                                        valid.repeat_interleave(M))
+        aggregate.reset_rows(cstate, rejoined.repeat_interleave(W // rows * M))
         return state
 
     def gossip_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
@@ -930,10 +960,8 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
         raise ValueError(f"model must be >= 1, got {model}")
     defs = T.param_defs(cfg, model)
     plan = aggregate.make_bucket_plan(comm, local_defs(defs, model))
-    if model > 1:
-        _check_model_axis(cfg, comm, opt, plan, param_rows(comm, n_workers, pods))
-        if opt.n_shards:
-            opt = opt.for_model(shard_dims(defs), model)
+    if model > 1 and opt.n_shards:
+        opt = opt.for_model(shard_dims(defs), model)
     bundle = StepBundle(
         cfg=cfg, comm=comm, shape=shape, n_workers=n_workers, device=device,
         bucket_plan=plan, opt=opt, model=model, shard_dims=tuple(shard_dims(defs)),
@@ -977,21 +1005,6 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
     bundle.logs = dict(shared.logs)
     bundle.wire = {k: dict(v) for k, v in shared.wire.items()}
     return bundle
-
-
-def _check_model_axis(cfg: ModelConfig, comm: CommConfig, opt: Optimizer,
-                      plan: aggregate.BucketPlan, rows: int) -> None:
-    """Raise for the options that do not train under the model axis yet
-    (ROADMAP queue 1, slice 21)."""
-    if churn_enabled(comm):
-        raise NotImplementedError("churn and integrity under the model axis are slice 21")
-    if comm.overlap == "pipelined":
-        raise NotImplementedError("the pipelined step under the model axis is slice 21")
-    if any(b.compressor_name == "powersgd" for b in plan.buckets):
-        raise NotImplementedError("PowerSGD under the model axis is slice 21")
-    if opt.n_shards and rows:
-        raise NotImplementedError(f"{opt.name} with diverging parameter rows under the model "
-                                  "axis is slice 21")
 
 
 @dataclass

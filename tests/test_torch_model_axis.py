@@ -16,8 +16,16 @@ stacked in one process), without a reference run.
 * ZeRO-1 under the axis: its state is (W, M, k) per leaf and the step
   equals the unsharded optimizer's.
 * Serving at M = 2 runs (``check_serving``, ``build_serve``,
-  ``launch/serve.py --model 2``); what stays refused under the axis, each
-  naming slice 21: churn, PowerSGD and the pipelined step.
+  ``launch/serve.py --model 2``), and the training options once refused
+  under the axis build and take a step: churn and integrity under BSP,
+  local, post-local, pod-local SGD and gossip, PowerSGD, the pipelined
+  step at staleness 0 and 1, ZeRO-1 over diverging rows.
+* The state those options add round-trips a checkpoint bitwise in the
+  reference's layout (pod-local pipelined ZeRO-1 under churn and
+  integrity; pod-local PowerSGD under churn), and the next step agrees
+  bitwise; ``launch/train.py --model 2`` runs the ``churn_qsgd`` and
+  ``powersgd_ef`` presets, the pipelined step and pod ZeRO-1;
+  ``run_trainer_scenario(model_par=2)`` runs a churn cell.
 """
 
 import numpy as np
@@ -31,7 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core import comms
 from repro_torch.core.types import CommConfig
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import transformer as T
 from repro_torch.models.sharding import local_defs
 from repro_torch.optim import optimizers as opt
@@ -168,15 +176,124 @@ def test_serving_and_unported_options_refused(capsys):
     assert serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--model", "2",
                        "--prompt-len", "16", "--batch", "2", "--decode", "3"]) == 0
     assert capsys.readouterr().out.splitlines()[1].startswith("decoded 3 tokens/seq")
-    for comm, what in ((CommConfig(dropout_rate=0.1), "churn.*slice 21"),
-                       (CommConfig(compressor="powersgd"), "PowerSGD.*slice 21"),
-                       (CommConfig(overlap="pipelined", overlap_staleness=0),
-                        "pipelined.*slice 21")):
-        with pytest.raises(NotImplementedError, match=what):
-            build_bundle(cfg, comm, opt.sgd(), shape, n_workers=2, device="cpu", model=2,
-                         microbatch=2 if comm.overlap == "pipelined" else 1, cache=False)
+    # the options once refused under the axis now build and step: churn and
+    # integrity under every scheme, PowerSGD, the pipelined step at
+    # staleness 0 and 1, ZeRO-1 over diverging rows
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, 128, (8, 16))) for k in ("tokens", "labels")}
+    churn = dict(dropout_rate=0.5, corruption_rate=0.5, corruption_kind="nan")
+    for kw, build in ((churn, {}), (dict(sync="local", local_steps=1, **churn), {}),
+                      (dict(sync="post_local", post_local_switch=0, local_steps=1, **churn), {}),
+                      (dict(pod_local=True, local_steps=1, dropout_rate=0.5), {"pods": 2}),
+                      (dict(aggregator="gossip", dropout_rate=0.5), {}),
+                      (dict(compressor="powersgd", error_feedback=True), {}),
+                      (dict(overlap="pipelined", overlap_staleness=0), {"microbatch": 2}),
+                      (dict(overlap="pipelined", overlap_staleness=1, dropout_rate=0.5),
+                       {"microbatch": 2}),
+                      (dict(sync="local", local_steps=1), {"opt": opt.zero1(opt.sgd(), 4)})):
+        comm = CommConfig(**kw)
+        b = build_bundle(cfg, comm, build.pop("opt", opt.sgd()), shape, n_workers=4,
+                         device="cpu", model=2, cache=False, **build)
+        st = b.init_state(T.init_params(cfg, 0, "cpu", 2))
+        if comm.aggregator == "gossip":
+            st, out = b.gossip_step(st, batch, 0.1)
+        elif comm.sync == "local":
+            st, out = b.inner_step(st, batch, 0.1)
+            st = b.sync_step(st)
+        else:
+            st, out = b.train_step(st, batch, 0.1)
+            if comm.sync == "post_local" or comm.pod_local:
+                st = b.sync_step(st)
+        assert np.isfinite(float(out["loss"])), kw
+        assert all(torch.isfinite(p).all() for p in leaves(st["params"])), kw
     # the booked collectives of a forward at M = 1 are none
     with comms.capture() as log:
         ids = torch.zeros((2, 8), dtype=torch.long)
         T.forward_loss(cfg, T.init_params(cfg, 0, "cpu"), {"tokens": ids, "labels": ids})
     assert not log.records
+
+
+D, M = 4, 2
+Q_EF = dict(compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
+            wire_format="compressed", error_feedback=True)
+PIPE = dict(**Q_EF, overlap="pipelined")
+PSGD = dict(compressor="powersgd", compressor_kwargs={"rank": 2}, error_feedback=True)
+#: two cells carrying every state leaf the model axis gained: the churn
+#: and integrity vectors, overlap_pending, ZeRO-1's (W, M, k) slices of pod
+#: rows, and PowerSGD's Q per (pod, shard); 2 steps, saved, restored
+CKPT_CELLS = {
+    "pipe_zero1": (dict(pod_local=True, local_steps=2, **PIPE, overlap_staleness=1,
+                        dropout_rate=0.3, corruption_kind="nan", corruption_rate=0.3),
+                   0.05, 2, 2, "zero1"),
+    "pod_psgd": (dict(pod_local=True, local_steps=2, **PSGD, dropout_rate=0.3), 0.05, 1, 2, ""),
+}
+
+
+@pytest.mark.parametrize("name", list(CKPT_CELLS))
+def test_model_axis_checkpoint_round_trips_new_state(name, tmp_path):
+    """The state after 2 steps, written in the reference's layout and read
+    back, bitwise; the next step from both equal bitwise."""
+    from repro_torch.experiments.trainer_substrate import make_tiny_workload
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.trainer import Trainer
+
+    kw, lr, mb, pods, o = CKPT_CELLS[name]
+    cfg, shape, data = make_tiny_workload()
+    b = build_bundle(cfg, CommConfig(bucket_mb=4.0, **kw),
+                     opt.zero1(opt.momentum_sgd(0.9), D) if o else opt.momentum_sgd(0.9), shape,
+                     n_workers=D, seed=0, device="cpu", model=M, microbatch=mb, pods=pods,
+                     cache=False)
+    tr = Trainer(b, data, constant(lr), log_every=1)
+    state = tr.fit(b.init_state(T.init_params(cfg, 0, "cpu", M)), 2)
+    tr.save(str(tmp_path / "ck"), state, 2)
+    back, step = tr.restore(str(tmp_path / "ck"))
+    assert step == 2
+    want, got = flatten_with_paths(state), flatten_with_paths(back)
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert got[k].shape == v.shape and torch.equal(got[k], v), k
+    tree = b.checkpoint_tree(state)
+    for k in ("alive_prev", "pod_alive_prev") + (("qcount",) if o else ()):
+        assert tree["comm"][k].shape == (D * M,), k
+    if o:
+        assert all(p.shape == (D * M, bk.size)
+                   for p, bk in zip(state["comm"]["overlap_pending"], b.bucket_plan.buckets))
+        assert all(v.shape[:2] == (D, M) for v in state["opt"]["inner"]["v"])
+    else:
+        assert any(q.shape[:2] == (pods, M) and q.numel() for q in state["comm"]["psgd_q"])
+    tr2 = Trainer(b, data, constant(lr), log_every=1)
+    a = tr.fit(state, 1, start_step=2)
+    c = tr2.fit(back, 1, start_step=2)
+    assert tr.history[-1]["loss"] == tr2.history[-1]["loss"]
+    for x, y in zip(leaves(a["params"]), leaves(c["params"])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("argv", [["--comm", "churn_qsgd"], ["--comm", "powersgd_ef"],
+                                  ["--comm", "churn_qsgd", "--overlap", "pipelined",
+                                   "--microbatch", "2"],
+                                  ["--comm", "pod_local_sgd", "--pod", "2", "--zero1"]],
+                         ids=["churn", "powersgd", "pipelined", "pod_zero1"])
+def test_train_launcher_options_on_model_axis(argv, capsys):
+    assert train.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+                              "--workers", "2", "--model", "2", "--steps", "2", "--seq-len",
+                              "16", "--global-batch", "8", "--warmup", "1", *argv]) == 0
+    out = capsys.readouterr().out
+    assert "x 2 model shards" in out and "step     1 loss" in out
+
+
+def test_churn_scenario_on_model_axis():
+    """run_trainer_scenario(model_par=2) of a churn and integrity cell: the
+    tallies per (worker, shard) divided by the shards, as the reference's."""
+    from repro_torch.experiments import Scenario
+    from repro_torch.experiments import trainer_substrate as P
+
+    s = Scenario(n_workers=4, steps=3, bucket_bytes=4e6, lr=0.05, compressor="qsgd_kernel",
+                 compressor_kwargs={"levels": 16}, error_feedback=True,
+                 wire_format="compressed", dropout_rate=0.25, corruption_kind="nan",
+                 corruption_rate=0.5, quarantine_limit=2)
+    r = P.run_trainer_scenario(s, data_par=4, model_par=2, device="cpu")
+    assert np.isfinite(r.measured["final_loss"])
+    assert 0 < r.measured["quarantine_rounds"] <= 3 * 4
+    assert r.measured["quarantine_rounds"] == int(r.measured["quarantine_rounds"])

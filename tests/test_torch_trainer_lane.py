@@ -153,11 +153,11 @@ def test_corruption_tallies_match_reference(reference):
 
 def test_model_axis_is_refused():
     """The sweep runs on the model axis (test_torch_model_axis_trainer.py
-    holds it to the reference); what it still refuses there is a churn
-    cell."""
-    with pytest.raises(NotImplementedError, match="model axis"):
-        P.run_trainer_sweep([Scenario(n_workers=W, steps=1, dropout_rate=0.1)], data_par=W,
-                            model_par=2, device="cpu")
+    holds it to the reference), a churn cell included: its masks per
+    (worker, shard) are ported (test_torch_model_axis_churn.py)."""
+    (r,), skipped = P.run_trainer_sweep([Scenario(n_workers=W, steps=1, dropout_rate=0.1)],
+                                        data_par=W, model_par=2, device="cpu")
+    assert not skipped and np.isfinite(r.measured["final_loss"])
 
 
 # ---------------------------------------------------------------------------
