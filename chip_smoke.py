@@ -48,9 +48,12 @@ result line:
    launch alone) beside its bounds (``wkv6_bwd_bound``,
    ``wkv6_bwd_states_bound``), with both launches' registers, shared
    memory and resident CTAs per SM;
-4. the trainer: qwen3-0.6b at full published width and depth (bf16), random
-   weights from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024,
-   global batch 8, twelve paths: QSGD (16 levels) on the int8 compressed wire
+4. the trainer: qwen3-0.6b at full published width (bf16), random weights
+   from a seed, SyntheticBatches, W = 4 stacked workers, seq 1024, global
+   batch 8; the first path at all 28 layers, every other one cut to
+   ``PATH_LAYERS`` (4: the same 13 buckets, one per leaf, so the same
+   launches a step; at 28 they took ~180 s of the script's limit), twelve
+   paths: QSGD (16 levels) on the int8 compressed wire
    with error feedback (kernels qsgd_ef + int8_acc) and without (qsgd +
    int8_acc); signsgd_packed on the 1-bit compressed wire with error
    feedback (sign_pack + sign_vote); signsgd's majority vote on the 1-bit
@@ -208,7 +211,8 @@ result line:
    algorithms):
    builds shared at most the classes, per cell one per cell,
    ``max_rel_dev_loss`` < 1e-5, no kernel launched; (T2) the
-   ``overlap_bench`` twin's 14 cells (W = 2, microbatch 4, 16 steps) with
+   ``overlap_bench`` twin's 14 cells (W = 2, microbatch 4, 8 of its 16
+   steps, ``T2_STEPS``) with
    the reference's assertions, each pipelined cell's measured overlap
    saving beside the predicted one; (T3) ``run.py --substrate trainer`` on
    compressor {qsgd_kernel, terngrad_kernel, signsgd_packed, threshold} x
@@ -230,7 +234,8 @@ result line:
    the kernels bench's byte model must equal ``BENCH_kernels.json``'s at N
    = 262,144, all eleven kernels must launch there, and its fused and
    composed times and GB/s print at both sizes (262,144 x 8 and the
-   largest bucket, 155,582,464 x 8); the cold start's legs print their
+   largest bucket, 155,582,464 x 8); the cold start (run by its ``run``,
+   the trainer matrix at 3 of its 6 steps, ``B_COLD_STEPS``)'s legs print their
    walls, ``nvcc`` builds and persistent hits and misses (the warm-cache
    legs must build nothing), and the fitted profile (alpha, beta,
    t_launch, t_step_dense) and the step-time rel-err before and after.
@@ -345,7 +350,7 @@ result line:
    the objective ce + coef * aux at model-axis size 2 within 2e-4 relative
    of size 1's and the squared gradient norm within 5e-3 relative, as
    tests/test_tp_equivalence.py bounds the reference.  Then, on the same
-   layout and width at 14 of the 28 layers (``M_OPT_LAYERS``), the training
+   layout and width at 4 of the 28 layers (``M_OPT_LAYERS``), the training
    options of slice 21: (bm) qsgd_kernel EF
    under 25% dropout and 25% ``"nan"`` corruption, ``quarantine_limit`` 2;
    (bn) pod-local SGD on 2 pods x 2 x model 2, H 2, qsgd_kernel EF in the
@@ -385,6 +390,28 @@ result line:
    bitwise; and glm4-9b's seq_par prefill and decode against its model-2
    baseline, the last hidden state within rtol 2e-3 / atol 2e-4, the token
    equal.
+15. phase R, ranks on the data axis (``core/ranks.py``): W = 4 workers
+   over R = 2 gloo processes sharing the one card, their tensors staged
+   through pinned host buffers.  (bq) qwen3-0.6b at full published width,
+   14 of its 28 layers (``R_LAYERS``), bf16, qsgd_kernel EF (one bucket per
+   leaf), momentum SGD 0.9, seq 1024, global batch 8, 4 steps (the first a
+   warm-up) through ``python -m repro_torch.launch.train --ranks 2
+   --device cuda``: each rank prints its step ms, peak GiB, launches a step
+   (its 2 workers' qsgd_ef per bucket, every bucket's int8_acc: held
+   exactly), the bytes it sent and received a step (its workers' int8 codes
+   and norms and its 3 metrics, held to the byte) against the wire booked
+   for its workers, and its host seconds in torch.distributed; (br) the
+   identity, qwen3-0.6b cut to 2 layers at full width, W = 4, 3 steps,
+   ``launch.train --ranks 2`` against its stacked twin ``--ranks 1`` (run
+   at once, both ``--deterministic``: deterministic algorithms and
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``), for qsgd_kernel EF (qsgd_ef,
+   int8_acc) and signsgd_packed EF (sign_pack, sign_vote) on the
+   compressed wire: their end states (parameters, momentum and every
+   worker's EF rows, gathered into the checkpoint layout) bitwise by each
+   array's SHA-256 (``--digest``; no checkpoint is written), the loss series
+   and the wire captured on every rank equal, the launches held exactly.
+   Any failed rank fails the script; the kernel table counts both's
+   launches.
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -402,6 +429,7 @@ import gc
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -432,6 +460,7 @@ from repro_torch.experiments.scenario import Scenario, expand  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import LIBRARY  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import ssm as SM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.sharding import make_plan, materialize  # noqa: E402
@@ -1042,6 +1071,10 @@ SIGN_LR = 1e-4
 SEND, RECV = 13 * W, 13
 #: pods of path (ac)'s two-level layout (W = PODS x 2)
 PODS = 2
+#: the main path (a), at all of qwen3-0.6b's 28 layers; every other trainer
+#: path runs PATH_LAYERS of them (its buckets and launches a step are the
+#: same: one bucket per leaf, the layers stacked)
+MAIN_PATH, PATH_LAYERS = "qsgd ef", 4
 #: the optimizer of each path: momentum SGD unless a path names another
 OPTIMIZERS = {"momentum": lambda: momentum_sgd(0.9), "adamw": adamw,
               "zero1": lambda: zero1(momentum_sgd(0.9), W)}
@@ -1378,6 +1411,8 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
     "keep" (keep the losses and parameters in KEPT; deterministic
     algorithms on).  Returns the launches of the run's steps."""
     cfg = get_config("qwen3-0.6b")
+    if label != MAIN_PATH:
+        cfg = cfg.with_updates(n_layers=PATH_LAYERS)
     shape = InputShape("train_1k", 1024, 8, "train")
     build = build or {}
     t0 = time.perf_counter()
@@ -1401,7 +1436,7 @@ def run_trainer(label: str, comm_kw: dict, steps: int, lr: float, build: dict | 
     tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(lr), log_every=1)
     state = tr.init(seed=0)
     torch.cuda.synchronize()
-    print(f"trainer {label} ({comm_kw}, {bundle.opt.name}, lr {lr}"
+    print(f"trainer {label} ({cfg.n_layers} layers; {comm_kw}, {bundle.opt.name}, lr {lr}"
           f"{', clip_norm %s' % bundle.clip_norm if bundle.clip_norm else ''}"
           f"{', microbatch %d' % bundle.microbatch if bundle.microbatch > 1 else ''}"
           f"{', %d pods x %d' % (bundle.pods, W // bundle.pods) if bundle.pods > 1 else ''}): "
@@ -2183,6 +2218,9 @@ def launches_per_cell():
 #: logged before its average, so 5 is the least count whose loss series
 #: (shared and per cell, held alike) reads averaged parameters (step 4)
 T1_STEPS = 5
+#: T2's steps: the overlap matrix's 16 cut to 8 (its cells run on the host's
+#: dispatch: 72 s at 16)
+T2_STEPS = 8
 #: T3's steps: 3 (all its cells are BSP); its check (each cell's exact
 #: launches) is per step
 T3_STEPS = 3
@@ -2212,7 +2250,7 @@ def run_phase_t(card: str) -> None:
 
     t0 = time.perf_counter()
     with deterministic():
-        ov = overlap_bench.measure(DEV)
+        ov = overlap_bench.measure(DEV, steps=T2_STEPS)
     print(f"phase T2 ({card}): overlap matrix, {ov['n_cells']} cells in {ov['n_shape_classes']} "
           f"classes (W = {ov['n_workers_stacked']}, microbatch {ov['microbatch']}, {ov['steps']} "
           f"steps): {ov['builds']} builds, {ov['cache_hits']} hits (the re-run included), sweep "
@@ -2297,25 +2335,34 @@ B_PREFIX = {"tableIII_allreduce": "tableIII", "tableIV_comm_cost": "tableIV",
             "sec7_schedule": "schedule", "elastic": "churn", "kernels": "kernels",
             "coldstart": "coldstart"}
 B_CLAIMS = {**B_PREFIX, "tableIV_comm_cost": None}
+#: the cold start's trainer steps: its 6 cut to 3 (its three child processes
+#: sweep the trainer matrix on the host's dispatch: 125.6 s at 6)
+B_COLD_STEPS = 3
 
 
 def run_phase_b(card: str) -> None:
-    """The ten tags through the orchestrator with ``--no-speedup``, records
-    into a temporary directory; each tag's claims row, the kernels bench's
-    byte model and launches, the cold start's acceptance."""
-    from repro_torch.benchmarks import kernels_bench
+    """The ten tags with ``--no-speedup``, records into a temporary
+    directory: nine through the orchestrator, the cold start through its
+    ``run`` at ``B_COLD_STEPS`` trainer steps; each tag's claims row, the
+    kernels bench's byte model and launches, the cold start's acceptance."""
+    from repro_torch.benchmarks import coldstart_bench, kernels_bench
     from repro_torch.benchmarks import run as bench_run
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = bench_run.main(["--only", ",".join(B_TAGS), "--no-speedup", "--device",
-                                 str(DEV), "--out-dir", tmp])
+            rc = bench_run.main(["--only", ",".join(t for t in B_TAGS if t != "coldstart"),
+                                 "--no-speedup", "--device", str(DEV), "--out-dir", tmp])
+        t0 = time.perf_counter()
+        cold_rows = coldstart_bench.run(DEV, str(Path(tmp) / "BENCH_torch_coldstart.json"),
+                                        trainer_steps=B_COLD_STEPS)
+        t_cold = time.perf_counter() - t0
         recs = {p.stem: json.loads(p.read_text()) for p in Path(tmp).glob("*.json")}
-    lines = buf.getvalue().splitlines()
+    lines = buf.getvalue().splitlines() + [r.csv() for r in cold_rows]
     walls = {ln.split()[1]: float(ln.split()[4][:-1]) for ln in lines
              if ln.startswith("# ") and " done in " in ln}
+    walls["coldstart"] = t_cold
     claims = {ln.split("/")[0] for ln in lines if ln.endswith("/claims_validated,0.00,True")}
     ok = {tag: tag in walls and (B_CLAIMS[tag] is None or B_CLAIMS[tag] in claims)
           for tag in B_TAGS}
@@ -2781,8 +2828,9 @@ def check_past_2e31() -> dict[str, dict]:
 TERN_EF = dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True)
 DROP25 = dict(dropout_rate=0.25)
 #: (bm)-(bp)'s depth: at all 28 layers they added 102 s to phase M (its
-#: budget ~90 s) and brought the script to 949.5 s of its 1200; width stays
-M_OPT_LAYERS = 14
+#: budget ~90 s) and brought the script to 949.5 s of its 1200; at 14 the
+#: script, phase R added, overran its limit on a slower host; width stays
+M_OPT_LAYERS = 4
 #: (label, arch, layers kept, workers W, model shards M, comm, kernels[, build
 #: options: "pods", "microbatch", "opt" (a key of OPTIMIZERS)]): full width,
 #: bf16, seq 1024, global batch 8, 3 steps; deepseek cut as (ap)
@@ -3496,6 +3544,182 @@ def run_phase_sm(card: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase R: ranks on the data axis (gloo processes on the one card)
+# ---------------------------------------------------------------------------
+
+R_RANKS, R_WORKERS = 2, 4
+#: (bq)'s depth: 14 of qwen3-0.6b's 28 layers (at 28 phase R took 147.6 s,
+#: past its ~90 s)
+R_LAYERS = 14
+#: (bq): one warm-up step, then the timed ones
+R_STEPS = 4
+#: (br): the identity's depth at full width, its steps, and its cells (the
+#: launcher's comm preset, lr, the kernels it launches: send side, reduction)
+R_ID_LAYERS, R_ID_STEPS = 2, 3
+R_ID_CELLS = (
+    ("qsgd_kernel_ef", 0.01, ("qsgd_ef", "int8_acc")),
+    ("signsgd_packed_ef", SIGN_LR, ("sign_pack", "sign_vote")),
+)
+
+
+def _src_env(extra: dict | None = None) -> dict:
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, **(extra or {}))
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def run_train(args: list[str], ranks: int, what: str, timeout: float = 700) -> list[dict]:
+    """``python -m repro_torch.launch.train *args --ranks ranks``: each
+    process's ``rank-stats`` line, in rank order (a failed rank fails)."""
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args,
+                          "--ranks", str(ranks), "--rank-timeout", str(timeout - 100)],
+                         capture_output=True, text=True, timeout=timeout, env=_src_env())
+    if run.returncode != 0:
+        raise AssertionError(f"phase R {what}: launch.train --ranks {ranks} exited "
+                             f"{run.returncode}\n{run.stdout[-8000:]}\n{run.stderr[-8000:]}")
+    stats = sorted((json.loads(ln.split("rank-stats ", 1)[1]) for ln in run.stdout.splitlines()
+                    if ln.startswith("rank-stats ")), key=lambda x: x["rank"])
+    if [st["rank"] for st in stats] != list(range(ranks)):
+        raise AssertionError(f"phase R {what}: rank-stats of ranks {[st['rank'] for st in stats]}"
+                             f"\n{run.stdout[-8000:]}")
+    return stats
+
+
+def run_rank_path(card: str) -> dict[str, int]:
+    """(bq): qwen3-0.6b at full width, W = 4 over R = 2 gloo processes on
+    the one card through ``python -m repro_torch.launch.train --ranks 2
+    --device cuda`` (``qsgd_kernel`` EF, one bucket per leaf, momentum SGD
+    0.9, seq 1024, global batch 8): each rank's step ms, peak GiB, kernel
+    launches a step, and the bytes it moved a step against the wire booked
+    for its workers.  The launches a step must be the rank's own workers'
+    ``qsgd_ef`` per bucket and every bucket's ``int8_acc``, and the run's
+    those times its steps; the bytes sent and received, the int8 codes and
+    f32 norms of its workers and its three metrics, to the byte.  Returns
+    the ranks' launches."""
+    cfg = get_config("qwen3-0.6b").with_updates(n_layers=R_LAYERS)
+    comm = CommConfig(error_feedback=True, **QSGD16)
+    plan = aggregate.make_bucket_plan(comm, T.param_defs(cfg))
+    sizes = [b.size for b in plan.buckets]
+    per = R_WORKERS // R_RANKS
+    want_bytes = (R_RANKS - 1) * per * (sum(sizes) + 4 * len(sizes) + 3 * 4)
+    want_launches = {"qsgd_ef": per * len(sizes), "int8_acc": len(sizes)}
+    args = ["--arch", "qwen3-0.6b", "--layers", str(R_LAYERS), "--workers", str(R_WORKERS),
+            "--device", "cuda", "--comm", "qsgd_kernel_ef", "--opt", "momentum", "--lr", "0.01",
+            "--warmup", "1", "--seq-len", "1024", "--global-batch", "8",
+            "--steps", str(R_STEPS)]
+    t0 = time.perf_counter()
+    stats = run_train(args, R_RANKS, "(bq)")
+    launches = {k: 0 for k in KERNELS}
+    depth = (f"{R_LAYERS} of {get_config('qwen3-0.6b').n_layers} layers (cut: phase R's "
+             f"budget)")
+    for st in stats:
+        ps, lps = st["per_step"], st["launches_per_step"]
+        print(f"phase R (bq) rank {st['rank']} of {st['world']} (workers {st['workers'][0]}-"
+              f"{st['workers'][1] - 1}, {st['device']}; qwen3-0.6b {depth} at full width, "
+              f"qsgd_kernel EF, {len(sizes)} buckets, W {R_WORKERS} over {R_RANKS} gloo ranks, "
+              f"seq 1024, global batch 8; {card}): step ms {st['mean_step_ms']:.1f} (steps "
+              f"{', '.join(f'{x:.1f}' for x in st['step_ms'])}; the first excluded), peak "
+              f"{st['peak_gib']:.2f} GiB, launches a step {lps}; a step sent "
+              f"{ps['sent']:.0f} B and received {ps['received']:.0f} B in {ps['calls']:.0f} "
+              f"gathers (host {ps['dist_s']:.3f} s in torch.distributed, {ps['staged']:.0f} B "
+              f"staged through pinned host buffers in {ps['stage_s']:.3f} s, {ps['wait_s']:.3f} "
+              f"s waiting for the card before a copy); booked a step {st['booked_for_rank']:.0f} B "
+              f"for its {per} workers ({st['booked_per_worker']:.0f} B a worker, the "
+              f"reference's p(n-1) formulas at n = {R_WORKERS})")
+        if lps != want_launches or st["launches"] != {k: R_STEPS * v
+                                                      for k, v in want_launches.items()}:
+            raise AssertionError(f"phase R (bq) rank {st['rank']}: launches a step {lps}, "
+                                 f"in all {st['launches']}")
+        if not ps["sent"] == ps["received"] == want_bytes:
+            raise AssertionError(f"phase R (bq) rank {st['rank']}: moved {ps} a step, want "
+                                 f"{want_bytes} B each way")
+        if not all(math.isfinite(x) for x in st["step_ms"]):
+            raise AssertionError(f"phase R (bq): {st}")
+        for k, v in st["launches"].items():
+            launches[k] += v
+    losses = stats[0]["loss"]
+    if len(losses) != R_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase R (bq): losses {losses}")
+    print(f"phase R (bq): losses {losses} (rank 0 logs); {time.perf_counter() - t0:.1f} s "
+          f"with the processes' start")
+    return launches
+
+
+def check_rank_identity() -> dict[str, int]:
+    """(br): qwen3-0.6b cut to 2 layers at full width, W = 4, 3 steps,
+    ``launch.train --ranks 2`` on the card against its stacked twin
+    ``--ranks 1``, both ``--deterministic`` and ``--digest``, the two
+    cells' four launches at once: the SHA-256 digests of their end states'
+    checkpoint trees (parameters, momentum, every worker's EF rows
+    gathered) equal array by array, rank 0's losses the stacked ones,
+    every rank's captured wire the stacked run's, and the launches exact
+    (the stacked run's send-side kernel for each of W workers and bucket a
+    step, each rank's for its W/R; every bucket's reduction a step on
+    each).  Digests, not checkpoint files: four fsynced 4.5 GB writes tied
+    the phase's time to the disk.  Returns the twins' launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-0.6b").with_updates(n_layers=R_ID_LAYERS)
+    launches = {k: 0 for k in KERNELS}
+    per = R_WORKERS // R_RANKS
+    with ThreadPoolExecutor(2 * len(R_ID_CELLS)) as pool:
+        runs = {}
+        for comm_name, lr, _ in R_ID_CELLS:
+            args = ["--arch", "qwen3-0.6b", "--layers", str(R_ID_LAYERS), "--workers",
+                    str(R_WORKERS), "--device", "cuda", "--comm", comm_name, "--opt", "momentum",
+                    "--lr", str(lr), "--warmup", "1", "--seq-len", "1024", "--global-batch", "8",
+                    "--steps", str(R_ID_STEPS), "--deterministic", "--digest"]
+            for r in (1, R_RANKS):
+                runs[comm_name, r] = pool.submit(run_train, args, r, f"(br) {comm_name}")
+        for comm_name, lr, (send, reduce) in R_ID_CELLS:
+            (stacked,), ranks = runs[comm_name, 1].result(), runs[comm_name, R_RANKS].result()
+            want_d, got_d = stacked["digest"], ranks[0]["digest"]
+            bad = sorted(k for k in want_d if got_d.get(k) != want_d[k]) if got_d else ["digest"]
+            bad += sorted(set(got_d or ()) - set(want_d))
+            kinds = {}
+            for k in want_d:
+                kind = "ef" if k.startswith("comm/ef") else k.split("/", 1)[0]
+                kinds[kind] = kinds.get(kind, 0) + 1
+            nb = len(aggregate.make_bucket_plan(train_cli.COMM_PRESETS[comm_name],
+                                                T.param_defs(cfg)).buckets)
+            if ranks[0]["loss"] != stacked["loss"] or len(stacked["loss"]) != R_ID_STEPS:
+                bad.append(f"losses {ranks[0]['loss']} != {stacked['loss']}")
+            bad += [f"rank {st['rank']} wire" for st in ranks if st["wire"] != stacked["wire"]]
+            want = [{send: R_ID_STEPS * R_WORKERS * nb, reduce: R_ID_STEPS * nb}] + [
+                {send: R_ID_STEPS * per * nb, reduce: R_ID_STEPS * nb}] * R_RANKS
+            got = [st["launches"] for st in [stacked] + ranks]
+            if bad or got != want or not kinds.get("ef"):
+                raise AssertionError(f"phase R (br) {comm_name}: {bad[:10]}; launches {got}, "
+                                     f"want {want}; arrays {kinds}")
+            print(f"phase R (br) {comm_name}: qwen3-0.6b {R_ID_LAYERS} layers at full width, "
+                  f"W {R_WORKERS} over {R_RANKS} ranks against stacked, {R_ID_STEPS} steps, "
+                  f"deterministic: losses {stacked['loss']}; end states bitwise (SHA-256 of "
+                  f"{kinds} checkpoint arrays), wire equal; launches stacked {got[0]}, "
+                  f"ranks {got[1:]}; step ms stacked {stacked['step_ms']}, ranks "
+                  f"{[st['step_ms'] for st in ranks]}; bytes sent a step a rank "
+                  f"{[st['per_step']['sent'] for st in ranks]}, staged "
+                  f"{[st['per_step']['staged'] for st in ranks]}; "
+                  f"{time.perf_counter() - t0:.1f} s since (br)'s start")
+            for st in [stacked] + ranks:
+                for k, v in st["launches"].items():
+                    launches[k] += v
+    print(f"phase R (br): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def run_phase_r(card: str) -> dict[str, int]:
+    """(bq), then the identity (br); returns both's launches."""
+    t_phase = time.perf_counter()
+    launches = run_rank_path(card)
+    for k, v in check_rank_identity().items():
+        launches[k] += v
+    print(f"phase R: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="*", metavar="LABEL",
@@ -3599,6 +3823,8 @@ def main() -> None:
         if name == "wkv6_bwd":  # the whole backward is the row's ms; its second launch alone
             rows[-1].update(wkv6_bwd_alone_ms=r["chunks_ms"])
 
+    print(f"kernel checks: {time.perf_counter() - t0:.1f} s since the build's start")
+    t0 = time.perf_counter()
     launches = {k: 0 for k in KERNELS}
     for label, comm_kw, steps, lr, path_kernels, *build in PATHS:
         got = run_trainer(label, comm_kw, steps, lr, *build,
@@ -3621,6 +3847,8 @@ def main() -> None:
             raise AssertionError(f"path {label}: must launch exactly its twin's {want}: {got}")
         for k, v in got.items():
             launches[k] += v
+    print(f"trainer phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     check_churn_twin()
     check_checkpoint()
     check_pipelined_staleness0()
@@ -3636,13 +3864,17 @@ def main() -> None:
     check_rwkv_path()
     check_rwkv_train_path()
     launches["wkv6"] = run_server(profile_step=profile is not None and "serve" in profile)
+    print(f"checkpoint, row kernels, engine, rwkv6 and the server: "
+          f"{time.perf_counter() - t0:.1f} s")
     run_phase_t(card)
     run_phase_b(card)
     f_launches, f_big = run_phase_f(card, profile)
     m_launches = run_phase_m(card)
     run_phase_s(card, profile)
     sm_launches = run_phase_sm(card)
-    for k, v in (*f_launches.items(), *m_launches.items(), *sm_launches.items()):
+    r_launches = run_phase_r(card)
+    for k, v in (*f_launches.items(), *m_launches.items(), *sm_launches.items(),
+                 *r_launches.items()):
         launches[k] += v
     for name, r in row_checks.items():
         b_ms, b_by = _bound(ROW_KERNELS[name]["bytes"](ENGINE_ROWS, ENGINE_DIM),

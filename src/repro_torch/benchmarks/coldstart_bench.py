@@ -19,9 +19,10 @@ reference's legs do:
 
 The layers are the engine's 90-cell sweep (``sweep_matrix_45`` x 2 problem
 seeds, 20 steps) and the trainer's 16-cell matrix (``trainer_matrix_16``,
-6 steps, W = 4 stacked).  One card serves both, so one process runs both
-layers of a leg (the reference forces another device count for each).
-The reference asserts its warm-cache trainer sweep >= 3x faster than the
+6 steps unless ``run``'s ``trainer_steps`` says otherwise, W = 4
+stacked).  One card serves both, so one process runs both layers of a
+leg (the reference forces another device count for each).  The reference
+asserts its warm-cache trainer sweep >= 3x faster than the
 cold one, a bill of XLA compiles; the port compiles no XLA, and what a
 warm cache saves it is ``nvcc`` and the wire traces, a small share of a
 sweep whose steps dominate.  So the port's acceptance is that the
@@ -84,7 +85,7 @@ from repro_torch.experiments.trainer_substrate import run_trainer_sweep, trainer
 from repro_torch.train.steps import bundle_cache_stats
 warm = os.environ["COLDSTART_LEG"] == "warm"
 engine_cells = sweep_matrix_45(steps={ENGINE_STEPS}, problem_seeds=(0, 1))
-trainer_cells = trainer_matrix_16(steps={TRAINER_STEPS})
+trainer_cells = trainer_matrix_16(steps=int(os.environ["COLDSTART_TRAINER_STEPS"]))
 
 def engine():
     _run_training_scenarios(engine_cells, replicas=1, device=dev)
@@ -110,17 +111,19 @@ print("RESULT " + json.dumps(out))
 
 _CALIBRATE_CHILD = _PRELUDE + """
 from repro_torch.benchmarks.coldstart_bench import calibration_leg
-print("RESULT " + json.dumps({**build, **calibration_leg(dev)}))
+print("RESULT " + json.dumps({**build, **calibration_leg(
+    dev, int(os.environ["COLDSTART_TRAINER_STEPS"]))}))
 """
 
 
-def calibration_cells() -> list:
-    """The trainer matrix and an overlap twin pair (sequential, pipelined)."""
+def calibration_cells(steps: int = TRAINER_STEPS) -> list:
+    """The trainer matrix and an overlap twin pair (sequential, pipelined),
+    ``steps`` steps each."""
     from repro_torch.experiments.scenario import Scenario
     from repro_torch.experiments.trainer_substrate import trainer_matrix_16
 
-    return trainer_matrix_16(steps=TRAINER_STEPS) + [
-        Scenario(sync="bsp", n_workers=4, steps=TRAINER_STEPS, lr=0.05, compressor="qsgd",
+    return trainer_matrix_16(steps=steps) + [
+        Scenario(sync="bsp", n_workers=4, steps=steps, lr=0.05, compressor="qsgd",
                  compressor_kwargs={"levels": 16}, overlap=overlap, microbatch=2)
         for overlap in ("sequential", "pipelined")]
 
@@ -166,15 +169,15 @@ def relerrs(results: list, predicted: list[dict]) -> dict:
     return {"step_time": mean(step), "overlap_saving": mean(save), "n_cells": len(step)}
 
 
-def calibration_leg(device) -> dict:
+def calibration_leg(device, steps: int = TRAINER_STEPS) -> dict:
     """Fit the profile (saved next to the cache), run the calibration cells
     once with it active, and hold each cell's measured step time against
     the fitted profile's prediction and the data sheet's."""
     from repro_torch.core import calibrate
     from repro_torch.experiments.trainer_substrate import run_trainer_sweep, stacked_devices
 
-    profile = calibrate.calibrate(steps=TRAINER_STEPS, device=device)
-    cells = calibration_cells()
+    profile = calibrate.calibrate(steps=steps, device=device)
+    cells = calibration_cells(steps)
     prev = calibrate.set_active(profile)
     try:
         results, skipped = run_trainer_sweep(cells, device=device)
@@ -187,10 +190,12 @@ def calibration_leg(device) -> dict:
 
 
 def run_child(code: str, cache_dir: str, device: torch.device, leg: str = "cold", *,
-              timeout: int = 900) -> dict:
+              timeout: int = 900, trainer_steps: int = TRAINER_STEPS) -> dict:
     """Run one leg in a fresh interpreter that imports only ``repro_torch``
-    from this checkout, with its cache at ``cache_dir``; its RESULT line."""
+    from this checkout, with its cache at ``cache_dir``, the trainer's
+    cells ``trainer_steps`` steps each; its RESULT line."""
     env = dict(os.environ)
+    env["COLDSTART_TRAINER_STEPS"] = str(trainer_steps)
     env["COLDSTART_CACHE"] = cache_dir
     env["COLDSTART_LEG"] = leg
     env["COLDSTART_DEVICE"] = str(device)
@@ -226,12 +231,12 @@ def _layer(cold: dict, warm: dict, layer: str, steps: int, built: str) -> dict:
             "persistent_cold": c["persistent"], "persistent_warm": w["persistent"]}
 
 
-def measure(device: torch.device) -> dict:
+def measure(device: torch.device, trainer_steps: int = TRAINER_STEPS) -> dict:
     t_all = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="coldstart-cache-") as cache_dir:
-        cold = run_child(_LAYERS_CHILD, cache_dir, device, "cold")
-        warm = run_child(_LAYERS_CHILD, cache_dir, device, "warm")
-        cal = run_child(_CALIBRATE_CHILD, cache_dir, device)
+        cold, warm, cal = (run_child(code, cache_dir, device, leg, trainer_steps=trainer_steps)
+                           for code, leg in ((_LAYERS_CHILD, "cold"), (_LAYERS_CHILD, "warm"),
+                                             (_CALIBRATE_CHILD, "cold")))
     check_legs(cold, warm)
     if device.type == "cuda":
         assert cold["nvcc_builds"] == cold["libraries"] == warm["libraries"] > 0, (cold, warm)
@@ -241,7 +246,7 @@ def measure(device: torch.device) -> dict:
     assert rel_after < rel_before, cal
     cold_total = cold["build_s"] + cold["engine"]["first_s"] + cold["trainer"]["first_s"]
     warm_total = warm["build_s"] + warm["engine"]["first_s"] + warm["trainer"]["first_s"]
-    trainer = _layer(cold, warm, "trainer", TRAINER_STEPS, "builds")
+    trainer = _layer(cold, warm, "trainer", trainer_steps, "builds")
     trainer["cache_hits"] = cold["trainer"]["hits"]
     return {
         "start": {"cold_build_s": cold["build_s"], "warm_build_s": warm["build_s"],
@@ -262,9 +267,10 @@ def measure(device: torch.device) -> dict:
     }
 
 
-def run(device: str | torch.device = "cuda", out: str | None = None) -> list[Row]:
+def run(device: str | torch.device = "cuda", out: str | None = None,
+        trainer_steps: int = TRAINER_STEPS) -> list[Row]:
     device = torch.device(device)
-    rec = measure(device)
+    rec = measure(device, trainer_steps)
     write_record(rec, out, BENCH_PATH, device)
     st, eng, tr, cal = rec["start"], rec["engine"], rec["trainer"], rec["calibration"]
     return [

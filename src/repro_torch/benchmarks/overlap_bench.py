@@ -82,8 +82,9 @@ def _staleness_reference(device: torch.device) -> dict:
             "sim_ssp1_ratio": float(ssp["loss"][-1] / bsp["loss"][-1])}
 
 
-def measure(device: str | torch.device = "cuda") -> dict:
-    """The 14-cell sweep and its assertions; returns the record."""
+def measure(device: str | torch.device = "cuda", steps: int = 16) -> dict:
+    """The 14-cell sweep of ``steps`` steps and its assertions; returns the
+    record."""
     from repro_torch.experiments.trainer_substrate import (
         _overlap_twin,
         run_trainer_scenario,
@@ -94,7 +95,7 @@ def measure(device: str | torch.device = "cuda") -> dict:
     from repro_torch.train.steps import bundle_cache_clear, bundle_cache_stats
 
     device = torch.device(device)
-    cells = overlap_matrix()
+    cells = overlap_matrix(steps=steps)
     ndev = stacked_devices(cells)
     classes = {trainer_shape_key(s, data_par=min(s.n_workers, ndev)) for s in cells}
     bundle_cache_clear()

@@ -11,6 +11,7 @@ a checkpoint of the same tree loads in either package.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from typing import Any
@@ -50,6 +51,8 @@ def _write_atomic(path: str, writer, retries: int = 1) -> None:
 
 
 def _to_host(v: Any) -> np.ndarray:
+    if isinstance(v, np.ndarray):  # a leaf as a checkpoint holds it
+        return v
     if isinstance(v, torch.Tensor):
         t = v.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -71,10 +74,19 @@ def _structure(tree: Any) -> str:
     return "*"
 
 
-def save(path: str, tree: Any, *, step: int = 0, extra: dict | None = None) -> None:
+def save(path: str, tree: Any, *, step: int = 0, extra: dict | None = None,
+         group=None) -> None:
     """Atomic save: every file lands via temp + ``os.replace``, the arrays
     first and the manifest last.  The manifest is the checkpoint's validity
-    marker, so a save killed midway leaves the previous checkpoint whole."""
+    marker, so a save killed midway leaves the previous checkpoint whole.
+    Over ranks (``group``, a :class:`repro_torch.core.ranks.RankGroup`, on
+    every rank with the same gathered ``tree``) rank 0 writes, and every rank
+    returns after a barrier, once the checkpoint is whole."""
+    if group is not None:
+        if group.rank == 0:
+            save(path, tree, step=step, extra=extra)
+        group.barrier()
+        return
     os.makedirs(path, exist_ok=True)
     host = {k: _to_host(v) for k, v in flatten_with_paths(tree).items()}
     # np.savez takes the open handle as-is (a bare path would grow .npz)
@@ -83,6 +95,20 @@ def save(path: str, tree: Any, *, step: int = 0, extra: dict | None = None) -> N
                 "keys": sorted(host), "extra": extra or {}}
     payload = json.dumps(manifest, indent=2).encode()
     _write_atomic(os.path.join(path, "manifest.json"), lambda f: f.write(payload))
+
+
+def digest(tree: Any) -> dict[str, str]:
+    """The SHA-256 of each leaf of ``tree`` as :func:`save` stores it (its
+    dtype, shape and every byte), keyed by its path: two trees with equal
+    digests write the same arrays, and the arrays of a saved checkpoint
+    digest as the tree it was saved from."""
+    out = {}
+    for k, v in flatten_with_paths(tree).items():
+        a = _to_host(v)
+        h = hashlib.sha256(f"{a.dtype.str} {a.shape}".encode())
+        h.update(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+        out[k] = h.hexdigest()
+    return out
 
 
 def _from_host(a: np.ndarray, like: Any, device, path: str) -> Any:

@@ -71,7 +71,18 @@ validity enters the reductions only through the weights the wire kernels
 already take (``int8_acc``, ``sign_vote``, ``tern_acc``), or as a select on
 the psum and gather routes; the mean divides by the live (and valid) count
 ``n_eff`` (a booked scalar psum, or the gathered bits), so a churn round
-launches exactly the kernels of its churn-free twin.  After the buckets,
+launches exactly the kernels of its churn-free twin.
+
+Over ranks (BSP on the data axis) a process runs
+:meth:`AggregationRound.add` for its own W/R workers only (the round's
+``workers``), and holds only their rows of ``ef`` and ``u``.  The wire stacks stay (W, n):
+the collectives of :meth:`AggregationRound.finish` move the other ranks'
+rows in (codes, packed bits, bf16 rows, the ring and rhd stacks, the
+gathered payloads), and every running sum over workers (the f32 dense and
+``sum`` routes, ``majority``'s votes, PowerSGD's two factor sums) is made
+the sum over all W by ``comms.reduce_partial``.  A bf16 dense sum keeps
+its rows and adds them in worker order after the gather, as the stacked
+running sum rounds.  After the buckets,
 ``quarantine_limit`` consecutive quarantined rounds escalate: the worker's
 EF and momentum rows reset, and ``qcount``, ``quarantine_total`` and
 ``escalation_total`` keep the tallies (one entry per worker).
@@ -196,7 +207,7 @@ def make_bucket_plan(comm: CommConfig, grads_abstract: Any) -> BucketPlan:
 
 def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
                     device: str | torch.device, pods: int = 1,
-                    shards: int = 1) -> dict[str, Any]:
+                    shards: int = 1, workers: range | None = None) -> dict[str, Any]:
     """Communication state of W workers: ``ef[i]`` and ``u[i]`` are the
     (W, size) stacks of bucket i's EF residuals and momentum buffers, one
     row per worker (``ef[i]`` is None for a bucket without a compressor).
@@ -224,8 +235,12 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     rows in the reference's device order (row w * M + m): the stacks, the
     churn and integrity vectors (W * M,), and PowerSGD's Q, which each
     shard carries for its own buckets, (M, b * rank) (or (pods, M, b *
-    rank)) from the same initial draw."""
+    rank)) from the same initial draw.
+
+    ``workers`` (a rank's W/R of them; default all): the workers whose rows
+    of ``ef`` and ``u`` this process holds."""
     rows = n_workers * shards
+    held = rows if workers is None else len(workers) * shards
     state: dict[str, Any] = {"step": 0}
     if churn_enabled(comm):
         state["alive_prev"] = torch.ones(rows, dtype=f32, device=device)
@@ -235,10 +250,10 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
         for k in ("qcount", "quarantine_total", "escalation_total"):
             state[k] = torch.zeros(rows, dtype=f32, device=device)
     if comm.error_feedback:
-        state["ef"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
+        state["ef"] = [torch.zeros((held, b.size), dtype=f32, device=device)
                        if plan.compressor(b) is not None else None for b in plan.buckets]
     if comm.momentum_correction:
-        state["u"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
+        state["u"] = [torch.zeros((held, b.size), dtype=f32, device=device)
                       for b in plan.buckets]
     if any(b.compressor_name == "powersgd" for b in plan.buckets):
         # one Q per pod under pod-local SGD over several pods, then per shard
@@ -507,13 +522,21 @@ class AggregationRound:
     step, which keeps counting through the inner steps of local SGD) and,
     in a pipelined step, round ``rnd``.  ``live`` (churn) holds the round's
     draws; the caller made them (:func:`draw_liveness`, or one mask for a
-    whole pipelined step) and reset the rejoiners' rows."""
+    whole pipelined step) and reset the rejoiners' rows.  ``workers`` (a
+    rank's W/R of them; default all) are the workers this process adds
+    (global indices; their ``ef`` and ``u`` rows at the index less the
+    first's); the collectives of :meth:`finish` move the others' rows in."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device,
                  step: int | None = None, rnd: int | None = None,
-                 live: Liveness | None = None):
+                 live: Liveness | None = None, workers: range | None = None):
         self.comm, self.plan, self.state = comm, plan, comm_state
+        #: the workers this process adds, and the first one's row
+        self.workers = range(n_workers) if workers is None else workers
+        self.lo = self.workers.start
+        #: do other processes add the rest (ranks)?
+        self.ranked = len(self.workers) < n_workers
         self.step = comm_state["step"] if step is None else step
         self.rnd = rnd
         self.n_workers, self.noise, self.device = n_workers, noise, torch.device(device)
@@ -524,6 +547,9 @@ class AggregationRound:
             raise ValueError(f"collective='rhd' requires power-of-two workers, got {n_workers}")
         #: the dense route's wire dtype
         self.dense_dtype = torch.bfloat16 if comm.agg_dtype == "bfloat16" else f32
+        #: a bf16 ``xla`` sum over ranks keeps its rows (a sum of the ranks'
+        #: partials would round in another order than the stacked one)
+        self._rows_sum = self.ranked and self.dense_dtype != f32
         nb = len(plan.buckets)
         #: running sums over workers: dense ones (``dense`` under ``xla``,
         #: ``sum``), int8 vote sums (``majority``), or PowerSGD's sum of
@@ -556,9 +582,9 @@ class AggregationRound:
             return self.noise(self.step, w, i, n).to(self.device)
         return self.noise(self.step, w, i, n, self.rnd).to(self.device)
 
-    def _stack(self, i: int, n: int, dtype) -> torch.Tensor:
+    def _stack(self, i: int, n: int, dtype, rows: int | None = None) -> torch.Tensor:
         if self._stacks[i] is None:
-            self._stacks[i] = _wire_stack(self.n_workers, n, self.device, dtype)
+            self._stacks[i] = _wire_stack(rows or self.n_workers, n, self.device, dtype)
         return self._stacks[i]
 
     def _set_scalars(self, i: int, w: int, payload: dict[str, torch.Tensor],
@@ -623,6 +649,7 @@ class AggregationRound:
         vectors in plan order (a generator keeps one bucket alive at once)."""
         comm, W, live = self.comm, self.n_workers, self.live
         alive = live.alive[w] if live is not None else None
+        r = w - self.lo  # worker w's row of ef and u
         for i, (b, comp, route, g) in enumerate(zip(self.plan.buckets, self.comps,
                                                     self.routes, bufs)):
             knobs = self.knobs[i]
@@ -631,7 +658,7 @@ class AggregationRound:
                 # one kernel pass yields the int8 wire codes and worker w's
                 # new residual, written in place (under churn beside it, then
                 # kept where the worker sent a valid payload)
-                e = self.state["ef"][i][w]
+                e = self.state["ef"][i][r]
                 code = self._stack(i, b.size, torch.int8)[w]
                 e_new = e if live is None else torch.empty_like(e)
                 c, _ = comp.compress_ef_p(u, g, e, knobs, comm.ef_decay,
@@ -643,14 +670,14 @@ class AggregationRound:
                     torch.where(self._gate(i, w) > 0, e_new, e, out=e)
                 self._set_scalars(i, w, payload, ("norm",))
                 continue
-            u_prev = (self.state["u"][i][w].clone()
+            u_prev = (self.state["u"][i][r].clone()
                       if self._valid is not None and comm.momentum_correction else None)
-            a = feedback.pre_compress(comm, g, self.state, i, w, W, alive=alive)
+            a = feedback.pre_compress(comm, g, self.state, i, r, W, alive=alive)
             a_hat = None
             if route == "dense":
                 a_m = a if live is None else self._masked_dense(i, w, a)
-                if comm.collective == "xla":  # a bf16 sum rounds after every addition
-                    self._accumulate(i, a_m.to(self.dense_dtype))
+                if comm.collective == "xla" and not self._rows_sum:
+                    self._accumulate(i, a_m.to(self.dense_dtype))  # bf16 rounds every addition
                 else:
                     if self._stacks[i] is None:
                         self._stacks[i] = torch.zeros(
@@ -663,10 +690,10 @@ class AggregationRound:
             elif route == "powersgd":
                 # a_w waits for finish (the second factor needs P): in worker
                 # w's EF row when EF is on and no worker can be masked (finish
-                # turns it into a_w - agg), else in a stack of its own
+                # turns it into a_w - agg), else in a stack of this process's rows
                 keep = (self.state["ef"][i] if comm.error_feedback and live is None
-                        else self._stack(i, b.size, f32))
-                keep[w].copy_(a)
+                        else self._stack(i, b.size, f32, len(self.workers)))
+                keep[r].copy_(a)
                 bb = shape2d(b.size)[1]
                 q = self.state["psgd_q"][i].reshape(bb, comp.rank)
                 self._accumulate(i, matmul_rows(a if live is None else a * alive, q, bb))
@@ -727,10 +754,10 @@ class AggregationRound:
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
             if a_hat is not None:
-                feedback.post_compress(comm, a, a_hat, self.state, i, w,
+                feedback.post_compress(comm, a, a_hat, self.state, i, r,
                                        alive=self._gate(i, w))
             if u_prev is not None:  # a quarantined round's momentum is undone
-                u_row = self.state["u"][i][w]
+                u_row = self.state["u"][i][r]
                 torch.where(self._valid[i][w] > 0, u_row, u_prev, out=u_row)
 
     @staticmethod
@@ -776,15 +803,15 @@ class AggregationRound:
         W, bb = self.n_workers, shape2d(b.size)[1]
         live = self.live
         comms.book_psum(self._sums[i], W)
-        P = orthonormalize(self._sums[i] / denom)
+        P = orthonormalize(comms.reduce_partial(self._sums[i]) / denom)
         rows = (self.state["ef"][i] if self.comm.error_feedback and live is None
                 else self._stacks[i])
         qsum = None
-        for w in range(W):  # worker order
-            t = matmul_rows_t(rows[w] if live is None else rows[w] * live.alive[w], P, bb)
+        for r, w in enumerate(self.workers):  # worker order
+            t = matmul_rows_t(rows[r] if live is None else rows[r] * live.alive[w], P, bb)
             qsum = t if qsum is None else qsum.add_(t)
         comms.book_psum(qsum, W)
-        qn = qsum / denom
+        qn = comms.reduce_partial(qsum) / denom
         agg = (P @ qn.T).reshape(-1)[:b.size]
         self.state["psgd_q"][i].copy_(qn.reshape(-1))
         if self.comm.error_feedback:  # against the global approximation
@@ -813,9 +840,17 @@ class AggregationRound:
                 if route == "dense" and self.comm.collective != "xla":
                     agg = collectives.allreduce(self._stacks[i], b.size,
                                                 self.comm.collective).to(f32) / den
+                elif route == "dense" and self._rows_sum:
+                    rows = self._stacks[i][:, :b.size]
+                    comms.book_psum(rows[0], W)
+                    rows = comms.fill_rows(rows)
+                    acc = rows[0].clone()
+                    for row in rows[1:]:  # worker order, rounded as the running sum
+                        acc.add_(row)
+                    agg = acc.to(f32) / den
                 elif route in ("dense", "sum"):  # sum: the dense leaf alone
                     comms.book_psum(self._sums[i], W)
-                    agg = self._sums[i].to(f32) / den
+                    agg = comms.reduce_partial(self._sums[i]).to(f32) / den
                 elif route == "widen":
                     agg = comms.widening_psum(self._stacks[i]) / den
                 elif route == "powersgd":
@@ -857,13 +892,16 @@ class AggregationRound:
                 elif route == "majority":
                     # int8 vote sum: exact for W <= 127, as the reference's psum
                     comms.book_psum(self._sums[i], W)
-                    agg = torch.where(self._sums[i] >= 0, 1.0, -1.0)
+                    agg = torch.where(comms.reduce_partial(self._sums[i]) >= 0, 1.0, -1.0)
                 else:  # gather: every leaf booked in payload order, then decoded
                     agg = self._gather_reduce(i, b, comp, den)
                 if getattr(comp, "re_sparsify", False):  # gTop-k: the k largest of the mean
                     idx = top_k(torch.abs(agg), k_of(b.size, comp.ratio, comp.k))
                     agg = torch.zeros_like(agg).index_put_((idx,), agg[idx])
                 out.append(agg)
+        if self.nnz is not None:  # the kept count over all W (no collective booked)
+            self.nnz = comms.reduce_partial(self.nnz)
+            self.nnz_of = self.nnz_of * W // len(self.workers)
         if self._valid is not None:
             valid = self._valid[0]
             for v in self._valid[1:]:
@@ -880,6 +918,13 @@ class AggregationRound:
         payloads = self._payloads[i]
         for v in payloads[0].values():
             comms.book_all_gather(v, W)
+        if self.ranked:  # the other ranks' payloads, leaf by leaf
+            full = {}
+            for k, v in payloads[0].items():
+                t = torch.empty((W,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+                t[self.lo:self.lo + len(payloads)] = torch.stack([p[k] for p in payloads])
+                full[k] = comms.fill_rows(t)
+            payloads = [{k: t[w] for k, t in full.items()} for w in range(W)]
         wrow = None
         if live is not None:
             comms.book_all_gather(live.alive[0], W)
@@ -931,7 +976,7 @@ class GroupedRound:
     over ``("data",)``; pod 0's are booked, once, as each worker's view
     sees them.  Each pod carries its own PowerSGD Q (``psgd_q[i]`` (P, ...)).
     With one group this is an :class:`AggregationRound` over the comm state
-    itself.
+    itself (and over ``workers``, a rank's own, when given).
 
     Churn: ``live`` is the round's draws over all W workers (each worker
     keyed by its index over every data axis, as the reference's
@@ -943,9 +988,11 @@ class GroupedRound:
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device,
                  step: int | None = None, rnd: int | None = None, groups: int = 1,
-                 live: Liveness | None = None):
+                 live: Liveness | None = None, workers: range | None = None):
         if n_workers % groups:
             raise ValueError(f"{n_workers} workers do not split into {groups} pods")
+        if workers is not None and groups > 1:
+            raise ValueError("a process's own workers over several pods: a later slice")
         self.state, self.D = comm_state, n_workers // groups
         if live is not None and live.rejoined is not None:
             reset_rows(comm_state, live.rejoined)
@@ -954,7 +1001,8 @@ class GroupedRound:
             comm, plan, comm_state if groups == 1 else _rows_view(comm_state, g * self.D,
                                                                    (g + 1) * self.D, g),
             self.D, noise, device, step=step, rnd=rnd,
-            live=None if live is None else live.rows(g * self.D, (g + 1) * self.D))
+            live=None if live is None else live.rows(g * self.D, (g + 1) * self.D),
+            workers=workers)
             for g in range(groups)]
 
     def add(self, w: int, bufs: Iterable[torch.Tensor]) -> None:

@@ -15,7 +15,10 @@ rows it is given, the workers of one axis: the D workers of one pod's
 aggregation round, or the P pod rows of pod-local SGD's parameter
 average, which stand for the hops every data index runs over the pods
 (their rows are equal inside a pod); the records take their axes from
-``comms.over``.
+``comms.over``.  Under a rank group the other ranks' rows are moved in
+first (``comms.fill_rows``) and every rank runs the same hops on the
+gathered stack, so the sums stay bitwise; hop-by-hop sends between the
+ranks are a later slice (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -79,4 +82,4 @@ def rhd_allreduce(stack: torch.Tensor, n: int) -> torch.Tensor:
 def allreduce(stack: torch.Tensor, n: int, impl: str) -> torch.Tensor:
     """Sum of the (W, m) stack's rows (their first n elements) by schedule
     ``impl``, "ring" or "rhd"."""
-    return {"ring": ring_allreduce, "rhd": rhd_allreduce}[impl](stack, n)
+    return {"ring": ring_allreduce, "rhd": rhd_allreduce}[impl](comms.fill_rows(stack), n)

@@ -15,6 +15,14 @@ names.  Records are kept only inside
 ``capture()``, and not inside ``muted()``: a program that runs the same
 collectives again (the pipelined step's later rounds, every pod's round
 but the first) books them once, as the reference traces them once.
+
+Under an active rank group (``ranks(group)``, :mod:`repro_torch.core.ranks`)
+the W workers are spread over R processes, and a rank writes only its own
+rows of a (W, ...) stack: :func:`all_gather` (and :func:`psum`,
+:func:`pmean`, :func:`widening_psum`, which gather first) fill the other
+ranks' rows for real, and :func:`reduce_partial` turns a rank's running
+sum over its own workers into the sum over all W.  Booking does not change:
+every rank books what the stacked program books, with n = W.
 """
 
 from __future__ import annotations
@@ -150,6 +158,33 @@ def muted(on: bool = True):
     return _setting("muted", bool(on) or getattr(_STATE, "muted", False))
 
 
+def ranks(group):
+    """Run the stacked collectives issued inside over ``group``'s processes
+    (a :class:`repro_torch.core.ranks.RankGroup`; None: stacked)."""
+    return _setting("ranks", group)
+
+
+def active_group():
+    """The rank group of the enclosing :func:`ranks` (None: stacked)."""
+    return getattr(_STATE, "ranks", None) or None
+
+
+def fill_rows(stacked: torch.Tensor) -> torch.Tensor:
+    """Under a rank group, the other ranks' rows of a (W, ...) stack moved
+    in place, unbooked (the caller books its own records, as the ring and
+    rhd hops do); stacked, the identity."""
+    group = active_group()
+    return stacked if group is None else group.fill_rows(stacked)
+
+
+def reduce_partial(local_sum: torch.Tensor) -> torch.Tensor:
+    """A running sum over this rank's workers made the sum over all W (the
+    ranks' partials added in rank order, in their dtype), unbooked: the
+    caller booked the psum.  Stacked, the identity."""
+    group = active_group()
+    return local_sum if group is None else group.sum_partials(local_sum)
+
+
 def wire_format(name: str):
     """Override the recorded on-wire encoding for collectives issued inside."""
     return _setting("wire_fmt", name)
@@ -180,12 +215,12 @@ def _record(kind: str, local: torch.Tensor, n: int) -> None:
 def psum(stacked: torch.Tensor) -> torch.Tensor:
     """All-reduce sum of a (W, ...) stack over the worker axis."""
     _record("psum", stacked[0], stacked.shape[0])
-    return torch.sum(stacked, dim=0)
+    return torch.sum(fill_rows(stacked), dim=0)
 
 
 def pmean(stacked: torch.Tensor) -> torch.Tensor:
     _record("psum", stacked[0], stacked.shape[0])
-    return torch.mean(stacked, dim=0)
+    return torch.mean(fill_rows(stacked), dim=0)
 
 
 def book_psum(local: torch.Tensor, n_workers: int) -> None:
@@ -230,15 +265,19 @@ def ppermute(stacked: torch.Tensor, shift: int) -> torch.Tensor:
     (i - shift) mod W's row (shift 1 is the reference's "right" permutation
     j -> j + 1, shift -1 its "left" one); books one ``ppermute`` of one
     worker's row."""
+    if active_group() is not None:
+        raise ValueError("a ring exchange over ranks moves its hops by send / recv: a later "
+                         "slice (ROADMAP.md Queue 1, slice 23)")
     _record("ppermute", stacked[0], stacked.shape[0])
     return torch.roll(stacked, shift, 0)
 
 
 def all_gather(stacked: torch.Tensor) -> torch.Tensor:
     """All-gather over the worker axis: the (W, ...) stack already is the
-    gathered array; book one worker's slice."""
+    gathered array (under a rank group once the other ranks' rows are
+    moved in); book one worker's slice."""
     _record("all_gather", stacked[0], stacked.shape[0])
-    return stacked
+    return fill_rows(stacked)
 
 
 def all_gather_compressed(payload: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:

@@ -5,8 +5,10 @@ clipping and error feedback with decay, in DGC's order, and DGC's
 sparsity warm-up ramp.
 
 The port keeps the W stacked workers' state as (W, size) stacks per bucket
-(``state["u"][i]``, ``state["ef"][i]``), so the functions take the worker
-index ``w`` and update that worker's row in place.  Under churn a masked
+(``state["u"][i]``, ``state["ef"][i]``), so the functions take the
+worker's row ``w`` and update it in place.  Over ranks a process holds its
+own W/R workers' rows only, and ``w`` is the worker's index less the
+rank's first (:class:`repro_torch.core.aggregate.AggregationRound`).  Under churn a masked
 worker (``alive`` 0) neither sends nor accumulates: its momentum row and
 EF residual freeze.  ``state["ef"][i]`` is None for a
 bucket without a compressor: its residual would stay zero for ever (the

@@ -1,0 +1,272 @@
+"""Ranks on the data axis: the W workers spread over R ``torch.distributed``
+processes (the counterpart of the reference's ``data`` mesh axis,
+``repro.launch.mesh``, under ``shard_map``).
+
+Rank r holds workers ``[r W/R, (r + 1) W/R)`` as its local stack; the
+stacked collectives of :mod:`repro_torch.core.comms` move the other ranks'
+rows for real while a :class:`RankGroup` is active (``comms.ranks``).  The
+transport is the backend's all-gather of contiguous blocks (and a barrier):
+a sum of partials gathers them and adds them in rank order, so every rank
+holds the same bits.  Blocks travel as their raw bytes (uint8), so no dtype
+needs the backend's support (gloo on the CPU here has bf16 but no int16); a
+tensor on the card is staged through a pinned host buffer, explicitly and
+counted, and the computation never leaves the card.
+
+gloo only: NCCL refuses two ranks on one card, and a machine with several
+cards is a later slice (``ROADMAP.md`` Queue 1).
+
+    python -m repro_torch.launch.train ... --ranks R     # starts R processes
+    torchrun --nproc-per-node R -m repro_torch.launch.train ... --ranks R
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import torch
+
+#: the environment a rank process reads: its rank, the world, and the file
+#: store our launcher made (``torchrun`` sets MASTER_ADDR / MASTER_PORT instead)
+RANK_ENV, WORLD_ENV, STORE_ENV = "RANK", "WORLD_SIZE", "REPRO_RANKS_STORE"
+
+
+@dataclass
+class RankStats:
+    """What one rank really moved: bytes sent and received through the
+    backend, host seconds inside ``torch.distributed`` calls, and the
+    staging of card tensors through pinned host buffers (bytes copied each
+    way, seconds of the copies, and seconds waiting for the card's queued
+    work before a copy)."""
+
+    sent: int = 0
+    received: int = 0
+    dist_s: float = 0.0
+    calls: int = 0
+    staged: int = 0
+    stage_s: float = 0.0
+    wait_s: float = 0.0
+
+    def snapshot(self) -> dict:
+        return dict(self.__dict__)
+
+
+@dataclass
+class RankGroup:
+    """Rank ``rank`` of ``world`` processes (the default process group)
+    over ``n_workers`` workers, its tensors on ``device``."""
+
+    world: int
+    rank: int
+    n_workers: int
+    device: torch.device
+    stats: RankStats = field(default_factory=RankStats)
+
+    def __post_init__(self):
+        if self.n_workers % self.world:
+            raise ValueError(f"{self.n_workers} workers do not split over {self.world} ranks")
+
+    @property
+    def per_rank(self) -> int:
+        return self.n_workers // self.world
+
+    @property
+    def lo(self) -> int:
+        return self.rank * self.per_rank
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.per_rank
+
+    @property
+    def workers(self) -> range:
+        return range(self.lo, self.hi)
+
+    # ---- the transport ------------------------------------------------------------
+
+    def _exchange(self, block: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``block`` (equal shapes and dtypes), in rank order,
+        as flat uint8 host tensors (this rank's own entry is ``block``'s
+        bytes)."""
+        import torch.distributed as dist
+
+        src = block.detach().contiguous().reshape(-1).view(torch.uint8)
+        st = self.stats
+        if src.is_cuda:  # gloo moves host memory: stage through pinned buffers
+            t0 = time.perf_counter()
+            torch.cuda.current_stream(src.device).synchronize()
+            t1 = time.perf_counter()
+            host = torch.empty(src.numel(), dtype=torch.uint8, pin_memory=True)
+            host.copy_(src)
+            st.wait_s += t1 - t0
+            st.stage_s += time.perf_counter() - t1
+            st.staged += src.numel()
+            src = host
+        outs = [torch.empty(src.numel(), dtype=torch.uint8, pin_memory=block.is_cuda)
+                for _ in range(self.world)]
+        t0 = time.perf_counter()
+        dist.all_gather(outs, src)  # src is not any of outs
+        st.dist_s += time.perf_counter() - t0
+        st.calls += 1
+        st.sent += src.numel() * (self.world - 1)
+        st.received += src.numel() * (self.world - 1)
+        return outs
+
+    def _into(self, dst: torch.Tensor, raw: torch.Tensor) -> None:
+        """Copy one rank's raw bytes into ``dst`` (any strides, any device)."""
+        t0 = time.perf_counter()
+        dst.copy_(raw.view(dst.dtype).view(dst.shape))
+        if dst.is_cuda:
+            self.stats.stage_s += time.perf_counter() - t0
+            self.stats.staged += raw.numel()
+
+    def fill_rows(self, stacked: torch.Tensor) -> torch.Tensor:
+        """A (W, ...) stack whose rows ``[lo, hi)`` this rank wrote: the
+        other ranks' rows written in place from theirs; returns it."""
+        if stacked.shape[0] != self.n_workers:
+            raise ValueError(f"a rank exchange takes a stack of the {self.n_workers} workers, "
+                             f"got {tuple(stacked.shape)}")
+        k = self.per_rank
+        outs = self._exchange(stacked[self.lo:self.hi])
+        for r, raw in enumerate(outs):
+            if r != self.rank:
+                self._into(stacked[r * k:(r + 1) * k], raw)
+        return stacked
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``local``, stacked in rank order: (R, *shape)."""
+        out = torch.empty((self.world,) + tuple(local.shape), dtype=local.dtype,
+                          device=local.device)
+        for r, raw in enumerate(self._exchange(local)):
+            if r == self.rank:
+                out[r].copy_(local)
+            else:
+                self._into(out[r], raw)
+        return out
+
+    def sum_partials(self, local: torch.Tensor) -> torch.Tensor:
+        """The sum over ranks of each rank's partial sum ``local``, added in
+        rank order in ``local``'s dtype (so every rank holds the same bits)."""
+        parts = self.gather(local)
+        acc = parts[0].clone()
+        for p in parts[1:]:
+            acc.add_(p)
+        return acc
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        dist.barrier()
+        self.stats.dist_s += time.perf_counter() - t0
+
+
+# ---- initialisation ----------------------------------------------------------------
+
+def rank_device(rank: int, device: str | torch.device) -> torch.device:
+    """Rank r's device: ``cuda:(r % device_count)`` when ``device`` is the
+    card, the CPU only when the caller asks for it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("a rank on the card needs a CUDA device; pass --device cpu for the CPU")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def init_group(n_workers: int, device: str | torch.device, *,
+               timeout: float = 600.0) -> RankGroup:
+    """Join the process group from the environment: ``RANK`` and
+    ``WORLD_SIZE``, and a file store at ``REPRO_RANKS_STORE`` (our
+    launcher's) or ``MASTER_ADDR`` / ``MASTER_PORT`` (``torchrun``'s).  gloo,
+    with ``timeout`` seconds for every collective."""
+    import torch.distributed as dist
+
+    rank, world = int(os.environ[RANK_ENV]), int(os.environ[WORLD_ENV])
+    dev = rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kw = dict(backend="gloo", rank=rank, world_size=world,
+              timeout=datetime.timedelta(seconds=timeout))
+    if os.environ.get(STORE_ENV):
+        dist.init_process_group(store=dist.FileStore(os.environ[STORE_ENV], world), **kw)
+    else:
+        dist.init_process_group(init_method="env://", **kw)
+    return RankGroup(world, rank, n_workers, dev)
+
+
+def close_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# ---- the launcher --------------------------------------------------------------------
+
+class RankFailure(RuntimeError):
+    """A rank exited non-zero or overran its time limit; the message holds
+    every rank's output."""
+
+
+def _package_root() -> str:
+    return str(Path(__file__).resolve().parents[2])
+
+
+def launch(module: str, args: list[str], world: int, *, timeout: float,
+           env: dict | None = None) -> list[str]:
+    """Run ``python -m module *args`` as ``world`` rank processes over a
+    fresh file store and return each rank's output (stdout and stderr
+    joined), in rank order.  Raises :class:`RankFailure`, with every rank's
+    output, if any rank fails or the ranks overrun ``timeout`` seconds (all
+    are then killed)."""
+    tmp = tempfile.mkdtemp(prefix="repro-ranks-")
+    root = _package_root()
+    base = dict(os.environ, **(env or {}))
+    base["PYTHONPATH"] = root + (os.pathsep + base["PYTHONPATH"] if base.get("PYTHONPATH")
+                                 else "")
+    base.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", module, *args], stdout=log, stderr=subprocess.STDOUT,
+                env=dict(base, **{RANK_ENV: str(r), WORLD_ENV: str(world), "LOCAL_RANK": str(r),
+                                  STORE_ENV: os.path.join(tmp, "store")})))
+        deadline, failed = time.monotonic() + timeout, None
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                failed = "a rank failed"
+                break
+            if time.monotonic() > deadline:
+                failed = f"the ranks overran their {timeout:.0f} s"
+                break
+            time.sleep(0.05)
+        for p in procs:  # the rest of a failed group would wait for ever
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+        if failed is None and any(p.returncode for p in procs):
+            failed = "a rank failed"
+        if failed:
+            raise RankFailure(f"{module} over {world} ranks: {failed}; exit codes "
+                              f"{[p.returncode for p in procs]}\n" + "\n".join(
+                                  f"--- rank {r} ---\n{o}" for r, o in enumerate(outs)))
+        return outs
+    finally:
+        for log in logs:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -5,7 +5,7 @@
         --comm topk_ef --opt momentum --lr 0.1 --workers 4 [--model 2] \\
         [--pod 2] [--pod-local] [--overlap pipelined --overlap-staleness 0] \\
         [--microbatch 4] [--zero1] [--local-steps 8] [--device cpu] \\
-        [--ckpt-dir ckpts --ckpt-every 100] [--restore ckpts/step100]
+        [--ckpt-dir ckpts --ckpt-every 100] [--restore ckpts/step100] [--ranks 2]
 
 The workers are stacked on one device (``--workers`` takes the place of
 the reference's ``--data``: D workers per pod; ``--pod P`` lays out P pods
@@ -13,6 +13,24 @@ of them, W = P * D); ``--model M`` is the reference's model axis, M shards
 stacked on the same device beside the workers (tensor-parallel layers, the
 vocabulary-parallel loss, per-shard gradient buckets: W * M (worker, shard)
 pairs); ``--fake-devices`` describes a jax mesh and has no port.
+``--ranks R`` spreads the W workers over R ``torch.distributed`` processes
+(gloo; W % R == 0; BSP under the sequential step, :mod:`repro_torch.core.ranks`):
+without ``RANK`` in the environment this process starts the R rank
+processes itself over a file store and exits non-zero, with every rank's
+output, if any fails or overruns ``--rank-timeout``; under ``torchrun``
+each process reads its rank from the environment.  ``--ranks 1`` runs the
+stacked step in this process, the twin a ranked run is held against.
+Under ``--ranks`` each process prints one ``rank-stats`` JSON line
+(:func:`fit_with_stats`): its step ms, peak GiB, the bytes it sent and
+received and its host seconds in ``torch.distributed`` a step, its kernel
+launches, the loss series (rank 0 logs), the wire captured over the run
+and the wire booked for its workers; with ``--ckpt-dir`` and
+``--ckpt-every`` its end state is the checkpoint, every worker's rows
+gathered into the reference's layout, and with ``--digest`` rank 0's line
+carries that layout's SHA-256 digests (:func:`repro_torch.checkpoint.ckpt.
+digest`) instead, so a run and its twin compare without writing one.  ``--deterministic`` runs under
+``torch.use_deterministic_algorithms`` (and cuBLAS's fixed workspace), so
+that a ranked run and its stacked twin on the card agree bitwise.
 ``--cache-dir`` (default ``$REPRO_TORCH_CACHE_DIR``) is the persistent
 cache of :mod:`repro_torch.core.compilecache`: a later
 launch on the same toolchain and card loads the kernel libraries and the
@@ -54,6 +72,13 @@ COMM_PRESETS = {
     # the int8 wire (25% of workers out a round, 25% of payloads NaN)
     "powersgd_ef": CommConfig(compressor="powersgd", compressor_kwargs={"rank": 4},
                               error_feedback=True, bucket_mb=32),
+    # 1-bit signs packed on the compressed wire, weighted vote, with EF
+    "signsgd_packed_ef": CommConfig(compressor="signsgd_packed", wire_format="compressed",
+                                    error_feedback=True),
+    # the main path: QSGD 16 levels on the int8 compressed wire with EF
+    # (one bucket per leaf, as the trainer phase of chip_smoke.py runs it)
+    "qsgd_kernel_ef": CommConfig(compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
+                                 wire_format="compressed", error_feedback=True),
     "churn_qsgd": CommConfig(compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
                              wire_format="compressed", error_feedback=True, bucket_mb=32,
                              dropout_rate=0.25, corruption_kind="nan", corruption_rate=0.25,
@@ -68,6 +93,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", required=True)
     p.add_argument("--reduced", action="store_true", help="reduced smoke-scale variant")
+    p.add_argument("--layers", type=int, default=0,
+                   help="cut the configuration's depth to this many layers (0: all)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--seq-len", type=int, default=64)
     p.add_argument("--global-batch", type=int, default=16)
@@ -90,12 +117,40 @@ def main(argv=None) -> int:
     p.add_argument("--ckpt-every", type=int, default=0)
     p.add_argument("--restore", default="")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--ranks", type=int, default=0,
+                   help="torch.distributed processes R over the workers (gloo; 1: the "
+                        "stacked step); each prints a rank-stats line")
+    p.add_argument("--rank-timeout", type=float, default=3600.0, metavar="S",
+                   help="seconds the R rank processes may run")
+    p.add_argument("--digest", action="store_true",
+                   help="with --ranks: rank 0's rank-stats line carries the SHA-256 of every "
+                        "array of the end state's checkpoint")
+    p.add_argument("--deterministic", action="store_true",
+                   help="deterministic algorithms only (bitwise-reproducible steps)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cache-dir", default=os.environ.get("REPRO_TORCH_CACHE_DIR", ""),
                    metavar="DIR",
                    help="persistent cache of kernel libraries and booked wire "
                         "(default: $REPRO_TORCH_CACHE_DIR)")
     args = p.parse_args(argv)
+    from repro_torch.core import ranks as R
+
+    if args.ranks > 1 and R.RANK_ENV not in os.environ:  # start the rank processes
+        try:
+            outs = R.launch("repro_torch.launch.train",
+                            list(sys.argv[1:] if argv is None else argv), args.ranks,
+                            timeout=args.rank_timeout)
+        except R.RankFailure as e:
+            print(e, file=sys.stderr)
+            return 1
+        for r, out in enumerate(outs):
+            print(f"--- rank {r} of {args.ranks} ---\n{out}", end="")
+        return 0
+    if args.deterministic:  # cuBLAS reads its workspace setting at its start
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        import torch
+
+        torch.use_deterministic_algorithms(True)
     if args.cache_dir:
         from repro_torch.core import compilecache
 
@@ -114,6 +169,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.with_updates(n_layers=args.layers)
     comm = COMM_PRESETS[args.comm]
     upd = {}
     if args.pod_local:
@@ -132,12 +189,19 @@ def main(argv=None) -> int:
     opt = {"sgd": sgd, "momentum": momentum_sgd, "adamw": adamw}[args.opt]()
     if args.zero1:
         opt = zero1(opt, n_workers)
+    group = R.init_group(n_workers, args.device) if args.ranks > 1 else None
+    if group is not None and group.world != args.ranks:
+        raise ValueError(f"--ranks {args.ranks} under a world of {group.world} processes")
+    device = args.device if group is None else group.device
     bundle = build_bundle(cfg, comm, opt, shape, n_workers=n_workers, seed=args.seed,
-                          device=args.device, clip_norm=args.clip_norm,
-                          microbatch=args.microbatch, pods=pods, model=args.model)
+                          device=device, clip_norm=args.clip_norm,
+                          microbatch=args.microbatch, pods=pods, model=args.model,
+                          ranks=group)
     print(f"{n_workers} workers ({pods} pods x {args.workers}) x {args.model} model shards, "
           f"{args.comm}: "
-          f"{len(bundle.bucket_plan.buckets)} buckets, {bundle.opt.name}")
+          f"{len(bundle.bucket_plan.buckets)} buckets, {bundle.opt.name}"
+          + ("" if group is None else f"; rank {group.rank} of {group.world}, workers "
+             f"{group.lo}-{group.hi - 1} on {device}"))
     if cfg.vocab <= BIGRAM_MAX_VOCAB and cfg.modality == "text":
         src = BigramSource(cfg.vocab, seed=args.seed)
 
@@ -158,11 +222,76 @@ def main(argv=None) -> int:
         print(f"restored step {start} from {args.restore}")
     else:
         state = trainer.init(args.seed)
-    trainer.fit(state, args.steps, start_step=start)
+    try:
+        if args.ranks:
+            fit_with_stats(trainer, state, args.steps, start, digest=args.digest)
+        else:
+            trainer.fit(state, args.steps, start_step=start)
+    finally:
+        R.close_group()
     for row in trainer.history:
         print(f"step {row['step']:5d} loss {row['loss']:.4f} "
               f"ce {row['ce']:.4f} aux {row['aux']:.4f} wall {row['wall']:.1f}s")
     return 0
+
+
+def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False) -> None:
+    """``steps`` trainer steps, one ``fit`` call each, timed on the host
+    clock to the device's end; prints this process's ``rank-stats`` line.
+    The kernel launches are counted from 0 before the first step, the
+    warm-up step included (``launches``; ``launches_per_step`` is the last
+    step's); the means a step leave the first out.  With ``digest`` every
+    rank gathers the end state's checkpoint tree after the steps and rank
+    0's line carries its digests (``digest``; null on the other ranks)."""
+    import json
+    import time
+
+    import torch
+
+    from repro_torch.core import comms
+    from repro_torch.kernels import ops
+
+    b = trainer.bundle
+    group, dev = b.ranks, b.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, per_step, wire = [], [], {}
+    ops.reset_launches()
+    for t in range(start, start + steps):
+        before, launched = (group.stats.snapshot() if group else {}), dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        with comms.capture() as log:
+            state = trainer.fit(state, 1, start_step=t)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for r in log.records:
+            key = f"{r.tag or 'untagged'}|{','.join(r.axes)}"
+            wire[key] = wire.get(key, 0.0) + r.wire_bytes * r.mult
+        after = group.stats.snapshot() if group else {}
+        per_step.append({**{k: after[k] - before[k] for k in after},
+                         "launches": {k: v - launched.get(k, 0) for k, v in ops.LAUNCHES.items()
+                                      if v - launched.get(k, 0)}})
+    timed = per_step[1:] or per_step
+    mean = {k: sum(s[k] for s in timed) / len(timed) for k in timed[0] if k != "launches"}
+    booked = sum(b.wire["train"].values())  # one worker's, by the reference's formulas
+    digests = None
+    if digest:
+        from repro_torch.checkpoint.ckpt import digest as digest_of
+
+        tree = b.checkpoint_tree(state)  # a gather over the ranks: every rank takes part
+        digests = digest_of(tree) if trainer.writer else None
+    print("rank-stats " + json.dumps({
+        "rank": group.rank if group else 0, "world": group.world if group else 1,
+        "workers": [b.workers.start, b.workers.stop], "device": str(dev), "step_ms": step_ms,
+        "mean_step_ms": sum(step_ms[1:] or step_ms) / len(step_ms[1:] or step_ms),
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+                     else None),
+        "per_step": mean, "launches_per_step": timed[-1]["launches"],
+        "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
+        "loss": [row["loss"] for row in trainer.history], "wire": wire,
+        "booked_per_worker": booked, "booked_for_rank": booked * len(b.workers),
+        "digest": digests}), flush=True)
 
 
 if __name__ == "__main__":

@@ -41,6 +41,9 @@ class Optimizer:
     #: ``zero1`` under the model axis: (shard dims, M) -> the optimizer that
     #: slices each shard-local leaf over the workers
     for_model: Callable | None = None
+    #: ``zero1`` over ranks: (a rank's workers) -> the optimizer that holds
+    #: and updates those workers' rows only
+    for_ranks: Callable | None = None
 
 
 def sgd() -> Optimizer:
@@ -102,7 +105,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.0)
 
 
 def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
-          msize: int = 1) -> Optimizer:
+          msize: int = 1, own: range | None = None) -> Optimizer:
     """ZeRO-1: optimizer state sharded over the W data-parallel workers.
 
     Every leaf is flattened and zero-padded to a multiple of W; worker w
@@ -128,6 +131,11 @@ def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
     (worker, shard) device order, and the all-gather books one shard's
     slice.  A replicated leaf's M slices hold the same values; shard 0's
     are written back.
+
+    Over ranks (``own``, a rank's workers; ``for_ranks``) a process holds
+    and updates only those workers' rows of each (W, k) view, and the
+    all-gather moves the other ranks' updated rows in, so every rank ends
+    with the same parameters.
     """
 
     def _pad_rows(flat):
@@ -145,16 +153,18 @@ def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
     def _dims(n):  # each leaf's sharded dimension (none at model-axis size 1)
         return shard_dims or [None] * n
 
+    mine = slice(None) if own is None else slice(own.start, own.stop)  # rows of (W, k)
+
     def init(params):
         ps = leaves(params)
-        return {"inner": opt.init([_rows(p, d) for p, d in zip(ps, _dims(len(ps)))])}
+        return {"inner": opt.init([_rows(p, d)[mine] for p, d in zip(ps, _dims(len(ps)))])}
 
     def update(grads, state, params, lr):
         ds = _dims(len(params))
         with torch.no_grad():
             p_sl = [_rows(p, d) for p, d in zip(params, ds)]
-            _, inner = opt.update([_rows(g, d) for g, d in zip(grads, ds)], state["inner"],
-                                  p_sl, lr)
+            _, inner = opt.update([_rows(g, d)[mine] for g, d in zip(grads, ds)],
+                                  state["inner"], [p[mine] for p in p_sl], lr)
             with comms.tag("zero1_gather"):
                 for p, new, d in zip(params, p_sl, ds):
                     if msize == 1:
@@ -207,15 +217,21 @@ def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
         return {"inner": inner}
 
     return Optimizer(init, update, f"zero1_{opt.name}", n_workers, update_rows,
-                     lambda sdims, m: zero1(opt, n_workers, tuple(sdims), m))
+                     lambda sdims, m: zero1(opt, n_workers, tuple(sdims), m, own),
+                     lambda rows: zero1(opt, n_workers, shard_dims, msize, rows))
+
+
+def clip_scale(grads: list, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / ||grads||), the norm over all leaves in f32 (leaf
+    sums added in leaf order), a 0-dim f32 tensor."""
+    g2 = sum(torch.sum(torch.square(g.to(f32))) for g in grads)
+    return torch.clamp_max(_scalar(max_norm, g2) / torch.clamp_min(torch.sqrt(g2), 1e-30), 1.0)
 
 
 def global_clip(grads: list, max_norm: float) -> list:
     """Global-norm gradient clipping: every leaf times
-    min(1, max_norm / ||grads||), the norm over all leaves in f32 (leaf
-    sums added in leaf order); 0 leaves the gradients alone."""
+    :func:`clip_scale`; 0 leaves the gradients alone."""
     if not max_norm:
         return grads
-    g2 = sum(torch.sum(torch.square(g.to(f32))) for g in grads)
-    scale = torch.clamp_max(_scalar(max_norm, g2) / torch.clamp_min(torch.sqrt(g2), 1e-30), 1.0)
+    scale = clip_scale(grads, max_norm)
     return [(g.to(f32) * scale).to(g.dtype) for g in grads]

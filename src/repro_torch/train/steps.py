@@ -79,9 +79,12 @@ reference's fix-up psum of the replicated leaves' gradients is booked
 compresses and reduces its own buckets with its own EF and comm state
 (:class:`aggregate.ShardedRound`, the comm stacks W * M rows); a
 replicated leaf's aggregate is shard 0's (the reference's shards may
-disagree there: their buckets' scales differ).  ``clip_norm`` takes the
-norm of the global gradient: the sharded leaves summed over the shards,
-the replicated ones once.  ZeRO-1 slices each shard-local leaf over the
+disagree there: their buckets' scales differ).  ``clip_norm`` clips each
+shard by its own local norm, as the reference's ``global_clip`` runs on
+each shard's local leaves: shard m's norm is over its block of every
+sharded leaf and over every replicated leaf, its block is scaled by its
+factor, and a replicated leaf takes shard 0's.  ZeRO-1 slices each
+shard-local leaf over the
 data workers (over diverging rows too: each row's slice of each shard).
 The sync and gossip steps average or mix each shard's local leaves over
 the data axes, shard by shard.  Churn and integrity draw one bit and one
@@ -89,6 +92,19 @@ corruption flag per worker, which its M shards share, and keep their
 counters per (worker, shard); a sync round's validity is voted over the
 shards.  PowerSGD keeps a Q per (worker, shard); the pipelined step keeps
 ``overlap_pending`` per (worker, shard).
+
+Ranks on the data axis (``ranks``, a
+:class:`repro_torch.core.ranks.RankGroup`; BSP under the sequential step):
+the W workers are spread over R processes, and each runs the programs for
+its own W/R workers (:meth:`StepBundle._split`; the rounds and ZeRO-1
+take them as :attr:`StepBundle.workers` and :attr:`StepBundle.rank_opt`),
+and its steps run under ``comms.ranks``, so the data-axis collectives move
+the other ranks' rows for real.  Every rank
+draws the same global batch, applies the same aggregate and holds the same
+parameters; per-worker state (``ef``, ``u``, ZeRO-1's slices) is the
+rank's rows only, and the checkpoint layout gathers it.  Every rank books
+what the stacked program books (n = W).  :func:`check_ranks` refuses the
+options a later slice brings.
 
 Loss, ``ce`` and ``aux`` are worker means.  The wire bytes of each program
 are booked at build time by running it once on the ``meta`` device, which
@@ -117,6 +133,7 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import aggregate, comms, gossip, integrity, sync
 from repro_torch.core.compression.base import get_compressor
+from repro_torch.core.ranks import RankGroup
 from repro_torch.core.types import (
     BundleSpec,
     CommConfig,
@@ -127,7 +144,7 @@ from repro_torch.core.types import (
 from repro_torch.data.pipeline import input_specs
 from repro_torch.models import transformer as T
 from repro_torch.models.sharding import local_defs, shard_dims, shard_local
-from repro_torch.optim.optimizers import Optimizer, global_clip
+from repro_torch.optim.optimizers import Optimizer, clip_scale, global_clip
 from repro_torch.utils.tree import leaves, tree_map, unflatten_like
 
 f32 = torch.float32
@@ -176,6 +193,8 @@ class StepBundle:
     #: churn_draws(step, worker[, round]) -> (u_mask, u_corrupt): each
     #: worker's participation and corruption uniforms of a churn round
     churn_draws: aggregate.ChurnDraws | None = None
+    #: this process's rank of the data axis (None: every worker stacked here)
+    ranks: RankGroup | None = None
     #: the pipelined step's side stream on the card (made at first use)
     _side: Any = field(default=None, repr=False, compare=False)
     #: the meta-device wire trace's one traced gradient per (rows, microbatch)
@@ -192,6 +211,33 @@ class StepBundle:
     def row_of(self, w: int) -> int:
         """The parameter row worker w differentiates and updates."""
         return w // (self.n_workers // self.rows)
+
+    @property
+    def workers(self) -> range:
+        """The workers this process runs: all W, or its rank's W/R."""
+        return range(self.n_workers) if self.ranks is None else self.ranks.workers
+
+    def _own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a (W, ...) per-worker tensor (all when stacked)."""
+        return x if self.ranks is None else x[self.ranks.lo:self.ranks.hi]
+
+    def _all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every worker's rows of a per-worker tensor this rank holds its rows
+        of: the ranks' rows gathered in worker order (stacked, ``x``)."""
+        if self.ranks is None:
+            return x
+        return self.ranks.gather(x).reshape((-1,) + tuple(x.shape[1:]))
+
+    def _worker_stack(self, vals: list[torch.Tensor]) -> torch.Tensor:
+        """A (W, ...) stack of one value per worker from this process's own
+        workers' ``vals`` (the other ranks' rows left for the collective
+        that gathers them)."""
+        if self.ranks is None:
+            return torch.stack(vals)
+        out = torch.empty((self.n_workers,) + tuple(vals[0].shape), dtype=vals[0].dtype,
+                          device=vals[0].device)
+        out[self.ranks.lo:self.ranks.hi] = torch.stack(vals)
+        return out
 
     @property
     def groups(self) -> int:
@@ -250,6 +296,27 @@ class StepBundle:
                     blk.copy_(seg.reshape(blk.shape))
         return out
 
+    def _clip(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``clip_norm`` as the reference applies it inside ``shard_map``:
+        the global norm at model-axis size 1; under the model axis each
+        shard by its own local norm (:meth:`local_leaves`, the replicated
+        leaves included), its block of a sharded leaf scaled by its factor
+        and a replicated leaf by shard 0's."""
+        if not self.clip_norm or self.model == 1:
+            return global_clip(grads, self.clip_norm)
+        M = self.model
+        scales = [clip_scale(self.local_leaves(grads, m), self.clip_norm) for m in range(M)]
+        out = []
+        for g, d in zip(grads, self.shard_dims):
+            if d is None:
+                out.append((g.to(f32) * scales[0]).to(g.dtype))
+                continue
+            new = torch.empty_like(g)
+            for m, sc in enumerate(scales):
+                shard_local(new, d, M, m).copy_((shard_local(g, d, M, m).to(f32) * sc).to(g.dtype))
+            out.append(new)
+        return out
+
     def _book_fixup(self, grads: list[torch.Tensor]) -> None:
         """The reference's ``_fix_model_grads`` psum of each replicated
         leaf's gradient over the model axis (tag ``tp_grad_fixup``).
@@ -276,17 +343,25 @@ class StepBundle:
 
         return tree_map(place, params)
 
+    @property
+    def rank_opt(self) -> Optimizer:
+        """The optimizer this process runs: :attr:`opt`, or over ranks
+        ZeRO-1's that holds and updates this rank's rows only."""
+        if self.ranks is None or not self.opt.n_shards:
+            return self.opt
+        return self.opt.for_ranks(self.ranks.workers)
+
     def init_state(self, params: Any) -> dict[str, Any]:
         """The step state from one parameter tree (every worker starts from
-        it)."""
+        it; over ranks, this rank's rows of the per-worker state)."""
         params = self._place(params, stack=self.stacked)
         sharded = self.stacked and self.opt.n_shards  # zero1's slices of one row
         return {
             "params": params,
-            "opt": self.opt.init(tree_map(lambda p: p[0], params) if sharded else params),
-            "comm": aggregate.init_comm_state(self.comm, self.bucket_plan,
-                                              self.n_workers, self.device, self.pods,
-                                              self.model),
+            "opt": self.rank_opt.init(tree_map(lambda p: p[0], params) if sharded else params),
+            "comm": aggregate.init_comm_state(self.comm, self.bucket_plan, self.n_workers,
+                                              self.device, self.pods, self.model,
+                                              workers=self.workers),
             "step": 0,
         }
 
@@ -317,7 +392,9 @@ class StepBundle:
         Under the model axis the parameters are the global tree and every
         per-worker entry has one row per (worker, shard), in the
         reference's device order: the stacks, the churn and integrity
-        vectors, ZeRO-1's (W, M, k) slices and each shard's Q.  Views where
+        vectors, ZeRO-1's (W, M, k) slices and each shard's Q.  Over ranks
+        every rank gathers the per-worker rows (``ef``, ``u``, ZeRO-1's
+        slices) into that layout, so every rank must call this.  Views where
         it can."""
         W, defs = self.n_workers * self.model, T.param_defs(self.cfg, self.model)
         n_leaves = len(leaves(defs))
@@ -326,15 +403,15 @@ class StepBundle:
             if isinstance(x, dict):
                 return {k: opt_ref(v) for k, v in x.items()}
             if isinstance(x, list) and len(x) == n_leaves:
-                return unflatten_like(defs, [t.reshape(-1) if self.opt.n_shards else t
-                                             for t in x])
+                return unflatten_like(defs, [self._all_rows(t).reshape(-1) if self.opt.n_shards
+                                             else t for t in x])
             return x
 
         comm = dict(state["comm"])
         for k in aggregate.COMM_STACKS:
             if k in comm:
                 comm[k] = [torch.zeros(W * b.size, dtype=f32, device=self.device)
-                           if e is None else e.reshape(-1)
+                           if e is None else self._all_rows(e).reshape(-1)
                            for e, b in zip(comm[k], self.bucket_plan.buckets)]
         if "psgd_q" in comm:  # each group's (shard's) Q on each of its workers
             G, M = self.groups, self.model
@@ -349,22 +426,26 @@ class StepBundle:
         """The checkpoint layout's structure, shapes and dtypes (on the
         ``meta`` device), restricted to ``keys``: the ``like`` tree of
         ``checkpoint.restore``."""
-        meta = dataclasses.replace(self, device=torch.device("meta"))
-        tree = meta.checkpoint_tree(self._meta_state())
+        meta = dataclasses.replace(self, device=torch.device("meta"), ranks=None)
+        tree = meta.checkpoint_tree(meta._meta_state())
         return {k: tree[k] for k in keys}
 
     def _opt_from_checkpoint(self, tree: Any, tmpl: Any) -> Any:
         if isinstance(tmpl, dict):
             return {k: self._opt_from_checkpoint(tree[k], v) for k, v in tmpl.items()}
         if isinstance(tmpl, list):
+            if self.ranks is not None and self.opt.n_shards:  # this rank's (W, k) rows
+                return [self._own_rows(a.reshape(t.shape)).clone()
+                        for a, t in zip(leaves(tree), tmpl)]
             return [a.reshape(t.shape) for a, t in zip(leaves(tree), tmpl)]
         return tree
 
     def from_checkpoint(self, tree: dict[str, Any]) -> dict[str, Any]:
         """Inverse of :meth:`checkpoint_tree` on a tree restored from it;
         ``tree`` may hold only some of its keys (``restore_rejoin``: no
-        ``comm``)."""
-        tmpl = self._meta_state()
+        ``comm``).  Over ranks each rank keeps its own rows of the
+        per-worker entries."""
+        tmpl = dataclasses.replace(self, ranks=None)._meta_state()  # the global layout
         out = {}
         if "params" in tree:
             out["params"] = self._place(tree["params"], stack=False)
@@ -374,8 +455,9 @@ class StepBundle:
             comm = dict(tree["comm"])
             for k in aggregate.COMM_STACKS:
                 if k in comm:
-                    comm[k] = [None if t is None else e.reshape(t.shape)
-                               for e, t in zip(comm[k], tmpl["comm"][k])]
+                    comm[k] = [None if t is None else
+                               self._own_rows(e.reshape(t.shape)).clone() if self.ranks else
+                               e.reshape(t.shape) for e, t in zip(comm[k], tmpl["comm"][k])]
             if "psgd_q" in comm:  # worker 0 of each group holds the group's Q
                 G, M = self.groups, self.model
                 comm["psgd_q"] = [q.reshape(G, self.n_workers // G, M, -1)[:, 0].reshape(t.shape)
@@ -389,11 +471,13 @@ class StepBundle:
     # ---- per-worker pieces ------------------------------------------------------
 
     def _split(self, batch: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
+        """Worker w's contiguous rows of the global batch, for each worker
+        this process runs (:attr:`workers`: all W, or its rank's), in order."""
         B, W = batch["tokens"].shape[0], self.n_workers
         if B % W:
             raise ValueError(f"global batch {B} does not split over {W} workers")
         bl = B // W
-        return [{k: v[w * bl:(w + 1) * bl] for k, v in batch.items()} for w in range(W)]
+        return [{k: v[w * bl:(w + 1) * bl] for k, v in batch.items()} for w in self.workers]
 
     def _worker_params(self, params: Any, w: int, grad: bool = True) -> Any:
         if not self.stacked:
@@ -451,24 +535,26 @@ class StepBundle:
         each worker's slice of its own row); a 0-dim state leaf (adamw's
         ``t``) advances once, as each row's update returns the same value.
         ``zero1``'s all-gather is booked over every data axis."""
-        pleaves = leaves(params)
+        pleaves, opt = leaves(params), self.rank_opt
         if not self.stacked:
             with comms.over(self.data_axes):
-                return self.opt.update(grads_of(0), opt_state, pleaves, lr)[1]
-        if self.opt.update_rows is not None:
+                return opt.update(grads_of(0), opt_state, pleaves, lr)[1]
+        if opt.update_rows is not None:
             with comms.over(self.data_axes):
-                return self.opt.update_rows(grads_of, opt_state, pleaves, lr, self.row_of)
+                return opt.update_rows(grads_of, opt_state, pleaves, lr, self.row_of)
         new = opt_state
         for r in range(self.rows):
             rows = tree_map(lambda x: x[r] if isinstance(x, torch.Tensor) and x.ndim else x,
                             opt_state)
-            new = self.opt.update(grads_of(r), rows, [p[r] for p in pleaves], lr)[1]
+            new = opt.update(grads_of(r), rows, [p[r] for p in pleaves], lr)[1]
         return unflatten_like(opt_state, [o if o.ndim else n for o, n in
                                           zip(leaves(opt_state), leaves(new))])
 
     def _metrics(self, ms: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+        """The worker means of this process's workers' metrics (in worker
+        order)."""
         with comms.over(self.data_axes):
-            return {k: comms.pmean(torch.stack([m[k] for m in ms]))
+            return {k: comms.pmean(self._worker_stack([m[k] for m in ms]))
                     for k in ("loss", "ce", "aux")}
 
     def _round(self, state: dict[str, Any], rnd: int | None = None,
@@ -477,7 +563,8 @@ class StepBundle:
                                       self.n_workers, self.noise, self.device,
                                       shards=self.model, step=state["step"], rnd=rnd,
                                       groups=self.groups, live=live,
-                                      churn_draws=self.churn_draws)
+                                      churn_draws=self.churn_draws,
+                                      workers=None if self.ranks is None else self.workers)
 
     def _step_mask(self, state: dict[str, Any]) -> tuple:
         """One participation bit per worker for a whole step (the sync,
@@ -492,7 +579,7 @@ class StepBundle:
         round: returns the per-shard lists of per-group bucket aggregates,
         the per-worker metrics and the round."""
         rnd, ms = self._round(state), []
-        for w, part in enumerate(parts):
+        for w, part in zip(self.workers, parts):
             grads, m = self._grads(self._worker_params(state["params"], w), part,
                                    self.microbatch)
             rnd.add(w, self._bufs_of(grads))
@@ -633,6 +720,11 @@ class StepBundle:
 
     def train_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
                    lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
+        with comms.ranks(self.ranks):
+            return self._train_step(state, batch, lr)
+
+    def _train_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
+                    lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
         params, plan, parts = state["params"], self.bucket_plan, self._split(batch)
         with comms.over(self.agg_axes):
             if self.comm.overlap == "pipelined":
@@ -644,7 +736,7 @@ class StepBundle:
         like = [p[0] for p in leaves(params)] if self.stacked else leaves(params)
         # one aggregate per pod under pod-local SGD (row r is pod r), else
         # one; aggs[m][g] is shard m's of group g
-        grads = [global_clip(self._scatter([a[g] for a in aggs], like), self.clip_norm)
+        grads = [self._clip(self._scatter([a[g] for a in aggs], like))
                  for g in range(len(aggs[0]))]
         del aggs
         own = self.comm.pod_local
@@ -664,7 +756,7 @@ class StepBundle:
         def grads_of(w):
             grads, m = self._grads(self._worker_params(params, w), parts[w], self.microbatch)
             ms.append(m)
-            return global_clip(grads, self.clip_norm)
+            return self._clip(grads)
 
         opt_state = self._update(state["opt"], params, grads_of, lr)
         return ({"params": params, "opt": opt_state, "comm": state["comm"],
@@ -808,11 +900,13 @@ class StepBundle:
         with torch.no_grad():
             outs = [T.forward_loss(self.cfg, self._worker_params(state["params"], w, False), part,
                                    msize=self.model)
-                    for w, part in enumerate(self._split(batch))]
-        loss = comms.pmean(torch.stack([o[0] for o in outs]))
-        if not metrics:
-            return loss
-        return loss, {k: comms.pmean(torch.stack([o[1][k] for o in outs])) for k in ("ce", "aux")}
+                    for w, part in zip(self.workers, self._split(batch))]
+        with comms.ranks(self.ranks):
+            loss = comms.pmean(self._worker_stack([o[0] for o in outs]))
+            if not metrics:
+                return loss
+            return loss, {k: comms.pmean(self._worker_stack([o[1][k] for o in outs]))
+                          for k in ("ce", "aux")}
 
 
 def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:
@@ -824,7 +918,7 @@ def _book_wire(bundle: StepBundle) -> dict[str, comms.CommLog]:
     meta = torch.device("meta")
     mb = dataclasses.replace(bundle, cfg=bundle.cfg.with_updates(remat="none"), device=meta,
                              noise=aggregate.seeded_noise(0, meta),
-                             churn_draws=aggregate.seeded_churn_draws(0, meta))
+                             churn_draws=aggregate.seeded_churn_draws(0, meta), ranks=None)
     shape, comm = bundle.shape, bundle.comm
     batch = {k: torch.zeros(shp, dtype=torch.from_numpy(np.empty(0, dt)).dtype, device=meta)
              for k, (shp, dt) in input_specs(bundle.cfg, shape).items()}
@@ -914,12 +1008,39 @@ def bundle_cache_key(cfg: ModelConfig, spec: BundleSpec, plan: aggregate.BucketP
             (opt.name, opt.n_shards), shape, bool(clip_norm), int(microbatch))
 
 
+def check_ranks(comm: CommConfig, n_workers: int, pods: int, model: int,
+                group: RankGroup | None) -> None:
+    """Refuse, with the later slice that brings it (``ROADMAP.md`` Queue
+    1), each option that ranks on the data axis do not run yet: they run
+    BSP under the sequential step."""
+    if group is None:
+        return
+    if group.n_workers != n_workers:
+        raise ValueError(f"the rank group splits {group.n_workers} workers, the bundle has "
+                         f"{n_workers}")
+    refused = (
+        (comm.sync in ("local", "post_local") or comm.pod_local,
+         "local, post-local and pod-local SGD (the parameter average moved between the ranks)",
+         23),
+        (comm.aggregator == "gossip", "gossip and CHOCO-SGD (their ring hops sent between the "
+                                      "ranks)", 23),
+        (comm.overlap == "pipelined", "the pipelined step", 24),
+        (churn_enabled(comm) or effective_corruption_kind(comm) != "none",
+         "churn and integrity", 25),
+        (model > 1 or pods > 1, "the model and pod axes", 26),
+    )
+    for hit, what, slice_no in refused:
+        if hit:
+            raise ValueError(f"{what} over ranks: a later slice (ROADMAP.md Queue 1, slice "
+                             f"{slice_no}); ranks run BSP under the sequential step")
+
+
 def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,
                  n_workers: int = 1, seed: int = 0, device: str | torch.device = "cuda",
                  noise: aggregate.Noise | None = None, clip_norm: float = 0.0,
                  microbatch: int = 1, pods: int = 1, model: int = 1,
                  churn_draws: aggregate.ChurnDraws | None = None,
-                 cache: bool = True) -> StepBundle:
+                 cache: bool = True, ranks: RankGroup | None = None) -> StepBundle:
     """Build the steps of one cell.  ``noise(step, worker, bucket, n)``
     overrides the compressors' uniform draws (default: a generator seeded
     from (seed, step, worker, bucket) on ``device``; worker None for
@@ -934,7 +1055,9 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
     generator seeded from (seed, step, worker, round) on ``device``);
     ``model`` M is the model axis's size: the parameters are the
     padded-for-M tree (``T.init_params(cfg, seed, device, M)``), the W * M
-    (worker, shard) pairs each aggregate their shard-local buckets.
+    (worker, shard) pairs each aggregate their shard-local buckets;
+    ``ranks`` is this process's rank of the data axis (its workers run
+    here, the others in the group's other processes; :func:`check_ranks`).
 
     The cells of one shape class (:func:`bundle_cache_key`) share the
     knob-independent half of the build through the bundle registry: the
@@ -958,6 +1081,7 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
     device = torch.device(device)
     if model < 1:
         raise ValueError(f"model must be >= 1, got {model}")
+    check_ranks(comm, n_workers, pods, model, ranks)
     defs = T.param_defs(cfg, model)
     plan = aggregate.make_bucket_plan(comm, local_defs(defs, model))
     if model > 1 and opt.n_shards:
@@ -968,7 +1092,7 @@ def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: Inpu
         noise=noise if noise is not None else aggregate.seeded_noise(seed, device),
         clip_norm=clip_norm, microbatch=microbatch, pods=pods,
         churn_draws=(churn_draws if churn_draws is not None
-                     else aggregate.seeded_churn_draws(seed, device)),
+                     else aggregate.seeded_churn_draws(seed, device)), ranks=ranks,
     )
     key = bundle_cache_key(cfg, spec, plan, opt, shape, n_workers=n_workers, pods=pods,
                            clip_norm=clip_norm, microbatch=microbatch, model=model)
@@ -1020,7 +1144,8 @@ class ServeBundle:
 
 
 def build_serve(cfg: ModelConfig, shape: InputShape,
-                device: str | torch.device = "cuda", msize: int = 1) -> ServeBundle:
+                device: str | torch.device = "cuda", msize: int = 1,
+                ranks: RankGroup | None = None) -> ServeBundle:
     """Prefill and decode steps for ``cfg``, both under
     ``torch.inference_mode()``, their inputs numpy arrays or tensors (moved
     to ``device``): the prefill's ``tokens`` and, for the vision and audio
@@ -1038,7 +1163,12 @@ def build_serve(cfg: ModelConfig, shape: InputShape,
     the context-parallel one in its global layout (each ring a multiple of
     ``msize`` slots).  Under ``cfg.seq_par`` the prefill is sequence
     parallel and its rings hold the prompt, so ``shape.seq_len`` is the
-    prompt too (the reference's launcher sets it so)."""
+    prompt too (the reference's launcher sets it so).  Serving over ranks
+    (the reference's ``--data``) is a later slice: it raises for a rank
+    group ``ranks``."""
+    if ranks is not None:
+        raise ValueError("serving over ranks (the reference's --data): a later slice "
+                         "(ROADMAP.md Queue 1, slice 27)")
     T.check_serving(cfg, msize)
     device = torch.device(device)
 

@@ -1,7 +1,8 @@
 """Training loop (counterpart of ``repro.train.trainer``): drives the step
 bundle by the CommConfig's sync scheme (under pod-local SGD the train step
 every step and the sync step every H-th), feeds the data pipeline, logs
-metrics and writes checkpoints."""
+metrics and writes checkpoints.  Over ranks (``bundle.ranks``) every rank
+runs the loop on the same global batches; only rank 0 logs and writes."""
 
 from __future__ import annotations
 
@@ -52,14 +53,22 @@ class Trainer:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.bundle.device)
                 for k, v in batch.items()}
 
+    @property
+    def writer(self) -> bool:
+        """Does this process log and write (rank 0, or the one process)?"""
+        return self.bundle.ranks is None or self.bundle.ranks.rank == 0
+
     def init(self, seed: int = 0) -> dict[str, Any]:
+        """The initial state; every rank draws the same parameters from
+        ``seed``."""
         b = self.bundle
         return b.init_state(init_params(b.cfg, seed, b.device, b.model))
 
     def save(self, path: str, state: dict[str, Any], step: int) -> None:
         """Checkpoint ``state`` at ``path`` in the reference's layout
-        (``StepBundle.checkpoint_tree``), its manifest saying ``step``."""
-        save(path, self.bundle.checkpoint_tree(state), step=step)
+        (``StepBundle.checkpoint_tree``), its manifest saying ``step``.  Over
+        ranks every rank gathers and rank 0 writes; all return once it has."""
+        save(path, self.bundle.checkpoint_tree(state), step=step, group=self.bundle.ranks)
 
     def restore(self, path: str) -> tuple[dict[str, Any], int]:
         """The whole state of the checkpoint at ``path``; returns ``(state,
@@ -81,7 +90,7 @@ class Trainer:
                              partial=True)
         state = b.from_checkpoint(tree)
         state["comm"] = aggregate.init_comm_state(b.comm, b.bucket_plan, b.n_workers,
-                                                  b.device, b.pods, b.model)
+                                                  b.device, b.pods, b.model, workers=b.workers)
         state["comm"]["step"] = state["step"]
         return state, step
 
@@ -98,7 +107,8 @@ class Trainer:
                 state, m = b.inner_step(state, batch, lr)
             if comm.aggregator != "gossip" and sync_rules.params_need_sync(comm, t):
                 state = b.sync_step(state)
-            if self.log_every and (t % self.log_every == 0 or t == start_step + steps - 1):
+            if (self.writer and self.log_every
+                    and (t % self.log_every == 0 or t == start_step + steps - 1)):
                 row = {k: float(v) for k, v in m.items()}
                 row.update(step=t, wall=time.perf_counter() - t0)
                 self.history.append(row)

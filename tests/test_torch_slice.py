@@ -215,12 +215,16 @@ def test_slice_books_packed2_wire_per_worker():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """The port, chip_smoke.py and the card-only test modules (the model
-    axis's among them)."""
+    """The port (its rank transport among it), chip_smoke.py and the
+    card-only test modules (the model axis's and the ranks' among them,
+    with the ranks' harness)."""
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-             + sorted((ROOT / "tests").glob("test_torch_*_card.py")))
+             + sorted((ROOT / "tests").glob("test_torch_*_card.py"))
+             + [ROOT / "tests" / "torch_ranked.py"])
     assert len(files) > 15
     assert ROOT / "tests" / "test_torch_model_axis_card.py" in files
+    assert ROOT / "src" / "repro_torch" / "core" / "ranks.py" in files
+    assert ROOT / "tests" / "test_torch_ranks_card.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
