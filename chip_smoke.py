@@ -211,7 +211,7 @@ result line:
    algorithms):
    builds shared at most the classes, per cell one per cell,
    ``max_rel_dev_loss`` < 1e-5, no kernel launched; (T2) the
-   ``overlap_bench`` twin's 14 cells (W = 2, microbatch 4, 8 of its 16
+   ``overlap_bench`` twin's 14 cells (W = 2, microbatch 4, 4 of its 16
    steps, ``T2_STEPS``) with
    the reference's assertions, each pipelined cell's measured overlap
    saving beside the predicted one; (T3) ``run.py --substrate trainer`` on
@@ -235,14 +235,14 @@ result line:
    = 262,144, all eleven kernels must launch there, and its fused and
    composed times and GB/s print at both sizes (262,144 x 8 and the
    largest bucket, 155,582,464 x 8); the cold start (run by its ``run``,
-   the trainer matrix at 3 of its 6 steps, ``B_COLD_STEPS``)'s legs print their
+   the trainer matrix at 2 of its 6 steps, ``B_COLD_STEPS``)'s legs print their
    walls, ``nvcc`` builds and persistent hits and misses (the warm-cache
    legs must build nothing), and the fitted profile (alpha, beta,
    t_launch, t_step_dense) and the step-time rel-err before and after.
 11. phase F, the MoE, MLA and dense-variant families through the trainer
    (``F_PATHS``): each at full published width, bf16, random weights from
    seed 0, ``SyntheticBatches``, global batch 8, momentum SGD (lr 0.01),
-   3 steps, its depth cut to one whole period of its layer pattern: (an)
+   3 steps, its depth cut to a whole period of its layer pattern: (an)
    qwen3-moe-30b-a3b, 2 of 48 layers (128 experts, top-8), W = 4, qsgd_kernel
    EF on the int8 wire (qsgd_ef + int8_acc); (ao) the same model,
    signsgd_packed EF on the 1-bit wire with the router leaves through
@@ -254,17 +254,18 @@ result line:
    of 64 (qkv bias), W = 4, qsgd_kernel EF (its 778,567,680-element
    embedding bucket); (as) gemma3-12b, 6 of 48 (one 5 local : 1 global
    period, window 1024), seq 2048, W = 2, qsgd_kernel on the int8 wire
-   (qsgd + int8_acc); (az) rwkv6-3b, 16 of 32 layers (cut for memory),
+   (qsgd + int8_acc); (az) rwkv6-3b, 8 of 32 layers (cut for the script's time),
    W = 4, qsgd_kernel EF (qsgd_ef, int8_acc, and its recurrence through
    wkv6, wkv6_bwd_states and wkv6_bwd: 2, 1 and 1 launches a layer,
    worker and step); (ba)
    hymba-1.5b, one pattern period (16 of 32 layers: the global layer and
    15 local; cut for the script's time), W = 4, terngrad_kernel EF
    (terngrad, tern_pack, tern_acc), its selective scan in chunks of
-   ``ssm.SCAN_CHUNK`` steps; (bc) qwen2-vl-2b, all 28 layers (M-RoPE, 256
+   ``ssm.SCAN_CHUNK`` steps; (bc) qwen2-vl-2b, 14 of 28 layers (M-RoPE, 256
    patches through ``frontend_proj`` before 768 text tokens at seq 1024,
    only the text labelled), W = 4, qsgd_kernel EF (qsgd_ef, int8_acc);
-   (bd) seamless-m4t-large-v2, all 24 decoder and 24 encoder layers (256
+   (bd) seamless-m4t-large-v2, 12 of 24 decoder layers and all 24 encoder
+   layers (the two cut for the script's time; 256
    audio frames through the non-causal encoder, cross-attention in every
    decoder block, the vocabulary padded to 256,256), W = 4,
    signsgd_packed EF on the 1-bit wire (sign_pack, sign_vote).  Each
@@ -392,26 +393,31 @@ result line:
    equal.
 15. phase R, ranks on the data axis (``core/ranks.py``): W = 4 workers
    over R = 2 gloo processes sharing the one card, their tensors staged
-   through pinned host buffers.  (bq) qwen3-0.6b at full published width,
-   14 of its 28 layers (``R_LAYERS``), bf16, qsgd_kernel EF (one bucket per
-   leaf), momentum SGD 0.9, seq 1024, global batch 8, 4 steps (the first a
-   warm-up) through ``python -m repro_torch.launch.train --ranks 2
-   --device cuda``: each rank prints its step ms, peak GiB, launches a step
-   (its 2 workers' qsgd_ef per bucket, every bucket's int8_acc: held
-   exactly), the bytes it sent and received a step (its workers' int8 codes
-   and norms and its 3 metrics, held to the byte) against the wire booked
-   for its workers, and its host seconds in torch.distributed; (br) the
-   identity, qwen3-0.6b cut to 2 layers at full width, W = 4, 3 steps,
-   ``launch.train --ranks 2`` against its stacked twin ``--ranks 1`` (run
-   at once, both ``--deterministic``: deterministic algorithms and
-   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``), for qsgd_kernel EF (qsgd_ef,
-   int8_acc) and signsgd_packed EF (sign_pack, sign_vote) on the
-   compressed wire: their end states (parameters, momentum and every
-   worker's EF rows, gathered into the checkpoint layout) bitwise by each
-   array's SHA-256 (``--digest``; no checkpoint is written), the loss series
-   and the wire captured on every rank equal, the launches held exactly.
-   Any failed rank fails the script; the kernel table counts both's
-   launches.
+   through pinned host buffers, through ``python -m
+   repro_torch.launch.train --ranks 2 --device cuda`` against its stacked
+   twin ``--ranks 1`` (run at once, both ``--deterministic``: deterministic
+   algorithms and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, and ``--digest``),
+   qwen3-0.6b at full published width cut to 2 layers, bf16, momentum SGD
+   0.9, seq 1024, global batch 8, 3 steps: (bq, br) qsgd_kernel EF (one
+   bucket per leaf; the main path over ranks, (bq), once a launch of its
+   own at 14 layers) and (br) signsgd_packed EF on the compressed wire, then
+   the sync schemes and gossip: (bs) CHOCO-SGD over qsgd_kernel
+   (``choco_qsgd``: the boundary workers' int8 codes and norms to the
+   neighbour ranks), (bt) local SGD averaging every 2 steps (``local_sgd
+   --local-steps 2``: the sync step gathers each rank's f32 parameter rows)
+   and (bu) BSP on the ring schedule (``ring_manual``: 2(W - 1) hops a
+   bucket sent rank to rank).  Each cell: the end states (parameters,
+   momentum, every worker's EF rows, diverging parameter rows and CHOCO's
+   mirrors, gathered into the checkpoint layout) bitwise by each array's
+   SHA-256 (no checkpoint is written), the loss series and the wire
+   captured on every rank equal, the launches held exactly a step and in
+   all (each rank its own workers' send-side kernel per bucket, every
+   bucket's reduction), each rank's bytes sent and received a step held to
+   their prediction to the byte; each prints step ms, peak GiB, host
+   seconds in torch.distributed and the wire booked for a rank's workers.
+   The cells run in two waves (``R_ID_WAVES``) of at most nine processes,
+   their peaks inside the card's memory.  Any failed rank fails the
+   script; the kernel table counts their launches.
 
 Then one JSON line per the kernel table (the three row kernels as
 ``*_rows`` entries with their bound at E2's class shape, launches from the
@@ -2219,8 +2225,9 @@ def launches_per_cell():
 #: (shared and per cell, held alike) reads averaged parameters (step 4)
 T1_STEPS = 5
 #: T2's steps: the overlap matrix's 16 cut to 8 (its cells run on the host's
-#: dispatch: 72 s at 16)
-T2_STEPS = 8
+#: dispatch: 72 s at 16), then to 4 to pay for phase R's identities (bs)-(bu)
+#: (the worst pipelined / sequential loss 1.00088 at 4 steps on the CPU)
+T2_STEPS = 4
 #: T3's steps: 3 (all its cells are BSP); its check (each cell's exact
 #: launches) is per step
 T3_STEPS = 3
@@ -2336,8 +2343,8 @@ B_PREFIX = {"tableIII_allreduce": "tableIII", "tableIV_comm_cost": "tableIV",
             "coldstart": "coldstart"}
 B_CLAIMS = {**B_PREFIX, "tableIV_comm_cost": None}
 #: the cold start's trainer steps: its 6 cut to 3 (its three child processes
-#: sweep the trainer matrix on the host's dispatch: 125.6 s at 6)
-B_COLD_STEPS = 3
+#: sweep the trainer matrix on the host's dispatch: 125.6 s at 6), then to 2
+B_COLD_STEPS = 2
 
 
 def run_phase_b(card: str) -> None:
@@ -2459,19 +2466,21 @@ F_PATHS = (
     ("(ar) qwen1.5-32b qsgd ef", "qwen1.5-32b", 1, 4, 1024, QSGD_EF,
      ("qsgd_ef", "int8_acc"), False),
     ("(as) gemma3 qsgd", "gemma3-12b", 6, 2, 2048, QSGD16, ("qsgd", "int8_acc"), True),
-    # the recurrent families: rwkv6-3b cut to 16 of 32 layers for memory (W
-    # EF rows and gradients of its 2.93B parameters would need ~94 GB);
-    # hymba-1.5b to one pattern period (16 of 32) for the script's time
-    ("(az) rwkv6-3b qsgd ef", "rwkv6-3b", 16, 4, 1024, QSGD_EF,
+    # the recurrent families: rwkv6-3b cut to 8 of 32 layers (at 32 the W
+    # EF rows and gradients of its 2.93B parameters would need ~94 GB; 16
+    # fit, 8 for the script's time); hymba-1.5b to one pattern period (16
+    # of 32) for the script's time
+    ("(az) rwkv6-3b qsgd ef", "rwkv6-3b", 8, 4, 1024, QSGD_EF,
      ("qsgd_ef", "int8_acc", "wkv6", "wkv6_bwd_states", "wkv6_bwd"), True),
     ("(ba) hymba terngrad ef", "hymba-1.5b", 16, 4, 1024,
      dict(compressor="terngrad_kernel", wire_format="compressed", error_feedback=True),
      ("terngrad", "tern_pack", "tern_acc"), False),
-    # the vision and audio families at full depth: qwen2-vl-2b's 1.55B and
-    # seamless's 1.77B parameters fit W = 4 stacked EF rows
-    ("(bc) qwen2-vl qsgd ef", "qwen2-vl-2b", 28, 4, 1024, QSGD_EF, ("qsgd_ef", "int8_acc"),
+    # the vision and audio families at half depth for the script's time
+    # (at full depth qwen2-vl-2b's 1.55B and seamless's 1.77B parameters
+    # fit W = 4 stacked EF rows too)
+    ("(bc) qwen2-vl qsgd ef", "qwen2-vl-2b", 14, 4, 1024, QSGD_EF, ("qsgd_ef", "int8_acc"),
      True),
-    ("(bd) seamless signsgd_packed ef", "seamless-m4t-large-v2", 24, 4, 1024,
+    ("(bd) seamless signsgd_packed ef", "seamless-m4t-large-v2", 12, 4, 1024,
      dict(compressor="signsgd_packed", wire_format="compressed", error_feedback=True),
      ("sign_pack", "sign_vote"), True),
 )
@@ -2564,8 +2573,10 @@ def run_family_path(label: str, arch: str, layers: int, workers: int, seq: int, 
     t0 = time.perf_counter()
     bundle = build_bundle(cfg, comm, momentum_sgd(0.9), shape, n_workers=workers, seed=0,
                           device=DEV)
+    t_built = time.perf_counter()
     tr = Trainer(bundle, SyntheticBatches(cfg, shape, seed=0), constant(F_LR), log_every=1)
     state = tr.init(seed=0)
+    t_init = time.perf_counter()
     torch.cuda.synchronize()
     buckets = bundle.bucket_plan.buckets
     big = max(buckets, key=lambda b: b.size)
@@ -2573,7 +2584,8 @@ def run_family_path(label: str, arch: str, layers: int, workers: int, seq: int, 
           f"width, W {workers}, seq {seq}, global batch {F_BATCH}, {comm_kw}: {len(buckets)} "
           f"buckets, {sum(b.size for b in buckets)} params, largest bucket {big.name} "
           f"{big.size} elements (x W = {big.size * workers}); build+init "
-          f"{time.perf_counter() - t0:.2f} s ({card})")
+          f"{time.perf_counter() - t0:.2f} s (build {t_built - t0:.2f}, init "
+          f"{t_init - t_built:.2f}, the card's queue {time.perf_counter() - t_init:.2f}) ({card})")
     f32_loss = None
     if bf16_check:
         f32_loss = _f32_first_loss(cfg, state["params"], tr._put(tr.data.batch(0)), workers)
@@ -3549,18 +3561,25 @@ def run_phase_sm(card: str) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 R_RANKS, R_WORKERS = 2, 4
-#: (bq)'s depth: 14 of qwen3-0.6b's 28 layers (at 28 phase R took 147.6 s,
-#: past its ~90 s)
-R_LAYERS = 14
-#: (bq): one warm-up step, then the timed ones
-R_STEPS = 4
-#: (br): the identity's depth at full width, its steps, and its cells (the
-#: launcher's comm preset, lr, the kernels it launches: send side, reduction)
+#: the cells' depth at full width (qwen3-0.6b's 28 layers cut to 2) and
+#: steps, and the cells: (label, the launcher's comm preset and extra
+#: arguments, lr, the port kernel launched per own worker and bucket a
+#: step, the one launched per bucket a step).  (bq), the main path over
+#: ranks, is (br)'s ``qsgd_kernel_ef`` run: a launch of its own (at 14 or 4
+#: layers) cost a third process wave, ~45-53 s mostly process start
 R_ID_LAYERS, R_ID_STEPS = 2, 3
 R_ID_CELLS = (
-    ("qsgd_kernel_ef", 0.01, ("qsgd_ef", "int8_acc")),
-    ("signsgd_packed_ef", SIGN_LR, ("sign_pack", "sign_vote")),
+    ("(bq, br)", "qsgd_kernel_ef", (), 0.01, "qsgd_ef", "int8_acc"),
+    ("(br)", "signsgd_packed_ef", (), SIGN_LR, "sign_pack", "sign_vote"),
+    ("(bs)", "choco_qsgd", (), 0.01, "qsgd", None),
+    ("(bt)", "local_sgd", ("--local-steps", "2"), 0.01, None, None),
+    ("(bu)", "ring_manual", (), 0.01, None, None),
 )
+#: the cells (indices) that run at once, each cell's stacked twin beside its
+#: ranks: at most nine processes, and their peaks inside the card's 80 GB
+#: (all three of (bs)-(bu) at once ran out of memory on the H100: (bs) alone
+#: peaked at 19.96 + 2 x 14.70 GiB with its digests gathered on the card)
+R_ID_WAVES = ((0, 3, 4), (1, 2))
 
 
 def _src_env(extra: dict | None = None) -> dict:
@@ -3587,137 +3606,147 @@ def run_train(args: list[str], ranks: int, what: str, timeout: float = 700) -> l
     return stats
 
 
-def run_rank_path(card: str) -> dict[str, int]:
-    """(bq): qwen3-0.6b at full width, W = 4 over R = 2 gloo processes on
-    the one card through ``python -m repro_torch.launch.train --ranks 2
-    --device cuda`` (``qsgd_kernel`` EF, one bucket per leaf, momentum SGD
-    0.9, seq 1024, global batch 8): each rank's step ms, peak GiB, kernel
-    launches a step, and the bytes it moved a step against the wire booked
-    for its workers.  The launches a step must be the rank's own workers'
-    ``qsgd_ef`` per bucket and every bucket's ``int8_acc``, and the run's
-    those times its steps; the bytes sent and received, the int8 codes and
-    f32 norms of its workers and its three metrics, to the byte.  Returns
-    the ranks' launches."""
-    cfg = get_config("qwen3-0.6b").with_updates(n_layers=R_LAYERS)
-    comm = CommConfig(error_feedback=True, **QSGD16)
+def rank_bytes(comm_name: str, cfg) -> list[int]:
+    """The bytes each rank of a phase R cell sends (and receives) a step,
+    predicted from the bucket plan and the leaves: every step the loss, ce
+    and aux of its W/R workers to the other rank (12 B a worker); BSP's
+    compressed wire its workers' payloads of every bucket to the other rank
+    (``qsgd_kernel`` EF the int8 codes and f32 norm, ``signsgd_packed`` EF
+    the packed signs); CHOCO-SGD the boundary workers' payloads, each
+    bucket's int8 codes and f32 norm, to both neighbours; local SGD, on its
+    sync step (the second of three), its W/R rows of every leaf in f32 (the
+    ``xla`` average gathers them); the ring all-reduce 2(W - 1)(m/W) f32 of
+    every bucket padded to m."""
+    per = R_WORKERS // R_RANKS
+    metrics = 12 * per * (R_RANKS - 1)
+    comm = train_cli.COMM_PRESETS[comm_name]
     plan = aggregate.make_bucket_plan(comm, T.param_defs(cfg))
-    sizes = [b.size for b in plan.buckets]
-    per = R_WORKERS // R_RANKS
-    want_bytes = (R_RANKS - 1) * per * (sum(sizes) + 4 * len(sizes) + 3 * 4)
-    want_launches = {"qsgd_ef": per * len(sizes), "int8_acc": len(sizes)}
-    args = ["--arch", "qwen3-0.6b", "--layers", str(R_LAYERS), "--workers", str(R_WORKERS),
-            "--device", "cuda", "--comm", "qsgd_kernel_ef", "--opt", "momentum", "--lr", "0.01",
-            "--warmup", "1", "--seq-len", "1024", "--global-batch", "8",
-            "--steps", str(R_STEPS)]
-    t0 = time.perf_counter()
-    stats = run_train(args, R_RANKS, "(bq)")
-    launches = {k: 0 for k in KERNELS}
-    depth = (f"{R_LAYERS} of {get_config('qwen3-0.6b').n_layers} layers (cut: phase R's "
-             f"budget)")
-    for st in stats:
-        ps, lps = st["per_step"], st["launches_per_step"]
-        print(f"phase R (bq) rank {st['rank']} of {st['world']} (workers {st['workers'][0]}-"
-              f"{st['workers'][1] - 1}, {st['device']}; qwen3-0.6b {depth} at full width, "
-              f"qsgd_kernel EF, {len(sizes)} buckets, W {R_WORKERS} over {R_RANKS} gloo ranks, "
-              f"seq 1024, global batch 8; {card}): step ms {st['mean_step_ms']:.1f} (steps "
-              f"{', '.join(f'{x:.1f}' for x in st['step_ms'])}; the first excluded), peak "
-              f"{st['peak_gib']:.2f} GiB, launches a step {lps}; a step sent "
-              f"{ps['sent']:.0f} B and received {ps['received']:.0f} B in {ps['calls']:.0f} "
-              f"gathers (host {ps['dist_s']:.3f} s in torch.distributed, {ps['staged']:.0f} B "
-              f"staged through pinned host buffers in {ps['stage_s']:.3f} s, {ps['wait_s']:.3f} "
-              f"s waiting for the card before a copy); booked a step {st['booked_for_rank']:.0f} B "
-              f"for its {per} workers ({st['booked_per_worker']:.0f} B a worker, the "
-              f"reference's p(n-1) formulas at n = {R_WORKERS})")
-        if lps != want_launches or st["launches"] != {k: R_STEPS * v
-                                                      for k, v in want_launches.items()}:
-            raise AssertionError(f"phase R (bq) rank {st['rank']}: launches a step {lps}, "
-                                 f"in all {st['launches']}")
-        if not ps["sent"] == ps["received"] == want_bytes:
-            raise AssertionError(f"phase R (bq) rank {st['rank']}: moved {ps} a step, want "
-                                 f"{want_bytes} B each way")
-        if not all(math.isfinite(x) for x in st["step_ms"]):
-            raise AssertionError(f"phase R (bq): {st}")
-        for k, v in st["launches"].items():
-            launches[k] += v
-    losses = stats[0]["loss"]
-    if len(losses) != R_STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"phase R (bq): losses {losses}")
-    print(f"phase R (bq): losses {losses} (rank 0 logs); {time.perf_counter() - t0:.1f} s "
-          f"with the processes' start")
-    return launches
-
-
-def check_rank_identity() -> dict[str, int]:
-    """(br): qwen3-0.6b cut to 2 layers at full width, W = 4, 3 steps,
-    ``launch.train --ranks 2`` on the card against its stacked twin
-    ``--ranks 1``, both ``--deterministic`` and ``--digest``, the two
-    cells' four launches at once: the SHA-256 digests of their end states'
-    checkpoint trees (parameters, momentum, every worker's EF rows
-    gathered) equal array by array, rank 0's losses the stacked ones,
-    every rank's captured wire the stacked run's, and the launches exact
-    (the stacked run's send-side kernel for each of W workers and bucket a
-    step, each rank's for its W/R; every bucket's reduction a step on
-    each).  Digests, not checkpoint files: four fsynced 4.5 GB writes tied
-    the phase's time to the disk.  Returns the twins' launches."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    t0 = time.perf_counter()
-    cfg = get_config("qwen3-0.6b").with_updates(n_layers=R_ID_LAYERS)
-    launches = {k: 0 for k in KERNELS}
-    per = R_WORKERS // R_RANKS
-    with ThreadPoolExecutor(2 * len(R_ID_CELLS)) as pool:
-        runs = {}
-        for comm_name, lr, _ in R_ID_CELLS:
-            args = ["--arch", "qwen3-0.6b", "--layers", str(R_ID_LAYERS), "--workers",
-                    str(R_WORKERS), "--device", "cuda", "--comm", comm_name, "--opt", "momentum",
-                    "--lr", str(lr), "--warmup", "1", "--seq-len", "1024", "--global-batch", "8",
-                    "--steps", str(R_ID_STEPS), "--deterministic", "--digest"]
-            for r in (1, R_RANKS):
-                runs[comm_name, r] = pool.submit(run_train, args, r, f"(br) {comm_name}")
-        for comm_name, lr, (send, reduce) in R_ID_CELLS:
-            (stacked,), ranks = runs[comm_name, 1].result(), runs[comm_name, R_RANKS].result()
-            want_d, got_d = stacked["digest"], ranks[0]["digest"]
-            bad = sorted(k for k in want_d if got_d.get(k) != want_d[k]) if got_d else ["digest"]
-            bad += sorted(set(got_d or ()) - set(want_d))
-            kinds = {}
-            for k in want_d:
-                kind = "ef" if k.startswith("comm/ef") else k.split("/", 1)[0]
-                kinds[kind] = kinds.get(kind, 0) + 1
-            nb = len(aggregate.make_bucket_plan(train_cli.COMM_PRESETS[comm_name],
-                                                T.param_defs(cfg)).buckets)
-            if ranks[0]["loss"] != stacked["loss"] or len(stacked["loss"]) != R_ID_STEPS:
-                bad.append(f"losses {ranks[0]['loss']} != {stacked['loss']}")
-            bad += [f"rank {st['rank']} wire" for st in ranks if st["wire"] != stacked["wire"]]
-            want = [{send: R_ID_STEPS * R_WORKERS * nb, reduce: R_ID_STEPS * nb}] + [
-                {send: R_ID_STEPS * per * nb, reduce: R_ID_STEPS * nb}] * R_RANKS
-            got = [st["launches"] for st in [stacked] + ranks]
-            if bad or got != want or not kinds.get("ef"):
-                raise AssertionError(f"phase R (br) {comm_name}: {bad[:10]}; launches {got}, "
-                                     f"want {want}; arrays {kinds}")
-            print(f"phase R (br) {comm_name}: qwen3-0.6b {R_ID_LAYERS} layers at full width, "
-                  f"W {R_WORKERS} over {R_RANKS} ranks against stacked, {R_ID_STEPS} steps, "
-                  f"deterministic: losses {stacked['loss']}; end states bitwise (SHA-256 of "
-                  f"{kinds} checkpoint arrays), wire equal; launches stacked {got[0]}, "
-                  f"ranks {got[1:]}; step ms stacked {stacked['step_ms']}, ranks "
-                  f"{[st['step_ms'] for st in ranks]}; bytes sent a step a rank "
-                  f"{[st['per_step']['sent'] for st in ranks]}, staged "
-                  f"{[st['per_step']['staged'] for st in ranks]}; "
-                  f"{time.perf_counter() - t0:.1f} s since (br)'s start")
-            for st in [stacked] + ranks:
-                for k, v in st["launches"].items():
-                    launches[k] += v
-    print(f"phase R (br): {time.perf_counter() - t0:.1f} s")
-    return launches
+    gathered = {"qsgd_kernel_ef": lambda n: n + 4, "signsgd_packed_ef": ops.sign_packed_bytes}
+    if comm_name in gathered:
+        return [metrics + (R_RANKS - 1) * per * sum(gathered[comm_name](b.size)
+                                                    for b in plan.buckets)] * R_ID_STEPS
+    if comm_name == "choco_qsgd":
+        return [metrics + 2 * sum(b.size + 4 for b in plan.buckets)] * R_ID_STEPS
+    if comm_name == "ring_manual":
+        return [metrics + sum(2 * (R_WORKERS - 1) * (-(-b.size // R_WORKERS)) * 4
+                              for b in plan.buckets)] * R_ID_STEPS
+    n = sum(math.prod(d.shape) for d in flat(T.param_defs(cfg)).values())  # local_sgd
+    return [metrics, metrics + (R_RANKS - 1) * per * n * 4, metrics]
 
 
 def run_phase_r(card: str) -> dict[str, int]:
-    """(bq), then the identity (br); returns both's launches."""
+    """(bq, br) ``qsgd_kernel`` EF (the main path over ranks) and (br)
+    ``signsgd_packed`` EF, (bs) CHOCO-SGD over ``qsgd_kernel``, (bt) local
+    SGD (H 2) and (bu) BSP on the ``ring`` schedule: qwen3-0.6b cut to 2
+    layers at full width, W = 4, 3 steps, ``launch.train --ranks 2`` on the
+    card against its stacked twin ``--ranks 1``, both ``--deterministic``
+    and ``--digest``, the cells of a wave (:data:`R_ID_WAVES`) at once.
+    Each cell: the SHA-256 digests of the end states' checkpoint trees
+    (parameters, momentum, every worker's EF rows, diverging parameter rows
+    and CHOCO's mirrors gathered) equal array by array, rank 0's losses the
+    stacked ones, every rank's captured wire the stacked run's, the
+    launches exact a step and in all (the send-side kernel per worker and
+    bucket a step on the stacked run, per own worker on each rank; the
+    reduction per bucket a step on each), and each rank's bytes sent and
+    received a step equal to :func:`rank_bytes`, to the byte.  Prints each
+    cell's step ms, peak GiB, host seconds in ``torch.distributed``, the
+    wire booked for a rank's workers and the launch seconds, and each
+    wave's summed peak.  Digests, not checkpoint files: four fsynced 4.5 GB
+    writes tied the phase's time to the disk.  Returns the twins'
+    launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t_phase = time.perf_counter()
-    launches = run_rank_path(card)
-    for k, v in check_rank_identity().items():
-        launches[k] += v
+    cfg = get_config("qwen3-0.6b").with_updates(n_layers=R_ID_LAYERS)
+    launches = {k: 0 for k in KERNELS}
+    per = R_WORKERS // R_RANKS
+
+    def timed(args, ranks, what):
+        t = time.perf_counter()
+        return run_train(args, ranks, what), time.perf_counter() - t
+
+    for wave in R_ID_WAVES:
+        t0, peaks = time.perf_counter(), []
+        with ThreadPoolExecutor(2 * len(wave)) as pool:
+            runs = {}
+            for i in wave:
+                label, comm_name, extra, lr, _, _ = R_ID_CELLS[i]
+                args = ["--arch", "qwen3-0.6b", "--layers", str(R_ID_LAYERS), "--workers",
+                        str(R_WORKERS), "--device", "cuda", "--comm", comm_name, *extra, "--opt",
+                        "momentum", "--lr", str(lr), "--warmup", "1", "--seq-len", "1024",
+                        "--global-batch", "8", "--steps", str(R_ID_STEPS), "--deterministic",
+                        "--digest"]
+                for r in (1, R_RANKS):
+                    runs[i, r] = pool.submit(timed, args, r, f"{label} {comm_name}")
+            for i in wave:
+                label, comm_name, _, _, send, reduce = R_ID_CELLS[i]
+                ((stacked,), s_sec), (ranks, r_sec) = runs[i, 1].result(), runs[i, R_RANKS].result()
+                want_d = stacked["digest"]
+                bad = _digest_diffs(want_d, ranks[0]["digest"])
+                kinds = {}
+                for k in want_d:
+                    kind = "ef" if k.startswith("comm/ef") else k.split("/", 1)[0]
+                    kinds[kind] = kinds.get(kind, 0) + 1
+                if "br" in label and not kinds.get("ef"):
+                    bad.append(f"no EF rows among {kinds}")
+                if ranks[0]["loss"] != stacked["loss"] or len(stacked["loss"]) != R_ID_STEPS:
+                    bad.append(f"losses {ranks[0]['loss']} != {stacked['loss']}")
+                bad += [f"rank {st['rank']} wire" for st in ranks if st["wire"] != stacked["wire"]]
+                nb = len(aggregate.make_bucket_plan(train_cli.COMM_PRESETS[comm_name],
+                                                    T.param_defs(cfg)).buckets)
+
+                def want_of(workers, steps=R_ID_STEPS):
+                    out = {send: steps * workers * nb} if send else {}
+                    return {**out, reduce: steps * nb} if reduce else out
+
+                want = [want_of(R_WORKERS)] + [want_of(per)] * R_RANKS
+                got = [st["launches"] for st in [stacked] + ranks]
+                bad += [f"rank {st['rank']} launched {st['launches_per_step']} a step"
+                        for st in ranks if st["launches_per_step"] != want_of(per, 1)]
+                want_bytes = rank_bytes(comm_name, cfg)
+                for st in ranks:
+                    if not st["sent_per_step"] == st["received_per_step"] == want_bytes:
+                        bad.append(f"rank {st['rank']} moved {st['sent_per_step']} / "
+                                   f"{st['received_per_step']} B, want {want_bytes} a step")
+                bad += [f"rank {st['rank']} step ms {st['step_ms']}" for st in ranks
+                        if not all(math.isfinite(x) for x in st["step_ms"])]
+                if bad or got != want:
+                    raise AssertionError(f"phase R {label} {comm_name}: {bad[:10]}; launches "
+                                         f"{got}, want {want}")
+                peaks += [st["peak_gib"] for st in [stacked] + ranks]
+                sent = [st["sent_per_step"] for st in ranks]
+                print(f"phase R {label} {comm_name} ({card}): qwen3-0.6b {R_ID_LAYERS} layers at "
+                      f"full width, W {R_WORKERS} over {R_RANKS} ranks against stacked, {R_ID_STEPS} "
+                      f"steps, deterministic: losses {stacked['loss']}; end states bitwise "
+                      f"(SHA-256 of {kinds} checkpoint arrays), wire equal; launches stacked "
+                      f"{got[0]}, ranks {got[1:]}; bytes sent a step a rank {sent} (as "
+                      f"predicted, to the byte; booked for its {per} workers "
+                      f"{ranks[0]['booked_for_rank']:.0f} B, the reference's formulas at n = "
+                      f"{R_WORKERS}), staged {[st['per_step']['staged'] for st in ranks]}; step ms stacked "
+                      f"{stacked['step_ms']}, ranks {[st['step_ms'] for st in ranks]}; peak GiB "
+                      f"stacked {stacked['peak_gib']:.2f}, ranks "
+                      f"{[round(st['peak_gib'], 2) for st in ranks]}; host s in "
+                      f"torch.distributed a step a rank "
+                      f"{[round(st['per_step']['dist_s'], 3) for st in ranks]}; launch s stacked "
+                      f"{s_sec:.1f}, ranks {r_sec:.1f}, of which setup (imports, group, bundle, "
+                      f"state) {stacked['setup_s']:.1f} / {[round(st['setup_s'], 1) for st in ranks]} and "
+                      f"the end state's gather and digest {stacked['digest_s']:.1f} / "
+                      f"{[round(st['digest_s'], 1) for st in ranks]}")
+                for st in [stacked] + ranks:
+                    for k, v in st["launches"].items():
+                        launches[k] += v
+        print(f"phase R wave {', '.join(R_ID_CELLS[i][0] + ' ' + R_ID_CELLS[i][1] for i in wave)}:"
+              f" {time.perf_counter() - t0:.1f} s; the {len(peaks)} processes' peaks sum to "
+              f"{sum(peaks):.2f} GiB")
     print(f"phase R: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def _digest_diffs(want: dict, got: dict | None) -> list[str]:
+    """The arrays whose SHA-256 digests differ (or are missing)."""
+    if not got:
+        return ["digest"]
+    return sorted(k for k in want if got.get(k) != want[k]) + sorted(set(got) - set(want))
 
 
 def main() -> None:

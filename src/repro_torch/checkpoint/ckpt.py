@@ -101,14 +101,19 @@ def digest(tree: Any) -> dict[str, str]:
     """The SHA-256 of each leaf of ``tree`` as :func:`save` stores it (its
     dtype, shape and every byte), keyed by its path: two trees with equal
     digests write the same arrays, and the arrays of a saved checkpoint
-    digest as the tree it was saved from."""
-    out = {}
-    for k, v in flatten_with_paths(tree).items():
+    digest as the tree it was saved from.  Four leaves are copied and
+    hashed at once (hashlib releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(v) -> str:
         a = _to_host(v)
         h = hashlib.sha256(f"{a.dtype.str} {a.shape}".encode())
         h.update(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
-        out[k] = h.hexdigest()
-    return out
+        return h.hexdigest()
+
+    flat = flatten_with_paths(tree)
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(flat, pool.map(one, flat.values())))
 
 
 def _from_host(a: np.ndarray, like: Any, device, path: str) -> Any:

@@ -73,12 +73,14 @@ the psum and gather routes; the mean divides by the live (and valid) count
 ``n_eff`` (a booked scalar psum, or the gathered bits), so a churn round
 launches exactly the kernels of its churn-free twin.
 
-Over ranks (BSP on the data axis) a process runs
+Over ranks on the data axis a process runs
 :meth:`AggregationRound.add` for its own W/R workers only (the round's
-``workers``), and holds only their rows of ``ef`` and ``u``.  The wire stacks stay (W, n):
-the collectives of :meth:`AggregationRound.finish` move the other ranks'
-rows in (codes, packed bits, bf16 rows, the ring and rhd stacks, the
-gathered payloads), and every running sum over workers (the f32 dense and
+``workers``), and holds only their rows of ``ef`` and ``u``.  The wire
+stacks stay (W, n): the collectives of :meth:`AggregationRound.finish` move
+the other ranks' rows in (codes, packed bits, bf16 rows, the gathered
+payloads); the ring and rhd schedules run over the rank's own rows and
+send their hops to the other ranks (:mod:`repro_torch.core.collectives`);
+and every running sum over workers (the f32 dense and
 ``sum`` routes, ``majority``'s votes, PowerSGD's two factor sums) is made
 the sum over all W by ``comms.reduce_partial``.  A bf16 dense sum keeps
 its rows and adds them in worker order after the gather, as the stacked
@@ -238,7 +240,7 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     rank)) from the same initial draw.
 
     ``workers`` (a rank's W/R of them; default all): the workers whose rows
-    of ``ef`` and ``u`` this process holds."""
+    of ``ef``, ``u`` and the CHOCO-SGD mirrors this process holds."""
     rows = n_workers * shards
     held = rows if workers is None else len(workers) * shards
     state: dict[str, Any] = {"step": 0}
@@ -268,7 +270,7 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
                                     for b in plan.buckets]
     if comm.aggregator == "gossip" and comm.gossip_compress == "choco":
         for k in ("choco_xhat", "choco_nbr"):
-            state[k] = [torch.zeros((rows, b.size), dtype=f32, device=device)
+            state[k] = [torch.zeros((held, b.size), dtype=f32, device=device)
                         for b in plan.buckets]
     return state
 
@@ -557,9 +559,10 @@ class AggregationRound:
         self._sums: list[torch.Tensor | None] = [None] * nb
         #: (W, ...) stacks: int8 codes (``fused_ef``, ``int8_acc``), packed
         #: sign bytes (``sign``), packed ternary bytes (``tern``), bf16
-        #: vectors (``widen``), zero-padded vectors (``dense`` under ``ring``
-        #: or ``rhd``) or PowerSGD's inputs a_w without EF or under churn
-        #: (``powersgd``)
+        #: vectors (``widen``, and ``dense`` under a bf16 ``xla`` sum over
+        #: ranks), zero-padded vectors (``dense`` under ``ring`` or ``rhd``:
+        #: this process's rows only) or PowerSGD's inputs a_w without EF or
+        #: under churn (``powersgd``)
         self._stacks: list[torch.Tensor | None] = [None] * nb
         #: per-worker f32 scalars by payload leaf, each a (W,) vector: QSGD's
         #: norms (and ``s``), ternary scales
@@ -678,12 +681,17 @@ class AggregationRound:
                 a_m = a if live is None else self._masked_dense(i, w, a)
                 if comm.collective == "xla" and not self._rows_sum:
                     self._accumulate(i, a_m.to(self.dense_dtype))  # bf16 rounds every addition
-                else:
+                elif comm.collective == "xla":  # the bf16 rows, kept for the worker-order sum
+                    if self._stacks[i] is None:
+                        self._stacks[i] = torch.empty((W, b.size), dtype=self.dense_dtype,
+                                                      device=self.device)
+                    self._stacks[i][w].copy_(a_m)
+                else:  # a ring or rhd schedule over this process's rows, zero-padded
                     if self._stacks[i] is None:
                         self._stacks[i] = torch.zeros(
-                            (W, collectives.padded_len(b.size, W)), dtype=self.dense_dtype,
-                            device=self.device)
-                    self._stacks[i][w, :b.size].copy_(a_m)
+                            (len(self.workers), collectives.padded_len(b.size, W)),
+                            dtype=self.dense_dtype, device=self.device)
+                    self._stacks[i][r, :b.size].copy_(a_m)
             elif route == "widen":
                 a_m = a if live is None else self._masked_dense(i, w, a)
                 self._stack(i, b.size, torch.bfloat16)[w].copy_(a_m)
@@ -841,7 +849,7 @@ class AggregationRound:
                     agg = collectives.allreduce(self._stacks[i], b.size,
                                                 self.comm.collective).to(f32) / den
                 elif route == "dense" and self._rows_sum:
-                    rows = self._stacks[i][:, :b.size]
+                    rows = self._stacks[i]
                     comms.book_psum(rows[0], W)
                     rows = comms.fill_rows(rows)
                     acc = rows[0].clone()

@@ -21,8 +21,11 @@ the W workers are spread over R processes, and a rank writes only its own
 rows of a (W, ...) stack: :func:`all_gather` (and :func:`psum`,
 :func:`pmean`, :func:`widening_psum`, which gather first) fill the other
 ranks' rows for real, and :func:`reduce_partial` turns a rank's running
-sum over its own workers into the sum over all W.  Booking does not change:
-every rank books what the stacked program books, with n = W.
+sum over its own workers into the sum over all W.  :func:`ppermute` takes
+and returns the rank's own (W/R, ...) rows only: the rows whose source is
+another rank's cross by point-to-point messages, the rest are copied.
+Booking does not change: every rank books what the stacked program books,
+with n = W.
 """
 
 from __future__ import annotations
@@ -169,6 +172,26 @@ def active_group():
     return getattr(_STATE, "ranks", None) or None
 
 
+def layout(stack: torch.Tensor):
+    """(group, W, first worker) of a per-worker stack this process holds:
+    stacked, all W rows; under a rank group the rank's own W/R rows, and
+    the group to send to (None when it is one rank, with no other)."""
+    group = active_group()
+    if group is None:
+        return None, stack.shape[0], 0
+    if stack.shape[0] != group.per_rank:
+        raise ValueError(f"a rank holds its {group.per_rank} workers' rows, got "
+                         f"{tuple(stack.shape)}")
+    return (group if group.world > 1 else None), group.n_workers, group.lo
+
+
+def own_workers(n_workers: int) -> range:
+    """The workers of ``n_workers`` whose rows this process holds: all
+    stacked, the rank's own under a rank group."""
+    group = active_group()
+    return range(n_workers) if group is None else group.workers
+
+
 def fill_rows(stacked: torch.Tensor) -> torch.Tensor:
     """Under a rank group, the other ranks' rows of a (W, ...) stack moved
     in place, unbooked (the caller books its own records, as the ring and
@@ -264,12 +287,14 @@ def ppermute(stacked: torch.Tensor, shift: int) -> torch.Tensor:
     """Ring exchange over the worker axis: worker i receives worker
     (i - shift) mod W's row (shift 1 is the reference's "right" permutation
     j -> j + 1, shift -1 its "left" one); books one ``ppermute`` of one
-    worker's row."""
-    if active_group() is not None:
-        raise ValueError("a ring exchange over ranks moves its hops by send / recv: a later "
-                         "slice (ROADMAP.md Queue 1, slice 23)")
-    _record("ppermute", stacked[0], stacked.shape[0])
-    return torch.roll(stacked, shift, 0)
+    worker's row.  Under a rank group ``stacked`` is the rank's own rows and
+    so is the result: only the |shift| boundary rows a direction cross to
+    the neighbour rank (tag 1 rightward, 2 leftward), as their bytes."""
+    group, W, _ = layout(stacked)
+    _record("ppermute", stacked[0], W)
+    if group is None:
+        return torch.roll(stacked, shift, 0)
+    return group.shift_rows(stacked, shift, 1 if shift > 0 else 2)
 
 
 def all_gather(stacked: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,11 @@ ring whatever ``gossip_graph`` says, and so does the port.  Under churn the
 ring is masked: :func:`masked_mixing_matrix` folds a dropped peer's weight
 into each live row's self weight, ``dpsgd_mix(alive, rejoined)`` mixes with it,
 and ``choco_mix`` runs its masked round (``_choco_mix_churn``).
+
+Over ranks of the data axis (``comms.ranks``) each stack is the rank's own
+(W/R, n) rows: D-PSGD's exchange sends the boundary rows to the neighbour
+ranks (``comms.ppermute``), and CHOCO-SGD sends its boundary workers'
+compressed payloads, which the neighbour decodes itself.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch.core import comms
 from repro_torch.core.compression.base import (
+    Compressed,
     compress_p,
     decompress_p,
     needs_noise,
@@ -168,6 +174,11 @@ def choco_mix(comm: CommConfig, compressor, noise: Callable[[int, int], torch.Te
     the neighbours (the same values in the same additions as decoding each
     received payload), while the wire books the two payload ``ppermute``
     rounds of the reference.  The state's stacks are updated in place.
+    Under a rank group the stacks are the rank's own rows, each rank
+    compresses only its own workers, and its first and last worker's
+    payloads, every leaf as its raw bytes, go to the neighbour ranks, which
+    decode them (:func:`_neighbour_payloads`): the wire carries the payload
+    bytes the reference books, and the decode is bitwise the sender's.
 
     Under churn (``alive``, ``rejoined`` (W,); both rejoin policies): a
     dead worker freezes its parameters and mirrors, and its neighbours
@@ -184,17 +195,27 @@ def choco_mix(comm: CommConfig, compressor, noise: Callable[[int, int], torch.Te
                                 rejoined, nbr_bits)
     new_x = []
     for i, (p, xh, xn) in enumerate(zip(bufs, st.x_hat, st.x_hat_nbr)):
-        W, n = p.shape
+        (k, n), (group, W, _) = p.shape, comms.layout(p)
         kn = comp_knobs[i] if comp_knobs is not None else None
         u = noise(i, noise_len(compressor, n)) if needs_noise(compressor) else None
         q_self = torch.empty_like(p)
-        for wk in range(W):
+        for wk in range(k):
             c = compress_p(compressor, u, p[wk] - xh[wk], kn)
             q_self[wk] = decompress_p(compressor, c, kn)
+            if wk == 0:
+                first = c
         for _ in range(2):  # to the right neighbour, then to the left one, key by key
             for v in c.payload.values():
                 comms.book_ppermute(v, W)
-        q_nbr = torch.roll(q_self, 1, 0).add_(torch.roll(q_self, -1, 0))
+        if group is None:  # the ring closes here
+            left, right = q_self[-1], q_self[0]
+        else:  # the neighbour ranks' boundary payloads, decoded here
+            left, right = (decompress_p(compressor, Compressed(pl, n), kn)
+                           for pl in _neighbour_payloads(group, first.payload, c.payload))
+        q_nbr = torch.empty_like(q_self)  # left plus right neighbour, one (k, n) buffer
+        q_nbr[0], q_nbr[1:] = left, q_self[:-1]
+        q_nbr[:-1] += q_self[1:]
+        q_nbr[-1] += right
         xh.add_(q_self)
         del q_self
         xn.add_(q_nbr)
@@ -203,6 +224,25 @@ def choco_mix(comm: CommConfig, compressor, noise: Callable[[int, int], torch.Te
         step = (wt * xn).sub_(2 * wt * xh)
         new_x.append(step.mul_(gt).add_(p))
     return new_x, st
+
+
+def _neighbour_payloads(group, first: dict[str, torch.Tensor], last: dict[str, torch.Tensor]
+                        ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """CHOCO-SGD's cross-rank hops: the rank's last worker's payload to the
+    next rank (its right neighbour) and its first worker's to the previous
+    one, each leaf its own message (tag 2j + 1 rightward, 2j + 2 leftward);
+    returns the payloads of the left neighbour (the previous rank's last
+    worker) and the right one (the next rank's first), shaped as this
+    rank's."""
+    nxt, prv = (group.rank + 1) % group.world, (group.rank - 1) % group.world
+    left = {key: torch.empty_like(v) for key, v in last.items()}
+    right = {key: torch.empty_like(v) for key, v in first.items()}
+    sends, recvs = [], []
+    for j, key in enumerate(last):
+        sends += [(nxt, 2 * j + 1, last[key]), (prv, 2 * j + 2, first[key])]
+        recvs += [(prv, 2 * j + 1, left[key]), (nxt, 2 * j + 2, right[key])]
+    group.sendrecv(sends, recvs)
+    return left, right
 
 
 def choco_nbr_bits(alive: torch.Tensor, rejoined: torch.Tensor | None) -> torch.Tensor:

@@ -4,13 +4,17 @@ processes (the counterpart of the reference's ``data`` mesh axis,
 
 Rank r holds workers ``[r W/R, (r + 1) W/R)`` as its local stack; the
 stacked collectives of :mod:`repro_torch.core.comms` move the other ranks'
-rows for real while a :class:`RankGroup` is active (``comms.ranks``).  The
-transport is the backend's all-gather of contiguous blocks (and a barrier):
-a sum of partials gathers them and adds them in rank order, so every rank
-holds the same bits.  Blocks travel as their raw bytes (uint8), so no dtype
-needs the backend's support (gloo on the CPU here has bf16 but no int16); a
-tensor on the card is staged through a pinned host buffer, explicitly and
-counted, and the computation never leaves the card.
+rows for real while a :class:`RankGroup` is active (``comms.ranks``).  Two
+transports: the backend's all-gather of contiguous blocks (and a barrier),
+for the gathered routes (a sum of partials gathers them and adds them in
+rank order, so every rank holds the same bits); and point-to-point
+messages to named peer ranks (:meth:`RankGroup.sendrecv`), for the hops of
+the ring exchange, the ring and rhd all-reduces and the gossip neighbours,
+each message under its own tag (at R = 2 the left and the right neighbour
+are one rank).  Blocks travel as their raw bytes (uint8), so no dtype needs
+the backend's support (gloo on the CPU has bf16 but no int16); a tensor on
+the card is staged through a pinned host buffer, explicitly and counted,
+and the computation never leaves the card.
 
 gloo only: NCCL refuses two ranks on one card, and a machine with several
 cards is a later slice (``ROADMAP.md`` Queue 1).
@@ -41,7 +45,8 @@ RANK_ENV, WORLD_ENV, STORE_ENV = "RANK", "WORLD_SIZE", "REPRO_RANKS_STORE"
 @dataclass
 class RankStats:
     """What one rank really moved: bytes sent and received through the
-    backend, host seconds inside ``torch.distributed`` calls, and the
+    backend, host seconds inside ``torch.distributed`` calls and their
+    number (an all-gather, or one batch of point-to-point messages), and the
     staging of card tensors through pinned host buffers (bytes copied each
     way, seconds of the copies, and seconds waiting for the card's queued
     work before a copy)."""
@@ -91,24 +96,35 @@ class RankGroup:
 
     # ---- the transport ------------------------------------------------------------
 
+    def _host_bytes(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each block's raw bytes as a flat uint8 tensor the backend can
+        send: a host block's own bytes, a card block's copied into a pinned
+        host buffer once the card's queued work is done (counted)."""
+        srcs = [b.detach().contiguous().reshape(-1).view(torch.uint8) for b in blocks]
+        if not any(s.is_cuda for s in srcs):
+            return srcs
+        st = self.stats
+        t0 = time.perf_counter()
+        torch.cuda.current_stream(srcs[0].device).synchronize()
+        t1 = time.perf_counter()
+        hosts = []
+        for s in srcs:  # gloo moves host memory: stage through pinned buffers
+            host = torch.empty(s.numel(), dtype=torch.uint8, pin_memory=True)
+            host.copy_(s)
+            st.staged += s.numel()
+            hosts.append(host)
+        st.wait_s += t1 - t0
+        st.stage_s += time.perf_counter() - t1
+        return hosts
+
     def _exchange(self, block: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's ``block`` (equal shapes and dtypes), in rank order,
         as flat uint8 host tensors (this rank's own entry is ``block``'s
         bytes)."""
         import torch.distributed as dist
 
-        src = block.detach().contiguous().reshape(-1).view(torch.uint8)
+        (src,) = self._host_bytes([block])
         st = self.stats
-        if src.is_cuda:  # gloo moves host memory: stage through pinned buffers
-            t0 = time.perf_counter()
-            torch.cuda.current_stream(src.device).synchronize()
-            t1 = time.perf_counter()
-            host = torch.empty(src.numel(), dtype=torch.uint8, pin_memory=True)
-            host.copy_(src)
-            st.wait_s += t1 - t0
-            st.stage_s += time.perf_counter() - t1
-            st.staged += src.numel()
-            src = host
         outs = [torch.empty(src.numel(), dtype=torch.uint8, pin_memory=block.is_cuda)
                 for _ in range(self.world)]
         t0 = time.perf_counter()
@@ -127,6 +143,66 @@ class RankGroup:
             self.stats.stage_s += time.perf_counter() - t0
             self.stats.staged += raw.numel()
 
+    def sendrecv(self, sends: list[tuple[int, int, torch.Tensor]],
+                 recvs: list[tuple[int, int, torch.Tensor]]) -> None:
+        """Point-to-point messages: each ``(peer, tag, block)`` of ``sends``
+        goes to rank ``peer``, and each ``(peer, tag, dst)`` of ``recvs`` is
+        received from rank ``peer`` into ``dst`` (its raw bytes; any strides,
+        any device).  Every send is posted with every receive in one
+        ``batch_isend_irecv`` and all are waited for; a peer's message pairs
+        with the receive of the same tag, so two messages between one pair of
+        ranks in one call need two tags."""
+        import torch.distributed as dist
+
+        if not sends and not recvs:
+            return
+        st = self.stats
+        srcs = self._host_bytes([b for _, _, b in sends])
+        ops, raws = [], []
+        for (peer, tag, _), src in zip(sends, srcs):
+            ops.append(dist.P2POp(dist.isend, src, peer, tag=tag))
+            st.sent += src.numel()
+        for peer, tag, dst in recvs:
+            raw = torch.empty(dst.numel() * dst.element_size(), dtype=torch.uint8,
+                              pin_memory=dst.is_cuda)
+            ops.append(dist.P2POp(dist.irecv, raw, peer, tag=tag))
+            raws.append(raw)
+            st.received += raw.numel()
+        t0 = time.perf_counter()
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        st.dist_s += time.perf_counter() - t0
+        st.calls += 1
+        for (_, _, dst), raw in zip(recvs, raws):
+            self._into(dst, raw)
+
+    def shift_rows(self, local: torch.Tensor, shift: int, tag: int) -> torch.Tensor:
+        """The ring exchange over the ranks: this rank's rows of the (W, ...)
+        stack rolled by ``shift`` along the worker axis (worker i receives
+        worker (i - shift) mod W's row), from ``local``, its own (W/R, ...)
+        rows.  Rows whose source is this rank's are copied; the others come,
+        row blocks in worker order, from the ranks that hold them, under
+        ``tag``.  Returns a new (W/R, ...) tensor."""
+        k, W = self.per_rank, self.n_workers
+        out = torch.empty_like(local)
+        sends: dict[int, list[int]] = {}
+        recvs: dict[int, list[int]] = {}
+        for j in range(k):
+            src = (self.lo + j - shift) % W
+            if src // k == self.rank:
+                out[j].copy_(local[src - self.lo])
+            else:
+                recvs.setdefault(src // k, []).append(j)
+            dst = (self.lo + j + shift) % W
+            if dst // k != self.rank:
+                sends.setdefault(dst // k, []).append(j)
+        for js in (*sends.values(), *recvs.values()):  # a peer's rows are one block
+            if js != list(range(js[0], js[-1] + 1)):
+                raise ValueError(f"shift {shift} over {self.world} ranks splits a row block")
+        self.sendrecv([(peer, tag, local[js[0]:js[-1] + 1]) for peer, js in sends.items()],
+                      [(peer, tag, out[js[0]:js[-1] + 1]) for peer, js in recvs.items()])
+        return out
+
     def fill_rows(self, stacked: torch.Tensor) -> torch.Tensor:
         """A (W, ...) stack whose rows ``[lo, hi)`` this rank wrote: the
         other ranks' rows written in place from theirs; returns it."""
@@ -140,10 +216,13 @@ class RankGroup:
                 self._into(stacked[r * k:(r + 1) * k], raw)
         return stacked
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``local``, stacked in rank order: (R, *shape)."""
+    def gather(self, local: torch.Tensor, host: bool = False) -> torch.Tensor:
+        """Every rank's ``local``, stacked in rank order: (R, *shape), on
+        ``local``'s device, or with ``host`` in host memory, where the other
+        ranks' bytes arrive (a checkpoint's arrays go there: the card holds
+        no gathered copy)."""
         out = torch.empty((self.world,) + tuple(local.shape), dtype=local.dtype,
-                          device=local.device)
+                          device="cpu" if host else local.device)
         for r, raw in enumerate(self._exchange(local)):
             if r == self.rank:
                 out[r].copy_(local)

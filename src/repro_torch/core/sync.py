@@ -12,6 +12,11 @@ gradients inside each pod on every step and averages the parameters across
 pods every H steps; its stack holds one row per pod, so that average is an
 all-reduce over the pod rows, booked over the ``pod`` axis.
 
+Over ranks of the data axis (``comms.ranks``) a rank holds only its own
+rows of the stack, and the average moves the other ranks' contributions
+for real: the ``xla`` sum gathers the rows and adds them in worker order,
+the ``ring`` and ``rhd`` schedules send their hops between the ranks.
+
 Under churn the average runs over the live rows only (``alive``), or over
 the donors (``donor``: ``pull_avg`` excludes a stale rejoiner), and may
 carry a wire copy of the parameters (``payload``: the integrity axis's
@@ -77,14 +82,21 @@ def average_params(params: list[torch.Tensor], impl: str = "xla", alive=None, do
     runs over the copies, a non-donor's copy selected out (never multiplied by
     0: a NaN times 0 is NaN); adoption and the fallback use the clean
     ``params``.  ``donor`` or ``payload`` without ``alive`` raises
-    ``ValueError``."""
+    ``ValueError``.
+
+    Under a rank group each leaf is the rank's own rows: (W/R, *shape), or
+    pod-local SGD's one row at one pod (``copies`` W), of which the rank
+    sums only its own W/R copies; every row the rank holds adopts the mean
+    over all W."""
     if alive is None:
         if donor is not None or payload is not None:
             raise ValueError("average_params: donor and payload need alive")
         with comms.tag("local_sgd_sync"), torch.no_grad():
             for p in params:
-                p.copy_((_allreduce(p.reshape(p.shape[0], -1).to(f32), impl, copies)
-                         / (p.shape[0] * copies)).reshape(p.shape[1:]).to(p.dtype))
+                x = p.reshape(p.shape[0], -1).to(f32)
+                total, W = _allreduce(x, impl, copies)
+                avg = total / W
+                p.copy_(avg.reshape(p.shape[1:]).to(p.dtype))
         return params
     w = alive if donor is None else donor
     with comms.tag("local_sgd_sync"), torch.no_grad():
@@ -97,21 +109,29 @@ def average_params(params: list[torch.Tensor], impl: str = "xla", alive=None, do
                 x = torch.where(w[:, None] > 0, payload(i).reshape(x.shape).to(f32), 0.0)
             else:
                 x = x * w[:, None]
-            avg = (_allreduce(x, impl, copies) / n_eff).reshape(p.shape[1:]).to(p.dtype)
+            avg = (_allreduce(x, impl, copies)[0] / n_eff).reshape(p.shape[1:]).to(p.dtype)
             del x
             p.copy_(torch.where(adopt.reshape((-1,) + (1,) * (p.dim() - 1)), avg, p))
     return params
 
 
-def _allreduce(x: torch.Tensor, impl: str, copies: int) -> torch.Tensor:
-    """The f32 sum over the workers of an (R, n) stack whose rows each
-    stand for ``copies`` workers, by schedule ``impl``."""
-    W, n = x.shape[0] * copies, x.shape[1]
-    if copies > 1:
-        x = x.repeat_interleave(copies, 0)
+def _allreduce(x: torch.Tensor, impl: str, copies: int) -> tuple[torch.Tensor, int]:
+    """The f32 sum over the W workers of an (R, n) stack whose rows each
+    stand for ``copies`` workers, by schedule ``impl``, and W; under a rank
+    group ``x`` is the rank's own rows (or all R rows when ``copies`` > 1,
+    of which the rank sums its own workers' copies)."""
+    if copies > 1:  # each worker this process holds gets its row's copy
+        own = comms.own_workers(x.shape[0] * copies)
+        x = x[torch.arange(own.start, own.stop, device=x.device) // copies]
+    (k, n), (group, W, lo) = x.shape, comms.layout(x)
     if impl == "xla":
-        return comms.psum(x)
-    stack = x.new_zeros((W, collectives.padded_len(n, W)))
+        if group is None:
+            return comms.psum(x), W
+        full = x.new_empty((W, n))  # the other ranks' rows gathered in
+        full[lo:lo + k] = x
+        del x
+        return comms.psum(full), W
+    stack = x.new_zeros((k, collectives.padded_len(n, W)))
     stack[:, :n] = x
     del x
-    return collectives.allreduce(stack, n, impl)
+    return collectives.allreduce(stack, n, impl), W

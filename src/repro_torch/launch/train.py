@@ -14,7 +14,11 @@ stacked on the same device beside the workers (tensor-parallel layers, the
 vocabulary-parallel loss, per-shard gradient buckets: W * M (worker, shard)
 pairs); ``--fake-devices`` describes a jax mesh and has no port.
 ``--ranks R`` spreads the W workers over R ``torch.distributed`` processes
-(gloo; W % R == 0; BSP under the sequential step, :mod:`repro_torch.core.ranks`):
+(gloo; W % R == 0; :mod:`repro_torch.core.ranks`): BSP (``ring_manual``
+and ``collective="rhd"`` too, their hops sent between the ranks), local
+and post-local SGD (``local_sgd`` with ``--local-steps``), pod-local SGD at
+one pod (``pod_local_sgd`` without ``--pod``), D-PSGD and CHOCO-SGD
+(``dpsgd``, ``choco_qsgd``), each under the sequential step:
 without ``RANK`` in the environment this process starts the R rank
 processes itself over a file store and exits non-zero, with every rank's
 output, if any fails or overruns ``--rank-timeout``; under ``torchrun``
@@ -24,7 +28,8 @@ Under ``--ranks`` each process prints one ``rank-stats`` JSON line
 (:func:`fit_with_stats`): its step ms, peak GiB, the bytes it sent and
 received and its host seconds in ``torch.distributed`` a step, its kernel
 launches, the loss series (rank 0 logs), the wire captured over the run
-and the wire booked for its workers; with ``--ckpt-dir`` and
+and the wire booked for its workers, the bytes sent a step step by step;
+with ``--ckpt-dir`` and
 ``--ckpt-every`` its end state is the checkpoint, every worker's rows
 gathered into the reference's layout, and with ``--digest`` rank 0's line
 carries that layout's SHA-256 digests (:func:`repro_torch.checkpoint.ckpt.
@@ -36,8 +41,10 @@ cache of :mod:`repro_torch.core.compilecache`: a later
 launch on the same toolchain and card loads the kernel libraries and the
 bundle's booked wire instead of building them.  Comm presets
 are :data:`COMM_PRESETS`, the reference's dry-run table (``pod_local_sgd``:
-BSP inside each pod, local SGD across pods every 8 steps) and two of the
-port's own (``powersgd_ef``; ``churn_qsgd``: churn and integrity);
+BSP inside each pod, local SGD across pods every 8 steps) and the port's
+own (``powersgd_ef``; ``signsgd_packed_ef``; ``qsgd_kernel_ef``;
+``churn_qsgd``: churn and integrity; ``dpsgd`` and ``choco_qsgd``: gossip,
+which the reference's launcher has no preset for);
 ``--local-steps``, ``--bucket-mb``, ``--pod-local`` and ``--overlap`` (with
 ``--overlap-staleness``; ``--microbatch`` sets the pipeline's depth) tweak
 the preset.  ``--zero1`` shards the optimizer state over all W workers,
@@ -52,6 +59,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 from repro_torch.core.types import CommConfig
 
@@ -83,6 +91,12 @@ COMM_PRESETS = {
                              wire_format="compressed", error_feedback=True, bucket_mb=32,
                              dropout_rate=0.25, corruption_kind="nan", corruption_rate=0.25,
                              quarantine_limit=2),
+    # gossip on the ring of workers: D-PSGD, and CHOCO-SGD sending QSGD-16
+    # codes of x - x_hat to both neighbours
+    "dpsgd": CommConfig(aggregator="gossip"),
+    "choco_qsgd": CommConfig(aggregator="gossip", gossip_compress="choco",
+                             compressor="qsgd_kernel", compressor_kwargs={"levels": 16},
+                             bucket_mb=32),
 }
 
 #: largest vocabulary the bigram source serves (its table is vocab x vocab)
@@ -90,6 +104,7 @@ BIGRAM_MAX_VOCAB = 4096
 
 
 def main(argv=None) -> int:
+    t_main = time.perf_counter()
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", required=True)
     p.add_argument("--reduced", action="store_true", help="reduced smoke-scale variant")
@@ -224,7 +239,8 @@ def main(argv=None) -> int:
         state = trainer.init(args.seed)
     try:
         if args.ranks:
-            fit_with_stats(trainer, state, args.steps, start, digest=args.digest)
+            fit_with_stats(trainer, state, args.steps, start, digest=args.digest,
+                           t_main=t_main)
         else:
             trainer.fit(state, args.steps, start_step=start)
     finally:
@@ -235,16 +251,22 @@ def main(argv=None) -> int:
     return 0
 
 
-def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False) -> None:
+def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False,
+                   t_main: float | None = None) -> None:
     """``steps`` trainer steps, one ``fit`` call each, timed on the host
     clock to the device's end; prints this process's ``rank-stats`` line.
     The kernel launches are counted from 0 before the first step, the
     warm-up step included (``launches``; ``launches_per_step`` is the last
-    step's); the means a step leave the first out.  With ``digest`` every
+    step's); the means a step leave the first out (``sent_per_step`` and
+    ``received_per_step`` keep every step's bytes: a sync step moves more
+    than an inner one); ``booked_per_worker`` is the train program's wire
+    (the gossip program's under gossip).  With ``digest`` every
     rank gathers the end state's checkpoint tree after the steps and rank
-    0's line carries its digests (``digest``; null on the other ranks)."""
+    0's line carries its digests (``digest``; null on the other ranks).
+    ``setup_s`` is the host seconds from ``t_main`` (the launcher's start,
+    after the interpreter's) to the first step; ``digest_s`` the end
+    state's gather and hashing."""
     import json
-    import time
 
     import torch
 
@@ -253,9 +275,11 @@ def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False)
 
     b = trainer.bundle
     group, dev = b.ranks, b.device
+    program = "gossip" if "gossip" in b.wire else "train"
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     step_ms, per_step, wire = [], [], {}
+    setup_s = None if t_main is None else time.perf_counter() - t_main
     ops.reset_launches()
     for t in range(start, start + steps):
         before, launched = (group.stats.snapshot() if group else {}), dict(ops.LAUNCHES)
@@ -274,8 +298,8 @@ def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False)
                                       if v - launched.get(k, 0)}})
     timed = per_step[1:] or per_step
     mean = {k: sum(s[k] for s in timed) / len(timed) for k in timed[0] if k != "launches"}
-    booked = sum(b.wire["train"].values())  # one worker's, by the reference's formulas
-    digests = None
+    booked = sum(b.wire[program].values())  # one worker's, by the reference's formulas
+    digests, t_digest = None, time.perf_counter()
     if digest:
         from repro_torch.checkpoint.ckpt import digest as digest_of
 
@@ -287,11 +311,14 @@ def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False)
         "mean_step_ms": sum(step_ms[1:] or step_ms) / len(step_ms[1:] or step_ms),
         "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
                      else None),
-        "per_step": mean, "launches_per_step": timed[-1]["launches"],
+        "per_step": mean, "sent_per_step": [s.get("sent", 0) for s in per_step],
+        "received_per_step": [s.get("received", 0) for s in per_step],
+        "launches_per_step": timed[-1]["launches"],
         "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
         "loss": [row["loss"] for row in trainer.history], "wire": wire,
         "booked_per_worker": booked, "booked_for_rank": booked * len(b.workers),
-        "digest": digests}), flush=True)
+        "digest": digests, "setup_s": setup_s,
+        "digest_s": time.perf_counter() - t_digest if digest else None}), flush=True)
 
 
 if __name__ == "__main__":

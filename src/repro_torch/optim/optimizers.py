@@ -135,7 +135,8 @@ def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
     Over ranks (``own``, a rank's workers; ``for_ranks``) a process holds
     and updates only those workers' rows of each (W, k) view, and the
     all-gather moves the other ranks' updated rows in, so every rank ends
-    with the same parameters.
+    with the same parameters (``update_rows``: the rows it holds, indexed by
+    ``row_of``, each the same concatenation).
     """
 
     def _pad_rows(flat):
@@ -186,27 +187,30 @@ def zero1(opt: Optimizer, n_workers: int, shard_dims: tuple | None = None,
 
     def update_rows(grads_of, state, params, lr, row_of):
         ds = _dims(len(params))
-        # each (W[, M], k) slice stack shaped like its state leaf
+        ws = range(n_workers) if own is None else own
+        # each (W[, M], k) slice stack shaped like its state leaf, and the
+        # gradient slices of this process's workers
         p_sl = [torch.empty((n_workers,) + ((msize,) if msize > 1 else ())
                             + (-(-shard_local(p[0], d, msize, 0).numel() // n_workers),),
                             dtype=p.dtype, device=p.device) for p, d in zip(params, ds)]
         g_sl, cached = [], {}
-        for w in range(n_workers):
+        for i, w in enumerate(ws):
             r = row_of(w)
             if r not in cached:
                 cached = {r: grads_of(r)}  # rows come in order: keep one
             with torch.no_grad():
                 for j, (p, g, d) in enumerate(zip(params, cached[r], ds)):
-                    if w == 0:
-                        g_sl.append(torch.empty_like(p_sl[j], dtype=g.dtype))
+                    if i == 0:
+                        g_sl.append(p_sl[j].new_empty((len(ws),) + p_sl[j].shape[1:],
+                                                      dtype=g.dtype))
                     for m in range(msize):  # each shard its slice w of its local leaf
                         _slice_into(p_sl[j].view(n_workers, msize, -1)[w, m],
                                     shard_local(p[r], d, msize, m), w)
-                        _slice_into(g_sl[j].view(n_workers, msize, -1)[w, m],
+                        _slice_into(g_sl[j].view(len(ws), msize, -1)[i, m],
                                     shard_local(g, d, msize, m), w)
         del cached
         with torch.no_grad():
-            _, inner = opt.update(g_sl, state["inner"], p_sl, lr)
+            _, inner = opt.update(g_sl, state["inner"], [p[mine] for p in p_sl], lr)
             with comms.tag("zero1_gather"):
                 for p, new, d in zip(params, p_sl, ds):
                     new = new.view(n_workers, msize, -1)

@@ -94,17 +94,21 @@ shards.  PowerSGD keeps a Q per (worker, shard); the pipelined step keeps
 ``overlap_pending`` per (worker, shard).
 
 Ranks on the data axis (``ranks``, a
-:class:`repro_torch.core.ranks.RankGroup`; BSP under the sequential step):
+:class:`repro_torch.core.ranks.RankGroup`; BSP, local, post-local and
+pod-local SGD at one pod, D-PSGD and CHOCO-SGD under the sequential step):
 the W workers are spread over R processes, and each runs the programs for
 its own W/R workers (:meth:`StepBundle._split`; the rounds and ZeRO-1
 take them as :attr:`StepBundle.workers` and :attr:`StepBundle.rank_opt`),
 and its steps run under ``comms.ranks``, so the data-axis collectives move
-the other ranks' rows for real.  Every rank
-draws the same global batch, applies the same aggregate and holds the same
-parameters; per-worker state (``ef``, ``u``, ZeRO-1's slices) is the
-rank's rows only, and the checkpoint layout gathers it.  Every rank books
-what the stacked program books (n = W).  :func:`check_ranks` refuses the
-options a later slice brings.
+the other ranks' rows for real: the gathers and all-gathers, and the ring
+and rhd hops and gossip neighbour exchanges as point-to-point messages.
+Every rank draws the same global batch.  Per-worker state (``ef``, ``u``,
+the CHOCO mirrors, ZeRO-1's slices) is the rank's rows only, and so are
+diverging parameters and their optimizer state (:attr:`StepBundle.
+held_rows` of each (rows, ...) leaf, from :attr:`StepBundle.row_start`;
+pod-local SGD's one row at one pod is held by every rank); the checkpoint
+layout gathers them.  Every rank books what the stacked program books (n =
+W).  :func:`check_ranks` refuses the options a later slice brings.
 
 Loss, ``ce`` and ``aux`` are worker means.  The wire bytes of each program
 are booked at build time by running it once on the ``meta`` device, which
@@ -213,6 +217,23 @@ class StepBundle:
         return w // (self.n_workers // self.rows)
 
     @property
+    def row_start(self) -> int:
+        """The first parameter row this process holds (its first worker's)."""
+        return 0 if self.ranks is None or not self.stacked else self.row_of(self.ranks.lo)
+
+    @property
+    def held_rows(self) -> int:
+        """The parameter rows this process holds: all, or over ranks its
+        workers' rows (W/R of them, or pod-local SGD's one row at one pod)."""
+        if self.ranks is None or not self.stacked:
+            return self.rows
+        return self.row_of(self.ranks.hi - 1) + 1 - self.row_start
+
+    def local_row(self, w: int) -> int:
+        """Worker w's parameter row among the rows this process holds."""
+        return self.row_of(w) - self.row_start
+
+    @property
     def workers(self) -> range:
         """The workers this process runs: all W, or its rank's W/R."""
         return range(self.n_workers) if self.ranks is None else self.ranks.workers
@@ -223,10 +244,22 @@ class StepBundle:
 
     def _all_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Every worker's rows of a per-worker tensor this rank holds its rows
-        of: the ranks' rows gathered in worker order (stacked, ``x``)."""
+        of: the ranks' rows gathered in worker order, in host memory (only a
+        checkpoint reads them; stacked, ``x``)."""
         if self.ranks is None:
             return x
-        return self.ranks.gather(x).reshape((-1,) + tuple(x.shape[1:]))
+        return self.ranks.gather(x, host=True).reshape((-1,) + tuple(x.shape[1:]))
+
+    def _all_param_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every parameter row of a diverging (held rows, ...) leaf: the
+        ranks' rows gathered when each holds only its own."""
+        return x if self.held_rows == self.rows else self._all_rows(x)
+
+    def _own_param_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a diverging (rows, ...) leaf."""
+        if self.held_rows == self.rows:
+            return x
+        return x[self.row_start:self.row_start + self.held_rows].clone()
 
     def _worker_stack(self, vals: list[torch.Tensor]) -> torch.Tensor:
         """A (W, ...) stack of one value per worker from this process's own
@@ -338,7 +371,7 @@ class StepBundle:
         def place(p):
             p = p.detach().to(self.device)
             if stack:
-                return torch.stack([p] * self.rows)
+                return torch.stack([p] * self.held_rows)
             return p if self.stacked else p.requires_grad_(True)
 
         return tree_map(place, params)
@@ -388,13 +421,15 @@ class StepBundle:
         per worker of the pod).  The churn and integrity entries
         (``alive_prev``, ``pod_alive_prev``, ``qcount``,
         ``quarantine_total``, ``escalation_total``) are (W,) here as there.
-        Diverging parameters keep their rows (W, or P under pod-local SGD).
-        Under the model axis the parameters are the global tree and every
-        per-worker entry has one row per (worker, shard), in the
+        Diverging parameters keep their rows (W, or P under pod-local SGD),
+        and so does their optimizer state.  Under the model axis the
+        parameters are the global tree and every per-worker entry has one
+        row per (worker, shard), in the
         reference's device order: the stacks, the churn and integrity
         vectors, ZeRO-1's (W, M, k) slices and each shard's Q.  Over ranks
-        every rank gathers the per-worker rows (``ef``, ``u``, ZeRO-1's
-        slices) into that layout, so every rank must call this.  Views where
+        every rank gathers the per-worker rows (``ef``, ``u``, the CHOCO
+        mirrors, ZeRO-1's slices, diverging parameters and their optimizer
+        state) into that layout, so every rank must call this.  Views where
         it can."""
         W, defs = self.n_workers * self.model, T.param_defs(self.cfg, self.model)
         n_leaves = len(leaves(defs))
@@ -404,6 +439,7 @@ class StepBundle:
                 return {k: opt_ref(v) for k, v in x.items()}
             if isinstance(x, list) and len(x) == n_leaves:
                 return unflatten_like(defs, [self._all_rows(t).reshape(-1) if self.opt.n_shards
+                                             else self._all_param_rows(t) if self.stacked
                                              else t for t in x])
             return x
 
@@ -418,7 +454,10 @@ class StepBundle:
             comm["psgd_q"] = [q.reshape(G, 1, M, -1).expand(-1, self.n_workers // G, -1, -1)
                               .reshape(-1) if q.numel() else q.reshape(-1)
                               for q in comm["psgd_q"]]
-        return {"params": state["params"], "opt": opt_ref(state["opt"]), "comm": comm,
+        params = state["params"]
+        if self.stacked:
+            params = tree_map(self._all_param_rows, params)
+        return {"params": params, "opt": opt_ref(state["opt"]), "comm": comm,
                 "step": state["step"]}
 
     def checkpoint_like(self, keys: tuple[str, ...] = ("params", "opt", "comm", "step")
@@ -437,6 +476,9 @@ class StepBundle:
             if self.ranks is not None and self.opt.n_shards:  # this rank's (W, k) rows
                 return [self._own_rows(a.reshape(t.shape)).clone()
                         for a, t in zip(leaves(tree), tmpl)]
+            if self.stacked:  # this process's rows of each diverging leaf's state
+                return [self._own_param_rows(a.reshape(t.shape))
+                        for a, t in zip(leaves(tree), tmpl)]
             return [a.reshape(t.shape) for a, t in zip(leaves(tree), tmpl)]
         return tree
 
@@ -449,6 +491,8 @@ class StepBundle:
         out = {}
         if "params" in tree:
             out["params"] = self._place(tree["params"], stack=False)
+            if self.stacked:
+                out["params"] = tree_map(self._own_param_rows, out["params"])
         if "opt" in tree:
             out["opt"] = self._opt_from_checkpoint(tree["opt"], tmpl["opt"])
         if "comm" in tree:
@@ -482,7 +526,7 @@ class StepBundle:
     def _worker_params(self, params: Any, w: int, grad: bool = True) -> Any:
         if not self.stacked:
             return params
-        r = self.row_of(w)
+        r = self.local_row(w)
         if not grad:
             return tree_map(lambda p: p[r], params)
         return tree_map(lambda p: p[r].detach().requires_grad_(True), params)
@@ -531,22 +575,24 @@ class StepBundle:
     def _update(self, opt_state: Any, params: Any, grads_of: Callable[[int], list],
                 lr: float) -> Any:
         """The optimizer on the shared tree (``grads_of(0)``), or on each
-        row in place (``grads_of(r)``, called in row order; ``zero1`` reads
-        each worker's slice of its own row); a 0-dim state leaf (adamw's
-        ``t``) advances once, as each row's update returns the same value.
-        ``zero1``'s all-gather is booked over every data axis."""
-        pleaves, opt = leaves(params), self.rank_opt
+        row this process holds in place (``grads_of(r)`` of the global row r,
+        called in row order; ``zero1`` reads each worker's slice of its own
+        row); a 0-dim state leaf (adamw's ``t``) advances once, as each row's
+        update returns the same value.  ``zero1``'s all-gather is booked over
+        every data axis."""
+        pleaves, opt, start = leaves(params), self.rank_opt, self.row_start
         if not self.stacked:
             with comms.over(self.data_axes):
                 return opt.update(grads_of(0), opt_state, pleaves, lr)[1]
         if opt.update_rows is not None:
             with comms.over(self.data_axes):
-                return opt.update_rows(grads_of, opt_state, pleaves, lr, self.row_of)
+                return opt.update_rows(lambda r: grads_of(r + start), opt_state, pleaves, lr,
+                                       self.local_row)
         new = opt_state
-        for r in range(self.rows):
+        for r in range(self.held_rows):
             rows = tree_map(lambda x: x[r] if isinstance(x, torch.Tensor) and x.ndim else x,
                             opt_state)
-            new = opt.update(grads_of(r), rows, [p[r] for p in pleaves], lr)[1]
+            new = opt.update(grads_of(r + start), rows, [p[r] for p in pleaves], lr)[1]
         return unflatten_like(opt_state, [o if o.ndim else n for o, n in
                                           zip(leaves(opt_state), leaves(new))])
 
@@ -751,10 +797,16 @@ class StepBundle:
     def inner_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
                    lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
         """A local step: no gradient leaves its worker."""
+        with comms.ranks(self.ranks):
+            return self._inner_step(state, batch, lr)
+
+    def _inner_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
+                    lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
         params, parts, ms = state["params"], self._split(batch), []
 
         def grads_of(w):
-            grads, m = self._grads(self._worker_params(params, w), parts[w], self.microbatch)
+            grads, m = self._grads(self._worker_params(params, w),
+                                   parts[w - self.workers.start], self.microbatch)
             ms.append(m)
             return self._clip(grads)
 
@@ -770,7 +822,7 @@ class StepBundle:
         if churn_enabled(self.comm):
             return self._churn_sync(state, across_pods)
         plist = leaves(state["params"])
-        with comms.over(("pod",) if across_pods else self.data_axes):
+        with comms.ranks(self.ranks), comms.over(("pod",) if across_pods else self.data_axes):
             for m in range(self.model):  # each shard's local leaves, replicated ones once
                 with comms.muted(m > 0):
                     sync.average_params(self.local_leaves(plist, m, 1, replicated=False),
@@ -840,15 +892,21 @@ class StepBundle:
 
     def gossip_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
                     lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
+        with comms.ranks(self.ranks):
+            return self._gossip_step(state, batch, lr)
+
+    def _gossip_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
+                     lr: float) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
         params, parts, ms = state["params"], self._split(batch), []
 
         def grads_of(w):
-            grads, m = self._grads(self._worker_params(params, w), parts[w], 1)
+            grads, m = self._grads(self._worker_params(params, w), parts[w - self.workers.start],
+                                   1)
             ms.append(m)
             return grads
 
         opt_state = self._update(state["opt"], params, grads_of, lr)
-        comm, cstate, step, W = self.comm, state["comm"], state["step"], self.n_workers
+        comm, cstate, step = self.comm, state["comm"], state["step"]
         # the cell's compressor, not the buckets' rules, as in the reference
         comp = get_compressor(comm.compressor, **comm.compressor_kwargs)
         choco = comm.gossip_compress == "choco" and comp is not None
@@ -857,7 +915,8 @@ class StepBundle:
         alive = rejoined = nbr = None
         if churn_enabled(comm):  # each worker's bit for this mixing round
             alive, rejoined, _, _ = self._step_mask(state)
-        # bucket by bucket: one (W, n) f32 stack at a time (the largest is 2.5 GB);
+        # bucket by bucket: one (W, n) f32 stack at a time (the largest is 2.5 GB;
+        # over ranks the rank's own rows);
         # under the model axis shard by shard, last to first: only shard 0
         # writes the replicated leaves, so every shard reads them unmixed
         with comms.tag("gossip_mix"), comms.over(self.data_axes), torch.no_grad():
@@ -869,7 +928,8 @@ class StepBundle:
                 cst = aggregate.shard_view(cstate, m, self.model)
                 with comms.muted(m > 0):
                     for i, b in enumerate(self.bucket_plan.buckets):
-                        parts_i = [loc[j].reshape(W, -1).to(f32) for j, _ in b.segments]
+                        parts_i = [loc[j].reshape(loc[j].shape[0], -1).to(f32)
+                                   for j, _ in b.segments]
                         x = parts_i[0] if len(parts_i) == 1 else torch.cat(parts_i, 1)
                         del parts_i
                         if choco:
@@ -1012,18 +1072,14 @@ def check_ranks(comm: CommConfig, n_workers: int, pods: int, model: int,
                 group: RankGroup | None) -> None:
     """Refuse, with the later slice that brings it (``ROADMAP.md`` Queue
     1), each option that ranks on the data axis do not run yet: they run
-    BSP under the sequential step."""
+    BSP, local, post-local and pod-local SGD at one pod, D-PSGD and
+    CHOCO-SGD, under the sequential step."""
     if group is None:
         return
     if group.n_workers != n_workers:
         raise ValueError(f"the rank group splits {group.n_workers} workers, the bundle has "
                          f"{n_workers}")
     refused = (
-        (comm.sync in ("local", "post_local") or comm.pod_local,
-         "local, post-local and pod-local SGD (the parameter average moved between the ranks)",
-         23),
-        (comm.aggregator == "gossip", "gossip and CHOCO-SGD (their ring hops sent between the "
-                                      "ranks)", 23),
         (comm.overlap == "pipelined", "the pipelined step", 24),
         (churn_enabled(comm) or effective_corruption_kind(comm) != "none",
          "churn and integrity", 25),
@@ -1032,7 +1088,8 @@ def check_ranks(comm: CommConfig, n_workers: int, pods: int, model: int,
     for hit, what, slice_no in refused:
         if hit:
             raise ValueError(f"{what} over ranks: a later slice (ROADMAP.md Queue 1, slice "
-                             f"{slice_no}); ranks run BSP under the sequential step")
+                             f"{slice_no}); ranks run the sequential step without churn, "
+                             f"on the data axis alone")
 
 
 def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,

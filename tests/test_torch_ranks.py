@@ -18,16 +18,19 @@ the same cells stacked in this process.
   restored at R = 2: the arrays equal, and the next step bitwise the
   continuous run's.
 * The entry point: ``python -m repro_torch.launch.train --ranks 2 --device
-  cpu`` against ``--ranks 1``, its stacked twin: the checkpoints each
-  writes at its end equal bitwise, and the ``rank-stats`` lines' losses,
-  captured wire and ``--digest`` digests (those of the arrays written)
-  equal.
-* Each option ranks refuse raises a ``ValueError`` naming its later slice;
+  cpu`` against ``--ranks 1``, its stacked twin, for the main path under
+  ZeRO-1 and for local SGD (H 2): the checkpoints each writes at its end
+  equal bitwise, and the ``rank-stats`` lines' losses, captured wire and
+  ``--digest`` digests (those of the arrays written) equal.
+* Each option ranks refuse raises a ``ValueError`` naming its later slice
+  (the pipelined step, churn and integrity, the model and pod axes);
   the launcher fails with every rank's output when a rank fails or the
   ranks overrun their time limit.
 
 The routes (``bucket_route``) are in test_torch_ranks_routes.py, the main
-path against the reference's ``Trainer`` in test_torch_ranks_ref.py."""
+path against the reference's ``Trainer`` in test_torch_ranks_ref.py, the
+sync schemes and gossip in test_torch_ranks_sync.py,
+test_torch_ranks_gossip.py and test_torch_ranks_sync_ref.py."""
 
 import json
 import os
@@ -84,11 +87,16 @@ def run_ranked(cells: list[dict], world: int, out_dir, timeout: float = 240.0) -
                         for r in range(world)] for c in cells}
 
 
-def check_against_stacked(stacked: dict, ranked: list[dict], bitwise: bool = True) -> None:
+def check_against_stacked(stacked: dict, ranked: list[dict], bitwise: bool = True,
+                          rows: int = 0) -> None:
     """A ranked run's records against its stacked twin's: the loss series
-    (rank 0 logs), every state array each rank holds, the parameters of
-    every rank against rank 0's bitwise, the records captured and booked;
-    each rank holds its own W/R workers' rows of ``ef`` and ``u``.  Not
+    (rank 0 logs), every state array each rank holds, and every one of the
+    stacked run's held by some rank, the parameters of every rank against
+    rank 0's bitwise where both hold them, the records captured and every
+    program booked; each rank holds its own W/R workers' rows of ``ef``,
+    ``u`` and the CHOCO mirrors, and, with ``rows`` diverging parameter
+    rows (W, or 1 under pod-local SGD at one pod), its own rows of the
+    parameters and of their optimizer state (W/R, or the one row).  Not
     ``bitwise`` (a running f32 sum over each rank's workers): the losses
     and parameters within rtol 1e-6 (atol 1e-6 x the array's largest
     magnitude); the optimizer, EF and momentum rows carry three steps of the
@@ -111,21 +119,29 @@ def check_against_stacked(stacked: dict, ranked: list[dict], bitwise: bool = Tru
         same(rec["eval"], stacked["eval"], "loss")
     if "kept" in stacked:  # the masked sparsifiers' kept share over all W
         same(ranked[0]["kept"], stacked["kept"], "loss")
+    held_keys = {k for rec in ranked for k in rec if k.startswith(STATE_KEYS)}
+    assert held_keys == {k for k in stacked if k.startswith(STATE_KEYS)}
+    per_worker = ("ef/", "u/", "choco_xhat/", "choco_nbr/")
     for r, rec in enumerate(ranked):
         own = range(r * W // world, (r + 1) * W // world)
         for k, v in rec.items():
             if k.startswith(STATE_KEYS):
                 same(v, stacked[k], f"rank {r} {k}")
-            if k.startswith("param/"):
+            if k.startswith("param/") and k in ranked[0]:
                 np.testing.assert_array_equal(v, ranked[0][k], err_msg=f"rank {r} {k}")
-        rows = {k for k in rec if k.startswith(("ef/", "u/"))}
-        want_rows = {k for k in stacked if k.startswith(("ef/", "u/"))
+        got_rows = {k for k in rec if k.startswith(per_worker)}
+        want_rows = {k for k in stacked if k.startswith(per_worker)
                      and int(k.rsplit("/", 1)[1]) in own}
-        assert rows == want_rows, f"rank {r} holds {sorted(rows)[:4]}"
-        for k, shapes in json.loads(str(rec["held"])).items():
-            assert all(s is None or s[0] == W // world for s in shapes), (k, shapes)
-        assert json.loads(str(rec["records"])) == json.loads(str(stacked["records"]))
-        assert json.loads(str(rec["booked"])) == json.loads(str(stacked["booked"]))
+        assert got_rows == want_rows, f"rank {r} holds {sorted(got_rows)[:4]}"
+        held = json.loads(str(rec["held"]))
+        for k in ("ef", "u", "choco_xhat", "choco_nbr"):
+            assert all(s is None or s[0] == W // world for s in held.get(k, ())), (k, held[k])
+        if rows:  # the diverging parameters and their state: this rank's rows
+            want = W // world if rows == W else rows
+            for k in ("params", "opt"):
+                assert held[k] and all(s[0] == want for s in held[k]), (k, held[k][:3])
+        for k in ("records", "booked", "programs"):
+            assert json.loads(str(rec[k])) == json.loads(str(stacked[k])), k
     assert all(r["loss"].size == 0 for r in ranked[1:])  # only rank 0 logs
 
 
@@ -202,12 +218,10 @@ def _group(n_workers: int = W) -> RankGroup:
 
 
 REFUSED = {
-    "local": (dict(sync="local", local_steps=2), {}, "slice 23"),
-    "post_local": (dict(sync="post_local", post_local_switch=2, local_steps=2), {}, "slice 23"),
-    "pod_local": (dict(pod_local=True, local_steps=2), {"pods": 2}, "slice 23"),
-    "gossip": (dict(aggregator="gossip"), {}, "slice 23"),
-    "choco": (dict(aggregator="gossip", gossip_compress="choco", compressor="qsgd_kernel"), {},
-              "slice 23"),
+    "pod_local": (dict(pod_local=True, local_steps=2), {"pods": 2}, "slice 26"),
+    "pod_local_pods4": (dict(pod_local=True, local_steps=2), {"pods": 4}, "slice 26"),
+    "choco_churn": (dict(aggregator="gossip", gossip_compress="choco", compressor="qsgd_kernel",
+                         dropout_rate=0.25), {}, "slice 25"),
     "pipelined": (dict(overlap="pipelined"), {"microbatch": 2}, "slice 24"),
     "churn": (dict(dropout_rate=0.25), {}, "slice 25"),
     "integrity": (dict(corruption_kind="nan", corruption_rate=0.25), {}, "slice 25"),
@@ -241,15 +255,19 @@ def test_ranks_refuse_serving_and_a_mismatched_group():
 TRAIN = ["--arch", "qwen3-0.6b", "--reduced", "--workers", str(W), "--device", "cpu",
          "--comm", "qsgd_kernel_ef", "--zero1", "--steps", "3", "--global-batch", "8",
          "--seq-len", "16"]
+#: the same, local SGD averaging every 2 steps (no ZeRO-1)
+TRAIN_LOCAL = [a for a in TRAIN if a != "--zero1"]
+TRAIN_LOCAL[TRAIN_LOCAL.index("qsgd_kernel_ef")] = "local_sgd"
+TRAIN_LOCAL += ["--local-steps", "2"]
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
-def _train(ranks: int, ckpt) -> list[dict]:
-    """``python -m repro_torch.launch.train --ranks ranks``, its end state
-    checkpointed under ``ckpt`` and digested: each process's ``rank-stats``
-    line, in rank order."""
+def _train(ranks: int, ckpt, args: list[str] = TRAIN) -> list[dict]:
+    """``python -m repro_torch.launch.train *args --ranks ranks``, its end
+    state checkpointed under ``ckpt`` and digested: each process's
+    ``rank-stats`` line, in rank order."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=SRC)
-    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN,
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args,
                           "--ranks", str(ranks), "--ckpt-dir", str(ckpt), "--ckpt-every", "3",
                           "--digest"],
                          capture_output=True, text=True, timeout=240, env=env)
@@ -261,31 +279,45 @@ def _train(ranks: int, ckpt) -> list[dict]:
 
 
 def test_launch_train_over_ranks_is_its_stacked_twin(tmp_path):
-    """The entry point at --ranks 2 and --ranks 1 (stacked), at once: the
-    checkpoints of their end states equal bitwise, and rank 0's digests
-    of it the stacked run's and those of the arrays written; rank 0's loss
-    series the stacked one's, every rank's captured wire the stacked run's,
-    each rank sent and received bytes and the stacked run none."""
+    """The entry point at --ranks 2 and --ranks 1 (stacked), at once, for
+    the main path under ZeRO-1 and for local SGD (H 2): the checkpoints of
+    their end states equal bitwise, and rank 0's digests of it the stacked
+    run's and those of the arrays written; rank 0's loss series the stacked
+    one's, every rank's captured wire the stacked run's, each rank sent and
+    received bytes and the stacked run none (local SGD: its metrics on the
+    inner steps, its rows' gather on the sync step and for the checkpoint)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(4) as pool:
         runs = [pool.submit(_train, r, tmp_path / f"ranks{r}") for r in (1, 2)]
+        local = [pool.submit(_train, r, tmp_path / f"local{r}", TRAIN_LOCAL) for r in (1, 2)]
         (stacked,), ranked = runs[0].result(), runs[1].result()
+        _check_twin(tmp_path / "local1", tmp_path / "local2", local[0].result()[0],
+                    local[1].result(), "local_sgd_sync|data", ("params/", "opt/"))
+    for st in local[1].result():  # 12 B a metric; the sync step gathers the rows too (and
+        sent = st["sent_per_step"]  # the last, the checkpoint's)
+        assert sent[0] == 24 < sent[1] and st["received_per_step"] == sent
+    _check_twin(tmp_path / "ranks1", tmp_path / "ranks2", stacked, ranked, "grad_agg|data",
+                ("comm/ef", "opt/"))
+
+
+def _check_twin(stacked_dir, ranked_dir, stacked: dict, ranked: list[dict], wire_key: str,
+                kinds: tuple[str, ...]) -> None:
     assert len(stacked["loss"]) == 3 and np.isfinite(stacked["loss"]).all()
     assert ranked[0]["loss"] == stacked["loss"] and ranked[1]["loss"] == []
     for st in ranked:
-        assert st["wire"] == stacked["wire"] and "grad_agg|data" in st["wire"]
+        assert st["wire"] == stacked["wire"] and wire_key in st["wire"]
         assert st["workers"] == [st["rank"] * 2, st["rank"] * 2 + 2]
         assert st["per_step"]["sent"] == st["per_step"]["received"] > 0
     assert stacked["per_step"] == {} and stacked["workers"] == [0, W]
-    for r in (1, 2):
-        manifest = json.loads((tmp_path / f"ranks{r}" / "step3" / "manifest.json").read_text())
+    for d in (stacked_dir, ranked_dir):
+        manifest = json.loads((d / "step3" / "manifest.json").read_text())
         assert manifest["step"] == 3
-    with np.load(tmp_path / "ranks1" / "step3" / "arrays.npz") as a, \
-            np.load(tmp_path / "ranks2" / "step3" / "arrays.npz") as b:
+    with np.load(stacked_dir / "step3" / "arrays.npz") as a, \
+            np.load(ranked_dir / "step3" / "arrays.npz") as b:
         assert sorted(a.files) == sorted(b.files)
-        assert any(k.startswith("comm/ef") for k in a.files)
-        assert any(k.startswith("opt/") for k in a.files)
+        for kind in kinds:
+            assert any(k.startswith(kind) for k in a.files), kind
         for k in a.files:
             np.testing.assert_array_equal(b[k], a[k], err_msg=k)
         assert digest({k: a[k] for k in a.files}) == stacked["digest"]

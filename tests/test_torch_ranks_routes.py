@@ -15,16 +15,24 @@ workers is added to the other ranks' partials (``reduce_partial``: the f32
 and parameters within rtol 1e-6 (atol 1e-6 x the largest magnitude) and
 the state rows, which carry three steps of that drift, within atol 1e-4 x
 their largest magnitude.  The records captured over each run
-and the booked train program equal the stacked run's on every rank."""
+and the booked train program equal the stacked run's on every rank.  The
+ring and rhd schedules send their hops between the ranks: a rank's bytes a
+step are its three metrics' gathers and, a bucket padded to m elements of
+s bytes, the ring's 2(W - 1)(m/W) s, rhd's 2 (W/R) m (R - 1)/R s, to the
+byte."""
+
+import json
 
 import numpy as np
 import pytest
 
 from repro_torch.core.aggregate import bucket_route
+from repro_torch.core.collectives import padded_len
 from repro_torch.core.compression.base import get_compressor
 from repro_torch.core.types import CommConfig
 from test_torch_ranks import W, cell, check_against_stacked, run_ranked, run_stacked
 from test_torch_sync import _one_thread  # noqa: F401
+from torch_ranked import make_cell
 
 CW = dict(wire_format="compressed")
 #: name -> (CommConfig fields, the route, bitwise); bucket_mb 0.5 (several buckets)
@@ -87,3 +95,19 @@ def test_route_over_ranks_matches_stacked(name, world, runs):
     rec = stacked[name]
     assert np.isfinite(rec["loss"]).all() and W % world == 0
     check_against_stacked(rec, ranked[world][name], bitwise=ROUTES[name][2])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["ring_f32", "rhd_bf16"])
+def test_schedule_sends_its_hops_between_the_ranks(name, world, runs):
+    _, ranked = runs
+    k, size = W // world, 4 if name == "ring_f32" else 2
+    hops = 0
+    for b in make_cell(_cell(name), None, "cpu")[0].bucket_plan.buckets:
+        m = padded_len(b.size, W)
+        hops += (2 * (W - 1) * (m // W) * size if name == "ring_f32"
+                 else 2 * k * m * (world - 1) // world * size)
+    want = 3 * 4 * k * (world - 1) + hops
+    for rec in ranked[world][name]:
+        steps = json.loads(str(rec["step_stats"]))
+        assert [s["sent"] for s in steps] == [s["received"] for s in steps] == [want] * 3

@@ -96,15 +96,21 @@ def run_cell(cell: dict, group: RankGroup | None, device: str | torch.device
     """Run ``cell`` on this process (its rank's workers under ``group``):
     returns its record, by key: ``loss`` (the logged series, rank 0 and the
     stacked run; and ``kept``, the masked sparsifiers' kept share; ``eval``,
-    the ``eval_step`` loss, on every rank), ``param/<path>``, ``ef/<bucket>/<worker>`` and
-    ``u/<bucket>/<worker>`` for the workers this process holds,
-    ``opt/<path>`` (ZeRO-1's rows as ``opt/<path>/<worker>``), ``records``
-    (JSON: the booked records captured over the run), ``booked`` (JSON: the
-    bundle's train program by "tag|axes"), ``stats`` (JSON: the bytes and
-    seconds the rank moved over the steps), ``launches`` (JSON: the kernels this process
-    launched over the steps), ``seconds`` (JSON: the host seconds of the
-    build and initial state, the steps, and the record) and ``held`` (JSON: the shapes of the ``ef``
-    and ``u`` stacks this process holds).  Arrays are raw (bf16 as int16)."""
+    the ``eval_step`` loss, on every rank), ``param/<path>`` (diverging
+    parameters by row, ``param/<path>/<row>``, for the rows this process
+    holds), ``ef/<bucket>/<worker>`` and ``u/<bucket>/<worker>`` for the
+    workers this process holds, ``opt/<path>`` (ZeRO-1's rows as
+    ``opt/<path>/<worker>``, a diverging parameter's state as
+    ``opt/<path>/<row>``), ``records`` (JSON: the booked records captured
+    over the run), ``booked`` (JSON: the bundle's train program by
+    "tag|axes", {} for gossip), ``programs`` (JSON: every booked program's,
+    by name), ``stats`` (JSON: the bytes and seconds the rank moved over the
+    steps), ``step_stats`` (JSON: the same, step by step), ``launches``
+    (JSON: the kernels this process launched over the steps), ``seconds``
+    (JSON: the host seconds of the build and initial state, the steps, and
+    the record) and ``held`` (JSON: the shapes of the ``ef``, ``u`` and
+    CHOCO stacks, and of the parameters and their optimizer state, this
+    process holds).  Arrays are raw (bf16 as int16)."""
     from repro_torch import interop
     from repro_torch.kernels import ops
 
@@ -121,8 +127,13 @@ def run_cell(cell: dict, group: RankGroup | None, device: str | torch.device
         state = tr.init(cell.get("seed", 0))
     t1 = time.perf_counter()
     ops.reset_launches()
+    step_stats = []
     with comms.capture() as log:
-        state = tr.fit(state, cell.get("steps", 3), start_step=start)
+        for t in range(start, start + cell.get("steps", 3)):
+            before = group.stats.snapshot() if group else {}
+            state = tr.fit(state, 1, start_step=t)
+            after = group.stats.snapshot() if group else {}
+            step_stats.append({k: after[k] - before[k] for k in after})
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     moved = group.stats.snapshot() if group else {}  # over the steps alone
     t2 = time.perf_counter()
@@ -131,15 +142,22 @@ def run_cell(cell: dict, group: RankGroup | None, device: str | torch.device
     evals = (float(bundle.eval_step(state, tr._put(tr.data.batch(start + cell.get("steps", 3)))))
              if cell.get("eval") else None)
     workers = bundle.workers
+    rows = range(bundle.row_start, bundle.row_start + bundle.held_rows)
     arrays: dict[str, torch.Tensor] = {}
-    arrays.update({f"param/{k}": v for k, v in flatten_with_paths(state["params"]).items()})
-    for k in ("ef", "u"):
+    for k, v in flatten_with_paths(state["params"]).items():
+        if bundle.stacked:  # diverging parameters: the rows this process holds
+            arrays.update(_rows(f"param/{k}", v, rows))
+        else:
+            arrays[f"param/{k}"] = v
+    for k in ("ef", "u", "choco_xhat", "choco_nbr"):
         for i, e in enumerate(state["comm"].get(k, ())):
             if e is not None:
                 arrays.update(_rows(f"{k}/{i}", e, workers))
     for k, v in flatten_with_paths(state["opt"]).items():
         if bundle.opt.n_shards and v.ndim:  # ZeRO-1's (W, k) rows: this process's
             arrays.update(_rows(f"opt/{k}", v, workers))
+        elif bundle.stacked and v.ndim:  # a diverging row's state
+            arrays.update(_rows(f"opt/{k}", v, rows))
         else:
             arrays[f"opt/{k}"] = v
     out: dict[str, Any] = {}
@@ -151,40 +169,53 @@ def run_cell(cell: dict, group: RankGroup | None, device: str | torch.device
     if any("kept" in h for h in tr.history):
         out["kept"] = np.asarray([h["kept"] for h in tr.history], np.float64)
     out["records"] = np.array(json.dumps([dataclasses.asdict(r) for r in log.records]))
-    booked: dict[str, float] = {}
-    for r in bundle.logs["train"].records:
-        key = f"{r.tag or 'untagged'}|{','.join(r.axes)}"
-        booked[key] = booked.get(key, 0.0) + r.wire_bytes * r.mult
-    out["booked"] = np.array(json.dumps(booked))
+    programs = {name: by_tag_axes(plog.records) for name, plog in bundle.logs.items()}
+    out["booked"] = np.array(json.dumps(programs.get("train", {})))
+    out["programs"] = np.array(json.dumps(programs))
     out["stats"] = np.array(json.dumps(moved))
+    out["step_stats"] = np.array(json.dumps(step_stats))
     out["launches"] = np.array(json.dumps(launches))
     out["seconds"] = np.array(json.dumps({"build": t1 - t0, "fit": t2 - t1,
                                           "record": time.perf_counter() - t2}))
-    out["held"] = np.array(json.dumps({k: [None if e is None else list(e.shape)
-                                           for e in state["comm"].get(k, ())]
-                                       for k in ("ef", "u")}))
+    held = {k: [None if e is None else list(e.shape) for e in state["comm"].get(k, ())]
+            for k in ("ef", "u", "choco_xhat", "choco_nbr")}
+    held["params"] = [list(v.shape) for v in flatten_with_paths(state["params"]).values()]
+    held["opt"] = [list(v.shape) for v in flatten_with_paths(state["opt"]).values() if v.ndim]
+    out["held"] = np.array(json.dumps(held))
+    return out
+
+
+def by_tag_axes(records) -> dict[str, float]:
+    """Booked wire bytes by "tag|axes"."""
+    out: dict[str, float] = {}
+    for r in records:
+        key = f"{r.tag or 'untagged'}|{','.join(r.axes)}"
+        out[key] = out.get(key, 0.0) + r.wire_bytes * r.mult
     return out
 
 
 #: the record keys of the state a process holds
-STATE_KEYS = ("param/", "ef/", "u/", "opt/")
+STATE_KEYS = ("param/", "ef/", "u/", "choco_xhat/", "choco_nbr/", "opt/")
 
 
 def differences(stacked: dict, ranked: list[dict]) -> list[str]:
     """Where a ranked run's records part from its stacked twin's, bitwise
     (empty: none): the loss series (rank 0 logs), every state array each
-    rank holds, every rank's parameters against rank 0's, and the records
+    rank holds (and every stacked one held by a rank), every rank's
+    parameters against rank 0's where both hold them, and the records
     booked and captured over the run."""
     out = []
     if not np.array_equal(ranked[0]["loss"], stacked["loss"]):
         out.append(f"loss {ranked[0]['loss'].tolist()} != {stacked['loss'].tolist()}")
+    held = {k for rec in ranked for k in rec if k.startswith(STATE_KEYS)}
+    out += [f"no rank holds {k}" for k in stacked if k.startswith(STATE_KEYS) and k not in held]
     for r, rec in enumerate(ranked):
         for k, v in rec.items():
             if k.startswith(STATE_KEYS) and not np.array_equal(v, stacked.get(k)):
                 out.append(f"rank {r} {k}")
-            if k.startswith("param/") and not np.array_equal(v, ranked[0][k]):
+            if k.startswith("param/") and k in ranked[0] and not np.array_equal(v, ranked[0][k]):
                 out.append(f"rank {r} {k} != rank 0's")
-        for k in ("records", "booked"):
+        for k in ("records", "booked", "programs"):
             if json.loads(str(rec[k])) != json.loads(str(stacked[k])):
                 out.append(f"rank {r} {k}")
     return out
