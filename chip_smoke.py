@@ -406,16 +406,24 @@ result line:
    neighbour ranks), (bt) local SGD averaging every 2 steps (``local_sgd
    --local-steps 2``: the sync step gathers each rank's f32 parameter rows)
    and (bu) BSP on the ring schedule (``ring_manual``: 2(W - 1) hops a
-   bucket sent rank to rank).  Each cell: the end states (parameters,
-   momentum, every worker's EF rows, diverging parameter rows and CHOCO's
-   mirrors, gathered into the checkpoint layout) bitwise by each array's
+   bucket sent rank to rank), then (bv) the pipelined step under churn and
+   integrity (``churn_qsgd --overlap pipelined --overlap-staleness 1
+   --microbatch 2``: each round on the communication thread, each rank
+   drawing, validating and quarantining its own workers).  Each cell: the
+   end states (parameters, momentum, every worker's EF rows, diverging
+   parameter rows, CHOCO's mirrors, ``overlap_pending`` and the churn and
+   integrity vectors, gathered into the checkpoint layout) bitwise by each array's
    SHA-256 (no checkpoint is written), the loss series and the wire
    captured on every rank equal, the launches held exactly a step and in
    all (each rank its own workers' send-side kernel per bucket, every
    bucket's reduction), each rank's bytes sent and received a step held to
    their prediction to the byte; each prints step ms, peak GiB, host
-   seconds in torch.distributed and the wire booked for a rank's workers.
-   The cells run in two waves (``R_ID_WAVES``) of at most nine processes,
+   seconds in torch.distributed and the wire booked for a rank's workers;
+   (bv) also its tallies (at least one dropped worker-step and one
+   quarantined payload over the ranks, equal to the stacked run's) and, a
+   step a rank, the host seconds in torch.distributed, those the main
+   thread waited for a round (exposed) and the hidden share 1 -
+   exposed/dist.  The cells run in three waves (``R_ID_WAVES``) of at most nine processes,
    their peaks inside the card's memory.  Any failed rank fails the
    script; the kernel table counts their launches.
 
@@ -3574,12 +3582,23 @@ R_ID_CELLS = (
     ("(bs)", "choco_qsgd", (), 0.01, "qsgd", None),
     ("(bt)", "local_sgd", ("--local-steps", "2"), 0.01, None, None),
     ("(bu)", "ring_manual", (), 0.01, None, None),
+    ("(bv)", "churn_qsgd", ("--overlap", "pipelined", "--overlap-staleness", "1",
+                            "--microbatch", "2"), 0.01, "qsgd_ef", "int8_acc"),
 )
 #: the cells (indices) that run at once, each cell's stacked twin beside its
 #: ranks: at most nine processes, and their peaks inside the card's 80 GB
 #: (all three of (bs)-(bu) at once ran out of memory on the H100: (bs) alone
-#: peaked at 19.96 + 2 x 14.70 GiB with its digests gathered on the card)
-R_ID_WAVES = ((0, 3, 4), (1, 2))
+#: peaked at 19.96 + 2 x 14.70 GiB with its digests gathered on the card;
+#: the two waves summed 65.31 and 62.32 GiB, so (bv) runs in a third)
+R_ID_WAVES = ((0, 3, 4), (1, 2), (5,))
+
+
+def r_rounds(extra: tuple) -> int:
+    """Aggregation rounds a step of a phase R cell: the pipelined step's
+    microbatches, else one."""
+    if "pipelined" not in extra:
+        return 1
+    return int(extra[extra.index("--microbatch") + 1])
 
 
 def _src_env(extra: dict | None = None) -> dict:
@@ -3606,13 +3625,17 @@ def run_train(args: list[str], ranks: int, what: str, timeout: float = 700) -> l
     return stats
 
 
-def rank_bytes(comm_name: str, cfg) -> list[int]:
+def rank_bytes(comm_name: str, cfg, extra: tuple = ()) -> list[int]:
     """The bytes each rank of a phase R cell sends (and receives) a step,
     predicted from the bucket plan and the leaves: every step the loss, ce
     and aux of its W/R workers to the other rank (12 B a worker); BSP's
     compressed wire its workers' payloads of every bucket to the other rank
     (``qsgd_kernel`` EF the int8 codes and f32 norm, ``signsgd_packed`` EF
-    the packed signs); CHOCO-SGD the boundary workers' payloads, each
+    the packed signs); ``churn_qsgd`` under the pipelined step, every one
+    of its rounds, the int8 codes and f32 norm of every bucket and, once a
+    round, each worker's f32 alive bit (the live count's psum; each rank
+    validates the other's rows from their bytes, so no validity moves);
+    CHOCO-SGD the boundary workers' payloads, each
     bucket's int8 codes and f32 norm, to both neighbours; local SGD, on its
     sync step (the second of three), its W/R rows of every leaf in f32 (the
     ``xla`` average gathers them); the ring all-reduce 2(W - 1)(m/W) f32 of
@@ -3622,6 +3645,9 @@ def rank_bytes(comm_name: str, cfg) -> list[int]:
     comm = train_cli.COMM_PRESETS[comm_name]
     plan = aggregate.make_bucket_plan(comm, T.param_defs(cfg))
     gathered = {"qsgd_kernel_ef": lambda n: n + 4, "signsgd_packed_ef": ops.sign_packed_bytes}
+    if comm_name == "churn_qsgd":
+        return [metrics + r_rounds(extra) * (R_RANKS - 1) * per * (
+            4 + sum(b.size + 4 for b in plan.buckets))] * R_ID_STEPS
     if comm_name in gathered:
         return [metrics + (R_RANKS - 1) * per * sum(gathered[comm_name](b.size)
                                                     for b in plan.buckets)] * R_ID_STEPS
@@ -3679,7 +3705,8 @@ def run_phase_r(card: str) -> dict[str, int]:
                 for r in (1, R_RANKS):
                     runs[i, r] = pool.submit(timed, args, r, f"{label} {comm_name}")
             for i in wave:
-                label, comm_name, _, _, send, reduce = R_ID_CELLS[i]
+                label, comm_name, extra, _, send, reduce = R_ID_CELLS[i]
+                rounds = r_rounds(extra)
                 ((stacked,), s_sec), (ranks, r_sec) = runs[i, 1].result(), runs[i, R_RANKS].result()
                 want_d = stacked["digest"]
                 bad = _digest_diffs(want_d, ranks[0]["digest"])
@@ -3687,8 +3714,12 @@ def run_phase_r(card: str) -> dict[str, int]:
                 for k in want_d:
                     kind = "ef" if k.startswith("comm/ef") else k.split("/", 1)[0]
                     kinds[kind] = kinds.get(kind, 0) + 1
-                if "br" in label and not kinds.get("ef"):
+                if ("br" in label or "bv" in label) and not kinds.get("ef"):
                     bad.append(f"no EF rows among {kinds}")
+                if "bv" in label:  # the carried microbatch and the churn vectors, gathered
+                    bad += [f"no {k} among the digests" for k in (
+                        "comm/overlap_pending/0", "comm/alive_prev", "comm/qcount",
+                        "comm/quarantine_total", "comm/escalation_total") if k not in want_d]
                 if ranks[0]["loss"] != stacked["loss"] or len(stacked["loss"]) != R_ID_STEPS:
                     bad.append(f"losses {ranks[0]['loss']} != {stacked['loss']}")
                 bad += [f"rank {st['rank']} wire" for st in ranks if st["wire"] != stacked["wire"]]
@@ -3696,14 +3727,14 @@ def run_phase_r(card: str) -> dict[str, int]:
                                                     T.param_defs(cfg)).buckets)
 
                 def want_of(workers, steps=R_ID_STEPS):
-                    out = {send: steps * workers * nb} if send else {}
-                    return {**out, reduce: steps * nb} if reduce else out
+                    out = {send: steps * rounds * workers * nb} if send else {}
+                    return {**out, reduce: steps * rounds * nb} if reduce else out
 
                 want = [want_of(R_WORKERS)] + [want_of(per)] * R_RANKS
                 got = [st["launches"] for st in [stacked] + ranks]
                 bad += [f"rank {st['rank']} launched {st['launches_per_step']} a step"
                         for st in ranks if st["launches_per_step"] != want_of(per, 1)]
-                want_bytes = rank_bytes(comm_name, cfg)
+                want_bytes = rank_bytes(comm_name, cfg, extra)
                 for st in ranks:
                     if not st["sent_per_step"] == st["received_per_step"] == want_bytes:
                         bad.append(f"rank {st['rank']} moved {st['sent_per_step']} / "
@@ -3713,6 +3744,31 @@ def run_phase_r(card: str) -> dict[str, int]:
                 if bad or got != want:
                     raise AssertionError(f"phase R {label} {comm_name}: {bad[:10]}; launches "
                                          f"{got}, want {want}")
+                if "bv" in label:  # not vacuous: churn and quarantine took place
+                    drops = [sum(t["dropped"] for t in st["tallies"]) for st in ranks]
+                    quar = [sum(t["quarantined"] for t in st["tallies"]) for st in ranks]
+                    want_t = [{k: sum(t[k] for t in ts) for k in ("dropped", "quarantined",
+                                                                  "escalated")}
+                              for ts in zip(*(st["tallies"] for st in ranks))]
+                    if not sum(drops) or not sum(quar) or want_t != stacked["tallies"]:
+                        raise AssertionError(f"phase R {label}: gathered tallies {want_t} (a "
+                                             f"step), stacked {stacked['tallies']}: need a "
+                                             f"dropped worker-step and a quarantined payload")
+                    exposed = [st["per_step"]["exposed_s"] for st in ranks]
+                    dist = [st["per_step"]["dist_s"] for st in ranks]
+                    # the rounds' staging through pinned memory: copies, and waits for
+                    # the side stream before them (in exposed_s, not in dist_s)
+                    stage = [st["per_step"]["stage_s"] + st["per_step"]["wait_s"]
+                             for st in ranks]
+                    print(f"phase R {label} {comm_name} pipelined staleness 1, 2 microbatches "
+                          f"({card}): tallies a step (dropped, quarantined, escalated over the "
+                          f"ranks) {want_t}; a step a rank: host s in torch.distributed "
+                          f"{[round(x, 4) for x in dist]}, exposed (the main thread waiting "
+                          f"for a round) {[round(x, 4) for x in exposed]}, hidden share "
+                          f"1 - exposed/dist {[round(1 - e / d, 4) for e, d in zip(exposed, dist)]}"
+                          f"; staging (copies and stream waits) {[round(x, 4) for x in stage]}, "
+                          f"1 - exposed/(dist + staging) "
+                          f"{[round(1 - e / (d + g), 4) for e, d, g in zip(exposed, dist, stage)]}")
                 peaks += [st["peak_gib"] for st in [stacked] + ranks]
                 sent = [st["sent_per_step"] for st in ranks]
                 print(f"phase R {label} {comm_name} ({card}): qwen3-0.6b {R_ID_LAYERS} layers at "

@@ -88,6 +88,17 @@ running sum rounds.  After the buckets,
 ``quarantine_limit`` consecutive quarantined rounds escalate: the worker's
 EF and momentum rows reset, and ``qcount``, ``quarantine_total`` and
 ``escalation_total`` keep the tallies (one entry per worker).
+
+Churn and integrity over ranks: a process draws only its own workers'
+bits and flags (:func:`draw_mask`), holds only their rows of the churn and
+integrity vectors (:data:`WORKER_VECTORS`) and of ``overlap_pending``, and
+validates only its own payloads as it sends them.  The other workers' bits
+and validity reach the receive side through the round's collectives: the
+live count's booked psum moves the alive column (a (W, 1) stack of which
+the rank wrote its own rows, filled in place), each gathered row of a
+gathered route is validated from its gathered bytes, as the reference's
+receive side validates every row, and a psum route's live-and-valid count
+moves with its own psum.
 """
 
 from __future__ import annotations
@@ -240,17 +251,19 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
     rank)) from the same initial draw.
 
     ``workers`` (a rank's W/R of them; default all): the workers whose rows
-    of ``ef``, ``u`` and the CHOCO-SGD mirrors this process holds."""
+    of every per-worker entry (``ef``, ``u``, the CHOCO-SGD mirrors,
+    ``overlap_pending``, the churn and integrity vectors) this process
+    holds."""
     rows = n_workers * shards
     held = rows if workers is None else len(workers) * shards
     state: dict[str, Any] = {"step": 0}
     if churn_enabled(comm):
-        state["alive_prev"] = torch.ones(rows, dtype=f32, device=device)
+        state["alive_prev"] = torch.ones(held, dtype=f32, device=device)
         if comm.pod_local:
-            state["pod_alive_prev"] = torch.ones(rows, dtype=f32, device=device)
+            state["pod_alive_prev"] = torch.ones(held, dtype=f32, device=device)
     if effective_corruption_kind(comm) != "none":
         for k in ("qcount", "quarantine_total", "escalation_total"):
-            state[k] = torch.zeros(rows, dtype=f32, device=device)
+            state[k] = torch.zeros(held, dtype=f32, device=device)
     if comm.error_feedback:
         state["ef"] = [torch.zeros((held, b.size), dtype=f32, device=device)
                        if plan.compressor(b) is not None else None for b in plan.buckets]
@@ -266,7 +279,7 @@ def init_comm_state(comm: CommConfig, plan: BucketPlan, n_workers: int,
                  if b.compressor_name == "powersgd" else torch.zeros(0, dtype=f32, device=device))
             state["psgd_q"].append(q.repeat(*lead, 1) if lead else q)
     if comm.overlap == "pipelined" and comm.overlap_staleness == 1:
-        state["overlap_pending"] = [torch.zeros((rows, b.size), dtype=f32, device=device)
+        state["overlap_pending"] = [torch.zeros((held, b.size), dtype=f32, device=device)
                                     for b in plan.buckets]
     if comm.aggregator == "gossip" and comm.gossip_compress == "choco":
         for k in ("choco_xhat", "choco_nbr"):
@@ -367,10 +380,11 @@ def seeded_churn_draws(seed: int, device: str | torch.device) -> ChurnDraws:
 
 @dataclass
 class Liveness:
-    """One round's churn draws over its workers: ``alive`` and
-    ``rejoined`` (W,) 0/1 f32, and in the integrity program the corruption
-    ``flag`` (W,) of the payloads and their ``kind``.  :meth:`rows` cuts
-    the workers of one pod."""
+    """One round's churn draws over the workers this process runs (all W,
+    or a rank's own W/R): ``alive`` and ``rejoined`` 0/1 f32, and in the
+    integrity program the corruption ``flag`` of the payloads and their
+    ``kind``, one entry per worker.  :meth:`rows` cuts the workers of one
+    pod."""
 
     alive: torch.Tensor
     rejoined: torch.Tensor | None = None  # None: nobody rejoins this round
@@ -420,38 +434,45 @@ def corruption_flags(comm: CommConfig, u_corrupt: torch.Tensor, alive: torch.Ten
 
 
 def draw_mask(comm: CommConfig, comm_state: dict[str, Any], churn_draws: ChurnDraws,
-              step: int, window_step: int, n_workers: int, device, rnd: int | None = None
+              step: int, window_step: int, n_workers: int, device, rnd: int | None = None,
+              workers: range | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, bool, torch.Tensor]:
     """Each worker's participation bit from its draw at (step, worker,
     rnd), the window read at ``window_step``; ``rejoined`` against
     ``alive_prev``, which becomes this round's bits.  Returns (alive,
-    rejoined, in_window, the corruption uniforms of the same draws)."""
-    workers = range(n_workers)
+    rejoined, in_window, the corruption uniforms of the same draws), one
+    entry per worker of ``workers`` (a rank's own; default all W): a
+    process draws only the workers whose rows it holds."""
+    workers = range(n_workers) if workers is None else workers
     u_mask, u_corr = draw_uniforms(churn_draws, step, workers, rnd, device)
     window = in_window(comm, window_step)
     alive = churn_mask(comm, u_mask, window, workers)
     # under the model axis a worker's M shards hold its bit (row w * M + m)
-    prev = comm_state["alive_prev"].view(n_workers, -1)
+    prev = comm_state["alive_prev"].view(len(workers), -1)
     rejoined = alive * (1.0 - prev[:, 0])
     prev.copy_(alive[:, None].expand_as(prev))
     return alive, rejoined, window, u_corr
 
 
 def draw_liveness(comm: CommConfig, comm_state: dict[str, Any], churn_draws: ChurnDraws,
-                  step: int, n_workers: int, device, rnd: int | None = None) -> Liveness:
+                  step: int, n_workers: int, device, rnd: int | None = None,
+                  workers: range | None = None) -> Liveness:
     """The reference's per-round draw (``aggregate_buckets``):
     :func:`draw_mask` with the window read at the comm state's step, and
-    the corruption flags in the integrity program."""
+    the corruption flags in the integrity program (for ``workers``, default
+    all)."""
     alive, rejoined, window, u_corr = draw_mask(comm, comm_state, churn_draws, step,
-                                                comm_state["step"], n_workers, device, rnd)
+                                                comm_state["step"], n_workers, device, rnd,
+                                                workers)
     kind = effective_corruption_kind(comm)
     flag = corruption_flags(comm, u_corr, alive, window) if kind != "none" else None
     return Liveness(alive, rejoined, flag, kind)
 
 
 def reset_rows(comm_state: dict[str, Any], rows: torch.Tensor) -> None:
-    """Zero the EF and momentum rows of the workers where ``rows`` (W,) is
-    set: the rejoin protocol's reset leg."""
+    """Zero the EF and momentum rows of the workers where ``rows`` (one
+    entry per row held: all W, or a rank's own) is set: the rejoin
+    protocol's reset leg."""
     mask = rows[:, None] > 0
     for k in ("ef", "u"):
         for e in comm_state.get(k, ()):
@@ -461,8 +482,9 @@ def reset_rows(comm_state: dict[str, Any], rows: torch.Tensor) -> None:
 
 def quarantine_update(comm: CommConfig, comm_state: dict[str, Any], alive: torch.Tensor,
                       valid: torch.Tensor) -> None:
-    """Bounded quarantine after a round (``valid`` (W,): each worker's
-    payloads all valid): a live worker's consecutive count rises on an
+    """Bounded quarantine after a round (``alive`` and ``valid``, one entry
+    per worker whose rows this process holds: each worker's payloads all
+    valid): a live worker's consecutive count rises on an
     invalid round and clears on a valid one; at ``quarantine_limit`` it
     escalates into the rejoin reset (EF and momentum rows zeroed, count
     cleared).  The tallies count quarantined rounds and escalations."""
@@ -526,8 +548,10 @@ class AggregationRound:
     draws; the caller made them (:func:`draw_liveness`, or one mask for a
     whole pipelined step) and reset the rejoiners' rows.  ``workers`` (a
     rank's W/R of them; default all) are the workers this process adds
-    (global indices; their ``ef`` and ``u`` rows at the index less the
-    first's); the collectives of :meth:`finish` move the others' rows in."""
+    (global indices; their rows of ``ef``, ``u``, ``live`` and the churn
+    and integrity vectors at the index less the first's); the collectives
+    of :meth:`finish` move the others' rows in, their alive bits and their
+    validity too."""
 
     def __init__(self, comm: CommConfig, plan: BucketPlan, comm_state: dict[str, Any],
                  n_workers: int, noise: Noise, device: str | torch.device,
@@ -576,9 +600,14 @@ class AggregationRound:
         self.nnz_of = 0
         self.live = live
         self.kind = live.kind if live is not None and live.flag is not None else "none"
-        #: integrity: each worker's payload validity per bucket, (W,) 0/1
-        self._valid = ([torch.ones(n_workers, dtype=f32, device=self.device) for _ in range(nb)]
-                       if self.kind != "none" else None)
+        #: integrity: the validity of each payload this process sent, per
+        #: bucket, one 0/1 entry per own worker (a route without
+        #: redundancy leaves it 1)
+        self._valid = ([torch.ones(len(self.workers), dtype=f32, device=self.device)
+                        for _ in range(nb)] if self.kind != "none" else None)
+        #: every worker's alive bit, (W,), once the live count's psum has
+        #: moved the other ranks' in (:meth:`finish`)
+        self.alive_g: torch.Tensor | None = None
 
     def _noise(self, w: int, i: int, n: int) -> torch.Tensor:
         if self.rnd is None:  # the sequential step's chain: (step, worker, bucket)
@@ -615,9 +644,10 @@ class AggregationRound:
         payload's validity in the integrity program (None without churn)."""
         if self.live is None:
             return None
+        r = w - self.lo
         if self._valid is None:
-            return self.live.alive[w]
-        return self.live.alive[w] * self._valid[i][w]
+            return self.live.alive[r]
+        return self.live.alive[r] * self._valid[i][r]
 
     def _corrupt_int8(self, i: int, w: int, code: torch.Tensor,
                       payload: dict[str, torch.Tensor], knobs: dict) -> dict[str, torch.Tensor]:
@@ -626,33 +656,34 @@ class AggregationRound:
         corrupted where its flag is set; its validity recorded (scalars
         finite and in range, codes within the level bound).  Returns the
         corrupted scalars."""
-        flag = self.live.flag[w]
+        flag = self.live.flag[w - self.lo]
         code.copy_(integrity.corrupt_codes(self.kind, code, flag))
         out = {k: integrity.corrupt_dense(self.kind, v, flag)
                for k, v in payload.items() if k != "code"}
         s = out["s"].reshape(()) if "s" in out else knobs["levels"]
-        self._valid[i][w] = (integrity.scale_valid(out["norm"].reshape(()), s)
-                             * integrity.code_valid(code, s))
+        self._valid[i][w - self.lo] = (integrity.scale_valid(out["norm"].reshape(()), s)
+                                       * integrity.code_valid(code, s))
         return out
 
     def _masked_dense(self, i: int, w: int, a: torch.Tensor) -> torch.Tensor:
         """Worker w's dense contribution under churn: its payload corrupted
         where flagged and validated (integrity), selected out when invalid,
         times its alive bit."""
-        alive = self.live.alive[w]
+        r = w - self.lo
+        alive = self.live.alive[r]
         if self._valid is None:
             return a * alive
-        a_w = integrity.corrupt_dense(self.kind, a, self.live.flag[w])
+        a_w = integrity.corrupt_dense(self.kind, a, self.live.flag[r])
         valid = integrity.dense_valid(a_w)
-        self._valid[i][w] = valid
+        self._valid[i][r] = valid
         return torch.where(valid > 0, a_w, 0.0) * alive
 
     def add(self, w: int, bufs: Iterable[torch.Tensor]) -> None:
         """Send side of worker ``w``: ``bufs`` yields its flat f32 bucket
         vectors in plan order (a generator keeps one bucket alive at once)."""
         comm, W, live = self.comm, self.n_workers, self.live
-        alive = live.alive[w] if live is not None else None
-        r = w - self.lo  # worker w's row of ef and u
+        r = w - self.lo  # worker w's row of ef, u and the churn vectors
+        alive = live.alive[r] if live is not None else None
         for i, (b, comp, route, g) in enumerate(zip(self.plan.buckets, self.comps,
                                                     self.routes, bufs)):
             knobs = self.knobs[i]
@@ -710,7 +741,7 @@ class AggregationRound:
                 row = self._stack(i, ops.sign_packed_bytes(b.size), torch.uint8)[w]
                 ops.sign_pack(a, out=row)
                 if self._valid is not None:  # undetectable: every bit pattern is a vote
-                    row.copy_(integrity.corrupt_codes(self.kind, row, live.flag[w]))
+                    row.copy_(integrity.corrupt_codes(self.kind, row, live.flag[r]))
                 if comm.error_feedback:
                     a_hat = torch.where(a >= 0, 1.0, -1.0)
             elif route == "int8_acc":
@@ -728,10 +759,10 @@ class AggregationRound:
                 ops.tern_pack(c.payload["tern"], out=row)
                 scale = c.payload["scale"]
                 if self._valid is not None:
-                    flag = live.flag[w]
+                    flag = live.flag[r]
                     row.copy_(integrity.corrupt_codes(self.kind, row, flag))
                     scale = integrity.corrupt_dense(self.kind, scale, flag)
-                    self._valid[i][w] = (integrity.packed2_valid(row)
+                    self._valid[i][r] = (integrity.packed2_valid(row)
                                          * integrity.scale_valid(scale.reshape(())))
                 self._set_scalars(i, w, {"scale": scale}, ("scale",))
                 if comm.error_feedback:
@@ -742,8 +773,8 @@ class AggregationRound:
                     sign = c.payload["sign"]
                     if live is not None:
                         if self._valid is not None:
-                            sign = integrity.corrupt_codes(self.kind, sign, live.flag[w])
-                            self._valid[i][w] = integrity.code_valid(sign, 1.0)
+                            sign = integrity.corrupt_codes(self.kind, sign, live.flag[r])
+                            self._valid[i][r] = integrity.code_valid(sign, 1.0)
                         sign = sign * self._gate(i, w).to(sign.dtype)
                     self._accumulate(i, sign)
                 elif route == "sum":
@@ -756,8 +787,8 @@ class AggregationRound:
                 else:
                     payload = c.payload
                     if self._valid is not None:
-                        payload = integrity.corrupt_payload(self.kind, payload, live.flag[w])
-                        self._valid[i][w] = self._payload_valid(comp, payload, knobs)
+                        payload = integrity.corrupt_payload(self.kind, payload, live.flag[r])
+                        self._valid[i][r] = self._payload_valid(comp, payload, knobs)
                     self._payloads[i].append(payload)
                 if comm.error_feedback:
                     a_hat = decompress_p(comp, c, knobs)
@@ -766,7 +797,15 @@ class AggregationRound:
                                        alive=self._gate(i, w))
             if u_prev is not None:  # a quarantined round's momentum is undone
                 u_row = self.state["u"][i][r]
-                torch.where(self._valid[i][w] > 0, u_row, u_prev, out=u_row)
+                torch.where(self._valid[i][r] > 0, u_row, u_prev, out=u_row)
+
+    @staticmethod
+    def _int8_row_valid(cg: torch.Tensor, ng: torch.Tensor, sg: torch.Tensor,
+                        w: int) -> torch.Tensor:
+        """Gathered row w of an int8 route valid: its norm (and ``s``)
+        finite and in range, its codes within the level bound."""
+        s = sg[w] if sg.dim() else sg
+        return integrity.scale_valid(ng[w], s) * integrity.code_valid(cg[w], s)
 
     @staticmethod
     def _payload_valid(comp, payload: dict[str, torch.Tensor], knobs: dict) -> torch.Tensor:
@@ -784,23 +823,36 @@ class AggregationRound:
 
     # ---- receive side ------------------------------------------------------------
 
-    def _weights(self, i: int, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _valid_g(self, i: int, check: Callable[[int], torch.Tensor]) -> torch.Tensor:
+        """Every worker's validity of bucket i, (W,): this process's own as
+        it validated them sending, each other rank's worker w's from its
+        gathered bytes (``check(w)``, the same test on the same bytes)."""
+        own = self._valid[i]
+        if not self.ranked:
+            return own
+        return torch.stack([own[w - self.lo] if w in self.workers else check(w)
+                            for w in range(self.n_workers)])
+
+    def _weights(self, i: int, w: torch.Tensor, valid: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-worker decode weights ``w`` (W,) with the churn bits folded in
-        (alive, and validity selected, in the integrity program), and the
-        denominator of the mean; the alive bits' all-gather is booked."""
-        comms.book_all_gather(self.live.alive[0], self.n_workers)
-        if self._valid is None:
-            return w * self.live.alive, self.n_eff
-        valid = self._valid[i]
-        return (torch.where(valid > 0, w * self.live.alive, 0.0),
-                torch.clamp_min(torch.sum(self.live.alive * valid), 1.0))
+        (alive, and ``valid`` (W,) selected, in the integrity program), and
+        the denominator of the mean; the alive bits' all-gather is booked."""
+        alive = self.alive_g
+        comms.book_all_gather(alive[0], self.n_workers)
+        if valid is None:
+            return w * alive, self.n_eff
+        return (torch.where(valid > 0, w * alive, 0.0),
+                torch.clamp_min(torch.sum(alive * valid), 1.0))
 
     def _psum_denom(self, i: int) -> torch.Tensor:
         """The live-and-valid count of a psum route in the integrity program
-        (a booked scalar psum), else n_eff."""
+        (a booked scalar psum of a (W, 1) stack whose own rows this process
+        wrote), else n_eff."""
         if self._valid is None:
             return self.n_eff
-        return torch.clamp_min(comms.psum((self.live.alive * self._valid[i])[:, None])[0], 1.0)
+        own = (self.live.alive * self._valid[i])[:, None]
+        return torch.clamp_min(comms.psum(comms.worker_stack(own))[0], 1.0)
 
     def _powersgd(self, i: int, b: Bucket, comp, denom: torch.Tensor) -> torch.Tensor:
         """PowerSGD's receive side (the reference's ``_powersgd_aggregate``):
@@ -816,7 +868,7 @@ class AggregationRound:
                 else self._stacks[i])
         qsum = None
         for r, w in enumerate(self.workers):  # worker order
-            t = matmul_rows_t(rows[r] if live is None else rows[r] * live.alive[w], P, bb)
+            t = matmul_rows_t(rows[r] if live is None else rows[r] * live.alive[r], P, bb)
             qsum = t if qsum is None else qsum.add_(t)
         comms.book_psum(qsum, W)
         qn = comms.reduce_partial(qsum) / denom
@@ -836,7 +888,12 @@ class AggregationRound:
         # scalars filled on the device: a host-to-card copy would wait for it
         denom = torch.full((), float(W), dtype=f32, device=self.device)
         if live is not None:  # the live count: one scalar psum, untagged as there
-            self.n_eff = torch.clamp_min(comms.psum(live.alive[:, None])[0], 1.0)
+            # of a (W, 1) stack of which this process wrote its own workers'
+            # bits: the psum moves the other ranks' in, and no other
+            # worker's bit is read before
+            alive_g = comms.worker_stack(live.alive[:, None])
+            self.n_eff = torch.clamp_min(comms.psum(alive_g)[0], 1.0)
+            self.alive_g = alive_g[:, 0]
             denom = self.n_eff
         out = []
         with comms.tag("grad_agg"):
@@ -873,7 +930,9 @@ class AggregationRound:
                           torch.full((), self.knobs[i]["levels"], dtype=f32, device=self.device))
                     wt = ng / sg
                     if live is not None:
-                        wt, den = self._weights(i, wt)
+                        valid = None if self._valid is None else self._valid_g(
+                            i, lambda w, cg=cg, ng=ng, sg=sg: self._int8_row_valid(cg, ng, sg, w))
+                        wt, den = self._weights(i, wt, valid)
                     agg = ops.int8_weighted_sum(cg, wt) / den
                 elif route == "sign":
                     with comms.wire_format("packed1"):
@@ -881,8 +940,8 @@ class AggregationRound:
                     if live is None:
                         wt = torch.ones(W, dtype=f32, device=self.device)
                     else:  # masked workers cast zero votes; no validation
-                        comms.book_all_gather(live.alive[0], W)
-                        wt = live.alive
+                        comms.book_all_gather(self.alive_g[0], W)
+                        wt = self.alive_g
                     votes = ops.sign_vote(pg, wt, b.size)
                     if comp.wire_reduce == "sign_vote":  # majority, ties to +1
                         agg = torch.where(votes >= 0, 1.0, -1.0)
@@ -895,7 +954,10 @@ class AggregationRound:
                         pg = comms.all_gather(self._stacks[i])
                     wt = self._gather_scalars(i, "scale")
                     if live is not None:
-                        wt, den = self._weights(i, wt)
+                        valid = None if self._valid is None else self._valid_g(
+                            i, lambda w, pg=pg, sg=wt: integrity.packed2_valid(pg[w])
+                            * integrity.scale_valid(sg[w]))
+                        wt, den = self._weights(i, wt, valid)
                     agg = ops.tern_acc(pg, wt, b.size) / den
                 elif route == "majority":
                     # int8 vote sum: exact for W <= 127, as the reference's psum
@@ -910,7 +972,7 @@ class AggregationRound:
         if self.nnz is not None:  # the kept count over all W (no collective booked)
             self.nnz = comms.reduce_partial(self.nnz)
             self.nnz_of = self.nnz_of * W // len(self.workers)
-        if self._valid is not None:
+        if self._valid is not None:  # each own worker's payloads all valid
             valid = self._valid[0]
             for v in self._valid[1:]:
                 valid = valid * v
@@ -935,10 +997,11 @@ class AggregationRound:
             payloads = [{k: t[w] for k, t in full.items()} for w in range(W)]
         wrow = None
         if live is not None:
-            comms.book_all_gather(live.alive[0], W)
-            wrow = live.alive
+            comms.book_all_gather(self.alive_g[0], W)
+            wrow = self.alive_g
             if self._valid is not None:
-                wrow = live.alive * self._valid[i]
+                wrow = self.alive_g * self._valid_g(
+                    i, lambda w: self._payload_valid(comp, payloads[w], self.knobs[i]))
                 denom = torch.clamp_min(torch.sum(wrow), 1.0)
         acc = torch.zeros(b.size, dtype=f32, device=self.device)
         for w, pw in enumerate(payloads):  # worker order
@@ -986,9 +1049,10 @@ class GroupedRound:
     With one group this is an :class:`AggregationRound` over the comm state
     itself (and over ``workers``, a rank's own, when given).
 
-    Churn: ``live`` is the round's draws over all W workers (each worker
-    keyed by its index over every data axis, as the reference's
-    ``mask_axes``); the rejoiners' EF and momentum rows reset.
+    Churn: ``live`` is the round's draws over the workers this process runs
+    (all W, or a rank's own; each worker keyed by its index over every data
+    axis, as the reference's ``mask_axes``); the rejoiners' EF and momentum
+    rows reset.
 
     :meth:`finish` returns the per-group lists of per-bucket aggregates and
     the comm state (``step`` advanced once)."""
@@ -1067,7 +1131,7 @@ class ShardedRound:
         if live is None and churn_enabled(comm):
             live = draw_liveness(comm, comm_state, churn_draws or seeded_churn_draws(0, device),
                                  comm_state["step"] if step is None else step, n_workers,
-                                 device, rnd)
+                                 device, rnd, kw.get("workers"))
         self.rounds = [GroupedRound(comm, plan, shard_view(comm_state, m, shards), n_workers,
                                     noise, device, step=step, rnd=rnd, live=live, **kw)
                        for m in range(shards)]

@@ -26,6 +26,12 @@ and returns the rank's own (W/R, ...) rows only: the rows whose source is
 another rank's cross by point-to-point messages, the rest are copied.
 Booking does not change: every rank books what the stacked program books,
 with n = W.
+
+The booking state is the thread's own.  A round run on another thread
+(the pipelined step's communication thread) runs under the caller's state:
+:func:`context` snapshots it, :func:`entered` enters a snapshot, and
+:func:`closed` makes any record the caller's thread would append meanwhile
+an error (the records must come out in the stacked step's order).
 """
 
 from __future__ import annotations
@@ -106,6 +112,33 @@ class CommLog:
 
 def _log() -> CommLog | None:
     return getattr(_STATE, "log", None)
+
+
+def context() -> dict:
+    """A snapshot of this thread's booking state (capture, loop, muted, tag,
+    axes, wire format, rank group), for :func:`entered` on another thread."""
+    return dict(vars(_STATE))
+
+
+@contextlib.contextmanager
+def entered(ctx: dict):
+    """Run inside under the booking state ``ctx`` (:func:`context`), on any
+    thread; the thread's own state comes back after."""
+    prev = dict(vars(_STATE))
+    vars(_STATE).clear()
+    vars(_STATE).update(ctx, closed=False)
+    try:
+        yield
+    finally:
+        vars(_STATE).clear()
+        vars(_STATE).update(prev)
+
+
+def closed():
+    """Book nothing on this thread inside: a record it would append raises
+    ``RuntimeError`` (while another thread runs the rounds under this
+    thread's capture)."""
+    return _setting("closed", True)
 
 
 @contextlib.contextmanager
@@ -192,6 +225,24 @@ def own_workers(n_workers: int) -> range:
     return range(n_workers) if group is None else group.workers
 
 
+def worker_stack(own: torch.Tensor) -> torch.Tensor:
+    """A (W, ...) stack of which this process wrote its own workers' rows
+    ``own`` (all W stacked: ``own`` itself; under a rank group the other
+    ranks' rows NaN, or unset for a non-float dtype, until a collective
+    such as :func:`psum` moves them in)."""
+    group = active_group()
+    if group is None:
+        return own
+    if own.shape[0] != group.per_rank:
+        raise ValueError(f"a rank holds its {group.per_rank} workers' rows, got "
+                         f"{tuple(own.shape)}")
+    shape = (group.n_workers,) + tuple(own.shape[1:])
+    out = (torch.full(shape, float("nan"), dtype=own.dtype, device=own.device)
+           if own.is_floating_point() else torch.empty(shape, dtype=own.dtype, device=own.device))
+    out[group.lo:group.hi] = own
+    return out
+
+
 def fill_rows(stacked: torch.Tensor) -> torch.Tensor:
     """Under a rank group, the other ranks' rows of a (W, ...) stack moved
     in place, unbooked (the caller books its own records, as the ring and
@@ -229,6 +280,9 @@ def _record(kind: str, local: torch.Tensor, n: int) -> None:
     log = _log()
     if log is None or getattr(_STATE, "muted", False):
         return
+    if getattr(_STATE, "closed", False):
+        raise RuntimeError(f"a {kind} booked on a thread whose capture another thread is "
+                           "booking into (a pipelined step's rounds are in flight)")
     fmt = getattr(_STATE, "wire_fmt", "") or _DTYPE_FMT.get(local.dtype, str(local.dtype))
     log.records.append(CollRecord(kind, getattr(_STATE, "axes", "") or WORKER_AXES,
                                   _bytes(local), getattr(_STATE, "mult", 1.0), n,

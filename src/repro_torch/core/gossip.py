@@ -13,7 +13,11 @@ and ``choco_mix`` runs its masked round (``_choco_mix_churn``).
 Over ranks of the data axis (``comms.ranks``) each stack is the rank's own
 (W/R, n) rows: D-PSGD's exchange sends the boundary rows to the neighbour
 ranks (``comms.ppermute``), and CHOCO-SGD sends its boundary workers'
-compressed payloads, which the neighbour decodes itself.
+compressed payloads, which the neighbour decodes itself.  Under churn the
+bits are the rank's own workers' too: each crosses to the neighbour rank
+by ``comms.ppermute`` (:func:`ring_bits`), the masked rounds exchange the
+same boundary rows and payloads, and ``churn_resync``'s dense exchanges are
+neighbour sums.
 """
 
 from __future__ import annotations
@@ -254,26 +258,42 @@ def choco_nbr_bits(alive: torch.Tensor, rejoined: torch.Tensor | None) -> torch.
 
 def _choco_mix_churn(compressor, noise, bufs, st, w, gamma, comp_knobs, alive, rejoined,
                      nbr_bits):
-    """:func:`choco_mix`'s masked round (the reference's ``alive`` branch)."""
+    """:func:`choco_mix`'s masked round (the reference's ``alive`` branch);
+    over ranks each received payload of a boundary worker is decoded here,
+    as :func:`choco_mix` does."""
     if nbr_bits is None:
         nbr_bits = choco_nbr_bits(alive, rejoined)
     r = (torch.zeros_like(alive) if rejoined is None else rejoined)[:, None]
     a = alive[:, None]
     new_x = []
     for i, (p, xh, xn) in enumerate(zip(bufs, st.x_hat, st.x_hat_nbr)):
-        W, n = p.shape
+        (k, n), (group, W, _) = p.shape, comms.layout(p)
         kn = comp_knobs[i] if comp_knobs is not None else None
         u = noise(i, noise_len(compressor, n)) if needs_noise(compressor) else None
         q_self = torch.empty_like(p)
-        for wk in range(W):
+        for wk in range(k):
             c = compress_p(compressor, u, p[wk] - xh[wk], kn)
             q_self[wk] = decompress_p(compressor, c, kn)
+            if wk == 0:
+                first = c
+        if group is None:  # the ring closes here
+            left, right = q_self[-1], q_self[0]
+        else:  # the neighbour ranks' boundary payloads, decoded here
+            left, right = (decompress_p(compressor, Compressed(pl, n), kn)
+                           for pl in _neighbour_payloads(group, first.payload, c.payload))
         q_nbr = torch.zeros_like(p)
-        for j, shift in enumerate((1, -1)):  # right, then left: the payload, key by key
+        for j, edge in enumerate((left, right)):  # right, then left: the payload, key by key
             for v in c.payload.values():
                 comms.book_ppermute(v, W)
             wgt = (nbr_bits[j] * (1.0 - nbr_bits[2 + j]))[:, None]
-            q_nbr = q_nbr + wgt * torch.roll(q_self, shift, 0)
+            # worker i's left neighbour's q (the rightward exchange), then its right one's
+            got = torch.empty_like(q_self)
+            if j == 0:
+                got[0], got[1:] = edge, q_self[:-1]
+            else:
+                got[:-1], got[-1] = q_self[1:], edge
+            q_nbr = q_nbr + wgt * got
+            del got
         xh2 = torch.where(a > 0, torch.where(r > 0, p, xh + q_self), xh)
         with comms.tag("churn_resync"):
             rd_nbr = _neighbor_sum(r * (p - xh))

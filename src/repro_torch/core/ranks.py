@@ -16,6 +16,14 @@ the backend's support (gloo on the CPU has bf16 but no int16); a tensor on
 the card is staged through a pinned host buffer, explicitly and counted,
 and the computation never leaves the card.
 
+The transport blocks the thread that calls it (a card tensor's staging
+waits for the calling thread's stream, the backend's calls wait on the
+host), so the pipelined step runs its rounds on a communication thread of
+their own; while they are in flight that thread owns the transport
+(:meth:`RankGroup.owned_by`: a call from another thread raises), and
+:attr:`RankStats.exposed_s` counts the seconds the step's main thread
+waited for them.
+
 gloo only: NCCL refuses two ranks on one card, and a machine with several
 cards is a later slice (``ROADMAP.md`` Queue 1).
 
@@ -25,12 +33,14 @@ cards is a later slice (``ROADMAP.md`` Queue 1).
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -46,10 +56,14 @@ RANK_ENV, WORLD_ENV, STORE_ENV = "RANK", "WORLD_SIZE", "REPRO_RANKS_STORE"
 class RankStats:
     """What one rank really moved: bytes sent and received through the
     backend, host seconds inside ``torch.distributed`` calls and their
-    number (an all-gather, or one batch of point-to-point messages), and the
-    staging of card tensors through pinned host buffers (bytes copied each
-    way, seconds of the copies, and seconds waiting for the card's queued
-    work before a copy)."""
+    number (an all-gather, or one batch of point-to-point messages), on
+    whichever thread made them, and the staging of card tensors through
+    pinned host buffers (bytes copied each way, seconds of the copies, and
+    seconds waiting for the card's queued work before a copy).
+    ``exposed_s``: host seconds the step's main thread spent waiting for a
+    round run on the communication thread (the pipelined step), the share
+    of the exchange the computation did not hide.  One thread updates the
+    stats at a time (:meth:`RankGroup.owned_by`)."""
 
     sent: int = 0
     received: int = 0
@@ -58,6 +72,7 @@ class RankStats:
     staged: int = 0
     stage_s: float = 0.0
     wait_s: float = 0.0
+    exposed_s: float = 0.0
 
     def snapshot(self) -> dict:
         return dict(self.__dict__)
@@ -73,6 +88,9 @@ class RankGroup:
     n_workers: int
     device: torch.device
     stats: RankStats = field(default_factory=RankStats)
+    #: the thread that owns the transport while a pipelined step's rounds
+    #: are in flight (None: whichever thread calls)
+    _owner: int | None = field(default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.n_workers % self.world:
@@ -95,6 +113,35 @@ class RankGroup:
         return range(self.lo, self.hi)
 
     # ---- the transport ------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def owned_by(self, ident: int):
+        """Only thread ``ident`` may use the transport inside: two threads
+        issuing collectives in different orders on two ranks would wait for
+        each other until the group's timeout, so a call from any other
+        thread raises ``RuntimeError`` instead."""
+        prev, self._owner = self._owner, ident
+        try:
+            yield
+        finally:
+            self._owner = prev
+
+    def _check_owner(self) -> None:
+        if self._owner is not None and self._owner != threading.get_ident():
+            raise RuntimeError(f"rank {self.rank}: thread {threading.get_ident()} used the "
+                               f"transport that thread {self._owner} owns while a pipelined "
+                               "step's rounds are in flight")
+
+    def _call(self, fn, *args):
+        """One ``torch.distributed`` call (an all-gather, or a batch of
+        point-to-point messages waited for), counted: host seconds and
+        calls."""
+        self._check_owner()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.stats.dist_s += time.perf_counter() - t0
+        self.stats.calls += 1
+        return out
 
     def _host_bytes(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
         """Each block's raw bytes as a flat uint8 tensor the backend can
@@ -123,14 +170,12 @@ class RankGroup:
         bytes)."""
         import torch.distributed as dist
 
+        self._check_owner()
         (src,) = self._host_bytes([block])
         st = self.stats
         outs = [torch.empty(src.numel(), dtype=torch.uint8, pin_memory=block.is_cuda)
                 for _ in range(self.world)]
-        t0 = time.perf_counter()
-        dist.all_gather(outs, src)  # src is not any of outs
-        st.dist_s += time.perf_counter() - t0
-        st.calls += 1
+        self._call(dist.all_gather, outs, src)  # src is not any of outs
         st.sent += src.numel() * (self.world - 1)
         st.received += src.numel() * (self.world - 1)
         return outs
@@ -156,6 +201,7 @@ class RankGroup:
 
         if not sends and not recvs:
             return
+        self._check_owner()
         st = self.stats
         srcs = self._host_bytes([b for _, _, b in sends])
         ops, raws = [], []
@@ -168,11 +214,7 @@ class RankGroup:
             ops.append(dist.P2POp(dist.irecv, raw, peer, tag=tag))
             raws.append(raw)
             st.received += raw.numel()
-        t0 = time.perf_counter()
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        st.dist_s += time.perf_counter() - t0
-        st.calls += 1
+        self._call(_post_and_wait, ops)
         for (_, _, dst), raw in zip(recvs, raws):
             self._into(dst, raw)
 
@@ -242,9 +284,17 @@ class RankGroup:
     def barrier(self) -> None:
         import torch.distributed as dist
 
+        self._check_owner()
         t0 = time.perf_counter()
         dist.barrier()
         self.stats.dist_s += time.perf_counter() - t0
+
+
+def _post_and_wait(ops: list) -> None:
+    import torch.distributed as dist
+
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
 
 
 # ---- initialisation ----------------------------------------------------------------

@@ -87,7 +87,9 @@ def average_params(params: list[torch.Tensor], impl: str = "xla", alive=None, do
     Under a rank group each leaf is the rank's own rows: (W/R, *shape), or
     pod-local SGD's one row at one pod (``copies`` W), of which the rank
     sums only its own W/R copies; every row the rank holds adopts the mean
-    over all W."""
+    over all W.  So are ``alive``, ``donor`` and ``payload``: the rank's
+    own rows, the donor count the booked psum of a (W, 1) stack whose own
+    workers' rows the rank wrote."""
     if alive is None:
         if donor is not None or payload is not None:
             raise ValueError("average_params: donor and payload need alive")
@@ -100,7 +102,7 @@ def average_params(params: list[torch.Tensor], impl: str = "xla", alive=None, do
         return params
     w = alive if donor is None else donor
     with comms.tag("local_sgd_sync"), torch.no_grad():
-        n_don = comms.psum(w.repeat_interleave(copies)[:, None])[0]
+        n_don = comms.psum(comms.worker_stack(_own_copies(w, copies)[:, None]))[0]
         n_eff = torch.clamp_min(n_don, 1.0)
         adopt = (alive > 0) & (n_don > 0)
         for i, p in enumerate(params):
@@ -115,14 +117,21 @@ def average_params(params: list[torch.Tensor], impl: str = "xla", alive=None, do
     return params
 
 
+def _own_copies(x: torch.Tensor, copies: int) -> torch.Tensor:
+    """Each worker this process holds gets its row's entry of ``x`` (the
+    rows this process holds, each standing for ``copies`` workers)."""
+    if copies == 1:
+        return x
+    own = comms.own_workers(x.shape[0] * copies)
+    return x[torch.arange(own.start, own.stop, device=x.device) // copies]
+
+
 def _allreduce(x: torch.Tensor, impl: str, copies: int) -> tuple[torch.Tensor, int]:
     """The f32 sum over the W workers of an (R, n) stack whose rows each
     stand for ``copies`` workers, by schedule ``impl``, and W; under a rank
     group ``x`` is the rank's own rows (or all R rows when ``copies`` > 1,
     of which the rank sums its own workers' copies)."""
-    if copies > 1:  # each worker this process holds gets its row's copy
-        own = comms.own_workers(x.shape[0] * copies)
-        x = x[torch.arange(own.start, own.stop, device=x.device) // copies]
+    x = _own_copies(x, copies)  # each worker this process holds gets its row's copy
     (k, n), (group, W, lo) = x.shape, comms.layout(x)
     if impl == "xla":
         if group is None:

@@ -18,7 +18,11 @@ pairs); ``--fake-devices`` describes a jax mesh and has no port.
 and ``collective="rhd"`` too, their hops sent between the ranks), local
 and post-local SGD (``local_sgd`` with ``--local-steps``), pod-local SGD at
 one pod (``pod_local_sgd`` without ``--pod``), D-PSGD and CHOCO-SGD
-(``dpsgd``, ``choco_qsgd``), each under the sequential step:
+(``dpsgd``, ``choco_qsgd``), each under the sequential step and the
+pipelined one (``--overlap pipelined``: each round on a communication
+thread, so that its exchange overlaps the next microbatch), with churn and
+integrity (``churn_qsgd``: each rank draws, validates and quarantines its
+own workers):
 without ``RANK`` in the environment this process starts the R rank
 processes itself over a file store and exits non-zero, with every rank's
 output, if any fails or overruns ``--rank-timeout``; under ``torchrun``
@@ -26,8 +30,9 @@ each process reads its rank from the environment.  ``--ranks 1`` runs the
 stacked step in this process, the twin a ranked run is held against.
 Under ``--ranks`` each process prints one ``rank-stats`` JSON line
 (:func:`fit_with_stats`): its step ms, peak GiB, the bytes it sent and
-received and its host seconds in ``torch.distributed`` a step, its kernel
-launches, the loss series (rank 0 logs), the wire captured over the run
+received and its host seconds in ``torch.distributed`` a step (and those
+its main thread waited for a pipelined round, ``exposed_s``), its own
+workers' churn tallies a step, its kernel launches, the loss series (rank 0 logs), the wire captured over the run
 and the wire booked for its workers, the bytes sent a step step by step;
 with ``--ckpt-dir`` and
 ``--ckpt-every`` its end state is the checkpoint, every worker's rows
@@ -265,7 +270,9 @@ def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False,
     0's line carries its digests (``digest``; null on the other ranks).
     ``setup_s`` is the host seconds from ``t_main`` (the launcher's start,
     after the interpreter's) to the first step; ``digest_s`` the end
-    state's gather and hashing."""
+    state's gather and hashing.  ``tallies`` holds, a step, this process's
+    own workers out in the step's last round (``dropped``) and the payloads
+    quarantined and escalations in the step (a churn cell; {} else)."""
     import json
 
     import torch
@@ -278,7 +285,8 @@ def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False,
     program = "gossip" if "gossip" in b.wire else "train"
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    step_ms, per_step, wire = [], [], {}
+    step_ms, per_step, wire, tallies = [], [], {}, []
+    counted = _tallies(state["comm"])
     setup_s = None if t_main is None else time.perf_counter() - t_main
     ops.reset_launches()
     for t in range(start, start + steps):
@@ -293,6 +301,11 @@ def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False,
             key = f"{r.tag or 'untagged'}|{','.join(r.axes)}"
             wire[key] = wire.get(key, 0.0) + r.wire_bytes * r.mult
         after = group.stats.snapshot() if group else {}
+        now = _tallies(state["comm"])
+        tallies.append({"dropped": now.get("dropped", 0),
+                        **{k: now[k] - counted[k] for k in ("quarantined", "escalated")
+                           if k in now}} if now else {})
+        counted = now
         per_step.append({**{k: after[k] - before[k] for k in after},
                          "launches": {k: v - launched.get(k, 0) for k, v in ops.LAUNCHES.items()
                                       if v - launched.get(k, 0)}})
@@ -314,11 +327,25 @@ def fit_with_stats(trainer, state, steps: int, start: int, digest: bool = False,
         "per_step": mean, "sent_per_step": [s.get("sent", 0) for s in per_step],
         "received_per_step": [s.get("received", 0) for s in per_step],
         "launches_per_step": timed[-1]["launches"],
-        "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
+        "launches": {k: v for k, v in ops.LAUNCHES.items() if v}, "tallies": tallies,
         "loss": [row["loss"] for row in trainer.history], "wire": wire,
         "booked_per_worker": booked, "booked_for_rank": booked * len(b.workers),
         "digest": digests, "setup_s": setup_s,
         "digest_s": time.perf_counter() - t_digest if digest else None}), flush=True)
+
+
+def _tallies(comm_state: dict) -> dict:
+    """This process's own workers' churn and integrity counts so far: those
+    out in the last round, and the quarantined payloads and escalations
+    (the sums of its rows of ``quarantine_total`` and
+    ``escalation_total``); {} without churn."""
+    out = {}
+    if "alive_prev" in comm_state:
+        out["dropped"] = int((comm_state["alive_prev"] == 0).sum())
+    for name, key in (("quarantined", "quarantine_total"), ("escalated", "escalation_total")):
+        if key in comm_state:
+            out[name] = int(comm_state[key].sum())
+    return out
 
 
 if __name__ == "__main__":

@@ -95,7 +95,8 @@ shards.  PowerSGD keeps a Q per (worker, shard); the pipelined step keeps
 
 Ranks on the data axis (``ranks``, a
 :class:`repro_torch.core.ranks.RankGroup`; BSP, local, post-local and
-pod-local SGD at one pod, D-PSGD and CHOCO-SGD under the sequential step):
+pod-local SGD at one pod, D-PSGD and CHOCO-SGD, under the sequential and
+the pipelined step, with churn and integrity):
 the W workers are spread over R processes, and each runs the programs for
 its own W/R workers (:meth:`StepBundle._split`; the rounds and ZeRO-1
 take them as :attr:`StepBundle.workers` and :attr:`StepBundle.rank_opt`),
@@ -103,7 +104,14 @@ and its steps run under ``comms.ranks``, so the data-axis collectives move
 the other ranks' rows for real: the gathers and all-gathers, and the ring
 and rhd hops and gossip neighbour exchanges as point-to-point messages.
 Every rank draws the same global batch.  Per-worker state (``ef``, ``u``,
-the CHOCO mirrors, ZeRO-1's slices) is the rank's rows only, and so are
+the CHOCO mirrors, ``overlap_pending``, the churn and integrity vectors,
+ZeRO-1's slices) is the rank's rows only, and each rank draws only its own
+workers' churn bits and corruption flags; the other workers' bits and
+validity arrive through the round's collectives
+(:mod:`repro_torch.core.aggregate`).  The pipelined step's rounds run on a
+communication thread, so that a round's exchange, which blocks the
+thread that makes it, overlaps the next microbatch
+(:meth:`StepBundle._pipelined_grads`).  So are
 diverging parameters and their optimizer state (:attr:`StepBundle.
 held_rows` of each (rows, ...) leaf, from :attr:`StepBundle.row_start`;
 pod-local SGD's one row at one pod is held by every rank); the checkpoint
@@ -128,6 +136,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -163,6 +173,58 @@ def param_rows(comm: CommConfig, n_workers: int, pods: int) -> int:
     if comm.sync in ("local", "post_local") or comm.aggregator == "gossip":
         return n_workers
     return 0
+
+
+class _RoundProgress:
+    """What the step's main thread waits on of one pipelined round: per
+    worker it runs, a host flag set once the round's send side has read the
+    worker's rows of ``pending`` (and on the card the side stream's event
+    recorded then), the event that ends the round, and over ranks the
+    round's future on the communication thread (``failed`` once it
+    raised: every flag is set so that no wait hangs)."""
+
+    def __init__(self, n: int):
+        self.flags = [threading.Event() for _ in range(n)]
+        self.freed: list = [None] * n
+        self.done = None
+        self.failed = False
+        self.future = None
+
+    def wait_freed(self, r: int, dev: torch.device, group: RankGroup | None) -> None:
+        """Before worker r's rows are refilled: its host flag (the seconds
+        waited are ``exposed_s``), the round's error if it failed, and the
+        side stream's event on the main stream."""
+        if not self.flags[r].is_set():
+            t0 = time.perf_counter()
+            self.flags[r].wait()
+            group.stats.exposed_s += time.perf_counter() - t0
+        if self.failed:
+            self.future.result()  # raises the round's error, once the round has ended
+        if self.freed[r] is not None:
+            torch.cuda.current_stream(dev).wait_event(self.freed[r])
+
+    def join(self, dev: torch.device, group: RankGroup | None) -> None:
+        """The round's end, before the sums are read."""
+        if self.future is not None:
+            t0 = time.perf_counter()
+            try:
+                self.future.result()
+            finally:
+                group.stats.exposed_s += time.perf_counter() - t0
+        if self.done is not None:
+            torch.cuda.current_stream(dev).wait_event(self.done)
+
+
+def _settle(futures: list, err: BaseException) -> None:
+    """After the main thread's error ``err``: wait until every round in
+    flight has ended or failed (the transport is then free), and note a
+    round's own error on ``err``."""
+    from concurrent.futures import wait
+
+    wait(futures)
+    for f in futures:
+        if f.exception() is not None and f.exception() is not err:
+            err.add_note(f"a pipelined round failed too: {f.exception()!r}")
 
 
 @dataclass
@@ -201,6 +263,9 @@ class StepBundle:
     ranks: RankGroup | None = None
     #: the pipelined step's side stream on the card (made at first use)
     _side: Any = field(default=None, repr=False, compare=False)
+    #: over ranks, the pipelined step's communication thread: a
+    #: single-worker executor and its thread's id (made at first use)
+    _comm: Any = field(default=None, init=False, repr=False, compare=False)
     #: the meta-device wire trace's one traced gradient per (rows, microbatch)
     _meta_grads: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
@@ -265,12 +330,14 @@ class StepBundle:
         """A (W, ...) stack of one value per worker from this process's own
         workers' ``vals`` (the other ranks' rows left for the collective
         that gathers them)."""
-        if self.ranks is None:
-            return torch.stack(vals)
-        out = torch.empty((self.n_workers,) + tuple(vals[0].shape), dtype=vals[0].dtype,
-                          device=vals[0].device)
-        out[self.ranks.lo:self.ranks.hi] = torch.stack(vals)
-        return out
+        return comms.worker_stack(torch.stack(vals))
+
+    def _own_worker_bits(self, row_bits: torch.Tensor) -> torch.Tensor:
+        """One entry per worker this process runs from ``row_bits``, one per
+        parameter row it holds (each row stands for W / rows workers)."""
+        per = self.n_workers // self.rows
+        start = self.workers.start - self.row_start * per
+        return row_bits.repeat_interleave(per)[start:start + len(self.workers)]
 
     @property
     def groups(self) -> int:
@@ -420,7 +487,8 @@ class StepBundle:
         holds it (under pod-local SGD over several pods, each pod's Q once
         per worker of the pod).  The churn and integrity entries
         (``alive_prev``, ``pod_alive_prev``, ``qcount``,
-        ``quarantine_total``, ``escalation_total``) are (W,) here as there.
+        ``quarantine_total``, ``escalation_total``) are (W,) here as there
+        (over ranks gathered from each rank's own rows).
         Diverging parameters keep their rows (W, or P under pod-local SGD),
         and so does their optimizer state.  Under the model axis the
         parameters are the global tree and every per-worker entry has one
@@ -449,6 +517,9 @@ class StepBundle:
                 comm[k] = [torch.zeros(W * b.size, dtype=f32, device=self.device)
                            if e is None else self._all_rows(e).reshape(-1)
                            for e, b in zip(comm[k], self.bucket_plan.buckets)]
+        for k in aggregate.WORKER_VECTORS:
+            if k in comm:
+                comm[k] = self._all_rows(comm[k])
         if "psgd_q" in comm:  # each group's (shard's) Q on each of its workers
             G, M = self.groups, self.model
             comm["psgd_q"] = [q.reshape(G, 1, M, -1).expand(-1, self.n_workers // G, -1, -1)
@@ -502,6 +573,9 @@ class StepBundle:
                     comm[k] = [None if t is None else
                                self._own_rows(e.reshape(t.shape)).clone() if self.ranks else
                                e.reshape(t.shape) for e, t in zip(comm[k], tmpl["comm"][k])]
+            for k in aggregate.WORKER_VECTORS:
+                if k in comm and self.ranks is not None:
+                    comm[k] = self._own_rows(comm[k]).clone()
             if "psgd_q" in comm:  # worker 0 of each group holds the group's Q
                 G, M = self.groups, self.model
                 comm["psgd_q"] = [q.reshape(G, self.n_workers // G, M, -1)[:, 0].reshape(t.shape)
@@ -617,7 +691,8 @@ class StepBundle:
         gossip and staleness-1 pipelined steps), drawn and windowed at the
         trainer step, with no round index (:func:`aggregate.draw_mask`)."""
         return aggregate.draw_mask(self.comm, state["comm"], self.churn_draws, state["step"],
-                                   state["step"], self.n_workers, self.device)
+                                   state["step"], self.n_workers, self.device,
+                                   workers=self.workers)
 
     def _sequential_grads(self, state: dict[str, Any], parts: list[dict[str, torch.Tensor]]
                           ) -> tuple[list[list[torch.Tensor]], list[dict], Any]:
@@ -640,24 +715,54 @@ class StepBundle:
             self._side = torch.cuda.Stream(self.device)
         return self._side
 
+    def _comm_thread(self):
+        """Over ranks, the pipelined step's communication thread: (a
+        single-worker executor, its thread's id), made at first use."""
+        if self._comm is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(1, thread_name_prefix="repro-comm")
+            self._comm = (pool, pool.submit(threading.get_ident).result())
+        return self._comm
+
     def _pipelined_grads(self, state: dict[str, Any], parts: list[dict[str, torch.Tensor]]
                          ) -> tuple[list[list[torch.Tensor]], list[dict], Any]:
         """The reference's ``_pipelined_grads``: round k aggregates the f32
-        bucket gradients of the microbatch before k (``pending``, (W, size)
-        per bucket) while microbatch k's forward and backward run; returns
-        the per-group sum_k scale_k agg_k / M, the per-worker metrics (means
-        over the microbatches) and the kept-element counts.
+        bucket gradients of the microbatch before k (``pending``, one row
+        per worker this process runs, per bucket) while microbatch k's
+        forward and backward run; returns the per-group sum_k scale_k agg_k
+        / M, the per-worker metrics (means over the microbatches) and the
+        kept-element counts.
 
-        On the card each round runs on the side stream after the main
-        stream's work so far (the microbatch that filled ``pending``);
-        worker w's rows of ``pending`` are refilled only after the event
-        recorded when the round's send side has read them, and the main
-        stream waits for the last round before it reads the sums.  The
-        buffers the side stream touches (``pending``, the sums, the comm
-        state) are held until then; the round's own temporaries live in the
-        side stream's pool, which every round enters after the main stream.
-        Each round keys its noise with its index; the M rounds are booked
-        once under ``comms.loop``, as the reference books its scan.
+        Stacked, each round runs in program order, on the card on the side
+        stream after the main stream's work so far (the microbatch that
+        filled ``pending``); worker w's rows of ``pending`` are refilled only
+        after the event recorded when the round's send side has read them,
+        and the main stream waits for the last round before it reads the
+        sums.  The buffers the side stream touches (``pending``, the sums,
+        the comm state) are held until then; the round's own temporaries
+        live in the side stream's pool, which every round enters after the
+        main stream.  Each round keys its noise with its index; the M
+        rounds are booked once under ``comms.loop``, as the reference books
+        its scan.
+
+        Over ranks a round's exchange blocks its thread (the staging of card
+        tensors and every ``torch.distributed`` call wait on the host), so
+        each round runs on the bundle's communication thread
+        (:meth:`_comm_thread`), which owns the transport meanwhile
+        (:meth:`RankGroup.owned_by`) and books into the caller's capture
+        (``comms.entered``; the main thread books nothing then,
+        ``comms.closed``): after the main thread has queued microbatch k, it
+        records an event on the main stream and submits round k, whose
+        thread makes the side stream wait on that event (not on the whole
+        main stream, whose queue holds microbatch k + 1 by then).  As the
+        round's send side has read worker w's rows it records w's event and
+        sets w's host flag; the main thread waits for the flag (its seconds
+        are ``RankStats.exposed_s``) and the event before it refills them,
+        and joins the last round before it reads the sums.  On the CPU the
+        same protocol runs with the host flags alone.  A round's error
+        reaches the main thread once that round has ended or failed; an
+        error of the main thread surfaces once the rounds in flight have.
 
         Under the model axis (S shards) ``pending`` holds one row per
         (worker, shard), w * S + s, each shard's local buckets; every round
@@ -665,37 +770,38 @@ class StepBundle:
         Each microbatch's forward collectives and ``tp_grad_fixup`` are
         booked once per microbatch, as the reference's scan books its
         body."""
-        comm, plan, M, W = self.comm, self.bucket_plan, self.microbatch, self.n_workers
-        params, dev, S = state["params"], self.device, self.model
+        comm, plan, M = self.comm, self.bucket_plan, self.microbatch
+        params, dev, S, K = state["params"], self.device, self.model, len(self.workers)
         rows = parts[0]["tokens"].shape[0]
         if rows % M:
             raise ValueError(f"local batch {rows} does not split into {M} microbatches")
         mb, side = rows // M, self._side_stream()
+        pool, owner = self._comm_thread() if self.ranks is not None else (None, None)
         acc = [[[torch.zeros(b.size, dtype=f32, device=dev) for b in plan.buckets]
                 for _ in range(self.groups)] for _ in range(S)]
-        ms: list[list[dict[str, torch.Tensor]]] = [[] for _ in range(W)]
+        ms: list[list[dict[str, torch.Tensor]]] = [[] for _ in range(K)]
         kept = {"nnz": None, "of": 0}
 
-        def fill(j: int, freed: list | None) -> None:
-            """Microbatch j of every worker into ``pending``, worker w's
-            rows once ``freed[w]`` has passed."""
-            for w, part in enumerate(parts):
-                with comms.muted(w > 0):  # every worker books the same collectives
+        def fill(j: int, prog: _RoundProgress | None) -> None:
+            """Microbatch j of every worker this process runs into
+            ``pending``, worker w's rows once round ``prog`` has read them."""
+            for r, (w, part) in enumerate(zip(self.workers, parts)):
+                with comms.muted(r > 0):  # every worker books the same collectives
                     grads, m = self._grads(self._worker_params(params, w),
                                            {k: v[j * mb:(j + 1) * mb] for k, v in part.items()},
                                            1, tag=j)
-                if freed is not None and freed[w] is not None:
-                    torch.cuda.current_stream(dev).wait_event(freed[w])
+                if prog is not None:
+                    prog.wait_freed(r, dev, self.ranks)
                 with torch.no_grad():
                     for s in range(S):
                         loc = self.local_leaves(grads, s)
                         for i, b in enumerate(plan.buckets):  # f32 widening, as gather_bucket
                             off = 0
                             for li, n in b.segments:
-                                pending[i][w * S + s, off:off + n].copy_(loc[li].reshape(-1))
+                                pending[i][r * S + s, off:off + n].copy_(loc[li].reshape(-1))
                                 off += n
                 del grads
-                ms[w].append(m)
+                ms[r].append(m)
 
         # churn under the staleness-1 double buffer: one mask for the step,
         # held over its M rounds; a rejoiner's carried-over stale bucket
@@ -712,21 +818,27 @@ class StepBundle:
             a_k = alive * (1.0 - rejoined) if k == 0 else alive
             flag = None
             if kind != "none":  # the corruption draw is the round's
-                _, u_corr = aggregate.draw_uniforms(self.churn_draws, state["step"], range(W),
-                                                    k, dev)
+                _, u_corr = aggregate.draw_uniforms(self.churn_draws, state["step"],
+                                                    self.workers, k, dev)
                 flag = aggregate.corruption_flags(comm, u_corr, a_k, window)
             return aggregate.Liveness(a_k, rejoined if k == 0 else None, flag, kind)
 
-        def run_round(k: int, scale: float):
+        def run_round(k: int, scale: float, prog: _RoundProgress, ready=None) -> None:
             """Round k over ``pending``, its aggregates (times ``scale``)
-            added into ``acc``; returns the per-worker events and the last."""
+            added into ``acc``; marks ``prog`` as it reads each worker's
+            rows and as it ends (on the card after event ``ready``, else
+            after the main stream's work so far)."""
             if side is not None:
-                side.wait_stream(torch.cuda.current_stream(dev))
+                if ready is None:
+                    side.wait_stream(torch.cuda.current_stream(dev))
+                else:
+                    side.wait_event(ready)
             with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
-                rnd, freed = self._round(state, rnd=k, live=live_of(k)), []
-                for w in range(W):
-                    rnd.add(w, lambda s, w=w: [p[w * S + s] for p in pending])
-                    freed.append(side.record_event() if side is not None else None)
+                rnd = self._round(state, rnd=k, live=live_of(k))
+                for r, w in enumerate(self.workers):
+                    rnd.add(w, lambda s, r=r: [p[r * S + s] for p in pending])
+                    prog.freed[r] = side.record_event() if side is not None else None
+                    prog.flags[r].set()
                 aggs = rnd.finish()[0]
                 sc = torch.full((), scale, dtype=f32, device=dev)
                 for acc_s, agg_s in zip(acc, aggs):
@@ -737,27 +849,67 @@ class StepBundle:
                 if rnd.nnz is not None:
                     kept["nnz"] = rnd.nnz if kept["nnz"] is None else kept["nnz"] + rnd.nnz
                     kept["of"] += rnd.nnz_of
-                return freed, (side.record_event() if side is not None else None)
+                prog.done = side.record_event() if side is not None else None
+
+        def on_thread(ctx: dict, k: int, scale: float, prog: _RoundProgress, ready,
+                      prev: _RoundProgress | None) -> None:
+            try:
+                if prev is not None and prev.failed:  # queued behind a failed round
+                    raise RuntimeError(f"pipelined round {k}: an earlier round failed")
+                if side is not None:
+                    torch.cuda.set_device(dev)
+                with comms.entered(ctx):
+                    run_round(k, scale, prog, ready)
+            except BaseException:
+                prog.failed = True  # wake the main thread, which then reads the error
+                for f in prog.flags:
+                    f.set()
+                raise
+
+        futures, progs = [], []
+
+        def start(k: int, scale: float) -> _RoundProgress:
+            prog = _RoundProgress(K)
+            if pool is None:  # stacked: in program order (on the card, the side stream)
+                run_round(k, scale, prog)
+                return prog
+            ready = torch.cuda.current_stream(dev).record_event() if side is not None else None
+            prog.future = pool.submit(on_thread, comms.context(), k, scale, prog, ready,
+                                      progs[-1] if progs else None)
+            futures.append(prog.future)
+            progs.append(prog)
+            return prog
 
         if comm.overlap_staleness == 1:
             pending = state["comm"]["overlap_pending"]
-            with comms.loop(M):
-                for k in range(M):
-                    with comms.muted(k > 0):
-                        freed, done = run_round(k, comm.stale_scale if k == 0 else 1.0)
-                        fill(k, freed)
         else:
-            pending = [torch.empty((W * S, b.size), dtype=f32, device=dev)
+            pending = [torch.empty((K * S, b.size), dtype=f32, device=dev)
                        for b in plan.buckets]
-            fill(0, None)
-            with comms.loop(M - 1):
-                for k in range(M - 1):
-                    with comms.muted(k > 0):
-                        freed, done = run_round(k, 1.0)
-                        fill(k + 1, freed)
-            freed, done = run_round(M - 1, 1.0)  # the flush
-        if done is not None:
-            torch.cuda.current_stream(dev).wait_event(done)
+        with contextlib.ExitStack() as stack:
+            if pool is not None:
+                stack.enter_context(self.ranks.owned_by(owner))
+                stack.enter_context(comms.closed())
+            try:
+                if comm.overlap_staleness == 1:
+                    with comms.loop(M):
+                        for k in range(M):
+                            with comms.muted(k > 0):
+                                prog = start(k, comm.stale_scale if k == 0 else 1.0)
+                                fill(k, prog)
+                else:
+                    fill(0, None)
+                    with comms.loop(M - 1):
+                        for k in range(M - 1):
+                            with comms.muted(k > 0):
+                                prog = start(k, 1.0)
+                                fill(k + 1, prog)
+                    prog = start(M - 1, 1.0)  # the flush
+                prog.join(dev, self.ranks)
+                for f in futures:  # every round has ended: none failed unread
+                    f.result()
+            except BaseException as e:
+                _settle(futures, e)
+                raise
         del pending
         metrics = [{k: torch.mean(torch.stack([d[k] for d in mw])) for k in mw[0]} for mw in ms]
         return [[[a / M for a in acc_g] for acc_g in acc_s] for acc_s in acc], metrics, kept
@@ -819,8 +971,9 @@ class StepBundle:
         each; all W workers when there is one pod), over the workers'
         rows otherwise.  A churn cell runs :meth:`_churn_sync`."""
         across_pods = self.comm.pod_local and self.pods > 1
-        if churn_enabled(self.comm):
-            return self._churn_sync(state, across_pods)
+        with comms.ranks(self.ranks):
+            if churn_enabled(self.comm):
+                return self._churn_sync(state, across_pods)
         plist = leaves(state["params"])
         with comms.ranks(self.ranks), comms.over(("pod",) if across_pods else self.data_axes):
             for m in range(self.model):  # each shard's local leaves, replicated ones once
@@ -845,8 +998,11 @@ class StepBundle:
         each shard validates its own local leaves, and any invalid slice
         invalidates the whole unit (the reference's scalar psum of 1 - valid
         over ``model``).  The rejoiners' (and escalations') EF and momentum
-        rows reset."""
+        rows reset.  Over ranks every bit, payload and tally is the rank's
+        own rows (of its workers, or pod-local SGD's one pod row at one pod,
+        whose bit the psum of the workers' bits moves in)."""
         comm, cstate, W, rows, M = self.comm, state["comm"], self.n_workers, self.rows, self.model
+        held = self.held_rows
         plist = leaves(state["params"])
         locs = [self.local_leaves(plist, m, 1, replicated=False) for m in range(M)]
         valid, payloads = None, [None] * M
@@ -854,9 +1010,9 @@ class StepBundle:
             D = W // rows
             with comms.over(("data",)):  # the shard bits' psum, untagged as there
                 comms.book_psum(cstate["alive_prev"][0], D)
-            alive = torch.where(cstate["alive_prev"].view(rows, D, M)[:, :, 0].sum(1) > 0,
-                                1.0, 0.0)
-            pod_prev = cstate["pod_alive_prev"].view(rows, D * M)
+            bits = comms.fill_rows(comms.worker_stack(cstate["alive_prev"][:, None]))[:, 0]
+            alive = torch.where(bits.view(rows, D, M)[:, :, 0].sum(1) > 0, 1.0, 0.0)
+            pod_prev = cstate["pod_alive_prev"].view(held, -1)
             prev = pod_prev[:, 0].clone()
             pod_prev.copy_(alive[:, None].expand_as(pod_prev))
             rejoined = alive * (1.0 - prev)
@@ -869,10 +1025,10 @@ class StepBundle:
             flag = aggregate.corruption_flags(comm, u_corr, alive, window)[:, None]
 
             def payload_of(loc):  # worker w's wire copy of shard-local leaf i
-                return lambda i: integrity.corrupt_dense(kind, loc[i].reshape(W, -1), flag)
+                return lambda i: integrity.corrupt_dense(kind, loc[i].reshape(held, -1), flag)
 
             payloads = [payload_of(loc) for loc in locs]
-            valid = torch.ones(W, dtype=f32, device=self.device)
+            valid = torch.ones(held, dtype=f32, device=self.device)
             for loc, payload in zip(locs, payloads):
                 for i in range(len(loc)):
                     valid = valid * integrity.dense_valid(payload(i), per_row=True)
@@ -887,7 +1043,7 @@ class StepBundle:
         if valid is not None:  # the bounded quarantine, escalating into the reset
             aggregate.quarantine_update(comm, cstate, alive.repeat_interleave(M),
                                         valid.repeat_interleave(M))
-        aggregate.reset_rows(cstate, rejoined.repeat_interleave(W // rows * M))
+        aggregate.reset_rows(cstate, self._own_worker_bits(rejoined).repeat_interleave(M))
         return state
 
     def gossip_step(self, state: dict[str, Any], batch: dict[str, torch.Tensor],
@@ -1071,25 +1227,18 @@ def bundle_cache_key(cfg: ModelConfig, spec: BundleSpec, plan: aggregate.BucketP
 def check_ranks(comm: CommConfig, n_workers: int, pods: int, model: int,
                 group: RankGroup | None) -> None:
     """Refuse, with the later slice that brings it (``ROADMAP.md`` Queue
-    1), each option that ranks on the data axis do not run yet: they run
-    BSP, local, post-local and pod-local SGD at one pod, D-PSGD and
-    CHOCO-SGD, under the sequential step."""
+    1), what ranks on the data axis do not run yet: the model and pod axes
+    (pod-local SGD over several pods among them).  They run BSP, local,
+    post-local and pod-local SGD at one pod, D-PSGD and CHOCO-SGD, under
+    the sequential and the pipelined step, with churn and integrity."""
     if group is None:
         return
     if group.n_workers != n_workers:
         raise ValueError(f"the rank group splits {group.n_workers} workers, the bundle has "
                          f"{n_workers}")
-    refused = (
-        (comm.overlap == "pipelined", "the pipelined step", 24),
-        (churn_enabled(comm) or effective_corruption_kind(comm) != "none",
-         "churn and integrity", 25),
-        (model > 1 or pods > 1, "the model and pod axes", 26),
-    )
-    for hit, what, slice_no in refused:
-        if hit:
-            raise ValueError(f"{what} over ranks: a later slice (ROADMAP.md Queue 1, slice "
-                             f"{slice_no}); ranks run the sequential step without churn, "
-                             f"on the data axis alone")
+    if model > 1 or pods > 1:
+        raise ValueError("the model and pod axes over ranks: a later slice (ROADMAP.md Queue "
+                         "1, slice 26); ranks run on the data axis alone")
 
 
 def build_bundle(cfg: ModelConfig, comm: CommConfig, opt: Optimizer, shape: InputShape, *,

@@ -23,14 +23,17 @@ the same cells stacked in this process.
   equal bitwise, and the ``rank-stats`` lines' losses, captured wire and
   ``--digest`` digests (those of the arrays written) equal.
 * Each option ranks refuse raises a ``ValueError`` naming its later slice
-  (the pipelined step, churn and integrity, the model and pod axes);
+  (the model and pod axes, slice 26, also under the pipelined step and
+  churn, which ranks run since slices 24-25);
   the launcher fails with every rank's output when a rank fails or the
   ranks overrun their time limit.
 
 The routes (``bucket_route``) are in test_torch_ranks_routes.py, the main
 path against the reference's ``Trainer`` in test_torch_ranks_ref.py, the
 sync schemes and gossip in test_torch_ranks_sync.py,
-test_torch_ranks_gossip.py and test_torch_ranks_sync_ref.py."""
+test_torch_ranks_gossip.py and test_torch_ranks_sync_ref.py, the pipelined
+step in test_torch_ranks_pipelined.py, churn and integrity in
+test_torch_ranks_churn.py and test_torch_ranks_churn_ref.py."""
 
 import json
 import os
@@ -50,7 +53,7 @@ from repro_torch.experiments.trainer_substrate import make_tiny_workload
 from repro_torch.optim import optimizers as opt
 from repro_torch.train.steps import build_bundle, build_serve
 from test_torch_sync import _one_thread  # noqa: F401
-from torch_ranked import STATE_KEYS, make_cell, run_cell
+from torch_ranked import COMM_STACKS, PER_WORKER, STATE_KEYS, WORKER_VECTORS, make_cell, run_cell
 from torch_ranked import launch as launch_cells
 
 W = 4
@@ -96,7 +99,8 @@ def check_against_stacked(stacked: dict, ranked: list[dict], bitwise: bool = Tru
     program booked; each rank holds its own W/R workers' rows of ``ef``,
     ``u`` and the CHOCO mirrors, and, with ``rows`` diverging parameter
     rows (W, or 1 under pod-local SGD at one pod), its own rows of the
-    parameters and of their optimizer state (W/R, or the one row).  Not
+    parameters and of their optimizer state (W/R, or the one row); so for
+    ``overlap_pending`` and the churn and integrity vectors.  Not
     ``bitwise`` (a running f32 sum over each rank's workers): the losses
     and parameters within rtol 1e-6 (atol 1e-6 x the array's largest
     magnitude); the optimizer, EF and momentum rows carry three steps of the
@@ -121,7 +125,7 @@ def check_against_stacked(stacked: dict, ranked: list[dict], bitwise: bool = Tru
         same(ranked[0]["kept"], stacked["kept"], "loss")
     held_keys = {k for rec in ranked for k in rec if k.startswith(STATE_KEYS)}
     assert held_keys == {k for k in stacked if k.startswith(STATE_KEYS)}
-    per_worker = ("ef/", "u/", "choco_xhat/", "choco_nbr/")
+    per_worker = PER_WORKER
     for r, rec in enumerate(ranked):
         own = range(r * W // world, (r + 1) * W // world)
         for k, v in rec.items():
@@ -134,7 +138,7 @@ def check_against_stacked(stacked: dict, ranked: list[dict], bitwise: bool = Tru
                      and int(k.rsplit("/", 1)[1]) in own}
         assert got_rows == want_rows, f"rank {r} holds {sorted(got_rows)[:4]}"
         held = json.loads(str(rec["held"]))
-        for k in ("ef", "u", "choco_xhat", "choco_nbr"):
+        for k in COMM_STACKS + WORKER_VECTORS:
             assert all(s is None or s[0] == W // world for s in held.get(k, ())), (k, held[k])
         if rows:  # the diverging parameters and their state: this rank's rows
             want = W // world if rows == W else rows
@@ -220,13 +224,10 @@ def _group(n_workers: int = W) -> RankGroup:
 REFUSED = {
     "pod_local": (dict(pod_local=True, local_steps=2), {"pods": 2}, "slice 26"),
     "pod_local_pods4": (dict(pod_local=True, local_steps=2), {"pods": 4}, "slice 26"),
-    "choco_churn": (dict(aggregator="gossip", gossip_compress="choco", compressor="qsgd_kernel",
-                         dropout_rate=0.25), {}, "slice 25"),
-    "pipelined": (dict(overlap="pipelined"), {"microbatch": 2}, "slice 24"),
-    "churn": (dict(dropout_rate=0.25), {}, "slice 25"),
-    "integrity": (dict(corruption_kind="nan", corruption_rate=0.25), {}, "slice 25"),
     "model": (dict(), {"model": 2}, "slice 26"),
     "pods": (dict(), {"pods": 2}, "slice 26"),
+    "pipelined_model": (dict(overlap="pipelined"), {"microbatch": 2, "model": 2}, "slice 26"),
+    "churn_pods": (dict(dropout_rate=0.25), {"pods": 2}, "slice 26"),
 }
 
 
@@ -259,6 +260,10 @@ TRAIN = ["--arch", "qwen3-0.6b", "--reduced", "--workers", str(W), "--device", "
 TRAIN_LOCAL = [a for a in TRAIN if a != "--zero1"]
 TRAIN_LOCAL[TRAIN_LOCAL.index("qsgd_kernel_ef")] = "local_sgd"
 TRAIN_LOCAL += ["--local-steps", "2"]
+#: the pipelined step at staleness 1 under churn and integrity (no ZeRO-1)
+TRAIN_PIPE = [a for a in TRAIN if a != "--zero1"]
+TRAIN_PIPE[TRAIN_PIPE.index("qsgd_kernel_ef")] = "churn_qsgd"
+TRAIN_PIPE += ["--overlap", "pipelined", "--overlap-staleness", "1", "--microbatch", "2"]
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
@@ -280,20 +285,33 @@ def _train(ranks: int, ckpt, args: list[str] = TRAIN) -> list[dict]:
 
 def test_launch_train_over_ranks_is_its_stacked_twin(tmp_path):
     """The entry point at --ranks 2 and --ranks 1 (stacked), at once, for
-    the main path under ZeRO-1 and for local SGD (H 2): the checkpoints of
+    the main path under ZeRO-1, for local SGD (H 2) and for the pipelined
+    step under churn and integrity: the checkpoints of
     their end states equal bitwise, and rank 0's digests of it the stacked
     run's and those of the arrays written; rank 0's loss series the stacked
     one's, every rank's captured wire the stacked run's, each rank sent and
     received bytes and the stacked run none (local SGD: its metrics on the
-    inner steps, its rows' gather on the sync step and for the checkpoint)."""
+    inner steps, its rows' gather on the sync step and for the checkpoint);
+    and for ``churn_qsgd`` under the pipelined step at staleness 1, its
+    ``overlap_pending`` and churn tallies among the arrays, the ranks' churn
+    tallies a step adding up to the stacked run's."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         runs = [pool.submit(_train, r, tmp_path / f"ranks{r}") for r in (1, 2)]
         local = [pool.submit(_train, r, tmp_path / f"local{r}", TRAIN_LOCAL) for r in (1, 2)]
+        pipe = [pool.submit(_train, r, tmp_path / f"pipe{r}", TRAIN_PIPE) for r in (1, 2)]
         (stacked,), ranked = runs[0].result(), runs[1].result()
         _check_twin(tmp_path / "local1", tmp_path / "local2", local[0].result()[0],
                     local[1].result(), "local_sgd_sync|data", ("params/", "opt/"))
+        (pipe1,), pipe2 = pipe[0].result(), pipe[1].result()
+        _check_twin(tmp_path / "pipe1", tmp_path / "pipe2", pipe1, pipe2, "grad_agg|data",
+                    ("comm/ef", "comm/overlap_pending", "comm/quarantine_total", "opt/"))
+    # the churn tallies a step: the ranks' own workers' add up to the stacked run's
+    assert [{k: sum(t[k] for t in ts) for k in ts[0]}
+            for ts in zip(*(st["tallies"] for st in pipe2))] == pipe1["tallies"]
+    assert sum(t["quarantined"] for t in pipe1["tallies"]) > 0
+    assert all(st["per_step"]["exposed_s"] > 0 for st in pipe2)  # the rounds' thread
     for st in local[1].result():  # 12 B a metric; the sync step gathers the rows too (and
         sent = st["sent_per_step"]  # the last, the checkpoint's)
         assert sent[0] == 24 < sent[1] and st["received_per_step"] == sent

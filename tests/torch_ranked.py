@@ -18,10 +18,18 @@ A cell is a dict, on ``make_tiny_workload``'s model and bigram data:
 fields); ``opt`` ("sgd", "momentum" with ``momentum``, or "adamw"),
 ``zero1``, ``clip_norm``, ``microbatch``; ``params`` (an npz of the initial
 parameters by path, else ``init_params(seed)``); ``noise`` (an npz of the
-uniform draws by "step/worker/bucket", else the seeded default);
-``restore`` and ``save`` (checkpoint directories read before and written
-after the steps); ``eval`` (one ``eval_step`` on the next batch after
-them).
+uniform draws by "step/worker/bucket[/round]", else the seeded default);
+``churn`` (an npz of each worker's two churn uniforms, mask and corruption,
+by "step/worker[/round]", else the seeded default); ``restore`` and
+``save`` (checkpoint directories read before and written after the
+steps); ``eval`` (one ``eval_step`` on the next batch after them);
+``delay`` (seconds: every ``torch.distributed`` call of the ranks'
+transport slowed by that much, inside its counted seconds, and the
+record's ``events`` holding, in order, each call's start and return and
+each microbatch's forward start, with the thread that made it);
+``fail_round`` ([step, round]: the compressors' draws of that pipelined
+round raise) and ``fail_forward`` (n: the n-th forward of the run raises),
+errors injected into the communication thread and the main thread.
 """
 
 from __future__ import annotations
@@ -30,7 +38,9 @@ import dataclasses
 import json
 import os
 import sys
+import threading
 import time
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -43,6 +53,28 @@ from repro_torch.core.types import CommConfig
 from repro_torch.utils.tree import flatten_with_paths
 
 
+@dataclass
+class DelayedGroup(RankGroup):
+    """A rank group whose every ``torch.distributed`` call waits ``delay``
+    seconds first (counted in ``dist_s``), logging its start and return in
+    ``events`` with its thread's name."""
+
+    delay: float = 0.0
+    events: list = field(default_factory=list)
+
+    def _call(self, fn, *args):
+        name = threading.current_thread().name
+        self.events.append(["call", name, time.perf_counter()])
+
+        def slow(*a):
+            time.sleep(self.delay)
+            return fn(*a)
+
+        out = super()._call(slow, *args)
+        self.events.append(["return", name, time.perf_counter()])
+        return out
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
@@ -50,22 +82,66 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def draw_key(step, worker, *rest) -> str:
+    """A draw's key in a table: "step/worker[/bucket][/round]" (a round of
+    None left out; a worker of None, a draw every worker shares, kept)."""
+    return "/".join([str(step), str(worker), *(str(x) for x in rest if x is not None)])
+
+
 def table_noise(path: str, device):
-    """A noise hook that reads its draws from an npz keyed "step/worker/bucket"."""
+    """A noise hook that reads its draws from an npz keyed
+    "step/worker/bucket[/round]"."""
     with np.load(path) as z:
         table = {k: z[k] for k in z.files}
 
     def noise(step, worker, bucket, n, rnd=None):
-        a = table[f"{step}/{worker}/{bucket}"]
+        key = draw_key(step, worker, bucket, rnd)
+        a = table[key]
         if a.shape != (n,):
-            raise ValueError(f"noise table {step}/{worker}/{bucket}: {a.shape}, want ({n},)")
+            raise ValueError(f"noise table {key}: {a.shape}, want ({n},)")
         return torch.from_numpy(a).to(device)
 
     return noise
 
 
+def table_churn(path: str, device):
+    """A churn_draws hook that reads each worker's (mask, corruption)
+    uniforms from an npz keyed "step/worker[/round]"."""
+    with np.load(path) as z:
+        table = {k: z[k] for k in z.files}
+
+    def churn_draws(step, worker, rnd=None):
+        a = torch.from_numpy(table[draw_key(step, worker, rnd)]).to(device)
+        return a[0], a[1]
+
+    return churn_draws
+
+
+def recording(noise=None, churn_draws=None) -> tuple:
+    """Each hook wrapped to record its draws as a table (``noise``:
+    "step/worker/bucket[/round]" -> the draws; ``churn_draws``:
+    "step/worker[/round]" -> the two uniforms): (noise, churn_draws,
+    {"noise": ..., "churn": ...}), the tables as numpy arrays for
+    ``np.savez``, which :func:`table_noise` and :func:`table_churn` read."""
+    tables: dict[str, dict[str, np.ndarray]] = {"noise": {}, "churn": {}}
+
+    def rec_noise(step, worker, bucket, n, rnd=None):
+        u = noise(step, worker, bucket, n, rnd)
+        tables["noise"][draw_key(step, worker, bucket, rnd)] = u.cpu().numpy()
+        return u
+
+    def rec_churn(step, worker, rnd=None):
+        u = churn_draws(step, worker, rnd)
+        tables["churn"][draw_key(step, worker, rnd)] = np.array([float(u[0]), float(u[1])],
+                                                                np.float32)
+        return u
+
+    return (rec_noise if noise else None), (rec_churn if churn_draws else None), tables
+
+
 def make_cell(cell: dict, group: RankGroup | None, device):
     """The cell's bundle, trainer and data."""
+    from repro_torch.core import aggregate
     from repro_torch.experiments.trainer_substrate import make_tiny_workload
     from repro_torch.optim import optimizers as O
     from repro_torch.optim.schedules import constant
@@ -80,10 +156,20 @@ def make_cell(cell: dict, group: RankGroup | None, device):
     if cell.get("zero1"):
         opt = O.zero1(opt, W)
     noise = table_noise(cell["noise"], device) if cell.get("noise") else None
+    churn = (table_churn(cell["churn"], device) if cell.get("churn")
+             else aggregate.seeded_churn_draws(cell.get("seed", 0), device))
+    drawn: list[list] = []
+
+    def churn_draws(step, worker, rnd=None):  # records which workers this process drew
+        drawn.append([step, worker, rnd])
+        return churn(step, worker, rnd)
+
     bundle = build_bundle(cfg, CommConfig(**cell.get("comm", {})), opt, shape, n_workers=W,
                           seed=cell.get("seed", 0), device=device, noise=noise,
                           clip_norm=cell.get("clip_norm", 0.0),
-                          microbatch=cell.get("microbatch", 1), cache=False, ranks=group)
+                          microbatch=cell.get("microbatch", 1), cache=False, ranks=group,
+                          churn_draws=churn_draws)
+    bundle.drawn = drawn
     return bundle, Trainer(bundle, data, constant(cell.get("lr", 0.05)), log_every=1), cfg
 
 
@@ -115,7 +201,40 @@ def run_cell(cell: dict, group: RankGroup | None, device: str | torch.device
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
+    if cell.get("delay") and group is not None:
+        group = DelayedGroup(group.world, group.rank, group.n_workers, group.device,
+                             delay=cell["delay"])
     bundle, tr, cfg = make_cell(cell, group, device)
+    events = group.events if isinstance(group, DelayedGroup) else None
+    if events is not None:  # each microbatch's forward start, with its thread
+        real = bundle._grads
+
+        def grads(params, part, microbatch, tag=None):
+            events.append(["forward", threading.current_thread().name, time.perf_counter(), tag])
+            return real(params, part, microbatch, tag)
+
+        bundle._grads = grads
+    if cell.get("fail_round") is not None:  # the round's draws raise, on its thread
+        noise, at = bundle.noise, tuple(cell["fail_round"])
+
+        def failing_noise(step, worker, bucket, n, rnd=None):
+            if (step, rnd) == at:
+                raise RuntimeError(f"injected round failure at step {step}, round {rnd}, "
+                                   f"on {threading.current_thread().name}")
+            return noise(step, worker, bucket, n, rnd)
+
+        bundle.noise = failing_noise
+    if cell.get("fail_forward") is not None:  # the n-th forward raises
+        real_grads, calls = bundle._grads, [0]
+
+        def failing_grads(*a, **kw):
+            calls[0] += 1
+            if calls[0] > cell["fail_forward"]:
+                raise RuntimeError(f"injected forward failure on "
+                                   f"{threading.current_thread().name}")
+            return real_grads(*a, **kw)
+
+        bundle._grads = failing_grads
     start = 0
     if cell.get("restore"):
         state, start = tr.restore(cell["restore"])
@@ -126,6 +245,7 @@ def run_cell(cell: dict, group: RankGroup | None, device: str | torch.device
     else:
         state = tr.init(cell.get("seed", 0))
     t1 = time.perf_counter()
+    bundle.drawn.clear()
     ops.reset_launches()
     step_stats = []
     with comms.capture() as log:
@@ -149,10 +269,13 @@ def run_cell(cell: dict, group: RankGroup | None, device: str | torch.device
             arrays.update(_rows(f"param/{k}", v, rows))
         else:
             arrays[f"param/{k}"] = v
-    for k in ("ef", "u", "choco_xhat", "choco_nbr"):
+    for k in COMM_STACKS:
         for i, e in enumerate(state["comm"].get(k, ())):
             if e is not None:
                 arrays.update(_rows(f"{k}/{i}", e, workers))
+    for k in WORKER_VECTORS:  # the churn and integrity vectors, by worker
+        if k in state["comm"]:
+            arrays.update(_rows(k, state["comm"][k], workers))
     for k, v in flatten_with_paths(state["opt"]).items():
         if bundle.opt.n_shards and v.ndim:  # ZeRO-1's (W, k) rows: this process's
             arrays.update(_rows(f"opt/{k}", v, workers))
@@ -178,7 +301,12 @@ def run_cell(cell: dict, group: RankGroup | None, device: str | torch.device
     out["seconds"] = np.array(json.dumps({"build": t1 - t0, "fit": t2 - t1,
                                           "record": time.perf_counter() - t2}))
     held = {k: [None if e is None else list(e.shape) for e in state["comm"].get(k, ())]
-            for k in ("ef", "u", "choco_xhat", "choco_nbr")}
+            for k in COMM_STACKS}
+    held.update({k: [list(state["comm"][k].shape)] for k in WORKER_VECTORS
+                 if k in state["comm"]})
+    out["drawn"] = np.array(json.dumps(bundle.drawn))
+    if events is not None:
+        out["events"] = np.array(json.dumps(events))
     held["params"] = [list(v.shape) for v in flatten_with_paths(state["params"]).values()]
     held["opt"] = [list(v.shape) for v in flatten_with_paths(state["opt"]).values() if v.ndim]
     out["held"] = np.array(json.dumps(held))
@@ -194,8 +322,13 @@ def by_tag_axes(records) -> dict[str, float]:
     return out
 
 
-#: the record keys of the state a process holds
-STATE_KEYS = ("param/", "ef/", "u/", "choco_xhat/", "choco_nbr/", "opt/")
+#: the comm state's per-worker stacks (rows by bucket) and vectors
+COMM_STACKS = ("ef", "u", "choco_xhat", "choco_nbr", "overlap_pending")
+WORKER_VECTORS = ("alive_prev", "pod_alive_prev", "qcount", "quarantine_total",
+                  "escalation_total")
+#: the record keys of the state a process holds; of them, the per-worker ones
+PER_WORKER = tuple(f"{k}/" for k in COMM_STACKS + WORKER_VECTORS)
+STATE_KEYS = ("param/", "opt/") + PER_WORKER
 
 
 def differences(stacked: dict, ranked: list[dict]) -> list[str]:
